@@ -1,0 +1,4 @@
+"""Data substrate: the paper's datasets (numpy, equal to the reference's)."""
+from repro_torch.data import synthetic  # noqa: F401
+from repro_torch.data.synthetic import (Dataset, paper_synthetic,  # noqa: F401
+                                        uci_standin)

@@ -1,0 +1,28 @@
+"""Plain PyTorch version of the full-iteration megakernel, as einsums.
+
+Same contract as `coke_update.coke_megastep`, but a pure function: it
+returns a new theta and leaves its inputs untouched. It reads Phi twice
+(once per einsum); the kernel reads it once.
+"""
+import torch
+
+from repro_torch.kernels.coke_update.coke_update import megastep_scalars
+
+
+def coke_megastep_ref(theta, theta_hat, gamma, phi, y, *, rho, lam, lr,
+                      offsets=(1,)):
+    """-> (theta_new (N, D), xi_sq (N,)) with xi_sq = ||theta_new - theta_hat||^2."""
+    N, T, _ = phi.shape
+    sc = megastep_scalars(rho=rho, lam=lam, lr=lr, n_agents=N, n_samples=T,
+                          n_offsets=len(offsets))
+    resid = torch.einsum("ntd,nd->nt", phi, theta) - y
+    g_data = sc["inv_t2"] * torch.einsum("nt,ntd->nd", resid, phi)
+    acc = sc["deg"] * theta_hat
+    for o in offsets:
+        acc = acc + torch.roll(theta_hat, -o, 0)   # row i reads hat[i + o]
+        acc = acc + torch.roll(theta_hat, o, 0)    # row i reads hat[i - o]
+    gaug = (g_data + sc["lam2"] * theta + sc["rho2deg"] * theta + gamma
+            - sc["rho"] * acc)
+    theta_new = theta - sc["lr"] * gaug
+    d = theta_new - theta_hat
+    return theta_new, torch.sum(d * d, dim=-1)
