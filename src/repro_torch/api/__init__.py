@@ -8,9 +8,11 @@
     model = result.to_model()
     y_hat = model.predict(x_new, backend="fused")
 
-Ported so far: `fit` on the fused backend's megakernel path for `dkla` and
-`coke`, `build_problem`, and `KernelModel` (predict / evaluate / save /
-load). Anything else raises NotImplementedError naming its ROADMAP.md item.
+Ported so far: `fit` on the fused backend (the megakernel path for `dkla`
+and `coke`, and its fallback to the ring runtime on a non-quadratic loss)
+and on the spmd backend (`dkla`, `coke`, `cta`), `build_problem`, and
+`KernelModel` (predict / evaluate / save / load). Anything else raises
+NotImplementedError naming its ROADMAP.md item.
 """
 from repro_torch.api.config import (BACKENDS, FitConfig,  # noqa: F401
                                     FitResult, SolveContext)

@@ -1,16 +1,23 @@
-"""Backend routing for `fit()`: the fused backend's megakernel path.
+"""Backend routing for `fit()`: the spmd and fused backends.
 
-On megakernel-admissible configs (dkla/coke, gradient primal, quadratic
-loss, static ring or circulant graph, no mesh or personalization) each
-ADMM iteration runs the `coke_megastep` kernel substituted into the
-`core.step.StepProgram` primal stage. Everything the reference sends
-elsewhere raises NotImplementedError naming the ROADMAP.md item that ports
-it: the simulator backend (Queue 1 item 3), and the spmd backend and the
-fused backend's spmd + `coke_fused_update` fallback (item 7).
+  spmd  — the ring consensus runtime (`distributed/consensus.py`): the
+          agent axis as a leading tensor dimension, neighbour exchange as
+          `torch.roll`, the inexact one-step gradient primal. Runs dkla,
+          coke and cta.
+  fused — on megakernel-admissible configs (dkla/coke, gradient primal,
+          quadratic loss, static ring or circulant graph) each ADMM
+          iteration runs the `coke_megastep` kernel (K2) substituted into
+          the `core.step.StepProgram` primal stage. Everything else falls
+          back to the ring runtime with the augmented gradient in the
+          `coke_fused_update` kernel (K3).
 
-The fused backend requires a circulant graph, validated against the
-problem's adjacency, so a mismatched FitConfig fails loudly instead of
-silently solving a different consensus problem.
+The CG primal (`primal="cg"`, or "auto" past D = 2048 on the quadratic
+loss) raises NotImplementedError naming ROADMAP.md Queue 1 item 3; the
+simulator backend raises in `fit`.
+
+Both backends require a circulant graph, validated against the problem's
+adjacency, so a mismatched FitConfig fails loudly instead of silently
+solving a different consensus problem.
 """
 from __future__ import annotations
 
@@ -21,14 +28,17 @@ import torch
 
 from repro_torch.api.config import FitConfig, SolveContext
 from repro_torch.api.registry import Solver
-from repro_torch.api.solvers import _stacked_metrics
+from repro_torch.api.solvers import _stacked_metrics, _uncompressed_bits
+from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
-from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem
+from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem, resolve_primal
 from repro_torch.core.graph import circulant
+from repro_torch.distributed import consensus as cns
 from repro_torch.kernels.coke_update.coke_update import coke_megastep
+from repro_torch.optim.optimizers import OptConfig
 
-_SPMD_LATER = ("ROADMAP.md Queue 1 item 7 (spmd backend and the fused "
-               "fallback through coke_fused_update)")
+_CG_LATER = ("ROADMAP.md Queue 1 item 3 (the CG primal, with the "
+             "simulator's _primal_cg)")
 
 #: history dtypes, for the (0,)-histories of a zero-iteration chunk
 _HIST_DTYPES = {"train_mse": torch.float32, "comms": torch.int32,
@@ -48,11 +58,24 @@ def _validate_topology(problem: Problem, offsets: tuple[int, ...]) -> None:
             "'circulant') or use backend='simulator'")
 
 
+def _local_grads(problem: Problem, theta: torch.Tensor) -> torch.Tensor:
+    """Per-agent gradients of local_empirical_risk(theta_i, Phi_i, y_i,
+    lam/N, loss): autograd of the agent sum, where each agent's risk
+    depends on its own row only. Reads Phi twice (forward and backward)."""
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        risk = losses_mod.local_empirical_risk(
+            th, problem.feats, problem.labels,
+            problem.lam / problem.num_agents, problem.loss)
+        (grad,) = torch.autograd.grad(torch.sum(risk), th)
+    return grad
+
+
 def _resolve_consensus_primal(config: FitConfig, problem: Problem,
                               strategy: str) -> str:
-    """The primal the fused runtime executes: "auto" keeps the one-step
+    """The primal the ring runtimes execute: "auto" keeps the one-step
     gradient update up to the big-D crossover, then switches to CG.
-    Explicit "cholesky" is rejected: this backend never builds (D, D)."""
+    Explicit "cholesky" is rejected: these backends never build (D, D)."""
     if strategy not in ("dkla", "coke"):
         return "gradient"
     if config.primal == "cholesky":
@@ -61,7 +84,7 @@ def _resolve_consensus_primal(config: FitConfig, problem: Problem,
             "factors; use primal='cg' (exact, matrix-free) or "
             "'gradient'/'auto' (one-step inexact)")
     if config.primal == "cg":
-        return "cg"
+        return resolve_primal("cg", problem.feature_dim, problem.loss)
     if (config.primal == "auto" and problem.loss == "quadratic"
             and problem.feature_dim > CG_CROSSOVER_DIM):
         return "cg"
@@ -141,46 +164,97 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
     return st, _stack_history(hist, device)
 
 
+def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
+                     ccfg: cns.ConsensusConfig, opt_cfg: OptConfig,
+                     num_iters: int):
+    """`num_iters` iterations of the ring runtime: local gradients, then
+    `consensus_update` (through K3 when ccfg.use_fused_kernel). History
+    keys match the reference's spmd chunk: train_mse / comms /
+    consensus_gap / bits, then send_frac for dkla/coke
+    [+ dist_to_oracle]."""
+    keys = ["train_mse", "comms", "consensus_gap", "bits"]
+    if ccfg.is_admm:
+        keys.append("send_frac")
+    if oracle is not None:
+        keys.append("dist_to_oracle")
+    hist: dict[str, list] = {k: [] for k in keys}
+    for _ in range(num_iters):
+        grads = {"theta": _local_grads(problem, params["theta"])}
+        params, cstate, extra = cns.consensus_update(
+            ccfg, opt_cfg, params, grads, cstate, comm=chain)
+        bits = extra.get("bits")
+        if bits is None:  # policy-unaware strategy (cta): full precision
+            bits = _uncompressed_bits(problem, cstate["comms"])
+        m = _stacked_metrics(problem, params["theta"], cstate["comms"], bits)
+        m.update(extra)
+        if oracle is not None:
+            m["dist_to_oracle"] = torch.max(torch.linalg.norm(
+                params["theta"] - oracle, dim=-1))
+        for k in keys:
+            hist[k].append(m[k])
+    return (params, cstate), _stack_history(hist, problem.device)
+
+
 def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
                      ctx: SolveContext, oracle: torch.Tensor | None):
-    """-> (carry0, chunk_fn, theta_fn) for the fused backend."""
+    """-> (carry0, chunk_fn, theta_fn) for the spmd / fused backends."""
     strategy = solver.consensus_strategy
     primal_mode = _resolve_consensus_primal(config, problem, strategy)
     if config.topology is not None:
         raise NotImplementedError(
-            f"topology schedules are not ported yet: {_SPMD_LATER}")
+            "topology schedules are not ported yet: ROADMAP.md Queue 1 "
+            "item 7 (topology schedules)")
     offsets = tuple(config.graph_offsets)
     _validate_topology(problem, offsets)
+    if primal_mode == "cg":
+        raise NotImplementedError(
+            f"the CG primal on the ring runtimes is not ported yet: "
+            f"{_CG_LATER}")
+    N, D = problem.num_agents, problem.feature_dim
+    dev, dtype = problem.device, problem.feats.dtype
 
     # megakernel admission (the reference's gate): the gradient primal on
     # the quadratic loss over a fixed circulant, unsharded and not
-    # personalized. The reference sends everything else to the spmd
-    # runtime with the coke_fused_update kernel, which is not ported yet.
+    # personalized (fit rejects topology schedules and personalization)
     use_mega = (config.backend == "fused"
                 and strategy in ("dkla", "coke")
-                and primal_mode == "gradient"
-                and problem.loss == "quadratic"
-                and config.topology is None
-                and config.personalization is None)
-    if not use_mega:
-        raise NotImplementedError(
-            f"this config is outside the megakernel path (strategy="
-            f"{strategy!r}, primal={primal_mode!r}, loss={problem.loss!r}); "
-            f"its reference path is not ported yet: {_SPMD_LATER}")
+                and problem.loss == "quadratic")
+    if use_mega:
+        chain = solver._policy(ctx)
+        carry0 = _FusedCarry(
+            theta=torch.zeros((N, D), dtype=dtype, device=dev),
+            theta_hat=torch.zeros((N, D), dtype=torch.float32, device=dev),
+            gamma=torch.zeros((N, D), dtype=torch.float32, device=dev),
+            step=0, comms=torch.zeros((), dtype=torch.int32, device=dev),
+            comm=chain.init_state(N, dev))
 
-    chain = solver._policy(ctx)
-    N, D = problem.num_agents, problem.feature_dim
-    dev, dtype = problem.device, problem.feats.dtype
-    carry0 = _FusedCarry(
-        theta=torch.zeros((N, D), dtype=dtype, device=dev),
-        theta_hat=torch.zeros((N, D), dtype=torch.float32, device=dev),
-        gamma=torch.zeros((N, D), dtype=torch.float32, device=dev),
-        step=0, comms=torch.zeros((), dtype=torch.int32, device=dev),
-        comm=chain.init_state(N, dev))
+        def mega_chunk_fn(carry, n):
+            return _megastep_chunk(problem, carry, oracle, chain,
+                                   offsets=offsets, num_iters=n,
+                                   lr=ctx.inner_lr)
+
+        return carry0, mega_chunk_fn, lambda carry: carry.theta
+
+    # the ring runtime: spmd, and the fused backend's fallback through K3
+    v, mu = config.resolved_censor
+    k = len(offsets)
+    ccfg = cns.ConsensusConfig(
+        strategy=strategy, rho=problem.rho, censor_v=v, censor_mu=mu,
+        offsets=offsets,
+        # per-neighbour Metropolis weight on a 2k-regular circulant
+        mix_weight=k / (2.0 * k + 1.0),
+        use_fused_kernel=config.backend == "fused")
+    lr = ctx.cta_lr if strategy == "cta" else ctx.inner_lr
+    opt_cfg = OptConfig(kind="sgd", lr=lr)
+    # the solver's policy view of the configured chain (DKLA strips the
+    # censor thresholds); cta threads none
+    chain = solver._policy(ctx) if solver.comm_aware else None
+    params = {"theta": torch.zeros((N, D), dtype=dtype, device=dev)}
+    cstate = cns.init_consensus_state(ccfg, opt_cfg, params, comm=chain)
 
     def chunk_fn(carry, n):
-        return _megastep_chunk(problem, carry, oracle, chain,
-                               offsets=offsets, num_iters=n,
-                               lr=ctx.inner_lr)
+        params, cstate = carry
+        return _consensus_chunk(problem, params, cstate, oracle, chain,
+                                ccfg=ccfg, opt_cfg=opt_cfg, num_iters=n)
 
-    return carry0, chunk_fn, lambda carry: carry.theta
+    return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]

@@ -130,10 +130,12 @@ class SolveContext:
 
     comm: comm_mod.Chain
     inner_lr: float = 0.1
+    cta_lr: float = 0.9
 
     @classmethod
     def from_config(cls, config: FitConfig) -> "SolveContext":
-        return cls(comm=config.resolved_comm, inner_lr=config.inner_lr)
+        return cls(comm=config.resolved_comm, inner_lr=config.inner_lr,
+                   cta_lr=config.cta_lr)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 It owns the iteration loop (a Python loop in host-visible chunks, where
 the reference has `lax.scan`), the per-iteration metric recording and the
-optional progress callbacks. This slice runs the fused backend's
-megakernel path; every other part of a FitConfig raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+optional progress callbacks. The port runs the spmd backend and the fused
+backend (its megakernel path and its fallback to the ring runtime); every
+other part of a FitConfig raises NotImplementedError naming the
+ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -24,23 +25,41 @@ from repro_torch.device import resolve_device
 ProgressCb = Callable[[int, dict], None]
 
 
+def _check_solver(config: FitConfig, solver) -> None:
+    """The reference's solver admission rules, with its ValueErrors."""
+    reason, alternative = None, None
+    if config.backend not in solver.backends:
+        reason = (f"solver {config.algorithm!r} supports backends "
+                  f"{tuple(solver.backends)!r}, not {config.backend}")
+        alternative = "backend='simulator' (every solver runs there)"
+    elif config.comm is not None and not solver.comm_aware:
+        reason = (f"solver {config.algorithm!r} does not thread a "
+                  "communication policy (it transmits unconditionally); "
+                  "drop FitConfig.comm or pick a comm-aware algorithm "
+                  "(dkla/coke/online_coke)")
+        alternative = "algorithm='coke' with the same comm chain"
+    elif config.primal in ("cholesky", "cg") and not solver.primal_aware:
+        reason = (f"solver {config.algorithm!r} has no (21a) primal "
+                  f"subproblem for primal={config.primal} to solve; leave "
+                  "primal='auto' or pick an ADMM solver (dkla/coke)")
+        alternative = "algorithm='coke' with the same primal mode"
+    if reason is not None:
+        raise ValueError(f"{reason} — nearest supported: {alternative}")
+
+
 def _check_slice(config: FitConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for any part
-    of the config this port does not run yet."""
+    of the config this port does not run yet. The CG primal raises in the
+    backend, after the reference's own checks of the primal mode."""
     later = None
     if config.backend == "simulator":
         later = ("backend='simulator'", "Queue 1 item 3 (simulator backend "
                  "with the Cholesky/CG primals)")
-    elif config.backend == "spmd":
-        later = ("backend='spmd'", "Queue 1 item 7 (spmd backend)")
-    elif config.primal == "cg":
-        later = ("primal='cg'", "Queue 1 item 7 (the fused fallback through "
-                 "spmd and coke_fused_update)")
     elif config.exec == "gossip":
         later = ("exec='gossip'", "Queue 1 item 10 (gossip and churn)")
     elif config.topology is not None:
-        later = ("topology schedules", "Queue 1 item 7 (spmd backend and the "
-                 "fused fallback)")
+        later = ("topology schedules", "Queue 1 item 7 (topology "
+                 "schedules)")
     elif config.personalization is not None:
         later = ("personalization", "Queue 1 item 11 (personalization)")
     elif any(isinstance(s, (comm_mod.Quantize, comm_mod.Drop))
@@ -95,6 +114,7 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
             "mesh= (big-D sharding) is not ported to repro_torch yet: "
             "ROADMAP.md Queue 1 item 14")
     solver = get_solver(config.algorithm)
+    _check_solver(config, solver)
     _check_slice(config)
     rff_params = None
     if problem is None:

@@ -1,8 +1,9 @@
 """Solver registry — where an algorithm plugs into `repro_torch.api`.
 
 The port registers the two ADMM solvers, `dkla` (Algorithm 1) and `coke`
-(Algorithm 2). The reference's other solvers raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+(Algorithm 2), and the `cta` diffusion baseline. The reference's other
+solvers raise NotImplementedError naming the ROADMAP.md item that ports
+them.
 """
 from __future__ import annotations
 
@@ -11,11 +12,16 @@ from typing import Protocol, runtime_checkable
 
 @runtime_checkable
 class Solver(Protocol):
-    """What a registered algorithm gives the fused backend: its registry
-    name, its consensus strategy and its view of the comm policy."""
+    """What a registered algorithm gives `fit` and the backends: its
+    registry name, the backends it runs on, its consensus strategy,
+    whether it threads a comm policy and has a (21a) primal subproblem,
+    and (when comm-aware) its view of the policy."""
 
     name: str
+    backends: tuple[str, ...]
     consensus_strategy: str
+    comm_aware: bool
+    primal_aware: bool
 
     def _policy(self, ctx): ...
 
@@ -24,7 +30,6 @@ _REGISTRY: dict[str, Solver] = {}
 
 #: reference solvers not ported yet -> the ROADMAP.md item that ports them
 _LATER = {
-    "cta": "ROADMAP.md Queue 1 item 3 (simulator backend and its solvers)",
     "ridge_oracle": "ROADMAP.md Queue 1 item 3 (simulator backend and its "
                     "solvers)",
     "online_dkla": "ROADMAP.md Queue 1 item 9 (streaming)",

@@ -1,5 +1,10 @@
-"""The ADMM solvers, DKLA (Algorithm 1) and COKE (Algorithm 2), and the
-per-iteration metrics every history records."""
+"""The solvers this port runs: the ADMM pair, DKLA (Algorithm 1) and COKE
+(Algorithm 2), and the CTA diffusion baseline; and the per-iteration
+metrics every history records.
+
+Each solver names the backends it runs on (`backends`) and whether it
+threads a communication policy (`comm_aware`), as in the reference; `fit`
+rejects the rest with the reference's ValueError."""
 from __future__ import annotations
 
 import torch
@@ -8,12 +13,7 @@ from repro_torch.api.config import SolveContext
 from repro_torch.api.registry import register_solver
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.admm import Problem
-
-
-def _consensus_gap(theta: torch.Tensor) -> torch.Tensor:
-    """max_i ||theta_i - mean theta|| over the (N, D) stack."""
-    mean_theta = torch.mean(theta, dim=0, keepdim=True)
-    return torch.max(torch.sqrt(torch.sum((theta - mean_theta) ** 2, dim=-1)))
+from repro_torch.distributed.consensus import consensus_gap
 
 
 def _stacked_metrics(problem: Problem, theta: torch.Tensor,
@@ -25,11 +25,22 @@ def _stacked_metrics(problem: Problem, theta: torch.Tensor,
     preds = torch.einsum("ntd,nd->nt", problem.feats, theta)
     mse = torch.mean((problem.labels - preds) ** 2)
     return {"train_mse": mse, "comms": comms,
-            "consensus_gap": _consensus_gap(theta),
+            "consensus_gap": consensus_gap({"theta": theta}),
             "bits": bits.to(torch.float32)}
 
 
+def _uncompressed_bits(problem: Problem, comms: torch.Tensor) -> torch.Tensor:
+    """Bits for `comms` full-precision D-vector transmissions (the policy-
+    unaware solvers: CTA broadcasts every iteration, uncompressed)."""
+    return comms.to(torch.float32) * (comm_mod.FP_BITS * problem.feature_dim)
+
+
 class _ADMMSolver:
+    backends = ("simulator", "spmd", "fused")
+    comm_aware = True
+    # these solvers have a (21a) primal subproblem the exact solves apply to
+    primal_aware = True
+
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
         raise NotImplementedError
 
@@ -52,3 +63,14 @@ class COKESolver(_ADMMSolver):
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
         return ctx.comm
+
+
+@register_solver("cta")
+class CTASolver:
+    """Combine-then-adapt diffusion (Section 5 baseline): Metropolis mixing
+    then a local gradient step; transmits every iteration."""
+
+    backends = ("simulator", "spmd")
+    consensus_strategy = "cta"
+    comm_aware = False  # diffusion transmits uncensored every iteration
+    primal_aware = False

@@ -1,9 +1,11 @@
 """The decentralized RF-space learning problem (the reference's
 `core/admm.py::Problem` and `make_problem`).
 
-Only the problem description is ported here: the simulator's primal solves
-(Cholesky, CG, inner gradient descent) are ROADMAP.md Queue 1 item 3; the
-fused backend runs the gradient primal inside the `coke_megastep` kernel.
+The problem description and `resolve_primal` are ported here; the
+simulator's primal solves (Cholesky, CG, inner gradient descent) are
+ROADMAP.md Queue 1 item 3. The fused backend runs the gradient primal inside
+the `coke_megastep` kernel, the ring runtime as one optimizer step
+(`distributed/consensus.py`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,30 @@ from repro_torch.core.graph import Graph
 PRIMAL_MODES = ("auto", "cholesky", "cg", "gradient")
 #: feature count above which primal="auto" picks CG over Cholesky
 CG_CROSSOVER_DIM = 2048
+
+
+def resolve_primal(primal: str, feature_dim: int, loss: str) -> str:
+    """Resolve a FitConfig primal mode to the concrete update that runs.
+
+    auto     -> "cholesky" up to CG_CROSSOVER_DIM features, "cg" above;
+                general losses have no normal equations and fall back to
+                "gradient".
+    cholesky / cg -> forced; both solve (21a) and require the quadratic
+                loss (ValueError otherwise).
+    gradient -> the inexact gradient primal (any loss).
+    """
+    if primal not in PRIMAL_MODES:
+        raise ValueError(
+            f"unknown primal mode {primal!r}; choose from {PRIMAL_MODES}")
+    if loss != "quadratic":
+        if primal in ("cholesky", "cg"):
+            raise ValueError(
+                f"primal={primal!r} solves the quadratic-loss (21a) normal "
+                f"equations; loss={loss!r} has none — use primal='gradient'")
+        return "gradient"
+    if primal == "auto":
+        return "cg" if feature_dim > CG_CROSSOVER_DIM else "cholesky"
+    return primal
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.censor import (CensorSchedule, censor_decision,
                                      masked_broadcast)
+from repro_torch.core.tree import tree_leaves, tree_unflatten
 
 #: uncompressed payload precision: float32 coordinates
 FP_BITS = 32.0
@@ -194,3 +195,40 @@ def uncensored(chain: Chain) -> Chain:
     return Chain(tuple(
         dataclasses.replace(s, v=s.v * 0) if isinstance(s, Censor) else s
         for s in chain.stages))
+
+
+# ---------------------------------------------------------------------------
+# Agent-stacked trees (the ring runtime's message form)
+# ---------------------------------------------------------------------------
+
+def flatten_agents(tree) -> tuple[torch.Tensor, list]:
+    """Agent-stacked tree -> ((N, D_total) float32, leaves). A single
+    float32 (N, D) leaf comes back as itself, not a copy."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    parts = [leaf.reshape(n, -1).to(torch.float32) for leaf in leaves]
+    flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return flat, leaves
+
+
+def unflatten_agents(flat: torch.Tensor, leaves: list, like=None):
+    """Inverse of flatten_agents; returns the leaves, or a tree with the
+    structure of `like` when given."""
+    out, off = [], 0
+    n = leaves[0].shape[0]
+    for leaf in leaves:
+        size = leaf.numel() // n
+        out.append(flat[:, off:off + size].reshape(leaf.shape))
+        off += size
+    return out if like is None else tree_unflatten(like, out)
+
+
+def apply_tree(chain: Chain, params_tree, prev_tree, k: int,
+               state: CommState):
+    """Chain.apply over agent-stacked trees: flatten both to (N, D_total)
+    float32, run the policy once (one decision per agent), unflatten the
+    broadcast. Equal to the flat path on a single (N, D) leaf."""
+    flat, leaves = flatten_agents(params_tree)
+    prev_flat, _ = flatten_agents(prev_tree)
+    hat_flat, send, state = chain.apply(flat, prev_flat, k, state)
+    return unflatten_agents(hat_flat, leaves, params_tree), send, state

@@ -1,12 +1,19 @@
-"""Wrapper of the CUDA megakernel `csrc/coke_megastep.cu`.
+"""Wrappers of the CUDA kernels `csrc/coke_megastep.cu` (K2) and
+`csrc/coke_fused_update.cu` (K3).
 
-Port of `repro/kernels/coke_update/coke_update.py::coke_megastep`: one
-gradient-primal COKE/DKLA ADMM iteration for all agents. On CPU tensors it
-runs the plain version (`ref.coke_megastep_ref`); on CUDA tensors it makes
-two launches on PyTorch's current stream (the partial T-sums, then the
-consensus combine), or raises. Either way theta' is written in place onto
-`theta`, as the reference donates its output onto theta. `LAUNCHES` counts
-kernel launches: two per call on the card.
+`coke_megastep` ports `repro/kernels/coke_update/coke_update.py::
+coke_megastep`: one gradient-primal COKE/DKLA ADMM iteration for all
+agents. On CPU tensors it runs the plain version (`ref.coke_megastep_ref`);
+on CUDA tensors it makes two launches on PyTorch's current stream (the
+partial T-sums, then the consensus combine), or raises. Either way theta'
+is written in place onto `theta`, as the reference donates its output onto
+theta. `LAUNCHES` counts its kernel launches: two per call on the card.
+
+`coke_fused_update` ports `coke_update.py::coke_fused_update`: the
+augmented gradient and the per-agent censor norm of the ring runtime's
+gradient primal. On CPU tensors it runs `ref.coke_update_ref`; on CUDA
+tensors it makes one launch, or raises. `FUSED_UPDATE_LAUNCHES` counts its
+launches, apart from K2's.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 #: launches per `coke_megastep` call on the card
 LAUNCHES_PER_CALL = 2
+#: kernel launches made by `coke_fused_update`: one per call on the card
+FUSED_UPDATE_LAUNCHES = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -32,6 +41,10 @@ _SIGNATURES = {
                                   _F, _F, _F, _F, _F, _F, _P]),
 }
 _MAX_OFFSETS = 8
+_FUSED_UPDATE_SIGNATURES = {
+    "coke_fused_update_tiles": (_I, [_I]),
+    "coke_fused_update": (_I, [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P]),
+}
 
 
 def megastep_scalars(*, rho: float, lam: float, lr: float, n_agents: int,
@@ -151,3 +164,60 @@ def coke_megastep(theta, theta_hat, gamma, phi, y, *, rho: float,
     build.check(lib, code, "coke_megastep_finish")
     LAUNCHES += 1
     return theta, xi_sq
+
+
+def _check_update_operands(ops: dict[str, torch.Tensor]) -> None:
+    shapes = {tuple(t.shape) for t in ops.values()}
+    if len(shapes) != 1 or len(next(iter(shapes))) != 2:
+        raise ValueError("coke_fused_update takes six (N, D) operands; got "
+                         + ", ".join(f"{k} {tuple(t.shape)}"
+                                     for k, t in ops.items()))
+    devices = {t.device for t in ops.values()}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {devices}")
+    dev = next(iter(devices))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"coke_fused_update runs on cpu or cuda, not {dev}")
+
+
+def coke_fused_update(theta, theta_hat, gamma, grad, left, right, *,
+                      rho: float, deg: float = 2.0):
+    """All operands (N, D). Returns (g_aug (N, D) fp32, xi_sq (N,) fp32):
+
+        g_aug = g + 2 rho deg theta + gamma - rho (deg theta_hat + left + right)
+        xi_sq = ||theta_hat - theta||^2 per agent
+
+    xi_sq is the *squared* censor norm; `ops.coke_update_pytree` takes the
+    sqrt. The CUDA kernel takes fp32 operands; the plain version casts."""
+    global FUSED_UPDATE_LAUNCHES
+    ops = {"theta": theta, "theta_hat": theta_hat, "gamma": gamma,
+           "grad": grad, "left": left, "right": right}
+    _check_update_operands(ops)
+    if theta.device.type == "cpu":
+        from repro_torch.kernels.coke_update.ref import coke_update_ref
+
+        return coke_update_ref(theta, theta_hat, gamma, grad, left, right,
+                               rho=rho, deg=deg)
+    for name, t in ops.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes fp32; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA kernel takes contiguous tensors; "
+                             f"{name} is not")
+    N, D = theta.shape
+    dev = theta.device
+    g_aug = torch.empty((N, D), device=dev, dtype=torch.float32)
+    if N == 0 or D == 0:
+        return g_aug, torch.zeros((N,), device=dev, dtype=torch.float32)
+    lib = build.load("coke_fused_update", _FUSED_UPDATE_SIGNATURES)
+    partial = torch.empty((N, lib.coke_fused_update_tiles(D)), device=dev,
+                          dtype=torch.float32)
+    ptrs = [t.data_ptr() for t in (*ops.values(), g_aug)]
+    vec = int(D % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.coke_fused_update(*ptrs, partial.data_ptr(), N, D, vec,
+                                 float(rho), float(deg),
+                                 2.0 * float(rho) * float(deg), stream)
+    build.check(lib, code, "coke_fused_update")
+    FUSED_UPDATE_LAUNCHES += 1
+    return g_aug, torch.sum(partial, dim=1)

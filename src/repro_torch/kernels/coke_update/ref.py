@@ -1,12 +1,24 @@
-"""Plain PyTorch version of the full-iteration megakernel, as einsums.
+"""Plain PyTorch versions of the two COKE kernels.
 
-Same contract as `coke_update.coke_megastep`, but a pure function: it
-returns a new theta and leaves its inputs untouched. It reads Phi twice
-(once per einsum); the kernel reads it once.
+`coke_update_ref` is the elementwise version of `coke_fused_update` (K3),
+in the reference expression's order. `coke_megastep_ref` has the contract
+of `coke_megastep` (K2), as einsums, but is a pure function: it returns a
+new theta and leaves its inputs untouched. It reads Phi twice (once per
+einsum); the kernel reads it once.
 """
 import torch
 
 from repro_torch.kernels.coke_update.coke_update import megastep_scalars
+
+
+def coke_update_ref(theta, theta_hat, gamma, grad, left, right, *, rho,
+                    deg=2.0):
+    """-> (g_aug (N, D) fp32, xi_sq (N,) fp32), the squared censor norm."""
+    f = lambda a: a.to(torch.float32)
+    gaug = (f(grad) + 2.0 * rho * deg * f(theta) + f(gamma)
+            - rho * (deg * f(theta_hat) + f(left) + f(right)))
+    xi = f(theta_hat) - f(theta)
+    return gaug, torch.sum(xi * xi, dim=-1)
 
 
 def coke_megastep_ref(theta, theta_hat, gamma, phi, y, *, rho, lam, lr,

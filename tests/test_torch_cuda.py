@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.api import FitConfig, KRRConfig, build_problem, fit
 from repro_torch.kernels.coke_update import coke_update as k2
-from repro_torch.kernels.coke_update.ref import coke_megastep_ref
+from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
+                                                 coke_update_ref)
 from repro_torch.kernels.rff import rff as k1
 from repro_torch.kernels.rff.ref import rff_ref
 
@@ -30,6 +33,14 @@ RFF_SHAPES = [(64, 5, 32), (300, 77, 100), (128, 96, 200), (33, 13, 50),
               (1000, 5, 513)]
 MEGA_SHAPES = [(4, 40, 32, (1,)), (2, 33, 513, (1,)), (8, 64, 100, (1, 2)),
                (3, 17, 128, (1,)), (5, 128, 256, (2,)), (20, 350, 4096, (1,))]
+# K3: g_aug is formed in the plain expression's order with round-to-nearest
+# intrinsics, so it may differ from the plain version only where a compiler
+# contracted a product into an FMA: a few ulps of the largest term. xi_sq
+# is an fp32 sum over D in another order.
+UPDATE_ULPS = 4 * 2.0**-23
+UPDATE_XI_RTOL = 1e-5
+UPDATE_SHAPES = [(1, 1, 2.0), (3, 513, 2.0), (7, 1000, 4.0), (3, 512, 4.0),
+                 (20, 4096, 2.0)]
 
 
 @pytest.fixture
@@ -113,3 +124,77 @@ def test_small_fit_on_card_matches_cpu(cuda):
             model.predict(built.x_test, backend="fused").cpu(),
             model.predict(built.x_test, backend="ref").cpu(),
             rtol=0, atol=1e-5)
+
+
+def _update_operands(cuda, n, d, seed=2, misalign=False):
+    g = _gen(cuda, seed)
+    out = []
+    for _ in range(6):
+        if misalign:   # contiguous, but 4 bytes off 16-byte alignment
+            out.append(torch.randn(n * d + 1, generator=g,
+                                   device=cuda)[1:].view(n, d))
+        else:
+            out.append(torch.randn((n, d), generator=g, device=cuda))
+    return out
+
+
+@pytest.mark.parametrize("misalign", [False, True], ids=["vec", "scalar"])
+@pytest.mark.parametrize("n,d,deg", UPDATE_SHAPES, ids=str)
+def test_fused_update_kernel_matches_plain(cuda, n, d, deg, misalign):
+    ops = _update_operands(cuda, n, d, misalign=misalign)
+    kw = dict(rho=0.37, deg=deg)
+    want, want_xi = coke_update_ref(*ops, **kw)
+    before = k2.FUSED_UPDATE_LAUNCHES
+    got, xi = k2.coke_fused_update(*ops, **kw)
+    torch.cuda.synchronize()
+    assert k2.FUSED_UPDATE_LAUNCHES == before + 1      # one launch per call
+    th, hat, gm, gr, l, r = ops
+    scale = max(float(t.abs().max()) for t in (
+        gr, 2.0 * 0.37 * deg * th, gm, 0.37 * (deg * hat + l + r)))
+    torch.testing.assert_close(got, want, rtol=0, atol=UPDATE_ULPS * scale)
+    torch.testing.assert_close(xi, want_xi, rtol=UPDATE_XI_RTOL,
+                               atol=UPDATE_XI_RTOL * float(want_xi.max()))
+
+
+def test_fused_update_kernel_raises_on_operands_it_does_not_take(cuda):
+    ops = _update_operands(cuda, 3, 40)
+    with pytest.raises(TypeError):
+        k2.coke_fused_update(*[o.double() for o in ops], rho=0.1)
+    with pytest.raises(ValueError):
+        k2.coke_fused_update(ops[0].t(), *[o.t() for o in ops[1:]], rho=0.1)
+
+
+def _classification(problem, loss):
+    labels = torch.where(problem.labels > problem.labels.median(), 1.0, -1.0)
+    return dataclasses.replace(problem, labels=labels, loss=loss)
+
+
+def test_ring_runtime_fits_on_card_match_cpu(cuda):
+    """spmd fits (coke/dkla/cta) and fused-fallback fits on a logistic
+    problem, card against CPU: equal comms and bits, theta close. Only the
+    fused fallback launches K3, once per iteration."""
+    cfg = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                  num_features=32, lam=1e-2, rho=0.1),
+                    graph="ring", censor_v=0.03, censor_mu=0.8,
+                    num_iters=20, primal="gradient", inner_lr=0.05,
+                    cta_lr=0.05)
+    built = build_problem(cfg, device="cpu")
+    logistic = _classification(built.problem, "logistic")
+    cases = [("spmd", alg, built.problem) for alg in ("coke", "dkla", "cta")]
+    cases += [("fused", alg, logistic) for alg in ("coke", "dkla")]
+    for backend, alg, problem in cases:
+        c = cfg.replace(backend=backend, algorithm=alg)
+        if alg == "cta":
+            c = c.replace(censor_v=None, censor_mu=None)
+        cpu = fit(c, problem=problem, device="cpu")
+        before = (k2.FUSED_UPDATE_LAUNCHES, k2.LAUNCHES)
+        gpu = fit(c, problem=problem, device=cuda)
+        torch.cuda.synchronize()
+        k3 = 20 if backend == "fused" else 0
+        assert (k2.FUSED_UPDATE_LAUNCHES, k2.LAUNCHES) == (before[0] + k3,
+                                                           before[1])
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                   atol=1e-5)

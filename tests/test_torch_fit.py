@@ -6,12 +6,16 @@ arrays through `repro_torch.convert` (the two packages' RFF draws differ at
 the same seed). The port's fit runs with device="cpu", where its kernel
 wrappers run their plain PyTorch versions.
 
-The reference side of the fit comparison is `fit(backend="fused")` with
-the reference's own `_MEGASTEP_USE_KERNEL = False` switch, which runs the
-blockwise `coke_megastep_ref` the reference pins bit-identical to its
-megakernel (the megakernel's wrapper cannot build on jax 0.9.0: see
-ROADMAP.md Queue 3), and the reference simulator at primal="gradient",
-inner_steps=1, which the reference pins to the fused path.
+The reference side of the megakernel fit comparison is
+`fit(backend="fused")` with the reference's own `_MEGASTEP_USE_KERNEL =
+False` switch, which runs the blockwise `coke_megastep_ref` the reference
+pins bit-identical to its megakernel (the megakernel's wrapper cannot build
+on jax 0.9.0: see ROADMAP.md Queue 3), and the reference simulator at
+primal="gradient", inner_steps=1, which the reference pins to the fused
+path. The ring runtime (spmd, and the fused fallback through
+`coke_fused_update` on a non-quadratic loss) is held against the
+reference's same fits directly: its Pallas kernel runs in interpret mode
+on the CPU.
 
 Tolerances: comms and bits are integer-valued and must match exactly;
 trajectories and theta to 1e-5, the reference's own fused-vs-simulator
@@ -28,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import Censor as JCensor
+from repro.api import Chain as JChain
 from repro.api import FitConfig as JFitConfig
 from repro.api import KernelModel as JKernelModel
 from repro.api import KRRConfig as JKRRConfig
@@ -35,10 +41,14 @@ from repro.api import backends as jax_backends
 from repro.api import build_problem as jax_build_problem
 from repro.api import fit as jax_fit
 from repro.core import graph as jax_graph
+from repro.core.admm import make_problem as jax_make_problem
 from repro.data import synthetic as jax_synth
 
 import repro_torch.api.problems as port_problems
 from repro_torch import convert
+from repro_torch.core.admm import resolve_primal
+from repro_torch.kernels.coke_update import coke_update as port_cu
+from repro_torch.kernels.coke_update import ops as port_ops
 from repro_torch.api import (Censor, Chain, Drop, FitConfig, KernelModel,
                              KRRConfig, Quantize, build_problem, fit,
                              fit_stream, sweep)
@@ -111,6 +121,8 @@ def _assert_history_match(ref, port, err):
                                       np.asarray(ref.history[k]),
                                       err_msg=f"{err}:{k}")
     for k in ("train_mse", "consensus_gap", "send_frac"):
+        if k not in ref.history:     # cta records no send fraction
+            continue
         np.testing.assert_allclose(_np(port.history[k]),
                                    np.asarray(ref.history[k]), rtol=TOL,
                                    atol=TOL, err_msg=f"{err}:{k}")
@@ -311,6 +323,14 @@ def test_port_imports_no_jax_and_no_reference():
         "b = build_problem(cfg, device='cpu')\n"
         "r = fit(cfg, problem=b.problem, device='cpu')\n"
         "r.to_model(b.rff_params).predict(b.x_test, backend='fused')\n"
+        "fit(cfg.replace(backend='spmd', algorithm='cta'), problem=b.problem,"
+        " device='cpu')\n"
+        "import dataclasses, torch\n"
+        "lab = torch.where(b.problem.labels > b.problem.labels.median(), 1.0,"
+        " -1.0)\n"
+        "p = dataclasses.replace(b.problem, labels=lab, loss='logistic')\n"
+        "r = fit(cfg.replace(primal='auto'), problem=p, device='cpu')\n"
+        "assert r.history['comms'].shape == (3,)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'repro')]\n"
         "assert not bad, bad\n"
@@ -340,7 +360,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
 
 OUT_OF_SLICE = {
     "simulator": lambda cfg: dict(config=cfg.replace(backend="simulator")),
-    "spmd": lambda cfg: dict(config=cfg.replace(backend="spmd")),
+    "spmd-gossip": lambda cfg: dict(config=cfg.replace(
+        backend="spmd", exec="gossip", participation=0.5)),
+    "spmd-cg": lambda cfg: dict(config=cfg.replace(backend="spmd",
+                                                   primal="cg")),
     "cholesky": lambda cfg: dict(config=cfg.replace(backend="simulator",
                                                     primal="cholesky")),
     "cg": lambda cfg: dict(config=cfg.replace(primal="cg")),
@@ -355,7 +378,9 @@ OUT_OF_SLICE = {
     "personalization": lambda cfg: dict(config=cfg.replace(
         personalization=object())),
     "mesh": lambda cfg: dict(config=cfg, mesh=object()),
-    "cta": lambda cfg: dict(config=cfg.replace(algorithm="cta")),
+    "cta-simulator": lambda cfg: dict(config=cfg.replace(
+        algorithm="cta", backend="simulator", censor_v=None,
+        censor_mu=None)),
     "online": lambda cfg: dict(config=cfg.replace(algorithm="online_coke")),
 }
 
@@ -369,14 +394,17 @@ def test_out_of_slice_configs_raise_not_implemented(case, built):
 
 def test_auto_primal_past_the_cg_crossover_raises_not_implemented():
     """primal="auto" at D > 2048 resolves to CG, as in the reference: the
-    megakernel does not take it and its fallback is not ported."""
+    megakernel does not take it and the CG primal on the ring runtime is
+    not ported."""
     rng = np.random.default_rng(0)
     problem = convert.problem_from_numpy(
         rng.random((4, 2, 2049), dtype=np.float32),
         rng.random((4, 2), dtype=np.float32),
         port_graph.ring(4).adjacency, 1e-2, 0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fit(_configs(primal="auto")[1], problem=problem, device="cpu")
+    for backend in ("fused", "spmd"):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            fit(_configs(primal="auto", backend=backend)[1], problem=problem,
+                device="cpu")
 
 
 @pytest.mark.parametrize("what", ["fit_stream", "sweep", "heterogeneous"])
@@ -400,3 +428,144 @@ def test_fused_rejects_a_non_circulant_graph(built):
                                                             dtype=p.feats.dtype))
     with pytest.raises(ValueError, match="circulant"):
         fit(_configs()[1], problem=problem, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the ring runtime: the spmd backend and the fused fallback through K3
+# ---------------------------------------------------------------------------
+
+# A censor threshold under which COKE sends some broadcasts but not all on
+# the classification losses at this size (v=0.3, mu=0.97 sends none there),
+# so the masked broadcast is exercised; 20 iterations.
+CLS = dict(censor_v=0.03, censor_mu=0.8, num_iters=20)
+
+
+def _sign_labels(labels):
+    y = np.asarray(labels)
+    return np.where(y > np.median(y), 1.0, -1.0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def cls_problems(built):
+    """{loss: (reference problem, port problem)} on +-1 labels."""
+    p = built[0].problem
+    lab = _sign_labels(p.labels)
+    out = {}
+    for loss in ("logistic", "hinge"):
+        out[loss] = (
+            jax_make_problem(p.feats, jnp.asarray(lab), jax_graph.ring(4),
+                             p.lam, p.rho, loss=loss),
+            convert.problem_from_numpy(np.asarray(p.feats), lab,
+                                       np.asarray(p.adjacency), p.lam, p.rho,
+                                       loss=loss, device="cpu"))
+    return out
+
+
+def _cfg_kw(alg, **over):
+    kw = {**BASE, "algorithm": alg, **over}
+    if alg == "cta":   # cta threads no comm policy; its default stepsize
+        # 0.9 diverges on this problem
+        kw.update(censor_v=None, censor_mu=None, cta_lr=0.05)
+    return kw
+
+
+def _fit_both(jprob, tprob, **kw):
+    ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **kw), problem=jprob)
+    port = fit(FitConfig(krr=KRRConfig(**KRR), **kw), problem=tprob,
+               device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("alg", ["coke", "dkla", "cta"])
+def test_spmd_fit_matches_reference(alg, built):
+    ref, port = _fit_both(built[0].problem, built[1],
+                          **_cfg_kw(alg, backend="spmd"))
+    _assert_history_match(ref, port, f"{alg}:spmd")
+    comms = _np(port.comms)
+    if alg == "coke":
+        assert 0 < comms[-1] < 4 * 40
+    else:
+        assert comms[-1] == 4 * 40
+    if alg == "cta":
+        np.testing.assert_array_equal(
+            _np(port.bits), comms.astype(np.float32) * 32 * 32)
+
+
+@pytest.mark.parametrize("backend", ["fused", "spmd"])
+@pytest.mark.parametrize("alg", ["coke", "dkla"])
+@pytest.mark.parametrize("loss", ["logistic", "hinge"])
+def test_ring_runtime_on_a_classification_loss_matches_reference(
+        loss, alg, backend, cls_problems, monkeypatch):
+    """The fused fallback (K3 on every iteration) and the spmd runtime on
+    the non-quadratic losses, against the reference's same fits."""
+    jprob, tprob = cls_problems[loss]
+    port_cu.FUSED_UPDATE_LAUNCHES = 0
+    ref, port = _fit_both(jprob, tprob,
+                          **_cfg_kw(alg, backend=backend, **CLS))
+    _assert_history_match(ref, port, f"{loss}:{alg}:{backend}")
+    comms = _np(port.comms)
+    if alg == "coke":
+        assert 0 < comms[-1] < 4 * 20
+    else:
+        assert comms[-1] == 4 * 20
+    # on CPU tensors the wrappers count no launch: they ran the plain version
+    assert port_cu.FUSED_UPDATE_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("alg", ["coke", "dkla"])
+def test_spmd_matches_the_fused_megakernel_fit(alg, built, port_fits):
+    """The port's two runtimes against each other on the quadratic loss:
+    the one-step spmd update is the megakernel's iteration in another
+    arithmetic order."""
+    spmd = fit(_configs(algorithm=alg, backend="spmd")[1], problem=built[1],
+               device="cpu")
+    _assert_history_match(port_fits[alg], spmd, f"{alg}:spmd-vs-fused")
+
+
+def test_fused_routes_by_loss(built, cls_problems, monkeypatch):
+    """The megakernel takes the quadratic loss; a logistic problem falls
+    back to the ring runtime (K3), as the reference's gate does."""
+    seen = []
+    real = port_ops.coke_fused_update
+    monkeypatch.setattr(port_ops, "coke_fused_update",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    cfg = _configs(num_iters=5)[1]
+    fit(cfg, problem=built[1], device="cpu")
+    assert not seen
+    fit(cfg.replace(primal="auto"), problem=cls_problems["logistic"][1],
+        device="cpu")
+    assert len(seen) == 5
+
+
+def test_cg_on_a_classification_loss_raises_value_error(cls_problems):
+    """As in the reference's resolve_primal: CG solves normal equations a
+    logistic or hinge loss does not have."""
+    with pytest.raises(ValueError, match="normal equations"):
+        resolve_primal("cg", 32, "logistic")
+    assert resolve_primal("auto", 4096, "hinge") == "gradient"
+    assert resolve_primal("auto", 4096, "quadratic") == "cg"
+    assert resolve_primal("auto", 2048, "quadratic") == "cholesky"
+    for backend in ("fused", "spmd"):
+        with pytest.raises(ValueError, match="normal equations"):
+            fit(_configs(primal="cg", backend=backend)[1],
+                problem=cls_problems["hinge"][1], device="cpu")
+
+
+@pytest.mark.parametrize("case", ["cta-fused", "cta-comm", "cta-cg"])
+def test_solver_admission_raises_the_reference_value_error(case, built):
+    """The reference's capability rules for a solver that is not an ADMM
+    solver; the port gives the same messages."""
+    kw = _cfg_kw("cta", backend="spmd")
+    kw.update({"cta-fused": dict(backend="fused"), "cta-comm": {},
+               "cta-cg": dict(primal="cg")}[case])
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "cta-comm":
+        jkw["comm"] = JChain([JCensor(0.3, 0.97)])
+        tkw["comm"] = Chain([Censor(0.3, 0.97)])
+    with pytest.raises(ValueError) as ref_err:
+        jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **jkw),
+                problem=built[0].problem)
+    with pytest.raises(ValueError) as port_err:
+        fit(FitConfig(krr=KRRConfig(**KRR), **tkw), problem=built[1],
+            device="cpu")
+    assert str(port_err.value) == str(ref_err.value)

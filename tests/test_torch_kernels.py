@@ -1,4 +1,4 @@
-"""The port's two kernel modules against the JAX reference.
+"""The port's kernel modules against the JAX reference.
 
 On the CPU the port's wrappers run their plain PyTorch versions (the
 tensors lie on the CPU); those are held against the reference's Pallas
@@ -23,6 +23,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from repro.core import rff as jax_rff
 from repro.kernels.coke_update import coke_update as jax_cu
+from repro.kernels.coke_update import ops as jax_cu_ops
+from repro.kernels.coke_update import ref as jax_cu_ref
 from repro.kernels.coke_update.ref import coke_megastep_ref as jax_mega_ref
 from repro.kernels.rff.ops import featurize_fused as jax_featurize_fused
 from repro.kernels.rff.rff import rff_pallas
@@ -30,6 +32,7 @@ from repro.kernels.rff.rff import rff_pallas
 from repro_torch.core.rff import RFFParams
 from repro_torch.kernels import build
 from repro_torch.kernels.coke_update import coke_update as port_cu
+from repro_torch.kernels.coke_update import ops as port_cu_ops
 from repro_torch.kernels.coke_update.ref import coke_megastep_ref
 from repro_torch.kernels.rff import rff as port_rff
 from repro_torch.kernels.rff.ops import featurize_fused
@@ -55,6 +58,14 @@ MEGA_SHAPES = [
 ]
 MEGA_IDS = ["fit", "ragged", "circulant", "lane", "offset2"]
 MEGA_KW = dict(rho=0.3, lam=1e-2, lr=0.05)
+# K3: g_aug is six elementwise terms in the reference's expression order; XLA
+# may contract a product into an FMA where ATen rounds it, a few ulps of the
+# largest term. xi_sq is an fp32 sum over D in another order.
+UPDATE_ULPS = 4 * 2.0**-23
+UPDATE_XI_RTOL = 1e-5
+# (N, D, deg): ragged D against the reference's 512-wide blocks, deg 2 and 4
+UPDATE_SHAPES = [(1, 1, 2.0), (3, 513, 2.0), (7, 1000, 4.0), (4, 512, 4.0),
+                 (20, 4096, 2.0)]
 
 
 def _rff_inputs(T, d, L, seed=0):
@@ -213,12 +224,96 @@ def test_wrappers_reject_operands_they_do_not_take(case):
 
 
 def test_build_names_libraries_by_source_hash():
-    """Both kernels are built from csrc/ for sm_90a; the library name
+    """Every kernel is built from csrc/ for sm_90a; the library name
     carries a hash of the source and flags, so an edit forces a rebuild."""
-    assert build.SOURCES == ("coke_megastep", "rff")
+    assert build.SOURCES == ("coke_fused_update", "coke_megastep", "rff")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.SOURCES:
         p = build.library_path(name)
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
         assert p == build.library_path(name)
     assert build.library_path("rff") != build.library_path("coke_megastep")
+
+
+# ---------------------------------------------------------------------------
+# K3: the ring runtime's fused consensus combine
+# ---------------------------------------------------------------------------
+
+def _update_inputs(n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((n, d)).astype(np.float32) for _ in range(6)]
+
+
+def _largest_term(ops, rho, deg):
+    """max |term| of g + 2 rho deg theta + gamma - rho (deg hat + l + r)."""
+    th, hat, gm, g, l, r = ops
+    terms = (g, 2.0 * rho * deg * th, gm, rho * (deg * hat + l + r))
+    return max(float(np.abs(t).max()) for t in terms)
+
+
+def _assert_update_close(got, want, got_xi, want_xi, scale):
+    np.testing.assert_allclose(got, want, rtol=0, atol=UPDATE_ULPS * scale)
+    np.testing.assert_allclose(got_xi, want_xi, rtol=UPDATE_XI_RTOL,
+                               atol=UPDATE_XI_RTOL * float(np.max(want_xi)))
+
+
+@pytest.mark.parametrize("n,d,deg", UPDATE_SHAPES, ids=str)
+def test_fused_update_plain_matches_reference_kernel(n, d, deg):
+    """Port K3 (plain, on CPU tensors) vs the reference Pallas kernel in
+    interpret mode (which pads D to its 512-wide block) and its plain
+    `coke_update_ref`."""
+    ops = _update_inputs(n, d)
+    kw = dict(rho=0.37, deg=deg)
+    got, got_xi = port_cu.coke_fused_update(*map(torch.tensor, ops), **kw)
+    k, k_xi = jax_cu.coke_fused_update(*map(jnp.asarray, ops), interpret=True,
+                                       **kw)
+    r, r_xi = jax_cu_ref.coke_update_ref(*map(jnp.asarray, ops), **kw)
+    assert got.shape == (n, d) and got_xi.shape == (n,)
+    assert got.dtype == torch.float32
+    scale = _largest_term(ops, **kw)
+    for want, want_xi in ((k, k_xi), (r, r_xi)):
+        _assert_update_close(got.numpy(), np.asarray(want), got_xi.numpy(),
+                             np.asarray(want_xi), scale)
+
+
+def test_fused_update_plain_casts_other_floats():
+    """As the reference kernel does, any float operand is computed in fp32."""
+    ops = _update_inputs(3, 40, seed=2)
+    half = [torch.tensor(a).to(torch.float16) for a in ops]
+    got, xi = port_cu.coke_fused_update(*half, rho=0.1, deg=2.0)
+    want, want_xi = port_cu.coke_fused_update(*[h.float() for h in half],
+                                              rho=0.1, deg=2.0)
+    assert got.dtype == xi.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(xi, want_xi, rtol=0, atol=0)
+
+
+def test_update_pytree_matches_reference():
+    """The tree-level wrapper: two leaves flattened to one (N, D_total)
+    message, g_aug unflattened, xi_norm = sqrt(xi_sq)."""
+    rng = np.random.default_rng(4)
+    trees = [{"a": rng.standard_normal((5, 3, 7)).astype(np.float32),
+              "b": rng.standard_normal((5, 11)).astype(np.float32)}
+             for _ in range(6)]
+    kw = dict(rho=0.2, deg=4.0)
+    port, xi = port_cu_ops.coke_update_pytree(
+        *[{k: torch.tensor(v) for k, v in t.items()} for t in trees], **kw)
+    ref, ref_xi = jax_cu_ops.coke_update_pytree(
+        *[{k: jnp.asarray(v) for k, v in t.items()} for t in trees],
+        interpret=True, **kw)
+    assert set(port) == {"a", "b"}
+    for k in ("a", "b"):
+        assert tuple(port[k].shape) == ref[k].shape
+        np.testing.assert_allclose(port[k].numpy(), np.asarray(ref[k]),
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_allclose(xi.numpy(), np.asarray(ref_xi), rtol=1e-5)
+
+
+def test_fused_update_rejects_operands_it_does_not_take():
+    ops = [torch.tensor(a) for a in _update_inputs(3, 8)]
+    with pytest.raises(ValueError, match="six"):
+        port_cu.coke_fused_update(ops[0][:2], *ops[1:], rho=0.1)
+    with pytest.raises(ValueError, match="six"):
+        port_cu.coke_fused_update(*[a[0] for a in ops], rho=0.1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        port_cu.coke_fused_update(*[a.to("meta") for a in ops], rho=0.1)
