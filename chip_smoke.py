@@ -5,12 +5,13 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  1. build the three hand-written kernels from src/repro_torch/csrc with
+  1. build the four hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
      build/repro_torch/;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
-     ones, each error printed beside its tolerance;
+     ones, each error printed beside its tolerance; K4 (flash attention)
+     over lengths, masks, head groups, both layouts, head dims and dtypes;
   3. small fits on the card against the same fits on the CPU (the plain
      versions): the megakernel path, the spmd backend and the fused
      fallback on a logistic problem; comms and bits equal, theta close;
@@ -38,9 +39,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      its plain version; predict;
   8. torch.profiler windows over ten megakernel COKE iterations and ten
      fused-logistic COKE iterations, recording device activity only:
-     device busy and idle share, device time by kernel.
-Before each of phases 4-6 every launch counter is set to 0, and read
-just after.
+     device busy and idle share, device time by kernel;
+  9. the LM serving engine, small: the reduced qwen3-1.7b config with
+     weights from one seed, on the card against the CPU (K4's plain
+     version): equal greedy tokens, prefill logits close;
+ 10. the LM serving engine at full width: qwen3-1.7b (28 layers, d_model
+     2048, 16 heads / 8 KV, head_dim 128, vocab 151936) in fp32 with
+     weights drawn on the card, serving 2 prompts of 4096 tokens with
+     max_new_tokens=16, greedy, cache_len=4112. K4 must launch exactly 28
+     times (once per layer of the one prefill) and no other kernel; then
+     layer 0's attention against the plain version, the prefill split into
+     K4 and the rest, decode per token, and a profiler window over one
+     prefill;
+ 11. K4 alone at the repo's prefill_32k length (S=32768, B=1, one layer),
+     fp32 and bf16: qwen3-1.7b's heads (H=16, KV=8, causal), also without
+     the causal mask beside it, and Mixtral's sliding window (H=32, KV=8,
+     window 4096): the kernel's time, its bound, and
+     F.scaled_dot_product_attention at the same shape as the yardstick.
+Before each of phases 4-6 and 10 every launch counter is set to 0, and
+read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -56,6 +73,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -64,9 +82,12 @@ N_AGENTS = 20
 SAMPLES = 5000            # per agent: 3500 train + 1500 test rows
 FEATURES = 4096
 # NVIDIA data-sheet peaks: (name fragment, memory bytes/s, fp32 flop/s
-# outside the tensor cores); the first fragment found in the card's name
-CARD_PEAKS = (("H100 PCIe", 2.0e12, 51.2e12), ("H100 NVL", 3.9e12, 60.0e12),
-              ("H100", 3.35e12, 67.0e12), ("H200", 4.8e12, 67.0e12))
+# outside the tensor cores, dense bf16 tensor-core flop/s); the first
+# fragment found in the card's name
+CARD_PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12),
+              ("H100 NVL", 3.9e12, 60.0e12, 835e12),
+              ("H100", 3.35e12, 67.0e12, 989e12),
+              ("H200", 4.8e12, 67.0e12, 989e12))
 # K2: theta' and xi_sq are fp32 sums of T*D products taken in another order
 # than cuBLAS's (per-thread column strips, a fixed block tree, chunk
 # order): relative error ~sqrt(T)*2^-24 ~ 4e-6 at T=3500
@@ -94,6 +115,26 @@ NO_LIBRARY = {
     "coke_fused_update": "no single PyTorch call computes the augmented "
                          "gradient and the per-agent censor norm together",
 }
+# the LM serving path (phase 10): qwen3-1.7b serving 2 prompts of 4096
+# tokens, 16 new tokens each, greedy, in a cache of 4112 slots
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH = 2
+LM_PROMPT = 4096
+LM_NEW_TOKENS = 16
+LM_CACHE = LM_PROMPT + LM_NEW_TOKENS
+# K4 alone (phase 11): the prefill_32k length of src/repro/configs/
+# shapes.py, and Mixtral-8x7B's attention (src/repro/configs/
+# mixtral_8x7b.py: 32 heads, 8 KV heads, head_dim 128, window 4096)
+PREFILL_32K = 32768
+MIXTRAL_HEADS = (32, 8, 128, 4096)
+# K4 against its plain version: fp32 scores and an online softmax against a
+# full softmax (the reference's own tolerance, tests/test_kernels.py); bf16
+# outputs within an ulp of bf16 (2^-7 relative) after rounding
+K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# the LM on the card against the CPU: fp32 through the layers with cuBLAS
+# and K4 against ATen's CPU matmuls and the plain softmax, ~1e-6 relative
+# per op: logits within 1e-5 of their largest magnitude
+LM_RTOL = 1e-5
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -101,6 +142,9 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
                      "src/repro/kernels/rff/rff.py:51"),
     "coke_fused_update": ("src/repro_torch/csrc/coke_fused_update.cu",
                           "src/repro/kernels/coke_update/coke_update.py:81"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:97"),
 }
 
 
@@ -109,9 +153,9 @@ def log(phase, msg):
 
 
 def card_peaks(name):
-    for frag, bw, flops in CARD_PEAKS:
+    for frag, bw, flops, bf16 in CARD_PEAKS:
         if frag in name:
-            return bw, flops
+            return bw, flops, bf16
     raise RuntimeError(f"no data-sheet peaks for {name!r}: add them to "
                        "CARD_PEAKS before quoting a bound")
 
@@ -176,6 +220,56 @@ def paired_ms(fn, calls, runs=7, warmup=2):
     return statistics.median(dev), statistics.median(host)
 
 
+def sdpa_ms(q, k, v, *, causal, mask=None):
+    """(ms, how) of one torch.nn.functional.scaled_dot_product_attention
+    call on q (B, H, S, Dh), k/v (B, KV, S, *): the library yardstick of K4,
+    timed here and called nowhere in the port. Takes the first backend of
+    flash, efficient and cuDNN that runs the call (math too where its S^2
+    scores fit), with grouped heads through enable_gqa or, where a backend
+    refuses that, with K and V repeated H/KV times before the timed call."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    H, KV = q.shape[1], k.shape[1]
+    scores = 4.0 * q.shape[0] * H * q.shape[2] * k.shape[2]
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    if 3 * scores < 20e9:
+        backends.append(SDPBackend.MATH)
+    refused = []
+    for backend in backends:
+        for gqa in ((True, False) if H != KV else (False,)):
+            kk, vv = k, v
+            if H != KV and not gqa:
+                kk = k.repeat_interleave(H // KV, dim=1)
+                vv = v.repeat_interleave(H // KV, dim=1)
+
+            def call():
+                with sdpa_kernel([backend]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, kk, vv, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=gqa)
+
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    call()
+                    torch.cuda.synchronize()
+            except RuntimeError as e:          # includes OutOfMemoryError
+                refused.append(f"{backend.name}{' enable_gqa' if gqa else ''}"
+                               f": {str(e).splitlines()[0][:60]}")
+                continue
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                ms = time_ms(call, reps=1, runs=3, warmup=1)
+            heads = ("H = KV" if H == KV else "enable_gqa" if gqa
+                     else f"K/V repeated {H // KV}x before the call")
+            mask_how = ("boolean mask" if mask is not None
+                        else "is_causal" if causal else "no mask")
+            return ms, (f"backend {backend.name}, {heads}, {mask_how}"
+                        + (f"; refused: {refused}" if refused else ""))
+    raise RuntimeError(f"no SDPA backend ran the call: {refused}")
+
+
 def k1_tolerance(x, omega):
     """1e-6 absolute on phi, or 16 ulps of the largest |x @ omega| times
     sqrt(2/L) where that is larger: the kernel's fmaf chain and cuBLAS
@@ -220,6 +314,9 @@ def main() -> int:
     from repro_torch.kernels.coke_update import coke_update as k2
     from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
                                                      coke_update_ref)
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rff import rff as k1
     from repro_torch.kernels.rff.ref import rff_ref
 
@@ -230,10 +327,12 @@ def main() -> int:
 
     def reset_counts():
         k1.LAUNCHES = k2.LAUNCHES = k2.FUSED_UPDATE_LAUNCHES = 0
+        k4.LAUNCHES = 0
 
     def counts():
         return {"coke_megastep": k2.LAUNCHES, "rff_cos_bias": k1.LAUNCHES,
-                "coke_fused_update": k2.FUSED_UPDATE_LAUNCHES}
+                "coke_fused_update": k2.FUSED_UPDATE_LAUNCHES,
+                "flash_attention": k4.LAUNCHES}
 
     # ---- 0. device -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -242,11 +341,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     card = smi
-    bw, fp32 = card_peaks(name)
+    bw, fp32, bf16_peak = card_peaks(name)
     log(0, f"device {name} (count {torch.cuda.device_count()}), torch "
            f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(0, f"nvidia-smi: {smi}; peaks used for bounds: {bw / 1e12} TB/s, "
-           f"{fp32 / 1e12} TFLOP/s fp32")
+           f"{fp32 / 1e12} TFLOP/s fp32, {bf16_peak / 1e12} TFLOP/s bf16")
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -350,6 +449,53 @@ def main() -> int:
     for n, d, deg in ((1, 1, 2.0), (3, 513, 2.0), (7, 1000, 2.0),
                       (1, 1, 4.0), (3, 513, 4.0), (7, 1000, 4.0)):
         update_case(n, d, deg)
+
+    def attention_cases():
+        """K4 against its plain version over lengths (Sq = Sk, and not),
+        masks, head groups, both layouts, head dims and dtypes."""
+        worst = {}
+        for sq, sk in ((100, 100), (257, 257), (1024, 1024), (300, 700),
+                       (700, 300)):
+            for dh, dv in ((64, 64), (128, 128), (192, 128)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    errs_here = []
+                    for kv in (8, 4, 2):          # H / KV = 1, 2, 4
+                        q = torch.randn((2, 8, sq, dh), generator=gen,
+                                        device=dev).to(dtype)
+                        k = torch.randn((2, kv, sk, dh), generator=gen,
+                                        device=dev).to(dtype)
+                        v = torch.randn((2, kv, sk, dv), generator=gen,
+                                        device=dev).to(dtype)
+                        for causal in (True, False):
+                            for window in (0, 32):
+                                want = attention_ref(q, k, v, causal=causal,
+                                                     window=window)
+                                a = k4.flash_attention(q, k, v, causal=causal,
+                                                       window=window)
+                                b = gqa_flash(q.transpose(1, 2),
+                                              k.transpose(1, 2),
+                                              v.transpose(1, 2),
+                                              causal=causal, window=window)
+                                torch.cuda.synchronize()
+                                for got in (a, b.transpose(1, 2)):
+                                    errs_here.append(float(
+                                        (got.float() - want.float()).abs()
+                                        .max()))
+                    err, tol = max(errs_here), K4_TOL[dtype]
+                    key = str(dtype).split(".")[-1]
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    log(2, f"K4 flash_attention Sq={sq} Sk={sk} Dh={dh} "
+                           f"Dv={dv} {key}: H/KV 1, 2, 4 x causal x window "
+                           f"0, 32 x both layouts ({len(errs_here)} calls): "
+                           f"max|err| {err:.3e} (tol {tol:g})")
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"K4 disagrees with its plain version at Sq={sq} "
+                            f"Sk={sk} Dh={dh} Dv={dv} {key}: {err} > {tol}")
+        return worst
+
+    k4_worst = attention_cases()
+    log(2, f"K4 worst error over the sweep: {k4_worst}")
 
     # ---- 3. small fits, card against CPU ----------------------------------
     small = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
@@ -769,6 +915,244 @@ def main() -> int:
             if "coke_fused_update_kernel" in key:
                 log(8, f"[{card}] K3 kernel device time {ms / count:.4f} ms "
                        f"per launch ({count} launches)")
+
+    # ---- 9. the LM serving engine, small: card against CPU ----------------
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _gqa_project_qkv
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import Engine, ServeConfig
+
+    small_cfg = get_config(LM_ARCH).reduced()
+    small_gpu = M.init_params(small_cfg,
+                              torch.Generator(device=dev).manual_seed(0))
+    small_cpu = M.LM(small_cfg, device="cpu")
+    small_cpu.load_state_dict({n: t.cpu() for n, t in
+                               small_gpu.state_dict().items()})
+    rng = np.random.default_rng(0)
+    small_prompts = rng.integers(0, small_cfg.vocab_size, (2, 64))
+    scfg = ServeConfig(max_new_tokens=8, cache_len=72)
+    before = k4.LAUNCHES
+    toks_gpu = Engine(small_cfg, small_gpu, scfg).generate(small_prompts)
+    torch.cuda.synchronize()
+    if k4.LAUNCHES - before != small_cfg.num_layers:
+        raise AssertionError("the small engine did not launch K4 once per "
+                             "layer")
+    toks_cpu = Engine(small_cfg, small_cpu, scfg).generate(small_prompts)
+    batch = {"tokens": torch.as_tensor(small_prompts)}
+    lg_gpu, _ = M.prefill_with_state(small_gpu, small_cfg,
+                                     {"tokens": batch["tokens"].to(dev)}, 72)
+    lg_cpu, _ = M.prefill_with_state(small_cpu, small_cfg, batch, 72)
+    e = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    tol = LM_RTOL * float(lg_cpu.abs().max())
+    top2 = torch.topk(lg_cpu[..., :small_cfg.vocab_size], 2, dim=-1).values
+    log(9, f"reduced {LM_ARCH} (2 layers, d_model 256) engine, 2 x 64 "
+           f"prompt tokens, 8 new: card tokens {toks_gpu.tolist()}; equal "
+           f"to the CPU's: {bool((toks_gpu == toks_cpu).all())}; prefill "
+           f"logits max|err| {e:.3e} (tol {tol:.3e}, rtol {LM_RTOL:g} of "
+           f"max|logit|); first-token top-1/top-2 margin "
+           f"{float((top2[..., 0] - top2[..., 1]).min()):.3e}")
+    if not ((toks_gpu == toks_cpu).all() and e <= tol):
+        raise AssertionError("the small engine differs between card and CPU")
+    del small_gpu, small_cpu
+
+    # ---- 10. the LM serving engine at full width ---------------------------
+    lm_cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    lm = M.init_params(lm_cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.parameters())
+    log(10, f"{LM_ARCH}: {n_params / 1e9:.3f} B parameters drawn on the card "
+            f"in fp32 ({n_params * 4 / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    prompts = rng.integers(0, lm_cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    engine = Engine(lm_cfg, lm, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                            cache_len=LM_CACHE))
+    reset_counts()
+    t0 = time.perf_counter()
+    served = engine.generate(prompts)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    lm_counts = counts()
+    log(10, f"generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+            f"{LM_NEW_TOKENS} new each, in {serve_wall:.2f} s wall (first "
+            f"call); launch counts over the serving path: {lm_counts}")
+    if lm_counts != {"coke_megastep": 0, "rff_cos_bias": 0,
+                     "coke_fused_update": 0,
+                     "flash_attention": lm_cfg.num_layers}:
+        raise AssertionError(f"the serving path launched {lm_counts}, not "
+                             f"K4 once per layer of the prefill")
+    if served.shape != (LM_BATCH, LM_NEW_TOKENS) or not (
+            (served >= 0) & (served < lm_cfg.vocab_size)).all():
+        raise AssertionError(f"generate gave {served.shape} tokens outside "
+                             "the vocabulary")
+    log(10, f"generated ids (first 8 of each row): "
+            f"{served[:, :8].tolist()}")
+
+    lm_batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    with torch.inference_mode():
+        logits, lm_state = M.prefill_with_state(lm, lm_cfg, lm_batch,
+                                                LM_CACHE)
+        torch.cuda.synchronize()
+        if logits.shape != (LM_BATCH, 1, lm_cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite "
+                                 f"{(LM_BATCH, 1, lm_cfg.padded_vocab)}")
+        # layer 0's attention: K4 against its plain version on one query
+        # head of each KV group, over the last 512 query rows, which see
+        # the whole causal key range
+        pos = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev)
+        h0 = rms_norm(torch.nn.functional.embedding(lm_batch["tokens"],
+                                                    lm.embed),
+                      lm.blocks[0].ln1, lm_cfg.norm_eps)
+        q0, k0, v0 = _gqa_project_qkv(lm.blocks[0].attn, lm_cfg, h0, pos)
+        got = gqa_flash(q0, k0, v0, causal=True)
+        group = lm_cfg.num_heads // lm_cfg.num_kv_heads
+        heads = torch.arange(0, lm_cfg.num_heads, group, device=dev)
+        want = attention_ref(q0[:, :, heads].transpose(1, 2),
+                             k0.transpose(1, 2), v0.transpose(1, 2),
+                             causal=True).transpose(1, 2)
+        rows = slice(LM_PROMPT - 512, LM_PROMPT)
+        err_k4 = float((got[:, rows][:, :, heads] - want[:, rows]).abs()
+                       .max())
+        errs["flash_attention"] = err_k4
+        log(10, f"layer 0 attention, K4 against its plain version on heads "
+                f"{heads.tolist()} (one per KV group), last 512 query rows: "
+                f"max|err| {err_k4:.3e} (tol {K4_TOL[torch.float32]:g})")
+        if not err_k4 <= K4_TOL[torch.float32]:
+            raise AssertionError("K4 disagrees with its plain version on "
+                                 "layer 0 of the full-width prefill")
+        del want
+
+        # times: prefill split into K4 and the rest, decode per token
+        prefill_t = paired_ms(lambda: M.prefill_with_state(
+            lm, lm_cfg, lm_batch, LM_CACHE), 1, runs=3, warmup=1)
+        k4_call = paired_ms(ten(lambda: gqa_flash(q0, k0, v0, causal=True)),
+                            10, runs=3, warmup=1)
+        k4_share = lm_cfg.num_layers * k4_call[0]
+        log(10, f"[{card}] prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
+                f"{pair(prefill_t)}. K4: {lm_cfg.num_layers} launches x "
+                f"{pair(k4_call)} = {k4_share:.4f} ms on the device "
+                f"({k4_share / prefill_t[0]:.1%} of the prefill); the rest "
+                f"(projections, norms, rope, MLPs, cache packing, head) "
+                f"{prefill_t[0] - k4_share:.4f} ms")
+        token = torch.as_tensor(served[:, :1], dtype=torch.long, device=dev)
+
+        def decode_steps():
+            for i in range(LM_NEW_TOKENS - 1):
+                M.decode_step(lm, lm_cfg, token, lm_state, LM_PROMPT + i)
+
+        decode_t = paired_ms(decode_steps, LM_NEW_TOKENS - 1, runs=3,
+                             warmup=1)
+        weight_ms = n_params * 4 / bw * 1e3
+        log(10, f"[{card}] decode per token (batch {LM_BATCH}, cache "
+                f"{LM_CACHE}): {pair(decode_t)}; reading the fp32 weights "
+                f"once takes {weight_ms:.4f} ms at {bw / 1e12} TB/s")
+        for what, fn in (("one prefill", lambda: M.prefill_with_state(
+                lm, lm_cfg, lm_batch, LM_CACHE)),
+                         (f"{LM_NEW_TOKENS - 1} decode steps", decode_steps)):
+            window, rows_p = trace(fn, [ProfilerActivity.CUDA]) \
+                if ProfilerActivity.CUDA in supported_activities() \
+                else (0, [])
+            if not rows_p:
+                log(10, f"the profiler recorded no device time over {what}: "
+                        "its busy share is not measured")
+                continue
+            busy = sum(r[0] for r in rows_p)
+            log(10, f"[{card}] {what} under the profiler (CUDA): window "
+                    f"{window:.4f} ms, kernels {busy:.4f} ms, device busy "
+                    f"{busy / window:.1%}, idle {1 - busy / window:.1%}")
+            for ms, count, key in rows_p[:8]:
+                log(10, f"  {ms:.4f} ms  {count:>5} calls  {key[:100]}")
+
+        # K4 at the main path's shape: its bound, plain version, library
+        n_pairs = LM_PROMPT * (LM_PROMPT + 1) // 2
+        dh = lm_cfg.resolved_head_dim
+        k4_flops = 2.0 * LM_BATCH * lm_cfg.num_heads * 2 * dh * n_pairs
+        k4_bytes = 4.0 * LM_BATCH * LM_PROMPT * dh * (
+            2 * lm_cfg.num_heads + 2 * lm_cfg.num_kv_heads)
+        k4_ms = time_ms(lambda: gqa_flash(q0, k0, v0, causal=True), reps=3,
+                        runs=5, warmup=1)
+        k4_plain_ms = time_ms(lambda: attention_ref(
+            q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2),
+            causal=True), reps=1, runs=3, warmup=1)
+        k4_lib_ms, k4_lib_how = sdpa_ms(q0.transpose(1, 2), k0.transpose(1, 2),
+                                        v0.transpose(1, 2), causal=True)
+        del q0, k0, v0, h0, got, lm_state, logits
+    del lm, engine
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(k4_bytes, k4_flops)
+    src, replaces = KERNEL_SOURCES["flash_attention"]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": src, "replaces": replaces,
+                    "launches": lm_counts["flash_attention"],
+                    "max_abs_err": errs["flash_attention"], "ms": k4_ms,
+                    "plain_ms": k4_plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": k4_lib_ms})
+    log(10, f"[{card}] flash_attention at the prefill's shape (B={LM_BATCH}, "
+            f"S={LM_PROMPT}, H={lm_cfg.num_heads}, KV={lm_cfg.num_kv_heads}, "
+            f"Dh=Dv={dh}, causal, fp32): {k4_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {k4_bytes / 1e9:.4f} GB, {k4_flops / 1e12:.4f} TFLOP "
+            f"over {n_pairs} admissible pairs per head; {b_ms / k4_ms:.1%} "
+            f"of it), plain {k4_plain_ms:.4f} ms, "
+            f"F.scaled_dot_product_attention {k4_lib_ms:.4f} ms "
+            f"({k4_lib_how})")
+
+    # ---- 11. K4 alone at the prefill_32k length ----------------------------
+    side = {}
+    qwen3 = (lm_cfg.num_heads, lm_cfg.num_kv_heads, dh, 0)
+    for label, (H, KV, D, window), dtype, causal in (
+            ("qwen3", qwen3, torch.float32, True),
+            ("qwen3", qwen3, torch.float32, False),
+            ("qwen3", qwen3, torch.bfloat16, True),
+            ("mixtral", MIXTRAL_HEADS, torch.float32, True),
+            ("mixtral", MIXTRAL_HEADS, torch.bfloat16, True)):
+        S = PREFILL_32K
+        q = torch.randn((1, S, H, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((1, S, KV, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((1, S, KV, D), generator=gen, device=dev).to(dtype)
+        ms = time_ms(lambda: gqa_flash(q, k, v, causal=causal,
+                                       window=window), reps=1, runs=3,
+                     warmup=1)
+        if causal and window:
+            n_pairs = (window * (window + 1) // 2 + (S - window) * window)
+        elif causal:
+            n_pairs = S * (S + 1) // 2
+        else:
+            n_pairs = S * S
+        flops = 2.0 * H * 2 * D * n_pairs
+        nbytes = dtype.itemsize * S * D * (2 * H + 2 * KV)
+        peak = fp32 if dtype == torch.float32 else bf16_peak
+        t_b, t_f = nbytes / bw * 1e3, flops / peak * 1e3
+        b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] >
+                                                 i[:, None] - window)
+        lib_ms, lib_how = sdpa_ms(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  mask=mask)
+        key = str(dtype).split(".")[-1]
+        side[(label, key, causal)] = ms
+        log(11, f"[{card}] K4 {label} S={S} H={H} KV={KV} Dh=Dv={D} "
+                f"{'causal' if causal else 'non-causal'} window={window} "
+                f"{key}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                f"{flops / 1e12:.4f} TFLOP over {n_pairs} pairs per head at "
+                f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e9:.4f} GB; "
+                f"{b_ms / ms:.1%} of it); F.scaled_dot_product_attention "
+                f"{lib_ms:.4f} ms ({lib_how})")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    ratio = side[("qwen3", "float32", True)] / side[("qwen3", "float32",
+                                                     False)]
+    log(11, f"[{card}] K4 qwen3 S={PREFILL_32K} fp32: causal "
+            f"{side[('qwen3', 'float32', True)]:.4f} ms beside non-causal "
+            f"{side[('qwen3', 'float32', False)]:.4f} ms: {ratio:.3f}x "
+            "(key tiles above the diagonal are skipped)")
+    if not ratio <= 0.6:
+        raise AssertionError(f"the causal K4 call takes {ratio:.3f}x the "
+                             "non-causal one: the skipped tiles did not show")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,2 +1,3 @@
-"""Run configurations of the paper's workload."""
+"""Run configurations: the paper's workload and the LM architectures."""
 from repro_torch.configs.coke_krr import KRRConfig, PAPER_SETUPS  # noqa: F401
+from repro_torch.configs.registry import get_config, list_archs  # noqa: F401

@@ -14,6 +14,8 @@ from repro_torch.api.model import KernelModel, model_from_arrays
 from repro_torch.core.admm import Problem
 from repro_torch.core.rff import RFFParams
 from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.model import LM
 
 
 def rff_params_from_numpy(omega, bias, mapping: str = "cos_bias", *,
@@ -46,3 +48,33 @@ def model_from_numpy(arrays: dict, sidecar: dict | None = None, *,
     keys (mapping, bandwidth, kernel, meta, ...)."""
     return model_from_arrays({k: np.asarray(v) for k, v in arrays.items()},
                              sidecar or {}, resolve_device(device))
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, array) for every leaf of a nested dict."""
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", val
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: dict, *,
+                         device: torch.device | str | None = None) -> LM:
+    """The port's model with the reference's weights: `params` is the
+    reference's `models.model.init_params` pytree as numpy arrays, whose
+    blocks are stacked along a leading layer axis. Every leaf must find its
+    place in the port's module, and every weight of the module must be
+    given (`load_state_dict(strict=True)`)."""
+    state = {}
+    for path, arr in _leaves(params):
+        arr = np.asarray(arr)
+        if path.startswith("blocks."):
+            rest = path[len("blocks."):]
+            for i in range(arr.shape[0]):
+                state[f"blocks.{i}.{rest}"] = torch.tensor(arr[i])
+        else:
+            state[path] = torch.tensor(arr)
+    model = LM(cfg, device=resolve_device(device))
+    model.load_state_dict(state, strict=True)
+    return model

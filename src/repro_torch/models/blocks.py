@@ -1,0 +1,156 @@
+"""Residual blocks: the dense pre-norm attention + SwiGLU MLP block.
+
+Port of the dense part of `repro/models/blocks.py`. The reference builds
+stacks by a vmapped init and runs them under `lax.scan`; the port keeps
+one module per layer in an `nn.ModuleList` and loops (`models/model.py`).
+MoE, SSM and the cross-attention block raise NotImplementedError naming
+`common.LATER_ARCHS`.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (LATER_ARCHS, ModelConfig, dense_init,
+                                       frozen, init_device, rms_norm, swiglu)
+
+
+def _dense_only(kind: str) -> None:
+    if kind != "dense":
+        raise NotImplementedError(f"block kind {kind!r} is not ported: "
+                                  f"{LATER_ARCHS}")
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU MLP weights: w_gate, w_up (d, f) and w_down (f, d)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: torch.Generator | None = None,
+                 d_ff: int | None = None, *,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        dev = init_device(generator, device)
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        self.w_gate = frozen(dense_init(generator, (d, f), cfg.dtype,
+                                        device=dev))
+        self.w_up = frozen(dense_init(generator, (d, f), cfg.dtype,
+                                      device=dev))
+        self.w_down = frozen(dense_init(generator, (f, d), cfg.dtype,
+                                        fan_in=f, device=dev))
+
+
+def init_mlp_params(cfg: ModelConfig, generator: torch.Generator,
+                    d_ff: int | None = None) -> MLP:
+    return MLP(cfg, generator, d_ff)
+
+
+def mlp_forward(params: MLP, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x @ params.w_gate, x @ params.w_up) @ params.w_down
+
+
+# ---------------------------------------------------------------------------
+# Attention dispatch (GQA; MLA raises)
+# ---------------------------------------------------------------------------
+
+def init_attn_params(cfg: ModelConfig,
+                     generator: torch.Generator) -> attn.GQAAttention:
+    return attn.GQAAttention(cfg, generator)
+
+
+def attn_forward(params, cfg: ModelConfig, x, positions, *, causal=True,
+                 window=None, cache_len=None):
+    return attn.gqa_forward(params, cfg, x, positions, causal=causal,
+                            window=window, cache_len=cache_len)
+
+
+def attn_decode(params, cfg: ModelConfig, x, cache, position):
+    return attn.gqa_decode(params, cfg, x, cache, position)
+
+
+def attn_empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                     device: torch.device | str) -> attn.KVCache:
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"attn_kind={cfg.attn_kind!r} is not "
+                                  f"ported: {LATER_ARCHS}")
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return attn.KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        slot_positions=torch.full((cache_len,), -1, dtype=torch.int32,
+                                  device=device))
+
+
+# ---------------------------------------------------------------------------
+# Decoder blocks
+# ---------------------------------------------------------------------------
+
+class DenseBlock(nn.Module):
+    """Pre-norm residual block weights: ln1, attn, ln2, mlp."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: torch.Generator | None = None, *,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        dev = init_device(generator, device)
+        d = cfg.d_model
+        self.ln1 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.attn = attn.GQAAttention(cfg, generator, device=dev)
+        self.ln2 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.mlp = MLP(cfg, generator, device=dev)
+
+
+def init_block_params(cfg: ModelConfig, generator: torch.Generator,
+                      kind: str) -> DenseBlock:
+    """kind: dense (moe and ssm raise)."""
+    _dense_only(kind)
+    return DenseBlock(cfg, generator)
+
+
+def block_forward(params: DenseBlock, cfg: ModelConfig, x, positions,
+                  kind: str, *, causal=True, window=None, cache_len=None):
+    """Pre-norm residual block. Returns (x, aux_loss[, cache])."""
+    _dense_only(kind)
+    if cfg.seq_parallel:
+        raise NotImplementedError("seq_parallel=True (the reference's "
+                                  "shard_activations) is not ported: "
+                                  "ROADMAP.md Queue 1 item 14 (sharding)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    cache = None
+    if cache_len is not None:
+        y, cache = attn_forward(params.attn, cfg, h, positions,
+                                causal=causal, window=window,
+                                cache_len=cache_len)
+    else:
+        y = attn_forward(params.attn, cfg, h, positions, causal=causal,
+                         window=window)
+    x = x + y
+    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    x = x + mlp_forward(params.mlp, h)
+    if cache_len is not None:
+        return x, aux, cache
+    return x, aux
+
+
+def block_decode(params: DenseBlock, cfg: ModelConfig, x, positions_unused,
+                 kind: str, cache, position):
+    """Single-token decode through one block. Returns (x, cache), the cache
+    updated in place (`attention.gqa_decode`)."""
+    _dense_only(kind)
+    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    y, new_cache = attn_decode(params.attn, cfg, h, cache, position)
+    x = x + y
+    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    return x + mlp_forward(params.mlp, h), new_cache
+
+
+def block_empty_cache(cfg: ModelConfig, kind: str, batch: int,
+                      cache_len: int, dtype,
+                      device: torch.device | str) -> attn.KVCache:
+    _dense_only(kind)
+    return attn_empty_cache(cfg, batch, cache_len, dtype, device)

@@ -1,11 +1,12 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the card. These need a CUDA card and skip elsewhere; the file imports
-only torch, numpy and repro_torch, so it runs on a machine without jax:
+on the card, and the LM's prefill through K4 there. These need a CUDA card
+and skip elsewhere; the file imports only torch, numpy and repro_torch, so
+it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: fp32 with another summation order than cuBLAS (see the
-comments beside each).
+Tolerances: fp32 with another summation order than cuBLAS or the plain
+softmax; bf16 within an ulp of bf16 (see the comments beside each).
 """
 import math
 
@@ -19,6 +20,9 @@ from repro_torch.api import FitConfig, KRRConfig, build_problem, fit
 from repro_torch.kernels.coke_update import coke_update as k2
 from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
                                                  coke_update_ref)
+from repro_torch.kernels.flash_attention import flash_attention as k4
+from repro_torch.kernels.flash_attention.ops import gqa_flash
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rff import rff as k1
 from repro_torch.kernels.rff.ref import rff_ref
 
@@ -198,3 +202,87 @@ def test_ring_runtime_fits_on_card_match_cpu(cuda):
                                           cpu.history[k].numpy())
         torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
                                    atol=1e-5)
+
+
+# K4: fp32 scores and an online softmax against the plain version's full
+# softmax, both in fp32 (the reference's own tolerance, test_kernels.py);
+# bf16 outputs may differ by an ulp of bf16 (2^-7 relative) after rounding
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# (B, H, KV, Sq, Sk, Dh, Dv, causal, window): ragged tails, GQA groups,
+# Dh != Dv, Sq != Sk, windows, and rows that no key may see (the last)
+ATTN_SHAPES = [(1, 2, 2, 100, 100, 64, 64, True, 0),
+               (2, 4, 2, 257, 257, 128, 128, True, 32),
+               (1, 4, 1, 64, 200, 64, 64, False, 0),
+               (2, 2, 2, 130, 70, 192, 128, True, 0),
+               (1, 8, 2, 1024, 1024, 128, 128, True, 0),
+               (1, 3, 3, 33, 33, 16, 16, False, 32),
+               (1, 2, 2, 200, 20, 32, 32, True, 8)]
+
+
+def _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype, seed=3):
+    g = _gen(cuda, seed)
+    q = torch.randn((B, H, Sq, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, KV, Sk, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, KV, Sk, Dv), generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, layout):
+    B, H, KV, Sq, Sk, Dh, Dv, causal, window = shape
+    q, k, v = _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    before = k4.LAUNCHES
+    if layout == "bhsd":
+        got = k4.flash_attention(q, k, v, causal=causal, window=window)
+    else:        # the model's layout, as views: no copy reaches the kernel
+        got = gqa_flash(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        window=window).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ATTN_TOL[dtype])
+
+
+def test_flash_attention_kernel_raises_on_operands_it_does_not_take(cuda):
+    q, k, v = _attn_operands(cuda, 1, 2, 2, 16, 16, 32, 32, torch.float32)
+    with pytest.raises(TypeError):
+        k4.flash_attention(q.half(), k.half(), v.half())
+    strided = torch.zeros((1, 2, 16, 64), device=cuda)[..., ::2]
+    with pytest.raises(ValueError):       # last dim not contiguous
+        k4.flash_attention(strided, strided, strided)
+    big = torch.zeros((1, 2, 16, 257), device=cuda)
+    with pytest.raises(ValueError):
+        k4.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        k4.flash_attention(q, k.cpu(), v)
+
+
+def test_lm_on_card_launches_k4_once_per_layer(cuda):
+    """Forward and prefill of the reduced qwen3 on the card: one K4 launch
+    per layer each, and the CPU's logits (plain attention) within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-1.7b").reduced().with_overrides(num_kv_heads=2)
+    gpu = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 77)))
+    before = k4.LAUNCHES
+    got, _ = M.forward(gpu, cfg, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + cfg.num_layers
+    want, _ = M.forward(cpu, cfg, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    before = k4.LAUNCHES
+    last, state = M.prefill_with_state(gpu, cfg, {"tokens": toks.to(cuda)},
+                                       cache_len=96)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(last.cpu(), want[:, -1:], rtol=0, atol=1e-4)

@@ -1,0 +1,364 @@
+"""The port's LM serving path against the JAX reference, on the CPU.
+
+The reduced qwen3-1.7b config (2 layers, d_model 256, 4 heads, head_dim
+64, vocab 1024), and a grouped variant with 2 KV heads, with the
+reference's `init_params` weights carried into the port by
+`convert.lm_params_from_numpy`. On the CPU the port's prefill attention is
+K4's plain version; the reference runs its jnp `blockwise_attention`.
+
+Tolerance: fp32 through two layers with other summation orders (XLA's
+dots and blockwise online softmax against ATen's matmuls and a full
+softmax): ~1e-6 relative per op, so logits, layer outputs and caches are
+held to 1e-5 of their largest magnitude.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
+from repro.models import attention as jax_attn
+from repro.models import blocks as jax_blk
+from repro.models import model as JM
+from repro.serve import Engine as JaxEngine
+from repro.serve import ServeConfig as JaxServeConfig
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.kernels.flash_attention import flash_attention as k4
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks as blk
+from repro_torch.models import common
+from repro_torch.models import model as M
+from repro_torch.serve import Engine, ServeConfig
+
+torch.set_num_threads(2)
+
+RTOL = 1e-5
+VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}}
+
+
+def _close(got, want, rtol=RTOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+def _configs(variant):
+    return (jax_get_config("qwen3-1.7b").reduced().with_overrides(
+                **VARIANTS[variant]),
+            get_config("qwen3-1.7b").reduced().with_overrides(
+                **VARIANTS[variant]))
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def pair(request):
+    """(jax cfg, jax params, port cfg, port model) on the same weights."""
+    jcfg, cfg = _configs(request.param)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(3))
+    model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                 device="cpu")
+    return jcfg, jp, cfg, model
+
+
+def _tokens(cfg, B=2, S=37, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _layer(jp, i):
+    return jax.tree.map(lambda a: a[i], jp["blocks"])
+
+
+def test_forward_logits_match(pair):
+    jcfg, jp, cfg, model = pair
+    toks = _tokens(cfg)
+    want, _ = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    got, aux = M.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 37, cfg.padded_vocab) and float(aux) == 0.0
+    _close(got, want)
+    _close(M.prefill(model, cfg, {"tokens": torch.from_numpy(toks)}),
+           np.asarray(want)[:, -1:])
+
+
+@pytest.mark.parametrize("cache_len", [None, 16])
+def test_gqa_forward_and_block_forward_per_layer(pair, cache_len):
+    jcfg, jp, cfg, model = pair
+    B, S = 2, 29
+    x = np.random.default_rng(1).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jpos, tpos = jnp.asarray(pos), torch.from_numpy(pos)
+    for i in range(cfg.num_layers):
+        lp = _layer(jp, i)
+        want = jax_attn.gqa_forward(lp["attn"], jcfg, jx, jpos,
+                                    cache_len=cache_len)
+        got = attn.gqa_forward(model.blocks[i].attn, cfg, tx, tpos,
+                               cache_len=cache_len)
+        if cache_len is None:
+            _close(got, want)
+        else:
+            _close(got[0], want[0])
+            for g, w in zip(got[1], want[1]):
+                _close(g, w)
+        want = jax_blk.block_forward(lp, jcfg, jx, jpos, "dense",
+                                     cache_len=cache_len)
+        got = blk.block_forward(model.blocks[i], cfg, tx, tpos, "dense",
+                                cache_len=cache_len)
+        assert len(got) == len(want)
+        _close(got[0], want[0])
+        assert float(got[1]) == float(want[1]) == 0.0
+
+
+@pytest.mark.parametrize("cache_len", [64, 16])
+def test_prefill_with_state_matches_reference(pair, cache_len):
+    """Last-position logits and every layer's cache, full and rolling."""
+    jcfg, jp, cfg, model = pair
+    toks = _tokens(cfg)
+    want_logits, want_state = JM.prefill_with_state(
+        jp, jcfg, {"tokens": jnp.asarray(toks)}, cache_len)
+    logits, state = M.prefill_with_state(
+        model, cfg, {"tokens": torch.from_numpy(toks)}, cache_len)
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    _close(logits, want_logits)
+    assert len(state["layers"]) == cfg.num_layers
+    for i, cache in enumerate(state["layers"]):
+        want = jax.tree.map(lambda a: np.asarray(a[i]), want_state["layers"])
+        _close(cache.k, want.k)
+        _close(cache.v, want.v)
+        np.testing.assert_array_equal(cache.slot_positions.numpy(),
+                                      want.slot_positions)
+
+
+def test_decode_step_matches_reference_and_forward(pair):
+    """Token-by-token decode from empty caches: each position's logits
+    equal the reference's decode_step and the port's own forward (the
+    serve path is numerically the train path, test_system.py)."""
+    jcfg, jp, cfg, model = pair
+    B, S = 2, 10
+    toks = _tokens(cfg, B, S, seed=2)
+    full, _ = M.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
+    jstate = JM.init_serve_state(jcfg, B, cache_len=S)
+    state = M.init_serve_state(cfg, B, cache_len=S, device="cpu")
+    for t in range(S):
+        want, jstate = JM.decode_step(jp, jcfg, jnp.asarray(toks[:, t:t + 1]),
+                                      jstate, jnp.asarray(t, jnp.int32))
+        got, state = M.decode_step(model, cfg,
+                                   torch.from_numpy(toks[:, t:t + 1]),
+                                   state, t)
+        _close(got, want)
+        _close(got, full[:, t:t + 1])
+
+
+def test_engine_greedy_tokens_equal_reference(pair):
+    """Same greedy tokens; each step's top-1/top-2 logit margin exceeds the
+    logit tolerance, so the equality is not a tie broken alike."""
+    jcfg, jp, cfg, model = pair
+    prompts = _tokens(cfg, 2, 12, seed=4)
+    scfg = dict(max_new_tokens=8, cache_len=32)
+    want = JaxEngine(jcfg, jp, JaxServeConfig(**scfg)).generate(prompts)
+    got = Engine(cfg, model, ServeConfig(**scfg)).generate(prompts)
+    assert got.shape == (2, 8) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    # replay the decode and check the margins the equality rests on
+    seq = np.concatenate([prompts, got[:, :-1]], axis=1)
+    logits, _ = M.forward(model, cfg, {"tokens": torch.from_numpy(seq)})
+    steps = logits[:, prompts.shape[1] - 1:, :cfg.vocab_size]
+    top2 = torch.topk(steps, 2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    tol = RTOL * float(steps.abs().max())
+    assert margin > 10 * tol, (margin, tol)
+    np.testing.assert_array_equal(steps.argmax(-1).numpy(), got)
+
+
+def test_engine_sampling_follows_the_generator():
+    """Temperature sampling is deterministic for one generator seed and
+    depends on it; near-zero temperature gives the greedy tokens."""
+    _, cfg = _configs("mha")
+    model = M.init_params(cfg, torch.Generator().manual_seed(3))
+    prompts = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    greedy = Engine(cfg, model, ServeConfig(max_new_tokens=6, cache_len=32)
+                    ).generate(prompts)
+    cold = Engine(cfg, model, ServeConfig(max_new_tokens=6, cache_len=32,
+                                          greedy=False, temperature=1e-4))
+    np.testing.assert_array_equal(cold.generate(prompts), greedy)
+    warm = Engine(cfg, model, ServeConfig(max_new_tokens=6, cache_len=32,
+                                          greedy=False, temperature=5.0))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    out = warm.generate(prompts, generator=gen(11))
+    np.testing.assert_array_equal(out, warm.generate(prompts,
+                                                     generator=gen(11)))
+    assert (out != warm.generate(prompts, generator=gen(12))).any()
+    np.testing.assert_array_equal(warm.generate(prompts),
+                                  warm.generate(prompts, generator=gen(0)))
+    assert (out < cfg.vocab_size).all()
+    with pytest.raises(ValueError, match="temperature"):
+        ServeConfig(greedy=False, temperature=0.0)
+
+
+def test_launch_serve_runs_on_cpu(capsys):
+    launch_serve.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "5",
+                       "--new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert out.startswith("arch=qwen3-1.7b batch=2 new=3 wall=")
+    assert "generated ids:" in out
+
+
+def test_registry_and_config_match_reference():
+    assert list_archs() == ["qwen3-1.7b"]
+    cfg, jcfg = get_config("qwen3-1.7b"), jax_get_config("qwen3-1.7b")
+    for c, j in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced())):
+        mine = dataclasses.asdict(c)
+        theirs = dataclasses.asdict(j)
+        assert mine.pop("dtype") is torch.float32
+        assert theirs.pop("dtype") == jnp.float32
+        assert mine == theirs
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == (
+        28, 2048, 16, 8, 128, 6144, 151936)
+    for name in set(jax_list_archs()) - {"qwen3-1.7b"}:
+        with pytest.raises(KeyError, match="item 15"):
+            get_config(name)
+    with pytest.raises(KeyError, match="item 15"):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", sorted(jax_list_archs()))
+def test_model_config_properties_match_reference(arch):
+    """ModelConfig carries every field, property and reduction of the
+    reference, for every architecture the reference knows."""
+    jcfg = jax_get_config(arch)
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg)}
+    fields["dtype"] = torch.float32
+    cfg = common.ModelConfig(**fields)
+    for c, j in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced()),
+                 (cfg.with_overrides(tp_head_pad=16),
+                  jcfg.with_overrides(tp_head_pad=16))):
+        for prop in ("resolved_head_dim", "padded_heads", "padded_vocab",
+                     "d_inner", "ssm_heads", "is_moe", "is_encdec"):
+            assert getattr(c, prop) == getattr(j, prop), prop
+        mine, theirs = dataclasses.asdict(c), dataclasses.asdict(j)
+        mine.pop("dtype"), theirs.pop("dtype")
+        assert mine == theirs
+
+
+def test_padded_heads_are_exact_no_ops():
+    """tp_head_pad: the padded heads' wo rows are zero, in the port's own
+    draw and in the reference's carried across, and the layer output
+    equals the reference's."""
+    jcfg, cfg = (c.with_overrides(num_kv_heads=2, tp_head_pad=3)
+                 for c in _configs("mha"))
+    assert cfg.padded_heads == 6 and cfg.num_heads == 4
+    own = attn.init_gqa_params(cfg, torch.Generator().manual_seed(0))
+    assert own.wq.shape == (cfg.d_model, 6, 64)
+    assert (own.wo[4:] == 0).all() and (own.wo[:4] != 0).any()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(5))
+    model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                 device="cpu")
+    x = np.random.default_rng(2).standard_normal(
+        (1, 9, cfg.d_model)).astype(np.float32)
+    pos = np.arange(9, dtype=np.int32)
+    want = jax_attn.gqa_forward(_layer(jp, 0)["attn"], jcfg, jnp.asarray(x),
+                                jnp.asarray(pos))
+    got = attn.gqa_forward(model.blocks[0].attn, cfg, torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_decode_attention_and_primitives_match_reference(window):
+    rng = np.random.default_rng(6)
+    B, C, H, KV, D = 2, 8, 4, 2, 16
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, C, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((B, C, KV, D)).astype(np.float32)
+    slots = np.array([8, 9, 10, 3, 4, 5, 6, -1], np.int32)  # rolled, one empty
+    want = jax_attn.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc,
+                                                                slots)),
+                                     jnp.asarray(10, jnp.int32),
+                                     window=window)
+    got = attn.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc,
+                                                                slots)),
+                                10, window=window)
+    _close(got, want)
+    x = rng.standard_normal((2, 5, 3, D)).astype(np.float32)
+    scale = rng.standard_normal(D).astype(np.float32)
+    _close(common.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)),
+           JM.rms_norm(jnp.asarray(x), jnp.asarray(scale)))
+    pos = np.arange(3, 8, dtype=np.int32)
+    cos, sin = common.rope_frequencies(D, 1e6, torch.from_numpy(pos))
+    jcos, jsin = jax_attn.rope_frequencies(D, 1e6, jnp.asarray(pos))
+    _close(cos, jcos)
+    _close(sin, jsin)
+    _close(common.apply_rope(torch.from_numpy(x), cos, sin),
+           jax_attn.apply_rope(jnp.asarray(x), jcos, jsin))
+    up = x[::-1].copy()
+    _close(common.swiglu(torch.from_numpy(x), torch.from_numpy(up)),
+           jax_blk.swiglu(jnp.asarray(x), jnp.asarray(up)))
+
+
+def test_dense_init_draws_and_is_deterministic():
+    a = common.dense_init(torch.Generator().manual_seed(0), (512, 256),
+                          torch.float32)
+    b = common.dense_init(torch.Generator().manual_seed(0), (512, 256),
+                          torch.float32)
+    assert torch.equal(a, b)
+    assert abs(float(a.std()) * 512 ** 0.5 - 1.0) < 0.02
+    c = common.dense_init(torch.Generator().manual_seed(0), (8, 4),
+                          torch.bfloat16, fan_in=64)
+    assert c.dtype == torch.bfloat16
+
+
+def test_prefill_reaches_k4_once_per_layer_and_decode_never(pair, monkeypatch):
+    """Every layer's prefill attention goes through gqa_flash (counted by
+    wrapping it, since on the CPU the kernel's counter does not move);
+    decode never does."""
+    _, _, cfg, model = pair
+    calls = []
+    real = attn.gqa_flash
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attn, "gqa_flash", counting)
+    before = k4.LAUNCHES
+    Engine(cfg, model, ServeConfig(max_new_tokens=4, cache_len=16)).generate(
+        _tokens(cfg, 2, 9))
+    assert len(calls) == cfg.num_layers
+    assert calls[0] == (2, 9, cfg.num_heads, cfg.resolved_head_dim)
+    assert k4.LAUNCHES == before
+
+
+def test_what_the_port_does_not_run_raises():
+    _, cfg = _configs("mha")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        M.init_params(cfg.with_overrides(arch_type="moe", num_experts=4,
+                                         top_k=2),
+                      torch.Generator())
+    with pytest.raises(NotImplementedError, match="item 15"):
+        M.init_params(cfg.with_overrides(attn_kind="mla", kv_lora_rank=64),
+                      torch.Generator())
+    with pytest.raises(NotImplementedError, match="item 15"):
+        M.LM(cfg.with_overrides(encoder_layers=2), device="cpu")
+    model = M.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Engine(cfg.with_overrides(encoder_layers=2), model, ServeConfig())
+    with pytest.raises(NotImplementedError, match="item 14"):
+        M.forward(model, cfg.with_overrides(seq_parallel=True),
+                  {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="item 15"):
+        blk.init_block_params(cfg, torch.Generator(), "ssm")
