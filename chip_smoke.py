@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
   1. build the four hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
-     build/repro_torch/;
+     build/repro_torch/; count K4's tensor-core instructions in its SASS
+     (cuobjdump -sass: both HMMA kinds must be there) and print its launch
+     plans;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
      ones, each error printed beside its tolerance; K4 (flash attention)
@@ -54,7 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. K4 alone at the repo's prefill_32k length (S=32768, B=1, one layer),
      fp32 and bf16: qwen3-1.7b's heads (H=16, KV=8, causal), also without
      the causal mask beside it, and Mixtral's sliding window (H=32, KV=8,
-     window 4096): the kernel's time, its bound, and
+     window 4096): the kernel's time, its bound (fp32: the least of the
+     CUDA-core and 3xTF32 operation times), and
      F.scaled_dot_product_attention at the same shape as the yardstick.
 Before each of phases 4-6 and 10 every launch counter is set to 0, and
 read just after.
@@ -82,12 +85,12 @@ N_AGENTS = 20
 SAMPLES = 5000            # per agent: 3500 train + 1500 test rows
 FEATURES = 4096
 # NVIDIA data-sheet peaks: (name fragment, memory bytes/s, fp32 flop/s
-# outside the tensor cores, dense bf16 tensor-core flop/s); the first
-# fragment found in the card's name
-CARD_PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12),
-              ("H100 NVL", 3.9e12, 60.0e12, 835e12),
-              ("H100", 3.35e12, 67.0e12, 989e12),
-              ("H200", 4.8e12, 67.0e12, 989e12))
+# outside the tensor cores, dense bf16 tensor-core flop/s, dense TF32
+# tensor-core flop/s); the first fragment found in the card's name
+CARD_PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12, 378e12),
+              ("H100 NVL", 3.9e12, 60.0e12, 835e12, 417.5e12),
+              ("H100", 3.35e12, 67.0e12, 989e12, 494.7e12),
+              ("H200", 4.8e12, 67.0e12, 989e12, 494.7e12))
 # K2: theta' and xi_sq are fp32 sums of T*D products taken in another order
 # than cuBLAS's (per-thread column strips, a fixed block tree, chunk
 # order): relative error ~sqrt(T)*2^-24 ~ 4e-6 at T=3500
@@ -131,6 +134,9 @@ MIXTRAL_HEADS = (32, 8, 128, 4096)
 # full softmax (the reference's own tolerance, tests/test_kernels.py); bf16
 # outputs within an ulp of bf16 (2^-7 relative) after rounding
 K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# the tensor-core instructions each K4 instance must compile to (SASS):
+# bf16 m16n8k16 and the TF32 m16n8k8 of the fp32 instance's 3xTF32
+K4_HMMA = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
 # the LM on the card against the CPU: fp32 through the layers with cuBLAS
 # and K4 against ATen's CPU matmuls and the plain softmax, ~1e-6 relative
 # per op: logits within 1e-5 of their largest magnitude
@@ -153,9 +159,9 @@ def log(phase, msg):
 
 
 def card_peaks(name):
-    for frag, bw, flops, bf16 in CARD_PEAKS:
+    for frag, bw, flops, bf16, tf32 in CARD_PEAKS:
         if frag in name:
-            return bw, flops, bf16
+            return bw, flops, bf16, tf32
     raise RuntimeError(f"no data-sheet peaks for {name!r}: add them to "
                        "CARD_PEAKS before quoting a bound")
 
@@ -218,6 +224,52 @@ def paired_ms(fn, calls, runs=7, warmup=2):
         end.synchronize()
         dev.append(start.elapsed_time(end) / calls)
     return statistics.median(dev), statistics.median(host)
+
+
+def hmma_count(library):
+    """{opcode: count} of the tensor-core instructions (HMMA.*) in a built
+    library's SASS, by `cuobjdump -sass`."""
+    import collections
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return dict(collections.Counter(
+        tok.rstrip(";") for line in sass.splitlines()
+        for tok in line.split() if tok.startswith("HMMA")))
+
+
+def k4_plan(build, dh, dv, dtype):
+    """K4's launch plan for (Dh, Dv, dtype) on this card, from the C entry
+    `flash_attention_plan`: (query rows per block, keys per staged tile,
+    cp.async stages, shared-memory bytes, blocks per SM)."""
+    import ctypes
+    lib = build.load("flash_attention", {"flash_attention_plan": (
+        ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])})
+    out = (ctypes.c_int * 5)()
+    build.check(lib, lib.flash_attention_plan(
+        dh, dv, 0 if dtype == torch.float32 else 1, out),
+        "flash_attention_plan")
+    return tuple(out)
+
+
+def k4_bound(nbytes, flops, dtype, peaks):
+    """(ms, by, how) of K4's bound: the larger of the bytes over the memory
+    rate and the operations over the rate of the cheapest way the card has
+    to do them. bf16: the bf16 tensor cores. fp32: the least of the CUDA
+    cores and 3xTF32 (three TF32 MMAs per product, fp32-level accuracy)."""
+    bw, fp32, bf16, tf32 = peaks
+    t_b = nbytes / bw * 1e3
+    if dtype == torch.float32:
+        t_f, how = min((flops / fp32 * 1e3, f"fp32 CUDA cores at "
+                        f"{fp32 / 1e12:g} TFLOP/s"),
+                       (3 * flops / tf32 * 1e3, f"3xTF32, 3 x the flops at "
+                        f"{tf32 / 1e12:g} TFLOP/s"))
+    else:
+        t_f, how = flops / bf16 * 1e3, f"bf16 at {bf16 / 1e12:g} TFLOP/s"
+    if t_b >= t_f:
+        return t_b, "bytes", f"{bw / 1e12:g} TB/s"
+    return t_f, "operations", how
 
 
 def sdpa_ms(q, k, v, *, causal, mask=None):
@@ -341,11 +393,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     card = smi
-    bw, fp32, bf16_peak = card_peaks(name)
+    peaks = card_peaks(name)
+    bw, fp32, bf16_peak, tf32_peak = peaks
     log(0, f"device {name} (count {torch.cuda.device_count()}), torch "
            f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(0, f"nvidia-smi: {smi}; peaks used for bounds: {bw / 1e12} TB/s, "
-           f"{fp32 / 1e12} TFLOP/s fp32, {bf16_peak / 1e12} TFLOP/s bf16")
+           f"{fp32 / 1e12} TFLOP/s fp32, {bf16_peak / 1e12} TFLOP/s bf16, "
+           f"{tf32_peak / 1e12} TFLOP/s TF32")
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -356,6 +410,21 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(1, f"  {src}: {line.strip()}")
+    hmma = hmma_count(build.library_path("flash_attention"))
+    log(1, f"flash_attention SASS tensor-core instructions (cuobjdump "
+           f"-sass): {hmma}")
+    if not all(hmma.get(kind, 0) > 0 for kind in K4_HMMA):
+        raise AssertionError(f"the flash_attention library lacks one of "
+                             f"{K4_HMMA} (found {hmma}): K4 does not run on "
+                             "the tensor cores")
+    for dh, dv, dtype in ((128, 128, torch.float32),
+                          (128, 128, torch.bfloat16),
+                          (256, 256, torch.float32)):
+        bq, bk, stages, smem, blocks = k4_plan(build, dh, dv, dtype)
+        log(1, f"K4 plan Dh={dh} Dv={dv} {str(dtype).split('.')[-1]}: "
+               f"{bq}-row query tiles, {bk}-key tiles in {stages} cp.async "
+               f"stages, {smem} B of shared memory, {blocks} block(s) per "
+               "SM")
 
     # ---- 2. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1081,7 +1150,7 @@ def main() -> int:
         del q0, k0, v0, h0, got, lm_state, logits
     del lm, engine
     torch.cuda.empty_cache()
-    b_ms, b_by = bound(k4_bytes, k4_flops)
+    b_ms, b_by, b_how = k4_bound(k4_bytes, k4_flops, torch.float32, peaks)
     src, replaces = KERNEL_SOURCES["flash_attention"]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": src, "replaces": replaces,
@@ -1092,7 +1161,8 @@ def main() -> int:
     log(10, f"[{card}] flash_attention at the prefill's shape (B={LM_BATCH}, "
             f"S={LM_PROMPT}, H={lm_cfg.num_heads}, KV={lm_cfg.num_kv_heads}, "
             f"Dh=Dv={dh}, causal, fp32): {k4_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}: {k4_bytes / 1e9:.4f} GB, {k4_flops / 1e12:.4f} TFLOP "
+            f"({b_by}, {b_how}: {k4_bytes / 1e9:.4f} GB, "
+            f"{k4_flops / 1e12:.4f} TFLOP "
             f"over {n_pairs} admissible pairs per head; {b_ms / k4_ms:.1%} "
             f"of it), plain {k4_plain_ms:.4f} ms, "
             f"F.scaled_dot_product_attention {k4_lib_ms:.4f} ms "
@@ -1122,9 +1192,7 @@ def main() -> int:
             n_pairs = S * S
         flops = 2.0 * H * 2 * D * n_pairs
         nbytes = dtype.itemsize * S * D * (2 * H + 2 * KV)
-        peak = fp32 if dtype == torch.float32 else bf16_peak
-        t_b, t_f = nbytes / bw * 1e3, flops / peak * 1e3
-        b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        b_ms, b_by, b_how = k4_bound(nbytes, flops, dtype, peaks)
         mask = None
         if window:
             i = torch.arange(S, device=dev)
@@ -1137,9 +1205,9 @@ def main() -> int:
         side[(label, key, causal)] = ms
         log(11, f"[{card}] K4 {label} S={S} H={H} KV={KV} Dh=Dv={D} "
                 f"{'causal' if causal else 'non-causal'} window={window} "
-                f"{key}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-                f"{flops / 1e12:.4f} TFLOP over {n_pairs} pairs per head at "
-                f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e9:.4f} GB; "
+                f"{key}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{b_how}: {flops / 1e12:.4f} TFLOP over {n_pairs} pairs "
+                f"per head, {nbytes / 1e9:.4f} GB; "
                 f"{b_ms / ms:.1%} of it); F.scaled_dot_product_attention "
                 f"{lib_ms:.4f} ms ({lib_how})")
         del q, k, v, mask

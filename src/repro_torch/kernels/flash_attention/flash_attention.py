@@ -113,9 +113,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, Sq, Dh); k/v: (B, KV, Sk, Dh|Dv) with KV dividing H (the
     reference takes KV = H, pre-broadcast) -> (B, H, Sq, Dv) in q's dtype.
 
-    fp32 or bf16, computed in fp32; Dh, Dv <= 256. `block_q` and `block_k`
-    are accepted for the reference's signature and checked, but do not
-    size the kernel's tiles: those are fixed by the card (64 x 64)."""
+    fp32 or bf16 with fp32 softmax and accumulation (fp32 products as
+    3xTF32 on the card, bf16 products with P rounded to bf16); Dh, Dv <=
+    256. `block_q` and `block_k` are accepted for the reference's signature
+    and checked, but do not size the kernel's tiles: those are the
+    kernel's own (64 x 32 in fp32, 128 x 64 in bf16 up to Dv = 128)."""
     check_operands(q, k, v, heads_dim=1, causal=causal, window=window,
                    block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":

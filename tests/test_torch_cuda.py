@@ -209,14 +209,26 @@ def test_ring_runtime_fits_on_card_match_cpu(cuda):
 # bf16 outputs may differ by an ulp of bf16 (2^-7 relative) after rounding
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # (B, H, KV, Sq, Sk, Dh, Dv, causal, window): ragged tails, GQA groups,
-# Dh != Dv, Sq != Sk, windows, and rows that no key may see (the last)
+# Dh != Dv, Sq != Sk, windows, and rows that no key may see (the 7th).
+# Then what the tensor-core tiling makes risky: head dims that are not a
+# multiple of the MMA's k (16 bf16, 8 fp32), Dh = Dv = 256 (one block per
+# SM in fp32), Sk below one key tile (32 fp32, 64 bf16) with a window, a
+# length whose last cp.async stage is ragged (97 = 3 x 32 + 1 = 64 + 33),
+# and odd head dims whose rows are not 16-byte aligned (element-wise
+# staging instead of cp.async)
 ATTN_SHAPES = [(1, 2, 2, 100, 100, 64, 64, True, 0),
                (2, 4, 2, 257, 257, 128, 128, True, 32),
                (1, 4, 1, 64, 200, 64, 64, False, 0),
                (2, 2, 2, 130, 70, 192, 128, True, 0),
                (1, 8, 2, 1024, 1024, 128, 128, True, 0),
                (1, 3, 3, 33, 33, 16, 16, False, 32),
-               (1, 2, 2, 200, 20, 32, 32, True, 8)]
+               (1, 2, 2, 200, 20, 32, 32, True, 8),
+               (1, 2, 1, 300, 300, 40, 40, True, 0),
+               (1, 2, 2, 150, 150, 72, 24, False, 0),
+               (1, 2, 1, 300, 300, 256, 256, True, 0),
+               (1, 2, 2, 20, 20, 128, 128, True, 16),
+               (1, 2, 2, 97, 97, 128, 128, False, 0),
+               (1, 2, 2, 50, 50, 33, 17, True, 0)]
 
 
 def _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype, seed=3):

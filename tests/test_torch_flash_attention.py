@@ -197,3 +197,180 @@ def test_devices_and_arguments_the_kernel_does_not_take_raise():
         port_fa.flash_attention(q, k, v, causal=1)
     with pytest.raises(ValueError):
         gqa_flash(q[0], k[0], v[0])
+
+
+# ---- the CUDA kernel's fp32 design (3xTF32), emulated on the CPU ----------
+#
+# On the card the fp32 instance of K4 computes both products on TF32 tensor
+# cores: each fp32 operand x is split into big = rna_tf32(x) and small, the
+# rest x - big in TF32, and each product accumulates small*big + big*small
+# (in an accumulator of their own) + big*big in fp32. The kernel truncates
+# the rest (rz_tf32) where CUTLASS rounds it (rna_tf32); both are emulated.
+# The tests below emulate that arithmetic in torch (a TF32 x TF32 product
+# is exact in fp32, so an fp32 matmul of TF32-valued operands is the MMA's
+# product) and the fragment maps the kernel relies on.
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: keep 10 mantissa bits, round the low 13 to nearest
+    with ties away from zero (add half an ulp to the magnitude, truncate)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rz_tf32(x: torch.Tensor) -> torch.Tensor:
+    """TF32 by truncation: the low 13 mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, small=_rz_tf32
+               ) -> torch.Tensor:
+    a_big, b_big = _rna_tf32(a), _rna_tf32(b)
+    a_small, b_small = small(a - a_big), small(b - b_big)
+    out = a_small @ b_big          # small terms first, as CUTLASS does
+    out = out + a_big @ b_small
+    return out + a_big @ b_big
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _rna_tf32(a) @ _rna_tf32(b)
+
+
+def _attention_with(mm, q, k, v, *, causal, window):
+    """The kernel's arithmetic with products by `mm`: fp32 scores, masked
+    to -inf, exp(s - m) with the fp32 running max, O = mm(P, V) / l."""
+    Sq, Sk = q.shape[-2], k.shape[-2]
+    s = mm(q, k.transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    qi = torch.arange(Sq)[:, None]
+    kj = torch.arange(Sk)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        valid &= kj <= qi
+    if window:
+        valid &= kj > qi - window
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = mm(p, v)
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+
+
+def test_tf32_roundings():
+    one = 1.0 + 2.0**-10                          # the TF32 ulp above 1
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11),   # ties: away
+                      1.0 + 2.0**-11 - 2.0**-23,          # below: down
+                      1.0 + 2.0**-11 + 2.0**-23, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, -one, 1.0, one, 3.0, 0.0], dtype=torch.float32)
+    assert torch.equal(_rna_tf32(x), want)
+    r = torch.from_numpy(_normals(9, (1000,))[0])
+    big = _rna_tf32(r)
+    assert torch.equal(_rna_tf32(big), big)       # 10 mantissa bits kept
+    assert float(((r - big).abs() / r.abs()).max()) <= 2.0**-11
+    cut = _rz_tf32(r)
+    assert torch.equal(_rz_tf32(cut), cut)
+    assert bool((cut.abs() <= r.abs()).all())     # toward zero
+    assert float(((r - cut).abs() / r.abs()).max()) < 2.0**-10
+    # the split: big + small is x within 2^-21 relative (truncated small)
+    small = _rz_tf32(r - big)
+    assert float(((r - big - small).abs() / r.abs()).max()) <= 2.0**-21
+
+
+# (Sq, Sk, Dh, Dv, causal, window): shapes of chip_smoke.py's K4 sweep
+@pytest.mark.parametrize("small", [_rz_tf32, _rna_tf32],
+                         ids=["small_rz_kernel", "small_rna_cutlass"])
+@pytest.mark.parametrize("Sq,Sk,Dh,Dv,causal,window", [
+    (100, 100, 64, 64, True, 0), (257, 257, 128, 128, True, 0),
+    (257, 257, 128, 128, False, 32), (300, 700, 192, 128, False, 0),
+    (700, 300, 128, 128, True, 0), (1024, 1024, 64, 64, True, 32)],
+    ids=str)
+def test_3xtf32_attention_meets_the_fp32_tolerance(Sq, Sk, Dh, Dv, causal,
+                                                   window, small):
+    """3xTF32 products give attention within the fp32 tolerance (2e-5) of
+    the plain fp32 version, with the rest truncated (the kernel) or rounded
+    (CUTLASS); single-pass TF32 does not, which is why the kernel takes
+    three MMAs per product."""
+    B, H = 1, 2
+    qn, kn, vn = _normals(10, (B, H, Sq, Dh), (B, H, Sk, Dh), (B, H, Sk, Dv))
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    three = _attention_with(lambda a, b: _mm_3xtf32(a, b, small), q, k, v,
+                            causal=causal, window=window)
+    one = _attention_with(_mm_tf32, q, k, v, causal=causal, window=window)
+    err3 = float((three - want).abs().max())
+    err1 = float((one - want).abs().max())
+    assert err3 <= TOL["f32"], err3
+    assert err1 > TOL["f32"], err1
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane // 4, lane % 4                    # g, t
+
+
+def _c_fragments(c):
+    """m16n8 C (D) fragment of each lane: c0..c3 = C[g][2t], C[g][2t+1],
+    C[g+8][2t], C[g+8][2t+1]."""
+    g, t = _lanes()
+    return np.stack([c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t],
+                     c[g + 8, 2 * t + 1]], axis=1)
+
+
+def _mma_m16n8k8_tf32(a_frag, b_frag):
+    """The tile product of one m16n8k8 TF32 MMA from its lanes' fragments:
+    a0..a3 = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 =
+    B[t][g], B[t+4][g]."""
+    g, t = _lanes()
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    a[g, t], a[g + 8, t] = a_frag[:, 0], a_frag[:, 1]
+    a[g, t + 4], a[g + 8, t + 4] = a_frag[:, 2], a_frag[:, 3]
+    b[t, g], b[t + 4, g] = b_frag[:, 0], b_frag[:, 1]
+    return a @ b
+
+
+def _mma_m16n8k16_bf16(a_frag, b_frag):
+    """The same for m16n8k16 bf16, each register a pair (lo, hi): a0..a3 =
+    A[g][2t:2t+2], A[g+8][2t:2t+2], A[g][2t+8:2t+10], A[g+8][2t+8:2t+10];
+    b0, b1 = B[2t:2t+2][g], B[2t+8:2t+10][g]."""
+    g, t = _lanes()
+    a, b = np.zeros((16, 16)), np.zeros((16, 8))
+    for e in range(2):
+        a[g, 2 * t + e], a[g + 8, 2 * t + e] = a_frag[:, 0, e], a_frag[:, 1, e]
+        a[g, 2 * t + 8 + e] = a_frag[:, 2, e]
+        a[g + 8, 2 * t + 8 + e] = a_frag[:, 3, e]
+        b[2 * t + e, g], b[2 * t + 8 + e, g] = b_frag[:, 0, e], b_frag[:, 1, e]
+    return a @ b
+
+
+@pytest.mark.parametrize("mma", ["m16n8k8_tf32", "m16n8k16_bf16"])
+def test_probabilities_stay_in_registers_between_the_products(mma):
+    """The score MMA's C fragments feed the P V MMA's A fragments with no
+    shuffle. tf32: a = (c0, c2, c1, c3) permutes the tile's 8 keys (logical
+    k = t is key 2t, k = t + 4 is key 2t + 1), and V's B fragment is read
+    from key rows 2t and 2t + 1. bf16: the C fragments of two n8 tiles,
+    packed in pairs, are the A fragment of one k16 step, and V's B fragment
+    is ldmatrix.trans's (keys 2t, 2t + 1 and 2t + 8, 2t + 9 of column g).
+    Integer-valued tiles, so the product is exact in any order."""
+    rng = np.random.default_rng(12)
+    g, t = _lanes()
+    if mma == "m16n8k8_tf32":
+        p = rng.integers(-8, 9, (16, 8)).astype(np.float64)
+        v = rng.integers(-8, 9, (8, 8)).astype(np.float64)
+        c = _c_fragments(p)
+        a_frag = c[:, [0, 2, 1, 3]]
+        b_frag = np.stack([v[2 * t, g], v[2 * t + 1, g]], axis=1)
+        got = _mma_m16n8k8_tf32(a_frag, b_frag)
+    else:
+        p = rng.integers(-8, 9, (16, 16)).astype(np.float64)
+        v = rng.integers(-8, 9, (16, 8)).astype(np.float64)
+        c0, c1 = _c_fragments(p[:, :8]), _c_fragments(p[:, 8:])
+        a_frag = np.stack([c0[:, 0:2], c0[:, 2:4], c1[:, 0:2], c1[:, 2:4]],
+                          axis=1)
+        b_frag = np.stack([np.stack([v[2 * t, g], v[2 * t + 1, g]], 1),
+                           np.stack([v[2 * t + 8, g], v[2 * t + 9, g]], 1)],
+                          axis=1)
+        got = _mma_m16n8k16_bf16(a_frag, b_frag)
+    np.testing.assert_array_equal(got, p @ v)
+    # and the output lands in the C fragments the accumulator holds
+    np.testing.assert_array_equal(_c_fragments(got), _c_fragments(p @ v))
