@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      plans;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
-     ones, each error printed beside its tolerance; K4 (flash attention)
+     ones, each error printed beside its tolerance; K2 with both staging
+     instances (bulk copies, 4-byte cp.async), its resid_sq output, and two
+     calls on the same inputs giving the same bits; K4 (flash attention)
      over lengths, masks, head groups, both layouts, head dims and dtypes;
   3. small fits on the card against the same fits on the CPU (the plain
      versions): the megakernel path, the spmd backend and the fused
@@ -22,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      1500 test), D=4096 random features, backend="fused",
      primal="gradient", 50 iterations of COKE and of DKLA, then to_model()
      and predict / evaluate on the held-out rows. K2 must run on every
-     iteration, K1 on predict, K3 never;
+     iteration, K1 on predict, K3 never; the train MSE comes from K2's
+     residuals, with one more Phi read per chunk (counted);
   5. the fused fallback at full width: the same features (no second copy)
      with +-1 labels on the logistic loss, backend="fused", primal="auto"
      (the gradient primal on this loss), 50 iterations of COKE and of
@@ -33,8 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal phase 5's and theta is close (spmd forms g_aug by K3's plain
      formula); no kernel of the fit path runs;
   7. times from CUDA events (median of several runs after warm-up), each
-     with the card's name and power limit: a megakernel iteration split
-     into K2, the train-MSE metric and the rest; a fused-logistic
+     with the card's name and power limit: K2's ptxas report per instance
+     and its launch plan; a megakernel
+     iteration (chunks of ten) split into K2, the chunk's one train-MSE
+     read of Phi per ten iterations and the rest; a fused-logistic
      iteration split into the local gradients, K3, the metric and the
      rest; an spmd iteration; each of these also as the host's time to
      enqueue it, from the same window; each kernel beside its bound and
@@ -91,10 +96,13 @@ CARD_PEAKS = (("H100 PCIe", 2.0e12, 51.2e12, 756e12, 378e12),
               ("H100 NVL", 3.9e12, 60.0e12, 835e12, 417.5e12),
               ("H100", 3.35e12, 67.0e12, 989e12, 494.7e12),
               ("H200", 4.8e12, 67.0e12, 989e12, 494.7e12))
-# K2: theta' and xi_sq are fp32 sums of T*D products taken in another order
-# than cuBLAS's (per-thread column strips, a fixed block tree, chunk
-# order): relative error ~sqrt(T)*2^-24 ~ 4e-6 at T=3500
+# K2: theta', xi_sq and resid_sq are fp32 sums of T*D products taken in
+# another order than cuBLAS's (per-thread column strips, a fixed block
+# tree, segment order): relative error ~sqrt(T)*2^-24 ~ 4e-6 at T=3500
 K2_RTOL = 1e-5
+# K2 at the main shape in its earlier design (two launches over per-agent
+# row chunks, PERF.md's kernel table): the time this design is held against
+K2_EARLIER_MS = 0.6582
 # K3: g_aug is formed in the plain expression's order with round-to-nearest
 # intrinsics, so it may differ from the plain version only where a compiler
 # contracted a product into an FMA: 4 ulps of the largest term. xi_sq is an
@@ -322,6 +330,30 @@ def sdpa_ms(q, k, v, *, causal, mask=None):
     raise RuntimeError(f"no SDPA backend ran the call: {refused}")
 
 
+def ptxas_report(nvcc_log):
+    """{kernel: "N registers, spill line"} from nvcc's -Xptxas -v output,
+    K2's stream-kernel instances named by their template arguments
+    (V float4 column groups per thread, R rows per stage, bulk or cp.async
+    staging). Empty when the library came from the build cache."""
+    import re
+    out, fn = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            t = re.search(r"megastep_stream_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          fn)
+            if t:
+                fn = (f"stream<V={t.group(1)}, R={t.group(2)}, "
+                      f"{'bulk' if t.group(3) == '1' else 'cp.async'}>")
+            elif "combine_kernel" in fn:
+                fn = "combine"
+            out[fn] = ""
+        elif fn is not None and ("spill" in line or "registers" in line):
+            out[fn] = (out[fn] + "; " if out[fn] else "") + line.strip()
+    return out
+
+
 def k1_tolerance(x, omega):
     """1e-6 absolute on phi, or 16 ulps of the largest |x @ omega| times
     sqrt(2/L) where that is larger: the kernel's fmaf chain and cuBLAS
@@ -407,6 +439,8 @@ def main() -> int:
     log(1, f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s "
            f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for src, r in sorted(report.items()):
+        if src == "coke_megastep":      # per instance in phase 7
+            continue
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(1, f"  {src}: {line.strip()}")
@@ -454,39 +488,73 @@ def main() -> int:
         for L in (100, 513):
             rff_case(1001, d, L)
 
-    def mega_case(n, t, d, offsets, main=False):
+    def mega_case(n, t, d, offsets, main=False, misalign=False):
         theta = torch.randn((n, d), generator=gen, device=dev)
         hat = torch.randn((n, d), generator=gen, device=dev)
         gamma = 0.1 * torch.randn((n, d), generator=gen, device=dev)
         # bounded features shaped like sqrt(2/D) cos(.), labels in [0, 1)
-        phi = math.sqrt(2.0 / d) * torch.cos(
-            2 * math.pi * torch.rand((n, t, d), generator=gen, device=dev))
+        # misaligned: a view 4 bytes off 16-byte alignment
+        u = torch.rand(n * t * d + int(misalign), generator=gen,
+                       device=dev)
+        phi = u[int(misalign):].view(n, t, d)
+        phi.copy_(math.sqrt(2.0 / d) * torch.cos(2 * math.pi * phi))
         y = torch.rand((n, t), generator=gen, device=dev)
         kw = dict(rho=1e-2, lam=5e-5, lr=0.1, offsets=offsets)
-        want, want_xi = coke_megastep_ref(theta, hat, gamma, phi, y, **kw)
-        got, got_xi = k2.coke_megastep(theta.clone(), hat, gamma, phi, y,
-                                       **kw)
+        want = coke_megastep_ref(theta, hat, gamma, phi, y,
+                                 return_resid_sq=True, **kw)
+        rsq = torch.empty((n,), device=dev)
+        got = k2.coke_megastep(theta.clone(), hat, gamma, phi, y,
+                               resid_sq=rsq, **kw) + (rsq,)
         torch.cuda.synchronize()
-        e_th = float((got - want).abs().max())
-        e_xi = float((got_xi - want_xi).abs().max())
-        tol_th = K2_RTOL * float(want.abs().max())
-        tol_xi = K2_RTOL * float(want_xi.abs().max())
-        log(2, f"K2 coke_megastep N={n} T={t} D={d} offsets={offsets}: "
-               f"theta' max|err| {e_th:.3e} (tol {tol_th:.3e}), xi_sq "
-               f"max|err| {e_xi:.3e} (tol {tol_xi:.3e})")
-        if not (e_th <= tol_th and e_xi <= tol_xi):
+        errs_here = [float((o - w).abs().max()) for o, w in zip(got, want)]
+        tols = [K2_RTOL * float(w.abs().max()) for w in want]
+        plan = k2.megastep_plan(phi)
+        log(2, f"K2 coke_megastep N={n} T={t} D={d} offsets={offsets} "
+               f"[{k2.megastep_staging(phi)}, {plan.rows_per_stage} rows x "
+               f"{plan.stages} stages, grid {plan.segments.grid}, "
+               f"{plan.segments.num_segments} segments]: max|err| theta' "
+               f"{errs_here[0]:.3e} (tol {tols[0]:.3e})")
+        log(2, f"  and its sums at that shape: max|err| xi_sq "
+               f"{errs_here[1]:.3e} (tol {tols[1]:.3e}), resid_sq "
+               f"{errs_here[2]:.3e} (tol {tols[2]:.3e})")
+        if not all(e <= tol for e, tol in zip(errs_here, tols)):
             raise AssertionError(f"K2 disagrees with its plain version at "
                                  f"N={n} T={t} D={d} offsets={offsets}")
         if main:
-            errs["coke_megastep"] = e_th
+            # the kernels line's max_abs_err is theta''s error
+            errs["coke_megastep"] = errs_here[0]
         return theta, hat, gamma, phi, y, kw
 
     k2_inputs = mega_case(N_AGENTS, int(SAMPLES * 0.7), FEATURES, (1,),
                           main=True)
-    for n, t, d, offsets in ((4, 40, 32, (1,)), (2, 33, 513, (1,)),
-                             (8, 64, 100, (1, 2)), (3, 17, 128, (1,)),
-                             (5, 128, 256, (2,))):
-        mega_case(n, t, d, offsets)
+    k2_staged = {k2.megastep_staging(k2_inputs[3])}
+    for n, t, d, offsets, mis in (
+            (20, 3500, 4096, (1,), True),     # the main shape, cp.async
+            (4, 40, 32, (1,), False), (2, 33, 513, (1,), False),
+            (8, 64, 100, (1, 2), False), (3, 17, 128, (1,), False),
+            (5, 128, 256, (2,), False),
+            (7, 1000, 256, (1,), False),      # ranges cross agents
+            (200, 5, 64, (1, 3), False),      # N above the SM count
+            (6, 1, 128, (1,), False),         # T = 1
+            (3, 8, 16384, (1,), False),       # the widest instance
+            (2, 5, 19370, (1,), False),       # earlier widest D, unaligned
+            (4, 50, 1001, (1,), False)):
+        phi = mega_case(n, t, d, offsets, misalign=mis)[3]
+        k2_staged.add(k2.megastep_staging(phi))
+    if k2_staged != {"bulk", "cp.async"}:
+        raise AssertionError(f"K2's cases took only {k2_staged}")
+    # no floating-point atomics: a second call gives the same bits
+    theta2, hat2, gamma2, phi2, y2, kw2 = k2_inputs
+    runs = []
+    for _ in range(2):
+        rsq = torch.empty((N_AGENTS,), device=dev)
+        runs.append(k2.coke_megastep(theta2.clone(), hat2, gamma2, phi2, y2,
+                                     resid_sq=rsq, **kw2) + (rsq,))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("two K2 calls on the same inputs differ")
+    log(2, "K2: two calls at the main shape give bitwise-equal theta', xi_sq "
+           "and resid_sq")
 
     def update_case(n, d, deg, main=False):
         # theta, theta_hat, gamma, grad, left, right at the scale of a fit
@@ -620,10 +688,22 @@ def main() -> int:
            f"({problem.feats.numel() * 4 / 1e9:.3f} GB), x_test "
            f"{tuple(built.x_test.shape)}, {time.perf_counter() - t0:.1f} s")
 
+    # the megakernel path reads Phi in K2 once per iteration, and once more
+    # per chunk for the last iteration's train MSE (backends.residual_sq)
+    from repro_torch.api import backends as backends_mod
+    metric_reads = [0]
+    real_residual_sq = backends_mod.residual_sq
+
+    def counted_residual_sq(*a, **k):
+        metric_reads[0] += 1
+        return real_residual_sq(*a, **k)
+
+    backends_mod.residual_sq = counted_residual_sq
     reset_counts()
     results = {}
     for alg in ("coke", "dkla"):
         before2 = k2.LAUNCHES
+        reads_before = metric_reads[0]
         t0 = time.perf_counter()
         res = fit(cfg.replace(algorithm=alg), problem=problem, device=dev)
         torch.cuda.synchronize()
@@ -632,6 +712,12 @@ def main() -> int:
         if rose != k2.LAUNCHES_PER_CALL * ITERS:
             raise AssertionError(f"{alg}: K2 launched {rose} times in "
                                  f"{ITERS} iterations")
+        reads = metric_reads[0] - reads_before
+        if reads != 1:       # one chunk: chunk_size is None
+            raise AssertionError(f"{alg}: the train MSE read Phi {reads} "
+                                 "times outside K2 in one chunk")
+        log(4, f"{alg}: Phi reads {ITERS} in K2 (one per iteration) + "
+               f"{reads} for the train MSE (one per chunk)")
         h = {k: v.cpu() for k, v in res.history.items()}
         check_history(alg, h, ITERS)
         if not h["train_mse"][-1] < h["train_mse"][0]:
@@ -665,6 +751,7 @@ def main() -> int:
                f"{ev['test_mse']:.5f} (fused) / {ev_ref['test_mse']:.5f} "
                f"(ref), consensus_mse {ev['consensus_mse']:.5f}")
         results[alg] = res
+    backends_mod.residual_sq = real_residual_sq
     mega_counts = counts()
     log(4, f"launch counts over the megakernel path: {mega_counts}")
     if mega_counts["coke_fused_update"] != 0:
@@ -806,23 +893,48 @@ def main() -> int:
 
     # every iteration and every part below: device and host time from one
     # window of ten calls (paired_ms)
+    plan = k2.megastep_plan(problem.feats)
+    main_instance = (f"stream<V={plan.columns}, R={plan.max_rows}, "
+                     f"{k2.megastep_staging(problem.feats)}>")
+    for fn, props in ptxas_report(report["coke_megastep"]["log"]).items():
+        log(7, f"[{card}] K2 ptxas {fn}: {props or 'no report'}"
+               + (" (the main path's instance)" if fn == main_instance
+                  else ""))
+    log(7, f"[{card}] K2 plan at N={N} T={T} D={D}: grid "
+           f"{plan.segments.grid} persistent blocks ({plan.blocks} fit on "
+           f"the card at once), {plan.segments.num_segments} (block, agent) "
+           f"segments, {k2.megastep_staging(problem.feats)} staging, "
+           f"{plan.stages} stages of {plan.rows_per_stage} rows "
+           f"({plan.stage_bytes} B each, {plan.smem_bytes} B of shared "
+           f"memory), {plan.bytes_in_flight} B in flight per SM while the "
+           f"consumers hold one stage; {plan.columns} float4 column groups "
+           "per consumer thread")
     coke_cfg = cfg.replace(algorithm="coke")
     mega_state, mega_ten = runner(coke_cfg, problem)
     mega_iter = paired_ms(mega_ten, 10)
     iter_ms = mega_iter[0]
     st = mega_state["carry"]
-    metrics = paired_ms(ten(lambda: _stacked_metrics(
-        problem, st.theta, st.comms, torch.sum(st.comm.bits))), 10)
+    # the chunk's one train-MSE read of Phi, as _megastep_chunk makes it
+    # after its last iteration: timed alone, and counted once per ten
+    metric_read = paired_ms(ten(lambda: torch.sum(backends_mod.residual_sq(
+        problem.feats, st.theta, problem.labels)) / (N * T)), 10)
     theta, hat, gamma = st.theta.clone(), st.theta_hat, st.gamma
     kw = dict(rho=problem.rho, lam=problem.lam, lr=coke_cfg.inner_lr,
               offsets=(1,))
+    rsq_out = torch.empty((N,), device=dev)
     k2_path = paired_ms(ten(lambda: k2.coke_megastep(
-        theta, hat, gamma, problem.feats, problem.labels, **kw)), 10)
-    log(7, f"[{card}] one megakernel COKE iteration at N={N} T={T} D={D}: "
-           f"{pair(mega_iter)}. Parts, each alone: K2 {pair(k2_path)}; "
-           f"train_mse metric (Phi read again by einsum) {pair(metrics)}; "
-           f"the rest (censor, dual, bookkeeping) "
-           f"{iter_ms - k2_path[0] - metrics[0]:.4f} ms on the device")
+        theta, hat, gamma, problem.feats, problem.labels, resid_sq=rsq_out,
+        **kw)), 10)
+    metric_share = metric_read[0] / 10
+    log(7, f"[{card}] one megakernel COKE iteration at N={N} T={T} D={D} "
+           f"(chunks of ten): {pair(mega_iter)}. Parts, each alone: K2 with "
+           f"the train-MSE residuals folded in {pair(k2_path)}; the chunk's "
+           f"one train-MSE read of Phi (einsum after its last iteration) "
+           f"{pair(metric_read)}, {metric_share:.4f} ms per iteration over "
+           f"ten; the rest (censor, dual, bookkeeping) "
+           f"{iter_ms - k2_path[0] - metric_share:.4f} ms on the device. "
+           f"Phi is read 11 times per ten iterations (20 when the metric "
+           f"read it every iteration)")
 
     log_state, log_ten = runner(log_cfg.replace(algorithm="coke"),
                                 log_problem)
@@ -861,13 +973,17 @@ def main() -> int:
            f"{pair(probe)}")
 
     theta2, hat2, gamma2, phi2, y2, kw2 = k2_inputs
+    rsq2 = torch.empty((N_AGENTS,), device=dev)
     k2_ms = time_ms(lambda: k2.coke_megastep(theta2, hat2, gamma2, phi2, y2,
-                                             **kw2))
-    k2_plain_ms = time_ms(lambda: coke_megastep_ref(theta2, hat2, gamma2,
-                                                    phi2, y2, **kw2))
+                                             resid_sq=rsq2, **kw2))
+    k2_plain_ms = time_ms(lambda: coke_megastep_ref(
+        theta2, hat2, gamma2, phi2, y2, return_resid_sq=True, **kw2))
     n2, t2, d2 = phi2.shape
-    k2_bytes = 4.0 * (n2 * t2 * d2 + n2 * t2 + 4 * n2 * d2 + n2)
-    k2_flops = 4.0 * n2 * t2 * d2 + 12.0 * n2 * d2
+    # Phi and y read; theta, theta_hat, gamma read, theta' written; xi_sq
+    # and resid_sq written. Flops: the two matvecs, the combine, the
+    # squared residuals
+    k2_bytes = 4.0 * (n2 * t2 * d2 + n2 * t2 + 4 * n2 * d2 + 2 * n2)
+    k2_flops = 4.0 * n2 * t2 * d2 + 12.0 * n2 * d2 + 2.0 * n2 * t2
     x1, omega1, bias1 = k1_inputs
     k1_ms = time_ms(lambda: k1.rff_cos_bias(x1, omega1, bias1))
     k1_plain_ms = time_ms(lambda: rff_ref(x1, omega1, bias1))
@@ -916,6 +1032,11 @@ def main() -> int:
                f"({b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
                f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms; library_ms "
                f"null: {NO_LIBRARY[kname]}")
+    k2_bound = bound(k2_bytes, k2_flops)[0]
+    log(7, f"[{card}] K2 redesigned: {k2_ms:.4f} ms against its "
+           f"{k2_bound:.4f} ms byte bound ({k2_bound / k2_ms:.1%}) and the "
+           f"earlier design's {K2_EARLIER_MS} ms "
+           f"({K2_EARLIER_MS / k2_ms:.2f}x faster)")
     log(7, f"[{card}] K2 shape N={n2} T={t2} D={d2}; K1 shape M={m1} d={d1} "
            f"L={l1}; K3 shape N={n3} D={d3}")
     log(7, f"[{card}] K3 and its plain version timed as CUDA-graph replays "

@@ -28,13 +28,15 @@ import torch
 
 from repro_torch.api.config import FitConfig, SolveContext
 from repro_torch.api.registry import Solver
-from repro_torch.api.solvers import _stacked_metrics, _uncompressed_bits
+from repro_torch.api.solvers import (_comm_metrics, _stacked_metrics,
+                                     _uncompressed_bits)
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem, resolve_primal
 from repro_torch.core.graph import circulant
 from repro_torch.distributed import consensus as cns
 from repro_torch.kernels.coke_update.coke_update import coke_megastep
+from repro_torch.kernels.coke_update.ref import residual_sq
 from repro_torch.optim.optimizers import OptConfig
 
 _CG_LATER = ("ROADMAP.md Queue 1 item 3 (the CG primal, with the "
@@ -117,9 +119,18 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
     theta_hat rows itself. History keys match the reference's fused chunk:
     train_mse / comms / consensus_gap / bits / send_frac
     [+ dist_to_oracle]. Histories stay device tensors and are stacked once
-    at the end of the chunk."""
+    at the end of the chunk.
+
+    The train MSE of iteration k's theta is the sum of the squared
+    residuals that K2 forms on its way in iteration k + 1, divided by N*T
+    (run_step does not touch theta after the primal). Only the chunk's
+    last iteration reads Phi again for it, so a chunk of n iterations
+    reads Phi n + 1 times."""
     n_agents = problem.num_agents
     device = problem.device
+    n_rows = problem.labels.numel()
+    resid_sq = torch.empty((n_agents,), dtype=problem.feats.dtype,
+                           device=device)
 
     def nbr_sum(x):
         out = None
@@ -138,7 +149,8 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
         # recomputes the censor norm, as the reference does
         theta_new, _xi_sq = coke_megastep(
             theta0, theta_hat0, gamma0, problem.feats, problem.labels,
-            rho=problem.rho, lam=problem.lam, lr=lr, offsets=offsets)
+            rho=problem.rho, lam=problem.lam, lr=lr, offsets=offsets,
+            resid_sq=resid_sq)
         return theta_new, {}
 
     program = step_mod.StepProgram(
@@ -149,18 +161,23 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
     if oracle is not None:
         keys.append("dist_to_oracle")
     hist: dict[str, list] = {k: [] for k in keys}
-    for _ in range(num_iters):
+    for j in range(num_iters):
         new_st, _ = step_mod.run_step(program, st)
+        if j:   # K2 just read theta_j, which iteration j - 1 left
+            hist["train_mse"].append(torch.sum(resid_sq) / n_rows)
         bits = torch.sum(new_st.comm.bits)
-        m = _stacked_metrics(problem, new_st.theta, new_st.comms, bits)
+        m = _comm_metrics(new_st.theta, new_st.comms, bits)
         m["send_frac"] = ((new_st.comms - st.comms).to(torch.float32)
                           / n_agents)
         if oracle is not None:
             m["dist_to_oracle"] = torch.max(torch.linalg.norm(
                 new_st.theta - oracle, dim=-1))
-        for k in keys:
+        for k in keys[1:]:
             hist[k].append(m[k])
         st = new_st
+    if num_iters:
+        hist["train_mse"].append(torch.sum(residual_sq(
+            problem.feats, st.theta, problem.labels)) / n_rows)
     return st, _stack_history(hist, device)
 
 

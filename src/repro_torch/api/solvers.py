@@ -21,10 +21,16 @@ def _stacked_metrics(problem: Problem, theta: torch.Tensor,
                      bits: torch.Tensor) -> dict[str, torch.Tensor]:
     """The paper's per-iteration train MSE, cumulative comms, consensus gap
     and cumulative bits, as device tensors (no host sync). The train MSE
-    reads Phi once more, outside the megakernel."""
+    reads Phi once more, outside the kernels."""
     preds = torch.einsum("ntd,nd->nt", problem.feats, theta)
     mse = torch.mean((problem.labels - preds) ** 2)
-    return {"train_mse": mse, "comms": comms,
+    return {"train_mse": mse, **_comm_metrics(theta, comms, bits)}
+
+
+def _comm_metrics(theta: torch.Tensor, comms: torch.Tensor,
+                  bits: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The per-iteration metrics other than the train MSE."""
+    return {"comms": comms,
             "consensus_gap": consensus_gap({"theta": theta}),
             "bits": bits.to(torch.float32)}
 

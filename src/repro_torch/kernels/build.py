@@ -12,8 +12,10 @@ into a shared library with a plain C interface:
 
 The library name carries a hash of the source and the flags, so an edited
 kernel is rebuilt and an unchanged one is reused. `build()` starts one
-`nvcc` per source, all together, and waits for them. `load()` opens a
-library with `ctypes` and declares its entry points.
+`nvcc` per source, all together, and waits for them, and keeps nvcc's
+output beside each library (`<name>-<hash>.log`), so that the ptxas
+report is there for a library built earlier too. `load()` opens a library
+with `ctypes` and declares its entry points.
 
 There is no switch between kernel and plain version here: a wrapper takes
 the plain PyTorch version only for tensors that lie on the CPU, and for a
@@ -63,7 +65,8 @@ def _nvcc() -> str:
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
     """Compile every named source that has no library yet, one `nvcc` per
     source, all started together. Returns {name: {"seconds", "cached",
-    "log"}}; `log` holds nvcc's output (ptxas register/spill report).
+    "log"}}; `log` holds nvcc's output (ptxas register/spill report), for
+    a cached library the output of the build that made it.
     Raises RuntimeError with nvcc's output if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report, procs = {}, {}
@@ -71,7 +74,9 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
     for name in names:
         out = library_path(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -88,6 +93,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
                           f"(exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

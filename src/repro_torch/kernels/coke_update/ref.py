@@ -4,7 +4,10 @@
 in the reference expression's order. `coke_megastep_ref` has the contract
 of `coke_megastep` (K2), as einsums, but is a pure function: it returns a
 new theta and leaves its inputs untouched. It reads Phi twice (once per
-einsum); the kernel reads it once.
+einsum); the kernel reads it once. `residual_sq` is its per-agent sum of
+squared residuals, which the megakernel path also takes for the train MSE
+of a chunk's last iteration, so that on the CPU that value has the same
+bits as the one the plain version returns.
 """
 import torch
 
@@ -21,9 +24,17 @@ def coke_update_ref(theta, theta_hat, gamma, grad, left, right, *, rho,
     return gaug, torch.sum(xi * xi, dim=-1)
 
 
+def residual_sq(phi, theta, y):
+    """-> (N,) sum_t (phi_t . theta - y_t)^2 per agent."""
+    resid = torch.einsum("ntd,nd->nt", phi, theta) - y
+    return torch.sum(resid * resid, dim=-1)
+
+
 def coke_megastep_ref(theta, theta_hat, gamma, phi, y, *, rho, lam, lr,
-                      offsets=(1,)):
-    """-> (theta_new (N, D), xi_sq (N,)) with xi_sq = ||theta_new - theta_hat||^2."""
+                      offsets=(1,), return_resid_sq=False):
+    """-> (theta_new (N, D), xi_sq (N,)) with
+    xi_sq = ||theta_new - theta_hat||^2, and resid_sq (N,) of the incoming
+    theta (`residual_sq`) after them when `return_resid_sq`."""
     N, T, _ = phi.shape
     sc = megastep_scalars(rho=rho, lam=lam, lr=lr, n_agents=N, n_samples=T,
                           n_offsets=len(offsets))
@@ -37,4 +48,7 @@ def coke_megastep_ref(theta, theta_hat, gamma, phi, y, *, rho, lam, lr,
             - sc["rho"] * acc)
     theta_new = theta - sc["lr"] * gaug
     d = theta_new - theta_hat
-    return theta_new, torch.sum(d * d, dim=-1)
+    xi_sq = torch.sum(d * d, dim=-1)
+    if return_resid_sq:
+        return theta_new, xi_sq, torch.sum(resid * resid, dim=-1)
+    return theta_new, xi_sq

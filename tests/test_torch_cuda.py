@@ -36,7 +36,21 @@ MEGA_RTOL = 1e-5
 RFF_SHAPES = [(64, 5, 32), (300, 77, 100), (128, 96, 200), (33, 13, 50),
               (1000, 5, 513)]
 MEGA_SHAPES = [(4, 40, 32, (1,)), (2, 33, 513, (1,)), (8, 64, 100, (1, 2)),
-               (3, 17, 128, (1,)), (5, 128, 256, (2,)), (20, 350, 4096, (1,))]
+               (3, 17, 128, (1,)), (5, 128, 256, (2,)), (20, 350, 4096, (1,)),
+               # block ranges that cross agent boundaries (875 stages of 8
+               # rows over 132 blocks)
+               (7, 1000, 256, (1,)),
+               # more agents than SMs, small T and D
+               (200, 5, 64, (1, 3)),
+               # T = 1: one short stage per agent
+               (6, 1, 128, (1,)),
+               # wide D: the widest instance, 64 columns a thread
+               (3, 8, 16384, (1,)),
+               # the widest D the earlier two-launch design took on an H100
+               # (3 D 4 bytes <= 232448), unaligned: two one-row stages
+               (2, 5, 19370, (1,)),
+               # unaligned D over several stages per agent
+               (4, 50, 1001, (1,))]
 # K3: g_aug is formed in the plain expression's order with round-to-nearest
 # intrinsics, so it may differ from the plain version only where a compiler
 # contracted a product into an FMA: a few ulps of the largest term. xi_sq
@@ -74,25 +88,85 @@ def test_rff_kernel_matches_plain(cuda, T, d, L):
                                atol=RFF_ATOL)
 
 
-@pytest.mark.parametrize("n,t,d,offsets", MEGA_SHAPES, ids=str)
-def test_megastep_kernel_matches_plain(cuda, n, t, d, offsets):
-    g = _gen(cuda, 1)
+def _mega_operands(cuda, n, t, d, seed=1, misalign=False):
+    g = _gen(cuda, seed)
     theta, hat = (torch.randn((n, d), generator=g, device=cuda)
                   for _ in range(2))
     gamma = 0.1 * torch.randn((n, d), generator=g, device=cuda)
-    phi = torch.randn((n, t, d), generator=g, device=cuda)
+    if misalign:   # contiguous, but 4 bytes off 16-byte alignment
+        phi = torch.randn(n * t * d + 1, generator=g,
+                          device=cuda)[1:].view(n, t, d)
+    else:
+        phi = torch.randn((n, t, d), generator=g, device=cuda)
     y = torch.randn((n, t), generator=g, device=cuda)
+    return theta, hat, gamma, phi, y
+
+
+def _check_megastep(cuda, n, t, d, offsets, misalign=False):
+    theta, hat, gamma, phi, y = _mega_operands(cuda, n, t, d,
+                                               misalign=misalign)
     kw = dict(rho=0.3, lam=1e-2, lr=0.05, offsets=offsets)
-    want, want_xi = coke_megastep_ref(theta, hat, gamma, phi, y, **kw)
+    want = coke_megastep_ref(theta, hat, gamma, phi, y,
+                             return_resid_sq=True, **kw)
+    rsq = torch.full((n,), float("nan"), device=cuda)
     before = k2.LAUNCHES
-    got, xi = k2.coke_megastep(theta, hat, gamma, phi, y, **kw)
+    got, xi = k2.coke_megastep(theta, hat, gamma, phi, y, resid_sq=rsq,
+                               **kw)
     torch.cuda.synchronize()
     assert got is theta                       # written in place
     assert k2.LAUNCHES == before + k2.LAUNCHES_PER_CALL
-    for w, o in ((want, got), (want_xi, xi)):
+    for w, o in zip(want, (got, xi, rsq)):
         scale = float(w.abs().max())
         torch.testing.assert_close(o, w, rtol=MEGA_RTOL,
                                    atol=MEGA_RTOL * scale)
+
+
+@pytest.mark.parametrize("n,t,d,offsets", MEGA_SHAPES, ids=str)
+def test_megastep_kernel_matches_plain(cuda, n, t, d, offsets):
+    """theta', xi_sq and resid_sq against the plain version; D % 4 != 0
+    takes the cp.async instance, the rest the bulk-copy one."""
+    phi = torch.empty((n, t, d), device=cuda)
+    assert k2.megastep_staging(phi) == ("bulk" if d % 4 == 0
+                                        else "cp.async")
+    _check_megastep(cuda, n, t, d, offsets)
+
+
+@pytest.mark.parametrize("n,t,d", [(4, 40, 32), (7, 1000, 256),
+                                   (20, 350, 4096)], ids=str)
+def test_megastep_unaligned_phi_takes_the_cp_async_instance(cuda, n, t, d):
+    phi = torch.empty(n * t * d + 1, device=cuda)[1:].view(n, t, d)
+    assert k2.megastep_staging(phi) == "cp.async"
+    _check_megastep(cuda, n, t, d, (1,), misalign=True)
+
+
+@pytest.mark.parametrize("n,t,d,misalign", [
+    (20, 350, 4096, False), (7, 1000, 256, False), (2, 33, 513, False),
+    (20, 350, 4096, True)], ids=str)
+def test_megastep_kernel_is_deterministic(cuda, n, t, d, misalign):
+    """No floating-point atomics: two calls on the same inputs give the
+    same bits, with and without the resid_sq output."""
+    theta, hat, gamma, phi, y = _mega_operands(cuda, n, t, d, seed=3,
+                                               misalign=misalign)
+    kw = dict(rho=0.3, lam=1e-2, lr=0.05, offsets=(1,))
+    outs = []
+    for with_rsq in (False, True, True):
+        rsq = torch.empty((n,), device=cuda) if with_rsq else None
+        th, xi = k2.coke_megastep(theta.clone(), hat, gamma, phi, y,
+                                  resid_sq=rsq, **kw)
+        outs.append((th, xi, rsq))
+    torch.cuda.synchronize()
+    for th, xi, _ in outs[1:]:
+        assert torch.equal(th, outs[0][0]) and torch.equal(xi, outs[0][1])
+    assert torch.equal(outs[1][2], outs[2][2])
+
+
+def test_megastep_too_wide_raises_before_any_launch(cuda):
+    theta, hat, gamma, phi, y = _mega_operands(cuda, 2, 1, 20484)
+    before = k2.LAUNCHES
+    with pytest.raises(ValueError, match="too wide"):
+        k2.coke_megastep(theta, hat, gamma, phi, y, rho=0.3, lam=1e-2,
+                         lr=0.05)
+    assert k2.LAUNCHES == before
 
 
 def test_kernels_raise_on_operands_they_do_not_take(cuda):

@@ -195,11 +195,21 @@ def test_build_problem_draws_its_own_rff_from_the_seed():
 # the fit
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("alg", ["coke", "dkla"])
-def test_fit_matches_reference_fused_and_simulator(alg, reference_fits,
-                                                   port_fits):
+@pytest.mark.parametrize("alg,chunk", [
+    ("coke", None), ("dkla", None), ("coke", 1), ("dkla", 1), ("coke", 3),
+    ("dkla", 3)], ids=["coke", "dkla", "coke-chunk1", "dkla-chunk1",
+                       "coke-chunk3", "dkla-chunk3"])
+def test_fit_matches_reference_fused_and_simulator(alg, chunk, built,
+                                                   reference_fits, port_fits):
+    """The megakernel fit against the reference at every chunk size: its
+    train MSE is K2's residual sum one iteration late, and the chunk's last
+    iteration reads Phi again, so chunking moves where each value comes
+    from but must not move the values (40 iterations; chunks of 3 leave a
+    ragged last chunk of 1)."""
     fused, simulator = reference_fits[alg]
-    port = port_fits[alg]
+    port = port_fits[alg] if chunk is None else fit(
+        _configs(algorithm=alg, chunk_size=chunk)[1], problem=built[1],
+        device="cpu")
     _assert_history_match(fused, port, f"{alg}:fused")
     for k in ("comms", "bits"):
         np.testing.assert_array_equal(_np(port.history[k]),

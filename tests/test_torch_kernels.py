@@ -198,6 +198,129 @@ def test_megastep_writes_theta_in_place():
         assert torch.equal(a, b)
 
 
+# (N, T, rows per stage, blocks): the paper-scale fit on 132 SMs; N > SMs
+# at gossip size; T < one stage; ranges that cross agent boundaries; more
+# blocks than stages; a card of a few SMs
+SEGMENT_CASES = [(20, 3500, 3, 132), (200, 5, 4, 132), (6, 1, 8, 132),
+                 (7, 1000, 4, 132), (4, 40, 8, 132), (3, 17, 3, 5),
+                 (5, 128, 2, 7)]
+
+
+@pytest.mark.parametrize("n,t,rows,blocks", SEGMENT_CASES, ids=str)
+def test_megastep_segments_cover_every_row_once(n, t, rows, blocks):
+    """Launch A's segmentation: the blocks' stages, walked in block order,
+    give every (agent, row) once and in agent-major order; no stage
+    crosses an agent; the ranges are balanced to within one stage; and
+    the segment numbering is consistent between blocks and agents."""
+    seg = port_cu.megastep_segments(n, t, rows, blocks)
+    spa = seg.stages_per_agent
+    assert seg.grid == min(blocks, n * spa)
+    assert seg.stage_begin[0] == 0 and seg.stage_begin[-1] == n * spa
+    sizes = [b - a for a, b in zip(seg.stage_begin, seg.stage_begin[1:])]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    walked, owner = [], {}
+    for g in range(seg.grid):
+        k, agent = seg.block_seg[g] - 1, None
+        for gs in range(seg.stage_begin[g], seg.stage_begin[g + 1]):
+            a, row0 = gs // spa, (gs % spa) * rows
+            assert 0 < min(rows, t - row0) <= rows
+            if a != agent:
+                agent, k = a, k + 1
+            assert owner.setdefault(k, a) == a
+            walked += [(a, row0 + b) for b in range(min(rows, t - row0))]
+    assert walked == [(i, r) for i in range(n) for r in range(t)]
+    assert sorted(owner) == list(range(seg.num_segments))
+    for i in range(n):
+        mine = [k for k, a in owner.items() if a == i]
+        assert mine == list(range(seg.agent_seg[i], seg.agent_seg[i + 1]))
+    assert seg.table() == [*seg.stage_begin, *seg.block_seg, *seg.agent_seg]
+
+
+def _megastep_in_kernel_order(theta, hat, gamma, phi, y, *, rows, blocks,
+                              rho, lam, lr, offsets):
+    """Launch A and launch B of the card kernel, in their order, in plain
+    PyTorch: per-stage residuals and partial sums into one slot per
+    (block, agent) segment, then the fixed-order combine per agent."""
+    N, T, D = phi.shape
+    seg = port_cu.megastep_segments(N, T, rows, blocks)
+    spa = seg.stages_per_agent
+    partial = torch.zeros((seg.num_segments, D))
+    rsq = torch.zeros((seg.num_segments,))
+    for g in range(seg.grid):
+        k, agent = seg.block_seg[g] - 1, None
+        for gs in range(seg.stage_begin[g], seg.stage_begin[g + 1]):
+            a, row0 = gs // spa, (gs % spa) * rows
+            if a != agent:
+                agent, k = a, k + 1
+            tile = phi[a, row0:row0 + rows]
+            r = tile @ theta[a] - y[a, row0:row0 + rows]
+            partial[k] += r @ tile
+            rsq[k] += torch.sum(r * r)
+    sc = port_cu.megastep_scalars(rho=rho, lam=lam, lr=lr, n_agents=N,
+                                  n_samples=T, n_offsets=len(offsets))
+    new, xi, resid = torch.empty_like(theta), torch.empty(N), torch.empty(N)
+    for i in range(N):
+        g, r_i = torch.zeros(D), torch.zeros(())
+        for k in range(seg.agent_seg[i], seg.agent_seg[i + 1]):
+            g, r_i = g + partial[k], r_i + rsq[k]
+        acc = sc["deg"] * hat[i]
+        for o in offsets:
+            acc = acc + hat[(i + o) % N] + hat[(i - o) % N]
+        gaug = (sc["inv_t2"] * g + sc["lam2"] * theta[i]
+                + sc["rho2deg"] * theta[i] + gamma[i] - sc["rho"] * acc)
+        new[i] = theta[i] - sc["lr"] * gaug
+        # one partial per 256-column tile, summed in tile order
+        sq = (new[i] - hat[i]) ** 2
+        xi[i] = torch.zeros(())
+        for c in range(0, D, 256):
+            xi[i] = xi[i] + torch.sum(sq[c:c + 256])
+        resid[i] = r_i
+    return new, xi, resid
+
+
+@pytest.mark.parametrize("n,t,d,offsets,rows,blocks", [
+    (4, 40, 32, (1,), 8, 132), (2, 33, 513, (1,), 8, 3),
+    (8, 64, 100, (1, 2), 4, 11), (7, 50, 64, (1,), 3, 13),
+    (12, 3, 16, (1, 5), 4, 5), (3, 1, 40, (1,), 8, 132)], ids=str)
+def test_megastep_kernel_order_matches_plain(n, t, d, offsets, rows, blocks):
+    """The card kernel's summation structure (segment partials, then the
+    fixed-order combine) against `coke_megastep_ref`, including ranges
+    that cross agent boundaries and agents split over several blocks."""
+    th, hat, gm, phi, y = map(torch.tensor, _mega_inputs(n, t, d, seed=7))
+    want = coke_megastep_ref(th, hat, gm, phi, y, offsets=offsets,
+                             return_resid_sq=True, **MEGA_KW)
+    got = _megastep_in_kernel_order(th, hat, gm, phi, y, rows=rows,
+                                    blocks=blocks, offsets=offsets,
+                                    **MEGA_KW)
+    for w, o in zip(want, got):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(o, w, rtol=MEGA_RTOL,
+                                   atol=MEGA_RTOL * scale)
+
+
+def test_megastep_resid_sq_matches_numpy():
+    """resid_sq = sum_t (phi_t . theta - y_t)^2 of the incoming theta, from
+    the plain version and through the wrapper's `resid_sq=` output, against
+    float64 numpy; a default call still returns (theta, xi_sq)."""
+    ops = _mega_inputs(5, 30, 24, seed=2)
+    th, hat, gm, phi, y = ops
+    want = np.sum((np.einsum("ntd,nd->nt", phi.astype(np.float64), th)
+                   - y) ** 2, axis=-1)
+    t = [torch.tensor(a) for a in ops]
+    _, _, plain = coke_megastep_ref(*t, offsets=(1,), return_resid_sq=True,
+                                    **MEGA_KW)
+    out = torch.full((5,), float("nan"))
+    res = port_cu.coke_megastep(*[a.clone() for a in t], offsets=(1,),
+                                resid_sq=out, **MEGA_KW)
+    assert len(res) == 2
+    assert len(coke_megastep_ref(*t, offsets=(1,), **MEGA_KW)) == 2
+    for got in (plain, out):
+        np.testing.assert_allclose(got.numpy(), want, rtol=MEGA_RTOL)
+    with pytest.raises(ValueError, match="resid_sq"):
+        port_cu.coke_megastep(*t, offsets=(1,), resid_sq=torch.empty(4),
+                              **MEGA_KW)
+
+
 def test_megastep_scalars_match_reference():
     kw = dict(rho=0.3, lam=1e-2, lr=0.05, n_agents=7, n_samples=33,
               n_offsets=2)
@@ -234,6 +357,19 @@ def test_build_names_libraries_by_source_hash():
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
         assert p == build.library_path(name)
     assert build.library_path("rff") != build.library_path("coke_megastep")
+
+
+def test_build_reports_the_log_of_a_cached_library(tmp_path, monkeypatch):
+    """A library built earlier is not rebuilt, and its report carries the
+    nvcc output kept beside it (the ptxas lines chip_smoke.py prints)."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    lib = build.library_path("coke_megastep")
+    lib.write_bytes(b"")
+    report = build.build(("coke_megastep",))["coke_megastep"]
+    assert report["cached"] and report["log"] == ""
+    lib.with_suffix(".log").write_text("ptxas info    : Used 96 registers")
+    report = build.build(("coke_megastep",))["coke_megastep"]
+    assert report["cached"] and "96 registers" in report["log"]
 
 
 # ---------------------------------------------------------------------------
