@@ -7,12 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
   1. build the four hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
-     build/repro_torch/; count K4's tensor-core instructions in its SASS
-     (cuobjdump -sass: both HMMA kinds must be there) and print its launch
-     plans;
+     build/repro_torch/; K1's ptxas report per instance, its launch plan at
+     the predict shape and at d=96, and its SASS instructions per output
+     (cuobjdump -sass); count K4's tensor-core instructions in its SASS
+     (both HMMA kinds must be there) and print its launch plans;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
-     ones, each error printed beside its tolerance; K2 with both staging
+     ones, each error printed beside its tolerance; K1 with both store
+     instances (TMA bulk, 4-byte), two calls giving the same bits, and its
+     cosine against cosf on every fp32 value; K2 with both staging
      instances (bulk copies, 4-byte cp.async), its resid_sq output, and two
      calls on the same inputs giving the same bits; K4 (flash attention)
      over lengths, masks, head groups, both layouts, head dims and dtypes;
@@ -43,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      iteration split into the local gradients, K3, the metric and the
      rest; an spmd iteration; each of these also as the host's time to
      enqueue it, from the same window; each kernel beside its bound and
-     its plain version; predict;
+     its plain version; K1 beside its earlier design's time and a write-
+     floor probe (out.fill_ over the same output); predict;
   8. torch.profiler windows over ten megakernel COKE iterations and ten
      fused-logistic COKE iterations, recording device activity only:
      device busy and idle share, device time by kernel;
@@ -75,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -103,6 +108,10 @@ K2_RTOL = 1e-5
 # K2 at the main shape in its earlier design (two launches over per-agent
 # row chunks, PERF.md's kernel table): the time this design is held against
 K2_EARLIER_MS = 0.6582
+# K1 at the predict shape in its earlier design (a 32 x 64 tile per block,
+# stored at the block's end; PERF.md's kernel table): the time this design
+# is held against
+K1_EARLIER_MS = 0.4569
 # K3: g_aug is formed in the plain expression's order with round-to-nearest
 # intrinsics, so it may differ from the plain version only where a compiler
 # contracted a product into an FMA: 4 ulps of the largest term. xi_sq is an
@@ -238,13 +247,42 @@ def hmma_count(library):
     """{opcode: count} of the tensor-core instructions (HMMA.*) in a built
     library's SASS, by `cuobjdump -sass`."""
     import collections
-    import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     return dict(collections.Counter(
         tok.rstrip(";") for line in sass.splitlines()
         for tok in line.split() if tok.startswith("HMMA")))
+
+
+def k1_sass_counts(sass):
+    """Instructions a thread issues per output on the cosine's fast path,
+    in the SASS of K1's bulk instance for d = 5 (`cuobjdump -sass` text,
+    where the loop over k is unrolled), as a line of text.
+
+    Each fast-path cosine adds the 1.5 * 2^23 shifter once (`FADD ...,
+    12582912`), so those count a step's outputs. The unit loop is the
+    innermost loop holding them; its largest forward branch skips cosf's
+    fallback."""
+    import re
+    body = next(p for p in sass.split("Function : ")[1:]
+                if "rff_strip_kernelILb1ELi5E" in p.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in (
+        re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        for line in body.splitlines()) if m]
+    shift = [a for a, t in ins if re.search(r"FADD\b.*, 12582912$", t)]
+    jumps = [(a, int(m.group(1), 16)) for a, t in ins
+             for m in [re.search(r"\bBRA\S*\s+.*?0x([0-9a-f]+)", t)] if m]
+    lo, hi = min(((t, a) for a, t in jumps
+                  if t <= shift[0] and shift[-1] <= a),
+                 key=lambda r: r[1] - r[0])
+    skip = max(((a, t) for a, t in jumps if lo <= a < t <= hi),
+               key=lambda r: r[1] - r[0])
+    fast = [t for a, t in ins if lo <= a <= hi and not skip[0] < a < skip[1]]
+    ffma = sum(1 for t in fast if re.search(r"\bFFMA\b", t))
+    return (f"{len(fast) / len(shift):.2f} instructions per output on the "
+            f"fast path at d=5 ({len(fast)} per step of {len(shift)} "
+            f"outputs, {ffma / len(shift):.2f} of them FFMA)")
 
 
 def k4_plan(build, dh, dv, dtype):
@@ -334,7 +372,8 @@ def ptxas_report(nvcc_log):
     """{kernel: "N registers, spill line"} from nvcc's -Xptxas -v output,
     K2's stream-kernel instances named by their template arguments
     (V float4 column groups per thread, R rows per stage, bulk or cp.async
-    staging). Empty when the library came from the build cache."""
+    staging) and K1's by its store path (TMA bulk stores or 4-byte
+    stores). Empty when the library came from the build cache."""
     import re
     out, fn = {}, None
     for line in nvcc_log.splitlines():
@@ -343,9 +382,13 @@ def ptxas_report(nvcc_log):
             fn = m.group(1)
             t = re.search(r"megastep_stream_kernelILi(\d+)ELi(\d+)ELb([01])E",
                           fn)
+            k1 = re.search(r"rff_strip_kernelILb([01])ELi(\d+)E", fn)
             if t:
                 fn = (f"stream<V={t.group(1)}, R={t.group(2)}, "
                       f"{'bulk' if t.group(3) == '1' else 'cp.async'}>")
+            elif k1:
+                d = "any d" if k1.group(2) == "0" else f"d={k1.group(2)}"
+                fn = f"rff<{'bulk' if k1.group(1) == '1' else '4-byte'}, {d}>"
             elif "combine_kernel" in fn:
                 fn = "combine"
             out[fn] = ""
@@ -408,6 +451,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # K1's predict shape: every agent's held-out rows (30 000 at full size)
+    predict_rows = N_AGENTS * (SAMPLES - int(SAMPLES * 0.7))
 
     def reset_counts():
         k1.LAUNCHES = k2.LAUNCHES = k2.FUSED_UPDATE_LAUNCHES = 0
@@ -439,11 +484,33 @@ def main() -> int:
     log(1, f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s "
            f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for src, r in sorted(report.items()):
-        if src == "coke_megastep":      # per instance in phase 7
+        if src in ("coke_megastep", "rff"):   # per instance, below and in 7
             continue
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(1, f"  {src}: {line.strip()}")
+    for fn, props in ptxas_report(report["rff"]["log"]).items():
+        log(1, f"  rff {fn}: {props}")
+    for shape in ((predict_rows, 5, FEATURES),
+                  (predict_rows, 96, FEATURES)):
+        out = torch.empty(shape[0], shape[2], device=dev)
+        plan = k1.rff_device_plan(*shape, out)
+        log(1, f"K1 plan (M, d, L)={shape}: {plan.instance} instance, "
+               f"{plan.strips} strip(s) of {plan.strip} columns, "
+               f"{plan.tiles} row tiles of {plan.rows} rows, "
+               f"{plan.buffers} output tiles in shared memory, "
+               f"{plan.smem_bytes} B of shared memory, {plan.blocks} "
+               f"blocks; omega and bias slices "
+               f"{4 * (shape[1] + 1) * plan.strip} B")
+        del out
+    try:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        k1_sass = k1_sass_counts(subprocess.run(
+            [tool, "-sass", str(build.library_path("rff"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout)
+    except Exception as exc:    # a diagnostic: a layout it misreads
+        k1_sass = f"not read ({exc!r})"
+    log(1, f"K1 SASS (cuobjdump -sass, bulk instance): {k1_sass}")
     hmma = hmma_count(build.library_path("flash_attention"))
     log(1, f"flash_attention SASS tensor-core instructions (cuobjdump "
            f"-sass): {hmma}")
@@ -473,20 +540,36 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = k1_tolerance(x, omega)
-        log(2, f"K1 rff_cos_bias M={M} d={d} L={L}: max|err| {err:.3e} "
-               f"(tol {tol:.3e})")
+        instance = k1.rff_staging(L, got)
+        log(2, f"K1 rff_cos_bias M={M} d={d} L={L} ({instance}): max|err| "
+               f"{err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"M={M} d={d} L={L}: {err} > {tol}")
         if main:
             errs["rff_cos_bias"] = err
-        return x, omega, bias
+        return x, omega, bias, instance
 
-    k1_inputs = rff_case(N_AGENTS * (SAMPLES - int(SAMPLES * 0.7)), 5,
-                         FEATURES, main=True)
-    for d in (13, 77, 96):
-        for L in (100, 513):
-            rff_case(1001, d, L)
+    k1_inputs = rff_case(predict_rows, 5, FEATURES, main=True)
+    instances = {k1_inputs[3]}
+    for M, d, L in ((1001, 13, 100), (1001, 13, 513), (1001, 77, 100),
+                    (1001, 77, 513), (1001, 96, 100), (1001, 96, 513),
+                    (1001, 5, 513), (1, 5, FEATURES), (1001, 96, FEATURES),
+                    (257, 5, FEATURES + 4), (1000, 96, 253)):
+        instances.add(rff_case(M, d, L)[3])
+    if instances != {"bulk", "4-byte"}:
+        raise AssertionError(f"phase 2 ran K1's instances {instances}, "
+                             "not both")
+    again = k1.rff_cos_bias(*k1_inputs[:3])
+    if not torch.equal(again, k1.rff_cos_bias(*k1_inputs[:3])):
+        raise AssertionError("two K1 calls on the same inputs differ")
+    del again
+    bad, first_bad = k1.rff_cos_mismatches(dev)
+    log(2, f"K1's cosine against cosf on all 2^32 fp32 values: {bad} "
+           "differ; two calls at the predict shape give the same bits")
+    if bad:
+        raise AssertionError(f"K1's cosine differs from cosf on {bad} "
+                             f"values, first 0x{first_bad:08x}")
 
     def mega_case(n, t, d, offsets, main=False, misalign=False):
         theta = torch.randn((n, d), generator=gen, device=dev)
@@ -984,11 +1067,16 @@ def main() -> int:
     # squared residuals
     k2_bytes = 4.0 * (n2 * t2 * d2 + n2 * t2 + 4 * n2 * d2 + 2 * n2)
     k2_flops = 4.0 * n2 * t2 * d2 + 12.0 * n2 * d2 + 2.0 * n2 * t2
-    x1, omega1, bias1 = k1_inputs
-    k1_ms = time_ms(lambda: k1.rff_cos_bias(x1, omega1, bias1))
-    k1_plain_ms = time_ms(lambda: rff_ref(x1, omega1, bias1))
+    x1, omega1, bias1, _ = k1_inputs
     m1, d1 = x1.shape
     l1 = omega1.shape[1]
+    # the card's own write stream over the same output: not K1's
+    # library_ms (no call computes K1's function), a floor for its stores
+    fill = torch.empty((m1, l1), device=dev)
+    k1_ms = time_ms(lambda: k1.rff_cos_bias(x1, omega1, bias1))
+    fill_ms = time_ms(lambda: fill.fill_(1.0))
+    k1_plain_ms = time_ms(lambda: rff_ref(x1, omega1, bias1))
+    del fill
     k1_bytes = 4.0 * (m1 * d1 + d1 * l1 + l1 + m1 * l1)
     k1_flops = 2.0 * m1 * l1 * d1 + 2.0 * m1 * l1
     ops3, kw3 = k3_inputs
@@ -1037,6 +1125,14 @@ def main() -> int:
            f"{k2_bound:.4f} ms byte bound ({k2_bound / k2_ms:.1%}) and the "
            f"earlier design's {K2_EARLIER_MS} ms "
            f"({K2_EARLIER_MS / k2_ms:.2f}x faster)")
+    k1_bound = bound(k1_bytes, k1_flops)[0]
+    log(7, f"[{card}] K1 redesigned: {k1_ms:.4f} ms against its "
+           f"{k1_bound:.4f} ms byte bound ({k1_bound / k1_ms:.1%}) and the "
+           f"earlier design's {K1_EARLIER_MS} ms "
+           f"({K1_EARLIER_MS / k1_ms:.2f}x faster); write-floor probe "
+           f"out.fill_(1.0) on the same ({m1}, {l1}) fp32 output "
+           f"{fill_ms:.4f} ms ({k1_bytes / fill_ms / 1e9:.2f} TB/s; K1 "
+           f"{k1_bytes / k1_ms / 1e9:.2f} TB/s)")
     log(7, f"[{card}] K2 shape N={n2} T={t2} D={d2}; K1 shape M={m1} d={d1} "
            f"L={l1}; K3 shape N={n3} D={d3}")
     log(7, f"[{card}] K3 and its plain version timed as CUDA-graph replays "

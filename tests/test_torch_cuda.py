@@ -34,7 +34,16 @@ RFF_ATOL = 1e-5
 MEGA_RTOL = 1e-5
 
 RFF_SHAPES = [(64, 5, 32), (300, 77, 100), (128, 96, 200), (33, 13, 50),
-              (1000, 5, 513)]
+              (1000, 5, 513),
+              # M = 1; M not a multiple of the 4-row tile
+              (1, 5, 4096), (1001, 5, 4096),
+              # L one past a strip: 4096 columns at d = 5 (bulk), 252 at
+              # d = 96 (bulk at 256, 4-byte at 253)
+              (257, 5, 4100), (300, 96, 256), (1000, 96, 253),
+              # d = 96 at L = 4096: 17 strips of 252 columns
+              (1001, 96, 4096),
+              # the predict shape: 30 000 held-out rows, one whole-row strip
+              (30000, 5, 4096)]
 MEGA_SHAPES = [(4, 40, 32, (1,)), (2, 33, 513, (1,)), (8, 64, 100, (1, 2)),
                (3, 17, 128, (1,)), (5, 128, 256, (2,)), (20, 350, 4096, (1,)),
                # block ranges that cross agent boundaries (875 stages of 8
@@ -86,6 +95,40 @@ def test_rff_kernel_matches_plain(cuda, T, d, L):
     assert k1.LAUNCHES == before + 1
     torch.testing.assert_close(got, rff_ref(x, omega, bias), rtol=0,
                                atol=RFF_ATOL)
+
+
+@pytest.mark.parametrize("T,d,L,instance", [
+    (1000, 5, 4096, "bulk"), (1001, 96, 4096, "bulk"),
+    (1000, 5, 513, "4-byte"), (1000, 96, 253, "4-byte")], ids=str)
+def test_rff_kernel_is_deterministic(cuda, T, d, L, instance):
+    """Each output is written once by one thread in a fixed order: two
+    calls give the same bits, in both instances."""
+    g = _gen(cuda, 2)
+    x = torch.rand((T, d), generator=g, device=cuda)
+    omega = torch.randn((d, L), generator=g, device=cuda)
+    bias = torch.rand((L,), generator=g, device=cuda) * (2 * math.pi)
+    first = k1.rff_cos_bias(x, omega, bias)
+    assert k1.rff_staging(L, first) == instance
+    assert k1.rff_device_plan(T, d, L, first).instance == instance
+    second = k1.rff_cos_bias(x, omega, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_rff_cosine_is_cosf_on_every_fp32_value(cuda):
+    """The kernel writes cosf's fast path out without its branch; on all
+    2^32 bit patterns its cosine gives cosf's bits."""
+    assert k1.rff_cos_mismatches(cuda) == (0, None)
+
+
+def test_rff_too_large_d_raises_before_any_launch(cuda):
+    x = torch.rand((4, 7000), device=cuda)
+    omega = torch.randn((7000, 16), device=cuda)
+    bias = torch.rand((16,), device=cuda)
+    before = k1.LAUNCHES
+    with pytest.raises(ValueError, match="too large"):
+        k1.rff_cos_bias(x, omega, bias)
+    assert k1.LAUNCHES == before
 
 
 def _mega_operands(cuda, n, t, d, seed=1, misalign=False):

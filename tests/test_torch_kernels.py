@@ -12,6 +12,7 @@ contracts in XLA's order (blockwise for the megakernel), the port in
 ATen's einsum order.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from repro_torch.kernels.coke_update import ops as port_cu_ops
 from repro_torch.kernels.coke_update.ref import coke_megastep_ref
 from repro_torch.kernels.rff import rff as port_rff
 from repro_torch.kernels.rff.ops import featurize_fused
+from repro_torch.kernels.rff.ref import rff_ref
 
 torch.set_num_threads(2)
 
@@ -156,6 +158,118 @@ def test_featurize_fused_batches_leading_dims():
         jnp.asarray(x), interpret=True))
     assert port.shape == (4, 50, 64)
     np.testing.assert_allclose(port, ref, atol=RFF_ATOL, rtol=0)
+
+
+# an H100's limits: 132 SMs, 232,448 bytes of shared memory per block
+H100_SMS, H100_SMEM = 132, 232448
+# (M, d, L, bulk, SMs): the predict shape (30 000 held-out rows, d = 5,
+# L = 4096) and its d = 96 sibling (several strips); M = 1; a ragged last
+# tile; L one past a strip (252 columns at d = 96, 4096 at d = 5); ragged L
+# on the 4-byte instance; cards of a few SMs; more blocks than items
+RFF_PLAN_CASES = [(30000, 5, 4096, True, 132), (30000, 96, 4096, True, 132),
+                  (1, 5, 4096, True, 132), (1001, 5, 4096, True, 132),
+                  (300, 96, 256, True, 132), (1000, 96, 253, False, 7),
+                  (257, 5, 4100, True, 16), (1001, 13, 513, False, 132),
+                  (33, 77, 50, False, 5), (64, 1, 4, True, 132),
+                  (10, 5, 1, False, 132), (128, 96, 200, True, 3)]
+
+
+@pytest.mark.parametrize("M,d,L,bulk,sms", RFF_PLAN_CASES, ids=str)
+def test_rff_plan_covers_every_output_once(M, d, L, bulk, sms):
+    """K1's launch plan: the blocks' (strip, tile) items, walked in block
+    order, give every (row, column) of the output exactly once; the ranges
+    are balanced to within one item; every strip's omega and bias slices
+    fit the budget and the strip is the widest that does; the block's
+    shared memory fits the card."""
+    plan = port_rff.rff_plan(M, d, L, bulk=bulk, sm_count=sms,
+                             smem_per_block=H100_SMEM)
+    assert plan.instance == ("bulk" if bulk else "4-byte")
+    assert plan.strip % 4 == 0 and plan.rows % 4 == 0 and plan.rows >= 4
+    assert plan.rows <= -(-M // 4) * 4
+    slice_bytes = 4 * (d + 1) * plan.strip
+    assert slice_bytes <= port_rff.OMEGA_BUDGET_BYTES
+    assert (plan.strip >= L or slice_bytes + 4 * (d + 1) * 4
+            > port_rff.OMEGA_BUDGET_BYTES)
+    assert plan.smem_bytes == port_rff.rff_smem_bytes(d, plan.strip,
+                                                      plan.rows,
+                                                      plan.buffers)
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.buffers == (port_rff.BUFFERS if bulk else 0)
+    assert plan.blocks == min(plan.items, sms)
+    items = port_rff.rff_work_items(plan)
+    assert len(items) == plan.blocks
+    sizes = [len(b) for b in items]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    walked = [it for b in items for it in b]
+    assert walked == [(s, t) for s in range(plan.strips)
+                      for t in range(plan.tiles)]
+    # (row, column) counts, per row tile and per strip: the output is their
+    # product, so this is every (row, column) once without an (M, L) array
+    rows, cols = np.zeros(M, np.int32), np.zeros(L, np.int32)
+    for t in range(plan.tiles):
+        rows[t * plan.rows:(t + 1) * plan.rows] += 1
+    for s in range(plan.strips):
+        cols[s * plan.strip:(s + 1) * plan.strip] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert plan.rows * (plan.tiles - 1) < M <= plan.rows * plan.tiles
+    assert plan.strip * (plan.strips - 1) < L <= plan.strip * plan.strips
+
+
+def test_rff_plan_at_the_predict_shape():
+    """At the predict shape on an H100 one strip spans the row: a tile is
+    4 whole rows (64 KB, one bulk store), two such tiles and the 96 KB of
+    omega and bias in 229,536 bytes, one block on each of the 132 SMs."""
+    plan = port_rff.rff_plan(30000, 5, 4096, bulk=True, sm_count=H100_SMS,
+                             smem_per_block=H100_SMEM)
+    assert (plan.strip, plan.rows, plan.buffers, plan.smem_bytes,
+            plan.blocks, plan.strips, plan.tiles) == (
+        4096, 4, 2, 229536, 132, 1, 7500)
+    wide = port_rff.rff_plan(30000, 96, 4096, bulk=True, sm_count=H100_SMS,
+                             smem_per_block=H100_SMEM)
+    assert (wide.strip, wide.strips) == (252, 17)
+
+
+def test_rff_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="L % 4"):
+        port_rff.rff_plan(10, 5, 513, bulk=True, sm_count=132,
+                          smem_per_block=H100_SMEM)
+    with pytest.raises(ValueError, match="too large"):
+        port_rff.rff_plan(10, 7000, 4096, bulk=True, sm_count=132,
+                          smem_per_block=H100_SMEM)
+    with pytest.raises(ValueError):
+        port_rff.rff_plan(0, 5, 16, bulk=True, sm_count=132,
+                          smem_per_block=H100_SMEM)
+
+
+@pytest.mark.parametrize("L,offset,want", [
+    (4096, 0, "bulk"), (100, 0, "bulk"), (513, 0, "4-byte"), (50, 0,
+                                                             "4-byte"),
+    (4096, 1, "4-byte"), (4, 4, "bulk")], ids=str)
+def test_rff_staging_picks_the_instance(L, offset, want):
+    """Bulk stores need L % 4 == 0 and a 16-byte-aligned output; anything
+    else takes the 4-byte instance."""
+    buf = torch.empty(3 * L + 8)
+    out = buf[offset:offset + 3 * L].view(3, L)
+    assert port_rff.rff_staging(L, out) == want
+
+
+@pytest.mark.parametrize("M,d,L,bulk,sms", RFF_PLAN_CASES[2:], ids=str)
+def test_rff_kernel_walk_matches_plain(M, d, L, bulk, sms):
+    """The card kernel's walk replayed in plain PyTorch: each block's
+    items, each a (rows, strip) tile of the plain featurizer on the tile's
+    x rows, omega and bias slices, assemble the plain output."""
+    x, omega, bias = map(torch.tensor, _rff_inputs(M, d, L, seed=5))
+    plan = port_rff.rff_plan(M, d, L, bulk=bulk, sm_count=sms,
+                             smem_per_block=H100_SMEM)
+    scale = math.sqrt(2.0 / L)
+    out = torch.full((M, L), float("nan"))
+    for block in port_rff.rff_work_items(plan):
+        for s, t in block:
+            rs = slice(t * plan.rows, (t + 1) * plan.rows)
+            cs = slice(s * plan.strip, (s + 1) * plan.strip)
+            out[rs, cs] = scale * torch.cos(x[rs] @ omega[:, cs] + bias[cs])
+    torch.testing.assert_close(out, rff_ref(x, omega, bias), rtol=0,
+                               atol=RFF_ATOL)
 
 
 # ---------------------------------------------------------------------------
