@@ -17,8 +17,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      instances (TMA bulk, 4-byte), two calls giving the same bits, and its
      cosine against cosf on every fp32 value; K2 with both staging
      instances (bulk copies, 4-byte cp.async), its resid_sq output, and two
-     calls on the same inputs giving the same bits; K4 (flash attention)
-     over lengths, masks, head groups, both layouts, head dims and dtypes;
+     calls on the same inputs giving the same bits; K3 with its launch plan
+     and ptxas report per instance, at the path's shape with one tensor as
+     both neighbours (the path's call; the same bits as two distinct
+     tensors) and at ragged, wide, misaligned and many-agent shapes, each
+     xi_sq bitwise the CPU emulation of the kernel's order and two calls
+     bitwise equal; K4 (flash attention) over lengths, masks, head groups,
+     both layouts, head dims and dtypes;
   3. small fits on the card against the same fits on the CPU (the plain
      versions): the megakernel path, the spmd backend and the fused
      fallback on a logistic problem; comms and bits equal, theta close;
@@ -47,10 +52,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      rest; an spmd iteration; each of these also as the host's time to
      enqueue it, from the same window; each kernel beside its bound and
      its plain version; K1 beside its earlier design's time and a write-
-     floor probe (out.fill_ over the same output); predict;
+     floor probe (out.fill_ over the same output); K3 at the path's shape
+     (CUDA-graph replay, the kernel alone by the profiler, a floor probe of
+     one graph node) and at D=65536 with a cold L2, aliased and distinct,
+     each beside its byte bound and the earlier design's times, and one
+     wrapper call's host time; predict;
   8. torch.profiler windows over ten megakernel COKE iterations and ten
      fused-logistic COKE iterations, recording device activity only:
-     device busy and idle share, device time by kernel;
+     device busy and idle share, device time by kernel; then ten K3 calls
+     alone, which must launch one K3 kernel each and nothing else;
   9. the LM serving engine, small: the reduced qwen3-1.7b config with
      weights from one seed, on the card against the CPU (K4's plain
      version): equal greedy tokens, prefill logits close;
@@ -112,6 +122,27 @@ K2_EARLIER_MS = 0.6582
 # stored at the block's end; PERF.md's kernel table): the time this design
 # is held against
 K1_EARLIER_MS = 0.4569
+# clock cycles of the sleep kernel that holds the device while the host
+# enqueues a cold-L2 timing loop (`flushed_ms`): ~20 ms at 2 GHz, more than
+# 50 calls of a wrapper with a few hundred microseconds of host time each
+HOLD_CYCLES = 40_000_000
+# K3 in its earlier design (one block per 512-feature tile, the tile
+# partials summed by torch.sum, a second kernel), timed by
+# scripts/k3_compare.py before this design replaced it (PERF.md): per call
+# at the path's shape (N=20, D=4096, one tensor as both neighbours) as a
+# CUDA-graph replay, its kernel alone and the torch.sum by the profiler,
+# and at D=K3_STREAM_D with a cold L2 (`flushed_ms`), aliased and
+# distinct; "clean" after the flush buffer was also read back, timed in
+# the same call as this design
+K3_EARLIER_MS = {"path": 0.003882, "kernel alone": 0.001653,
+                 "torch.sum": 0.001954, "stream aliased": 0.022048,
+                 "stream distinct": 0.024376,
+                 "stream aliased clean": 0.018800,
+                 "stream distinct clean": 0.020632}
+# and one call of its wrapper, host time (`host_call_ms`)
+K3_EARLIER_HOST_MS = 0.0455
+# K3's streaming shape: the repo's big-D point (benchmarks/big_d_bench.py)
+K3_STREAM_D = 65536
 # K3: g_aug is formed in the plain expression's order with round-to-nearest
 # intrinsics, so it may differ from the plain version only where a compiler
 # contracted a product into an FMA: 4 ulps of the largest term. xi_sq is an
@@ -217,6 +248,71 @@ def graph_ms(fn, reps=100, runs=7):
         for _ in range(reps):
             fn()
     return time_ms(graph.replay, reps=1, runs=runs, warmup=1) / reps
+
+
+def flushed_ms(fn, flush, reps=50, warmup=3, clean=False):
+    """Median device time of one call of `fn` with a cold L2: `flush`, a
+    buffer larger than the L2, is written before each call, and CUDA events
+    are recorded around the call alone. The write leaves the L2 full of
+    dirty lines, which the call's reads then evict to memory; `clean` also
+    reads the buffer back after writing it, so that the lines the call
+    evicts are clean. A sleep kernel holds the device while the host
+    enqueues every call, so that no pair of events brackets the host's own
+    time between a flush and the call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        if clean:
+            flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def host_call_ms(fn, calls=1000):
+    """The host's time to make one call of `fn` (perf_counter over `calls`
+    calls, no synchronisation between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def device_ms(e):
+    """The device time (ms) of a torch.profiler key_averages() row."""
+    us = getattr(e, "self_device_time_total", None)
+    return (e.self_cuda_time_total if us is None else us) / 1e3
+
+
+def profiled_kernels(fn, calls=20):
+    """[(device ms per call, launches per call, kernel name)] of every
+    kernel that `calls` calls of `fn` launch, by torch.profiler (device
+    activity only); empty where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((device_ms(e) / calls, e.count / calls, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA and device_ms(e) > 0),
+                  reverse=True)
 
 
 def paired_ms(fn, calls, runs=7, warmup=2):
@@ -372,8 +468,9 @@ def ptxas_report(nvcc_log):
     """{kernel: "N registers, spill line"} from nvcc's -Xptxas -v output,
     K2's stream-kernel instances named by their template arguments
     (V float4 column groups per thread, R rows per stage, bulk or cp.async
-    staging) and K1's by its store path (TMA bulk stores or 4-byte
-    stores). Empty when the library came from the build cache."""
+    staging), K1's by its store path (TMA bulk stores or 4-byte stores)
+    and K3's by its load width, neighbour reads and loads in flight (U).
+    Empty when the library came from the build cache."""
     import re
     out, fn = {}, None
     for line in nvcc_log.splitlines():
@@ -383,12 +480,19 @@ def ptxas_report(nvcc_log):
             t = re.search(r"megastep_stream_kernelILi(\d+)ELi(\d+)ELb([01])E",
                           fn)
             k1 = re.search(r"rff_strip_kernelILb([01])ELi(\d+)E", fn)
+            k3 = re.search(r"coke_fused_update_kernelI(6float4|f)Lb([01])ELi"
+                           r"(\d+)E", fn)
             if t:
                 fn = (f"stream<V={t.group(1)}, R={t.group(2)}, "
                       f"{'bulk' if t.group(3) == '1' else 'cp.async'}>")
             elif k1:
                 d = "any d" if k1.group(2) == "0" else f"d={k1.group(2)}"
                 fn = f"rff<{'bulk' if k1.group(1) == '1' else '4-byte'}, {d}>"
+            elif k3:
+                width = "4-byte" if k3.group(1) == "f" else "16-byte"
+                reads = "one" if k3.group(2) == "1" else "two"
+                fn = (f"coke_fused_update<{width}, {reads} neighbour "
+                      f"read(s), U={k3.group(3)}>")
             elif "combine_kernel" in fn:
                 fn = "combine"
             out[fn] = ""
@@ -440,7 +544,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.coke_update import coke_update as k2
     from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
-                                                     coke_update_ref)
+                                                     coke_update_ref,
+                                                     xi_sq_in_kernel_order)
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -484,7 +589,8 @@ def main() -> int:
     log(1, f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s "
            f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for src, r in sorted(report.items()):
-        if src in ("coke_megastep", "rff"):   # per instance, below and in 7
+        if src in ("coke_megastep", "rff", "coke_fused_update"):
+            # per instance: K1 below, K3 in phase 2, K2 in phase 7
             continue
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -639,36 +745,81 @@ def main() -> int:
     log(2, "K2: two calls at the main shape give bitwise-equal theta', xi_sq "
            "and resid_sq")
 
-    def update_case(n, d, deg, main=False):
-        # theta, theta_hat, gamma, grad, left, right at the scale of a fit
-        ops = [0.1 * torch.randn((n, d), generator=gen, device=dev)
-               for _ in range(6)]
+    for fn, props in ptxas_report(report["coke_fused_update"]["log"]).items():
+        log(2, f"  K3 ptxas {fn}: {props or 'no report'}")
+
+    def update_case(n, d, deg, main=False, aliased=False, misalign=False):
+        # theta, theta_hat, gamma, grad, left, right at the scale of a fit;
+        # aliased: one tensor as both neighbour operands, as the fused
+        # fallback passes them; misaligned: views 4 bytes off 16
+        ops = []
+        for _ in range(6):
+            u = torch.randn(n * d + int(misalign), generator=gen, device=dev)
+            ops.append(0.1 * u[int(misalign):].view(n, d))
+        if aliased:
+            ops[5] = ops[4]
         kw = dict(rho=1e-2, deg=deg)
         want, want_xi = coke_update_ref(*ops, **kw)
+        plan, vec, shared = k2.fused_update_launch(ops)
+        if shared != aliased:
+            raise AssertionError(f"K3 took the {'one' if shared else 'two'}-"
+                                 f"read instance for aliased={aliased}")
         before = k2.FUSED_UPDATE_LAUNCHES
         got, got_xi = k2.coke_fused_update(*ops, **kw)
+        again = k2.coke_fused_update(*ops, **kw)
         torch.cuda.synchronize()
-        if k2.FUSED_UPDATE_LAUNCHES != before + 1:
+        if k2.FUSED_UPDATE_LAUNCHES != before + 2:
             raise AssertionError("K3 did not launch exactly once per call")
         e_g = float((got - want).abs().max())
         e_xi = float((got_xi - want_xi).abs().max())
         tol_g = k3_tolerance(*ops, **kw)
         tol_xi = K3_XI_RTOL * float(want_xi.abs().max())
-        log(2, f"K3 coke_fused_update N={n} D={d} deg={deg:g}: g_aug "
+        order = xi_sq_in_kernel_order(ops[0].cpu(), ops[1].cpu(), plan,
+                                      vec=vec)
+        in_order = torch.equal(got_xi.cpu(), order)
+        twice = torch.equal(got, again[0]) and torch.equal(got_xi, again[1])
+        log(2, f"K3 coke_fused_update N={n} D={d} deg={deg:g} "
+               f"[{'16-byte' if vec else '4-byte'}, "
+               f"{'one neighbour read' if shared else 'two neighbour reads'};"
+               f" plan C={plan.clusters} threads={plan.threads} "
+               f"U={plan.unroll} slice={plan.slice} grid={plan.grid}]: g_aug "
                f"max|err| {e_g:.3e} (tol {tol_g:.3e}, 4 ulps of the largest "
                f"term), xi_sq max|err| {e_xi:.3e} (tol {tol_xi:.3e}, rtol "
-               f"{K3_XI_RTOL:g})")
+               f"{K3_XI_RTOL:g}); xi_sq bitwise its order's CPU emulation: "
+               f"{in_order}; two calls bitwise equal: {twice}")
         if not (e_g <= tol_g and e_xi <= tol_xi):
             raise AssertionError(f"K3 disagrees with its plain version at "
                                  f"N={n} D={d} deg={deg}")
+        if not (in_order and twice):
+            raise AssertionError(f"K3's xi_sq at N={n} D={d} is not its "
+                                 "order's bits, or two calls differ")
         if main:
             errs["coke_fused_update"] = e_g
         return ops, kw
 
-    k3_inputs = update_case(N_AGENTS, FEATURES, 2.0, main=True)
-    for n, d, deg in ((1, 1, 2.0), (3, 513, 2.0), (7, 1000, 2.0),
-                      (1, 1, 4.0), (3, 513, 4.0), (7, 1000, 4.0)):
-        update_case(n, d, deg)
+    # the path's call: N=20, D=4096, one tensor as both neighbours
+    k3_inputs = update_case(N_AGENTS, FEATURES, 2.0, main=True, aliased=True)
+    distinct = [t.clone() for t in k3_inputs[0]]
+    if not all(torch.equal(a, b) for a, b in zip(
+            k2.coke_fused_update(*k3_inputs[0], **k3_inputs[1]),
+            k2.coke_fused_update(*distinct, **k3_inputs[1]))):
+        raise AssertionError("K3 with one neighbour read differs from the "
+                             "same values in two tensors")
+    log(2, "K3 at the path's shape: one neighbour read gives the bits of "
+           "the same values in two distinct tensors")
+    del distinct
+    for n, d, deg, aliased, mis in (
+            (N_AGENTS, FEATURES, 2.0, False, False),
+            (N_AGENTS, FEATURES, 2.0, True, True),
+            (N_AGENTS, 65536, 2.0, True, False),       # the streaming shape
+            (N_AGENTS, 65536, 2.0, False, False),
+            (N_AGENTS, 4099, 2.0, True, False),        # ragged, 8 blocks
+            (1, 8192, 4.0, False, False),              # N = 1
+            (200, 1024, 2.0, True, False),             # N above the SMs
+            (1, 1, 2.0, False, False), (3, 513, 2.0, False, False),
+            (7, 1000, 2.0, True, False), (1, 1, 4.0, True, False),
+            (3, 513, 4.0, False, True), (7, 1000, 4.0, False, False)):
+        update_case(n, d, deg, aliased=aliased, misalign=mis)
 
     def attention_cases():
         """K4 against its plain version over lengths (Sq = Sk, and not),
@@ -1080,17 +1231,42 @@ def main() -> int:
     k1_bytes = 4.0 * (m1 * d1 + d1 * l1 + l1 + m1 * l1)
     k1_flops = 2.0 * m1 * l1 * d1 + 2.0 * m1 * l1
     ops3, kw3 = k3_inputs
-    # K3's device work (~microseconds) is shorter than its wrapper's host
-    # side: its time and its plain version's come from CUDA-graph replays
-    k3_call_ms = time_ms(lambda: k2.coke_fused_update(*ops3, **kw3),
-                         reps=100)
-    k3_ms = graph_ms(lambda: k2.coke_fused_update(*ops3, **kw3))
-    k3_plain_ms = graph_ms(lambda: coke_update_ref(*ops3, **kw3))
     n3, d3 = ops3[0].shape
-    # six (N, D) reads, g_aug written, xi_sq (N,) written; 8 flops for
-    # g_aug and 3 for the squared difference per element
-    k3_bytes = 4.0 * (7 * n3 * d3 + n3)
+
+    def k3_call():
+        return k2.coke_fused_update(*ops3, **kw3)
+
+    # K3's device work (~microseconds) is shorter than its wrapper's host
+    # side: its time and its plain version's come from CUDA-graph replays;
+    # the floor probe, a graph of 100 zero_() on one element, is what one
+    # graph node costs
+    k3_ms = graph_ms(k3_call)
+    k3_plain_ms = graph_ms(lambda: coke_update_ref(*ops3, **kw3))
+    k3_floor_ms = graph_ms(torch.zeros(1, device=dev).zero_)
+    k3_host_ms = host_call_ms(k3_call)
+    k3_alone = [r for r in profiled_kernels(k3_call)
+                if "coke_fused_update_kernel" in r[2]]
+    # what the path's call reads: theta, theta_hat, gamma, grad and one
+    # neighbour tensor where left is right (six (N, D) arrays with g_aug
+    # written), seven with distinct neighbours; xi_sq (N,) written. Flops:
+    # 8 for g_aug and 3 for the squared difference per element
+    k3_plan, _, k3_shared = k2.fused_update_launch(ops3)
+    k3_arrays = 6 if k3_shared else 7
+    k3_bytes = 4.0 * (k3_arrays * n3 * d3 + n3)
     k3_flops = 11.0 * n3 * d3
+    # the streaming shape with a cold L2, aliased and distinct
+    flush = torch.empty(64 * 2**20, device=dev)          # 256 MB
+    wide = [0.1 * torch.randn((n3, K3_STREAM_D), generator=gen, device=dev)
+            for _ in range(6)]
+    k3_stream = {}
+    for label, right in (("aliased", wide[4]), ("distinct", wide[5])):
+        wide_ops = wide[:5] + [right]
+        for clean in (False, True):
+            k3_stream[label + " clean" * clean] = flushed_ms(
+                lambda o=wide_ops: k2.coke_fused_update(*o, **kw3), flush,
+                clean=clean)
+    wide_plan = k2.fused_update_launch(wide)[0]
+    del flush, wide
     model = results["coke"].to_model(built.rff_params)
     predict_ms = time_ms(lambda: model.predict(built.x_test,
                                                backend="fused"))
@@ -1135,19 +1311,46 @@ def main() -> int:
            f"{k1_bytes / k1_ms / 1e9:.2f} TB/s)")
     log(7, f"[{card}] K2 shape N={n2} T={t2} D={d2}; K1 shape M={m1} d={d1} "
            f"L={l1}; K3 shape N={n3} D={d3}")
-    log(7, f"[{card}] K3 and its plain version timed as CUDA-graph replays "
-           f"(device time); one K3 wrapper call from Python, CUDA events: "
-           f"{k3_call_ms:.4f} ms")
+    k3_bound = bound(k3_bytes, k3_flops)[0]
+    k3_kernel = (f"{k3_alone[0][0]:.6f} ms" if k3_alone
+                 else "not measured (no device time recorded)")
+    log(7, f"[{card}] K3 plan at N={n3} D={d3}: {k3_plan}; at N={n3} "
+           f"D={K3_STREAM_D}: {wide_plan}")
+    log(7, f"[{card}] K3 at the path's shape N={n3} D={d3}, "
+           f"{'one tensor as both neighbours: six' if k3_shared else 'seven'}"
+           f" (N, D) arrays, {k3_bytes / 1e6:.4f} MB: {k3_ms:.6f} ms per "
+           f"call as a CUDA-graph replay (the earlier design "
+           f"{K3_EARLIER_MS['path']} ms, two graph nodes); the kernel alone "
+           f"by the profiler {k3_kernel} (earlier "
+           f"{K3_EARLIER_MS['kernel alone']} ms + torch.sum "
+           f"{K3_EARLIER_MS['torch.sum']} ms); floor probe (a graph of 100 "
+           f"zero_() on one element) {k3_floor_ms:.6f} ms per node, K3 "
+           f"{k3_ms / k3_floor_ms:.2f}x it; byte bound {k3_bound:.6f} ms, "
+           f"not reachable at this size (~2 MB in L2, about one DRAM round "
+           f"trip's worth of bytes in flight)")
+    for label, arrays in (("aliased", 6), ("distinct", 7),
+                          ("aliased clean", 6), ("distinct clean", 7)):
+        nbytes = 4.0 * (arrays * n3 * K3_STREAM_D + n3)
+        b_ms = nbytes / bw * 1e3
+        ms = k3_stream[label]
+        earlier = K3_EARLIER_MS[f"stream {label}"]
+        how = ("written, then read back: the lines the call evicts are "
+               "clean" if "clean" in label else "written before each call: "
+               "the call's reads evict its dirty lines to memory")
+        log(7, f"[{card}] K3 at N={n3} D={K3_STREAM_D} {label.split()[0]} "
+               f"({arrays} (N, D) arrays, {nbytes / 1e6:.4f} MB), cold L2 "
+               f"(256 MB {how}; per-call CUDA events, median): {ms:.6f} ms "
+               f"against its {b_ms:.6f} ms byte bound ({b_ms / ms:.1%}); "
+               f"the earlier design {earlier} ms ({earlier / ms:.2f}x)")
+    log(7, f"[{card}] one K3 wrapper call's host time (perf_counter over "
+           f"1000 calls): {k3_host_ms:.6f} ms (the earlier wrapper "
+           f"{K3_EARLIER_HOST_MS} ms)")
     log(7, f"[{card}] predict on {tuple(built.x_test.shape)} held-out rows: "
            f"fused {predict_ms:.4f} ms, ref {predict_ref_ms:.4f} ms")
 
     # ---- 8. device traces of ten iterations -------------------------------
     from torch.profiler import (ProfilerActivity, profile,
                                 supported_activities)
-
-    def device_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        return (e.self_cuda_time_total if us is None else us) / 1e3
 
     def trace(ten_iterations, activities):
         """(event window ms, rows of (device ms, count, kernel name)) of
@@ -1201,6 +1404,20 @@ def main() -> int:
             if "coke_fused_update_kernel" in key:
                 log(8, f"[{card}] K3 kernel device time {ms / count:.4f} ms "
                        f"per launch ({count} launches)")
+
+    # one K3 call is one kernel launch: no reduction kernel after it
+    rows3 = profiled_kernels(k3_call, calls=10)
+    for ms, count, key in rows3:
+        log(8, f"[{card}] ten K3 wrapper calls at N={n3} D={d3} under the "
+               f"profiler, per call: {ms:.6f} ms  {count:g} launches  "
+               f"{key[:100]}")
+    if not rows3:
+        log(8, "ten K3 wrapper calls: the profiler recorded no device time: "
+               "the kernels of one call are not measured")
+    elif not (len(rows3) == 1 and rows3[0][1] == 1
+              and "coke_fused_update_kernel" in rows3[0][2]):
+        raise AssertionError(f"one K3 call launched {rows3}, not exactly one "
+                             "K3 kernel")
 
     # ---- 9. the LM serving engine, small: card against CPU ----------------
     from repro_torch.configs import get_config

@@ -22,8 +22,11 @@ reach.
 `coke_fused_update` ports `coke_update.py::coke_fused_update`: the
 augmented gradient and the per-agent censor norm of the ring runtime's
 gradient primal. On CPU tensors it runs `ref.coke_update_ref`; on CUDA
-tensors it makes one launch, or raises. `FUSED_UPDATE_LAUNCHES` counts its
-launches, apart from K2's.
+tensors it makes one launch, or raises: one thread-block cluster per agent
+row, which finishes xi_sq in distributed shared memory, by the pure plan
+`fused_update_plan`. Where the two neighbour operands are one tensor, as
+the fused fallback passes them, the kernel reads it once.
+`FUSED_UPDATE_LAUNCHES` counts its launches, apart from K2's.
 """
 from __future__ import annotations
 
@@ -55,9 +58,14 @@ _MAX_OFFSETS = 8
 # shared-memory bytes ahead of launch A's ring (csrc RING_OFFSET)
 _RING_OFFSET = 1024
 _FUSED_UPDATE_SIGNATURES = {
-    "coke_fused_update_tiles": (_I, [_I]),
-    "coke_fused_update": (_I, [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P]),
+    "coke_fused_update_check": (_I, [_I] * 5),
+    "coke_fused_update": (_I, [_P] * 8 + [_I] * 8 + [_F] * 3 + [_P]),
 }
+#: the cluster sizes K3 launches with: the portable ones
+FUSED_UPDATE_CLUSTERS = (1, 2, 4, 8)
+# features a block gets at least when a row takes more than one: one
+# 16-byte load per operand for each of 128 threads
+_MIN_SLICE = 512
 
 
 def megastep_scalars(*, rho: float, lam: float, lr: float, n_agents: int,
@@ -324,18 +332,120 @@ def coke_megastep(theta, theta_hat, gamma, phi, y, *, rho: float,
     return theta, xi_sq
 
 
-def _check_update_operands(ops: dict[str, torch.Tensor]) -> None:
-    shapes = {tuple(t.shape) for t in ops.values()}
-    if len(shapes) != 1 or len(next(iter(shapes))) != 2:
-        raise ValueError("coke_fused_update takes six (N, D) operands; got "
-                         + ", ".join(f"{k} {tuple(t.shape)}"
-                                     for k, t in ops.items()))
-    devices = {t.device for t in ops.values()}
-    if len(devices) != 1:
-        raise ValueError(f"operands lie on several devices: {devices}")
-    dev = next(iter(devices))
-    if dev.type not in ("cpu", "cuda"):
+@dataclasses.dataclass(frozen=True)
+class FusedUpdatePlan:
+    """How one K3 launch cuts the six (N, D) operands. Agent row i is one
+    thread-block cluster of `clusters` blocks: the grid is (clusters, N),
+    one cluster per row, in clusters along x. Block r of a cluster covers
+    features [r * slice, min((r + 1) * slice, D)); `slice` is a multiple
+    of 4. A thread of `threads` makes `unroll` loads per operand per step,
+    16-byte loads in the vec form and 4-byte loads otherwise."""
+    clusters: int
+    threads: int
+    unroll: int
+    slice: int
+    grid: tuple[int, int]
+
+    def slices(self, D: int) -> list[tuple[int, int]]:
+        """[lo, hi) of each block of a row, in rank order."""
+        return [(r * self.slice, min((r + 1) * self.slice, D))
+                for r in range(self.clusters)]
+
+
+def fused_update_plan(N: int, D: int, sm_count: int, *,
+                      vec: bool) -> FusedUpdatePlan:
+    """K3's launch plan for (N, D) on a card with `sm_count` SMs. The
+    cluster size C is the least of 1, 2, 4, 8 for which N C blocks cover
+    the SMs, as long as every block keeps at least 512 features (C = 1
+    when N alone fills the card or D is small). A block has 128 threads,
+    or 256 where 128 would need more than four loads per operand each;
+    `unroll` is the loads per thread rounded up to 1, 2 or 4."""
+    clusters = 1
+    while (clusters < FUSED_UPDATE_CLUSTERS[-1] and N * clusters < sm_count
+           and D >= 2 * clusters * _MIN_SLICE):
+        clusters *= 2
+    slice_ = -(-D // clusters)
+    slice_ += -slice_ % 4
+    items = slice_ // 4 if vec else slice_   # loads per operand per block
+    threads = 128 if items <= 4 * 128 else 256
+    steps = -(-items // threads)
+    unroll = 1 if steps <= 1 else 2 if steps <= 2 else 4
+    return FusedUpdatePlan(clusters, threads, unroll, slice_, (clusters, N))
+
+
+def shares_neighbour_operand(left: torch.Tensor,
+                             right: torch.Tensor) -> bool:
+    """Whether `left` and `right` are the same memory (one start, one
+    shape, one dtype, both contiguous): the kernel then reads it once, as
+    both neighbour operands. Equal copies and overlapping views do not
+    count."""
+    return (left.data_ptr() == right.data_ptr() and left.shape == right.shape
+            and left.dtype == right.dtype and left.is_contiguous()
+            and right.is_contiguous())
+
+
+@functools.cache
+def _fused_update_lib() -> ctypes.CDLL:
+    return build.load("coke_fused_update", _FUSED_UPDATE_SIGNATURES)
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_update_device_plan(N: int, D: int, vec: bool, shared: bool,
+                              device_index: int) -> FusedUpdatePlan:
+    """The plan on this device, from its SM count; the occupancy API
+    confirms that a cluster of the plan fits."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    plan = fused_update_plan(N, D, sms, vec=vec)
+    lib = _fused_update_lib()
+    with torch.cuda.device(device_index):
+        code = lib.coke_fused_update_check(int(vec), int(shared), plan.unroll,
+                                           plan.clusters, plan.threads)
+    build.check(lib, code, f"coke_fused_update: a cluster of {plan}")
+    return plan
+
+
+def fused_update_launch(ops) -> tuple[FusedUpdatePlan, bool, bool]:
+    """(plan, vec, shared) of a CUDA call on the six operands: vec where
+    D % 4 == 0 and every operand starts on 16 bytes (g_aug comes from the
+    caching allocator, whose blocks start on 512), shared where the two
+    neighbour operands are the same memory."""
+    theta = ops[0]
+    N, D = theta.shape
+    vec = D % 4 == 0 and not any(t.data_ptr() % 16 for t in ops)
+    shared = shares_neighbour_operand(ops[4], ops[5])
+    dev = theta.device
+    return (_fused_update_device_plan(
+        N, D, vec, shared, dev.index if dev.index is not None
+        else torch.cuda.current_device()), vec, shared)
+
+
+_OPERANDS = ("theta", "theta_hat", "gamma", "grad", "left", "right")
+
+
+def _check_update_operands(ops: tuple[torch.Tensor, ...]) -> torch.device:
+    """One pass over the six operands; returns their device. A CUDA call
+    takes fp32 contiguous tensors only."""
+    shape, dev = ops[0].shape, ops[0].device
+    cuda = dev.type == "cuda"
+    if not cuda and dev.type != "cpu":
         raise ValueError(f"coke_fused_update runs on cpu or cuda, not {dev}")
+    for name, t in zip(_OPERANDS, ops):
+        if t.shape != shape or len(shape) != 2:
+            raise ValueError(
+                "coke_fused_update takes six (N, D) operands; got "
+                + ", ".join(f"{k} {tuple(o.shape)}"
+                            for k, o in zip(_OPERANDS, ops)))
+        if t.device != dev:
+            raise ValueError("operands lie on several devices: "
+                             f"{sorted({str(o.device) for o in ops})}")
+        if cuda:
+            if t.dtype != torch.float32:
+                raise TypeError(f"the CUDA kernel takes fp32; {name} is "
+                                f"{t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"the CUDA kernel takes contiguous "
+                                 f"tensors; {name} is not")
+    return dev
 
 
 def coke_fused_update(theta, theta_hat, gamma, grad, left, right, *,
@@ -346,36 +456,31 @@ def coke_fused_update(theta, theta_hat, gamma, grad, left, right, *,
         xi_sq = ||theta_hat - theta||^2 per agent
 
     xi_sq is the *squared* censor norm; `ops.coke_update_pytree` takes the
-    sqrt. The CUDA kernel takes fp32 operands; the plain version casts."""
+    sqrt. The CUDA kernel takes fp32 operands; the plain version casts.
+    On the card a call is one launch and allocates its two outputs; where
+    `left` and `right` are the same memory the kernel reads it once."""
     global FUSED_UPDATE_LAUNCHES
-    ops = {"theta": theta, "theta_hat": theta_hat, "gamma": gamma,
-           "grad": grad, "left": left, "right": right}
-    _check_update_operands(ops)
-    if theta.device.type == "cpu":
+    ops = (theta, theta_hat, gamma, grad, left, right)
+    dev = _check_update_operands(ops)
+    if dev.type == "cpu":
         from repro_torch.kernels.coke_update.ref import coke_update_ref
 
         return coke_update_ref(theta, theta_hat, gamma, grad, left, right,
                                rho=rho, deg=deg)
-    for name, t in ops.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes fp32; {name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"the CUDA kernel takes contiguous tensors; "
-                             f"{name} is not")
     N, D = theta.shape
-    dev = theta.device
     g_aug = torch.empty((N, D), device=dev, dtype=torch.float32)
     if N == 0 or D == 0:
         return g_aug, torch.zeros((N,), device=dev, dtype=torch.float32)
-    lib = build.load("coke_fused_update", _FUSED_UPDATE_SIGNATURES)
-    partial = torch.empty((N, lib.coke_fused_update_tiles(D)), device=dev,
-                          dtype=torch.float32)
-    ptrs = [t.data_ptr() for t in (*ops.values(), g_aug)]
-    vec = int(D % 4 == 0 and all(p % 16 == 0 for p in ptrs))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.coke_fused_update(*ptrs, partial.data_ptr(), N, D, vec,
-                                 float(rho), float(deg),
-                                 2.0 * float(rho) * float(deg), stream)
-    build.check(lib, code, "coke_fused_update")
+    xi_sq = torch.empty((N,), device=dev, dtype=torch.float32)
+    plan, vec, shared = fused_update_launch(ops)
+    lib = _fused_update_lib()
+    code = lib.coke_fused_update(
+        *[t.data_ptr() for t in ops], g_aug.data_ptr(), xi_sq.data_ptr(),
+        N, D, int(vec), int(shared), plan.clusters, plan.threads,
+        plan.unroll, plan.slice, float(rho), float(deg),
+        2.0 * float(rho) * float(deg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if code:
+        build.check(lib, code, f"coke_fused_update(N={N}, D={D})")
     FUSED_UPDATE_LAUNCHES += 1
-    return g_aug, torch.sum(partial, dim=1)
+    return g_aug, xi_sq

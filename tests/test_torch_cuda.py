@@ -19,7 +19,8 @@ import dataclasses
 from repro_torch.api import FitConfig, KRRConfig, build_problem, fit
 from repro_torch.kernels.coke_update import coke_update as k2
 from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
-                                                 coke_update_ref)
+                                                 coke_update_ref,
+                                                 xi_sq_in_kernel_order)
 from repro_torch.kernels.flash_attention import flash_attention as k4
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -67,7 +68,15 @@ MEGA_SHAPES = [(4, 40, 32, (1,)), (2, 33, 513, (1,)), (8, 64, 100, (1, 2)),
 UPDATE_ULPS = 4 * 2.0**-23
 UPDATE_XI_RTOL = 1e-5
 UPDATE_SHAPES = [(1, 1, 2.0), (3, 513, 2.0), (7, 1000, 4.0), (3, 512, 4.0),
-                 (20, 4096, 2.0)]
+                 (20, 4096, 2.0),
+                 # the streaming shape: clusters of 8 blocks of 8192 features
+                 (20, 65536, 2.0),
+                 # ragged D over a cluster of 8: the last block 487 features
+                 (20, 4099, 2.0),
+                 # N = 1: one cluster of 8 blocks on the whole card
+                 (1, 8192, 4.0),
+                 # N above the SM count: clusters of one block
+                 (200, 1024, 2.0)]
 
 
 @pytest.fixture
@@ -275,6 +284,73 @@ def test_fused_update_kernel_matches_plain(cuda, n, d, deg, misalign):
     torch.testing.assert_close(got, want, rtol=0, atol=UPDATE_ULPS * scale)
     torch.testing.assert_close(xi, want_xi, rtol=UPDATE_XI_RTOL,
                                atol=UPDATE_XI_RTOL * float(want_xi.max()))
+
+
+@pytest.mark.parametrize("misalign", [False, True], ids=["vec", "scalar"])
+@pytest.mark.parametrize("n,d,deg", UPDATE_SHAPES, ids=str)
+def test_fused_update_one_neighbour_read_gives_the_two_read_bits(
+        cuda, n, d, deg, misalign):
+    """One tensor as both neighbour operands (read once by the kernel)
+    gives the bits of the same values in two distinct tensors, and its
+    xi_sq has the bits of the CPU emulation of the kernel's order."""
+    ops = _update_operands(cuda, n, d, seed=3, misalign=misalign)
+    aliased = ops[:5] + [ops[4]]
+    distinct = ops[:5] + [ops[4].clone()]
+    plan, vec, shared = k2.fused_update_launch(aliased)
+    assert shared and not k2.fused_update_launch(distinct)[2]
+    assert vec == (not misalign and d % 4 == 0)
+    kw = dict(rho=0.37, deg=deg)
+    got, xi = k2.coke_fused_update(*aliased, **kw)
+    want, want_xi = k2.coke_fused_update(*distinct, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(xi, want_xi)
+    emulated = xi_sq_in_kernel_order(ops[0].cpu(), ops[1].cpu(), plan,
+                                     vec=vec)
+    assert torch.equal(xi.cpu(), emulated)
+
+
+@pytest.mark.parametrize("aliased", [False, True], ids=["two", "one"])
+@pytest.mark.parametrize("misalign", [False, True], ids=["vec", "scalar"])
+@pytest.mark.parametrize("n,d,deg", UPDATE_SHAPES, ids=str)
+def test_fused_update_xi_sq_follows_its_order(cuda, n, d, deg, misalign,
+                                              aliased):
+    """xi_sq is finished on the card in a fixed order (thread steps, warp
+    shuffle tree, warps, cluster ranks): bitwise the CPU emulation of that
+    order, and two calls give the same bits."""
+    ops = _update_operands(cuda, n, d, seed=4, misalign=misalign)
+    if aliased:
+        ops[5] = ops[4]
+    plan, vec, _ = k2.fused_update_launch(ops)
+    first = k2.coke_fused_update(*ops, rho=0.2, deg=deg)
+    second = k2.coke_fused_update(*ops, rho=0.2, deg=deg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    emulated = xi_sq_in_kernel_order(ops[0].cpu(), ops[1].cpu(), plan,
+                                     vec=vec)
+    assert torch.equal(first[1].cpu(), emulated)
+
+
+@pytest.mark.parametrize("n,d", [(20, 4096), (20, 65536), (3, 513)],
+                         ids=str)
+def test_fused_update_graph_replay_gives_the_eager_bits(cuda, n, d):
+    """A call is one launch with no scratch: captured in a CUDA graph and
+    replayed, it gives the eager call's bits."""
+    ops = _update_operands(cuda, n, d, seed=5)
+    ops[5] = ops[4]
+    eager = k2.coke_fused_update(*ops, rho=0.1, deg=2.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.coke_fused_update(*ops, rho=0.1, deg=2.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = k2.FUSED_UPDATE_LAUNCHES
+    with torch.cuda.graph(graph):
+        captured = k2.coke_fused_update(*ops, rho=0.1, deg=2.0)
+    assert k2.FUSED_UPDATE_LAUNCHES == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 def test_fused_update_kernel_raises_on_operands_it_does_not_take(cuda):

@@ -34,7 +34,9 @@ from repro_torch.core.rff import RFFParams
 from repro_torch.kernels import build
 from repro_torch.kernels.coke_update import coke_update as port_cu
 from repro_torch.kernels.coke_update import ops as port_cu_ops
-from repro_torch.kernels.coke_update.ref import coke_megastep_ref
+from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
+                                                 coke_update_ref,
+                                                 xi_sq_in_kernel_order)
 from repro_torch.kernels.rff import rff as port_rff
 from repro_torch.kernels.rff.ops import featurize_fused
 from repro_torch.kernels.rff.ref import rff_ref
@@ -568,3 +570,140 @@ def test_fused_update_rejects_operands_it_does_not_take():
         port_cu.coke_fused_update(*[a[0] for a in ops], rho=0.1)
     with pytest.raises(ValueError, match="cpu or cuda"):
         port_cu.coke_fused_update(*[a.to("meta") for a in ops], rho=0.1)
+
+
+# ---------------------------------------------------------------------------
+# K3 on the card: the launch plan, the order of the xi_sq sum, the dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+@pytest.mark.parametrize("sm_count", [132, 114, 78, 16])
+def test_fused_update_plan_tiles_every_row(sm_count, vec):
+    """One cluster of a portable size per agent row; its blocks' slices
+    (multiples of 4) tile [0, D) exactly in rank order; N C covers the SMs
+    where D leaves every block 512 features; C = 1 once N fills the card."""
+    for N in (1, 3, 20, 66, 131, 132, 200):
+        for D in (1, 3, 4, 511, 512, 1023, 1024, 2048, 4096, 4099, 8192,
+                  65536, 65537):
+            if vec and D % 4:
+                continue
+            plan = port_cu.fused_update_plan(N, D, sm_count, vec=vec)
+            C = plan.clusters
+            assert C in port_cu.FUSED_UPDATE_CLUSTERS
+            assert plan.grid == (C, N)               # (C k, N) with k = 1
+            assert plan.slice % 4 == 0
+            cuts = plan.slices(D)
+            assert len(cuts) == C and cuts[0][0] == 0 and cuts[-1][1] == D
+            assert all(lo < hi for lo, hi in cuts)
+            assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+            assert plan.threads in (128, 256) and plan.unroll in (1, 2, 4)
+            items = -(-plan.slice // (4 if vec else 1))
+            assert -(-items // plan.threads) <= plan.unroll or (
+                plan.unroll == 4 and plan.threads == 256)
+            if N >= sm_count or D < 1024:
+                assert C == 1
+            else:
+                assert N * C >= sm_count or C == 8 or D < 2 * C * 512
+                assert C == 1 or N * C // 2 < sm_count
+
+
+def test_fused_update_plan_at_the_paths_shapes():
+    """N=20, D=4096 on 132 SMs: clusters of 8 blocks of 512 features, one
+    16-byte load per operand for each of 128 threads, 160 blocks; D=65536
+    streams 8192 features a block through 256 threads, four loads each in
+    flight per operand."""
+    plan = port_cu.fused_update_plan(20, 4096, 132, vec=True)
+    assert (plan.clusters, plan.threads, plan.unroll, plan.slice) == (
+        8, 128, 1, 512)
+    assert plan.grid[0] * plan.grid[1] == 160
+    plan = port_cu.fused_update_plan(20, 65536, 132, vec=True)
+    assert (plan.clusters, plan.threads, plan.unroll, plan.slice) == (
+        8, 256, 4, 8192)
+    assert port_cu.fused_update_plan(200, 65536, 132, vec=True).clusters == 1
+    assert port_cu.fused_update_plan(20, 100, 132, vec=True).clusters == 1
+
+
+def _xi_sq_by_hand(th, hat, plan, vec):
+    """The kernel's xi_sq order written out one fp32 addition at a time, as
+    scalar code: per block, per thread its items in order, a float4's
+    squares left to right; the shuffle tree; warps; ranks."""
+    f = np.float32
+    N, D = th.shape
+    out = np.zeros(N, np.float32)
+    for i in range(N):
+        total = f(0)
+        for lo, hi in plan.slices(D):
+            d = (hat[i, lo:hi] - th[i, lo:hi]).astype(np.float32)
+            w = 4 if vec else 1
+            items = [d[k:k + w] for k in range(0, hi - lo, w)]
+            lanes = []
+            for t in range(plan.threads):
+                sq = f(0)
+                for item in items[t::plan.threads]:
+                    acc = f(item[0] * item[0])
+                    for x in item[1:]:
+                        acc = f(acc + f(x * x))
+                    sq = f(sq + acc)
+                lanes.append(sq)
+            block = f(0)
+            for wp in range(plan.threads // 32):
+                v = lanes[32 * wp:32 * wp + 32]
+                for off in (16, 8, 4, 2, 1):
+                    v = [f(v[l] + v[l + off]) if l + off < 32 else v[l]
+                         for l in range(32)]
+                block = f(block + v[0])
+            total = f(total + block)
+        out[i] = total
+    return out
+
+
+@pytest.mark.parametrize("n,d,vec", [(2, 1024, True), (2, 1030, False),
+                                     (1, 4096, True), (3, 513, False),
+                                     (2, 5, False)], ids=str)
+def test_xi_sq_emulation_is_the_kernels_order(n, d, vec):
+    """`ref.xi_sq_in_kernel_order` (vectorised) against the same order
+    written out as scalar fp32 code: the same bits."""
+    th, hat = _update_inputs(n, d, seed=6)[:2]
+    plan = port_cu.fused_update_plan(n, d, 132, vec=vec)
+    got = xi_sq_in_kernel_order(torch.tensor(th), torch.tensor(hat), plan,
+                                vec=vec)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _xi_sq_by_hand(th, hat, plan, vec))
+
+
+@pytest.mark.parametrize("n,d,vec", [(20, 4096, True), (20, 65536, True),
+                                     (20, 4099, False), (3, 513, False),
+                                     (7, 1000, True), (7, 1000, False),
+                                     (1, 1, False), (200, 64, True)],
+                         ids=str)
+def test_xi_sq_emulation_matches_exact_sums(n, d, vec):
+    """The kernel's order, emulated on the CPU in fp32, against a float64
+    sum (rel 1e-6) and against the plain version (the K3 tolerance)."""
+    ops = _update_inputs(n, d, seed=7)
+    plan = port_cu.fused_update_plan(n, d, 132, vec=vec)
+    got = xi_sq_in_kernel_order(torch.tensor(ops[0]), torch.tensor(ops[1]),
+                                plan, vec=vec).numpy()
+    exact = np.sum((ops[1].astype(np.float64) - ops[0]) ** 2, axis=1)
+    np.testing.assert_allclose(got, exact, rtol=1e-6)
+    _, plain = coke_update_ref(*map(torch.tensor, ops), rho=0.1)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=UPDATE_XI_RTOL,
+                               atol=UPDATE_XI_RTOL * float(np.max(exact)))
+
+
+def test_fused_update_reads_one_neighbour_operand_only_for_one_memory():
+    """The one-read instance is taken for one memory under two names, not
+    for an equal copy, overlapping views, another shape, another dtype or
+    a non-contiguous view of the same start."""
+    share = port_cu.shares_neighbour_operand
+    t = torch.tensor(_update_inputs(4, 16)[0])
+    assert share(t, t) and share(t, t.view(4, 16)) and share(t, t[:])
+    assert share(t, t.reshape(4, 16))
+    assert not share(t, t.clone())
+    base = torch.zeros(5, 16)
+    assert not share(base[:4], base[1:])
+    assert not share(base[:4, :8], base[:4, 8:])
+    assert not share(t, t.view(torch.int32))
+    buf = torch.zeros(64)
+    assert not share(buf.as_strided((4, 16), (16, 1)),
+                     buf.as_strided((4, 16), (1, 4)))
+    assert not share(t[:2], t.view(2, 32))
