@@ -77,9 +77,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      the causal mask beside it, and Mixtral's sliding window (H=32, KV=8,
      window 4096): the kernel's time, its bound (fp32: the least of the
      CUDA-core and 3xTF32 operation times), and
-     F.scaled_dot_product_attention at the same shape as the yardstick.
-Before each of phases 4-6 and 10 every launch counter is set to 0, and
-read just after.
+     F.scaled_dot_product_attention at the same shape as the yardstick;
+ 12. the simulator backend (`simulator_phase`): (a) the paper's own call,
+     fit(FitConfig(algorithm=alg)) at its defaults (N=20 on an Erdos-Renyi
+     p=0.3 graph, 350 train rows per agent, L=100, Cholesky, 1000
+     iterations) for coke and dkla, then cta and ridge_oracle, on the card,
+     on the CPU and in float64 on the card: comms and bits equal card vs
+     CPU, the card's theta as close to the float64 run as the CPU's (within
+     2x), COKE sends
+     fewer broadcasts than DKLA near its train MSE, dist_to_oracle shrinks,
+     and the COKE model's deploy launches K1; (b) primal="cg" and "auto"
+     (resolving to CG) for COKE on the simulator, spmd and fused at phase
+     4's big-D point, 20 iterations each: comms and bits equal across the
+     six, theta within 2e-4; (c) Cholesky against CG at D=2048: comms
+     equal, theta within 1e-4; then times beside their bounds: a Cholesky
+     iteration at the paper's shape and at D=2048, the factorization at
+     D=2048, and a CG iteration at D=4096 on the simulator and on spmd.
+Before each of phases 4-6, 10 and each part of 12 every launch counter is
+set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -189,6 +204,27 @@ K4_HMMA = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
 # and K4 against ATen's CPU matmuls and the plain softmax, ~1e-6 relative
 # per op: logits within 1e-5 of their largest magnitude
 LM_RTOL = 1e-5
+# phase 12, the simulator backend: the paper's own call at its defaults
+# (PAPER_SETUPS["synthetic"]: N=20 on an Erdos-Renyi p=0.3 graph, 500
+# samples per agent, L=100, Cholesky, 1000 iterations), then the CG primal
+# at phase 4's big-D point and Cholesky against CG at the crossover D
+SIM_BIG_D_ITERS = 20
+SIM_CROSSOVER_D = 2048
+# fp32 runs of the paper's 1000-iteration fit carry theta ~1e-4 to 3e-4
+# from the float64 trajectory (the reference itself 2.68e-4 on its draw,
+# PERF.md), in another direction on the card than on the CPU: the card's
+# theta is held within SIM_F64_FACTOR times the CPU's distance from the
+# float64 run (plus SIM_F64_SLACK), and their train MSE within
+# SIM_MSE_RTOL
+SIM_F64_FACTOR = 2.0
+SIM_F64_SLACK = 1e-5
+SIM_MSE_RTOL = 1e-4
+# COKE's final train MSE against DKLA's after 1000 iterations: 1.028x in
+# the reference (neither has converged at lam=5e-5)
+SIM_COKE_MSE_RATIO = 1.05
+# the CG primal across backends, Cholesky against CG (tests/test_big_d.py)
+SIM_CG_BACKEND_TOL = 2e-4
+SIM_CHOL_CG_TOL = 1e-4
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -522,6 +558,280 @@ def check_history(tag, h, iters):
                 v.to(torch.float64)).all():
             raise AssertionError(f"{tag}: history {k} is not {iters} finite "
                                  "values")
+
+
+def simulator_phase(dev, problem, krr, card, bw, fp32, reset_counts, counts):
+    """Phase 12: the simulator backend and the exact primals. `problem` is
+    phase 4's big-D problem (its Phi is not copied); `krr` its KRRConfig.
+    Every launch counter is set to 0 before each part and must stay there
+    over its fits (the simulator and the CG primal run no kernel); the
+    deploy step after (a) must launch K1."""
+    from repro_torch.api import FitConfig, build_problem, fit, get_solver
+    from repro_torch.api.backends import (_resolve_consensus_primal,
+                                          consensus_runner)
+    from repro_torch.api.config import SolveContext
+    from repro_torch.api.fit import _simulator_runner
+    from repro_torch.core import admm
+
+    def no_launches(what):
+        c = counts()
+        if any(c.values()):
+            raise AssertionError(f"{what} launched kernels: {c}")
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def pair(d_h):
+        return f"{d_h[0]:.4f} ms on the device / {d_h[1]:.4f} ms host enqueue"
+
+    # ---- (a) the paper's own call: fit(FitConfig(algorithm=alg)) --------
+    reset_counts()
+    paper = build_problem(FitConfig(), device=dev)
+    pp = paper.problem
+    n, t, d = pp.feats.shape
+    p_cpu = pp.to("cpu")
+    p64 = dataclasses.replace(pp, feats=pp.feats.double(),
+                              labels=pp.labels.double(),
+                              adjacency=pp.adjacency.double())
+    fits, coke_fit = {}, None
+    for alg in ("coke", "dkla", "cta", "ridge_oracle"):
+        c = FitConfig(algorithm=alg, record_oracle_distance=True)
+        if alg == "ridge_oracle":
+            c = c.replace(num_iters=1)
+        t0 = time.perf_counter()
+        gpu = fit(c, problem=pp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = fit(c, problem=p_cpu, device="cpu")
+        f64 = fit(c, problem=p64, device=dev)
+        iters = c.resolved_iters
+        h = {k: v.cpu() for k, v in gpu.history.items()}
+        check_history(f"simulator {alg}", h, iters)
+        if set(h) != set(cpu.history):
+            raise AssertionError(f"simulator {alg}: history keys differ "
+                                 "between card and CPU")
+        for k in ("comms", "bits"):
+            if not torch.equal(h[k], cpu.history[k]):
+                raise AssertionError(f"simulator {alg}: {k} differs between "
+                                     "card and CPU")
+        e_card = theta_err(gpu.theta, f64.theta)
+        e_cpu = theta_err(cpu.theta, f64.theta)
+        e_cc = theta_err(gpu.theta, cpu.theta)
+        e_mse = float(((h["train_mse"] - cpu.train_mse).abs()
+                       / cpu.train_mse.abs()).max())
+        same64 = torch.equal(f64.comms.cpu(), cpu.comms)
+        log(12, f"paper {alg} (N={n} Erdos-Renyi p=0.3, T={t}, L={d}, "
+                f"{iters} iteration(s)) on the card in {wall:.2f} s wall "
+                f"(first call): comms {int(h['comms'][-1])}/{n * iters}, "
+                f"bits {float(h['bits'][-1]):.0f}, both equal the CPU's "
+                f"(and the float64 run's: {same64}); train_mse "
+                f"{float(h['train_mse'][0]):.6f} -> "
+                f"{float(h['train_mse'][-1]):.6f} (card vs CPU rtol "
+                f"{e_mse:.2e}, tol {SIM_MSE_RTOL:g}); theta max|err| card vs "
+                f"CPU {e_cc:.3e}, card vs float64 {e_card:.3e}, CPU vs "
+                f"float64 {e_cpu:.3e} ("
+                + ("not held: one fp32 solve at condition ~1e5"
+                   if alg == "ridge_oracle" else
+                   f"the card held within {SIM_F64_FACTOR:g}x the CPU's + "
+                   f"{SIM_F64_SLACK:g}") + ")")
+        # the oracle is one fp32 solve at lam=5e-5 (condition ~1e5): its
+        # theta carries ~2e-2 of rounding in the weakest directions, which
+        # its train MSE does not see; it is held by the MSE and the comms
+        close = e_card <= SIM_F64_FACTOR * e_cpu + SIM_F64_SLACK
+        if not ((close or alg == "ridge_oracle") and e_mse <= SIM_MSE_RTOL):
+            raise AssertionError(f"simulator {alg}: the card's fit is further "
+                                 "from the float64 run than the CPU's allows")
+        if alg != "ridge_oracle":
+            dist = h["dist_to_oracle"]
+            log(12, f"paper {alg}: dist_to_oracle {float(dist[0]):.4f} -> "
+                    f"{float(dist[-1]):.4f}")
+            if not dist[-1] < dist[0]:
+                raise AssertionError(f"simulator {alg}: dist_to_oracle did "
+                                     "not shrink")
+        fits[alg] = h
+        if alg == "coke":
+            coke_fit = gpu
+    no_launches("the simulator's paper fits")
+    coke, dkla = fits["coke"], fits["dkla"]
+    ratio = float(coke["train_mse"][-1]) / float(dkla["train_mse"][-1])
+    log(12, f"paper: COKE sent {int(coke['comms'][-1])} broadcasts against "
+            f"DKLA's {int(dkla['comms'][-1])}, final train_mse "
+            f"{float(coke['train_mse'][-1]):.6f} against "
+            f"{float(dkla['train_mse'][-1]):.6f} ({ratio:.4f}x; held at "
+            f"<= {SIM_COKE_MSE_RATIO}x, the reference gives 1.028x)")
+    if not (int(coke["comms"][-1]) < int(dkla["comms"][-1]) == n * 1000
+            and ratio <= SIM_COKE_MSE_RATIO):
+        raise AssertionError("COKE did not save broadcasts at DKLA's "
+                             "accuracy on the paper's setup")
+    model = coke_fit.to_model(paper.rff_params)
+    before = counts()["rff_cos_bias"]
+    ev = model.evaluate(paper.x_test, paper.y_test, backend="fused")
+    ev_ref = model.evaluate(paper.x_test, paper.y_test, backend="ref")
+    torch.cuda.synchronize()
+    if not counts()["rff_cos_bias"] > before:
+        raise AssertionError("the simulator fit's deploy did not launch K1")
+    log(12, f"paper coke deployed: test_mse {ev['test_mse']:.6f} (fused, "
+            f"K1) / {ev_ref['test_mse']:.6f} (ref)")
+    if not math.isclose(ev["test_mse"], ev_ref["test_mse"], rel_tol=1e-4):
+        raise AssertionError("the simulator fit's fused and ref test MSE "
+                             "differ")
+
+    # ---- (b) the CG primal at phase 4's big-D point -----------------------
+    reset_counts()
+    N, T, D = problem.feats.shape
+    big_cfg = FitConfig(krr=krr, graph="ring", algorithm="coke",
+                        num_iters=SIM_BIG_D_ITERS)
+    ctx = SolveContext.from_config(big_cfg.replace(primal="auto"))
+    resolved = (get_solver("coke")._primal_mode(problem, ctx),
+                _resolve_consensus_primal(big_cfg.replace(primal="auto"),
+                                          problem, "coke"))
+    if resolved != ("cg", "cg"):
+        raise AssertionError(f"primal='auto' at D={D} resolved to {resolved}")
+    big = {}
+    for primal in ("cg", "auto"):
+        for backend in ("simulator", "spmd", "fused"):
+            t0 = time.perf_counter()
+            r = fit(big_cfg.replace(primal=primal, backend=backend),
+                    problem=problem, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            h = {k: v.cpu() for k, v in r.history.items()}
+            check_history(f"big-D {primal} {backend}", h, SIM_BIG_D_ITERS)
+            big[(primal, backend)] = (r, h)
+            log(12, f"big-D COKE primal={primal} on {backend} (N={N} ring, "
+                    f"T={T}, D={D}, {SIM_BIG_D_ITERS} iterations) in "
+                    f"{wall:.2f} s wall: comms {int(h['comms'][-1])}/"
+                    f"{N * SIM_BIG_D_ITERS}, train_mse "
+                    f"{float(h['train_mse'][0]):.5f} -> "
+                    f"{float(h['train_mse'][-1]):.5f}")
+    no_launches("the big-D CG fits")
+    ref_r, ref_h = big[("cg", "simulator")]
+    for (primal, backend), (r, h) in big.items():
+        for k in ("comms", "bits"):
+            if not torch.equal(h[k], ref_h[k]):
+                raise AssertionError(f"big-D {primal} {backend}: {k} differs "
+                                     "from the simulator's CG fit")
+        e = theta_err(r.theta, ref_r.theta)
+        log(12, f"big-D {primal} {backend} against simulator cg: comms/bits "
+                f"equal, theta max|err| {e:.3e} (tol {SIM_CG_BACKEND_TOL:g})")
+        if not e <= SIM_CG_BACKEND_TOL:
+            raise AssertionError(f"big-D {primal} {backend}: theta differs")
+
+    # ---- (c) Cholesky against CG at the crossover D -----------------------
+    reset_counts()
+    cross_cfg = FitConfig(krr=dataclasses.replace(
+        krr, num_features=SIM_CROSSOVER_D), graph="ring", algorithm="coke",
+        num_iters=SIM_BIG_D_ITERS)
+    cross = build_problem(cross_cfg, device=dev).problem
+    if admm.resolve_primal("auto", SIM_CROSSOVER_D, "quadratic") != \
+            "cholesky":
+        raise AssertionError("primal='auto' at the crossover is not Cholesky")
+    chol = fit(cross_cfg.replace(primal="cholesky"), problem=cross,
+               device=dev)
+    cg = fit(cross_cfg.replace(primal="cg"), problem=cross, device=dev)
+    torch.cuda.synchronize()
+    no_launches("the crossover fits")
+    e = theta_err(chol.theta, cg.theta)
+    same = torch.equal(chol.comms, cg.comms)
+    log(12, f"crossover D={SIM_CROSSOVER_D} (Phi "
+            f"{cross.feats.numel() * 4 / 1e9:.3f} GB, factors "
+            f"{N * SIM_CROSSOVER_D ** 2 * 4 / 1e9:.3f} GB): Cholesky against "
+            f"CG, comms equal {same} ({int(chol.comms[-1])}), theta max|err| "
+            f"{e:.3e} (tol {SIM_CHOL_CG_TOL:g})")
+    if not (same and e <= SIM_CHOL_CG_TOL):
+        raise AssertionError("Cholesky and CG differ at the crossover")
+
+    # ---- times ------------------------------------------------------------
+    def sim_chunks(cfg, prob):
+        state0, chunk_fn, _ = _simulator_runner(
+            get_solver(cfg.algorithm), prob, SolveContext.from_config(cfg),
+            None)
+        st = {"s": chunk_fn(state0, 2)[0]}
+
+        def run(k):
+            def f():
+                st["s"] = chunk_fn(st["s"], k)[0]
+            return f
+        return run
+
+    def ring_chunks(cfg, prob):
+        carry0, chunk_fn, _ = consensus_runner(
+            cfg, get_solver(cfg.algorithm), prob,
+            SolveContext.from_config(cfg), None)
+        st = {"c": chunk_fn(carry0, 1)[0]}
+
+        def run(k):
+            def f():
+                st["c"] = chunk_fn(st["c"], k)[0]
+            return f
+        return run
+
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / bw * 1e3, flops / fp32 * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    def with_bound(what, d_h, nbytes, flops):
+        b_ms, by = bound(nbytes, flops)
+        log(12, f"[{card}] {what}: {pair(d_h)}; bound {b_ms:.4f} ms ({by}: "
+                f"{nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
+                f"{b_ms / d_h[0]:.1%} of it)")
+
+    # a Cholesky iteration reads Phi once for the train MSE and the factor
+    # stack twice (two triangular solves); Phi'y is hoisted out of the loop
+    traced = []      # (what, fn, iterations per call, (device, host) ms)
+    for what, prob, cfg in (
+            ("paper shape", pp, FitConfig(algorithm="coke")),
+            (f"D={SIM_CROSSOVER_D}", cross,
+             cross_cfg.replace(primal="cholesky"))):
+        nn, tt, dd = prob.feats.shape
+        fn = sim_chunks(cfg, prob)(10)
+        d_h = paired_ms(fn, 10)
+        if prob is pp:
+            traced.append((f"ten simulator Cholesky iterations at N={nn} "
+                           f"T={tt} D={dd}", fn, 10, d_h))
+        with_bound(f"one simulator COKE Cholesky iteration at N={nn} T={tt} "
+                   f"D={dd} (chunks of ten)", d_h,
+                   4.0 * (nn * tt * dd + 2 * nn * dd * dd),
+                   2.0 * nn * tt * dd + 4.0 * nn * dd * dd)
+    nn, tt, dd = cross.feats.shape
+    d_h = paired_ms(lambda: admm._ridge_factors(cross), 1, runs=3, warmup=1)
+    with_bound(f"the one-off factorization at N={nn} T={tt} D={dd} (the "
+               "Gram per agent in fp32, then torch.linalg.cholesky)", d_h,
+               4.0 * (nn * tt * dd + nn * dd * dd),
+               2.0 * nn * tt * dd * dd + nn * dd ** 3 / 3.0)
+    # a CG iteration reads Phi twice per operator pass: 64 passes, one for
+    # r0 = b - A x0, then once for the train MSE; Phi'y and the Jacobi
+    # diagonal are made once per fit
+    reads = 2 * (big_cfg.cg_maxiter + 1) + 1
+    for backend, runner in (("simulator", sim_chunks),
+                            ("spmd", ring_chunks)):
+        cfg = big_cfg.replace(primal="cg", backend=backend)
+        fn = runner(cfg, problem)(3)
+        d_h = paired_ms(fn, 3, runs=3, warmup=1)
+        if backend == "simulator":
+            traced.append((f"three simulator CG iterations at N={N} T={T} "
+                           f"D={D}", fn, 3, d_h))
+        with_bound(f"one CG COKE iteration on {backend} at N={N} T={T} "
+                   f"D={D} ({reads} reads of the {N * T * D * 4 / 1e9:.3f} "
+                   "GB Phi)", d_h, 4.0 * reads * N * T * D,
+                   4.0 * (2 * big_cfg.cg_maxiter + 3) * N * T * D)
+    # device activity under torch.profiler (CUDA only): the kernels' time
+    # per iteration against the unprofiled device time of the same work
+    for what, fn, iters, d_h in traced:
+        rows = profiled_kernels(fn, calls=1)
+        if not rows:
+            log(12, f"the profiler recorded no device time over {what}: "
+                    "its busy share is not measured")
+            continue
+        busy = sum(r[0] for r in rows) / iters
+        log(12, f"[{card}] {what} under the profiler: kernels {busy:.4f} ms "
+                f"and {sum(r[1] for r in rows) / iters:.0f} launches per "
+                f"iteration; device busy {busy / d_h[0]:.1%} of the "
+                f"unprofiled {d_h[0]:.4f} ms, idle {1 - busy / d_h[0]:.1%}")
+        for ms, count, key in rows[:6]:
+            log(12, f"  {ms / iters:.4f} ms  {count / iters:>7.1f} calls  "
+                    f"{key[:90]}")
+    no_launches("the simulator's timed iterations")
 
 
 def main() -> int:
@@ -1655,6 +1965,9 @@ def main() -> int:
     if not ratio <= 0.6:
         raise AssertionError(f"the causal K4 call takes {ratio:.3f}x the "
                              "non-causal one: the skipped tiles did not show")
+
+    # ---- 12. the simulator backend and the exact primals ------------------
+    simulator_phase(dev, problem, krr, card, bw, fp32, reset_counts, counts)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

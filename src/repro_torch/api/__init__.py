@@ -8,10 +8,12 @@
     model = result.to_model()
     y_hat = model.predict(x_new, backend="fused")
 
-Ported so far: `fit` on the fused backend (the megakernel path for `dkla`
-and `coke`, and its fallback to the ring runtime on a non-quadratic loss)
-and on the spmd backend (`dkla`, `coke`, `cta`), `build_problem`, and
-`KernelModel` (predict / evaluate / save / load). Anything else raises
+Ported so far: `fit` on the simulator backend (`dkla`, `coke`, `cta`,
+`ridge_oracle`; the Cholesky, CG and gradient primals), on the fused
+backend (the megakernel path for `dkla` and `coke`, and its fallback to
+the ring runtime on a non-quadratic loss or the CG primal) and on the spmd
+backend (`dkla`, `coke`, `cta`), `build_problem`, and `KernelModel`
+(predict / evaluate / save / load). Anything else raises
 NotImplementedError naming its ROADMAP.md item.
 """
 from repro_torch.api.config import (BACKENDS, FitConfig,  # noqa: F401

@@ -1,19 +1,19 @@
-"""Backend routing for `fit()`: the spmd and fused backends.
+"""Backend routing for `fit()`: the spmd and fused backends (the simulator
+runs in `api/fit.py`).
 
   spmd  — the ring consensus runtime (`distributed/consensus.py`): the
           agent axis as a leading tensor dimension, neighbour exchange as
-          `torch.roll`, the inexact one-step gradient primal. Runs dkla,
-          coke and cta.
-  fused — on megakernel-admissible configs (dkla/coke, gradient primal,
-          quadratic loss, static ring or circulant graph) each ADMM
+          `torch.roll`, the inexact one-step gradient primal, or the exact
+          matrix-free CG primal (`primal="cg"`, or "auto" past D = 2048 on
+          the quadratic loss) through the runtime's `primal_solve` hook.
+          Runs dkla, coke and cta.
+  fused — on megakernel-admissible configs (dkla/coke, the gradient
+          primal, quadratic loss, static ring or circulant graph) each ADMM
           iteration runs the `coke_megastep` kernel (K2) substituted into
           the `core.step.StepProgram` primal stage. Everything else falls
-          back to the ring runtime with the augmented gradient in the
-          `coke_fused_update` kernel (K3).
-
-The CG primal (`primal="cg"`, or "auto" past D = 2048 on the quadratic
-loss) raises NotImplementedError naming ROADMAP.md Queue 1 item 3; the
-simulator backend raises in `fit`.
+          back to the ring runtime: the gradient primal with the augmented
+          gradient in the `coke_fused_update` kernel (K3), or the CG primal,
+          which launches neither kernel.
 
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
@@ -30,6 +30,7 @@ from repro_torch.api.config import FitConfig, SolveContext
 from repro_torch.api.registry import Solver
 from repro_torch.api.solvers import (_comm_metrics, _stacked_metrics,
                                      _uncompressed_bits)
+from repro_torch.core import admm
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem, resolve_primal
@@ -38,9 +39,6 @@ from repro_torch.distributed import consensus as cns
 from repro_torch.kernels.coke_update.coke_update import coke_megastep
 from repro_torch.kernels.coke_update.ref import residual_sq
 from repro_torch.optim.optimizers import OptConfig
-
-_CG_LATER = ("ROADMAP.md Queue 1 item 3 (the CG primal, with the "
-             "simulator's _primal_cg)")
 
 #: history dtypes, for the (0,)-histories of a zero-iteration chunk
 _HIST_DTYPES = {"train_mse": torch.float32, "comms": torch.int32,
@@ -91,6 +89,27 @@ def _resolve_consensus_primal(config: FitConfig, problem: Problem,
             and problem.feature_dim > CG_CROSSOVER_DIM):
         return "cg"
     return "gradient"
+
+
+def _cg_primal_solve(problem: Problem, cg_tol: float, cg_maxiter: int):
+    """The matrix-free CG solve of (21a) in the ring runtime's tree form:
+    the runtime hands over (params, theta_hat, gamma, summed neighbour
+    theta_hat, degree) and gets the exact primal back, warm-started from
+    the previous iterate. The right-hand side's (2/T) Phi'y and the Jacobi
+    diagonal's data part are made once here, for the whole fit."""
+    terms = admm.primal_terms(problem)
+    n_agents = problem.num_agents
+
+    def solve(params, theta_hat, gamma, nbr_sum, deg):
+        deg_vec = torch.full((n_agents,), float(deg),
+                             dtype=problem.feats.dtype, device=problem.device)
+        theta = admm._primal_cg(
+            problem, gamma["theta"], theta_hat["theta"], nbr_sum["theta"],
+            deg_vec, theta0=params["theta"], tol=cg_tol, maxiter=cg_maxiter,
+            terms=terms)
+        return {"theta": theta.to(params["theta"].dtype)}
+
+    return solve
 
 
 class _FusedCarry(NamedTuple):
@@ -183,12 +202,14 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
 
 def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
                      ccfg: cns.ConsensusConfig, opt_cfg: OptConfig,
-                     num_iters: int):
+                     num_iters: int, primal_solve=None):
     """`num_iters` iterations of the ring runtime: local gradients, then
-    `consensus_update` (through K3 when ccfg.use_fused_kernel). History
-    keys match the reference's spmd chunk: train_mse / comms /
-    consensus_gap / bits, then send_frac for dkla/coke
-    [+ dist_to_oracle]."""
+    `consensus_update` (through K3 when ccfg.use_fused_kernel). With a
+    `primal_solve` (the CG primal) the solve replaces the gradient step:
+    zero gradients are passed and `_local_grads` is skipped, as in the
+    reference, which saves its two Phi reads. History keys match the
+    reference's spmd chunk: train_mse / comms / consensus_gap / bits, then
+    send_frac for dkla/coke [+ dist_to_oracle]."""
     keys = ["train_mse", "comms", "consensus_gap", "bits"]
     if ccfg.is_admm:
         keys.append("send_frac")
@@ -196,9 +217,13 @@ def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
         keys.append("dist_to_oracle")
     hist: dict[str, list] = {k: [] for k in keys}
     for _ in range(num_iters):
-        grads = {"theta": _local_grads(problem, params["theta"])}
+        if primal_solve is None:
+            grads = {"theta": _local_grads(problem, params["theta"])}
+        else:
+            grads = {"theta": torch.zeros_like(params["theta"])}
         params, cstate, extra = cns.consensus_update(
-            ccfg, opt_cfg, params, grads, cstate, comm=chain)
+            ccfg, opt_cfg, params, grads, cstate, comm=chain,
+            primal_solve=primal_solve)
         bits = extra.get("bits")
         if bits is None:  # policy-unaware strategy (cta): full precision
             bits = _uncompressed_bits(problem, cstate["comms"])
@@ -223,18 +248,16 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
             "item 7 (topology schedules)")
     offsets = tuple(config.graph_offsets)
     _validate_topology(problem, offsets)
-    if primal_mode == "cg":
-        raise NotImplementedError(
-            f"the CG primal on the ring runtimes is not ported yet: "
-            f"{_CG_LATER}")
     N, D = problem.num_agents, problem.feature_dim
     dev, dtype = problem.device, problem.feats.dtype
 
-    # megakernel admission (the reference's gate): the gradient primal on
-    # the quadratic loss over a fixed circulant, unsharded and not
-    # personalized (fit rejects topology schedules and personalization)
+    # megakernel admission (the reference's gate): the one-step gradient
+    # primal on the quadratic loss over a fixed circulant, unsharded and
+    # not personalized (fit rejects topology schedules and
+    # personalization); a CG fit falls back to the ring runtime
     use_mega = (config.backend == "fused"
                 and strategy in ("dkla", "coke")
+                and primal_mode == "gradient"
                 and problem.loss == "quadratic")
     if use_mega:
         chain = solver._policy(ctx)
@@ -269,9 +292,13 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     params = {"theta": torch.zeros((N, D), dtype=dtype, device=dev)}
     cstate = cns.init_consensus_state(ccfg, opt_cfg, params, comm=chain)
 
+    primal_solve = (_cg_primal_solve(problem, ctx.cg_tol, ctx.cg_maxiter)
+                    if primal_mode == "cg" else None)
+
     def chunk_fn(carry, n):
         params, cstate = carry
         return _consensus_chunk(problem, params, cstate, oracle, chain,
-                                ccfg=ccfg, opt_cfg=opt_cfg, num_iters=n)
+                                ccfg=ccfg, opt_cfg=opt_cfg, num_iters=n,
+                                primal_solve=primal_solve)
 
     return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]

@@ -129,12 +129,18 @@ class SolveContext:
     """The solver-facing slice of a FitConfig that this port's path reads."""
 
     comm: comm_mod.Chain
+    primal: str = "auto"
+    inner_steps: int = 50
     inner_lr: float = 0.1
+    cg_tol: float = 1e-8
+    cg_maxiter: int = 64
     cta_lr: float = 0.9
 
     @classmethod
     def from_config(cls, config: FitConfig) -> "SolveContext":
-        return cls(comm=config.resolved_comm, inner_lr=config.inner_lr,
+        return cls(comm=config.resolved_comm, primal=config.primal,
+                   inner_steps=config.inner_steps, inner_lr=config.inner_lr,
+                   cg_tol=config.cg_tol, cg_maxiter=config.cg_maxiter,
                    cta_lr=config.cta_lr)
 
 

@@ -2,10 +2,11 @@
 
 It owns the iteration loop (a Python loop in host-visible chunks, where
 the reference has `lax.scan`), the per-iteration metric recording and the
-optional progress callbacks. The port runs the spmd backend and the fused
-backend (its megakernel path and its fallback to the ring runtime); every
-other part of a FitConfig raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+optional progress callbacks. The port runs the simulator backend (every
+registered solver, each primal: Cholesky, CG, gradient), the spmd backend
+and the fused backend (its megakernel path and its fallback to the ring
+runtime); every other part of a FitConfig raises NotImplementedError
+naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def _check_solver(config: FitConfig, solver) -> None:
                   "drop FitConfig.comm or pick a comm-aware algorithm "
                   "(dkla/coke/online_coke)")
         alternative = "algorithm='coke' with the same comm chain"
-    elif config.primal in ("cholesky", "cg") and not solver.primal_aware:
+    elif (config.primal in ("cholesky", "cg")
+          and not getattr(solver, "primal_aware", False)):
         reason = (f"solver {config.algorithm!r} has no (21a) primal "
                   f"subproblem for primal={config.primal} to solve; leave "
                   "primal='auto' or pick an ADMM solver (dkla/coke)")
@@ -49,13 +51,9 @@ def _check_solver(config: FitConfig, solver) -> None:
 
 def _check_slice(config: FitConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for any part
-    of the config this port does not run yet. The CG primal raises in the
-    backend, after the reference's own checks of the primal mode."""
+    of the config this port does not run yet, on every backend."""
     later = None
-    if config.backend == "simulator":
-        later = ("backend='simulator'", "Queue 1 item 3 (simulator backend "
-                 "with the Cholesky/CG primals)")
-    elif config.exec == "gossip":
+    if config.exec == "gossip":
         later = ("exec='gossip'", "Queue 1 item 10 (gossip and churn)")
     elif config.topology is not None:
         later = ("topology schedules", "Queue 1 item 7 (topology "
@@ -69,6 +67,42 @@ def _check_slice(config: FitConfig) -> None:
         raise NotImplementedError(
             f"{later[0]} is not ported to repro_torch yet: ROADMAP.md "
             f"{later[1]}")
+
+
+def _simulator_chunk(solver, problem: Problem, ctx: SolveContext, aux,
+                     state, oracle, num_iters: int):
+    """`num_iters` iterations of `solver` on the simulator: step, then the
+    solver's metrics [+ dist_to_oracle], kept as device tensors and
+    stacked once at the end of the chunk."""
+    def record(st):
+        m = solver.metrics(problem, ctx, aux, st)
+        if oracle is not None:
+            m["dist_to_oracle"] = torch.max(torch.linalg.norm(
+                solver.theta_of(st) - oracle, dim=-1))
+        return m
+
+    hist: dict[str, list] = {}
+    for _ in range(num_iters):
+        state = solver.step(problem, ctx, aux, state)
+        for k, v in record(state).items():
+            hist.setdefault(k, []).append(v)
+    if not num_iters:   # (0,)-histories with the keys and dtypes of a record
+        return state, {k: torch.empty((0,), dtype=v.dtype, device=v.device)
+                       for k, v in record(state).items()}
+    return state, {k: torch.stack(v) for k, v in hist.items()}
+
+
+def _simulator_runner(solver, problem: Problem, ctx: SolveContext, oracle):
+    """-> (state0, chunk_fn, theta_fn). The reference prepares its traced
+    aux (the Cholesky factors) inside every compiled chunk; here it is made
+    once per fit, with the same values."""
+    aux = solver.prepare_traced(problem, ctx,
+                                solver.prepare_host(problem, ctx))
+
+    def chunk_fn(state, n):
+        return _simulator_chunk(solver, problem, ctx, aux, state, oracle, n)
+
+    return solver.init_state(problem, ctx), chunk_fn, solver.theta_of
 
 
 def _chunked_scan(chunk_fn, carry, num_iters: int, chunk_size: int | None,
@@ -128,8 +162,12 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
         oracle = oracle.to(dev)
 
     ctx = SolveContext.from_config(config)
-    carry0, chunk_fn, theta_fn = consensus_runner(config, solver, problem,
-                                                  ctx, oracle)
+    if config.backend == "simulator":
+        carry0, chunk_fn, theta_fn = _simulator_runner(solver, problem, ctx,
+                                                       oracle)
+    else:
+        carry0, chunk_fn, theta_fn = consensus_runner(config, solver,
+                                                      problem, ctx, oracle)
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
                                    config.chunk_size, progress_cb)
     return FitResult(config=config, state=carry, history=history,

@@ -1,37 +1,56 @@
 """Solver registry — where an algorithm plugs into `repro_torch.api`.
 
 The port registers the two ADMM solvers, `dkla` (Algorithm 1) and `coke`
-(Algorithm 2), and the `cta` diffusion baseline. The reference's other
-solvers raise NotImplementedError naming the ROADMAP.md item that ports
-them.
+(Algorithm 2), the `cta` diffusion baseline and the centralized
+`ridge_oracle`. The reference's streaming solvers raise
+NotImplementedError naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
-from typing import Protocol, runtime_checkable
+from typing import Any, Protocol, runtime_checkable
+
+import torch
 
 
 @runtime_checkable
 class Solver(Protocol):
-    """What a registered algorithm gives `fit` and the backends: its
-    registry name, the backends it runs on, its consensus strategy,
-    whether it threads a comm policy and has a (21a) primal subproblem,
-    and (when comm-aware) its view of the policy."""
+    """The contract every registered algorithm implements.
 
+    `prepare_host` and `prepare_traced` run once per fit (host-side
+    precomputation such as the Metropolis weights; device-side such as
+    the per-agent Cholesky factors); `step` and `metrics` run once per
+    iteration on the simulator backend. The spmd and fused backends read
+    `consensus_strategy` (and `_policy` for comm-aware solvers). A solver
+    without a (21a) primal subproblem sets `primal_aware = False`."""
+
+    #: registry key, filled in by @register_solver
     name: str
+    #: subset of {"simulator", "spmd", "fused"} this solver can run on
     backends: tuple[str, ...]
-    consensus_strategy: str
+    #: distributed.consensus strategy for the spmd / fused backends, or
+    #: None when only the simulator applies
+    consensus_strategy: str | None
+    #: whether the solver threads a core.comm policy through its broadcast
     comm_aware: bool
-    primal_aware: bool
 
-    def _policy(self, ctx): ...
+    def prepare_host(self, problem: Any, ctx: Any) -> Any: ...
+
+    def prepare_traced(self, problem: Any, ctx: Any, host_aux: Any) -> Any: ...
+
+    def init_state(self, problem: Any, ctx: Any) -> Any: ...
+
+    def step(self, problem: Any, ctx: Any, aux: Any, state: Any) -> Any: ...
+
+    def metrics(self, problem: Any, ctx: Any, aux: Any,
+                state: Any) -> dict[str, torch.Tensor]: ...
+
+    def theta_of(self, state: Any) -> torch.Tensor: ...
 
 
 _REGISTRY: dict[str, Solver] = {}
 
 #: reference solvers not ported yet -> the ROADMAP.md item that ports them
 _LATER = {
-    "ridge_oracle": "ROADMAP.md Queue 1 item 3 (simulator backend and its "
-                    "solvers)",
     "online_dkla": "ROADMAP.md Queue 1 item 9 (streaming)",
     "online_coke": "ROADMAP.md Queue 1 item 9 (streaming)",
     "qc_odkla": "ROADMAP.md Queue 1 item 9 (streaming)",

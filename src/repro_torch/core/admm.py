@@ -1,18 +1,36 @@
-"""The decentralized RF-space learning problem (the reference's
-`core/admm.py::Problem` and `make_problem`).
+"""DKLA (Algorithm 1) and COKE (Algorithm 2) in the RF space: the problem,
+and the simulator form of one iteration (the reference's `core/admm.py`).
 
-The problem description and `resolve_primal` are ported here; the
-simulator's primal solves (Cholesky, CG, inner gradient descent) are
-ROADMAP.md Queue 1 item 3. The fused backend runs the gradient primal inside
-the `coke_megastep` kernel, the ring runtime as one optimizer step
-(`distributed/consensus.py`).
+The simulator keeps all N agents in one process on a leading batch axis and
+exchanges through the adjacency (`A @ x`). The primal update (21a) has
+three forms:
+  cholesky — the exact solve of the quadratic loss's normal equations
+
+      [ (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho |N_i|) I ] theta
+            = (2/T_i) Phi_i' y_i - gamma_i + rho (|N_i| theta_hat_i
+                                                 + sum_n theta_hat_n)
+
+             through per-agent Cholesky factors made once per fit;
+  cg       — the same system matrix-free: Jacobi-preconditioned conjugate
+             gradients whose operator is Phi_i' (Phi_i v), warm-started
+             from the previous iterate, step for step the reference's
+             `jax.scipy.sparse.linalg.cg` under `vmap`;
+  gradient — `inner_steps` gradient steps on the augmented objective (any
+             loss).
+The ring runtimes (`distributed/consensus.py`) run the one-step gradient
+primal, or `_primal_cg` through their `primal_solve` hook; the fused
+megakernel path runs the gradient primal inside `coke_megastep` (K2).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import comm as comm_mod
+from repro_torch.core import losses as losses_mod
+from repro_torch.core import step as step_mod
 from repro_torch.core.graph import Graph
 
 #: primal modes FitConfig accepts (as in the reference)
@@ -70,6 +88,10 @@ class Problem:
     def device(self) -> torch.device:
         return self.feats.device
 
+    @property
+    def degrees(self) -> torch.Tensor:
+        return torch.sum(self.adjacency, dim=1)
+
     def to(self, device) -> "Problem":
         return dataclasses.replace(
             self, feats=self.feats.to(device),
@@ -84,3 +106,257 @@ def make_problem(feats: torch.Tensor, labels: torch.Tensor, graph: Graph,
         adjacency=torch.as_tensor(graph.adjacency, dtype=feats.dtype,
                                   device=feats.device),
         lam=lam, rho=rho, loss=loss)
+
+
+class COKEState(NamedTuple):
+    """Per-agent state, batched over the leading N axis. `step` is a host
+    int (the censor threshold h(k) is formed on the host); `comms` stays on
+    the device."""
+
+    theta: torch.Tensor       # (N, D) local primal variables theta_i^k
+    theta_hat: torch.Tensor   # (N, D) latest broadcast primal variables
+    gamma: torch.Tensor       # (N, D) local dual variables
+    step: int                 # iteration counter k
+    comms: torch.Tensor       # () int32 cumulative transmissions
+    comm: comm_mod.CommState | None = None
+
+
+def init_state(problem: Problem, policy=None) -> COKEState:
+    """theta^0 = theta_hat^0 = gamma^0 = 0 (Algorithms 1/2); `policy`'s
+    persistent state (per-agent bits) rides in the state."""
+    N, D = problem.num_agents, problem.feature_dim
+    dev, dtype = problem.device, problem.feats.dtype
+
+    def z():
+        return torch.zeros((N, D), dtype=dtype, device=dev)
+
+    return COKEState(z(), z(), z(), 0,
+                     torch.zeros((), dtype=torch.int32, device=dev),
+                     comm_mod.as_chain(policy).init_state(N, dev))
+
+
+# --------------------------------------------------------------------------
+# Primal update
+# --------------------------------------------------------------------------
+
+class PrimalTerms(NamedTuple):
+    """The iteration-invariant parts of the (21a) system, per agent: the
+    right-hand side's (2/T_i) Phi_i' y_i, and for CG the data part of the
+    Jacobi diagonal, (2/T_i) sum_t Phi_i[t]^2. The reference recomputes
+    both in every iteration; they are the same values at every one."""
+
+    phity: torch.Tensor            # (N, D)
+    phisq: torch.Tensor | None     # (N, D), or None where no CG runs
+
+
+def primal_terms(problem: Problem, jacobi: bool = True) -> PrimalTerms:
+    """One read of Phi for phity, one more for the Jacobi diagonal, one
+    agent at a time: no (N, T, D) temporary. Each is rounded as the
+    reference forms it: ((2/T_i) Phi_i') y_i, the scale on Phi before the
+    product (scaling after moves the Cholesky trajectories by ~1e-5), and
+    (2/T_i) sum_t Phi_i[t]^2, the scale after the sum."""
+    phi = problem.feats
+    s = 2.0 / phi.shape[1]
+    phity = torch.stack([(s * p.T) @ y for p, y in zip(phi, problem.labels)])
+    phisq = None
+    if jacobi:
+        phisq = s * torch.stack([torch.sum(torch.square(p), dim=0)
+                                 for p in phi])
+    return PrimalTerms(phity, phisq)
+
+
+def _diag_reg(problem: Problem, deg: torch.Tensor) -> torch.Tensor:
+    """(N, 1): 2 lam/N + 2 rho d_i, the (21a) system's diagonal shift."""
+    return (2.0 * problem.lam / problem.num_agents
+            + 2.0 * problem.rho * deg)[:, None]
+
+
+def _rhs(problem: Problem, phity, gamma, theta_ref, nbr_sum, deg):
+    return phity - gamma + problem.rho * (deg[:, None] * theta_ref + nbr_sum)
+
+
+def _ridge_factors(problem: Problem, deg=None) -> torch.Tensor:
+    """(N, D, D) lower Cholesky factors of the (18a) normal matrices
+    (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho d_i) I, batched over agents.
+    The Gram stays fp32 (no TF32); `torch.linalg.cholesky` checks its
+    result, which syncs the host once."""
+    N, Ti, D = problem.feats.shape
+    if deg is None:
+        deg = problem.degrees
+    s = 2.0 / Ti
+    # ((2/T_i) Phi_i') Phi_i, scaled before the product as the reference
+    # rounds it, one agent at a time
+    gram = torch.stack([(s * p.T) @ p for p in problem.feats])
+    gram.diagonal(dim1=1, dim2=2).add_(_diag_reg(problem, deg))
+    return torch.linalg.cholesky(gram)
+
+
+def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
+                        deg=None, terms: PrimalTerms | None = None):
+    """Solve (21a) exactly per agent with the prefactored system: two
+    batched triangular solves. theta_ref / nbr_sum are (theta_hat_i,
+    sum_n theta_hat_n)."""
+    if deg is None:
+        deg = problem.degrees
+    if terms is None:
+        terms = primal_terms(problem, jacobi=False)
+    rhs = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
+    z = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
+    x = torch.linalg.solve_triangular(chol.mT, z, upper=True)
+    return x[..., 0]
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
+               theta0=None, tol: float = 1e-8, maxiter: int = 64,
+               terms: PrimalTerms | None = None):
+    """Solve (21a) per agent matrix-free: Jacobi-preconditioned CG on
+
+        [ (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho d_i) I ] theta = rhs_i
+
+    whose operator is two batched products, Phi_i' (Phi_i v); no (D, D)
+    array is built. Step for step `jax.scipy.sparse.linalg.cg` under
+    `vmap`: the stop rs > max(tol^2 |b|^2, 0) with rs = |r|^2, the
+    preconditioner v / jacobi, the warm start theta0, and gamma = <r, z>,
+    alpha = gamma / <p, Ap>, beta = gamma' / gamma in that order. Under
+    vmap the while loop runs until every agent has stopped and a stopped
+    agent keeps its values; here that is a fixed loop of `maxiter` steps
+    with a per-agent active mask applied by `torch.where` (a stopped
+    agent's alpha may be 0/0, which a select drops and a product would
+    not). Nothing is read back to the host."""
+    N, Ti, D = problem.feats.shape
+    phi = problem.feats
+    if deg is None:
+        deg = problem.degrees
+    if theta0 is None:
+        theta0 = torch.zeros((N, D), dtype=phi.dtype, device=phi.device)
+    if terms is None or terms.phisq is None:
+        terms = primal_terms(problem, jacobi=True)
+    diag_reg = _diag_reg(problem, deg)
+    b = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
+    jacobi = terms.phisq + diag_reg
+    s = 2.0 / Ti
+    phi_t = phi.transpose(1, 2)
+
+    def matvec(v):
+        return s * torch.bmm(phi_t, torch.bmm(phi, v[..., None]))[..., 0] \
+            + diag_reg * v
+
+    atol2 = (tol * tol) * _rowdot(b, b)
+    x = theta0
+    r = b - matvec(x)
+    z = r / jacobi
+    p = z
+    gam = _rowdot(r, z)
+    for _ in range(maxiter):
+        active = _rowdot(r, r) > atol2
+        ap = matvec(p)
+        alpha = gam / _rowdot(p, ap)
+        x_new = x + alpha[:, None] * p
+        r_new = r - alpha[:, None] * ap
+        z_new = r_new / jacobi
+        gam_new = _rowdot(r_new, z_new)
+        beta = gam_new / gam
+        p_new = z_new + beta[:, None] * p
+        keep = active[:, None]
+        x = torch.where(keep, x_new, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, p_new, p)
+        gam = torch.where(active, gam_new, gam)
+    return x
+
+
+def _primal_gradient(problem: Problem, inner_steps: int, inner_lr: float,
+                     theta0, gamma, theta_ref, nbr_sum, deg=None):
+    """Inexact (21a) for any convex loss: `inner_steps` gradient steps on
+    the augmented local objective
+
+        R_i(theta) + rho d_i |theta|^2 + <theta, gamma_i - rho (d_i
+                                          theta_ref_i + nbr_sum_i)>,
+
+    each gradient by autograd of the agent sum (agent i's term depends on
+    its own row only)."""
+    N = problem.num_agents
+    if deg is None:
+        deg = problem.degrees
+    lin = gamma - problem.rho * (deg[:, None] * theta_ref + nbr_sum)
+    rho_d = problem.rho * deg
+    theta = theta0
+    with torch.enable_grad():
+        for _ in range(inner_steps):
+            th = theta.detach().requires_grad_(True)
+            risk = losses_mod.local_empirical_risk(
+                th, problem.feats, problem.labels, problem.lam / N,
+                problem.loss)
+            aug = risk + rho_d * torch.sum(th * th, dim=-1) \
+                + torch.sum(th * lin, dim=-1)
+            (grad,) = torch.autograd.grad(torch.sum(aug), th)
+            theta = theta - inner_lr * grad
+    return theta.detach()
+
+
+def _primal_stage(problem: Problem, primal: str, *, chol=None,
+                  terms: PrimalTerms | None = None, inner_steps: int = 50,
+                  inner_lr: float = 0.1, cg_tol: float = 1e-8,
+                  cg_maxiter: int = 64, legacy_auto: bool = False):
+    """The (21a) primal update as a `core.step` stage. With
+    `legacy_auto=True` the dispatch keeps `coke_step`'s contract (the
+    closed form whenever a factor is in hand and the loss is quadratic);
+    otherwise the mode is explicit ("cg" / "cholesky" / gradient)."""
+    def stage(k, g, theta0, theta_hat0, gamma0, nbr_hat):
+        if primal == "cg":
+            if problem.loss != "quadratic":
+                raise ValueError(
+                    "primal='cg' solves the quadratic-loss normal "
+                    f"equations; loss={problem.loss!r} needs "
+                    "primal='gradient'")
+            theta = _primal_cg(problem, gamma0, theta_hat0, nbr_hat, g.deg,
+                               theta0=theta0, tol=cg_tol,
+                               maxiter=cg_maxiter, terms=terms)
+        elif ((problem.loss == "quadratic" and chol is not None)
+              if legacy_auto else primal == "cholesky"):
+            if chol is None:
+                raise ValueError("primal='cholesky' needs the factor stack")
+            theta = _primal_closed_form(problem, chol, gamma0, theta_hat0,
+                                        nbr_hat, g.deg, terms=terms)
+        else:
+            theta = _primal_gradient(problem, inner_steps, inner_lr,
+                                     theta0, gamma0, theta_hat0, nbr_hat,
+                                     g.deg)
+        return theta, {}
+    return stage
+
+
+# --------------------------------------------------------------------------
+# One COKE / DKLA iteration
+# --------------------------------------------------------------------------
+
+def coke_step(problem: Problem, policy, state: COKEState,
+              chol: torch.Tensor | None = None, inner_steps: int = 50,
+              inner_lr: float = 0.1, topology=None, primal: str = "auto",
+              cg_tol: float = 1e-8, cg_maxiter: int = 64,
+              terms: PrimalTerms | None = None) -> COKEState:
+    """One iteration of Algorithm 2 for every agent on the static graph.
+
+    policy — a `core.comm` policy; an empty chain (or v == 0) is DKLA.
+    primal — "auto": the closed form when `chol` is given and the loss is
+    quadratic, else the gradient primal; "cg": the matrix-free solve.
+    terms  — `primal_terms(problem)`, hoisted by the caller; None forms
+    them in this call, as the reference does in every iteration."""
+    if topology is not None:
+        raise NotImplementedError(
+            "topology schedules are not ported to repro_torch yet: "
+            "ROADMAP.md Queue 1 item 7 (topology schedules)")
+    view = step_mod.dense_view(problem.adjacency, deg=problem.degrees)
+    program = step_mod.StepProgram(
+        chain=comm_mod.as_chain(policy), rho=problem.rho,
+        exchange=lambda s, k: view,
+        primal=_primal_stage(problem, primal, chol=chol, terms=terms,
+                             inner_steps=inner_steps, inner_lr=inner_lr,
+                             cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+                             legacy_auto=True))
+    new_state, _ = step_mod.run_step(program, state)
+    return new_state

@@ -1,0 +1,42 @@
+"""CTA, the diffusion-based combine-then-adapt baseline (Section 5), in the
+simulator form: every agent (a) combines its neighbours' parameters with
+doubly-stochastic Metropolis weights, then (b) takes a gradient step on
+its local RF-space cost (15). It transmits every iteration, N per step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import losses as losses_mod
+from repro_torch.core.admm import Problem
+
+
+class CTAState(NamedTuple):
+    theta: torch.Tensor   # (N, D)
+    step: int             # iterations done (host int)
+    comms: torch.Tensor   # () int32 cumulative transmissions
+
+
+def init_state(problem: Problem) -> CTAState:
+    N, D = problem.num_agents, problem.feature_dim
+    dev = problem.device
+    return CTAState(torch.zeros((N, D), dtype=problem.feats.dtype,
+                                device=dev), 0,
+                    torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def cta_step(problem: Problem, mixing: torch.Tensor, lr: float,
+             state: CTAState) -> CTAState:
+    """mixing: (N, N) Metropolis weights (`core.graph.metropolis_weights`).
+    The local gradients come from autograd of the agent sum of the local
+    risks, each of which depends on its own row only."""
+    N = problem.num_agents
+    combined = mixing @ state.theta
+    with torch.enable_grad():
+        th = combined.detach().requires_grad_(True)
+        risk = losses_mod.local_empirical_risk(
+            th, problem.feats, problem.labels, problem.lam / N, problem.loss)
+        (g,) = torch.autograd.grad(torch.sum(risk), th)
+    return CTAState(combined - lr * g, state.step + 1, state.comms + N)

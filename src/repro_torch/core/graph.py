@@ -4,7 +4,8 @@ reference's adjacencies).
 The paper assumes an undirected, connected graph G = (N, C, A)
 (Assumption 1). Erdos-Renyi graphs are the paper's synthetic setup;
 ring / k-circulant graphs are what the fused ring runtime implements
-(neighbours i +- o, read by index).
+(neighbours i +- o, read by index). `metropolis_weights` gives the CTA
+baseline's mixing matrix.
 """
 from __future__ import annotations
 
@@ -80,3 +81,18 @@ def circulant(num_agents: int, offsets: tuple[int, ...]) -> Graph:
 def fully_connected(num_agents: int) -> Graph:
     adj = np.ones((num_agents, num_agents)) - np.eye(num_agents)
     return Graph(adjacency=adj)
+
+
+def metropolis_weights(graph: Graph) -> np.ndarray:
+    """Doubly-stochastic mixing matrix of the CTA diffusion baseline:
+    w_in = 1 / (1 + max(d_i, d_n)) on each edge, the rest on the diagonal."""
+    A = graph.adjacency
+    deg = graph.degrees
+    N = graph.num_agents
+    W = np.zeros((N, N))
+    for i in range(N):
+        for n in range(N):
+            if A[i, n]:
+                W[i, n] = 1.0 / (1.0 + max(deg[i], deg[n]))
+        W[i, i] = 1.0 - W[i].sum()
+    return W

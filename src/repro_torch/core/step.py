@@ -8,6 +8,8 @@ count. A backend substitutes stages; `run_step` owns the order.
 
 Only synchronous execution is ported: the reference's `comm_decide`
 stage (gossip participation) arrives with ROADMAP.md Queue 1 item 10.
+The simulator's exchange is `dense_view` (`A @ x` over the adjacency);
+the fused megakernel path builds its own ring view.
 """
 from __future__ import annotations
 
@@ -24,6 +26,14 @@ class GraphView:
 
     deg: torch.Tensor
     nbr_sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+def dense_view(adjacency: torch.Tensor,
+               deg: torch.Tensor | None = None) -> GraphView:
+    """A dense (possibly Erdos-Renyi) graph: `A @ x` neighbour sums, as the
+    simulator exchanges."""
+    d = torch.sum(adjacency, dim=1) if deg is None else deg
+    return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,13 +15,15 @@ Strategies ported here:
 The broadcast is governed by a `core.comm` policy chain passed to
 `consensus_update(comm=...)`; the legacy `censor_v`/`censor_mu` knobs map
 onto the censor-only chain. With `use_fused_kernel` the augmented gradient
-runs through the hand-written `coke_fused_update` kernel (K3).
+runs through the hand-written `coke_fused_update` kernel (K3). A
+`primal_solve` (the backends' matrix-free CG solve) replaces the optimizer
+step with the exact (21a) primal and bypasses K3; the optimizer state
+stays as it was.
 
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
-item: the exact primal (`primal_solve`, CG: item 3), gossip participation
-and churn (item 10), a dense learned graph (item 11), time-varying
-topologies (`offset_schedule`, item 7), and the allreduce / coke_et
-strategies of the deep-net layer (item 15).
+item: gossip participation and churn (item 10), a dense learned graph
+(item 11), time-varying topologies (`offset_schedule`, item 7), and the
+allreduce / coke_et strategies of the deep-net layer (item 15).
 """
 from __future__ import annotations
 
@@ -38,8 +40,6 @@ from repro_torch.optim.optimizers import (OptConfig, apply_updates,
                                           init_opt_state, opt_update)
 
 _LATER = {
-    "primal_solve": "the exact primal (primal_solve, the CG solve) is not "
-                    "ported to repro_torch yet: ROADMAP.md Queue 1 item 3",
     "participate": "gossip participation is not ported to repro_torch yet: "
                    "ROADMAP.md Queue 1 item 10",
     "churn": "churn (alive/joined masks) is not ported to repro_torch yet: "
@@ -148,8 +148,8 @@ def _agent_norms(diff_tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def _check_supported(ccfg: ConsensusConfig, primal_solve, participate,
-                     adjacency, alive, joined) -> None:
+def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
+                     joined) -> None:
     """The reference's ValueErrors, then NotImplementedError for what the
     port does not run yet."""
     dense = adjacency is not None
@@ -191,8 +191,7 @@ def _check_supported(ccfg: ConsensusConfig, primal_solve, participate,
     for what, given in (("participate", participate is not None),
                         ("churn", alive is not None or joined is not None),
                         ("adjacency", dense),
-                        ("offset_schedule", bool(ccfg.offset_schedule)),
-                        ("primal_solve", primal_solve is not None)):
+                        ("offset_schedule", bool(ccfg.offset_schedule))):
         if given:
             raise NotImplementedError(_LATER[what])
 
@@ -210,11 +209,12 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     new_state, metrics).
 
     comm — a core.comm policy chain governing the broadcast; None = the
-    legacy chain from ccfg's censor knobs. The other keyword arguments are
-    the reference's hooks for the exact primal, gossip, a learned graph
-    and churn; they raise (see the module docstring)."""
-    _check_supported(ccfg, primal_solve, participate, adjacency, alive,
-                     joined)
+    legacy chain from ccfg's censor knobs.
+    primal_solve — (params, theta_hat, gamma, nbr_sum, deg) -> new params:
+    the exact primal, in place of the optimizer step (grads are not read).
+    The other keyword arguments are the reference's hooks for gossip, a
+    learned graph and churn; they raise (see the module docstring)."""
+    _check_supported(ccfg, participate, adjacency, alive, joined)
     step = state["step"] + 1
     metrics: dict[str, torch.Tensor] = {}
     num_agents = tree_leaves(params)[0].shape[0]
@@ -241,10 +241,15 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     # previous step's dual-update fetch, no roll here
     left, right = state["nbr_left"], state["nbr_right"]
 
-    # primal update (21a): one optimizer step on the augmented Lagrangian
-    # gradient g_aug = g + 2 rho deg theta + gamma
-    #                  - rho (deg theta_hat + sum_n theta_hat_n)
-    if ccfg.use_fused_kernel:
+    # primal update (21a): exact when the caller supplies a solve (the
+    # matrix-free CG path), otherwise one optimizer step on the augmented
+    # Lagrangian gradient g_aug = g + 2 rho deg theta + gamma
+    #                              - rho (deg theta_hat + sum_n theta_hat_n)
+    if primal_solve is not None:
+        nbr_sum = tree_map(torch.add, left, right)
+        new_params = primal_solve(params, theta_hat, gamma, nbr_sum, deg)
+        opt = state["opt"]
+    elif ccfg.use_fused_kernel:
         # the reference hands the kernel two equal halves of the neighbour
         # sum, not the two roll halves; the norm is recomputed below
         half = tree_map(lambda l, r: 0.5 * (l + r), left, right)
@@ -256,8 +261,10 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
                 for t in (params, theta_hat, gamma, grads, left, right)]
         g, _ = coke_update_ref(*(f for f, _ in flat), rho=rho, deg=deg)
         g_aug = comm_mod.unflatten_agents(g, flat[0][1], params)
-    updates, opt = _vmapped_opt_update(opt_cfg, g_aug, state["opt"], params)
-    new_params = apply_updates(params, updates)
+    if primal_solve is None:
+        updates, opt = _vmapped_opt_update(opt_cfg, g_aug, state["opt"],
+                                           params)
+        new_params = apply_updates(params, updates)
 
     # the communication policy over the flattened agent-stacked message,
     # with stale-value fallback (shared decision code with the other paths)

@@ -331,11 +331,6 @@ def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
 def test_exact_primal_and_deep_net_strategies_raise_not_implemented():
     opt = port_opt.OptConfig(kind="sgd", lr=0.1)
     p = {"theta": torch.zeros(N, D)}
-    ccfg = port_cns.ConsensusConfig(strategy="coke")
-    st = port_cns.init_consensus_state(ccfg, opt, p)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_cns.consensus_update(ccfg, opt, p, p, st,
-                                  primal_solve=lambda *a: a[0])
     for strategy in ("allreduce", "coke_et"):
         ccfg = port_cns.ConsensusConfig(strategy=strategy)
         with pytest.raises(NotImplementedError, match="item 15"):

@@ -397,6 +397,116 @@ def test_ring_runtime_fits_on_card_match_cpu(cuda):
                                    atol=1e-5)
 
 
+def _kernel_launches():
+    return (k1.LAUNCHES, k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES, k4.LAUNCHES)
+
+
+# the simulator on the card against the CPU. cuBLAS and cuSOLVER round in
+# another order than ATen's CPU kernels, and 40 Cholesky iterations carry
+# that to ~1e-5 (1.4e-5 on the H100 at this size): the card's theta is held
+# to its distance from a float64 run, within twice the CPU's distance plus
+# the reference's tolerance (Cholesky, CTA, the oracle 1e-5; the CG
+# primal's 64 steps 1e-4); CG across backends 2e-4 (tests/test_big_d.py)
+SIM_TOL = {"cholesky": 1e-5, "cg": 1e-4, "cta": 1e-5, "ridge_oracle": 1e-5}
+SIM_CFG = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                  num_features=32, lam=1e-2, rho=0.1),
+                    graph="ring", censor_v=0.3, censor_mu=0.97, num_iters=40,
+                    backend="simulator")
+
+
+def test_simulator_fits_on_card_match_cpu(cuda):
+    """Every solver on the simulator, card against CPU: comms and bits
+    equal; the card's theta no further from the float64 run than twice
+    the CPU's plus SIM_TOL; no kernel launches (the simulator runs
+    none)."""
+    built = build_problem(SIM_CFG, device="cpu")
+    p = built.problem
+    p64 = dataclasses.replace(p, feats=p.feats.double(),
+                              labels=p.labels.double(),
+                              adjacency=p.adjacency.double())
+    cases = [(alg, primal) for alg in ("coke", "dkla")
+             for primal in ("cholesky", "cg")]
+    cases += [("cta", "cta"), ("ridge_oracle", "ridge_oracle")]
+    for alg, primal in cases:
+        c = SIM_CFG.replace(algorithm=alg, record_oracle_distance=True)
+        if alg in ("coke", "dkla"):
+            c = c.replace(primal=primal)
+        else:
+            c = c.replace(censor_v=None, censor_mu=None)
+        cpu = fit(c, problem=built.problem, device="cpu")
+        before = _kernel_launches()
+        gpu = fit(c, problem=built.problem, device=cuda)
+        torch.cuda.synchronize()
+        assert _kernel_launches() == before, (alg, primal)
+        assert set(gpu.history) == set(cpu.history)
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        exact = fit(c, problem=p64, device="cpu").theta
+        e_card = float((gpu.theta.cpu().double() - exact).abs().max())
+        e_cpu = float((cpu.theta.double() - exact).abs().max())
+        assert e_card <= 2 * e_cpu + SIM_TOL[primal], (alg, primal, e_card,
+                                                       e_cpu)
+
+
+def test_simulator_cg_agrees_with_spmd_and_fused_on_card(cuda):
+    """primal="cg" (and "auto" past D = 2048, which resolves to it) on the
+    simulator, spmd and fused backends, all on the card: comms and bits
+    equal, theta within 2e-4; no kernel launches (the ring runtime's CG
+    primal bypasses K3, the megakernel gate sends CG fits away from K2)."""
+    for d, primal in ((512, "cg"), (2049, "auto")):
+        c = SIM_CFG.replace(krr=dataclasses.replace(SIM_CFG.krr,
+                                                    num_features=d),
+                            primal=primal, num_iters=10)
+        problem = build_problem(c, device=cuda).problem
+        before = _kernel_launches()
+        fits = {b: fit(c.replace(backend=b), problem=problem, device=cuda)
+                for b in ("simulator", "spmd", "fused")}
+        torch.cuda.synchronize()
+        assert _kernel_launches() == before
+        sim = fits["simulator"]
+        for b in ("spmd", "fused"):
+            for k in ("comms", "bits"):
+                assert torch.equal(fits[b].history[k], sim.history[k]), (d, b)
+            torch.testing.assert_close(fits[b].theta, sim.theta, rtol=0,
+                                       atol=2e-4)
+
+
+def test_simulator_cholesky_matches_cg_on_card(cuda):
+    c = SIM_CFG.replace(krr=dataclasses.replace(SIM_CFG.krr,
+                                                num_features=512))
+    problem = build_problem(c, device=cuda).problem
+    chol = fit(c.replace(primal="cholesky"), problem=problem, device=cuda)
+    cg = fit(c.replace(primal="cg"), problem=problem, device=cuda)
+    assert torch.equal(chol.comms, cg.comms)
+    torch.testing.assert_close(chol.theta, cg.theta, rtol=0, atol=1e-4)
+
+
+def test_simulator_primal_cg_does_not_sync_the_host(cuda):
+    """The CG loop's stop test stays on the card: 64 steps with a per-agent
+    mask, no read-back. A synchronizing call raises in this mode."""
+    from repro_torch.core import admm
+    c = SIM_CFG.replace(krr=dataclasses.replace(SIM_CFG.krr,
+                                                num_features=256))
+    problem = build_problem(c, device=cuda).problem
+    g = _gen(cuda, 3)
+    n, d = problem.num_agents, problem.feature_dim
+    vecs = [0.1 * torch.randn((n, d), generator=g, device=cuda)
+            for _ in range(4)]
+    terms = admm.primal_terms(problem)
+    deg = problem.degrees
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = admm._primal_cg(problem, *vecs[:3], deg, theta0=vecs[3],
+                            terms=terms)
+        y = admm._primal_cg(problem, *vecs[:3], theta0=vecs[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(x).all()
+    torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
 # K4: fp32 scores and an online softmax against the plain version's full
 # softmax, both in fp32 (the reference's own tolerance, test_kernels.py);
 # bf16 outputs may differ by an ulp of bf16 (2^-7 relative) after rounding

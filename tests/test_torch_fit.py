@@ -369,14 +369,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
 
 
 OUT_OF_SLICE = {
-    "simulator": lambda cfg: dict(config=cfg.replace(backend="simulator")),
     "spmd-gossip": lambda cfg: dict(config=cfg.replace(
         backend="spmd", exec="gossip", participation=0.5)),
-    "spmd-cg": lambda cfg: dict(config=cfg.replace(backend="spmd",
-                                                   primal="cg")),
-    "cholesky": lambda cfg: dict(config=cfg.replace(backend="simulator",
-                                                    primal="cholesky")),
-    "cg": lambda cfg: dict(config=cfg.replace(primal="cg")),
     "quantize": lambda cfg: dict(config=cfg.replace(
         censor_v=None, censor_mu=None,
         comm=Chain([Censor(0.3, 0.97), Quantize(bits=5)]))),
@@ -388,9 +382,6 @@ OUT_OF_SLICE = {
     "personalization": lambda cfg: dict(config=cfg.replace(
         personalization=object())),
     "mesh": lambda cfg: dict(config=cfg, mesh=object()),
-    "cta-simulator": lambda cfg: dict(config=cfg.replace(
-        algorithm="cta", backend="simulator", censor_v=None,
-        censor_mu=None)),
     "online": lambda cfg: dict(config=cfg.replace(algorithm="online_coke")),
 }
 
@@ -400,21 +391,6 @@ def test_out_of_slice_configs_raise_not_implemented(case, built):
     kw = OUT_OF_SLICE[case](_configs()[1])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fit(kw.pop("config"), problem=built[1], device="cpu", **kw)
-
-
-def test_auto_primal_past_the_cg_crossover_raises_not_implemented():
-    """primal="auto" at D > 2048 resolves to CG, as in the reference: the
-    megakernel does not take it and the CG primal on the ring runtime is
-    not ported."""
-    rng = np.random.default_rng(0)
-    problem = convert.problem_from_numpy(
-        rng.random((4, 2, 2049), dtype=np.float32),
-        rng.random((4, 2), dtype=np.float32),
-        port_graph.ring(4).adjacency, 1e-2, 0.1, device="cpu")
-    for backend in ("fused", "spmd"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            fit(_configs(primal="auto", backend=backend)[1], problem=problem,
-                device="cpu")
 
 
 @pytest.mark.parametrize("what", ["fit_stream", "sweep", "heterogeneous"])
