@@ -93,8 +93,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal, theta within 1e-4; then times beside their bounds: a Cholesky
      iteration at the paper's shape and at D=2048, the factorization at
      D=2048, and a CG iteration at D=4096 on the simulator and on spmd.
-Before each of phases 4-6, 10 and each part of 12 every launch counter is
-set to 0, and read just after.
+ 13. the comm chain and time-varying topologies (`comm_topology_phase`),
+     every fit loop under torch.cuda.set_sync_debug_mode("error"): the
+     threefry draws (core.prng) on the card bitwise the CPU's and jax's
+     pinned values; phase 4's cell with Chain([Censor(1.0, 0.95),
+     Quantize(bits=8), Drop(p=0.05)]) for COKE and DKLA (K2 twice per
+     iteration, K3 never, bits = sends x (D*8 + 32) exactly, the delivered
+     share within a binomial bound of 0.95, COKE's train MSE within 2.5x
+     phase 4's, predict through K1); the identity chain (Quantize(inf),
+     Drop(0)) bitwise phase 4's COKE; phase 5's logistic cell with the
+     chain (K3 once per iteration, K2 never); a cycle of two circulants on
+     spmd at full width (no kernel; comms and bits equal the simulator's,
+     theta close) and on the simulator at the paper's shape for 1000
+     iterations with the per-graph Cholesky stack (card vs CPU vs float64);
+     the fused backend's rejection of a schedule; small card-vs-CPU fits
+     with the chain on every backend; then the chain megakernel, chain
+     fallback and spmd schedule iterations beside the plain ones, with
+     launches per iteration by the profiler.
+Before each of phases 4-6, 10, each part of 12 and each path of 13 every
+launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -225,6 +242,48 @@ SIM_COKE_MSE_RATIO = 1.05
 # the CG primal across backends, Cholesky against CG (tests/test_big_d.py)
 SIM_CG_BACKEND_TOL = 2e-4
 SIM_CHOL_CG_TOL = 1e-4
+# phase 13, the comm chain and time-varying topologies. jax's threefry
+# values (jax 0.9.0, jax_threefry_partitionable=True), made once on the CPU
+# with jax.random (tests/test_torch_prng.py checks them against jax):
+# (seed, fold_in data, shape, key, {flat index: jax.random.bits word})
+JAX_PRNG_PINS = (
+    (0, (3,), (4,), (2467461003, 3840466878),
+     {0: 1146711402, 1: 3152292334, 2: 4096209733, 3: 899974525}),
+    (42, (7, 2), (20,), (675592481, 2815174185),
+     {0: 453413573, 1: 2720761627, 7: 499882967, 19: 2676824676}),
+    (1, (2**32 - 1, 0), (20, 4096), (3689924417, 2349107139),
+     {0: 3796337616, 1: 22373131, 4095: 1305795636, 4096: 230078614,
+      81919: 584840883}),
+    (7, (12345,), (65537,), (3187294848, 248916179),
+     {0: 2380884285, 1: 2852435296, 65535: 440275409, 65536: 4091176205}),
+)
+# jax.random.uniform(fold_in(PRNGKey(0), 3), (4,)), float32 bit patterns
+JAX_UNIFORM_PIN = (1049146072, 1060889640, 1064576818, 1045860880)
+# Chain([Censor(1.0, 0.95), Quantize(bits=8), Drop(p=0.05)]).chain_key() in
+# the reference, and its uncensored (DKLA) form's
+JAX_CHAIN_KEYS = {"coke": (3779160158, 630299372),
+                  "dkla": (190433053, 3829259469)}
+CHAIN_BITS = 8
+CHAIN_DROP = 0.05
+# the delivered share of the Drop stage's 2 x N x ITERS link draws: within
+# DELIVERY_SIGMAS binomial standard deviations of 1 - p
+DELIVERY_SIGMAS = 5.0
+# COKE with quantized innovations over lossy links against the censor-only
+# run: the reference's own factor (tests/test_comm.py)
+CHAIN_MSE_FACTOR = 2.5
+# the offset cycle of the topology runs (a ring, then the ring plus the
+# second neighbours), and the paper-shape run's length
+TOPO_CYCLE = ((1,), (1, 2))
+TOPO_PAPER_ITERS = 1000
+# small card-vs-CPU fits (phase 3's tolerance); with a stochastic
+# quantizer, plus one level's step for each coordinate whose rounding
+# flipped between the two runs (`quantizer_flips`)
+SMALL_THETA_TOL = 1e-5
+# the reference's message for a schedule on the fused fallback
+FUSED_SCHEDULE_ERROR = (
+    "the fused coke_update kernel bakes the graph degree in as a static "
+    "parameter; offset_schedule (time-varying topology) requires "
+    "use_fused_kernel=False")
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -832,6 +891,439 @@ def simulator_phase(dev, problem, krr, card, bw, fp32, reset_counts, counts):
             log(12, f"  {ms / iters:.4f} ms  {count / iters:>7.1f} calls  "
                     f"{key[:90]}")
     no_launches("the simulator's timed iterations")
+
+
+class QuantizerRecord:
+    """Records every Quantize stage call while active: x = innovation /
+    scale * levels (the quantizer's input, formed by the same ops as the
+    stage, so with the same bits), the draw u and one level's step, as
+    device tensors (read after the fit, so the loop stays sync-free).
+
+    Two devices' fits of one chain draw the same u (core.prng is bitwise
+    the same on both), but their x differ in the last bits wherever their
+    iterates do, and the innovation's cancellation magnifies that: where
+    an integer lies between x_a - u and x_b - u, the two round to
+    neighbouring levels. `quantizer_flips` counts those rounding flips."""
+
+    def __init__(self):
+        from repro_torch.core import comm as comm_mod
+        self._cls = comm_mod.Quantize
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core import prng
+        real = self._real = self._cls.transform
+        calls = self.calls
+
+        def transform(stage, msg, state, k, key=None):
+            if math.isfinite(stage.bits) and stage.stochastic:
+                levels = float(np.float32(2.0) ** (np.float32(stage.bits)
+                                                   - np.float32(1.0))
+                               - np.float32(1.0))
+                innov = msg.payload - msg.prev
+                lv = torch.full((), levels, dtype=innov.dtype,
+                                device=innov.device)
+                scale = torch.amax(torch.abs(innov), dim=-1, keepdim=True)
+                safe = torch.where(scale > 0, scale, 1.0)
+                x = innov / safe * lv
+                draw_key = key if key is not None else prng.fold_in(
+                    prng.PRNGKey(stage.seed), k)
+                calls.append((x, prng.uniform(draw_key, x.shape, x.device),
+                              (safe / lv).expand_as(x)))
+            return real(stage, msg, state, k, key=key)
+
+        self._cls.transform = transform
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.transform = self._real
+
+
+def quantizer_flips(a: QuantizerRecord, b: QuantizerRecord):
+    """(flips, draws, sum over flips of |level difference| x step) between
+    two runs of one chain. Each run's level is the stage's stochastic
+    rounding floor(x) + [u < x - floor(x)], i.e. ceil(x - u): with the
+    same draws (checked here), two runs' levels differ only where an
+    integer lies between x_a - u and x_b - u, by at most ceil(|x_a - x_b|)
+    levels. Raises if the draws differ."""
+    if len(a.calls) != len(b.calls):
+        raise AssertionError("the two runs quantized a different number of "
+                             "rounds")
+    flips = draws = 0
+    steps = 0.0
+    for (xa, ua, sa), (xb, ub, _) in zip(a.calls, b.calls):
+        xa, ua, sa, xb, ub = (t.cpu().double() for t in (xa, ua, sa, xb,
+                                                          ub))
+        if not torch.equal(ua, ub):
+            raise AssertionError("the two runs drew different numbers")
+        dq = (torch.ceil(xa - ua) - torch.ceil(xb - ub)).abs()
+        flips += int((dq > 0).sum())
+        draws += dq.numel()
+        steps += float((dq * sa).sum())
+    return flips, draws, steps
+
+
+def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
+                        coke4, built, log_problem, log_cfg, small,
+                        small_problem, small_logistic):
+    """Phase 13: the comm chain (Censor, Quantize, Drop on jax's threefry)
+    through K2, K3 and K1, and time-varying topologies on spmd and the
+    simulator. `problem`/`cfg` are phase 4's cell and `coke4` its COKE fit;
+    `log_problem`/`log_cfg` phase 5's; `small*` phase 3's. Every fit loop
+    runs under torch.cuda.set_sync_debug_mode("error"): a host sync inside
+    it raises."""
+    import importlib
+
+    from repro_torch.api import (Censor, Chain, Drop, FitConfig, Quantize,
+                                 build_problem, fit, get_solver)
+    from repro_torch.api.backends import consensus_runner
+    from repro_torch.api.config import SolveContext
+    from repro_torch.core import comm as comm_mod
+    from repro_torch.core import prng
+    from repro_torch.core.graph import TopologySchedule
+
+    fit_mod = importlib.import_module("repro_torch.api.fit")
+    N, T, D = problem.feats.shape
+
+    def pair(d_h):
+        return f"{d_h[0]:.4f} ms on the device / {d_h[1]:.4f} ms host enqueue"
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    # ---- PRNG: the card's bits against the CPU's and jax's ---------------
+    for seed, folds, shape, key_want, bits_want in JAX_PRNG_PINS:
+        key = prng.PRNGKey(seed)
+        for f in folds:
+            key = prng.fold_in(key, f)
+        if key != key_want:
+            raise AssertionError(f"key {seed} {folds}: {key} != jax's "
+                                 f"{key_want}")
+        gb = prng.random_bits(key, shape, dev)
+        flat = gb.reshape(-1).cpu()
+        got = {i: int(flat[i]) for i in bits_want}
+        if got != bits_want or not torch.equal(
+                gb.cpu(), prng.random_bits(key, shape, "cpu")):
+            raise AssertionError(f"random_bits {seed} {folds} {shape} on "
+                                 f"the card: {got} against jax's {bits_want}")
+        gu = prng.uniform(key, shape, dev).cpu()
+        if not torch.equal(gu.view(torch.int32),
+                           prng.uniform(key, shape, "cpu").view(torch.int32)):
+            raise AssertionError(f"uniform {seed} {folds} {shape}: card and "
+                                 "CPU bits differ")
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(0), 3), (4,), dev).cpu()
+    if tuple(int(v) for v in u.view(torch.int32)) != JAX_UNIFORM_PIN:
+        raise AssertionError(f"uniform on the card {u.tolist()} is not jax's")
+    for seed in range(4):
+        key = prng.fold_in(prng.PRNGKey(seed), 2**31 + seed)
+        for shape in ((20,), (20, 4096), (100003,)):
+            if not torch.equal(
+                    prng.uniform(key, shape, dev).cpu().view(torch.int32),
+                    prng.uniform(key, shape, "cpu").view(torch.int32)):
+                raise AssertionError(f"uniform {seed} {shape}: card and CPU "
+                                     "bits differ")
+    chain = Chain([Censor(1.0, 0.95), Quantize(bits=CHAIN_BITS),
+                   Drop(p=CHAIN_DROP)])
+    keys = {"coke": chain.chain_key(),
+            "dkla": comm_mod.uncensored(chain).chain_key()}
+    if keys != JAX_CHAIN_KEYS:
+        raise AssertionError(f"chain keys {keys} are not jax's "
+                             f"{JAX_CHAIN_KEYS}")
+    log(13, f"threefry on the card: keys, random_bits and uniform bitwise "
+            f"jax's pinned values ({len(JAX_PRNG_PINS)} keys, shapes up to "
+            f"(20, 4096) and (65537,)) and the CPU's (4 more keys x (20,), "
+            f"(20, 4096), (100003,)); chain keys {keys} equal jax's")
+
+    # every fit loop below runs with host syncs raising
+    real_scan = fit_mod._chunked_scan
+
+    def strict_scan(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_scan(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    # the Drop stage's link draws, recorded on the device, read after
+    delivered = []
+    real_drop = comm_mod.Drop.transform
+
+    def recording_drop(self, msg, state, k, key=None):
+        out, st = real_drop(self, msg, state, k, key=key)
+        delivered.append(out.delivered)
+        return out, st
+
+    fit_mod._chunked_scan = strict_scan
+    comm_mod.Drop.transform = recording_drop
+    try:
+        # ---- the megakernel with the chain, full width -------------------
+        reset_counts()
+        per_msg = D * CHAIN_BITS + 32
+        chain_cfg = cfg.replace(comm=chain)
+        chained = {}
+        for alg in ("coke", "dkla"):
+            before = counts()
+            t0 = time.perf_counter()
+            res = fit(chain_cfg.replace(algorithm=alg), problem=problem,
+                      device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = counts()
+            rose = {k: after[k] - before[k] for k in after}
+            if (rose["coke_megastep"] != 2 * ITERS
+                    or rose["coke_fused_update"]):
+                raise AssertionError(f"chain {alg}: launches {rose} in "
+                                     f"{ITERS} iterations")
+            h = {k: v.cpu() for k, v in res.history.items()}
+            check_history(f"chain {alg}", h, ITERS)
+            if not torch.equal(h["bits"], h["comms"].to(torch.float32)
+                               * float(per_msg)):
+                raise AssertionError(f"chain {alg}: bits != sends x "
+                                     f"{per_msg}")
+            comms = int(h["comms"][-1])
+            if alg == "dkla" and comms != N * ITERS:
+                raise AssertionError(f"chain dkla sent {comms}")
+            chained[alg] = (res, h)
+            log(13, f"chain {alg} on the megakernel (N={N} T={T} D={D}, "
+                    f"{ITERS} iterations) in {wall:.2f} s wall: K2 "
+                    f"{rose['coke_megastep']} launches (2 per iteration), "
+                    f"K3 0; comms {comms}/{N * ITERS}, bits "
+                    f"{float(h['bits'][-1]):.0f} = sends x {per_msg} "
+                    f"exactly; train_mse {float(h['train_mse'][0]):.5f} -> "
+                    f"{float(h['train_mse'][-1]):.5f}")
+        links = torch.stack(delivered).cpu()
+        share = float(links.float().mean())
+        sigma = math.sqrt(CHAIN_DROP * (1 - CHAIN_DROP) / links.numel())
+        log(13, f"Drop stage: {int(links.sum())}/{links.numel()} links "
+                f"delivered ({share:.4f}; held within {DELIVERY_SIGMAS:g} "
+                f"binomial sd = {DELIVERY_SIGMAS * sigma:.4f} of "
+                f"{1 - CHAIN_DROP})")
+        if abs(share - (1 - CHAIN_DROP)) > DELIVERY_SIGMAS * sigma:
+            raise AssertionError(f"delivered share {share} off "
+                                 f"{1 - CHAIN_DROP}")
+        mse, mse4 = (float(chained["coke"][1]["train_mse"][-1]),
+                     float(coke4.train_mse[-1]))
+        log(13, f"chain COKE final train_mse {mse:.5f} against phase 4's "
+                f"censor-only {mse4:.5f} ({mse / mse4:.4f}x, held at "
+                f"<= {CHAIN_MSE_FACTOR}x)")
+        if not mse <= CHAIN_MSE_FACTOR * mse4:
+            raise AssertionError("the chain's COKE lost the censor-only "
+                                 "accuracy")
+        before = counts()["rff_cos_bias"]
+        preds = chained["coke"][0].to_model(built.rff_params).predict(
+            built.x_test, backend="fused")
+        torch.cuda.synchronize()
+        if not (counts()["rff_cos_bias"] > before
+                and torch.isfinite(preds).all()):
+            raise AssertionError("the chain fit's predict did not run K1")
+        log(13, f"launch counts over the chain megakernel path: {counts()}")
+
+        # ---- the identity chain: bitwise phase 4's COKE ------------------
+        reset_counts()
+        ident = fit(cfg.replace(comm=Chain([
+            Censor(1.0, 0.95), Quantize(bits=float("inf")), Drop(p=0.0)])),
+            problem=problem, device=dev)
+        if not torch.equal(ident.theta, coke4.theta) or any(
+                not torch.equal(ident.history[k], coke4.history[k])
+                for k in coke4.history):
+            raise AssertionError("the identity chain differs from phase 4's "
+                                 "COKE")
+        if counts()["coke_megastep"] != 2 * ITERS:
+            raise AssertionError("the identity chain did not run K2")
+        log(13, "identity chain (Censor(1.0, 0.95), Quantize(inf), "
+                "Drop(0)): theta and every history bitwise phase 4's COKE "
+                f"(comms {int(ident.comms[-1])}); {counts()}")
+
+        # ---- the fused fallback with the chain, full width ---------------
+        reset_counts()
+        for alg in ("coke", "dkla"):
+            before = counts()
+            res = fit(log_cfg.replace(algorithm=alg, comm=chain),
+                      problem=log_problem, device=dev)
+            torch.cuda.synchronize()
+            after = counts()
+            rose = {k: after[k] - before[k] for k in after}
+            if (rose["coke_fused_update"], rose["coke_megastep"]) != \
+                    (ITERS, 0):
+                raise AssertionError(f"chain logistic {alg}: launches "
+                                     f"{rose}")
+            h = {k: v.cpu() for k, v in res.history.items()}
+            check_history(f"chain logistic {alg}", h, ITERS)
+            if not torch.equal(h["bits"], h["comms"].to(torch.float32)
+                               * float(per_msg)):
+                raise AssertionError(f"chain logistic {alg}: bits")
+            log(13, f"chain logistic {alg} on the fused fallback: K3 "
+                    f"{rose['coke_fused_update']} launches (1 per "
+                    f"iteration), K2 0; comms {int(h['comms'][-1])}/"
+                    f"{N * ITERS}, bits {float(h['bits'][-1]):.0f}")
+        log(13, f"launch counts over the chain fallback path: {counts()}")
+
+        # ---- a topology cycle on spmd at full width -----------------------
+        reset_counts()
+        topo = TopologySchedule.circulant_cycle(N, TOPO_CYCLE, device=dev)
+        spmd = fit(cfg.replace(backend="spmd", topology=topo),
+                   problem=problem, device=dev)
+        torch.cuda.synchronize()
+        if any(counts().values()):
+            raise AssertionError(f"the spmd schedule launched {counts()}")
+        sim = fit(cfg.replace(backend="simulator", topology=topo,
+                              inner_steps=1), problem=problem, device=dev)
+        hs = {k: v.cpu() for k, v in spmd.history.items()}
+        check_history("spmd schedule", hs, ITERS)
+        for k in ("comms", "bits"):
+            if not torch.equal(hs[k], sim.history[k].cpu()):
+                raise AssertionError(f"spmd schedule: {k} differs from the "
+                                     "simulator's")
+        e = float((spmd.theta - sim.theta).abs().max())
+        tol = SPMD_RTOL * float(sim.theta.abs().max())
+        log(13, f"schedule {TOPO_CYCLE} on spmd (N={N} T={T} D={D}, {ITERS} "
+                f"iterations): no kernel launched; comms "
+                f"{int(hs['comms'][-1])}/{N * ITERS} and bits equal the "
+                f"simulator's (primal='gradient', one step), theta max|err| "
+                f"{e:.3e} (tol {tol:.3e}, rtol {SPMD_RTOL:g} of max|theta|)")
+        if not e <= tol:
+            raise AssertionError("spmd schedule: theta differs from the "
+                                 "simulator's")
+
+        # ---- a topology cycle at the paper's shape, Cholesky stack -------
+        reset_counts()
+        paper = build_problem(FitConfig(), device=dev).problem
+        pcfg = FitConfig(topology=TopologySchedule.circulant_cycle(
+            N, TOPO_CYCLE, device=dev), num_iters=TOPO_PAPER_ITERS,
+            record_oracle_distance=True)
+        ctx = SolveContext.from_config(pcfg)
+        stack = get_solver("coke").prepare_traced(paper, ctx, None)["chol"]
+        if tuple(stack.shape) != (len(TOPO_CYCLE), N, paper.feature_dim,
+                                  paper.feature_dim):
+            raise AssertionError(f"the factor stack is {tuple(stack.shape)}")
+        t0 = time.perf_counter()
+        gpu = fit(pcfg, problem=paper, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = fit(pcfg, problem=paper.to("cpu"), device="cpu")
+        f64 = fit(pcfg, problem=dataclasses.replace(
+            paper, feats=paper.feats.double(), labels=paper.labels.double(),
+            adjacency=paper.adjacency.double()), device=dev)
+        if any(counts().values()):
+            raise AssertionError(f"the simulator schedule launched "
+                                 f"{counts()}")
+        h = {k: v.cpu() for k, v in gpu.history.items()}
+        check_history("paper schedule", h, TOPO_PAPER_ITERS)
+        for k in ("comms", "bits"):
+            if not torch.equal(h[k], cpu.history[k]):
+                raise AssertionError(f"paper schedule: {k} differs between "
+                                     "card and CPU")
+        e_card, e_cpu = (theta_err(gpu.theta, f64.theta),
+                         theta_err(cpu.theta, f64.theta))
+        log(13, f"schedule {TOPO_CYCLE} on the simulator at the paper's "
+                f"shape (N={N}, T={paper.feats.shape[1]}, "
+                f"L={paper.feature_dim}, {TOPO_PAPER_ITERS} iterations, "
+                f"Cholesky stack {tuple(stack.shape)}) in {wall:.2f} s wall: "
+                f"comms {int(h['comms'][-1])}/{N * TOPO_PAPER_ITERS} and "
+                f"bits equal the CPU's; train_mse "
+                f"{float(h['train_mse'][0]):.6f} -> "
+                f"{float(h['train_mse'][-1]):.6f}, dist_to_oracle "
+                f"{float(h['dist_to_oracle'][0]):.4f} -> "
+                f"{float(h['dist_to_oracle'][-1]):.4f}; theta max|err| card vs "
+                f"float64 {e_card:.3e}, CPU vs float64 {e_cpu:.3e} (the card "
+                f"held within {SIM_F64_FACTOR:g}x the CPU's + "
+                f"{SIM_F64_SLACK:g})")
+        if not (e_card <= SIM_F64_FACTOR * e_cpu + SIM_F64_SLACK
+                and h["dist_to_oracle"][-1] < h["dist_to_oracle"][0]):
+            raise AssertionError("paper schedule: the card's fit is off")
+
+        # ---- the fused backend rejects a schedule -------------------------
+        try:
+            fit(cfg.replace(topology=topo), problem=problem, device=dev)
+        except ValueError as err:
+            if str(err) != FUSED_SCHEDULE_ERROR:
+                raise AssertionError(f"fused schedule: {err}") from err
+            log(13, f"fused + schedule raises the reference's ValueError: "
+                    f"{err}")
+        else:
+            raise AssertionError("the fused backend ran a schedule")
+
+        # ---- small fits with the chain, card against CPU ------------------
+        small_chain = Chain([Censor(0.3, 0.97), Quantize(bits=5, seed=7),
+                             Drop(p=0.15, seed=11)])
+        base = small.replace(censor_v=None, censor_mu=None,
+                             comm=small_chain, inner_steps=1)
+        cases = [(b, alg, small_problem) for b in ("simulator", "spmd",
+                                                     "fused")
+                 for alg in ("coke", "dkla")]
+        cases += [("fused", alg, small_logistic) for alg in ("coke", "dkla")]
+        for backend, alg, prob in cases:
+            c = base.replace(algorithm=alg, backend=backend)
+            with QuantizerRecord() as rec_cpu:
+                cpu = fit(c, problem=prob, device="cpu")
+            with QuantizerRecord() as rec_gpu:
+                gpu = fit(c, problem=prob, device=dev)
+            for k in ("comms", "bits"):
+                if not torch.equal(gpu.history[k].cpu(), cpu.history[k]):
+                    raise AssertionError(f"small chain {backend} {alg} "
+                                         f"{prob.loss}: {k} differs")
+            flips, draws, steps = quantizer_flips(rec_gpu, rec_cpu)
+            tol = SMALL_THETA_TOL + steps
+            e = float((gpu.theta.cpu() - cpu.theta).abs().max())
+            log(13, f"small chain {backend} {alg} ({prob.loss}) card vs "
+                    f"CPU: comms {int(cpu.comms[-1])} and bits equal; "
+                    f"{flips} rounding flips in {draws} stochastic "
+                    f"roundings (steps {steps:.3e}); theta max|err| "
+                    f"{e:.3e} (tol {SMALL_THETA_TOL:g} + the flips' steps "
+                    f"= {tol:.3e})")
+            if not e <= tol:
+                raise AssertionError(f"small chain {backend} {alg}: theta")
+    finally:
+        fit_mod._chunked_scan = real_scan
+        comm_mod.Drop.transform = real_drop
+
+    # ---- times: chain iterations beside the plain ones --------------------
+    def ring_loop(c, prob):
+        carry0, chunk_fn, _ = consensus_runner(
+            c, get_solver(c.algorithm), prob, SolveContext.from_config(c),
+            None)
+        st = {"c": chunk_fn(carry0, 2)[0]}
+
+        def ten():
+            st["c"] = chunk_fn(st["c"], 10)[0]
+        return ten
+
+    pairs = (
+        ("megakernel COKE", ring_loop(cfg.replace(comm=chain), problem),
+         ring_loop(cfg, problem)),
+        ("fused-logistic COKE", ring_loop(log_cfg.replace(comm=chain),
+                                          log_problem),
+         ring_loop(log_cfg, log_problem)),
+        ("spmd COKE", ring_loop(cfg.replace(backend="spmd", topology=topo),
+                                problem),
+         ring_loop(cfg.replace(backend="spmd"), problem)))
+    for what, changed, plain in pairs:
+        # in turns: changed, plain, changed, plain (medians of each)
+        runs = [paired_ms(fn, 10) for fn in (changed, plain, changed, plain)]
+        ch = tuple(statistics.median(x) for x in zip(runs[0], runs[2]))
+        pl = tuple(statistics.median(x) for x in zip(runs[1], runs[3]))
+        launches = []
+        for fn in (changed, plain):
+            rows = profiled_kernels(fn, calls=1)
+            launches.append(sum(r[1] for r in rows) / 10 if rows else None)
+        tag = "schedule" if what.startswith("spmd") else "chain"
+        fmt = (lambda n: "not measured (no device rows)" if n is None
+               else f"{n:.0f}")
+        log(13, f"[{card}] one {what} iteration at N={N} T={T} D={D} "
+                f"(chunks of ten) with the {tag}: {pair(ch)}, "
+                f"{fmt(launches[0])} launches; without: {pair(pl)}, "
+                f"{fmt(launches[1])} launches; the {tag} adds "
+                f"{ch[0] - pl[0]:.4f} ms on the device and "
+                f"{ch[1] - pl[1]:.4f} ms of host enqueue per iteration")
+    key = prng.fold_in(prng.PRNGKey(0), 1)
+    for shape in ((N,), (N, D)):
+        d_h = paired_ms(lambda: prng.uniform(key, shape, dev), 1)
+        rows = profiled_kernels(lambda: prng.uniform(key, shape, dev),
+                                calls=10)
+        n = sum(r[1] for r in rows) if rows else None
+        log(13, f"[{card}] one prng.uniform{shape}: {pair(d_h)}, {fmt(n)} "
+                "launches (the plain-PyTorch threefry)")
 
 
 def main() -> int:
@@ -1715,19 +2207,37 @@ def main() -> int:
                 log(8, f"[{card}] K3 kernel device time {ms / count:.4f} ms "
                        f"per launch ({count} launches)")
 
-    # one K3 call is one kernel launch: no reduction kernel after it
-    rows3 = profiled_kernels(k3_call, calls=10)
-    for ms, count, key in rows3:
-        log(8, f"[{card}] ten K3 wrapper calls at N={n3} D={d3} under the "
-               f"profiler, per call: {ms:.6f} ms  {count:g} launches  "
-               f"{key[:100]}")
-    if not rows3:
-        log(8, "ten K3 wrapper calls: the profiler recorded no device time: "
-               "the kernels of one call are not measured")
-    elif not (len(rows3) == 1 and rows3[0][1] == 1
-              and "coke_fused_update_kernel" in rows3[0][2]):
-        raise AssertionError(f"one K3 call launched {rows3}, not exactly one "
-                             "K3 kernel")
+    # one K3 call is one kernel launch: no reduction kernel after it. The
+    # profiler can lose a kernel record of a short window (seen once on the
+    # H100: 9 of 10 recorded), so a trace that recorded fewer K3 launches
+    # than calls, and nothing else, is taken again; the wrapper's own count
+    # must show one launch per call each time
+    for attempt in range(1, 4):
+        before = k2.FUSED_UPDATE_LAUNCHES
+        rows3 = profiled_kernels(k3_call, calls=10)
+        # profiled_kernels makes one call before its window
+        if k2.FUSED_UPDATE_LAUNCHES - before != 11:
+            raise AssertionError(
+                f"eleven K3 wrapper calls counted "
+                f"{k2.FUSED_UPDATE_LAUNCHES - before} launches, not 11")
+        for ms, count, key in rows3:
+            log(8, f"[{card}] ten K3 wrapper calls at N={n3} D={d3} under "
+                   f"the profiler (trace {attempt}), per call: {ms:.6f} ms  "
+                   f"{count:g} launches  {key[:100]}")
+        if not rows3:
+            log(8, "ten K3 wrapper calls: the profiler recorded no device "
+                   "time: the kernels of one call are not measured")
+            break
+        if not (len(rows3) == 1
+                and "coke_fused_update_kernel" in rows3[0][2]
+                and rows3[0][1] <= 1):
+            raise AssertionError(f"one K3 call launched {rows3}, not exactly "
+                                 "one K3 kernel")
+        if rows3[0][1] == 1:
+            break
+    else:
+        raise AssertionError(f"three traces of ten K3 calls each recorded "
+                             f"fewer than ten K3 launches: {rows3}")
 
     # ---- 9. the LM serving engine, small: card against CPU ----------------
     from repro_torch.configs import get_config
@@ -1968,6 +2478,13 @@ def main() -> int:
 
     # ---- 12. the simulator backend and the exact primals ------------------
     simulator_phase(dev, problem, krr, card, bw, fp32, reset_counts, counts)
+
+    # ---- 13. the comm chain and time-varying topologies -------------------
+    comm_topology_phase(dev, card, reset_counts, counts, problem=problem,
+                        cfg=cfg, coke4=results["coke"], built=built,
+                        log_problem=log_problem, log_cfg=log_cfg,
+                        small=small, small_problem=small_built.problem,
+                        small_logistic=small_logistic)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,9 +12,12 @@ Ported so far: `fit` on the simulator backend (`dkla`, `coke`, `cta`,
 `ridge_oracle`; the Cholesky, CG and gradient primals), on the fused
 backend (the megakernel path for `dkla` and `coke`, and its fallback to
 the ring runtime on a non-quadratic loss or the CG primal) and on the spmd
-backend (`dkla`, `coke`, `cta`), `build_problem`, and `KernelModel`
-(predict / evaluate / save / load). Anything else raises
-NotImplementedError naming its ROADMAP.md item.
+backend (`dkla`, `coke`, `cta`), each with any comm chain (`Censor`,
+`Quantize`, `Drop`) and, on the simulator and spmd, a `TopologySchedule`;
+`build_problem`, and `KernelModel` (predict / evaluate / save / load).
+Admission is the reference's capability table (`api/capabilities.py`);
+what is not ported yet raises NotImplementedError naming its ROADMAP.md
+item.
 """
 from repro_torch.api.config import (BACKENDS, FitConfig,  # noqa: F401
                                     FitResult, SolveContext)
@@ -31,3 +34,4 @@ from repro_torch.core.admm import Problem, make_problem  # noqa: F401
 from repro_torch.core.censor import CensorSchedule  # noqa: F401
 from repro_torch.core.comm import (Censor, Chain, CommState,  # noqa: F401
                                    Drop, Quantize)
+from repro_torch.core.graph import TopologySchedule  # noqa: F401

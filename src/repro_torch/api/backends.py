@@ -17,7 +17,10 @@ runs in `api/fit.py`).
 
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
-solving a different consensus problem.
+solving a different consensus problem. A topology schedule runs on the
+ring runtime when each of its graphs is the circulant its offsets name
+(`_validate_schedule`); it never reaches the megakernel, and the fused
+fallback rejects it (K3 takes a fixed degree), as in the reference.
 """
 from __future__ import annotations
 
@@ -56,6 +59,32 @@ def _validate_topology(problem: Problem, offsets: tuple[int, ...]) -> None:
             f"collectives with offsets {offsets}); the problem's adjacency "
             "does not match — build it with FitConfig(graph='ring'/"
             "'circulant') or use backend='simulator'")
+
+
+def _validate_schedule(problem: Problem, topology) -> None:
+    """Each scheduled graph must be the circulant its offsets claim:
+    otherwise the ring runtime silently solves a different consensus
+    problem than the simulator."""
+    N = problem.num_agents
+    for i, off in enumerate(topology.offsets):
+        off = tuple(off)
+        seen = set()
+        for o in off:
+            pair = frozenset(((o % N), (-o) % N))
+            if (2 * o) % N == 0 or pair in seen:
+                raise ValueError(
+                    f"offset {o} is degenerate on N={N} agents (the ±{o} "
+                    "permutes alias the same neighbor, double-counting it "
+                    "in the ring runtime); choose offsets with 2*o % N != 0")
+            seen.add(pair)
+        want = circulant(N, off).adjacency
+        have = topology.adjacencies[i].detach().cpu().numpy()
+        if not np.array_equal(have, want):
+            raise ValueError(
+                f"topology schedule graph {i} does not match the circulant "
+                f"with offsets {tuple(off)}; build the schedule with "
+                "TopologySchedule.circulant_cycle or use "
+                "backend='simulator'")
 
 
 def _local_grads(problem: Problem, theta: torch.Tensor) -> torch.Tensor:
@@ -242,23 +271,33 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     """-> (carry0, chunk_fn, theta_fn) for the spmd / fused backends."""
     strategy = solver.consensus_strategy
     primal_mode = _resolve_consensus_primal(config, problem, strategy)
+    offset_schedule = None
     if config.topology is not None:
-        raise NotImplementedError(
-            "topology schedules are not ported yet: ROADMAP.md Queue 1 "
-            "item 7 (topology schedules)")
-    offsets = tuple(config.graph_offsets)
-    _validate_topology(problem, offsets)
+        offset_schedule = config.topology.offsets
+        if offset_schedule is None:
+            raise ValueError(
+                "the spmd/fused backends implement circulant topologies; "
+                "give the TopologySchedule its per-graph `offsets` (e.g. "
+                "TopologySchedule.circulant_cycle) or use "
+                "backend='simulator'")
+        _validate_schedule(problem, config.topology)
+        offsets = offset_schedule[0]
+    else:
+        offsets = tuple(config.graph_offsets)
+        _validate_topology(problem, offsets)
     N, D = problem.num_agents, problem.feature_dim
     dev, dtype = problem.device, problem.feats.dtype
 
     # megakernel admission (the reference's gate): the one-step gradient
-    # primal on the quadratic loss over a fixed circulant, unsharded and
-    # not personalized (fit rejects topology schedules and
-    # personalization); a CG fit falls back to the ring runtime
+    # primal on the quadratic loss over a fixed circulant (no schedule),
+    # unsharded and not personalized (the capability table rejects those
+    # two); a CG fit falls back to the ring runtime. The comm chain is not
+    # part of the gate: it runs after K2, in run_step
     use_mega = (config.backend == "fused"
                 and strategy in ("dkla", "coke")
                 and primal_mode == "gradient"
-                and problem.loss == "quadratic")
+                and problem.loss == "quadratic"
+                and offset_schedule is None)
     if use_mega:
         chain = solver._policy(ctx)
         carry0 = _FusedCarry(
@@ -280,7 +319,7 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     k = len(offsets)
     ccfg = cns.ConsensusConfig(
         strategy=strategy, rho=problem.rho, censor_v=v, censor_mu=mu,
-        offsets=offsets,
+        offsets=offsets, offset_schedule=offset_schedule,
         # per-neighbour Metropolis weight on a 2k-regular circulant
         mix_weight=k / (2.0 * k + 1.0),
         use_fused_kernel=config.backend == "fused")

@@ -1,8 +1,10 @@
 """`FitConfig` / `FitResult` — the run description and the run record.
 
 `FitConfig` has the reference's fields and defaults, so a config reads the
-same in both packages; `fit` raises NotImplementedError, naming the
-ROADMAP.md item, for any part of it this port does not run yet.
+same in both packages. Its construction runs the capability table's
+solver-free rules (`api/capabilities.check_config`), as the reference's
+does; `fit` runs the rest, and raises NotImplementedError, naming the
+ROADMAP.md item, for any part of a config this port does not run yet.
 """
 from __future__ import annotations
 
@@ -11,9 +13,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.api.capabilities import check_config
 from repro_torch.configs.coke_krr import KRRConfig
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.admm import PRIMAL_MODES
+from repro_torch.core.graph import TopologySchedule
 from repro_torch.data.synthetic import STREAM_KINDS
 
 BACKENDS = ("simulator", "spmd", "fused")
@@ -39,7 +43,7 @@ class FitConfig:
     participation: float = 1.0
     gossip_size: int | None = None
     churn: object | None = None
-    topology: object | None = None
+    topology: TopologySchedule | None = None
     personalization: object | None = None
 
     num_iters: int | None = None     # None = krr.num_iters
@@ -88,10 +92,10 @@ class FitConfig:
         if self.exec not in EXEC_MODES:
             raise ValueError(
                 f"unknown exec mode {self.exec!r}; choose from {EXEC_MODES}")
+        # the cross-axis admission: one declarative table, shared with the
+        # drivers' solver-scoped checks and the README matrix
+        check_config(self)
         if self.comm is not None:
-            if self.censor_v is not None or self.censor_mu is not None:
-                raise ValueError("give either comm= or the legacy "
-                                 "censor_v/censor_mu knobs, not both")
             comm_mod.as_chain(self.comm)  # fail fast on non-policies
 
     @property
@@ -135,13 +139,14 @@ class SolveContext:
     cg_tol: float = 1e-8
     cg_maxiter: int = 64
     cta_lr: float = 0.9
+    topology: TopologySchedule | None = None
 
     @classmethod
     def from_config(cls, config: FitConfig) -> "SolveContext":
         return cls(comm=config.resolved_comm, primal=config.primal,
                    inner_steps=config.inner_steps, inner_lr=config.inner_lr,
                    cg_tol=config.cg_tol, cg_maxiter=config.cg_maxiter,
-                   cta_lr=config.cta_lr)
+                   cta_lr=config.cta_lr, topology=config.topology)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,71 +2,32 @@
 
 It owns the iteration loop (a Python loop in host-visible chunks, where
 the reference has `lax.scan`), the per-iteration metric recording and the
-optional progress callbacks. The port runs the simulator backend (every
-registered solver, each primal: Cholesky, CG, gradient), the spmd backend
-and the fused backend (its megakernel path and its fallback to the ring
-runtime); every other part of a FitConfig raises NotImplementedError
-naming the ROADMAP.md item that ports it.
+optional progress callbacks. Admission is the capability table's
+(`api/capabilities.py`): the reference's ValueErrors first, then
+NotImplementedError naming the ROADMAP.md item for what the port does not
+run yet (gossip, personalization, `mesh=`, the streaming solvers). The port
+runs the simulator backend (every registered solver, each primal), the spmd
+backend and the fused backend (its megakernel path and its fallback to the
+ring runtime), each with any comm chain (Censor, Quantize, Drop) and, where
+the reference runs one, a topology schedule.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from repro_torch.api.backends import consensus_runner
+from repro_torch.api.capabilities import check_fit, check_stream
 from repro_torch.api.config import FitConfig, FitResult, SolveContext
 from repro_torch.api.problems import build_problem
-from repro_torch.api.registry import get_solver
-from repro_torch.core import comm as comm_mod
+from repro_torch.api.registry import get_solver, solver_spec
 from repro_torch.core import ridge
 from repro_torch.core.admm import Problem
 from repro_torch.device import resolve_device
 
 ProgressCb = Callable[[int, dict], None]
-
-
-def _check_solver(config: FitConfig, solver) -> None:
-    """The reference's solver admission rules, with its ValueErrors."""
-    reason, alternative = None, None
-    if config.backend not in solver.backends:
-        reason = (f"solver {config.algorithm!r} supports backends "
-                  f"{tuple(solver.backends)!r}, not {config.backend}")
-        alternative = "backend='simulator' (every solver runs there)"
-    elif config.comm is not None and not solver.comm_aware:
-        reason = (f"solver {config.algorithm!r} does not thread a "
-                  "communication policy (it transmits unconditionally); "
-                  "drop FitConfig.comm or pick a comm-aware algorithm "
-                  "(dkla/coke/online_coke)")
-        alternative = "algorithm='coke' with the same comm chain"
-    elif (config.primal in ("cholesky", "cg")
-          and not getattr(solver, "primal_aware", False)):
-        reason = (f"solver {config.algorithm!r} has no (21a) primal "
-                  f"subproblem for primal={config.primal} to solve; leave "
-                  "primal='auto' or pick an ADMM solver (dkla/coke)")
-        alternative = "algorithm='coke' with the same primal mode"
-    if reason is not None:
-        raise ValueError(f"{reason} — nearest supported: {alternative}")
-
-
-def _check_slice(config: FitConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for any part
-    of the config this port does not run yet, on every backend."""
-    later = None
-    if config.exec == "gossip":
-        later = ("exec='gossip'", "Queue 1 item 10 (gossip and churn)")
-    elif config.topology is not None:
-        later = ("topology schedules", "Queue 1 item 7 (topology "
-                 "schedules)")
-    elif config.personalization is not None:
-        later = ("personalization", "Queue 1 item 11 (personalization)")
-    elif any(isinstance(s, (comm_mod.Quantize, comm_mod.Drop))
-             for s in config.resolved_comm.stages):
-        later = ("Quantize and Drop", "Queue 1 item 8 (full comm chain)")
-    if later is not None:
-        raise NotImplementedError(
-            f"{later[0]} is not ported to repro_torch yet: ROADMAP.md "
-            f"{later[1]}")
 
 
 def _simulator_chunk(solver, problem: Problem, ctx: SolveContext, aux,
@@ -143,13 +104,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
                   "cpu" runs the plain PyTorch versions of the kernels.
     """
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (big-D sharding) is not ported to repro_torch yet: "
-            "ROADMAP.md Queue 1 item 14")
+    check_fit(config, solver_spec(config.algorithm), mesh=mesh)
     solver = get_solver(config.algorithm)
-    _check_solver(config, solver)
-    _check_slice(config)
     rff_params = None
     if problem is None:
         built = build_problem(config, device=dev)
@@ -160,8 +116,16 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
         oracle = ridge.rf_ridge(problem.feats, problem.labels, problem.lam)
     elif oracle is not None:
         oracle = oracle.to(dev)
+    if config.topology is not None and (
+            config.topology.num_agents != problem.num_agents):
+        raise ValueError(
+            f"topology schedule is over {config.topology.num_agents} "
+            f"agents but the problem has {problem.num_agents}")
 
     ctx = SolveContext.from_config(config)
+    if ctx.topology is not None:   # the schedule beside the problem
+        ctx = dataclasses.replace(ctx, topology=ctx.topology.to(
+            problem.device, problem.feats.dtype))
     if config.backend == "simulator":
         carry0, chunk_fn, theta_fn = _simulator_runner(solver, problem, ctx,
                                                        oracle)
@@ -175,7 +139,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
 
 
 def fit_stream(config: FitConfig, stream=None, **kw) -> FitResult:
-    """Streaming fits are not ported yet."""
-    raise NotImplementedError(
-        "fit_stream is not ported to repro_torch yet: ROADMAP.md Queue 1 "
-        "item 9 (streaming)")
+    """Streaming fits are not ported yet: the capability table raises the
+    reference's ValueError where the reference rejects the config, else
+    NotImplementedError naming ROADMAP.md item 9."""
+    check_stream(config, solver_spec(config.algorithm))
+    raise AssertionError("the capability table admitted fit_stream")

@@ -3,16 +3,19 @@
 centralized ridge oracle; and the per-iteration metrics every history
 records.
 
-Each solver names the backends it runs on (`backends`) and whether it
-threads a communication policy (`comm_aware`) or has a (21a) primal
-subproblem (`primal_aware`), as in the reference; `fit` rejects the rest
-with the reference's ValueError. The simulator backend drives a solver
+Each solver carries the reference's capability flags: the backends it runs
+on (`backends`), whether it threads a communication policy (`comm_aware`),
+follows a topology schedule (`topology_aware`), has a (21a) primal
+subproblem (`primal_aware`), and has gossip and personalization forms
+(`gossip_aware`, `personalization_aware`); the capability table
+(`api/capabilities.py`) reads them. The simulator backend drives a solver
 through `prepare_host` / `prepare_traced` (once per fit), `init_state`,
 then `step` and `metrics` per iteration, and `theta_of`; the spmd and
 fused backends read only `consensus_strategy` and `_policy`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -55,8 +58,13 @@ def _uncompressed_bits(problem: Problem, comms: torch.Tensor) -> torch.Tensor:
 class _ADMMSolver:
     backends = ("simulator", "spmd", "fused")
     comm_aware = True
+    topology_aware = True
     # these solvers have a (21a) primal subproblem the exact solves apply to
     primal_aware = True
+    # the reference's gossip and personalized forms (not ported yet: the
+    # capability table raises NotImplementedError for them)
+    gossip_aware = True
+    personalization_aware = True
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
         raise NotImplementedError
@@ -73,11 +81,20 @@ class _ADMMSolver:
     def prepare_traced(self, problem: Problem, ctx: SolveContext, host_aux):
         """{"chol": the (N, D, D) factor stack or None, "terms": the (21a)
         system's iteration-invariant parts} for the exact primals; None for
-        the gradient primal. The reference builds these inside every
-        compiled chunk; the port builds the same values once per fit."""
+        the gradient primal. Under a topology schedule the normal matrix
+        depends on each graph's degrees, so "chol" is an (M, N, D, D) stack
+        and coke_step picks the active graph's. The reference builds these
+        inside every compiled chunk; the port builds them once per fit."""
         mode = self._primal_mode(problem, ctx)
         if mode == "cholesky":
-            return {"chol": admm._ridge_factors(problem),
+            if ctx.topology is None:
+                chol = admm._ridge_factors(problem)
+            else:
+                chol = torch.stack([
+                    admm._ridge_factors(dataclasses.replace(problem,
+                                                            adjacency=a))
+                    for a in ctx.topology.adjacencies])
+            return {"chol": chol,
                     "terms": admm.primal_terms(problem, jacobi=False)}
         if mode == "cg":
             return {"chol": None, "terms": admm.primal_terms(problem)}
@@ -91,6 +108,7 @@ class _ADMMSolver:
         aux = aux or {}
         return admm.coke_step(problem, self._policy(ctx), state,
                               aux.get("chol"), ctx.inner_steps, ctx.inner_lr,
+                              topology=ctx.topology,
                               primal="cg" if mode == "cg" else "auto",
                               cg_tol=ctx.cg_tol, cg_maxiter=ctx.cg_maxiter,
                               terms=aux.get("terms"))
@@ -131,6 +149,7 @@ class CTASolver:
     backends = ("simulator", "spmd")
     consensus_strategy = "cta"
     comm_aware = False  # diffusion transmits uncensored every iteration
+    topology_aware = False
     primal_aware = False
 
     def prepare_host(self, problem: Problem, ctx: SolveContext):
@@ -176,6 +195,7 @@ class RidgeOracleSolver:
     backends = ("simulator",)
     consensus_strategy = None
     comm_aware = False  # sees all data, exchanges nothing
+    topology_aware = False
     primal_aware = False
 
     def prepare_host(self, problem: Problem, ctx: SolveContext):

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.api.model import KernelModel, model_from_arrays
 from repro_torch.core.admm import Problem
+from repro_torch.core.graph import TopologySchedule
 from repro_torch.core.rff import RFFParams
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -38,6 +39,17 @@ def problem_from_numpy(feats, labels, adjacency, lam: float, rho: float,
         adjacency=torch.tensor(np.asarray(adjacency), dtype=feats.dtype,
                                device=dev),
         lam=float(lam), rho=float(rho), loss=loss)
+
+
+def topology_from_reference(adjacencies, offsets=None, *,
+                            device: torch.device | str | None = None
+                            ) -> TopologySchedule:
+    """The port's schedule from the reference's (M, N, N) adjacency stack
+    (`np.asarray(schedule.adjacencies)`) and its `offsets`."""
+    return TopologySchedule(
+        adjacencies=torch.tensor(np.asarray(adjacencies, np.float32),
+                                 device=resolve_device(device)),
+        offsets=offsets)
 
 
 def model_from_numpy(arrays: dict, sidecar: dict | None = None, *,

@@ -305,8 +305,10 @@ def _primal_stage(problem: Problem, primal: str, *, chol=None,
     """The (21a) primal update as a `core.step` stage. With
     `legacy_auto=True` the dispatch keeps `coke_step`'s contract (the
     closed form whenever a factor is in hand and the loss is quadratic);
-    otherwise the mode is explicit ("cg" / "cholesky" / gradient)."""
+    otherwise the mode is explicit ("cg" / "cholesky" / gradient). A view
+    that carries its own factors (a topology schedule) overrides `chol`."""
     def stage(k, g, theta0, theta_hat0, gamma0, nbr_hat):
+        c = chol if g.chol is None else g.chol
         if primal == "cg":
             if problem.loss != "quadratic":
                 raise ValueError(
@@ -316,11 +318,11 @@ def _primal_stage(problem: Problem, primal: str, *, chol=None,
             theta = _primal_cg(problem, gamma0, theta_hat0, nbr_hat, g.deg,
                                theta0=theta0, tol=cg_tol,
                                maxiter=cg_maxiter, terms=terms)
-        elif ((problem.loss == "quadratic" and chol is not None)
+        elif ((problem.loss == "quadratic" and c is not None)
               if legacy_auto else primal == "cholesky"):
-            if chol is None:
+            if c is None:
                 raise ValueError("primal='cholesky' needs the factor stack")
-            theta = _primal_closed_form(problem, chol, gamma0, theta_hat0,
+            theta = _primal_closed_form(problem, c, gamma0, theta_hat0,
                                         nbr_hat, g.deg, terms=terms)
         else:
             theta = _primal_gradient(problem, inner_steps, inner_lr,
@@ -339,21 +341,31 @@ def coke_step(problem: Problem, policy, state: COKEState,
               inner_lr: float = 0.1, topology=None, primal: str = "auto",
               cg_tol: float = 1e-8, cg_maxiter: int = 64,
               terms: PrimalTerms | None = None) -> COKEState:
-    """One iteration of Algorithm 2 for every agent on the static graph.
+    """One iteration of Algorithm 2 for every agent.
 
-    policy — a `core.comm` policy; an empty chain (or v == 0) is DKLA.
-    primal — "auto": the closed form when `chol` is given and the loss is
+    policy   — a `core.comm` policy; an empty chain (or v == 0) is DKLA.
+    topology — a `core.graph.TopologySchedule`: iteration k runs on
+    `topology.at(k)`. With the closed-form primal pass the (M, N, D, D)
+    per-graph factor stack as `chol`; the step picks the active graph's.
+    primal   — "auto": the closed form when `chol` is given and the loss is
     quadratic, else the gradient primal; "cg": the matrix-free solve.
-    terms  — `primal_terms(problem)`, hoisted by the caller; None forms
+    terms    — `primal_terms(problem)`, hoisted by the caller; None forms
     them in this call, as the reference does in every iteration."""
-    if topology is not None:
-        raise NotImplementedError(
-            "topology schedules are not ported to repro_torch yet: "
-            "ROADMAP.md Queue 1 item 7 (topology schedules)")
-    view = step_mod.dense_view(problem.adjacency, deg=problem.degrees)
+    if topology is None:
+        view = step_mod.dense_view(problem.adjacency, deg=problem.degrees)
+
+        def exchange(s, k):
+            return view
+    else:
+        def exchange(s, k):
+            c = chol
+            if c is not None and c.ndim == 4:
+                c = c[topology.index(k)]
+            return step_mod.dense_view(topology.at(k), chol=c)
+
     program = step_mod.StepProgram(
         chain=comm_mod.as_chain(policy), rho=problem.rho,
-        exchange=lambda s, k: view,
+        exchange=exchange,
         primal=_primal_stage(problem, primal, chol=chol, terms=terms,
                              inner_steps=inner_steps, inner_lr=inner_lr,
                              cg_tol=cg_tol, cg_maxiter=cg_maxiter,

@@ -5,13 +5,15 @@ The paper assumes an undirected, connected graph G = (N, C, A)
 (Assumption 1). Erdos-Renyi graphs are the paper's synthetic setup;
 ring / k-circulant graphs are what the fused ring runtime implements
 (neighbours i +- o, read by index). `metropolis_weights` gives the CTA
-baseline's mixing matrix.
+baseline's mixing matrix. `TopologySchedule` is a time-varying topology:
+a stack of graphs cycled per iteration.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +83,66 @@ def circulant(num_agents: int, offsets: tuple[int, ...]) -> Graph:
 def fully_connected(num_agents: int) -> Graph:
     adj = np.ones((num_agents, num_agents)) - np.eye(num_agents)
     return Graph(adjacency=adj)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologySchedule:
+    """Time-varying consensus topology: iteration k (1-based) runs on graph
+    `adjacencies[(k - 1) % M]`, cycling through the M stacked graphs.
+
+    `offsets` is the circulant form the ring runtime (spmd) runs, one
+    offset tuple per graph; None for general (e.g. Erdos-Renyi) schedules,
+    which only the simulator runs. k is a host int: picking the graph reads
+    nothing from the device.
+    """
+
+    adjacencies: torch.Tensor  # (M, N, N) float32
+    offsets: tuple[tuple[int, ...], ...] | None = None
+
+    def __post_init__(self):
+        if self.offsets is not None:
+            object.__setattr__(
+                self, "offsets", tuple(tuple(o) for o in self.offsets))
+
+    @property
+    def num_graphs(self) -> int:
+        return self.adjacencies.shape[0]
+
+    @property
+    def num_agents(self) -> int:
+        return self.adjacencies.shape[-1]
+
+    def index(self, k: int) -> int:
+        """Graph index for the (1-based) iteration k."""
+        return (k - 1) % self.num_graphs
+
+    def at(self, k: int) -> torch.Tensor:
+        """Adjacency in effect at iteration k."""
+        return self.adjacencies[self.index(k)]
+
+    def to(self, device, dtype=None) -> "TopologySchedule":
+        return dataclasses.replace(
+            self, adjacencies=self.adjacencies.to(device=device, dtype=dtype))
+
+    @classmethod
+    def from_graphs(cls, graphs, offsets=None,
+                    device: torch.device | str = "cpu"
+                    ) -> "TopologySchedule":
+        """Stack a sequence of `Graph`s (equal N) into a schedule."""
+        adj = torch.stack([torch.as_tensor(g.adjacency, dtype=torch.float32)
+                           for g in graphs]).to(device)
+        return cls(adjacencies=adj, offsets=offsets)
+
+    @classmethod
+    def circulant_cycle(cls, num_agents: int, offset_variants,
+                        device: torch.device | str = "cpu"
+                        ) -> "TopologySchedule":
+        """Cycle through circulant graphs: the schedule form the ring
+        runtime runs, one offset tuple per graph."""
+        variants = tuple(tuple(v) for v in offset_variants)
+        return cls.from_graphs(
+            [circulant(num_agents, off) for off in variants],
+            offsets=variants, device=device)
 
 
 def metropolis_weights(graph: Graph) -> np.ndarray:

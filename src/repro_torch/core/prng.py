@@ -1,0 +1,89 @@
+"""Counter-based random numbers bit-compatible with `jax.random`'s default
+threefry2x32 generator (`jax_threefry_partitionable=True`).
+
+    key = fold_in(PRNGKey(0), 3)               # (2467461003, 3840466878)
+    u = uniform(key, (4,), device="cuda")      # jax.random.uniform's bits
+
+A key is a pair of Python ints below 2^32, as the reference's uint32[2] key
+data. `PRNGKey` and `fold_in` run on the host: the port's loops carry the
+round counter k as a host int, so deriving a round's key reads nothing from
+the device. Only `random_bits` / `uniform` touch the device, as elementwise
+tensor ops; nothing is read back.
+
+The threefry words are carried in int64 tensors and masked to 32 bits after
+every addition (PyTorch cannot add uint32 tensors): a rotation of a value
+below 2^32 by r <= 31 fits in int64. The same code runs on the CPU and on
+the card and gives the same bits. `split` and `normal` are not here: no
+path of the port draws them yet (the RFF draw uses a torch.Generator by
+design, and gossip sampling arrives with its own slice).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_KS_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = tuple[int, int]
+
+
+def _rotl(x, r: int):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(key: Key, x0, x1):
+    """Threefry-2x32 with 20 rounds (jax's `_threefry2x32_lowering`) over
+    counters (x0, x1): Python ints, or int64 tensors holding values below
+    2^32. Returns the two output words in the counters' form."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ((ks[(i + 2) % 3] + i + 1) & MASK32)) & MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Key:
+    """jax.random.PRNGKey(seed) with jax's default 32-bit integers: the
+    seed's low 32 bits (two's complement for a negative seed) under a zero
+    high word."""
+    return 0, int(seed) & MASK32
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """jax.random.fold_in(key, data) for a 32-bit data word: the hash of
+    the counter pair (0, data) under `key`."""
+    data = int(data)
+    if not 0 <= data <= MASK32:
+        raise OverflowError(f"fold_in data {data} is not a uint32")
+    return threefry2x32(key, 0, data)
+
+
+def random_bits(key: Key, shape, device: torch.device | str = "cpu"
+                ) -> torch.Tensor:
+    """jax.random.bits(key, shape) for 32-bit words, partitionable form:
+    element i of the flattened shape hashes the counter pair (i >> 32,
+    i & 0xFFFFFFFF); the word is the XOR of the two outputs. Returned as
+    int64 values in [0, 2^32)."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    hi, lo = threefry2x32(key, idx >> 32, idx & MASK32)
+    return (hi ^ lo).reshape(shape)
+
+
+def uniform(key: Key, shape, device: torch.device | str = "cpu"
+            ) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23 bits
+    of each word as the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(floats, 0.0)

@@ -21,19 +21,21 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class GraphView:
-    """What one iteration sees of the consensus graph: (N,) degrees and a
-    neighbour-sum operator x (N, ...) -> sum_n w x_n."""
+    """What one iteration sees of the consensus graph: (N,) degrees, a
+    neighbour-sum operator x (N, ...) -> sum_n w x_n, and, under a topology
+    schedule, the Cholesky factors of the graph in effect."""
 
     deg: torch.Tensor
     nbr_sum: Callable[[torch.Tensor], torch.Tensor]
+    chol: torch.Tensor | None = None
 
 
-def dense_view(adjacency: torch.Tensor,
-               deg: torch.Tensor | None = None) -> GraphView:
+def dense_view(adjacency: torch.Tensor, deg: torch.Tensor | None = None,
+               chol: torch.Tensor | None = None) -> GraphView:
     """A dense (possibly Erdos-Renyi) graph: `A @ x` neighbour sums, as the
     simulator exchanges."""
     d = torch.sum(adjacency, dim=1) if deg is None else deg
-    return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x)
+    return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x, chol=chol)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,10 +20,17 @@ runs through the hand-written `coke_fused_update` kernel (K3). A
 step with the exact (21a) primal and bypasses K3; the optimizer state
 stays as it was.
 
+A time-varying topology (`ConsensusConfig.offset_schedule`, a tuple of
+offset tuples) cycles the ring's offsets per iteration for dkla/coke: the
+host iteration k picks the tuple, and the neighbour fetch of the primal
+runs under the graph in effect (the cache from the previous step belongs
+to the previous graph). It requires the unfused path: K3 takes the degree
+as a fixed parameter, as the reference's kernel does.
+
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
 item: gossip participation and churn (item 10), a dense learned graph
-(item 11), time-varying topologies (`offset_schedule`, item 7), and the
-allreduce / coke_et strategies of the deep-net layer (item 15).
+(item 11), and the allreduce / coke_et strategies of the deep-net layer
+(item 15).
 """
 from __future__ import annotations
 
@@ -46,9 +53,6 @@ _LATER = {
              "ROADMAP.md Queue 1 item 10",
     "adjacency": "a dense (learned) adjacency is not ported to repro_torch "
                  "yet: ROADMAP.md Queue 1 item 11",
-    "offset_schedule": "time-varying topologies (offset_schedule) are not "
-                       "ported to repro_torch yet: ROADMAP.md Queue 1 "
-                       "item 7",
     "strategy": "the allreduce and coke_et strategies belong to the "
                 "deep-net layer, not ported to repro_torch yet: ROADMAP.md "
                 "Queue 1 item 15",
@@ -190,8 +194,7 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
         raise NotImplementedError(_LATER["strategy"])
     for what, given in (("participate", participate is not None),
                         ("churn", alive is not None or joined is not None),
-                        ("adjacency", dense),
-                        ("offset_schedule", bool(ccfg.offset_schedule))):
+                        ("adjacency", dense)):
         if given:
             raise NotImplementedError(_LATER[what])
 
@@ -233,13 +236,24 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
                          comms=state["comms"] + num_agents)
         return new_params, new_state, metrics
 
-    # --- ADMM family (dkla / coke) on a static circulant -------------------
+    # --- ADMM family (dkla / coke) on a circulant -------------------------
     theta_hat, gamma = state["theta_hat"], state["gamma"]
     chain = ccfg.comm_chain() if comm is None else comm_mod.as_chain(comm)
-    rho, deg = ccfg.rho, ccfg.degree
-    # neighbours' theta_hat^{k-1}: served from the cache filled by the
-    # previous step's dual-update fetch, no roll here
-    left, right = state["nbr_left"], state["nbr_right"]
+    rho = ccfg.rho
+    if ccfg.offset_schedule:
+        variants = ccfg.offset_schedule
+        offsets = variants[(step - 1) % len(variants)]
+        # a float32 scalar, as the reference's degs[graph_idx]: the product
+        # 2 rho deg rounds in float32 as it does there
+        deg = torch.tensor(2.0 * len(offsets), dtype=torch.float32)
+        # the cached fetch belongs to the previous step's graph: fetch
+        # theta_hat^{k-1} again under the graph in effect at step k
+        left, right = _ring_neighbors(theta_hat, offsets)
+    else:
+        offsets, deg = ccfg.offsets, ccfg.degree
+        # neighbours' theta_hat^{k-1}: served from the cache filled by the
+        # previous step's dual-update fetch, no roll here
+        left, right = state["nbr_left"], state["nbr_right"]
 
     # primal update (21a): exact when the caller supplies a solve (the
     # matrix-free CG path), otherwise one optimizer step on the augmented
@@ -274,9 +288,9 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     new_theta_hat, send, comm_state = comm_mod.apply_tree(
         chain, new_params, theta_hat, step, comm_state)
 
-    # dual (21b) with theta_hat^k: the step's only neighbour fetch, cached
-    # for the next primal update
-    hat_l, hat_r = _ring_neighbors(new_theta_hat, ccfg.offsets)
+    # dual (21b) with theta_hat^k: on a static ring the step's only
+    # neighbour fetch, cached for the next primal update
+    hat_l, hat_r = _ring_neighbors(new_theta_hat, offsets)
     new_gamma = tree_map(lambda gm, th, l, r: gm + rho * (deg * th - l - r),
                          gamma, new_theta_hat, hat_l, hat_r)
 

@@ -201,8 +201,11 @@ def _plan(n: int, t: int, d: int, bulk: bool,
 @functools.lru_cache(maxsize=32)
 def _plan_table(segments: Segments, device: torch.device) -> torch.Tensor:
     """The segmentation as the int32 device table the kernels read; made
-    once per shape and device, so a call copies nothing to the card."""
-    return torch.tensor(segments.table(), dtype=torch.int32, device=device)
+    once per shape and device, so a call copies nothing to the card. The
+    one upload goes from pinned memory without blocking, so even the first
+    call at a shape does not synchronize the host."""
+    table = torch.tensor(segments.table(), dtype=torch.int32)
+    return table.pin_memory().to(device, non_blocking=True)
 
 
 def megastep_plan(phi: torch.Tensor) -> MegastepPlan:

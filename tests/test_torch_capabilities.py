@@ -1,0 +1,228 @@
+"""The port's capability table (`repro_torch.api.capabilities`) against the
+reference's (`repro.api.capabilities`), on the CPU.
+
+The reference's rules are copied word for word: every trigger of the
+reference's `tests/test_capabilities.py` goes through both packages' real
+entry points (config construction, fit, fit_stream, sweep) and must raise
+the same ValueError text. The port's NOT_PORTED rows raise
+NotImplementedError naming their ROADMAP.md item, and only after every
+ValueError rule has passed. The port's README matrix block must be in sync
+with its table (the reference's block is pinned by the reference's test).
+"""
+import pathlib
+
+import pytest
+import torch
+
+from repro.api import Censor as JCensor
+from repro.api import Chain as JChain
+from repro.api import ChurnSchedule as JChurnSchedule
+from repro.api import FitConfig as JFitConfig
+from repro.api import Personalization as JPersonalization
+from repro.api import TopologySchedule as JTopologySchedule
+from repro.api import capabilities as jcap
+from repro.api.registry import get_solver as jax_get_solver
+from repro.api.registry import list_solvers as jax_list_solvers
+
+from repro_torch.api import Censor, Chain, FitConfig, fit, fit_stream, sweep
+from repro_torch.api import capabilities as cap
+from repro_torch.api.registry import (all_solver_names, list_solvers,
+                                      solver_spec)
+from repro_torch.core.graph import TopologySchedule
+
+torch.set_num_threads(2)
+
+#: each package's probe objects; the port has no churn or personalization
+#: objects yet (the rules read only whether the field is set)
+OBJS = {
+    "ref": dict(topo=JTopologySchedule.circulant_cycle(8, [(1,)]),
+                churn=JChurnSchedule(leave=((2, 0),)),
+                pz=JPersonalization(), comm=JChain((JCensor(0.3, 0.97),))),
+    "port": dict(topo=TopologySchedule.circulant_cycle(8, [(1,)]),
+                 churn=JChurnSchedule(leave=((2, 0),)),
+                 pz=JPersonalization(), comm=Chain((Censor(0.3, 0.97),))),
+}
+
+#: rule id -> (driver mode, FitConfig knobs naming probe objects by key):
+#: the reference's TRIGGERS (tests/test_capabilities.py)
+TRIGGERS = {
+    "sync-gossip-knobs": ("config", dict(participation=0.5)),
+    "comm-censor-knobs": ("config", dict(comm="comm", censor_v=0.3)),
+    "personalization-topology": ("config", dict(personalization="pz",
+                                                topology="topo")),
+    "personalization-churn": ("config", dict(exec="gossip",
+                                             personalization="pz",
+                                             churn="churn")),
+    "solver-backend": ("batch", dict(algorithm="ridge_oracle",
+                                     backend="spmd")),
+    "comm-unaware-solver": ("batch", dict(algorithm="cta", comm="comm")),
+    "topology-unaware-solver": ("batch", dict(algorithm="cta",
+                                              topology="topo")),
+    "primal-unaware-solver": ("batch", dict(algorithm="ridge_oracle",
+                                            primal="cg")),
+    "gossip-unaware-solver": ("batch", dict(algorithm="cta",
+                                            exec="gossip")),
+    "gossip-topology": ("batch", dict(algorithm="coke", exec="gossip",
+                                      topology="topo")),
+    "churn-fused": ("batch", dict(algorithm="coke", exec="gossip",
+                                  churn="churn", backend="fused")),
+    "churn-cholesky": ("batch", dict(algorithm="coke", exec="gossip",
+                                     churn="churn", primal="cholesky")),
+    "personalization-unaware-solver": ("batch", dict(
+        algorithm="cta", personalization="pz")),
+    "personalization-fused": ("batch", dict(algorithm="coke",
+                                            personalization="pz",
+                                            backend="fused")),
+    "personalization-cholesky": ("batch", dict(algorithm="coke",
+                                               personalization="pz",
+                                               primal="cholesky")),
+    "stream-batch-solver": ("stream", dict(algorithm="coke")),
+    "stream-backend": ("stream", dict(algorithm="online_coke",
+                                      backend="fused")),
+    "stream-topology": ("stream", dict(algorithm="online_coke",
+                                       topology="topo")),
+    "sweep-streaming": ("sweep", dict(algorithm="online_coke")),
+    "sweep-backend": ("sweep", dict(algorithm="coke", backend="spmd")),
+}
+
+#: NOT_PORTED id -> (driver mode, knobs, fit kwargs, ROADMAP.md item)
+NOT_PORTED_TRIGGERS = {
+    "fit-stream": ("stream", dict(algorithm="online_coke"), {}, "item 9"),
+    "streaming-solver": ("batch", dict(algorithm="online_dkla"), {},
+                         "item 9"),
+    "sweep": ("sweep", dict(algorithm="coke"), {}, "item 12"),
+    "mesh": ("batch", dict(algorithm="coke"), dict(mesh=object()),
+             "item 14"),
+    "gossip": ("batch", dict(algorithm="dkla", exec="gossip",
+                             participation=0.5, backend="spmd"), {},
+               "item 10"),
+    "personalization": ("batch", dict(algorithm="coke", personalization="pz",
+                                      backend="spmd"), {}, "item 11"),
+}
+
+
+def _config(side, knobs):
+    objs = OBJS[side]
+    kw = {k: objs[v] if isinstance(v, str) and v in objs
+          and k in ("comm", "topology", "churn", "personalization") else v
+          for k, v in knobs.items()}
+    return (JFitConfig if side == "ref" else FitConfig)(**kw)
+
+
+def _ref_call(mode, knobs):
+    config = _config("ref", knobs)
+    if mode == "config":
+        return
+    check = {"batch": jcap.check_fit, "stream": jcap.check_stream,
+             "sweep": jcap.check_sweep}[mode]
+    check(config, jax_get_solver(config.algorithm))
+
+
+def _port_call(mode, knobs, **fit_kw):
+    """The port's real entry points: fit / fit_stream / sweep admit before
+    they touch a problem."""
+    config = _config("port", knobs)
+    if mode == "config":
+        return
+    if mode == "batch":
+        fit(config, device="cpu", **fit_kw)
+    elif mode == "stream":
+        fit_stream(config)
+    else:
+        sweep(config)
+
+
+def test_the_reference_rules_are_copied_word_for_word():
+    for ours, theirs in ((cap.CONFIG_RULES, jcap.CONFIG_RULES),
+                         (cap.RUN_RULES, jcap.RUN_RULES)):
+        assert [(r.id, r.when, r.reason, r.alternative) for r in ours] == \
+            [(r.id, r.when, r.reason, r.alternative) for r in theirs]
+
+
+def test_every_rule_has_a_trigger():
+    ids = {r.id for r in jcap.CONFIG_RULES + jcap.RUN_RULES}
+    assert set(TRIGGERS) == ids
+    assert set(NOT_PORTED_TRIGGERS) == {r.id for r in cap.NOT_PORTED}
+
+
+@pytest.mark.parametrize("rule_id", sorted(TRIGGERS))
+def test_reference_rule_raises_the_same_value_error(rule_id):
+    """Each trigger fires its own rule in both packages, with the same
+    text: ValueError rules come before the port's NOT_PORTED rows."""
+    mode, knobs = TRIGGERS[rule_id]
+    with pytest.raises(ValueError) as ref_err:
+        _ref_call(mode, knobs)
+    with pytest.raises(ValueError) as port_err:
+        _port_call(mode, knobs)
+    assert str(port_err.value) == str(ref_err.value)
+    rule = {r.id: r for r in cap.CONFIG_RULES + cap.RUN_RULES}[rule_id]
+    assert rule.alternative in str(port_err.value)
+
+
+@pytest.mark.parametrize("rule_id", sorted(NOT_PORTED_TRIGGERS))
+def test_not_ported_row_raises_not_implemented_naming_its_item(rule_id):
+    """The reference admits each of these; the port says which ROADMAP.md
+    item ports it."""
+    mode, knobs, fit_kw, item = NOT_PORTED_TRIGGERS[rule_id]
+    _ref_call(mode, knobs)                   # the reference admits it
+    with pytest.raises(NotImplementedError) as err:
+        _port_call(mode, knobs, **fit_kw)
+    assert f"ROADMAP.md Queue 1 {item} " in str(err.value)
+
+
+def tuple_or(value):
+    return tuple(value) if isinstance(value, (tuple, list)) else value
+
+
+def test_registry_specs_carry_the_reference_flags():
+    flags = ("backends", "stream_backends", "comm_aware", "topology_aware",
+             "primal_aware", "gossip_aware", "personalization_aware",
+             "streaming")
+    assert all_solver_names() == sorted(jax_list_solvers())
+    for name in all_solver_names():
+        ours, theirs = solver_spec(name), jax_get_solver(name)
+        for f in flags:
+            empty = () if f.endswith("backends") else False
+            assert tuple_or(getattr(ours, f, empty)) == tuple_or(
+                getattr(theirs, f, empty)), (name, f)
+    assert set(list_solvers()) == {"coke", "dkla", "cta", "ridge_oracle"}
+
+
+def test_supported_cells_admit():
+    """The ✅ cells through the same entry points: a schedule on the
+    batch ADMM solvers."""
+    topo = OBJS["port"]["topo"]
+    for backend in ("simulator", "spmd", "fused"):
+        cap.check_fit(FitConfig(algorithm="coke", backend=backend,
+                                topology=topo), solver_spec("coke"))
+
+
+def test_port_matrix_marks_follow_the_reference_matrix():
+    """Where the reference's matrix has ✅ the port's has ✅ or "item N";
+    where the reference's has — the port's has — too."""
+    def rows(text):
+        out = {}
+        for line in text.splitlines():
+            if line.startswith("| `"):
+                cells = [c.strip() for c in line.strip("|").split("|")]
+                out[(cells[0], cells[1])] = cells[2:]
+        return out
+
+    ours, theirs = rows(cap.support_matrix()), rows(jcap.support_matrix())
+    assert set(ours) == set(theirs)
+    for key, cells in theirs.items():
+        for mine, ref in zip(ours[key], cells):
+            if ref == "—":
+                assert mine == "—", key
+            else:
+                assert mine == "✅" or mine.startswith("item "), key
+
+
+def test_readme_port_matrix_in_sync():
+    """The README's port block equals the generated matrix; regenerate
+    with `PYTHONPATH=src python -m repro_torch.api.capabilities`."""
+    readme = pathlib.Path(__file__).resolve().parents[1] / "README.md"
+    text = readme.read_text()
+    start = text.index(cap.BEGIN_MARK)
+    end = text.index(cap.END_MARK) + len(cap.END_MARK)
+    assert text[start:end] == cap.support_matrix()

@@ -290,23 +290,33 @@ _HOOKS = {
 }
 
 
+#: hooks the port runs (the rest raise NotImplementedError for now)
+_PORTED_HOOKS = ("schedule",)
+
+
 def _call_both(strategy, fused, hook):
-    """Call both packages' consensus_update with one hook; return the two
-    exceptions (None where the call ran)."""
+    """Call both packages' consensus_update with one hook, three steps from
+    seeded parameters; return each package's exception, or its
+    (params, state) where the calls ran."""
     extra = _HOOKS[hook]()
     ccfg_kw = extra.pop("ccfg", {})
+    theta0 = np.random.default_rng(3).standard_normal((N, D)).astype(
+        np.float32)
     out = []
     for cns, opt, arr in ((jax_cns, jax_opt, jnp.asarray),
                           (port_cns, port_opt, torch.tensor)):
         ccfg = cns.ConsensusConfig(strategy=strategy, use_fused_kernel=fused,
-                                   **ccfg_kw)
+                                   censor_v=0.05, **ccfg_kw)
         ocfg = opt.OptConfig(kind="sgd", lr=0.1)
         p = {"theta": arr(np.zeros((N, D), np.float32))}
         st = cns.init_consensus_state(ccfg, ocfg, p)
+        g = {"theta": arr(theta0)}
         try:
-            cns.consensus_update(ccfg, ocfg, p, p, st,
-                                 **{k: arr(v) for k, v in extra.items()})
-            out.append(None)
+            for _ in range(3):
+                p, st, _ = cns.consensus_update(
+                    ccfg, ocfg, p, g, st,
+                    **{k: arr(v) for k, v in extra.items()})
+            out.append((p, st))
         except (ValueError, NotImplementedError) as e:
             out.append(e)
     return out
@@ -317,12 +327,22 @@ def _call_both(strategy, fused, hook):
                                             ("cta", False)])
 def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
     """Where the reference raises ValueError the port raises the same
-    ValueError; where the reference runs, the port raises
-    NotImplementedError naming the ROADMAP.md item that ports the hook."""
+    ValueError; where the reference runs, the port runs a ported hook (the
+    offset schedule) to the reference's values and raises
+    NotImplementedError, naming the ROADMAP.md item, for the others."""
     ref, port = _call_both(strategy, fused, hook)
-    assert port is not None
     if isinstance(ref, ValueError):
         assert type(port) is ValueError and str(port) == str(ref)
+    elif hook in _PORTED_HOOKS:
+        assert not isinstance(port, Exception), port
+        (jp, jst), (tp, tst) = ref, port
+        assert int(tst["comms"]) == int(jst["comms"])
+        for got, want in ((tp["theta"], jp["theta"]),
+                          (tst["theta_hat"]["theta"],
+                           jst["theta_hat"]["theta"]),
+                          (tst["gamma"]["theta"], jst["gamma"]["theta"])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-6)
     else:
         assert isinstance(port, NotImplementedError)
         assert "ROADMAP.md Queue 1 item" in str(port)

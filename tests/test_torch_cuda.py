@@ -507,6 +507,98 @@ def test_simulator_primal_cg_does_not_sync_the_host(cuda):
     torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module: its jax-pinned PRNG values (checked
+    against jax on the CPU by tests/test_torch_prng.py)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_prng_on_card_is_bitwise_the_cpu_and_jax(cuda):
+    """The threefry draws on the card: the CPU's bits, and jax's pinned
+    values, for (4,), (20,), (20, 4096) and an odd size above 2^16."""
+    from repro_torch.core import prng
+    smoke = _chip_smoke()
+    for seed, folds, shape, key_want, bits_want in smoke.JAX_PRNG_PINS:
+        key = prng.PRNGKey(seed)
+        for f in folds:
+            key = prng.fold_in(key, f)
+        assert key == key_want
+        bits = prng.random_bits(key, shape, cuda).cpu()
+        assert torch.equal(bits, prng.random_bits(key, shape, "cpu"))
+        flat = bits.reshape(-1)
+        assert {i: int(flat[i]) for i in bits_want} == bits_want
+        u = prng.uniform(key, shape, cuda).cpu()
+        assert torch.equal(u.view(torch.int32),
+                           prng.uniform(key, shape, "cpu").view(torch.int32))
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(0), 3), (4,), cuda).cpu()
+    assert tuple(int(v) for v in u.view(torch.int32)) == smoke.JAX_UNIFORM_PIN
+
+
+def test_chain_fits_on_card_match_cpu(cuda):
+    """Chain([Censor, Quantize, Drop]) on the simulator, spmd, the
+    megakernel path (K2 twice per iteration) and the fused fallback (K3
+    once per iteration), card against CPU: comms and bits equal, every
+    quantizer difference a rounding flip (the same draw between the two
+    runs' fractional parts), theta within 1e-5 plus the flipped
+    coordinates' steps (`chip_smoke.quantizer_flips`). The fit loops run
+    with host syncs raising."""
+    import importlib
+
+    from repro_torch.api import Censor, Chain, Drop, Quantize
+    fit_mod = importlib.import_module("repro_torch.api.fit")
+    smoke = _chip_smoke()
+    chain = Chain([Censor(0.3, 0.97), Quantize(bits=5, seed=7),
+                   Drop(p=0.15, seed=11)])
+    cfg = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                  num_features=32, lam=1e-2, rho=0.1),
+                    graph="ring", comm=chain, num_iters=20,
+                    primal="gradient", inner_steps=1, inner_lr=0.05)
+    built = build_problem(cfg, device="cpu")
+    logistic = _classification(built.problem, "logistic")
+    cases = [(b, alg, built.problem) for b in ("simulator", "spmd", "fused")
+             for alg in ("coke", "dkla")]
+    cases += [("fused", alg, logistic) for alg in ("coke", "dkla")]
+    real_scan = fit_mod._chunked_scan
+
+    def strict_scan(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_scan(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    fit_mod._chunked_scan = strict_scan
+    try:
+        for backend, alg, prob in cases:
+            c = cfg.replace(algorithm=alg, backend=backend)
+            with smoke.QuantizerRecord() as rec_cpu:
+                cpu = fit(c, problem=prob, device="cpu")
+            before = (k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES)
+            with smoke.QuantizerRecord() as rec_gpu:
+                gpu = fit(c, problem=prob, device=cuda)
+            rose = (k2.LAUNCHES - before[0],
+                    k2.FUSED_UPDATE_LAUNCHES - before[1])
+            want = {("fused", "quadratic"): (40, 0),
+                    ("fused", "logistic"): (0, 20)}.get((backend, prob.loss),
+                                                        (0, 0))
+            assert rose == want, (backend, alg, prob.loss, rose)
+            for k in ("comms", "bits"):
+                np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                              cpu.history[k].numpy())
+            _, _, steps = smoke.quantizer_flips(rec_gpu, rec_cpu)
+            torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                       atol=smoke.SMALL_THETA_TOL + steps)
+    finally:
+        fit_mod._chunked_scan = real_scan
+
+
 # K4: fp32 scores and an online softmax against the plain version's full
 # softmax, both in fp32 (the reference's own tolerance, test_kernels.py);
 # bf16 outputs may differ by an ulp of bf16 (2^-7 relative) after rounding

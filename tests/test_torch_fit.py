@@ -371,18 +371,16 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
 OUT_OF_SLICE = {
     "spmd-gossip": lambda cfg: dict(config=cfg.replace(
         backend="spmd", exec="gossip", participation=0.5)),
-    "quantize": lambda cfg: dict(config=cfg.replace(
-        censor_v=None, censor_mu=None,
-        comm=Chain([Censor(0.3, 0.97), Quantize(bits=5)]))),
-    "drop": lambda cfg: dict(config=cfg.replace(
-        censor_v=None, censor_mu=None, comm=Drop(p=0.1))),
     "gossip": lambda cfg: dict(config=cfg.replace(exec="gossip",
                                                   participation=0.5)),
-    "topology": lambda cfg: dict(config=cfg.replace(topology=object())),
+    # on spmd: the reference rejects personalization on fused (ValueError,
+    # tests/test_torch_capabilities.py)
     "personalization": lambda cfg: dict(config=cfg.replace(
-        personalization=object())),
+        backend="spmd", personalization=object())),
     "mesh": lambda cfg: dict(config=cfg, mesh=object()),
-    "online": lambda cfg: dict(config=cfg.replace(algorithm="online_coke")),
+    # on the simulator: the reference's online solvers run only there
+    "online": lambda cfg: dict(config=cfg.replace(algorithm="online_coke",
+                                                  backend="simulator")),
 }
 
 
@@ -395,15 +393,89 @@ def test_out_of_slice_configs_raise_not_implemented(case, built):
 
 @pytest.mark.parametrize("what", ["fit_stream", "sweep", "heterogeneous"])
 def test_other_entry_points_raise_not_implemented(what):
-    cfg = _configs()[1]
+    # configs the reference admits: a streaming solver for fit_stream, the
+    # simulator for sweep (elsewhere both give the reference's ValueError)
+    cfg = _configs()[1].replace(backend="simulator")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if what == "fit_stream":
-            fit_stream(cfg)
+            fit_stream(cfg.replace(algorithm="online_coke"))
         elif what == "sweep":
             sweep(cfg)
         else:
             build_problem(cfg.replace(krr=dataclasses.replace(
                 cfg.krr, dataset="heterogeneous")), device="cpu")
+
+
+#: configs that raised NotImplementedError before Quantize, Drop and
+#: topology schedules were ported, now run against the reference
+FORMERLY_OUT_OF_SLICE = {
+    "quantize": dict(censor_v=None, censor_mu=None,
+                     comm=("Chain", (("Censor", 0.3, 0.97),
+                                     ("Quantize", 5)))),
+    "drop": dict(censor_v=None, censor_mu=None,
+                 comm=("Chain", (("Drop", 0.1),))),
+    # N=4 has one non-degenerate circulant; the simulator cycles a ring
+    # and the complete graph (test_torch_topology.py cycles at N=6)
+    "topology-simulator": dict(backend="simulator", topology="ring|full"),
+    "topology-spmd": dict(backend="spmd", topology=((1,),)),
+    "topology-fused": dict(topology=((1,),)),
+}
+
+
+def _both_kw(case):
+    """(reference kw, port kw) of a FORMERLY_OUT_OF_SLICE case."""
+    from repro.api import Drop as JDrop
+    from repro.api import Quantize as JQuantize
+    from repro.api import TopologySchedule as JTopologySchedule
+    from repro_torch.core.graph import TopologySchedule
+
+    jkw, tkw = dict(FORMERLY_OUT_OF_SLICE[case]), dict(
+        FORMERLY_OUT_OF_SLICE[case])
+    if "comm" in jkw:
+        make = {"Censor": (JCensor, Censor), "Quantize": (JQuantize,
+                                                          Quantize),
+                "Drop": (JDrop, Drop)}
+        stages = jkw["comm"][1]
+        jkw["comm"] = JChain([make[n][0](*a) for n, *a in stages])
+        tkw["comm"] = Chain([make[n][1](*a) for n, *a in stages])
+    n = KRR["num_agents"]
+    if jkw.get("topology") == "ring|full":
+        graphs = [jax_graph.ring(n), jax_graph.fully_connected(n)]
+        jkw["topology"] = JTopologySchedule.from_graphs(graphs)
+        tkw["topology"] = convert.topology_from_reference(
+            np.asarray(jkw["topology"].adjacencies), device="cpu")
+    elif "topology" in jkw:
+        jkw["topology"] = JTopologySchedule.circulant_cycle(n,
+                                                            jkw["topology"])
+        tkw["topology"] = TopologySchedule.circulant_cycle(n,
+                                                           tkw["topology"])
+    return {**BASE, **jkw}, {**BASE, **tkw}
+
+
+@pytest.mark.parametrize("case", sorted(FORMERLY_OUT_OF_SLICE))
+def test_chain_and_schedule_configs_match_the_reference(case, built,
+                                                        monkeypatch):
+    """Quantize and Drop on the megakernel path, a schedule on spmd: comms
+    and bits exact, the rest within 1e-5; a schedule on the fused backend
+    raises the reference's ValueError (its fallback's kernel takes a fixed
+    degree)."""
+    monkeypatch.setattr(jax_backends, "_MEGASTEP_USE_KERNEL", False)
+    jkw, tkw = _both_kw(case)
+    if case == "topology-fused":
+        with pytest.raises(ValueError) as ref_err:
+            jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **jkw),
+                    problem=built[0].problem)
+        with pytest.raises(ValueError) as port_err:
+            fit(FitConfig(krr=KRRConfig(**KRR), **tkw), problem=built[1],
+                device="cpu")
+        assert "static" in str(port_err.value)
+        assert str(port_err.value) == str(ref_err.value)
+        return
+    ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **jkw),
+                  problem=built[0].problem)
+    port = fit(FitConfig(krr=KRRConfig(**KRR), **tkw), problem=built[1],
+               device="cpu")
+    _assert_history_match(ref, port, case)
 
 
 def test_fused_rejects_a_non_circulant_graph(built):

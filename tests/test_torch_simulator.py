@@ -457,10 +457,45 @@ def test_coke_step_matches_reference(mode):
                                    err_msg=f)
 
 
-def test_coke_step_with_a_topology_raises_not_implemented(small):
-    st = port_admm.init_state(small[1])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_admm.coke_step(small[1], None, st, topology=object())
+@pytest.mark.parametrize("mode", ["cholesky-stack", "gradient"])
+def test_coke_step_with_a_topology_matches_reference(mode):
+    """Four iterations of `coke_step` under a two-graph schedule (an
+    Erdos-Renyi graph and a ring): with the (M, N, D, D) factor stack the
+    step picks the active graph's factors, without it the gradient primal
+    runs on the active graph."""
+    rng = np.random.default_rng(5)
+    n, t, d = 6, 20, 12
+    phi = (0.3 * rng.standard_normal((n, t, d))).astype(np.float32)
+    y = rng.standard_normal((n, t)).astype(np.float32)
+    graphs = [jax_graph.erdos_renyi(n, 0.5, seed=2), jax_graph.ring(n)]
+    jtopo = jax_graph.TopologySchedule.from_graphs(graphs)
+    topo = convert.topology_from_reference(np.asarray(jtopo.adjacencies),
+                                           device="cpu")
+    jprob, tprob = _both_problems(phi, y, np.asarray(graphs[0].adjacency,
+                                                     np.float32))
+    jpol, pol = JCensorSchedule(0.05, 0.9), CensorSchedule(0.05, 0.9)
+    jst = jax_admm.init_state(jprob, policy=jpol)
+    st = port_admm.init_state(tprob, policy=pol)
+    jchol = chol = None
+    if mode == "cholesky-stack":
+        jchol = jax.vmap(lambda a: jax_admm._ridge_factors(
+            dataclasses.replace(jprob, adjacency=a)))(jtopo.adjacencies)
+        chol = torch.stack([port_admm._ridge_factors(
+            dataclasses.replace(tprob, adjacency=a))
+            for a in topo.adjacencies])
+        np.testing.assert_allclose(_np(chol), np.asarray(jchol), atol=TOL)
+    for _ in range(4):
+        jst = jax_admm.coke_step(jprob, jpol, jst, jchol, inner_steps=10,
+                                 topology=jtopo)
+        st = port_admm.coke_step(tprob, pol, st, chol, inner_steps=10,
+                                 topology=topo)
+    assert int(st.comms) == int(jst.comms)
+    np.testing.assert_array_equal(_np(st.comm.bits),
+                                  np.asarray(jst.comm.bits))
+    for f in ("theta", "theta_hat", "gamma"):
+        np.testing.assert_allclose(_np(getattr(st, f)),
+                                   np.asarray(getattr(jst, f)), atol=TOL,
+                                   err_msg=f)
 
 
 def test_cta_step_matches_reference():
@@ -677,7 +712,6 @@ def test_registry_runs_every_ported_solver_behind_the_contract():
 def test_simulator_still_raises_for_unported_axes(small):
     cfg = FitConfig(krr=KRRConfig(**KRR), **BASE)
     for over, item in ((dict(exec="gossip", participation=0.5), "item 10"),
-                       (dict(topology=object()), "item 7"),
                        (dict(personalization=object()), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             fit(cfg.replace(**over), problem=small[1], device="cpu")
