@@ -110,8 +110,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      with the chain on every backend; then the chain megakernel, chain
      fallback and spmd schedule iterations beside the plain ones, with
      launches per iteration by the profiler.
-Before each of phases 4-6, 10, each part of 12 and each path of 13 every
-launch counter is set to 0, and read just after.
+ 14. sweep (`sweep_phase`), every grid loop under
+     set_sync_debug_mode("error"): G=8 keys in one draw bitwise 8 single
+     draws; small sweeps (pairs, (v, mu, bits) with an inf lane, a
+     Censor+Quantize+Drop chain; coke, dkla, cta) card vs CPU, comms and
+     bits equal, theta within 1e-5 plus the rounding flips' steps; a fused
+     evaluate of the grid launches K1 once; paper_comm_cost's censor grid
+     (7 cells) and bits curve (8 cells) at its shape, 1200 iterations, each
+     lane's comms and bits equal its own fit's (theta through a float64
+     sweep); the bits-curve cells at the crossover width, under one shared
+     factor stack (peak memory held), then a fused evaluate on the 30 000
+     held-out rows (K1 once); ms and launches per grid iteration at G=1 and
+     G=7 beside one fit's, and the factorization once.
+ 15. streaming (`stream_phase`): the three online solvers on the simulator
+     and spmd, small, card vs CPU with the chain (flips counted);
+     paper_online.run_curve's defaults (N=10, b=8, D=64, 1200 rounds);
+     a full-width stream (N=20 ring, D=4096, b=64, 100 rounds, 2.10 GB of
+     features) for online_coke and qc_odkla with Censor+Quantize(4) on
+     both backends (comms and bits equal across them); ms and launches per
+     round; partial_fit of the deployed model, whose fused predict
+     launches K1 once. K2, K3 and K4 never move in phases 14-15.
+Before each of phases 4-6, 10, each part of 12 and each path of 13-15
+every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -284,6 +304,31 @@ FUSED_SCHEDULE_ERROR = (
     "the fused coke_update kernel bakes the graph degree in as a static "
     "parameter; offset_schedule (time-varying topology) requires "
     "use_fused_kernel=False")
+# phase 14, sweep: benchmarks/paper_comm_cost.py's grids at its shape
+# (PAPER_SETUPS["synthetic"], samples_override=600: N=20 on an Erdos-Renyi
+# p=0.3 graph, 420 train rows per agent, L=100, Cholesky, 1200
+# iterations): run_setup's GRID, and run_bits_curve's BITS_CENSORS x
+# BITS_WIDTHS; the latter 8 cells also at the crossover width
+# (SIM_CROSSOVER_D on phase 4's ring, SIM_BIG_D_ITERS iterations)
+SWEEP_ITERS = 1200
+SWEEP_SAMPLES = 600
+PAPER_GRID = ((0.5, 0.98), (0.5, 0.99), (0.1, 0.995), (0.05, 0.997),
+              (0.02, 0.998), (0.01, 0.999), (0.05, 0.999))
+BITS_CENSORS = ((0.5, 0.98), (0.1, 0.995), (0.05, 0.997), (0.01, 0.999))
+BITS_WIDTHS = (float("inf"), 4.0)
+# phase 15, streams: benchmarks/paper_online.py::run_curve's defaults, then
+# a stream at the fit cells' width (N_AGENTS on a ring, FEATURES) with
+# STREAM_WIDE_BATCH rows per agent per round
+# two runs of one policy that part on a knife-edge send decision or a
+# rounding flip are held by their accuracy: the mean train (or
+# instantaneous) MSE over their last tenth of rounds within 1%, the
+# no-loss gap of SweepResult.select
+PARTED_MSE_RTOL = 0.01
+STREAM_SOLVERS = ("online_dkla", "online_coke", "qc_odkla")
+ONLINE = dict(rounds=1200, num_agents=10, batch=8, features=64, v=0.2,
+              mu=0.995, bits=4.0, lr=0.3)
+STREAM_WIDE_ROUNDS = 100
+STREAM_WIDE_BATCH = 64
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -963,6 +1008,118 @@ def quantizer_flips(a: QuantizerRecord, b: QuantizerRecord):
     return flips, draws, steps
 
 
+def first_flip(a: QuantizerRecord, b: QuantizerRecord):
+    """The 1-based round of the first rounding flip between two runs of
+    one chain (their draws equal; see `quantizer_flips`), or None."""
+    for j, ((xa, ua, _), (xb, ub, _)) in enumerate(zip(a.calls, b.calls)):
+        if not torch.equal(ua.cpu(), ub.cpu()):
+            raise AssertionError("the two runs drew different numbers")
+        xa, ua, xb = (t.cpu().double() for t in (xa, ua, xb))
+        if bool((torch.ceil(xa - ua) != torch.ceil(xb - ua)).any()):
+            return j + 1
+    return None
+
+
+class CensorRecord:
+    """Records every censor decision while active: the norms
+    ||theta_hat - theta|| (formed by the same ops as the decision, so with
+    the same bits) and the threshold h(k), as device tensors read after
+    the run. `lane(g)` gives a sweep lane's record."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core import comm as comm_mod
+        self._mod = comm_mod
+        real = self._real = comm_mod.censor_decision
+        calls = self.calls
+
+        def decide(theta, prev, threshold):
+            xi = prev - theta
+            calls.append((torch.sqrt(torch.sum(xi * xi, dim=-1)),
+                          threshold))
+            return real(theta, prev, threshold)
+
+        comm_mod.censor_decision = decide
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.censor_decision = self._real
+
+    def lane(self, g: int) -> "CensorRecord":
+        out = CensorRecord()
+        out.calls = [(n[g], h[g]) for n, h in self.calls]
+        return out
+
+
+def first_censor_flip(a: CensorRecord, b: CensorRecord):
+    """(1-based round, relative margin) of the first send decision on
+    which two runs of one policy part, or (None, None). The margin is the
+    largest |norm - h(k)| / h(k) of the parted agents in either run: a
+    decision parts only where the two runs' norms straddle the
+    threshold."""
+    for j, ((na, ha), (nb, hb)) in enumerate(zip(a.calls, b.calls)):
+        na, nb = na.cpu().double(), nb.cpu().double()
+        ha = torch.as_tensor(ha).cpu().double()
+        hb = torch.as_tensor(hb).cpu().double()
+        parted = (na >= ha) != (nb >= hb)
+        if bool(parted.any()):
+            margin = max(float(((n - h).abs() / h)[parted].max())
+                         for n, h in ((na, ha), (nb, hb)))
+            return j + 1, margin
+    return None, None
+
+
+def hold_until_parted(tag, ha, hb, cens_a, cens_b, quant_a=None,
+                      quant_b=None) -> tuple[bool, str]:
+    """comms and bits of two runs of one policy (a sweep lane and its fit,
+    or two backends), equal until the two runs part: at the first send
+    decision taken on either side of h(k) (the runs' fp32 roundings
+    differ in the last bits, and over many rounds a margin falls within
+    them), or after the first rounding flip of a stochastic quantizer
+    (that round's sends precede its quantizer and still agree). With
+    neither, equal throughout. Returns (whether they parted, what
+    happened, for the log). Runs that parted are two valid trajectories
+    of one problem, held by `parted_mse`."""
+    k_dec, margin = first_censor_flip(cens_a, cens_b)
+    k_q = None if quant_a is None else first_flip(quant_a, quant_b)
+    ends = [k for k in (None if k_dec is None else k_dec - 1, k_q)
+            if k is not None]
+    end = min(ends) if ends else None
+    for key in ("comms", "bits"):
+        if not torch.equal(ha[key][:end].cpu(), hb[key][:end].cpu()):
+            raise AssertionError(f"{tag}: {key} part before the runs do "
+                                 f"(round {end})")
+    notes = []
+    if k_dec is not None:
+        notes.append(f"a send decision parts in round {k_dec} at "
+                     f"|norm - h| / h = {margin:.1e}")
+    if k_q is not None:
+        notes.append(f"the first rounding flip in round {k_q}")
+    if not notes:
+        return False, "comms and bits equal throughout"
+    same = torch.equal(ha["comms"].cpu(), hb["comms"].cpu())
+    return True, (f"comms and bits equal through round {end} ("
+                  + "; ".join(notes) + ")"
+                  + ("; comms equal to the end" if same else ""))
+
+
+def parted_mse(tag, ha, hb, key="train_mse"):
+    """Two runs that parted (`hold_until_parted`) must reach the same
+    accuracy: the mean of `key` over their last tenth of rounds within
+    PARTED_MSE_RTOL, the repo's own rule for cells of equal accuracy
+    (`SweepResult.select`'s max_mse_gap). Returns the relative gap."""
+    tail = max(1, ha[key].shape[0] // 10)
+    a = float(ha[key][-tail:].double().mean())
+    b = float(hb[key][-tail:].double().mean())
+    gap = abs(a - b) / abs(b)
+    if not gap <= PARTED_MSE_RTOL:
+        raise AssertionError(f"{tag}: the parted runs' {key} differ by "
+                             f"{gap:.2e}")
+    return gap
+
+
 def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
                         coke4, built, log_problem, log_cfg, small,
                         small_problem, small_logistic):
@@ -1324,6 +1481,585 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
         n = sum(r[1] for r in rows) if rows else None
         log(13, f"[{card}] one prng.uniform{shape}: {pair(d_h)}, {fmt(n)} "
                 "launches (the plain-PyTorch threefry)")
+
+
+class LaneQuantizerRecord(QuantizerRecord):
+    """QuantizerRecord for a sweep's lanes: records every
+    `Quantize.transform_lanes` call, (G, N, D), with its lanes at bits=inf
+    zeroed (they keep their payload; their x is not finite). `lane(g)`
+    gives lane g's record, comparable with a fit's QuantizerRecord."""
+
+    def __enter__(self):
+        from repro_torch.core import prng
+        real = self._real = self._cls.transform_lanes
+        calls = self.calls
+
+        def transform_lanes(stage, payload, prev, levels, finite, key):
+            if stage.stochastic:
+                innov = payload - prev
+                scale = torch.amax(torch.abs(innov), dim=-1, keepdim=True)
+                safe = torch.where(scale > 0, scale, 1.0)
+                ok = torch.isfinite(levels)
+                x = torch.where(ok, innov / safe * levels, 0.0)
+                u = prng.uniform(key, x.shape[1:], x.device)
+                calls.append((x, torch.where(ok, u, 0.0),
+                              torch.where(ok, safe / levels, 0.0)
+                              .expand_as(x)))
+            return real(stage, payload, prev, levels, finite, key)
+
+        self._cls.transform_lanes = transform_lanes
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.transform_lanes = self._real
+
+    def lane(self, g: int) -> QuantizerRecord:
+        out = QuantizerRecord()
+        out.calls = [(x[g], u[g], s[g]) for x, u, s in self.calls]
+        return out
+
+
+class StrictLoops:
+    """While active, every simulator chunk (of fit, fit_stream and sweep)
+    and every spmd stream chunk runs under
+    torch.cuda.set_sync_debug_mode("error"): a host sync inside an
+    iteration raises. Set-up (factors, tables, the problem) may sync."""
+
+    def __enter__(self):
+        import importlib
+        self._mods = (importlib.import_module("repro_torch.api.fit"),
+                      importlib.import_module("repro_torch.api.backends"))
+        self._real = (self._mods[0]._simulator_chunk,
+                      self._mods[1]._stream_chunk)
+
+        def strict(real):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return real(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return run
+
+        self._mods[0]._simulator_chunk = strict(self._real[0])
+        self._mods[1]._stream_chunk = strict(self._real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0]._simulator_chunk = self._real[0]
+        self._mods[1]._stream_chunk = self._real[1]
+
+
+def loop_of(runner, steps=10):
+    """`steps` more iterations of a (carry0, chunk_fn, theta_fn) runner per
+    call, from a carry two iterations in."""
+    carry0, chunk_fn, _ = runner
+    st = {"c": chunk_fn(carry0, 2)[0]}
+
+    def run():
+        st["c"] = chunk_fn(st["c"], steps)[0]
+    return run
+
+
+def per_iteration(card, phase, what, fn, steps=10):
+    """Time `fn` (`steps` iterations per call): device and host ms per
+    iteration from one window, and kernels and launches per iteration by
+    the profiler. Returns (device ms, host ms, launches or None)."""
+    d_h = paired_ms(fn, steps)
+    rows = profiled_kernels(fn, calls=1)
+    launches = sum(r[1] for r in rows) / steps if rows else None
+    busy = sum(r[0] for r in rows) / steps if rows else None
+    log(phase, f"[{card}] {what}: {d_h[0]:.4f} ms on the device / "
+               f"{d_h[1]:.4f} ms host enqueue per iteration; "
+               + ("launches and kernel time not measured (the profiler "
+                  "recorded no device rows)" if rows == [] else
+                  f"{launches:.1f} launches and {busy:.4f} ms of kernels "
+                  f"per iteration ({busy / d_h[0]:.1%} busy)"))
+    return d_h[0], d_h[1], launches
+
+
+def fit_kernels_idle(counts, what):
+    """K2, K3 and K4 never run on the sweep and stream paths."""
+    moved = {k: v for k, v in counts().items()
+             if v and k != "rff_cos_bias"}
+    if moved:
+        raise AssertionError(f"{what} launched {moved}")
+
+
+def k1_once(counts, what, fn):
+    """Run `fn` and require exactly one K1 launch in it."""
+    before = counts()["rff_cos_bias"]
+    out = fn()
+    torch.cuda.synchronize()
+    moved = counts()["rff_cos_bias"] - before
+    if moved != 1:
+        raise AssertionError(f"{what}: K1 launched {moved} times, not once")
+    return out
+
+
+def sweep_phase(dev, card, reset_counts, counts, *, krr):
+    """Phase 14: `sweep`, a policy grid as one lane-batched simulator loop
+    (no kernel in the loop; K1 once per fused evaluate of the grid).
+    `krr` is phase 4's KRRConfig: the crossover cell is cut from it."""
+    from repro_torch.api import (PAPER_SETUPS, Censor, Chain, Drop,
+                                 FitConfig, KRRConfig, Quantize,
+                                 build_problem, fit, get_solver, sweep)
+    from repro_torch.api.config import SolveContext
+    from repro_torch.api.fit import _simulator_runner
+    from repro_torch.core import admm, prng
+    from repro_torch.core import comm as comm_mod
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def lanes_runner(cfg, prob, cells):
+        ctx = dataclasses.replace(SolveContext.from_config(cfg),
+                                  comm=comm_mod.stack_policies(cells))
+        return _simulator_runner(get_solver(cfg.algorithm), prob, ctx, None)
+
+    def fit_runner(cfg, prob, cell):
+        ctx = dataclasses.replace(SolveContext.from_config(cfg),
+                                  comm=comm_mod.as_chain(cell))
+        return _simulator_runner(get_solver(cfg.algorithm), prob, ctx, None)
+
+    def cells_of(grid):
+        return [Chain([Censor(*c[:2])] + ([Quantize(c[2])] if len(c) == 3
+                                           else [])) for c in grid]
+
+    # ---- (a) G keys at once: bitwise G single draws, on the card and CPU
+    keys = [prng.fold_in(prng.PRNGKey(s), 7 * s + 1) for s in range(8)]
+    batched = torch.tensor(keys, dtype=torch.int64, device=dev)
+    for shape in ((N_AGENTS,), (N_AGENTS, 100), (N_AGENTS, FEATURES)):
+        u = prng.uniform(batched, shape, dev).cpu()
+        for g, key in enumerate(keys):
+            if not torch.equal(u[g].view(torch.int32), prng.uniform(
+                    key, shape, "cpu").view(torch.int32)):
+                raise AssertionError(f"lane draw {g} {shape} differs from "
+                                     "the single draw")
+    log(14, f"G=8 keys in one draw on the card, shapes (20,), (20, 100), "
+            f"(20, 4096): each lane bitwise the single draw on the CPU")
+
+    # ---- (b) small sweeps, card against CPU; K1 once per evaluate -------
+    reset_counts()
+    small = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                    num_features=32, lam=1e-2, rho=0.1),
+                      graph="ring", num_iters=40, censor_v=None,
+                      censor_mu=None)
+    sb = build_problem(small, device="cpu")
+    pairs = [(0.3, 0.97), (0.05, 0.9), (1.0, 0.99)]
+    bits = [(v, mu, b) for b in BITS_WIDTHS
+            for v, mu in ((0.3, 0.97), (0.05, 0.9))]
+    drop = [Chain([Censor(v, 0.97), Quantize(5.0, seed=7), Drop(p)])
+            for v, p in ((0.3, 0.0), (0.3, 0.2), (0.05, 0.5))]
+    with StrictLoops():
+        for alg, name, grid in (("coke", "pairs", pairs),
+                                ("coke", "(v, mu, bits)", bits),
+                                ("dkla", "(v, mu, bits)", bits),
+                                ("coke", "chain", drop),
+                                ("cta", "pairs", pairs)):
+            c = small.replace(algorithm=alg, cta_lr=0.05)
+            with LaneQuantizerRecord() as rec_cpu:
+                cpu = sweep(c, grid, problem=sb.problem, device="cpu")
+            with LaneQuantizerRecord() as rec_gpu:
+                gpu = sweep(c, grid, problem=sb.problem, device=dev)
+            for k in ("comms", "bits"):
+                if not torch.equal(gpu.history[k].cpu(), cpu.history[k]):
+                    raise AssertionError(f"small {alg} sweep {name}: {k} "
+                                         "differs card vs CPU")
+            flips, draws, steps = quantizer_flips(rec_gpu, rec_cpu)
+            e = theta_err(gpu.thetas, cpu.thetas)
+            tol = SMALL_THETA_TOL + steps
+            log(14, f"small {alg} sweep over {len(grid)} {name} cells (N=4 "
+                    f"ring, D=32, 40 iterations) card vs CPU: comms "
+                    f"{gpu.history['comms'][:, -1].tolist()} and bits equal; "
+                    f"{flips} rounding flips in {draws} stochastic roundings; "
+                    f"theta max|err| {e:.3e} (tol {SMALL_THETA_TOL:g} + the "
+                    f"flips' steps = {tol:.3e})")
+            if not e <= tol:
+                raise AssertionError(f"small {alg} sweep {name}: theta")
+    fit_kernels_idle(counts, "the small sweeps")
+    rff = sb.rff_params.to(dev)
+    ev = k1_once(counts, "small sweep evaluate(backend='fused')",
+                 lambda: gpu.evaluate(sb.x_test, sb.y_test, backend="fused",
+                                      rff_params=rff))
+    ev_ref = gpu.evaluate(sb.x_test, sb.y_test, rff_params=rff)
+    err = float((ev["test_mse"] - ev_ref["test_mse"]).abs().max()
+                / ev_ref["test_mse"].abs().min())
+    idx, model = gpu.select(sb.x_test, sb.y_test, rff_params=rff)
+    k1_once(counts, "predict on a sweep cell's model",
+            lambda: model.predict(sb.x_test[0], backend="fused"))
+    log(14, f"small sweep evaluate(backend='fused'): K1 1 launch for "
+            f"{len(gpu)} cells; test_mse rtol {err:.2e} against the plain "
+            f"featurizer; select -> cell {idx}, whose model predicts "
+            "through K1 (1 launch)")
+    if not err <= 1e-4:
+        raise AssertionError("fused and ref evaluate of a sweep differ")
+
+    # ---- (c) the paper's censor grid: paper_comm_cost.run_setup ---------
+    reset_counts()
+    base = FitConfig(algorithm="coke", krr=PAPER_SETUPS["synthetic"],
+                     num_iters=SWEEP_ITERS)
+    paper = build_problem(base, samples_override=SWEEP_SAMPLES, device=dev)
+    pp = paper.problem
+    n, t, d = pp.feats.shape
+    p64 = dataclasses.replace(pp, feats=pp.feats.double(),
+                              labels=pp.labels.double(),
+                              adjacency=pp.adjacency.double())
+    with StrictLoops():
+        t0 = time.perf_counter()
+        sw = sweep(base, PAPER_GRID, problem=pp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sw64 = sweep(base, PAPER_GRID, problem=p64, device=dev)
+        t0 = time.perf_counter()
+        fits = [fit(sw.cell_config(g), problem=pp, device=dev)
+                for g in range(len(sw))]
+        torch.cuda.synchronize()
+        wall_fits = time.perf_counter() - t0
+        # the same runs again, their send decisions recorded
+        with CensorRecord() as cens_lanes:
+            sweep(base, PAPER_GRID, problem=pp, device=dev)
+        cens_fits = []
+        for g in range(len(sw)):
+            with CensorRecord() as rec:
+                fit(sw.cell_config(g), problem=pp, device=dev)
+            cens_fits.append(rec)
+    for g, f in enumerate(fits):
+        lane = {k: v[g] for k, v in sw.history.items()}
+        parted, held = hold_until_parted(f"paper sweep cell {g}", lane,
+                                         f.history, cens_lanes.lane(g),
+                                         cens_fits[g])
+        e_lane = theta_err(sw.thetas[g], sw64.thetas[g])
+        e_fit = theta_err(f.theta, sw64.thetas[g])
+        e_mse = float(((sw.history["train_mse"][g] - f.train_mse).abs()
+                       / f.train_mse.abs()).max())
+        log(14, f"paper sweep cell {g} {PAPER_GRID[g]}: comms "
+                f"{int(lane['comms'][-1])}/{n * SWEEP_ITERS} (fit "
+                f"{int(f.comms[-1])}): {held}; train_mse "
+                f"{float(f.train_mse[-1]):.6f} (lane vs fit rtol "
+                f"{e_mse:.2e}); theta max|err| from the float64 sweep: lane "
+                f"{e_lane:.3e}, fit {e_fit:.3e}")
+        if parted:   # two valid trajectories: held by their accuracy
+            gap = parted_mse(f"paper sweep cell {g}", lane, f.history)
+            log(14, f"paper sweep cell {g}: lane and fit parted; their "
+                    f"train_mse over the last tenth differ by {gap:.2e} "
+                    f"(held at {PARTED_MSE_RTOL:g})")
+        elif not (e_lane <= SIM_F64_FACTOR * e_fit + SIM_F64_SLACK
+                  and e_mse <= SIM_MSE_RTOL):
+            raise AssertionError(f"paper sweep cell {g}: the lane is further "
+                                 "from the float64 run than its fit")
+    fit_kernels_idle(counts, "the paper sweep")
+    log(14, f"[{card}] paper sweep: {len(sw)} cells (N={n} Erdos-Renyi "
+            f"p=0.3, T={t}, L={d}, Cholesky, {SWEEP_ITERS} iterations) in "
+            f"{wall:.2f} s wall as one lane-batched loop; the {len(sw)} fits "
+            f"in turn {wall_fits:.2f} s")
+    paper_cells = cells_of(PAPER_GRID)
+    g1 = per_iteration(card, 14, f"paper sweep G=1 (N={n}, T={t}, L={d})",
+                       loop_of(lanes_runner(base, pp, paper_cells[:1])))
+    g7 = per_iteration(card, 14, f"paper sweep G={len(paper_cells)}",
+                       loop_of(lanes_runner(base, pp, paper_cells)))
+    one = per_iteration(card, 14, "one paper fit (no lanes)",
+                        loop_of(fit_runner(base, pp, paper_cells[0])))
+    log(14, f"[{card}] paper grid: one G={len(paper_cells)} iteration "
+            f"{g7[0]:.4f} ms against {len(paper_cells)} fit iterations in "
+            f"turn {len(paper_cells) * one[0]:.4f} ms "
+            f"({len(paper_cells) * one[0] / g7[0]:.2f}x); G=1 {g1[0]:.4f} "
+            "ms")
+
+    # ---- (d) the bits curve: paper_comm_cost.run_bits_curve -------------
+    reset_counts()
+    curve = [Chain([Censor(v, mu), Quantize(bits=b)]) for b in BITS_WIDTHS
+             for v, mu in BITS_CENSORS]
+    base_b = base.replace(censor_v=None, censor_mu=None)
+    with StrictLoops():
+        t0 = time.perf_counter()
+        swb = sweep(base_b, curve, problem=pp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with LaneQuantizerRecord() as q_lanes, CensorRecord() as c_lanes:
+            sweep(base_b, curve, problem=pp, device=dev)
+        for g in range(len(swb)):
+            with QuantizerRecord() as q_fit, CensorRecord() as c_fit:
+                f = fit(swb.cell_config(g), problem=pp, device=dev)
+            lane = {k: v[g] for k, v in swb.history.items()}
+            quantizes = math.isfinite(curve[g].stages[1].bits)
+            parted, held = hold_until_parted(
+                f"bits-curve cell {g}", lane, f.history, c_lanes.lane(g),
+                c_fit, q_lanes.lane(g) if quantizes else None,
+                q_fit if quantizes else None)
+            if parted:
+                gap = parted_mse(f"bits-curve cell {g}", lane, f.history)
+                held += f"; train_mse over the last tenth {gap:.2e} apart"
+            if quantizes:
+                flips, draws, _ = quantizer_flips(q_lanes.lane(g), q_fit)
+                held += f"; {flips} rounding flips in {draws} roundings"
+            log(14, f"bits-curve cell {g} {curve[g].describe()}: comms "
+                    f"{int(lane['comms'][-1])} (fit {int(f.comms[-1])}), "
+                    f"bits {float(lane['bits'][-1]):.0f}: {held}; train_mse "
+                    f"lane {float(lane['train_mse'][-1]):.6f} / fit "
+                    f"{float(f.train_mse[-1]):.6f}")
+    fit_kernels_idle(counts, "the bits-curve sweep")
+    log(14, f"[{card}] bits-curve sweep: {len(swb)} cells in {wall:.2f} s "
+            f"wall ({SWEEP_ITERS} iterations)")
+    per_iteration(card, 14, f"bits-curve sweep G={len(curve)}",
+                  loop_of(lanes_runner(base_b, pp, curve)))
+    per_iteration(card, 14, "one bits-curve fit, Quantize(4) (no lanes)",
+                  loop_of(fit_runner(base_b, pp, curve[-1])))
+
+    # ---- (e) the crossover width: one shared factor stack ---------------
+    reset_counts()
+    cross_cfg = FitConfig(krr=dataclasses.replace(
+        krr, num_features=SIM_CROSSOVER_D), graph="ring", algorithm="coke",
+        num_iters=SIM_BIG_D_ITERS, censor_v=None, censor_mu=None)
+    cb = build_problem(cross_cfg, device=dev)
+    cp = cb.problem
+    N, T, D = cp.feats.shape
+    grid = [(v, mu, b) for b in BITS_WIDTHS for v, mu in BITS_CENSORS]
+    stack = N * D * D * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with StrictLoops():
+        with LaneQuantizerRecord() as q_lanes, CensorRecord() as c_lanes:
+            swc = sweep(cross_cfg, grid, problem=cp, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        for g in range(len(swc)):
+            with QuantizerRecord() as q_fit, CensorRecord() as c_fit:
+                f = fit(swc.cell_config(g), problem=cp, device=dev)
+            lane = {k: v[g] for k, v in swc.history.items()}
+            quantizes = math.isfinite(grid[g][2])
+            parted, held = hold_until_parted(
+                f"crossover cell {g}", lane, f.history, c_lanes.lane(g),
+                c_fit, q_lanes.lane(g) if quantizes else None,
+                q_fit if quantizes else None)
+            if parted:
+                gap = parted_mse(f"crossover cell {g}", lane, f.history)
+                held += f"; train_mse over the last tenth {gap:.2e} apart"
+            log(14, f"crossover cell {g} {grid[g]} against its fit: {held}")
+    log(14, f"crossover sweep (N={N} ring, T={T}, D={D}, Cholesky, "
+            f"{len(grid)} (v, mu, bits) cells, {SIM_BIG_D_ITERS} iterations):"
+            f" comms {swc.history['comms'][:, -1].tolist()}; peak memory "
+            f"over the problem "
+            f"{peak / 1e9:.3f} GB, one factor stack {stack / 1e9:.3f} GB "
+            f"(G stacks would be {len(grid) * stack / 1e9:.3f} GB)")
+    if not peak < 2 * stack:
+        raise AssertionError("the crossover sweep held more than one "
+                             "factor stack")
+    fit_kernels_idle(counts, "the crossover sweep")
+    lanes = per_iteration(card, 14, f"crossover sweep G={len(grid)} (N={N},"
+                          f" T={T}, D={D})", loop_of(lanes_runner(
+                              cross_cfg, cp, cells_of(grid))))
+    single = per_iteration(card, 14, f"one crossover fit (N={N}, T={T}, "
+                           f"D={D})", loop_of(fit_runner(
+                               cross_cfg, cp, cells_of(grid)[0])))
+    fac = time_ms(lambda: admm._ridge_factors(cp), reps=1, runs=3,
+                  warmup=1)
+    log(14, f"[{card}] crossover: one G={len(grid)} iteration "
+            f"{lanes[0]:.4f} ms against {len(grid)} fit iterations in turn "
+            f"{len(grid) * single[0]:.4f} ms; the factorization, once per "
+            f"sweep: {fac:.4f} ms")
+    rows = cb.x_test.shape[0] * cb.x_test.shape[1]
+    ev = k1_once(counts, "crossover sweep evaluate(backend='fused')",
+                 lambda: swc.evaluate(cb.x_test, cb.y_test, backend="fused",
+                                      rff_params=cb.rff_params))
+    d_ev = time_ms(lambda: swc.evaluate(cb.x_test, cb.y_test,
+                                        backend="fused",
+                                        rff_params=cb.rff_params),
+                   reps=1, runs=5, warmup=1)
+    ev_ref = swc.evaluate(cb.x_test, cb.y_test, rff_params=cb.rff_params)
+    err = float((ev["test_mse"] - ev_ref["test_mse"]).abs().max()
+                / ev_ref["test_mse"].abs().min())
+    log(14, f"[{card}] crossover evaluate(backend='fused') on {rows} "
+            f"held-out rows for {len(swc)} cells: K1 1 launch, "
+            f"{d_ev:.4f} ms; test_mse rtol {err:.2e} against the plain "
+            "featurizer")
+    if not err <= 1e-4:
+        raise AssertionError("fused and ref evaluate of the crossover "
+                             "sweep differ")
+
+
+def stream_phase(dev, card, reset_counts, counts):
+    """Phase 15: `fit_stream` and `KernelModel.partial_fit`, the streaming
+    family on the simulator and spmd (no kernel in the rounds; K1 in the
+    refined model's fused predict)."""
+    from repro_torch.api import (PAPER_SETUPS, Censor, Chain, Drop,
+                                 FitConfig, KRRConfig, Quantize,
+                                 build_stream, fit_stream, get_solver)
+    from repro_torch.api.backends import stream_consensus_runner
+    from repro_torch.api.config import SolveContext
+    from repro_torch.api.fit import _simulator_runner
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def stream_runner(cfg, stream):
+        solver = get_solver(cfg.algorithm)
+        ctx = SolveContext.from_config(cfg)
+        if cfg.backend == "simulator":
+            return _simulator_runner(solver, stream, ctx, None)
+        return stream_consensus_runner(cfg, solver, stream, ctx)
+
+    # ---- (a) small streams, card against CPU ----------------------------
+    reset_counts()
+    small = FitConfig(krr=KRRConfig(num_agents=6, num_features=16,
+                                    lam=1e-2, rho=0.1),
+                      graph="ring", num_iters=40, online_batch=8,
+                      censor_v=None, censor_mu=None,
+                      comm=Chain([Censor(0.3, 0.99), Quantize(5.0, seed=7),
+                                  Drop(0.1, seed=11)]))
+    ss = build_stream(small, device="cpu").stream
+    with StrictLoops():
+        for backend in ("simulator", "spmd"):
+            for alg in STREAM_SOLVERS:
+                c = small.replace(algorithm=alg, backend=backend,
+                                  qc_eta=2.0 if alg == "qc_odkla" else None)
+                with QuantizerRecord() as rec_cpu:
+                    cpu = fit_stream(c, stream=ss, device="cpu")
+                with QuantizerRecord() as rec_gpu:
+                    gpu = fit_stream(c, stream=ss, device=dev)
+                for k in ("comms", "bits"):
+                    if not torch.equal(gpu.history[k].cpu(),
+                                       cpu.history[k]):
+                        raise AssertionError(f"small stream {backend} {alg}:"
+                                             f" {k} differs card vs CPU")
+                flips, draws, steps = quantizer_flips(rec_gpu, rec_cpu)
+                e = theta_err(gpu.theta, cpu.theta)
+                tol = SMALL_THETA_TOL + steps
+                log(15, f"small stream {alg} on {backend} (N=6 ring, D=16, "
+                        f"b=8, 40 rounds, Censor+Quantize(5)+Drop) card vs "
+                        f"CPU: comms {int(cpu.comms[-1])} and bits equal; "
+                        f"{flips} rounding flips in {draws} roundings; theta "
+                        f"max|err| {e:.3e} (tol {tol:.3e})")
+                if not e <= tol:
+                    raise AssertionError(f"small stream {backend} {alg}: "
+                                         "theta")
+    fit_kernels_idle(counts, "the small streams")
+
+    # ---- (b) paper_online.run_curve's defaults on the simulator ---------
+    reset_counts()
+    o = ONLINE
+    base = FitConfig(krr=KRRConfig(num_agents=o["num_agents"],
+                                   num_features=o["features"], lam=1e-3,
+                                   rho=5e-2, seed=0),
+                     censor_v=None, censor_mu=None, num_iters=o["rounds"],
+                     online_batch=o["batch"], online_lr=o["lr"])
+    bs = build_stream(base, device=dev).stream
+    R, N = o["rounds"], o["num_agents"]
+    runs = {}
+    for alg in STREAM_SOLVERS:
+        pol = [Censor(o["v"], o["mu"])] + ([Quantize(bits=o["bits"])]
+                                           if alg == "qc_odkla" else [])
+        c = base.replace(algorithm=alg, comm=Chain(pol))
+        with StrictLoops():
+            t0 = time.perf_counter()
+            r = fit_stream(c, stream=bs, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        h = {k: v.cpu() for k, v in r.history.items()}
+        check_history(f"online {alg}", h, R)
+        if alg != "qc_odkla":   # no quantizer: card and CPU run alike
+            cpu = fit_stream(c, stream=bs.to("cpu"), device="cpu")
+            for k in ("comms", "bits"):
+                if not torch.equal(h[k], cpu.history[k]):
+                    raise AssertionError(f"online {alg}: {k} differs card "
+                                         "vs CPU")
+        inst = h["instant_mse"].double()
+        regret = torch.cumsum(inst, 0) / torch.arange(1, R + 1)
+        runs[alg] = h
+        log(15, f"online {alg} (paper_online.run_curve: N={N} Erdos-Renyi "
+                f"p=0.3, b={o['batch']}, D={o['features']}, {R} rounds) in "
+                f"{wall:.2f} s wall: comms {int(h['comms'][-1])}/{N * R}, "
+                f"bits {float(h['bits'][-1]):.0f}; average regret "
+                f"{float(regret[9]):.5f} (round 10) -> "
+                f"{float(regret[-1]):.5f}"
+                + ("; comms and bits equal the CPU's"
+                   if alg != "qc_odkla" else ""))
+        per_iteration(card, 15, f"one {alg} round (N={N}, b={o['batch']}, "
+                      f"D={o['features']}, simulator)",
+                      loop_of(stream_runner(c, bs)))
+    if not (int(runs["online_dkla"]["comms"][-1]) == N * R
+            and int(runs["online_coke"]["comms"][-1]) < N * R
+            and float(runs["qc_odkla"]["bits"][-1])
+            < float(runs["online_dkla"]["bits"][-1])):
+        raise AssertionError("the online family's comms and bits are not "
+                             "ordered as censoring and quantization order "
+                             "them")
+    fit_kernels_idle(counts, "the online curve")
+
+    # ---- (c) a full-width stream on the simulator and spmd --------------
+    reset_counts()
+    wide = FitConfig(krr=dataclasses.replace(
+        PAPER_SETUPS["synthetic"], num_agents=N_AGENTS,
+        num_features=FEATURES), graph="ring", censor_v=None,
+        censor_mu=None, comm=Chain([Censor(0.2, 0.995), Quantize(4.0)]),
+        num_iters=STREAM_WIDE_ROUNDS, online_batch=STREAM_WIDE_BATCH)
+    wb = build_stream(wide, device=dev)
+    ws = wb.stream
+    R, N, b, D = ws.feats.shape
+    results = {}
+    for alg in ("online_coke", "qc_odkla"):
+        for backend in ("simulator", "spmd"):
+            c = wide.replace(algorithm=alg, backend=backend)
+            with StrictLoops(), QuantizerRecord() as rec, \
+                    CensorRecord() as cens:
+                t0 = time.perf_counter()
+                r = fit_stream(c, stream=ws, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            h = {k: v.cpu() for k, v in r.history.items()}
+            check_history(f"wide {alg} {backend}", h, R)
+            results[(alg, backend)] = (r, rec, cens)
+            log(15, f"wide {alg} on {backend} (N={N} ring, b={b}, D={D}, "
+                    f"{R} rounds, {ws.feats.numel() * 4 / 1e9:.2f} GB of "
+                    f"features) in {wall:.2f} s wall: comms "
+                    f"{int(h['comms'][-1])}/{N * R}, bits "
+                    f"{float(h['bits'][-1]):.0f}; instant_mse "
+                    f"{float(h['instant_mse'][0]):.5f} -> "
+                    f"{float(h['instant_mse'][-1]):.5f}")
+            per_iteration(card, 15, f"one wide {alg} round on {backend} "
+                          f"(N={N}, b={b}, D={D})",
+                          loop_of(stream_runner(c, ws)))
+        (sim, rs, cs_), (spmd, rp, cp_) = (results[(alg, "simulator")],
+                                           results[(alg, "spmd")])
+        parted, held = hold_until_parted(f"wide {alg}", sim.history,
+                                         spmd.history, cs_, cp_, rs, rp)
+        flips, draws, steps = quantizer_flips(rs, rp)
+        e = theta_err(sim.theta, spmd.theta)
+        if parted:
+            gap = parted_mse(f"wide {alg}", sim.history, spmd.history,
+                             key="instant_mse")
+            held += f"; instant_mse over the last tenth {gap:.2e} apart"
+        log(15, f"wide {alg}, the simulator against spmd: {held}; {flips} "
+                f"rounding flips in {draws} roundings; theta max|err| "
+                f"{e:.3e}" + ("" if parted else
+                              f" (tol {SMALL_THETA_TOL:g} + {steps:.3e})"))
+        if not parted and not e <= SMALL_THETA_TOL + steps:
+            raise AssertionError(f"wide {alg}: simulator and spmd theta")
+    fit_kernels_idle(counts, "the wide streams")
+
+    # ---- partial_fit: refine a deployed model, predict through K1 -------
+    model = results[("online_coke", "simulator")][0].to_model(wb.rff_params)
+    refined, res = model.partial_fit(ws, wide.replace(
+        algorithm="qc_odkla", num_iters=10))
+    check_history("partial_fit", {k: v.cpu() for k, v in
+                                  res.history.items()}, 10)
+    x = torch.as_tensor(wb.dataset.x[-1].reshape(-1, 5), device=dev)
+    y = torch.as_tensor(wb.dataset.y[-1].reshape(-1), device=dev)
+    preds = k1_once(counts, "the refined model's fused predict",
+                    lambda: refined.predict(x, backend="fused"))
+    ref_preds = refined.predict(x)
+    e = float((preds - ref_preds).abs().max())
+    mse = float(torch.mean((preds - y) ** 2))
+    log(15, f"partial_fit: 10 qc_odkla rounds warm-started from the wide "
+            f"online_coke model (meta warm_started="
+            f"{refined.meta['warm_started']}); fused predict on {x.shape[0]}"
+            f" rows through K1 (1 launch): max|fused - ref| {e:.3e}, mse "
+            f"{mse:.5f}")
+    if not (refined.meta["warm_started"] and e <= 1e-4):
+        raise AssertionError("partial_fit's refined model")
+    fit_kernels_idle(counts, "partial_fit")
 
 
 def main() -> int:
@@ -2485,6 +3221,12 @@ def main() -> int:
                         log_problem=log_problem, log_cfg=log_cfg,
                         small=small, small_problem=small_built.problem,
                         small_logistic=small_logistic)
+
+    # ---- 14. sweep: policy grids as one lane-batched loop ----------------
+    sweep_phase(dev, card, reset_counts, counts, krr=krr)
+
+    # ---- 15. streaming: fit_stream and partial_fit -----------------------
+    stream_phase(dev, card, reset_counts, counts)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,12 +9,17 @@
     y_hat = model.predict(x_new, backend="fused")
 
 Ported so far: `fit` on the simulator backend (`dkla`, `coke`, `cta`,
-`ridge_oracle`; the Cholesky, CG and gradient primals), on the fused
+`ridge_oracle`, and the streaming solvers over a rotating minibatch
+window; the Cholesky, CG and gradient primals), on the fused
 backend (the megakernel path for `dkla` and `coke`, and its fallback to
 the ring runtime on a non-quadratic loss or the CG primal) and on the spmd
 backend (`dkla`, `coke`, `cta`), each with any comm chain (`Censor`,
 `Quantize`, `Drop`) and, on the simulator and spmd, a `TopologySchedule`;
-`build_problem`, and `KernelModel` (predict / evaluate / save / load).
+`build_problem`, and `KernelModel` (predict / evaluate / save / load /
+partial_fit); `sweep` (a policy grid as one lane-batched simulator loop,
+`SweepResult` evaluate / select / models); `fit_stream` with
+`online_dkla`, `online_coke` and `qc_odkla` on the simulator and spmd
+(`build_stream`, `stream_from_arrays`).
 Admission is the reference's capability table (`api/capabilities.py`);
 what is not ported yet raises NotImplementedError naming its ROADMAP.md
 item.
@@ -24,11 +29,13 @@ from repro_torch.api.config import (BACKENDS, FitConfig,  # noqa: F401
 from repro_torch.api.fit import fit, fit_stream  # noqa: F401
 from repro_torch.api.model import (KernelModel, PREDICT_BACKENDS,  # noqa: F401
                                    predict)
-from repro_torch.api.problems import (BuiltProblem, build_graph,  # noqa: F401
-                                      build_problem)
+from repro_torch.api.problems import (BuiltProblem, BuiltStream,  # noqa: F401
+                                      StreamProblem, build_graph,
+                                      build_problem, build_stream,
+                                      stream_from_arrays)
 from repro_torch.api.registry import (get_solver, list_solvers,  # noqa: F401
                                       register_solver)
-from repro_torch.api.sweep import sweep  # noqa: F401
+from repro_torch.api.sweep import SweepResult, sweep  # noqa: F401
 from repro_torch.configs.coke_krr import KRRConfig, PAPER_SETUPS  # noqa: F401
 from repro_torch.core.admm import Problem, make_problem  # noqa: F401
 from repro_torch.core.censor import CensorSchedule  # noqa: F401

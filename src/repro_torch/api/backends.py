@@ -15,6 +15,10 @@ runs in `api/fit.py`).
           gradient in the `coke_fused_update` kernel (K3), or the CG primal,
           which launches neither kernel.
 
+`stream_consensus_runner` is fit_stream's spmd backend: the ring runtime's
+streaming round (`consensus.stream_update`) over a StreamProblem's rounds,
+with the simulator's history keys.
+
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
 solving a different consensus problem. A topology schedule runs on the
@@ -32,7 +36,7 @@ import torch
 from repro_torch.api.config import FitConfig, SolveContext
 from repro_torch.api.registry import Solver
 from repro_torch.api.solvers import (_comm_metrics, _stacked_metrics,
-                                     _uncompressed_bits)
+                                     _stream_metrics, _uncompressed_bits)
 from repro_torch.core import admm
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
@@ -46,7 +50,8 @@ from repro_torch.optim.optimizers import OptConfig
 #: history dtypes, for the (0,)-histories of a zero-iteration chunk
 _HIST_DTYPES = {"train_mse": torch.float32, "comms": torch.int32,
                 "consensus_gap": torch.float32, "bits": torch.float32,
-                "send_frac": torch.float32, "dist_to_oracle": torch.float32}
+                "send_frac": torch.float32, "dist_to_oracle": torch.float32,
+                "instant_mse": torch.float32}
 
 
 def _validate_topology(problem: Problem, offsets: tuple[int, ...]) -> None:
@@ -264,6 +269,59 @@ def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
         for k in keys:
             hist[k].append(m[k])
     return (params, cstate), _stack_history(hist, problem.device)
+
+
+def _stream_chunk(stream, params, cstate, chain, *,
+                  ccfg: cns.ConsensusConfig, num_iters: int, lam: float,
+                  lr: float, eta: float | None):
+    """`num_iters` rounds of the ring runtime's streaming update, each on
+    the stream's next round (wrapping). History keys are the simulator's
+    `_stream_metrics` keys."""
+    keys = ["train_mse", "instant_mse", "comms", "consensus_gap", "bits"]
+    hist: dict[str, list] = {k: [] for k in keys}
+    for _ in range(num_iters):
+        feats, labels = stream.round_batch(cstate["step"])
+        params, cstate, extra = cns.stream_update(
+            ccfg, params, cstate, feats, labels, lam=lam, lr=lr, eta=eta,
+            comm=chain)
+        m = _stream_metrics(params["theta"], cstate["comms"],
+                            extra["bits"], extra["instant_mse"])
+        for k in keys:
+            hist[k].append(m[k])
+    return (params, cstate), _stack_history(hist, stream.device)
+
+
+def stream_consensus_runner(config: FitConfig, solver: Solver, stream,
+                            ctx: SolveContext, theta0=None):
+    """-> (carry0, chunk_fn, theta_fn) for fit_stream's spmd backend: the
+    ring runtime's `stream_update` over the StreamProblem's rounds. Needs
+    the circulant graph family, as the batch ring runtime does. theta0
+    ((D,) or (N, D)) warm-starts theta and theta_hat."""
+    offsets = tuple(config.graph_offsets)
+    _validate_topology(stream, offsets)
+    # stream_update reads only rho and the offsets from the config
+    ccfg = cns.ConsensusConfig(rho=stream.rho, offsets=offsets)
+    # the solver's policy view of the configured chain (online_dkla strips
+    # the censor thresholds)
+    chain = solver._policy(ctx)
+    eta = solver._eta(ctx)
+    N, D = stream.num_agents, stream.feature_dim
+    dtype = stream.feats.dtype
+    if theta0 is None:
+        theta = torch.zeros((N, D), dtype=dtype, device=stream.device)
+    else:
+        theta = torch.as_tensor(theta0, dtype=dtype,
+                                device=stream.device).expand(N, D)
+    params = {"theta": theta}
+    cstate = cns.init_stream_state(ccfg, theta, comm=chain)
+
+    def chunk_fn(carry, n):
+        params, cstate = carry
+        return _stream_chunk(stream, params, cstate, chain, ccfg=ccfg,
+                             num_iters=n, lam=stream.lam, lr=ctx.online_lr,
+                             eta=eta)
+
+    return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]
 
 
 def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,

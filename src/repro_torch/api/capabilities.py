@@ -229,27 +229,8 @@ RUN_RULES: tuple[Rule, ...] = (
 
 
 #: what the reference runs and the port does not run yet; `alternative`
-#: names the ROADMAP.md item that ports it. Checked after RUN_RULES, in
-#: order: the driver and solver first, then the axes.
+#: names the ROADMAP.md item that ports it. Checked after RUN_RULES.
 NOT_PORTED: tuple[Rule, ...] = (
-    Rule(
-        id="fit-stream",
-        when=(("mode", "stream"),),
-        reason="fit_stream (the streaming driver)",
-        alternative="ROADMAP.md Queue 1 item 9 (streaming)",
-    ),
-    Rule(
-        id="streaming-solver",
-        when=(("solver_streaming", True),),
-        reason="solver {algorithm} (the streaming family)",
-        alternative="ROADMAP.md Queue 1 item 9 (streaming)",
-    ),
-    Rule(
-        id="sweep",
-        when=(("mode", "sweep"),),
-        reason="sweep (policy grids)",
-        alternative="ROADMAP.md Queue 1 item 12 (sweep)",
-    ),
     Rule(
         id="mesh",
         when=(("mesh", True),),
@@ -409,14 +390,14 @@ def support_matrix() -> str:
     """The solver x backend x exec/feature matrix of the port as markdown,
     each cell decided by the admission rules themselves."""
     from repro_torch.api.config import BACKENDS
-    from repro_torch.api.registry import all_solver_names, solver_spec
+    from repro_torch.api.registry import get_solver, list_solvers
 
     header = ("| solver | backend | "
               + " | ".join(label for label, _ in _FEATURE_PROBES) + " |")
     sep = "|---|---|" + "---|" * len(_FEATURE_PROBES)
     lines = [BEGIN_MARK, "", header, sep]
-    for name in all_solver_names():
-        solver = solver_spec(name)
+    for name in list_solvers():
+        solver = get_solver(name)
         streaming = getattr(solver, "streaming", False)
         backends = (getattr(solver, "stream_backends", ())
                     if streaming else solver.backends)

@@ -139,6 +139,9 @@ class SolveContext:
     cg_tol: float = 1e-8
     cg_maxiter: int = 64
     cta_lr: float = 0.9
+    online_lr: float = 0.3
+    online_batch: int = 16
+    qc_eta: float | None = None
     topology: TopologySchedule | None = None
 
     @classmethod
@@ -146,7 +149,9 @@ class SolveContext:
         return cls(comm=config.resolved_comm, primal=config.primal,
                    inner_steps=config.inner_steps, inner_lr=config.inner_lr,
                    cg_tol=config.cg_tol, cg_maxiter=config.cg_maxiter,
-                   cta_lr=config.cta_lr, topology=config.topology)
+                   cta_lr=config.cta_lr, online_lr=config.online_lr,
+                   online_batch=config.online_batch, qc_eta=config.qc_eta,
+                   topology=config.topology)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,18 @@
-"""`fit(config) -> FitResult`: the port's training entry point.
+"""`fit(config) -> FitResult`: the port's training entry point, and its
+streaming sibling `fit_stream(config) -> FitResult` for the online family
+over per-agent minibatch streams.
 
-It owns the iteration loop (a Python loop in host-visible chunks, where
+Both own the iteration loop (a Python loop in host-visible chunks, where
 the reference has `lax.scan`), the per-iteration metric recording and the
-optional progress callbacks. Admission is the capability table's
-(`api/capabilities.py`): the reference's ValueErrors first, then
-NotImplementedError naming the ROADMAP.md item for what the port does not
-run yet (gossip, personalization, `mesh=`, the streaming solvers). The port
-runs the simulator backend (every registered solver, each primal), the spmd
-backend and the fused backend (its megakernel path and its fallback to the
-ring runtime), each with any comm chain (Censor, Quantize, Drop) and, where
-the reference runs one, a topology schedule.
+optional progress callbacks, and walk the same `phase_plan`. Admission is
+the capability table's (`api/capabilities.py`): the reference's
+ValueErrors first, then NotImplementedError naming the ROADMAP.md item for
+what the port does not run yet (gossip, personalization, `mesh=`). The
+port runs the simulator backend (every registered solver, each primal),
+the spmd backend and the fused backend (its megakernel path and its
+fallback to the ring runtime), each with any comm chain (Censor, Quantize,
+Drop) and, where the reference runs one, a topology schedule; fit_stream
+runs the streaming solvers on the simulator and spmd.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.api.backends import consensus_runner
+from repro_torch.api.backends import (consensus_runner,
+                                      stream_consensus_runner)
 from repro_torch.api.capabilities import check_fit, check_stream
 from repro_torch.api.config import FitConfig, FitResult, SolveContext
-from repro_torch.api.problems import build_problem
-from repro_torch.api.registry import get_solver, solver_spec
+from repro_torch.api.problems import (StreamProblem, build_problem,
+                                      build_stream)
+from repro_torch.api.registry import get_solver
 from repro_torch.core import ridge
 from repro_torch.core.admm import Problem
 from repro_torch.device import resolve_device
@@ -48,7 +53,8 @@ def _simulator_chunk(solver, problem: Problem, ctx: SolveContext, aux,
         for k, v in record(state).items():
             hist.setdefault(k, []).append(v)
     if not num_iters:   # (0,)-histories with the keys and dtypes of a record
-        return state, {k: torch.empty((0,), dtype=v.dtype, device=v.device)
+        return state, {k: torch.empty((0, *v.shape), dtype=v.dtype,
+                                      device=v.device)
                        for k, v in record(state).items()}
     return state, {k: torch.stack(v) for k, v in hist.items()}
 
@@ -86,6 +92,66 @@ def _chunked_scan(chunk_fn, carry, num_iters: int, chunk_size: int | None,
     return carry, {k: torch.cat([h[k] for h in hists]) for k in hists[0]}
 
 
+def phase_plan(ctx: SolveContext, num_iters: int):
+    """One fit as its phased program: a tuple of (phase_ctx, num_iters,
+    enter_fn), where enter_fn (None on the first phase) transforms the
+    carry at the phase boundary. fit, fit_stream and sweep walk it. Every
+    fit the port runs is one phase; the reference's two-phase
+    personalized program (warmup, then the learned graph) arrives with
+    ROADMAP.md Queue 1 item 11, and the capability table rejects a
+    personalized config before a plan is made."""
+    return ((ctx, num_iters, None),)
+
+
+def _phased_runner(make_runner, plan):
+    """Drive a phase_plan through the chunked host loop: one runner per
+    phase, carries handed across boundaries through the plan's enter
+    transforms (also when a chunk ends exactly on a boundary), histories
+    concatenated. -> (carry0, chunk_fn, theta_fn)."""
+    if len(plan) == 1 and plan[0][2] is None:
+        return make_runner(plan[0][0])
+    runners = [make_runner(c) for c, _, _ in plan]
+    ends, total = [], 0
+    for _, n, _ in plan:
+        total += n
+        ends.append(total)
+    pos = {"done": 0, "phase": 0}
+
+    def chunk_fn(carry, n):
+        hists, left = [], n
+        while True:
+            i = pos["phase"]
+            m = min(left, ends[i] - pos["done"])
+            carry, h = runners[i][1](carry, m)
+            pos["done"] += m
+            left -= m
+            hists.append(h)
+            while (pos["phase"] < len(ends) - 1
+                   and pos["done"] >= ends[pos["phase"]]):
+                pos["phase"] += 1
+                enter = plan[pos["phase"]][2]
+                if enter is not None:
+                    carry = enter(carry)
+            if left == 0:
+                break
+        if len(hists) == 1:
+            return carry, hists[0]
+        return carry, {k: torch.cat([h[k] for h in hists])
+                       for k in hists[0]}
+
+    return runners[0][0], chunk_fn, runners[-1][2]
+
+
+def _solve_context(config: FitConfig, device, dtype) -> SolveContext:
+    """The config's SolveContext, with a topology schedule beside the
+    problem."""
+    ctx = SolveContext.from_config(config)
+    if ctx.topology is not None:
+        ctx = dataclasses.replace(ctx, topology=ctx.topology.to(device,
+                                                                dtype))
+    return ctx
+
+
 def fit(config: FitConfig, problem: Problem | None = None, *,
         progress_cb: ProgressCb | None = None,
         oracle: torch.Tensor | None = None, mesh=None,
@@ -103,9 +169,13 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
     device      — None = "cuda" (raises when no card is present);
                   "cpu" runs the plain PyTorch versions of the kernels.
     """
+    if isinstance(problem, StreamProblem):
+        raise ValueError(
+            "fit() drives batch problems; run a StreamProblem through "
+            "fit_stream(config, stream=...)")
     dev = resolve_device(device)
-    check_fit(config, solver_spec(config.algorithm), mesh=mesh)
     solver = get_solver(config.algorithm)
+    check_fit(config, solver, mesh=mesh)
     rff_params = None
     if problem is None:
         built = build_problem(config, device=dev)
@@ -122,25 +192,71 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
             f"topology schedule is over {config.topology.num_agents} "
             f"agents but the problem has {problem.num_agents}")
 
-    ctx = SolveContext.from_config(config)
-    if ctx.topology is not None:   # the schedule beside the problem
-        ctx = dataclasses.replace(ctx, topology=ctx.topology.to(
-            problem.device, problem.feats.dtype))
-    if config.backend == "simulator":
-        carry0, chunk_fn, theta_fn = _simulator_runner(solver, problem, ctx,
-                                                       oracle)
-    else:
-        carry0, chunk_fn, theta_fn = consensus_runner(config, solver,
-                                                      problem, ctx, oracle)
+    ctx = _solve_context(config, problem.device, problem.feats.dtype)
+
+    def make_runner(c: SolveContext):
+        if config.backend == "simulator":
+            return _simulator_runner(solver, problem, c, oracle)
+        return consensus_runner(config, solver, problem, c, oracle)
+
+    carry0, chunk_fn, theta_fn = _phased_runner(
+        make_runner, phase_plan(ctx, config.resolved_iters))
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
                                    config.chunk_size, progress_cb)
     return FitResult(config=config, state=carry, history=history,
                      theta=theta_fn(carry), rff_params=rff_params)
 
 
-def fit_stream(config: FitConfig, stream=None, **kw) -> FitResult:
-    """Streaming fits are not ported yet: the capability table raises the
-    reference's ValueError where the reference rejects the config, else
-    NotImplementedError naming ROADMAP.md item 9."""
-    check_stream(config, solver_spec(config.algorithm))
-    raise AssertionError("the capability table admitted fit_stream")
+def fit_stream(config: FitConfig, stream: StreamProblem | None = None, *,
+               theta0=None, progress_cb: ProgressCb | None = None,
+               device: torch.device | str | None = None) -> FitResult:
+    """Run a streaming solver (`online_dkla` / `online_coke` / `qc_odkla`)
+    over a per-agent minibatch stream and record the regret-style history
+    (instantaneous pre-update MSE, cumulative comms and bits, consensus
+    gap) through the same chunked loop as `fit()`.
+
+    stream      — an existing `StreamProblem` (moved to `device`); None
+                  builds one from config.krr / config.stream /
+                  config.online_batch with one round per iteration.
+    theta0      — optional warm start, (D,) or (N, D): every agent begins
+                  from it (theta and the last broadcast theta_hat), as
+                  `KernelModel.partial_fit` passes.
+    progress_cb — as in fit().
+    device      — None = "cuda" (raises when no card is present).
+
+    The capability table admits the config first, before the device is
+    resolved. The result deploys as a batch fit's: `.to_model()`.
+    """
+    solver = get_solver(config.algorithm)
+    check_stream(config, solver)
+    dev = resolve_device(device)
+    rff_params = None
+    if stream is None:
+        built = build_stream(config, device=dev)
+        stream, rff_params = built.stream, built.rff_params
+    elif stream.device != dev:
+        stream = stream.to(dev)
+    if tuple(stream.adjacency.shape) != (stream.num_agents,
+                                         stream.num_agents):
+        raise ValueError(
+            f"stream adjacency {tuple(stream.adjacency.shape)} does not "
+            f"match its {stream.num_agents} agents")
+    if theta0 is not None:
+        theta0 = torch.as_tensor(theta0, device=dev)
+
+    ctx = _solve_context(config, dev, stream.feats.dtype)
+
+    def make_runner(c: SolveContext):
+        if config.backend == "simulator":
+            return _simulator_runner(solver, stream, c, None)
+        return stream_consensus_runner(config, solver, stream, c,
+                                       theta0=theta0)
+
+    carry0, chunk_fn, theta_fn = _phased_runner(
+        make_runner, phase_plan(ctx, config.resolved_iters))
+    if config.backend == "simulator" and theta0 is not None:
+        carry0 = solver.warm_start(carry0, theta0)
+    carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
+                                   config.chunk_size, progress_cb)
+    return FitResult(config=config, state=carry, history=history,
+                     theta=theta_fn(carry), rff_params=rff_params)

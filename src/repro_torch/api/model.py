@@ -6,6 +6,7 @@ fitted thetas, scored as f(x) = phi(x)' theta.
     model.evaluate(x_test, y_test, backend="fused")
     model.save("artifacts/coke")                    # npz + JSON sidecar
     model = KernelModel.load("artifacts/coke", device="cuda")
+    refined, result = model.partial_fit(x_stream, labels=y_stream)
 
 Scoring backends: "ref" is the plain `core.rff.featurize`; "fused" routes
 featurization through the hand-written `kernels/rff` kernel (the plain
@@ -147,6 +148,102 @@ class KernelModel(nn.Module):
                                for i in range(0, n, batch_size)])
         preds = preds.reshape(lead)
         return preds[0] if scalar else preds
+
+    def partial_fit(self, stream, config=None, *, labels=None,
+                    progress_cb=None) -> tuple["KernelModel", Any]:
+        """Warm-started online refinement: continue training this model on
+        a fresh per-agent minibatch stream through `fit_stream`, on the
+        model's device.
+
+        stream — a `StreamProblem` featurized with this model's RFF map,
+                 or a raw (R, N, b, d) input stream (pass `labels`
+                 (R, N, b)); a raw stream is featurized here and its
+                 consensus graph built from the config's graph family.
+        config — the streaming FitConfig; None = `online_coke` on the
+                 simulator, one iteration per stream round, with this
+                 model's provenance lam / rho / seed / graph.
+
+        Every agent starts from the deployed parameters (the per-agent
+        stack when the model kept one, else the consensus average).
+        Returns (refined KernelModel, FitResult)."""
+        from repro_torch.api.fit import fit_stream  # local: import cycle
+        from repro_torch.api.problems import (StreamProblem, build_graph,
+                                              stream_from_arrays)
+
+        if isinstance(stream, StreamProblem):
+            if labels is not None:
+                raise ValueError(
+                    "a StreamProblem already carries its labels; pass "
+                    "labels= only with a raw (R, N, b, d) input stream")
+        else:
+            if labels is None:
+                raise ValueError(
+                    "a raw stream needs its labels: partial_fit(x, "
+                    "labels=y) with x (R, N, b, d) and y (R, N, b)")
+            x = self._as_input(stream)
+            if x.ndim != 4:
+                raise ValueError(
+                    f"a raw stream is x (R, N, b, d); got shape "
+                    f"{tuple(x.shape)}")
+            num_agents = x.shape[1]
+            if config is None:
+                # provenance defaults: what the model was trained with
+                lam = float(self.meta.get("lam", 1e-4))
+                rho = float(self.meta.get("rho", 1e-2))
+                seed = int(self.meta.get("seed", 0))
+                config = self._stream_config(num_agents, x.shape[0],
+                                             lam, rho)
+            else:
+                # an explicit config owns the problem spec end to end
+                lam, rho = config.krr.lam, config.krr.rho
+                seed = config.krr.seed
+            graph = build_graph(config, num_agents, seed=seed)
+            stream = stream_from_arrays(self.rff_params, x,
+                                        self._as_input(labels), graph,
+                                        lam=lam, rho=rho)
+        if stream.feature_dim != self.num_features:
+            raise ValueError(
+                f"stream is featurized to D={stream.feature_dim} but this "
+                f"model has D={self.num_features} features; featurize with "
+                "the model's own RFF map (see "
+                "repro.api.problems.stream_from_arrays)")
+        if config is None:
+            config = self._stream_config(
+                stream.num_agents, stream.num_rounds,
+                float(stream.lam), float(stream.rho))
+        if (self.thetas is not None
+                and self.thetas.shape[0] != stream.num_agents):
+            raise ValueError(
+                f"model carries {self.thetas.shape[0]} per-agent thetas "
+                f"but the stream has {stream.num_agents} agents")
+
+        theta0 = self.thetas if self.thetas is not None else self.theta
+        result = fit_stream(config, stream=stream, theta0=theta0,
+                            progress_cb=progress_cb, device=self.device)
+        refined = result.to_model(self.rff_params)
+        refined.bandwidth = self.bandwidth
+        refined.kernel = self.kernel
+        refined.meta = {**refined.meta, "refined_from": dict(self.meta),
+                        "warm_started": True}
+        return refined, result
+
+    def _stream_config(self, num_agents: int, num_rounds: int,
+                       lam: float, rho: float):
+        """The default partial_fit configuration: streaming COKE on the
+        simulator, one iteration per stream round, on the graph family
+        the model was trained with (its provenance)."""
+        from repro_torch.api.config import FitConfig  # local: import cycle
+        from repro_torch.configs.coke_krr import KRRConfig
+
+        return FitConfig(
+            algorithm="online_coke", num_iters=num_rounds,
+            graph=str(self.meta.get("graph", "erdos_renyi")),
+            graph_offsets=tuple(self.meta.get("graph_offsets", (1,))),
+            krr=KRRConfig(num_agents=num_agents,
+                          num_features=self.num_features,
+                          bandwidth=self.bandwidth, lam=lam, rho=rho,
+                          graph_p=float(self.meta.get("graph_p", 0.3)),
+                          seed=int(self.meta.get("seed", 0))))
 
     def evaluate(self, x, y, *, backend: str = "ref") -> dict[str, Any]:
         """The paper's generalization metrics on held-out data. With

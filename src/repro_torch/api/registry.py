@@ -1,16 +1,12 @@
 """Solver registry — where an algorithm plugs into `repro_torch.api`.
 
-The port registers the two ADMM solvers, `dkla` (Algorithm 1) and `coke`
-(Algorithm 2), the `cta` diffusion baseline and the centralized
-`ridge_oracle`. The reference's streaming solvers are not ported yet:
-`get_solver` raises NotImplementedError naming the ROADMAP.md item, and
-`solver_spec` gives their capability flags, so that the capability table
-rejects a combination the reference rejects with the reference's
-ValueError before it says "not ported".
+The port registers the reference's solvers: the two ADMM solvers, `dkla`
+(Algorithm 1) and `coke` (Algorithm 2), the `cta` diffusion baseline, the
+streaming family (`online_dkla`, `online_coke`, `qc_odkla`) and the
+centralized `ridge_oracle`.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Protocol, runtime_checkable
 
 import torch
@@ -56,29 +52,6 @@ class Solver(Protocol):
 
 _REGISTRY: dict[str, Solver] = {}
 
-#: reference solvers not ported yet -> the ROADMAP.md item that ports them
-_LATER = {
-    "online_dkla": "ROADMAP.md Queue 1 item 9 (streaming)",
-    "online_coke": "ROADMAP.md Queue 1 item 9 (streaming)",
-    "qc_odkla": "ROADMAP.md Queue 1 item 9 (streaming)",
-}
-
-
-@dataclasses.dataclass(frozen=True)
-class _StreamingSpec:
-    """The reference's capability flags of a streaming solver, which the
-    port does not run yet: the admission table reads them."""
-
-    name: str
-    backends: tuple = ("simulator",)
-    stream_backends: tuple = ("simulator", "spmd")
-    streaming: bool = True
-    consensus_strategy: None = None
-    comm_aware: bool = True
-    topology_aware: bool = False
-    gossip_aware: bool = True
-    personalization_aware: bool = True
-
 
 def register_solver(name: str):
     """Class decorator: instantiate the class and file it under `name`."""
@@ -97,9 +70,6 @@ def _ensure_builtin_solvers() -> None:
 
 def get_solver(name: str) -> Solver:
     _ensure_builtin_solvers()
-    if name in _LATER:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet: {_LATER[name]}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -111,17 +81,3 @@ def get_solver(name: str) -> Solver:
 def list_solvers() -> list[str]:
     _ensure_builtin_solvers()
     return sorted(_REGISTRY)
-
-
-def solver_spec(name: str):
-    """The registered solver, or the capability flags of a reference
-    solver not ported yet (for the admission table); KeyError otherwise."""
-    if name in _LATER:
-        return _StreamingSpec(name)
-    return get_solver(name)
-
-
-def all_solver_names() -> list[str]:
-    """Every solver name of the reference's registry the port knows:
-    the ported ones and those not ported yet."""
-    return sorted(set(list_solvers()) | set(_LATER))

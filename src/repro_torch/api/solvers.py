@@ -1,7 +1,7 @@
 """The solvers this port runs behind one contract: the ADMM pair, DKLA
-(Algorithm 1) and COKE (Algorithm 2), the CTA diffusion baseline, and the
-centralized ridge oracle; and the per-iteration metrics every history
-records.
+(Algorithm 1) and COKE (Algorithm 2), the CTA diffusion baseline, the
+streaming family (online-DKLA, online-COKE, QC-ODKLA) and the centralized
+ridge oracle; and the per-iteration metrics every history records.
 
 Each solver carries the reference's capability flags: the backends it runs
 on (`backends`), whether it threads a communication policy (`comm_aware`),
@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.api.config import SolveContext
 from repro_torch.api.registry import register_solver
-from repro_torch.core import admm, cta, ridge
+from repro_torch.core import admm, cta, online, ridge
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.admm import Problem
 from repro_torch.core.graph import Graph, metropolis_weights
@@ -35,17 +35,32 @@ def _stacked_metrics(problem: Problem, theta: torch.Tensor,
                      bits: torch.Tensor) -> dict[str, torch.Tensor]:
     """The paper's per-iteration train MSE, cumulative comms, consensus gap
     and cumulative bits, as device tensors (no host sync). The train MSE
-    reads Phi once more, outside the kernels."""
-    preds = torch.einsum("ntd,nd->nt", problem.feats, theta)
-    mse = torch.mean((problem.labels - preds) ** 2)
+    reads Phi once more, outside the kernels. Over a sweep's lanes, theta
+    (G, N, D), comms and bits (G,), each metric is (G,), and Phi is read
+    once for all lanes."""
+    if theta.ndim == 3:
+        preds = torch.bmm(problem.feats, theta.permute(1, 2, 0))  # (N,T,G)
+        mse = torch.mean((problem.labels[..., None] - preds) ** 2,
+                         dim=(0, 1))
+    else:
+        preds = torch.einsum("ntd,nd->nt", problem.feats, theta)
+        mse = torch.mean((problem.labels - preds) ** 2)
     return {"train_mse": mse, **_comm_metrics(theta, comms, bits)}
+
+
+def _gap(theta: torch.Tensor) -> torch.Tensor:
+    """max_i ||theta_i - mean theta||, per lane over (G, N, D)."""
+    if theta.ndim == 3:
+        diff = theta - torch.mean(theta, dim=1, keepdim=True)
+        return torch.amax(torch.sqrt(torch.sum(torch.square(diff), dim=-1)),
+                          dim=-1)
+    return consensus_gap({"theta": theta})
 
 
 def _comm_metrics(theta: torch.Tensor, comms: torch.Tensor,
                   bits: torch.Tensor) -> dict[str, torch.Tensor]:
     """The per-iteration metrics other than the train MSE."""
-    return {"comms": comms,
-            "consensus_gap": consensus_gap({"theta": theta}),
+    return {"comms": comms, "consensus_gap": _gap(theta),
             "bits": bits.to(torch.float32)}
 
 
@@ -115,7 +130,7 @@ class _ADMMSolver:
 
     def metrics(self, problem: Problem, ctx: SolveContext, aux, state):
         return _stacked_metrics(problem, state.theta, state.comms,
-                                torch.sum(state.comm.bits))
+                                torch.sum(state.comm.bits, dim=-1))
 
     def theta_of(self, state) -> torch.Tensor:
         return state.theta
@@ -174,6 +189,157 @@ class CTASolver:
 
     def theta_of(self, state) -> torch.Tensor:
         return state.theta
+
+
+# ---------------------------------------------------------------------------
+# The streaming family: online-DKLA, online-COKE, QC-ODKLA
+# ---------------------------------------------------------------------------
+
+class OnlineFitState(NamedTuple):
+    inner: online.OnlineState
+    inst_mse: torch.Tensor   # pre-update MSE on the round's minibatch
+
+
+def _stream_metrics(theta: torch.Tensor, comms: torch.Tensor,
+                    bits: torch.Tensor,
+                    inst: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The streaming history: the regret sample (the pre-update
+    instantaneous MSE, which is also the train_mse trajectory: a stream
+    has no fixed train set), cumulative comms and bits, and the consensus
+    gap. The spmd backend records the same keys."""
+    return {"train_mse": inst, "instant_mse": inst,
+            **_comm_metrics(theta, comms, bits)}
+
+
+def _window(x: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """Columns start, start + 1, ... (size of them, modulo x.shape[1]) of
+    x: contiguous runs as slices, joined by one cat where the window
+    wraps. The indices are host ints, so nothing is copied to the device."""
+    T = x.shape[1]
+    parts, done = [], 0
+    while done < size:
+        lo = (start + done) % T
+        n = min(size - done, T - lo)
+        parts.append(x[:, lo:lo + n])
+        done += n
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+class _OnlineSolver:
+    """The streaming family's adapter, on two problem forms: a
+    `StreamProblem` (fit_stream: round k is the stream's k-th minibatch)
+    and a batch `Problem` (fit: round k is an `online_batch`-sized window
+    rotating over each agent's shard). Both record the regret sample."""
+
+    backends = ("simulator",)               # the batch fit() contract
+    stream_backends = ("simulator", "spmd")
+    streaming = True
+    consensus_strategy = None
+    comm_aware = True
+    topology_aware = False
+    # the reference's gossip and personalized forms (not ported yet: the
+    # capability table raises NotImplementedError for them)
+    gossip_aware = True
+    personalization_aware = True
+
+    def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
+        raise NotImplementedError
+
+    def _eta(self, ctx: SolveContext) -> float | None:
+        """Linearized-ADMM proximal coefficient; None = gradient step."""
+        return None
+
+    def prepare_host(self, problem, ctx: SolveContext):
+        return None
+
+    def prepare_traced(self, problem, ctx: SolveContext, host_aux):
+        return host_aux
+
+    def init_state(self, problem, ctx: SolveContext) -> OnlineFitState:
+        inner = online.init_state(problem.num_agents, problem.feature_dim,
+                                  problem.feats.dtype,
+                                  policy=self._policy(ctx),
+                                  device=problem.device)
+        return OnlineFitState(inner, torch.zeros(
+            (), dtype=problem.feats.dtype, device=problem.device))
+
+    def warm_start(self, state: OnlineFitState, theta0) -> OnlineFitState:
+        """Re-seed a fresh state from deployed parameters: theta and the
+        last broadcast theta_hat start at theta0 ((D,) or (N, D)), the
+        duals at zero — KernelModel.partial_fit's entry."""
+        theta = state.inner.theta
+        theta0 = torch.as_tensor(theta0, dtype=theta.dtype,
+                                 device=theta.device).expand(theta.shape)
+        inner = state.inner._replace(theta=theta0, theta_hat=theta0)
+        return state._replace(inner=inner)
+
+    def _round_batch(self, problem, ctx: SolveContext, step: int):
+        from repro_torch.api.problems import StreamProblem  # import cycle
+
+        if isinstance(problem, StreamProblem):
+            return problem.round_batch(step)
+        b = ctx.online_batch
+        start = (step * b) % problem.feats.shape[1]
+        return (_window(problem.feats, start, b),
+                _window(problem.labels, start, b))
+
+    def step(self, problem, ctx: SolveContext, aux,
+             state: OnlineFitState) -> OnlineFitState:
+        feats, labels = self._round_batch(problem, ctx, state.inner.step)
+        inner, inst = online.stream_step(
+            state.inner, feats, labels, problem.adjacency,
+            self._policy(ctx), lam=problem.lam, rho=problem.rho,
+            lr=ctx.online_lr, eta=self._eta(ctx))
+        return OnlineFitState(inner, inst)
+
+    def metrics(self, problem, ctx: SolveContext, aux,
+                state: OnlineFitState):
+        from repro_torch.api.problems import StreamProblem  # import cycle
+
+        bits = torch.sum(state.inner.comm.bits, dim=-1)
+        if isinstance(problem, StreamProblem):
+            return _stream_metrics(state.inner.theta, state.inner.comms,
+                                   bits, state.inst_mse)
+        m = _stacked_metrics(problem, state.inner.theta, state.inner.comms,
+                             bits)
+        m["instant_mse"] = state.inst_mse
+        return m
+
+    def theta_of(self, state: OnlineFitState) -> torch.Tensor:
+        return state.inner.theta
+
+
+@register_solver("online_dkla")
+class OnlineDKLASolver(_OnlineSolver):
+    """Streaming DKLA, the always-transmit baseline of the online family:
+    the policy's censor thresholds are forced to zero, its quantize and
+    drop stages still apply."""
+
+    def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
+        return comm_mod.uncensored(ctx.comm)
+
+
+@register_solver("online_coke")
+class OnlineCOKESolver(_OnlineSolver):
+    """Streaming COKE: one censored gradient step on the streaming
+    augmented Lagrangian per round."""
+
+    def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
+        return ctx.comm
+
+
+@register_solver("qc_odkla")
+class QCODKLASolver(_OnlineSolver):
+    """QC-ODKLA (Xu et al., 2022): the linearized-ADMM primal (per-agent
+    stepsize 1/(eta + 2 rho deg_i)) with the full Censor/Quantize/Drop
+    chain. `qc_eta=None` reuses the gradient stepsize `online_lr`; with
+    the identity chain it is then bitwise online_coke."""
+
+    def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
+        return ctx.comm
+
+    def _eta(self, ctx: SolveContext) -> float | None:
+        return ctx.qc_eta
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.model import KernelModel, model_from_arrays
+from repro_torch.api.problems import StreamProblem
 from repro_torch.core.admm import Problem
 from repro_torch.core.graph import TopologySchedule
 from repro_torch.core.rff import RFFParams
@@ -39,6 +40,20 @@ def problem_from_numpy(feats, labels, adjacency, lam: float, rho: float,
         adjacency=torch.tensor(np.asarray(adjacency), dtype=feats.dtype,
                                device=dev),
         lam=float(lam), rho=float(rho), loss=loss)
+
+
+def stream_from_numpy(feats, labels, adjacency, lam: float, rho: float, *,
+                      device: torch.device | str | None = None
+                      ) -> StreamProblem:
+    """The port's StreamProblem from the reference's featurized stream:
+    feats (R, N, b, D), labels (R, N, b), adjacency (N, N)."""
+    dev = resolve_device(device)
+    feats = torch.tensor(np.asarray(feats), device=dev)
+    return StreamProblem(
+        feats=feats, labels=torch.tensor(np.asarray(labels), device=dev),
+        adjacency=torch.tensor(np.asarray(adjacency), dtype=feats.dtype,
+                               device=dev),
+        lam=float(lam), rho=float(rho))
 
 
 def topology_from_reference(adjacencies, offsets=None, *,

@@ -20,6 +20,12 @@ three forms:
 The ring runtimes (`distributed/consensus.py`) run the one-step gradient
 primal, or `_primal_cg` through their `primal_solve` hook; the fused
 megakernel path runs the gradient primal inside `coke_megastep` (K2).
+
+Every form also runs a sweep's G policy lanes at once: theta, theta_hat
+and gamma (G, N, D) against one problem. The lanes share the problem's
+Cholesky factors (no per-lane copy: the triangular solves take the G lanes
+as G right-hand sides) and its Phi (the CG and gradient products take the
+lanes as G columns).
 """
 from __future__ import annotations
 
@@ -109,9 +115,9 @@ def make_problem(feats: torch.Tensor, labels: torch.Tensor, graph: Graph,
 
 
 class COKEState(NamedTuple):
-    """Per-agent state, batched over the leading N axis. `step` is a host
-    int (the censor threshold h(k) is formed on the host); `comms` stays on
-    the device."""
+    """Per-agent state, batched over the leading N axis (behind a lane axis
+    G in a sweep). `step` is a host int (the censor threshold h(k) is
+    formed on the host); `comms` stays on the device."""
 
     theta: torch.Tensor       # (N, D) local primal variables theta_i^k
     theta_hat: torch.Tensor   # (N, D) latest broadcast primal variables
@@ -123,16 +129,21 @@ class COKEState(NamedTuple):
 
 def init_state(problem: Problem, policy=None) -> COKEState:
     """theta^0 = theta_hat^0 = gamma^0 = 0 (Algorithms 1/2); `policy`'s
-    persistent state (per-agent bits) rides in the state."""
+    persistent state (per-agent bits) rides in the state. A
+    `core.comm.LaneChain` of G lanes gives (G, N, D) iterates and (G,)
+    comms."""
     N, D = problem.num_agents, problem.feature_dim
     dev, dtype = problem.device, problem.feats.dtype
+    chain = comm_mod.as_chain(policy)
+    lanes = ((chain.num_lanes,) if isinstance(chain, comm_mod.LaneChain)
+             else ())
 
     def z():
-        return torch.zeros((N, D), dtype=dtype, device=dev)
+        return torch.zeros(lanes + (N, D), dtype=dtype, device=dev)
 
     return COKEState(z(), z(), z(), 0,
-                     torch.zeros((), dtype=torch.int32, device=dev),
-                     comm_mod.as_chain(policy).init_state(N, dev))
+                     torch.zeros(lanes, dtype=torch.int32, device=dev),
+                     chain.init_state(N, dev))
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +186,17 @@ def _rhs(problem: Problem, phity, gamma, theta_ref, nbr_sum, deg):
     return phity - gamma + problem.rho * (deg[:, None] * theta_ref + nbr_sum)
 
 
+def _as_columns(x: torch.Tensor) -> torch.Tensor:
+    """(G, N, D) lanes -> (N, D, G): the lanes as columns of per-agent
+    batched products."""
+    return x.permute(1, 2, 0)
+
+
+def _from_columns(x: torch.Tensor) -> torch.Tensor:
+    """(N, D, G) -> (G, N, D)."""
+    return x.permute(2, 0, 1)
+
+
 def _ridge_factors(problem: Problem, deg=None) -> torch.Tensor:
     """(N, D, D) lower Cholesky factors of the (18a) normal matrices
     (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho d_i) I, batched over agents.
@@ -201,6 +223,11 @@ def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
     if terms is None:
         terms = primal_terms(problem, jacobi=False)
     rhs = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
+    if rhs.ndim == 3:   # G lanes: G right-hand sides of the one factor
+        z = torch.linalg.solve_triangular(chol, _as_columns(rhs),
+                                          upper=False)
+        return _from_columns(torch.linalg.solve_triangular(chol.mT, z,
+                                                           upper=True))
     z = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
     x = torch.linalg.solve_triangular(chol.mT, z, upper=True)
     return x[..., 0]
@@ -218,7 +245,7 @@ def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
         [ (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho d_i) I ] theta = rhs_i
 
     whose operator is two batched products, Phi_i' (Phi_i v); no (D, D)
-    array is built. Step for step `jax.scipy.sparse.linalg.cg` under
+    array is built. Lanes (G, N, D) ride as the products' G columns. Step for step `jax.scipy.sparse.linalg.cg` under
     `vmap`: the stop rs > max(tol^2 |b|^2, 0) with rs = |r|^2, the
     preconditioner v / jacobi, the warm start theta0, and gamma = <r, z>,
     alpha = gamma / <p, Ap>, beta = gamma' / gamma in that order. Under
@@ -242,6 +269,9 @@ def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
     phi_t = phi.transpose(1, 2)
 
     def matvec(v):
+        if v.ndim == 3:
+            return s * _from_columns(torch.bmm(
+                phi_t, torch.bmm(phi, _as_columns(v)))) + diag_reg * v
         return s * torch.bmm(phi_t, torch.bmm(phi, v[..., None]))[..., 0] \
             + diag_reg * v
 
@@ -255,13 +285,13 @@ def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
         active = _rowdot(r, r) > atol2
         ap = matvec(p)
         alpha = gam / _rowdot(p, ap)
-        x_new = x + alpha[:, None] * p
-        r_new = r - alpha[:, None] * ap
+        x_new = x + alpha[..., None] * p
+        r_new = r - alpha[..., None] * ap
         z_new = r_new / jacobi
         gam_new = _rowdot(r_new, z_new)
         beta = gam_new / gam
-        p_new = z_new + beta[:, None] * p
-        keep = active[:, None]
+        p_new = z_new + beta[..., None] * p
+        keep = active[..., None]
         x = torch.where(keep, x_new, x)
         r = torch.where(keep, r_new, r)
         p = torch.where(keep, p_new, p)

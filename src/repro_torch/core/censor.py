@@ -25,11 +25,22 @@ class CensorSchedule:
         return float(np.float32(self.v) * np.float32(self.mu) ** np.float32(k))
 
 
+def lane_thresholds(v, mu, k: int) -> np.ndarray:
+    """h_g(k) for G lanes' (v_g, mu_g): (G,) float32, each formed as
+    `CensorSchedule(v_g, mu_g)(k)` forms one (numpy float32 scalars, so a
+    lane's threshold is bitwise the single fit's)."""
+    return np.array([CensorSchedule(float(a), float(b))(k)
+                     for a, b in zip(np.asarray(v), np.asarray(mu))],
+                    dtype=np.float32)
+
+
 def censor_decision(theta: torch.Tensor, theta_hat_prev: torch.Tensor,
                     threshold: float) -> torch.Tensor:
     """send flag per agent: ||theta_hat_prev - theta||_2 >= h(k).
 
-    theta, theta_hat_prev: (..., D); returns bool (...,)."""
+    theta, theta_hat_prev: (..., D); returns bool (...,). threshold is a
+    host float, or a tensor broadcast against the (...,) norms (a sweep's
+    (G, 1) per-lane thresholds against (G, N) norms)."""
     xi = theta_hat_prev - theta
     return torch.sqrt(torch.sum(xi * xi, dim=-1)) >= threshold
 

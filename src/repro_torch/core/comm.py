@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.censor import (CensorSchedule, censor_decision,
-                                     masked_broadcast)
+                                     lane_thresholds, masked_broadcast)
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 
 #: uncompressed payload precision: float32 coordinates
@@ -130,6 +130,26 @@ class Quantize:
             overhead_bits=float(_f32(msg.overhead_bits)
                                 + _f32(FP_BITS))), state
 
+    def transform_lanes(self, payload, prev, levels, finite, key):
+        """The stage over G lanes, (G, N, D): `levels` the (G, 1, 1) device
+        tensor of each lane's 2^(b-1) - 1 (inf where b = inf), `finite` the
+        (G, 1, 1) mask of finite lanes (None when all are), `key` the
+        (G, 2) draw keys. Every lane is quantized, as the reference does
+        under vmap, and a lane with b = inf keeps its payload: a select,
+        so the inf/NaN of its quantized values never reaches the result."""
+        innov = payload - prev
+        scale = torch.amax(torch.abs(innov), dim=-1, keepdim=True)
+        safe = torch.where(scale > 0, scale, 1.0)
+        x = innov / safe * levels
+        if self.stochastic:
+            lo = torch.floor(x)
+            u = prng.uniform(key, x.shape[1:], x.device)
+            x = lo + (u < (x - lo)).to(x.dtype)
+        else:
+            x = torch.round(x)
+        deq = prev + x / levels * safe
+        return deq if finite is None else torch.where(finite, deq, payload)
+
 
 @dataclasses.dataclass(frozen=True)
 class Drop:
@@ -149,6 +169,12 @@ class Drop:
         u = prng.uniform(key, msg.delivered.shape, msg.delivered.device)
         keep = u >= float(_f32(self.p))
         return msg._replace(delivered=msg.delivered & keep), state
+
+    def transform_lanes(self, delivered, p, key):
+        """The stage over G lanes: delivered (G, N), p the (G, 1) float32
+        drop rates on the device, key the (G, 2) draw keys."""
+        u = prng.uniform(key, delivered.shape[1:], delivered.device)
+        return delivered & (u >= p)
 
 
 STAGE_TYPES = (Censor, Quantize, Drop)
@@ -283,10 +309,225 @@ def censored(policy) -> bool:
 
 def uncensored(chain: Chain) -> Chain:
     """Same structure with every censor threshold forced to zero — the
-    always-transmit (DKLA) variant of a policy."""
-    return Chain(tuple(
-        dataclasses.replace(s, v=s.v * 0) if isinstance(s, Censor) else s
-        for s in chain.stages))
+    always-transmit (DKLA) variant of a policy (of each lane's policy, for
+    a LaneChain: made once per LaneChain, so its device tables are too)."""
+    def make():
+        return dataclasses.replace(chain, stages=tuple(
+            dataclasses.replace(s, v=s.v * 0) if isinstance(s, Censor)
+            else s for s in chain.stages))
+
+    if isinstance(chain, LaneChain):
+        if "uncensored" not in chain._memo:
+            chain._memo["uncensored"] = make()
+        return chain._memo["uncensored"]
+    return make()
+
+
+# ---------------------------------------------------------------------------
+# Lane-batched policies: a sweep's G cells as one chain
+# ---------------------------------------------------------------------------
+
+#: rounds of per-lane thresholds and draw keys made on the host at a time
+LANE_BLOCK = 128
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without waiting for the device: from
+    pageable memory CUDA stages the bytes before it returns."""
+    return torch.from_numpy(arr).to(device, non_blocking=True)
+
+
+def _structure(chain: Chain) -> tuple:
+    """What the reference's `jax.tree.structure` of a Chain holds: the
+    stage types in order and each stage's static fields (Quantize seed and
+    stochastic, Drop seed)."""
+    out = []
+    for s in chain.stages:
+        if type(s) not in _DATA_FIELDS:
+            raise TypeError(f"not a sweepable policy stage: {s!r}")
+        out.append((type(s), tuple(
+            (f.name, getattr(s, f.name)) for f in dataclasses.fields(s)
+            if f.name not in _DATA_FIELDS[type(s)])))
+    return tuple(out)
+
+
+def stack_policies(policies) -> "LaneChain":
+    """G same-structure chains as one LaneChain (the reference's
+    `api/sweep.py` `_stack_policies`): each numeric parameter becomes the
+    (G,) float32 array of the cells' values."""
+    chains = [as_chain(p) for p in policies]
+    structures = {_structure(c) for c in chains}
+    if len(structures) != 1:
+        raise ValueError(
+            "all sweep cells must share one policy structure (same stages "
+            f"in the same order); got {len(structures)} distinct "
+            "structures — mixing e.g. censor-only and censor+quantize "
+            "cells would need separate compiled programs")
+    stages = tuple(
+        dataclasses.replace(s, **{
+            f: np.array([_f32(getattr(c.stages[i], f)) for c in chains],
+                        dtype=np.float32)
+            for f in _DATA_FIELDS[type(s)]})
+        for i, s in enumerate(chains[0].stages))
+    return LaneChain(stages, num_lanes=len(chains))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LaneChain(Chain):
+    """G same-structure chains run as one policy over a leading lane axis:
+    messages are (G, N, D), decisions (G, N), `CommState.bits` (G, N) and
+    `CommState.key` the (G, 2) numpy array of each lane's chain key. Each
+    stage's numeric parameters are (G,) float32 numpy arrays
+    (`stack_policies`). Lane g is bitwise `cell(g)` run alone: its
+    thresholds come from `CensorSchedule` on the host, its draws from its
+    own keys (`prng.uniform` under a (G, 2) key tensor), its bits from the
+    same float32 accounting.
+
+    Per-lane thresholds and draw keys are made on the host for
+    LANE_BLOCK rounds at a time and copied to the device without a wait;
+    the quantizer levels, drop rates and message sizes once. No round
+    reads anything back from the device."""
+
+    num_lanes: int = 1
+
+    __eq__ = object.__eq__
+    __hash__ = object.__hash__
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "_memo", {})
+
+    def cell(self, g: int) -> Chain:
+        """Lane g's chain, with host-float parameters."""
+        return Chain(tuple(
+            dataclasses.replace(s, **{f: float(getattr(s, f)[g])
+                                      for f in _DATA_FIELDS[type(s)]})
+            for s in self.stages))
+
+    def chain_key(self) -> np.ndarray:
+        """(G, 2) int64: each lane's `Chain.chain_key`."""
+        return np.array([self.cell(g).chain_key()
+                         for g in range(self.num_lanes)], dtype=np.int64)
+
+    def init_state(self, num_agents: int,
+                   device: torch.device | str = "cpu") -> CommState:
+        return CommState(
+            bits=torch.zeros((self.num_lanes, num_agents),
+                             dtype=torch.float32, device=device),
+            key=self.chain_key(),
+            stages=tuple(s.init_state(num_agents) for s in self.stages))
+
+    def ensure_state(self, state: CommState | None, num_agents: int,
+                     device: torch.device | str = "cpu") -> CommState:
+        if state is None or tuple(state.bits.shape) != (self.num_lanes,
+                                                        num_agents):
+            return self.init_state(num_agents, device)
+        return state
+
+    def _drawn(self) -> list[int]:
+        """Indices of the stages that draw: Drop, and a stochastic Quantize
+        with a finite lane."""
+        return [i for i, s in enumerate(self.stages)
+                if isinstance(s, Drop) or (
+                    isinstance(s, Quantize) and s.stochastic
+                    and np.isfinite(s.bits).any())]
+
+    def _round_tables(self, base_key: np.ndarray, k: int, device):
+        """(thresholds (C, G), keys (S, G, 2)) of round k on `device`:
+        C censor stages, S drawing stages (`_drawn`); views into a block
+        of LANE_BLOCK rounds made on the host."""
+        block = (k - 1) // LANE_BLOCK
+        memo_key = ("round", str(device), base_key.tobytes())
+        have = self._memo.get(memo_key)
+        if have is None or have[0] != block:
+            ks = np.arange(block * LANE_BLOCK + 1,
+                           (block + 1) * LANE_BLOCK + 1)
+            censors = [s for s in self.stages if isinstance(s, Censor)]
+            thr = np.zeros((LANE_BLOCK, len(censors), self.num_lanes),
+                           dtype=np.float32)
+            for j, kk in enumerate(ks):
+                for c, s in enumerate(censors):
+                    thr[j, c] = lane_thresholds(s.v, s.mu, int(kk))
+            round_keys = prng.fold_in_lanes(base_key[None],
+                                            ks[:, None])   # (B, G, 2)
+            keys = np.zeros((LANE_BLOCK, len(self._drawn()), self.num_lanes,
+                             2), dtype=np.int64)
+            for j, i in enumerate(self._drawn()):
+                keys[:, j] = prng.fold_in_lanes(round_keys, i)
+            have = (block, _upload(thr, device), _upload(keys, device))
+            self._memo[memo_key] = have
+        j = (k - 1) % LANE_BLOCK
+        return have[1][j], have[2][j]
+
+    def _static_tables(self, dim: int, device):
+        """Per Quantize stage its (levels, finite mask or None) as
+        (G, 1, 1) device tensors; per Drop stage its (G, 1) rates; the
+        (G, 1) float32 message size dim * bits_per_value + overhead,
+        formed per lane as `Chain.apply` forms it."""
+        memo_key = ("static", str(device), dim)
+        if memo_key not in self._memo:
+            G = self.num_lanes
+            bpv = [_f32(FP_BITS)] * G
+            over = [_f32(0.0)] * G
+            per_stage = []
+            for s in self.stages:
+                if isinstance(s, Quantize):
+                    fin = np.isfinite(s.bits)
+                    lv = np.array([
+                        _f32(2.0) ** (_f32(b) - _f32(1.0)) - _f32(1.0)
+                        if f else np.inf for b, f in zip(s.bits, fin)],
+                        dtype=np.float32)
+                    for g in range(G):
+                        if fin[g]:
+                            bpv[g] = _f32(s.bits[g])
+                            over[g] = _f32(over[g] + _f32(FP_BITS))
+                    per_stage.append((
+                        _upload(lv.reshape(G, 1, 1), device),
+                        None if fin.all() else _upload(
+                            fin.reshape(G, 1, 1), device)))
+                elif isinstance(s, Drop):
+                    per_stage.append(_upload(
+                        s.p.reshape(G, 1).astype(np.float32), device))
+                else:
+                    per_stage.append(None)
+            per_msg = np.array([_f32(dim) * bpv[g] + over[g]
+                                for g in range(G)], dtype=np.float32)
+            self._memo[memo_key] = (per_stage,
+                                    _upload(per_msg.reshape(G, 1), device))
+        return self._memo[memo_key]
+
+    def apply(self, theta: torch.Tensor, prev: torch.Tensor, k: int,
+              state: CommState
+              ) -> tuple[torch.Tensor, torch.Tensor, CommState]:
+        """One broadcast round of every lane: (G, N, D) candidates against
+        the (G, N, D) stale copies at the host iteration k. Returns
+        (theta_hat (G, N, D), send (G, N), new_state)."""
+        G, N, dim = theta.shape
+        dev = theta.device
+        thresholds, keys = self._round_tables(state.key, k, dev)
+        per_stage, per_msg = self._static_tables(dim, dev)
+        drawn = {i: j for j, i in enumerate(self._drawn())}
+        ones = torch.ones((G, N), dtype=torch.bool, device=dev)
+        payload, send, delivered = theta, ones, ones
+        c = 0
+        for i, s in enumerate(self.stages):
+            if isinstance(s, Censor):
+                send = send & censor_decision(payload, prev,
+                                              thresholds[c][:, None])
+                c += 1
+            elif isinstance(s, Quantize):
+                if np.isfinite(s.bits).any():   # all inf: the identity
+                    levels, finite = per_stage[i]
+                    payload = s.transform_lanes(
+                        payload, prev, levels, finite,
+                        keys[drawn[i]] if i in drawn else None)
+            else:
+                delivered = s.transform_lanes(delivered, per_stage[i],
+                                              keys[drawn[i]])
+        theta_hat = masked_broadcast(payload, prev, send & delivered)
+        paid = torch.where(send, per_msg, 0.0)
+        return theta_hat, send, CommState(bits=state.bits + paid,
+                                          key=state.key, stages=state.stages)
 
 
 # ---------------------------------------------------------------------------

@@ -39,9 +39,15 @@ def local_empirical_risk(theta: torch.Tensor, feats: torch.Tensor,
     feats: (T_i, D) RF-mapped inputs; labels: (T_i,); lam is lambda_i (the
     per-agent share lambda/N in the common-regularizer convention). Leading
     dims batch over agents: theta (N, D), feats (N, T_i, D), labels
-    (N, T_i) give the (N,) per-agent risks, each of its own row only.
+    (N, T_i) give the (N,) per-agent risks, each of its own row only. A
+    sweep's lanes, theta (G, N, D) against the same feats, give (G, N):
+    one product per agent with the lanes as its G columns (Phi is not
+    repeated per lane).
     """
-    preds = (feats @ theta[..., None])[..., 0]
+    if theta.ndim == 3 and feats.ndim == 3:
+        preds = torch.bmm(feats, theta.permute(1, 2, 0)).permute(2, 0, 1)
+    else:
+        preds = (feats @ theta[..., None])[..., 0]
     data_term = torch.mean(LOSSES[loss](labels, preds), dim=-1)
     return data_term + lam * torch.sum(theta * theta, dim=-1)
 

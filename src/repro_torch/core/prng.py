@@ -10,6 +10,12 @@ round counter k as a host int, so deriving a round's key reads nothing from
 the device. Only `random_bits` / `uniform` touch the device, as elementwise
 tensor ops; nothing is read back.
 
+A batch of G keys (what the reference draws under `vmap`, one key per
+sweep lane) is a (G, 2) int64 tensor on the device: `random_bits` and
+`uniform` then return (G, *shape), lane g bitwise the single draw under
+key g, in the same ~175 launches as one draw. `fold_in_lanes` derives such
+keys on the host with numpy, many rounds and lanes at once.
+
 The threefry words are carried in int64 tensors and masked to 32 bits after
 every addition (PyTorch cannot add uint32 tensors): a rotation of a value
 below 2^32 by r <= 31 fits in int64. The same code runs on the CPU and on
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -34,10 +41,11 @@ def _rotl(x, r: int):
     return ((x << r) & MASK32) | (x >> (32 - r))
 
 
-def threefry2x32(key: Key, x0, x1):
+def threefry2x32(key, x0, x1):
     """Threefry-2x32 with 20 rounds (jax's `_threefry2x32_lowering`) over
-    counters (x0, x1): Python ints, or int64 tensors holding values below
-    2^32. Returns the two output words in the counters' form."""
+    counters (x0, x1). The key words and the counters are Python ints, or
+    int64 tensors / numpy arrays holding values below 2^32, broadcast
+    against each other. Returns the two output words, broadcast."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & MASK32
@@ -67,23 +75,43 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key, 0, data)
 
 
-def random_bits(key: Key, shape, device: torch.device | str = "cpu"
+def fold_in_lanes(keys: np.ndarray, data) -> np.ndarray:
+    """fold_in over arrays on the host: keys (..., 2) int64 words, data an
+    int or an int array broadcast against keys[..., 0]. Equal, element for
+    element, to `fold_in` of each key and datum; returns (..., 2) int64."""
+    data = np.asarray(data, dtype=np.int64)
+    if np.any((data < 0) | (data > MASK32)):
+        raise OverflowError(f"fold_in data {data} is not a uint32")
+    keys = np.asarray(keys, dtype=np.int64)
+    hi, lo = threefry2x32((keys[..., 0], keys[..., 1]), 0, data)
+    return np.stack(np.broadcast_arrays(hi, lo), axis=-1)
+
+
+def random_bits(key, shape, device: torch.device | str = "cpu"
                 ) -> torch.Tensor:
     """jax.random.bits(key, shape) for 32-bit words, partitionable form:
     element i of the flattened shape hashes the counter pair (i >> 32,
     i & 0xFFFFFFFF); the word is the XOR of the two outputs. Returned as
-    int64 values in [0, 2^32)."""
+    int64 values in [0, 2^32).
+
+    key is a host pair, or a (G, 2) int64 tensor of G keys: the result is
+    then (G, *shape), one draw per key."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     idx = torch.arange(n, dtype=torch.int64, device=device)
+    if isinstance(key, torch.Tensor):
+        hi, lo = threefry2x32((key[:, 0:1], key[:, 1:2]), idx >> 32,
+                              idx & MASK32)
+        return (hi ^ lo).reshape((key.shape[0],) + shape)
     hi, lo = threefry2x32(key, idx >> 32, idx & MASK32)
     return (hi ^ lo).reshape(shape)
 
 
-def uniform(key: Key, shape, device: torch.device | str = "cpu"
+def uniform(key, shape, device: torch.device | str = "cpu"
             ) -> torch.Tensor:
     """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23 bits
-    of each word as the mantissa of a float in [1, 2), minus 1."""
+    of each word as the mantissa of a float in [1, 2), minus 1. With a
+    (G, 2) tensor of keys, (G, *shape): lane g is the draw under key g."""
     bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(floats, 0.0)

@@ -6,6 +6,9 @@ T_i ~ U(4000, 6000) pairs from  y = sum_m b_m kappa(c_m, x) + e,
 b_m ~ U[0,1], c_m ~ N(0, I_5), x ~ N(0, I_5), e ~ N(0, 0.1),
 Gaussian kernel with bandwidth sigma = 5.
 
+`stream_synthetic` extends the synthetic model to per-agent minibatch
+streams (the online-learning workload), as the reference's does.
+
 `uci_standin` generates stand-ins for the UCI regression datasets used in
 Section 5.2. The real files are not shipped with the repo; the generators
 match the published sample counts and input dimensions and produce a smooth
@@ -84,9 +87,101 @@ def paper_synthetic(
                    xte.astype(np.float32), yte.astype(np.float32), name)
 
 
-#: stream generator kinds the reference implements (what `FitConfig.stream`
-#: validates against; streaming itself is not ported yet)
+#: stream generator kinds `stream_synthetic` implements (and
+#: `FitConfig.stream` validates against)
 STREAM_KINDS = ("stationary", "drift", "shift")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamDataset:
+    """Per-agent minibatch stream: round k hands agent n the fresh
+    minibatch (x[k, n], y[k, n]); the arrival order is materialized up
+    front and sliced per round."""
+
+    x: np.ndarray  # (R, N, b, d) in [0, 1]
+    y: np.ndarray  # (R, N, b)
+    kind: str
+    name: str = "stream"
+
+    @property
+    def num_rounds(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_agents(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def batch(self) -> int:
+        return self.x.shape[2]
+
+    @property
+    def input_dim(self) -> int:
+        return self.x.shape[-1]
+
+
+def stream_synthetic(
+    kind: str = "stationary",
+    num_rounds: int = 200,
+    num_agents: int = 6,
+    batch: int = 16,
+    input_dim: int = 5,
+    num_components: int = 50,
+    bandwidth: float = 5.0,
+    noise_std: float = np.sqrt(0.1),
+    drift: float = 1.0,
+    shift: float = 2.0,
+    seed: int = 0,
+) -> StreamDataset:
+    """The paper's synthetic model extended to a stream.
+
+    kind — "stationary": the Section-5.1 mixture, fresh draws per round;
+           "drift" (concept drift): the mixture *weights* interpolate
+           b(k) = (1-t_k) b0 + t_k b1 between two independent draws
+           (t_k = drift * k/(R-1), clipped to [0, 1]) — the target
+           function itself moves while the inputs stay iid;
+           "shift" (covariate shift): the input mean slides
+           m_k = shift * t_k * u along a fixed random direction u while
+           the target function stays fixed — the regressor sees a moving
+           slice of an unchanged surface.
+    """
+    if kind not in STREAM_KINDS:
+        raise ValueError(
+            f"unknown stream kind {kind!r}; choose from {STREAM_KINDS}")
+    rng = np.random.default_rng(seed)
+    b0 = rng.uniform(0.0, 1.0, num_components)
+    b1 = rng.uniform(0.0, 1.0, num_components)
+    c = rng.normal(size=(num_components, input_dim))
+    u = rng.normal(size=input_dim)
+    u /= np.linalg.norm(u)
+
+    t = (np.arange(num_rounds) / max(num_rounds - 1, 1)).astype(np.float64)
+    x = rng.normal(size=(num_rounds, num_agents, batch, input_dim))
+    if kind == "shift":
+        x = x + (shift * t)[:, None, None, None] * u
+    if kind == "drift":
+        w = np.clip(drift * t, 0.0, 1.0)
+        b_k = (1.0 - w)[:, None] * b0 + w[:, None] * b1   # (R, M)
+    else:
+        b_k = np.broadcast_to(b0, (num_rounds, num_components))
+
+    # y[k] = sum_m b_m(k) exp(-||c_m - x||^2 / (2 sigma^2)) + e, one round
+    # at a time — the (N, b, M, d) intermediate stays round-sized.
+    y = np.empty((num_rounds, num_agents, batch))
+    for k in range(num_rounds):
+        sq = ((x[k][:, :, None, :] - c[None, None, :, :]) ** 2).sum(-1)
+        y[k] = np.exp(-sq / (2.0 * bandwidth**2)) @ b_k[k]
+    y += rng.normal(scale=noise_std, size=y.shape)
+
+    # global normalization (matching paper_synthetic's protocol): inputs to
+    # [0, 1] per coordinate, labels to [0, 1] — so censor thresholds bite
+    # the same way they do on the batch problem
+    lo = x.min(axis=(0, 1, 2), keepdims=True)
+    hi = x.max(axis=(0, 1, 2), keepdims=True)
+    x = (x - lo) / np.maximum(hi - lo, 1e-9)
+    y = (y - y.min()) / max(y.max() - y.min(), 1e-9)
+    return StreamDataset(x.astype(np.float32), y.astype(np.float32),
+                         kind=kind, name=f"stream-{kind}")
 
 
 # Published (samples, input_dim) of the Section-5.2 UCI datasets.

@@ -27,6 +27,11 @@ runs under the graph in effect (the cache from the previous step belongs
 to the previous graph). It requires the unfused path: K3 takes the degree
 as a fixed parameter, as the reference's kernel does.
 
+`init_stream_state` / `stream_update` are the streaming round on the same
+ring (fit_stream's spmd backend): the fresh-minibatch gradient or QC-ODKLA
+linearized-ADMM primal, the shared `core.comm` broadcast, and the dual
+update's neighbour fetch cached for the next round's primal.
+
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
 item: gossip participation and churn (item 10), a dense learned graph
 (item 11), and the allreduce / coke_et strategies of the deep-net layer
@@ -40,6 +45,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import comm as comm_mod
+from repro_torch.core.step import true_div
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.coke_update.ops import coke_update_pytree
 from repro_torch.kernels.coke_update.ref import coke_update_ref
@@ -301,6 +307,91 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
                      theta_hat=new_theta_hat, gamma=new_gamma,
                      nbr_left=hat_l, nbr_right=hat_r, comm=comm_state)
     return new_params, new_state, metrics
+
+
+def init_stream_state(ccfg: ConsensusConfig, theta0: torch.Tensor,
+                      comm=None) -> dict[str, Any]:
+    """The state `stream_update` carries beside the (N, D) params: the last
+    broadcast theta_hat (theta0: agents may start unequal under a warm
+    start), the duals, the neighbour cache (exact rolls of theta_hat) and
+    the policy's CommState."""
+    chain = comm_mod.as_chain(comm)
+    theta_hat = theta0.to(torch.float32)
+    left, right = _ring_neighbors(theta_hat, ccfg.offsets)
+    return {
+        "step": 0,
+        "comms": torch.zeros((), dtype=torch.int32, device=theta0.device),
+        "theta_hat": theta_hat,
+        "gamma": torch.zeros_like(theta_hat),
+        "nbr_left": left,
+        "nbr_right": right,
+        "comm": chain.init_state(theta0.shape[0], theta0.device),
+    }
+
+
+def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
+                  lam: float, lr: float, eta: float | None = None,
+                  comm=None, participate=None, adjacency=None, alive=None,
+                  joined=None):
+    """One streaming round on the ring runtime: fit_stream's spmd backend.
+
+    params {"theta": (N, D)}; feats (N, b, D) / labels (N, b) the round's
+    minibatch. The fresh-minibatch gradient step (eta=None) or QC-ODKLA's
+    linearized-ADMM step (eta=float), then the same `core.comm` broadcast
+    decision code as the simulator's `core.online.stream_step` (send
+    decisions and bits match across backends), then the dual update, whose
+    neighbour fetch is cached for the next round: 2 rolls per round per
+    offset. The gossip (`participate`), learned-graph (`adjacency`) and
+    churn (`alive`/`joined`) hooks raise NotImplementedError naming their
+    ROADMAP.md item. Returns (new_params, new_state, metrics) with the
+    pre-update instantaneous MSE and the cumulative bits."""
+    for what, given in (("participate", participate is not None),
+                        ("churn", alive is not None or joined is not None),
+                        ("adjacency", adjacency is not None)):
+        if given:
+            raise NotImplementedError(_LATER[what])
+    theta = params["theta"]
+    theta_hat, gamma = state["theta_hat"], state["gamma"]
+    N = theta.shape[0]
+    rho = ccfg.rho
+    chain = comm_mod.as_chain(comm)
+    k = state["step"] + 1
+
+    preds = torch.einsum("nbd,nd->nb", feats, theta)
+    inst_mse = torch.mean((labels - preds) ** 2)
+    # the streaming augmented-Lagrangian gradient; the simulator's
+    # adjacency @ theta_hat served from the cached rolls
+    resid = preds - labels
+    g_data = true_div(2.0 * torch.einsum("nb,nbd->nd", resid, feats),
+                      feats.shape[1])
+    deg = ccfg.degree       # a host float: circulant topologies only
+    nbr_sum = state["nbr_left"] + state["nbr_right"]
+    g = (g_data + (2.0 * lam / N) * theta
+         + 2.0 * rho * deg * theta
+         + gamma
+         - rho * (deg * theta_hat + nbr_sum))
+    if eta is None:
+        new_theta = theta - lr * g
+    else:
+        new_theta = theta - true_div(g, eta + 2.0 * rho * deg)
+
+    comm_state = chain.ensure_state(state.get("comm"), N, theta.device)
+    new_theta_hat, send, comm_state = chain.apply(new_theta, theta_hat, k,
+                                                  comm_state)
+
+    # dual with theta_hat^k: the round's only neighbour fetch, cached for
+    # the next primal
+    hat_l, hat_r = _ring_neighbors(new_theta_hat, ccfg.offsets)
+    new_gamma = gamma + rho * (deg * new_theta_hat - hat_l - hat_r)
+
+    metrics = {"instant_mse": inst_mse,
+               "bits": torch.sum(comm_state.bits)}
+    new_state = dict(state, step=k,
+                     comms=state["comms"] + torch.sum(send,
+                                                      dtype=torch.int32),
+                     theta_hat=new_theta_hat, gamma=new_gamma,
+                     nbr_left=hat_l, nbr_right=hat_r, comm=comm_state)
+    return {"theta": new_theta}, new_state, metrics
 
 
 def consensus_gap(params) -> torch.Tensor:

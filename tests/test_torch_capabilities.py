@@ -26,8 +26,7 @@ from repro.api.registry import list_solvers as jax_list_solvers
 
 from repro_torch.api import Censor, Chain, FitConfig, fit, fit_stream, sweep
 from repro_torch.api import capabilities as cap
-from repro_torch.api.registry import (all_solver_names, list_solvers,
-                                      solver_spec)
+from repro_torch.api.registry import get_solver, list_solvers
 from repro_torch.core.graph import TopologySchedule
 
 torch.set_num_threads(2)
@@ -87,10 +86,6 @@ TRIGGERS = {
 
 #: NOT_PORTED id -> (driver mode, knobs, fit kwargs, ROADMAP.md item)
 NOT_PORTED_TRIGGERS = {
-    "fit-stream": ("stream", dict(algorithm="online_coke"), {}, "item 9"),
-    "streaming-solver": ("batch", dict(algorithm="online_dkla"), {},
-                         "item 9"),
-    "sweep": ("sweep", dict(algorithm="coke"), {}, "item 12"),
     "mesh": ("batch", dict(algorithm="coke"), dict(mesh=object()),
              "item 14"),
     "gossip": ("batch", dict(algorithm="dkla", exec="gossip",
@@ -120,7 +115,8 @@ def _ref_call(mode, knobs):
 
 def _port_call(mode, knobs, **fit_kw):
     """The port's real entry points: fit / fit_stream / sweep admit before
-    they touch a problem."""
+    they touch a problem (fit_stream and sweep before they resolve their
+    device, so these run without a card)."""
     config = _config("port", knobs)
     if mode == "config":
         return
@@ -178,14 +174,13 @@ def test_registry_specs_carry_the_reference_flags():
     flags = ("backends", "stream_backends", "comm_aware", "topology_aware",
              "primal_aware", "gossip_aware", "personalization_aware",
              "streaming")
-    assert all_solver_names() == sorted(jax_list_solvers())
-    for name in all_solver_names():
-        ours, theirs = solver_spec(name), jax_get_solver(name)
+    assert list_solvers() == sorted(jax_list_solvers())
+    for name in list_solvers():
+        ours, theirs = get_solver(name), jax_get_solver(name)
         for f in flags:
             empty = () if f.endswith("backends") else False
             assert tuple_or(getattr(ours, f, empty)) == tuple_or(
                 getattr(theirs, f, empty)), (name, f)
-    assert set(list_solvers()) == {"coke", "dkla", "cta", "ridge_oracle"}
 
 
 def test_supported_cells_admit():
@@ -194,7 +189,7 @@ def test_supported_cells_admit():
     topo = OBJS["port"]["topo"]
     for backend in ("simulator", "spmd", "fused"):
         cap.check_fit(FitConfig(algorithm="coke", backend=backend,
-                                topology=topo), solver_spec("coke"))
+                                topology=topo), get_solver("coke"))
 
 
 def test_port_matrix_marks_follow_the_reference_matrix():

@@ -599,6 +599,83 @@ def test_chain_fits_on_card_match_cpu(cuda):
         fit_mod._chunked_scan = real_scan
 
 
+def test_sweep_on_card_matches_cpu(cuda):
+    """A policy grid as one lane-batched loop, card against CPU, with the
+    loops under set_sync_debug_mode("error"): comms and bits equal, theta
+    within 1e-5 plus the flipped roundings' steps; G keys in one draw give
+    G single draws' bits; a fused evaluate of the grid is one K1 launch."""
+    from repro_torch.api import sweep
+    from repro_torch.core import prng
+    smoke = _chip_smoke()
+    keys = [prng.fold_in(prng.PRNGKey(s), s + 5) for s in range(5)]
+    u = prng.uniform(torch.tensor(keys, device=cuda), (20, 4096), cuda)
+    for g, key in enumerate(keys):
+        assert torch.equal(u[g].cpu().view(torch.int32),
+                           prng.uniform(key, (20, 4096)).view(torch.int32))
+    base = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                   num_features=32, lam=1e-2, rho=0.1),
+                     graph="ring", num_iters=40, censor_v=None,
+                     censor_mu=None)
+    built = build_problem(base, device="cpu")
+    grids = [("coke", [(0.3, 0.97), (0.05, 0.9), (1.0, 0.99)]),
+             ("coke", [(0.3, 0.97, float("inf")), (0.3, 0.97, 4.0)]),
+             ("dkla", [(0.05, 0.9, 4.0), (0.05, 0.9, float("inf"))])]
+    for alg, grid in grids:
+        c = base.replace(algorithm=alg)
+        with smoke.LaneQuantizerRecord() as rec_cpu:
+            cpu = sweep(c, grid, problem=built.problem, device="cpu")
+        with smoke.StrictLoops(), smoke.LaneQuantizerRecord() as rec_gpu:
+            gpu = sweep(c, grid, problem=built.problem, device=cuda)
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        _, _, steps = smoke.quantizer_flips(rec_gpu, rec_cpu)
+        torch.testing.assert_close(gpu.thetas.cpu(), cpu.thetas, rtol=0,
+                                   atol=smoke.SMALL_THETA_TOL + steps)
+    before = k1.LAUNCHES
+    ev = gpu.evaluate(built.x_test, built.y_test, backend="fused",
+                      rff_params=built.rff_params.to(cuda))
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 1
+    ref = gpu.evaluate(built.x_test, built.y_test,
+                       rff_params=built.rff_params.to(cuda))
+    torch.testing.assert_close(ev["test_mse"], ref["test_mse"], rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("backend", ["simulator", "spmd"])
+def test_streams_on_card_match_cpu(cuda, backend):
+    """The three online solvers over one stream with a Censor, Quantize,
+    Drop chain, card against CPU, the rounds under
+    set_sync_debug_mode("error"): comms and bits equal, theta within 1e-5
+    plus the flipped roundings' steps; no fit kernel launches."""
+    from repro_torch.api import (Censor, Chain, Drop, Quantize,
+                                 build_stream, fit_stream)
+    smoke = _chip_smoke()
+    cfg = FitConfig(krr=KRRConfig(num_agents=6, num_features=16, lam=1e-2,
+                                  rho=0.1),
+                    graph="ring", num_iters=40, online_batch=8,
+                    backend=backend, censor_v=None, censor_mu=None,
+                    comm=Chain([Censor(0.3, 0.99), Quantize(5.0, seed=7),
+                                Drop(0.1, seed=11)]))
+    stream = build_stream(cfg, device="cpu").stream
+    before = (k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES)
+    for alg in ("online_dkla", "online_coke", "qc_odkla"):
+        c = cfg.replace(algorithm=alg,
+                        qc_eta=2.0 if alg == "qc_odkla" else None)
+        with smoke.QuantizerRecord() as rec_cpu:
+            cpu = fit_stream(c, stream=stream, device="cpu")
+        with smoke.StrictLoops(), smoke.QuantizerRecord() as rec_gpu:
+            gpu = fit_stream(c, stream=stream, device=cuda)
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        _, _, steps = smoke.quantizer_flips(rec_gpu, rec_cpu)
+        torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                   atol=smoke.SMALL_THETA_TOL + steps)
+    assert (k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES) == before
+
+
 # K4: fp32 scores and an online softmax against the plain version's full
 # softmax, both in fp32 (the reference's own tolerance, test_kernels.py);
 # bf16 outputs may differ by an ulp of bf16 (2^-7 relative) after rounding

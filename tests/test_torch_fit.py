@@ -50,8 +50,7 @@ from repro_torch.core.admm import resolve_primal
 from repro_torch.kernels.coke_update import coke_update as port_cu
 from repro_torch.kernels.coke_update import ops as port_ops
 from repro_torch.api import (Censor, Chain, Drop, FitConfig, KernelModel,
-                             KRRConfig, Quantize, build_problem, fit,
-                             fit_stream, sweep)
+                             KRRConfig, Quantize, build_problem, fit)
 from repro_torch.core import graph as port_graph
 from repro_torch.data import synthetic as port_synth
 
@@ -378,9 +377,6 @@ OUT_OF_SLICE = {
     "personalization": lambda cfg: dict(config=cfg.replace(
         backend="spmd", personalization=object())),
     "mesh": lambda cfg: dict(config=cfg, mesh=object()),
-    # on the simulator: the reference's online solvers run only there
-    "online": lambda cfg: dict(config=cfg.replace(algorithm="online_coke",
-                                                  backend="simulator")),
 }
 
 
@@ -391,19 +387,12 @@ def test_out_of_slice_configs_raise_not_implemented(case, built):
         fit(kw.pop("config"), problem=built[1], device="cpu", **kw)
 
 
-@pytest.mark.parametrize("what", ["fit_stream", "sweep", "heterogeneous"])
+@pytest.mark.parametrize("what", ["heterogeneous"])
 def test_other_entry_points_raise_not_implemented(what):
-    # configs the reference admits: a streaming solver for fit_stream, the
-    # simulator for sweep (elsewhere both give the reference's ValueError)
     cfg = _configs()[1].replace(backend="simulator")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "fit_stream":
-            fit_stream(cfg.replace(algorithm="online_coke"))
-        elif what == "sweep":
-            sweep(cfg)
-        else:
-            build_problem(cfg.replace(krr=dataclasses.replace(
-                cfg.krr, dataset="heterogeneous")), device="cpu")
+        build_problem(cfg.replace(krr=dataclasses.replace(
+            cfg.krr, dataset="heterogeneous")), device="cpu")
 
 
 #: configs that raised NotImplementedError before Quantize, Drop and
