@@ -5,12 +5,13 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  1. build the four hand-written kernels from src/repro_torch/csrc with
+  1. build the five hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
      build/repro_torch/; K1's ptxas report per instance, its launch plan at
      the predict shape and at d=96, and its SASS instructions per output
-     (cuobjdump -sass); count K4's tensor-core instructions in its SASS
-     (both HMMA kinds must be there) and print its launch plans;
+     (cuobjdump -sass); K5's SASS instructions per word; count K4's
+     tensor-core instructions in its SASS (both HMMA kinds must be there)
+     and print its launch plans;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
      ones, each error printed beside its tolerance; K1 with both store
@@ -23,7 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      tensors) and at ragged, wide, misaligned and many-agent shapes, each
      xi_sq bitwise the CPU emulation of the kernel's order and two calls
      bitwise equal; K4 (flash attention) over lengths, masks, head groups,
-     both layouts, head dims and dtypes;
+     both layouts, head dims and dtypes; K5 (threefry) bitwise its plain
+     version, uniform and random_bits, one key and 8 keys, at n = 20, 512,
+     81 920 and ragged sizes, one launch per draw, and jax's pinned words;
   3. small fits on the card against the same fits on the CPU (the plain
      versions): the megakernel path, the spmd backend and the fused
      fallback on a logistic problem; comms and bits equal, theta close;
@@ -130,7 +133,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      both backends (comms and bits equal across them); ms and launches per
      round; partial_fit of the deployed model, whose fused predict
      launches K1 once. K2, K3 and K4 never move in phases 14-15.
-Before each of phases 4-6, 10, each part of 12 and each path of 13-15
+ 16. gossip and churn (`gossip_phase`), the fit loops under
+     set_sync_debug_mode("error"): (a) phase 4's cell at participation 0.5,
+     COKE and DKLA on the megakernel path (K2 twice per iteration, the mask
+     after it; K5 once per iteration; K1 in predict), each against spmd
+     (comms and bits equal, theta within phase 6's tolerance), and COKE at
+     participation 1.0 bitwise phase 4's; (b) phase 5's logistic cell (K3
+     once per iteration, K2 never), against spmd; (c) gossip_size=5 with a
+     2x straggler on spmd: exactly 5 sends per iteration; (d) join/leave
+     churn with the CG primal on the simulator and spmd (comms and bits
+     equal, theta within phase 12's CG tolerance); (e) online_coke and
+     qc_odkla at paper_online's shape (N=10 ring) at participation 0.4,
+     with and without churn, simulator against spmd; (f) the paper grid
+     as a gossip sweep plus a twin lane (bitwise equal), each lane against
+     its own fit; (g) the reference's N=200, p=0.25 cell, printed beside
+     the reference's figures; (h) ms and launches per iteration of each
+     gossip path beside its sync one, one draw with K5 and with its plain
+     version.
+Before each of phases 4-6, 10, each part of 12 and each path of 13-16
 every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
@@ -217,6 +237,8 @@ NO_LIBRARY = {
                     "projection to device memory",
     "coke_fused_update": "no single PyTorch call computes the augmented "
                          "gradient and the per-agent censor norm together",
+    "threefry": "no PyTorch call draws jax's threefry2x32 words (torch.rand "
+                "is Philox, another function)",
 }
 # the LM serving path (phase 10): qwen3-1.7b serving 2 prompts of 4096
 # tokens, 16 new tokens each, greedy, in a cache of 4112 slots
@@ -329,6 +351,34 @@ ONLINE = dict(rounds=1200, num_agents=10, batch=8, features=64, v=0.2,
               mu=0.995, bits=4.0, lr=0.3)
 STREAM_WIDE_ROUNDS = 100
 STREAM_WIDE_BATCH = 64
+# phase 16, gossip and churn: the reference's churn scenario of
+# tests/test_gossip.py scaled to phase 4's N=20 ring (a leave, a late
+# joiner, a rejoin), and to paper_online's N=10 for the streams; the
+# participation rates; the straggler of the fixed-size cell
+GOSSIP_P = 0.5
+GOSSIP_CHURN = dict(leave=((10, 3),), join=((20, 15), (30, 3)),
+                    start_absent=(15,))
+GOSSIP_CHURN_10 = dict(leave=((10, 1),), join=((20, 7), (30, 1)),
+                       start_absent=(7,))
+GOSSIP_STREAM_P = 0.4
+GOSSIP_SIZE = 5
+GOSSIP_STRAGGLER = (7, 2.0)
+# rounds of participation draws over which the straggler's share is held
+GOSSIP_DRAWS = 2000
+# a float64 gossip lane against its float64 fit after 1200 iterations:
+# batched against single triangular solves, ~1e-16 a step, far inside an
+# fp32 rounding of max|theta|
+GOSSIP_F64_RTOL = 1e-6
+# the reference's N=200 acceptance cell (tests/test_gossip.py) and its own
+# final train MSEs on the CPU (jax 0.9.0): gossip at p=0.25 over 400
+# iterations, sync over 100; printed beside the port's, not held to 2x
+N200 = dict(num_agents=200, samples_per_agent=5, num_features=32,
+            lam=1e-3, rho=0.1, seed=0)
+N200_REFERENCE_MSE = (0.025010, 0.011904)
+# K5 against its plain version: single keys at the path's sizes (the
+# participation draw N, a Quantize draw N x D) and ragged ones
+K5_SIZES = (N_AGENTS, 512, N_AGENTS * FEATURES, 4097, 1027 * 1031)
+K5_LANES = 8
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -339,6 +389,10 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:97"),
+    # no Pallas kernel: the reference draws inside XLA
+    "threefry": ("src/repro_torch/csrc/threefry.cu",
+                 "src/repro/core/step.py:79 (jax.random.uniform inside "
+                 "XLA; no Pallas kernel)"),
 }
 
 
@@ -519,6 +573,33 @@ def k1_sass_counts(sass):
     return (f"{len(fast) / len(shift):.2f} instructions per output on the "
             f"fast path at d=5 ({len(fast)} per step of {len(shift)} "
             f"outputs, {ffma / len(shift):.2f} of them FFMA)")
+
+
+def k5_sass_counts(sass):
+    """(instructions per output word, text) in the SASS of K5's uniform
+    instance: the grid-stride loop is the widest backward branch; every
+    instruction in it but the stores counts, divided by the words a trip
+    stores."""
+    import re
+    body = next(p for p in sass.split("Function : ")[1:]
+                if "threefry_kernelILb1E" in p.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in (
+        re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        for line in body.splitlines()) if m]
+    back = [(int(m.group(1), 16), a) for a, t in ins
+            for m in [re.search(r"\bBRA\S*\s+.*?0x([0-9a-f]+)", t)]
+            if m and int(m.group(1), 16) <= a]
+    lo, hi = max(back, key=lambda r: r[1] - r[0])
+    loop = [t.split()[1] if t.startswith("@") else t.split()[0]
+            for a, t in ins if lo <= a <= hi]
+    words = sum(1 for op in loop if op.startswith("STG"))
+    ops = [op for op in loop if not op.startswith(("STG", "NOP"))]
+    per = len(ops) / words
+    kinds = {}
+    for op in ops:
+        kinds[op.split(".")[0]] = kinds.get(op.split(".")[0], 0) + 1
+    return per, (f"{per:.1f} instructions per word in the grid-stride loop "
+                 f"({len(ops)} per trip of {words} word(s): {kinds})")
 
 
 def k4_plan(build, dh, dv, dtype):
@@ -1129,8 +1210,6 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
     `log_problem`/`log_cfg` phase 5's; `small*` phase 3's. Every fit loop
     runs under torch.cuda.set_sync_debug_mode("error"): a host sync inside
     it raises."""
-    import importlib
-
     from repro_torch.api import (Censor, Chain, Drop, FitConfig, Quantize,
                                  build_problem, fit, get_solver)
     from repro_torch.api.backends import consensus_runner
@@ -1139,7 +1218,6 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
     from repro_torch.core import prng
     from repro_torch.core.graph import TopologySchedule
 
-    fit_mod = importlib.import_module("repro_torch.api.fit")
     N, T, D = problem.feats.shape
 
     def pair(d_h):
@@ -1191,17 +1269,6 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
             f"(20, 4096) and (65537,)) and the CPU's (4 more keys x (20,), "
             f"(20, 4096), (100003,)); chain keys {keys} equal jax's")
 
-    # every fit loop below runs with host syncs raising
-    real_scan = fit_mod._chunked_scan
-
-    def strict_scan(*a, **k):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return real_scan(*a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
     # the Drop stage's link draws, recorded on the device, read after
     delivered = []
     real_drop = comm_mod.Drop.transform
@@ -1211,7 +1278,8 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
         delivered.append(out.delivered)
         return out, st
 
-    fit_mod._chunked_scan = strict_scan
+    # every fit loop below runs with host syncs raising
+    strict = StrictFits().__enter__()
     comm_mod.Drop.transform = recording_drop
     try:
         # ---- the megakernel with the chain, full width -------------------
@@ -1432,7 +1500,7 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
             if not e <= tol:
                 raise AssertionError(f"small chain {backend} {alg}: theta")
     finally:
-        fit_mod._chunked_scan = real_scan
+        strict.__exit__()
         comm_mod.Drop.transform = real_drop
 
     # ---- times: chain iterations beside the plain ones --------------------
@@ -1480,7 +1548,7 @@ def comm_topology_phase(dev, card, reset_counts, counts, *, problem, cfg,
                                 calls=10)
         n = sum(r[1] for r in rows) if rows else None
         log(13, f"[{card}] one prng.uniform{shape}: {pair(d_h)}, {fmt(n)} "
-                "launches (the plain-PyTorch threefry)")
+                "launches (K5)")
 
 
 class LaneQuantizerRecord(QuantizerRecord):
@@ -1580,9 +1648,10 @@ def per_iteration(card, phase, what, fn, steps=10):
 
 
 def fit_kernels_idle(counts, what):
-    """K2, K3 and K4 never run on the sweep and stream paths."""
+    """K2, K3 and K4 never run on the sweep and stream paths (K1 runs in a
+    fused evaluate or predict, K5 in a draw)."""
     moved = {k: v for k, v in counts().items()
-             if v and k != "rff_cos_bias"}
+             if v and k not in ("rff_cos_bias", "threefry")}
     if moved:
         raise AssertionError(f"{what} launched {moved}")
 
@@ -2062,6 +2131,455 @@ def stream_phase(dev, card, reset_counts, counts):
     fit_kernels_idle(counts, "partial_fit")
 
 
+class StrictFits:
+    """While active, every fit and fit_stream loop (`api.fit._chunked_scan`,
+    on every backend) runs under torch.cuda.set_sync_debug_mode("error"):
+    a host sync inside an iteration raises. Set-up may sync."""
+
+    def __enter__(self):
+        import importlib
+        self._mod = importlib.import_module("repro_torch.api.fit")
+        real = self._real = self._mod._chunked_scan
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        self._mod._chunked_scan = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._chunked_scan = self._real
+
+
+def gossip_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
+                 coke4, log_problem, log_cfg, peaks, k5_ops):
+    """Phase 16: gossip execution and churn on the simulator, spmd and
+    fused backends, through K2 (the megakernel path, masked after the
+    kernel), K3 (the fused fallback), K1 (predict) and K5 (one launch per
+    participation draw). `problem`/`cfg`/`built` are phase 4's cell and
+    `coke4` its COKE fit; `log_problem`/`log_cfg` phase 5's. Returns the
+    K5 entry of the kernels line."""
+    from repro_torch.api import (PAPER_SETUPS, Censor, Chain, ChurnSchedule,
+                                 FitConfig, KRRConfig, Quantize,
+                                 build_problem, build_stream, fit,
+                                 fit_stream, get_solver, sweep)
+    from repro_torch.api.backends import (consensus_runner,
+                                          stream_consensus_runner)
+    from repro_torch.api.config import SolveContext
+    from repro_torch.api.fit import _simulator_runner
+    from repro_torch.core import comm as comm_mod
+    from repro_torch.core import prng
+    from repro_torch.core.step import participation_mask
+    from repro_torch.kernels.threefry.ref import uniform_ref
+
+    N, T, D = problem.feats.shape
+    bw, fp32 = peaks[0], peaks[1]
+    # INT32 throughput: 64 INT32 lanes per SM per clock against the fp32
+    # peak's 128 FP32 lanes x 2 FLOP of an FMA
+    int32_rate = fp32 / 4
+
+    def rose_since(before):
+        after = counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def runner(c, prob, comm=None):
+        """(carry0, chunk_fn, theta_fn) of config `c` on its backend, with
+        its gossip plan on the card; `comm` a LaneChain for sweep lanes."""
+        solver = get_solver(c.algorithm)
+        ctx = SolveContext.from_config(c, prob.num_agents, dev)
+        if comm is not None:
+            ctx = dataclasses.replace(ctx, comm=comm)
+        if c.backend == "simulator":
+            return _simulator_runner(solver, prob, ctx, None)
+        if getattr(solver, "streaming", False):
+            return stream_consensus_runner(c, solver, prob, ctx)
+        return consensus_runner(c, solver, prob, ctx, None)
+
+    def equal_comms(tag, ha, hb):
+        for k in ("comms", "bits"):
+            if not torch.equal(ha[k].cpu(), hb[k].cpu()):
+                raise AssertionError(f"{tag}: {k} differ")
+
+    timings = {}
+
+    # ---- (a) the megakernel path under gossip, K2 every iteration -------
+    gcfg = cfg.replace(exec="gossip", participation=GOSSIP_P)
+    k5_launches = 0     # over (a)'s two fits: the slice's main path
+    with StrictFits():
+        for alg in ("coke", "dkla"):
+            reset_counts()
+            c = gcfg.replace(algorithm=alg)
+            res = fit(c, problem=problem, device=dev)
+            torch.cuda.synchronize()
+            rose = counts()
+            if (rose["coke_megastep"] != 2 * ITERS
+                    or rose["coke_fused_update"] or rose["threefry"] != ITERS):
+                raise AssertionError(f"gossip megakernel {alg}: launches "
+                                     f"{rose} in {ITERS} iterations")
+            k5_launches += rose["threefry"]
+            h = {k: v.cpu() for k, v in res.history.items()}
+            check_history(f"gossip megakernel {alg}", h, ITERS)
+            comms = int(h["comms"][-1])
+            if alg == "dkla" and not 0 < comms < N * ITERS:
+                raise AssertionError(f"gossip dkla sent {comms} of "
+                                     f"{N * ITERS}: participation missing")
+            before = counts()
+            model = res.to_model(built.rff_params)
+            preds = model.predict(built.x_test, backend="fused")
+            torch.cuda.synchronize()
+            if rose_since(before)["rff_cos_bias"] != 1 or not torch.isfinite(
+                    preds).all():
+                raise AssertionError(f"gossip {alg}: predict is not one K1 "
+                                     "launch of finite values")
+            spmd = fit(c.replace(backend="spmd"), problem=problem,
+                       device=dev)
+            equal_comms(f"gossip spmd {alg} against the megakernel", h,
+                        spmd.history)
+            e = theta_err(spmd.theta, res.theta)
+            tol = SPMD_RTOL * float(res.theta.abs().max())
+            log(16, f"gossip megakernel {alg} (N={N} ring, T={T}, D={D}, "
+                    f"participation {GOSSIP_P}, {ITERS} iterations): "
+                    f"launches {rose}; comms {comms}/{N * ITERS}, bits "
+                    f"{float(h['bits'][-1]):.0f}, train_mse "
+                    f"{float(h['train_mse'][0]):.5f} -> "
+                    f"{float(h['train_mse'][-1]):.5f}; predict: K1 once; "
+                    f"spmd: comms and bits equal, theta max|err| {e:.3e} "
+                    f"(tol {tol:.3e}, phase 6's rtol {SPMD_RTOL:g})")
+            if not e <= tol:
+                raise AssertionError(f"gossip spmd {alg}: theta")
+        reset_counts()
+        full = fit(cfg.replace(algorithm="coke", exec="gossip",
+                               participation=1.0), problem=problem,
+                   device=dev)
+        torch.cuda.synchronize()
+        same = torch.equal(full.theta, coke4.theta) and all(
+            torch.equal(full.history[k], coke4.history[k])
+            for k in coke4.history)
+        log(16, f"gossip megakernel COKE at participation 1.0: theta and "
+                f"every history bitwise phase 4's: {same}; launches "
+                f"{counts()}")
+        if not same:
+            raise AssertionError("participation 1.0 differs from phase 4's "
+                                 "COKE")
+
+        # ---- (b) the fused fallback (logistic), K3 once per iteration ---
+        for alg in ("coke", "dkla"):
+            reset_counts()
+            c = log_cfg.replace(algorithm=alg, exec="gossip",
+                                participation=GOSSIP_P)
+            res = fit(c, problem=log_problem, device=dev)
+            torch.cuda.synchronize()
+            rose = counts()
+            if (rose["coke_fused_update"] != ITERS or rose["coke_megastep"]
+                    or rose["threefry"] != ITERS):
+                raise AssertionError(f"gossip fallback {alg}: launches "
+                                     f"{rose} in {ITERS} iterations")
+            h = {k: v.cpu() for k, v in res.history.items()}
+            check_history(f"gossip fallback {alg}", h, ITERS)
+            spmd = fit(c.replace(backend="spmd"), problem=log_problem,
+                       device=dev)
+            equal_comms(f"gossip spmd logistic {alg}", h, spmd.history)
+            e = theta_err(spmd.theta, res.theta)
+            tol = SPMD_RTOL * float(res.theta.abs().max())
+            log(16, f"gossip fused fallback {alg} (logistic, participation "
+                    f"{GOSSIP_P}): launches {rose}; comms "
+                    f"{int(h['comms'][-1])}/{N * ITERS}; spmd: comms and "
+                    f"bits equal, theta max|err| {e:.3e} (tol {tol:.3e})")
+            if not e <= tol:
+                raise AssertionError(f"gossip spmd logistic {alg}: theta")
+
+        # ---- (c) fixed size with a straggler on spmd --------------------
+        reset_counts()
+        straggler = ChurnSchedule(slowdown=(GOSSIP_STRAGGLER,))
+        c = cfg.replace(algorithm="dkla", backend="spmd", exec="gossip",
+                        gossip_size=GOSSIP_SIZE, churn=straggler)
+        res = fit(c, problem=problem, device=dev)
+        comms = res.history["comms"].cpu()
+        steps = torch.diff(comms, prepend=torch.zeros(1, dtype=comms.dtype))
+        sends = (res.state[1]["comm"].bits.cpu()
+                 / float(D * comm_mod.FP_BITS))
+        slow = int(GOSSIP_STRAGGLER[0])
+        others = float(torch.cat([sends[:slow], sends[slow + 1:]]).mean())
+        log(16, f"fixed size {GOSSIP_SIZE} with agent {slow} "
+                f"{GOSSIP_STRAGGLER[1]}x slower (dkla, spmd, {ITERS} "
+                f"iterations): sends per iteration {sorted(set(steps.tolist()))}"
+                f"; agent {slow} sent {int(sends[slow])} times, the others "
+                f"{others:.2f} on average; launches {counts()}")
+        if not bool((steps == GOSSIP_SIZE).all()):
+            raise AssertionError("fixed-size gossip did not send exactly "
+                                 f"{GOSSIP_SIZE} per iteration")
+        # the slowdown's effect over many rounds of the same draws (K5)
+        plan = straggler.plan(N, size=GOSSIP_SIZE, device=dev)
+        key = comm_mod.uncensored(c.resolved_comm).chain_key()
+        share = torch.stack([participation_mask(key, k, N, plan)
+                             for k in range(1, GOSSIP_DRAWS + 1)]
+                            ).float().mean(0).cpu()
+        rest = float(torch.cat([share[:slow], share[slow + 1:]]).mean())
+        log(16, f"over {GOSSIP_DRAWS} rounds of the same draws agent {slow} "
+                f"participates in {float(share[slow]):.3f} of them, the "
+                f"others in {rest:.3f} on average")
+        if not float(share[slow]) < 0.75 * rest:
+            raise AssertionError("the straggler participates as often as "
+                                 "the others")
+
+        # ---- (d) churn on the simulator (CG) and spmd (CG) --------------
+        churn = ChurnSchedule(**GOSSIP_CHURN)
+        churn_cfg = cfg.replace(algorithm="coke", exec="gossip",
+                                participation=GOSSIP_P, churn=churn,
+                                primal="cg")
+        churned = {}
+        for backend in ("simulator", "spmd"):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = fit(churn_cfg.replace(backend=backend), problem=problem,
+                      device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rose = counts()
+            if (rose["coke_megastep"] or rose["coke_fused_update"]
+                    or rose["threefry"] != ITERS):
+                raise AssertionError(f"churn {backend}: launches {rose}")
+            h = {k: v.cpu() for k, v in res.history.items()}
+            check_history(f"churn {backend}", h, ITERS)
+            churned[backend] = res
+            log(16, f"churn {GOSSIP_CHURN} on {backend} (CG, participation "
+                    f"{GOSSIP_P}, {ITERS} iterations) in {wall:.2f} s wall: "
+                    f"comms {int(h['comms'][-1])}/{N * ITERS}, train_mse "
+                    f"{float(h['train_mse'][0]):.5f} -> "
+                    f"{float(h['train_mse'][-1]):.5f}; launches {rose}")
+        sim, spmd = churned["simulator"], churned["spmd"]
+        equal_comms("churn simulator against spmd", sim.history,
+                    spmd.history)
+        e = theta_err(sim.theta, spmd.theta)
+        log(16, f"churn: simulator and spmd comms and bits equal; theta "
+                f"max|err| {e:.3e} (tol {SIM_CG_BACKEND_TOL:g}, phase 12's "
+                "CG across backends)")
+        if not e <= SIM_CG_BACKEND_TOL:
+            raise AssertionError("churn: theta differs across backends")
+
+    # ---- (e) streams: paper_online's shape, with and without churn ------
+    o = ONLINE
+    sbase = FitConfig(krr=KRRConfig(num_agents=o["num_agents"],
+                                    num_features=o["features"], lam=1e-3,
+                                    rho=5e-2, seed=0),
+                      graph="ring", censor_v=None, censor_mu=None,
+                      num_iters=o["rounds"], online_batch=o["batch"],
+                      online_lr=o["lr"], exec="gossip",
+                      participation=GOSSIP_STREAM_P)
+    ss = build_stream(sbase, device=dev).stream
+    R, SN = o["rounds"], o["num_agents"]
+    stream_cfgs = {}
+    for alg in ("online_coke", "qc_odkla"):
+        pol = [Censor(o["v"], o["mu"])] + ([Quantize(bits=o["bits"])]
+                                           if alg == "qc_odkla" else [])
+        for churned_run in (False, True):
+            c = sbase.replace(algorithm=alg, comm=Chain(pol),
+                              churn=ChurnSchedule(**GOSSIP_CHURN_10)
+                              if churned_run else None)
+            stream_cfgs[(alg, churned_run)] = c
+            runs = {}
+            for backend in ("simulator", "spmd"):
+                reset_counts()
+                with StrictFits(), CensorRecord() as cens, \
+                        QuantizerRecord() as quant:
+                    t0 = time.perf_counter()
+                    r = fit_stream(c.replace(backend=backend), stream=ss,
+                                   device=dev)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                # one draw per round for participation, one more for the
+                # quantizer; the recorder draws again (its own launches)
+                draws = 2 if alg == "qc_odkla" else 1
+                k5_path = counts()["threefry"] - len(quant.calls)
+                if k5_path != draws * R:
+                    raise AssertionError(f"stream {alg} {backend}: K5 made "
+                                         f"{k5_path} launches in {R} rounds")
+                fit_kernels_idle(counts, f"gossip stream {alg}")
+                runs[backend] = (r, cens, quant, wall)
+            (a, ca, qa, wa), (b, cb, qb, wb) = runs["simulator"], runs["spmd"]
+            quantized = alg == "qc_odkla"
+            parted, held = hold_until_parted(
+                f"gossip stream {alg}", a.history, b.history, ca, cb,
+                qa if quantized else None, qb if quantized else None)
+            if parted:
+                gap = parted_mse(f"gossip stream {alg}", a.history,
+                                 b.history, key="instant_mse")
+                held += f"; instant_mse over the last tenth {gap:.2e} apart"
+            log(16, f"gossip stream {alg} (N={SN} ring, b={o['batch']}, "
+                    f"D={o['features']}, {R} rounds, participation "
+                    f"{GOSSIP_STREAM_P}, churn "
+                    f"{GOSSIP_CHURN_10 if churned_run else None}) in "
+                    f"{wa:.2f} / {wb:.2f} s wall (simulator / spmd): comms "
+                    f"{int(a.comms[-1])}/{SN * R}, simulator against spmd: "
+                    f"{held}")
+
+    # ---- (f) a gossip sweep over the paper grid -------------------------
+    reset_counts()
+    pbase = FitConfig(algorithm="coke", krr=PAPER_SETUPS["synthetic"],
+                      num_iters=SWEEP_ITERS, exec="gossip",
+                      participation=GOSSIP_P)
+    pp = build_problem(pbase, samples_override=SWEEP_SAMPLES,
+                       device=dev).problem
+    grid = PAPER_GRID + (PAPER_GRID[0],)     # two identical lanes
+    G = len(PAPER_GRID)
+    with StrictLoops(), CensorRecord() as cens_lanes:
+        t0 = time.perf_counter()
+        sw = sweep(pbase, grid, problem=pp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if counts()["threefry"] != SWEEP_ITERS:
+        raise AssertionError(f"the gossip sweep made {counts()['threefry']} "
+                             f"K5 launches in {SWEEP_ITERS} grid iterations")
+    fit_kernels_idle(counts, "the gossip sweep")
+    twin = all(torch.equal(sw.history[k][0], sw.history[k][G])
+               for k in sw.history) and torch.equal(sw.thetas[0],
+                                                     sw.thetas[G])
+    if not twin:
+        raise AssertionError("two identical gossip lanes differ")
+    # each fp32 lane against its own fit: equal until a send decision
+    # parts them (gossip's fp32 trajectories meet a knife-edge decision
+    # within a few hundred rounds); then each lane and its fit in float64,
+    # where they must stay equal to the end
+    parted_at = []
+    for g in range(G):
+        with StrictFits(), CensorRecord() as cens_fit:
+            f = fit(sw.cell_config(g), problem=pp, device=dev)
+        lane = {k: v[g] for k, v in sw.history.items()}
+        parted, held = hold_until_parted(f"gossip sweep cell {g}", lane,
+                                         f.history, cens_lanes.lane(g),
+                                         cens_fit)
+        if parted:
+            parted_at.append(g)
+            tail = max(1, SWEEP_ITERS // 10)
+            a = float(lane["train_mse"][-tail:].double().mean())
+            b = float(f.history["train_mse"][-tail:].double().mean())
+            held += (f"; train_mse over the last tenth {a:.6f} (lane) / "
+                     f"{b:.6f} (fit)")
+        log(16, f"gossip sweep cell {g} {PAPER_GRID[g]} in fp32: comms "
+                f"{int(lane['comms'][-1])} (fit {int(f.comms[-1])}): {held}")
+    p64 = dataclasses.replace(pp, feats=pp.feats.double(),
+                              labels=pp.labels.double(),
+                              adjacency=pp.adjacency.double())
+    with CensorRecord() as cens64:
+        sw64 = sweep(pbase, PAPER_GRID, problem=p64, device=dev)
+    for g in range(G):
+        with CensorRecord() as cens_fit:
+            f = fit(sw64.cell_config(g), problem=p64, device=dev)
+        lane = {k: v[g] for k, v in sw64.history.items()}
+        parted, held = hold_until_parted(f"float64 gossip sweep cell {g}",
+                                         lane, f.history, cens64.lane(g),
+                                         cens_fit)
+        e = theta_err(sw64.thetas[g], f.theta)
+        tol = GOSSIP_F64_RTOL * float(f.theta.abs().max())
+        log(16, f"gossip sweep cell {g} in float64 against its float64 fit: "
+                f"{held}; theta max|err| {e:.3e} (tol {tol:.3e}); train_mse "
+                f"{float(lane['train_mse'][-1]):.6f}")
+        if parted or not e <= tol:
+            raise AssertionError(f"float64 gossip sweep cell {g} parts from "
+                                 "its own fit")
+    log(16, f"[{card}] gossip sweep: {G} paper cells + a twin of cell 0 "
+            f"(N={pp.num_agents} Erdos-Renyi, T={pp.feats.shape[1]}, "
+            f"L={pp.feature_dim}, Cholesky, participation {GOSSIP_P}, "
+            f"{SWEEP_ITERS} iterations) in {wall:.2f} s wall, one K5 launch "
+            f"per grid iteration; the twin lanes bitwise equal; in fp32 "
+            f"lanes {parted_at} part from their own fits, in float64 none")
+
+    # ---- (g) the reference's N=200 cell ---------------------------------
+    ncfg = FitConfig(krr=KRRConfig(**N200), graph="ring", algorithm="coke",
+                     censor_v=0.3, censor_mu=0.97, primal="cg",
+                     num_iters=100)
+    npb = build_problem(ncfg, device=dev).problem
+    t0 = time.perf_counter()
+    nsync = fit(ncfg, problem=npb, device=dev)
+    ngsp = fit(ncfg.replace(exec="gossip", participation=0.25,
+                            num_iters=400), problem=npb, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g_mse = float(ngsp.train_mse[-1])
+    s_mse = float(nsync.train_mse[-1])
+    log(16, f"N=200 ring, p=0.25 (400 iterations) against sync (100), CG, "
+            f"on the simulator in {wall:.2f} s wall: final train MSE gossip "
+            f"{g_mse:.6f} / sync {s_mse:.6f} ({g_mse / s_mse:.3f}x); comms "
+            f"{int(ngsp.comms[-1])} / {int(nsync.comms[-1])}. The reference "
+            f"on the CPU (its own RFF draw): {N200_REFERENCE_MSE[0]:.6f} / "
+            f"{N200_REFERENCE_MSE[1]:.6f} "
+            f"({N200_REFERENCE_MSE[0] / N200_REFERENCE_MSE[1]:.3f}x); its "
+            "test's 2x bound is not held here")
+    if not (math.isfinite(g_mse) and math.isfinite(s_mse)):
+        raise AssertionError("the N=200 cell's train MSE is not finite")
+
+    # ---- (h) times: each gossip path beside its sync counterpart --------
+    cg_steps = 4
+    pairs = [
+        ("megakernel COKE", loop_of(runner(gcfg.replace(algorithm="coke"),
+                                           problem)),
+         loop_of(runner(cfg.replace(algorithm="coke"), problem)), 10),
+        ("churn simulator CG", loop_of(runner(
+            churn_cfg.replace(backend="simulator"), problem), cg_steps),
+         loop_of(runner(cfg.replace(algorithm="coke", primal="cg",
+                                    backend="simulator"), problem),
+                 cg_steps), cg_steps),
+        ("churn spmd CG", loop_of(runner(
+            churn_cfg.replace(backend="spmd"), problem), cg_steps),
+         loop_of(runner(cfg.replace(algorithm="coke", primal="cg",
+                                    backend="spmd"), problem), cg_steps),
+         cg_steps),
+    ]
+    for alg in ("online_coke", "qc_odkla"):
+        c = stream_cfgs[(alg, False)]
+        pairs.append((f"{alg} round", loop_of(runner(c, ss)),
+                      loop_of(runner(c.replace(exec="sync",
+                                               participation=1.0), ss)), 10))
+    for what, gossip_fn, sync_fn, steps in pairs:
+        gd = per_iteration(card, 16, f"gossip {what}", gossip_fn, steps)
+        sd = per_iteration(card, 16, f"sync {what}", sync_fn, steps)
+        timings[what] = (gd, sd)
+        log(16, f"[{card}] {what}: gossip {gd[0]:.4f} ms / {gd[2]} launches "
+                f"per iteration, sync {sd[0]:.4f} ms / {sd[2]} launches "
+                f"(device ms, profiler launches)")
+
+    # K5 at the participation draw's shape, and its plain version alone
+    key = prng.fold_in(prng.PRNGKey(7), 11)
+    k5_eager = time_ms(lambda: prng.uniform(key, (N,), dev), reps=100)
+    k5_graph = graph_ms(lambda: prng.uniform(key, (N,), dev))
+    k5_host = host_call_ms(lambda: prng.uniform(key, (N,), dev))
+    plain = time_ms(lambda: uniform_ref(key, (N,), dev), reps=20)
+    plain_wide = time_ms(lambda: uniform_ref(key, (N, D), dev), reps=20)
+    k5_wide = graph_ms(lambda: prng.uniform(key, (N, D), dev))
+    ops_word = k5_ops if k5_ops is not None else 80.0
+    b_ops = ops_word * N / int32_rate * 1e3
+    b_bytes = 4.0 * N / bw * 1e3
+    bound_ms, bound_by = max((b_ops, "operations"), (b_bytes, "bytes"))
+    log(16, f"[{card}] one uniform of N={N} words: K5 {k5_graph:.6f} ms as a "
+            f"CUDA-graph replay, {k5_eager:.4f} ms eager ({k5_host:.4f} ms "
+            f"of host per call); plain version (~173 launches) "
+            f"{plain:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}: "
+            f"{ops_word:.1f} instructions per word at "
+            f"{int32_rate / 1e12:.2f} TOPS INT32, {4 * N} bytes at "
+            f"{bw / 1e12:.2f} TB/s). At N x D = {N * D} words (a Quantize "
+            f"draw): K5 {k5_wide:.6f} ms, plain {plain_wide:.4f} ms")
+    for what, (gd, sd) in timings.items():
+        draws = 2 if what == "qc_odkla round" else 1
+        log(16, f"[{card}] {what} with K5's plain version in its place "
+                f"(estimated from the direct calls above, not run): "
+                f"{gd[0] - draws * k5_eager + draws * plain:.4f} ms per "
+                f"iteration against {gd[0]:.4f} with K5 and {sd[0]:.4f} "
+                "sync")
+    src, replaces = KERNEL_SOURCES["threefry"]
+    return {"name": "threefry", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": k5_launches,
+            "max_abs_err": 0.0, "ms": k5_graph, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2078,6 +2596,7 @@ def main() -> int:
     from repro_torch.api.backends import _local_grads, consensus_runner
     from repro_torch.api.config import SolveContext
     from repro_torch.api.solvers import _stacked_metrics
+    from repro_torch.core import prng
     from repro_torch.core.graph import ring
     from repro_torch.kernels import build
     from repro_torch.kernels.coke_update import coke_update as k2
@@ -2089,6 +2608,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rff import rff as k1
     from repro_torch.kernels.rff.ref import rff_ref
+    from repro_torch.kernels.threefry import threefry as k5
+    from repro_torch.kernels.threefry.ref import (random_bits_ref,
+                                                  uniform_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2099,12 +2621,12 @@ def main() -> int:
 
     def reset_counts():
         k1.LAUNCHES = k2.LAUNCHES = k2.FUSED_UPDATE_LAUNCHES = 0
-        k4.LAUNCHES = 0
+        k4.LAUNCHES = k5.LAUNCHES = 0
 
     def counts():
         return {"coke_megastep": k2.LAUNCHES, "rff_cos_bias": k1.LAUNCHES,
                 "coke_fused_update": k2.FUSED_UPDATE_LAUNCHES,
-                "flash_attention": k4.LAUNCHES}
+                "flash_attention": k4.LAUNCHES, "threefry": k5.LAUNCHES}
 
     # ---- 0. device -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -2155,6 +2677,14 @@ def main() -> int:
     except Exception as exc:    # a diagnostic: a layout it misreads
         k1_sass = f"not read ({exc!r})"
     log(1, f"K1 SASS (cuobjdump -sass, bulk instance): {k1_sass}")
+    try:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        k5_ops, k5_sass = k5_sass_counts(subprocess.run(
+            [tool, "-sass", str(build.library_path("threefry"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout)
+    except Exception as exc:    # a diagnostic: a layout it misreads
+        k5_ops, k5_sass = None, f"not read ({exc!r})"
+    log(1, f"K5 SASS (cuobjdump -sass, uniform instance): {k5_sass}")
     hmma = hmma_count(build.library_path("flash_attention"))
     log(1, f"flash_attention SASS tensor-core instructions (cuobjdump "
            f"-sass): {hmma}")
@@ -2405,6 +2935,44 @@ def main() -> int:
 
     k4_worst = attention_cases()
     log(2, f"K4 worst error over the sweep: {k4_worst}")
+
+    def threefry_case(key, n):
+        """K5 against its plain version on the card, uniform floats and
+        random_bits words, one launch each; bitwise."""
+        before = k5.LAUNCHES
+        u = k5.threefry_draw(key, (n,), dev, uniform=True)
+        bits = k5.threefry_draw(key, (n,), dev, uniform=False)
+        torch.cuda.synchronize()
+        if k5.LAUNCHES - before != 2:
+            raise AssertionError(f"K5 made {k5.LAUNCHES - before} launches "
+                                 "for two draws")
+        shape = (n,)
+        same = (torch.equal(u.view(torch.int32),
+                            uniform_ref(key, shape, dev).view(torch.int32))
+                and torch.equal(bits, random_bits_ref(key, shape, dev)))
+        if not same:
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"n={n}, key {key}")
+
+    for n in K5_SIZES:
+        threefry_case(prng.fold_in(prng.PRNGKey(n), 2**32 - 1), n)
+        lanes = torch.tensor([prng.fold_in(prng.PRNGKey(n), g)
+                              for g in range(K5_LANES)], dtype=torch.int64,
+                             device=dev)
+        threefry_case(lanes, n)
+    for seed, folds, shape, key_want, bits_want in JAX_PRNG_PINS:
+        key = prng.PRNGKey(seed)
+        for f in folds:
+            key = prng.fold_in(key, f)
+        flat = k5.threefry_draw(key, shape, dev, uniform=False).reshape(-1)
+        if key != key_want or {i: int(flat[i]) for i in bits_want} \
+                != bits_want:
+            raise AssertionError(f"K5 misses jax's pinned words under seed "
+                                 f"{seed}")
+    errs["threefry"] = 0.0
+    log(2, f"K5 threefry at n={list(K5_SIZES)}, one key and {K5_LANES} "
+           f"keys: uniform and random_bits bitwise the plain version (one "
+           f"launch per draw); jax's pinned words (JAX_PRNG_PINS) equal")
 
     # ---- 3. small fits, card against CPU ----------------------------------
     small = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
@@ -3038,7 +3606,7 @@ def main() -> int:
             f"call); launch counts over the serving path: {lm_counts}")
     if lm_counts != {"coke_megastep": 0, "rff_cos_bias": 0,
                      "coke_fused_update": 0,
-                     "flash_attention": lm_cfg.num_layers}:
+                     "flash_attention": lm_cfg.num_layers, "threefry": 0}:
         raise AssertionError(f"the serving path launched {lm_counts}, not "
                              f"K4 once per layer of the prefill")
     if served.shape != (LM_BATCH, LM_NEW_TOKENS) or not (
@@ -3227,6 +3795,13 @@ def main() -> int:
 
     # ---- 15. streaming: fit_stream and partial_fit -----------------------
     stream_phase(dev, card, reset_counts, counts)
+
+    # ---- 16. gossip and churn ---------------------------------------------
+    kernels.append(gossip_phase(
+        dev, card, reset_counts, counts, problem=problem, cfg=cfg,
+        built=built, coke4=results["coke"], log_problem=log_problem,
+        log_cfg=log_cfg, peaks=peaks, k5_ops=k5_ops))
+    log(16, f"[{card}] threefry (K5): {kernels[-1]}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,10 @@ backend (`dkla`, `coke`, `cta`), each with any comm chain (`Censor`,
 partial_fit); `sweep` (a policy grid as one lane-batched simulator loop,
 `SweepResult` evaluate / select / models); `fit_stream` with
 `online_dkla`, `online_coke` and `qc_odkla` on the simulator and spmd
-(`build_stream`, `stream_from_arrays`).
+(`build_stream`, `stream_from_arrays`); gossip execution
+(`FitConfig(exec="gossip", participation=0.25)`, or `gossip_size=k`) for
+all of these, on every backend, with `ChurnSchedule` scripting straggler
+slowdowns and join/leave events on the simulator and spmd.
 Admission is the reference's capability table (`api/capabilities.py`);
 what is not ported yet raises NotImplementedError naming its ROADMAP.md
 item.
@@ -41,4 +44,6 @@ from repro_torch.core.admm import Problem, make_problem  # noqa: F401
 from repro_torch.core.censor import CensorSchedule  # noqa: F401
 from repro_torch.core.comm import (Censor, Chain, CommState,  # noqa: F401
                                    Drop, Quantize)
+from repro_torch.core.gossip import (ChurnSchedule,  # noqa: F401
+                                     GossipPlan, NeighborTable)
 from repro_torch.core.graph import TopologySchedule  # noqa: F401

@@ -19,6 +19,15 @@ runs in `api/fit.py`).
 streaming round (`consensus.stream_update`) over a StreamProblem's rounds,
 with the simulator's history keys.
 
+Under exec="gossip" every chunk draws round k's participation mask from
+the carried `CommState` key and k, as the simulator does, so the backends
+sample the same wake-up schedules and their comms and bits agree: into
+`consensus_update` / `stream_update` (with the churn plan's alive and
+joined masks), and on the megakernel path as the `comm_decide` stage
+around K2 (the kernel computes every agent's theta', the mask applies
+after it, as in the reference). Churn never reaches the fused backend:
+the capability table rejects it.
+
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
 solving a different consensus problem. A topology schedule runs on the
@@ -135,8 +144,12 @@ def _cg_primal_solve(problem: Problem, cg_tol: float, cg_maxiter: int):
     n_agents = problem.num_agents
 
     def solve(params, theta_hat, gamma, nbr_sum, deg):
-        deg_vec = torch.full((n_agents,), float(deg),
-                             dtype=problem.feats.dtype, device=problem.device)
+        if isinstance(deg, torch.Tensor) and deg.ndim == 1:
+            deg_vec = deg.to(problem.feats.dtype)   # churn: per agent
+        else:
+            deg_vec = torch.full((n_agents,), float(deg),
+                                 dtype=problem.feats.dtype,
+                                 device=problem.device)
         theta = admm._primal_cg(
             problem, gamma["theta"], theta_hat["theta"], nbr_sum["theta"],
             deg_vec, theta0=params["theta"], tol=cg_tol, maxiter=cg_maxiter,
@@ -163,8 +176,20 @@ def _stack_history(hist: dict[str, list], device) -> dict[str, torch.Tensor]:
             for k, v in hist.items()}
 
 
+def _gossip_masks(gossip, comm_state, k: int, n_agents: int):
+    """(participate, alive, joined) of round k under a gossip plan, drawn
+    from the carried CommState key as the simulator draws them; joined is
+    None where no row (re)joins."""
+    alive = joined = None
+    if gossip.has_churn:
+        alive, joined = gossip.alive_at(k), gossip.joined_at(k)
+    return (step_mod.participation_mask(comm_state.key, k, n_agents, gossip,
+                                        alive), alive, joined)
+
+
 def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
-                    offsets: tuple[int, ...], num_iters: int, lr: float):
+                    offsets: tuple[int, ...], num_iters: int, lr: float,
+                    gossip=None):
     """`num_iters` iterations of the megakernel program: one
     `coke_megastep` call per iteration (two launches on the card),
     substituted into the StepProgram primal stage with
@@ -172,7 +197,8 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
     theta_hat rows itself. History keys match the reference's fused chunk:
     train_mse / comms / consensus_gap / bits / send_frac
     [+ dist_to_oracle]. Histories stay device tensors and are stacked once
-    at the end of the chunk.
+    at the end of the chunk. Under a gossip plan the program's comm_decide
+    stage draws the participation mask after K2; sleepers keep theta.
 
     The train MSE of iteration k's theta is the sum of the squared
     residuals that K2 forms on its way in iteration k + 1, divided by N*T
@@ -199,16 +225,22 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
 
     def primal(k, g, theta0, theta_hat0, gamma0, nbr_hat):
         # the kernel's xi_sq is not used here: the portable chain.apply
-        # recomputes the censor norm, as the reference does
+        # recomputes the censor norm, as the reference does. K2 writes
+        # theta' over its theta operand; under gossip a sleeper keeps
+        # theta0, so the kernel gets a copy
         theta_new, _xi_sq = coke_megastep(
-            theta0, theta_hat0, gamma0, problem.feats, problem.labels,
+            theta0 if gossip is None else theta0.clone(), theta_hat0,
+            gamma0, problem.feats, problem.labels,
             rho=problem.rho, lam=problem.lam, lr=lr, offsets=offsets,
             resid_sq=resid_sq)
         return theta_new, {}
 
     program = step_mod.StepProgram(
         chain=chain, rho=problem.rho, exchange=lambda state, k: view,
-        primal=primal, primal_owns_exchange=True)
+        primal=primal,
+        comm_decide=(None if gossip is None
+                     else step_mod.sampled_stage(gossip)),
+        primal_owns_exchange=True)
 
     keys = ["train_mse", "comms", "consensus_gap", "bits", "send_frac"]
     if oracle is not None:
@@ -236,14 +268,15 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
 
 def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
                      ccfg: cns.ConsensusConfig, opt_cfg: OptConfig,
-                     num_iters: int, primal_solve=None):
+                     num_iters: int, primal_solve=None, gossip=None):
     """`num_iters` iterations of the ring runtime: local gradients, then
     `consensus_update` (through K3 when ccfg.use_fused_kernel). With a
     `primal_solve` (the CG primal) the solve replaces the gradient step:
     zero gradients are passed and `_local_grads` is skipped, as in the
-    reference, which saves its two Phi reads. History keys match the
-    reference's spmd chunk: train_mse / comms / consensus_gap / bits, then
-    send_frac for dkla/coke [+ dist_to_oracle]."""
+    reference, which saves its two Phi reads. Under a gossip plan each
+    round's participation (and churn) masks go into `consensus_update`.
+    History keys match the reference's spmd chunk: train_mse / comms /
+    consensus_gap / bits, then send_frac for dkla/coke [+ dist_to_oracle]."""
     keys = ["train_mse", "comms", "consensus_gap", "bits"]
     if ccfg.is_admm:
         keys.append("send_frac")
@@ -255,9 +288,15 @@ def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
             grads = {"theta": _local_grads(problem, params["theta"])}
         else:
             grads = {"theta": torch.zeros_like(params["theta"])}
+        participate = alive = joined = None
+        if gossip is not None:
+            participate, alive, joined = _gossip_masks(
+                gossip, cstate["comm"], cstate["step"] + 1,
+                problem.num_agents)
         params, cstate, extra = cns.consensus_update(
             ccfg, opt_cfg, params, grads, cstate, comm=chain,
-            primal_solve=primal_solve)
+            primal_solve=primal_solve, participate=participate,
+            alive=alive, joined=joined)
         bits = extra.get("bits")
         if bits is None:  # policy-unaware strategy (cta): full precision
             bits = _uncompressed_bits(problem, cstate["comms"])
@@ -273,17 +312,24 @@ def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
 
 def _stream_chunk(stream, params, cstate, chain, *,
                   ccfg: cns.ConsensusConfig, num_iters: int, lam: float,
-                  lr: float, eta: float | None):
+                  lr: float, eta: float | None, gossip=None):
     """`num_iters` rounds of the ring runtime's streaming update, each on
-    the stream's next round (wrapping). History keys are the simulator's
+    the stream's next round (wrapping), with the simulator's participation
+    and churn masks under a gossip plan. History keys are the simulator's
     `_stream_metrics` keys."""
     keys = ["train_mse", "instant_mse", "comms", "consensus_gap", "bits"]
     hist: dict[str, list] = {k: [] for k in keys}
     for _ in range(num_iters):
+        participate = alive = joined = None
+        if gossip is not None:
+            participate, alive, joined = _gossip_masks(
+                gossip, cstate["comm"], cstate["step"] + 1,
+                stream.num_agents)
         feats, labels = stream.round_batch(cstate["step"])
         params, cstate, extra = cns.stream_update(
             ccfg, params, cstate, feats, labels, lam=lam, lr=lr, eta=eta,
-            comm=chain)
+            comm=chain, participate=participate, alive=alive,
+            joined=joined)
         m = _stream_metrics(params["theta"], cstate["comms"],
                             extra["bits"], extra["instant_mse"])
         for k in keys:
@@ -319,7 +365,7 @@ def stream_consensus_runner(config: FitConfig, solver: Solver, stream,
         params, cstate = carry
         return _stream_chunk(stream, params, cstate, chain, ccfg=ccfg,
                              num_iters=n, lam=stream.lam, lr=ctx.online_lr,
-                             eta=eta)
+                             eta=eta, gossip=ctx.gossip)
 
     return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]
 
@@ -368,7 +414,7 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
         def mega_chunk_fn(carry, n):
             return _megastep_chunk(problem, carry, oracle, chain,
                                    offsets=offsets, num_iters=n,
-                                   lr=ctx.inner_lr)
+                                   lr=ctx.inner_lr, gossip=ctx.gossip)
 
         return carry0, mega_chunk_fn, lambda carry: carry.theta
 
@@ -396,6 +442,6 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
         params, cstate = carry
         return _consensus_chunk(problem, params, cstate, oracle, chain,
                                 ccfg=ccfg, opt_cfg=opt_cfg, num_iters=n,
-                                primal_solve=primal_solve)
+                                primal_solve=primal_solve, gossip=ctx.gossip)
 
     return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]

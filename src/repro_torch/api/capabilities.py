@@ -238,12 +238,6 @@ NOT_PORTED: tuple[Rule, ...] = (
         alternative="ROADMAP.md Queue 1 item 14 (big-D sharding)",
     ),
     Rule(
-        id="gossip",
-        when=(("exec", "gossip"),),
-        reason="exec='gossip' (participation sampling and churn)",
-        alternative="ROADMAP.md Queue 1 item 10 (gossip and churn)",
-    ),
-    Rule(
         id="personalization",
         when=(("personalization", True),),
         reason="personalization (a learned collaboration graph)",
@@ -343,8 +337,8 @@ BEGIN_MARK = ("<!-- BEGIN port-support-matrix (generated: python -m "
               "repro_torch.api.capabilities) -->")
 END_MARK = "<!-- END port-support-matrix -->"
 
-#: the reference's probe columns; churn and personalization have no port
-#: objects yet, and the rules read only whether they are set
+#: the reference's probe columns; personalization has no port object yet,
+#: and the rules read only whether it is set
 _FEATURE_PROBES: tuple[tuple[str, dict[str, Any]], ...] = (
     ("`exec=\"sync\"`", {}),
     ("`exec=\"gossip\"`", {"exec": "gossip", "participation": 0.5}),
@@ -359,6 +353,7 @@ def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
     """✅ when the drivers run the combination, — when they reject it
     (the reference's ValueError), "item N" when it is not ported yet."""
     from repro_torch.api.config import FitConfig
+    from repro_torch.core.gossip import ChurnSchedule
     from repro_torch.core.graph import TopologySchedule
 
     kw: dict[str, Any] = {"backend": backend, "algorithm": solver.name,
@@ -366,7 +361,7 @@ def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
     if probe.get("participation"):
         kw["participation"] = probe["participation"]
     if probe.get("churn"):
-        kw["churn"] = "churn probe"
+        kw["churn"] = ChurnSchedule(leave=((2, 0),))
     if probe.get("personalization"):
         kw["personalization"] = "personalization probe"
     if probe.get("topology"):

@@ -17,11 +17,11 @@ from repro_torch.api.capabilities import check_config
 from repro_torch.configs.coke_krr import KRRConfig
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.admm import PRIMAL_MODES
+from repro_torch.core.gossip import EXEC_MODES, ChurnSchedule, GossipPlan
 from repro_torch.core.graph import TopologySchedule
 from repro_torch.data.synthetic import STREAM_KINDS
 
 BACKENDS = ("simulator", "spmd", "fused")
-EXEC_MODES = ("sync", "gossip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,11 +38,14 @@ class FitConfig:
     censor_v: float | None = None
     censor_mu: float | None = None
 
-    # execution semantics: "sync" | "gossip"
+    # execution semantics: "sync" | "gossip" (per iteration a
+    # Bernoulli(participation) or fixed-size (gossip_size) sample of agents
+    # steps and broadcasts; churn: a core.gossip.ChurnSchedule of straggler
+    # slowdowns and join/leave events)
     exec: str = "sync"
     participation: float = 1.0
     gossip_size: int | None = None
-    churn: object | None = None
+    churn: ChurnSchedule | None = None
     topology: TopologySchedule | None = None
     personalization: object | None = None
 
@@ -92,6 +95,20 @@ class FitConfig:
         if self.exec not in EXEC_MODES:
             raise ValueError(
                 f"unknown exec mode {self.exec!r}; choose from {EXEC_MODES}")
+        if self.exec == "gossip":
+            if not 0.0 < self.participation <= 1.0:
+                raise ValueError(
+                    f"participation must be in (0, 1], got "
+                    f"{self.participation}")
+            if self.gossip_size is not None and self.gossip_size < 1:
+                raise ValueError(
+                    f"gossip_size must be >= 1 or None, got "
+                    f"{self.gossip_size}")
+            if self.churn is not None and not isinstance(self.churn,
+                                                         ChurnSchedule):
+                raise ValueError(
+                    "churn must be a repro_torch.core.gossip.ChurnSchedule, "
+                    f"got {type(self.churn).__name__}")
         # the cross-axis admission: one declarative table, shared with the
         # drivers' solver-scoped checks and the README matrix
         check_config(self)
@@ -130,7 +147,8 @@ class FitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SolveContext:
-    """The solver-facing slice of a FitConfig that this port's path reads."""
+    """The solver-facing slice of a FitConfig that this port's path reads;
+    `gossip` is the run's `core.gossip.GossipPlan` under exec="gossip"."""
 
     comm: comm_mod.Chain
     primal: str = "auto"
@@ -143,15 +161,30 @@ class SolveContext:
     online_batch: int = 16
     qc_eta: float | None = None
     topology: TopologySchedule | None = None
+    gossip: GossipPlan | None = None    # set exactly under exec="gossip"
 
     @classmethod
-    def from_config(cls, config: FitConfig) -> "SolveContext":
+    def from_config(cls, config: FitConfig, num_agents: int | None = None,
+                    device: torch.device | str = "cpu") -> "SolveContext":
+        """The context of `config`; under exec="gossip" its participation
+        and churn plan is made for `num_agents` agents on `device`."""
+        gossip = None
+        if config.exec == "gossip":
+            if num_agents is None:
+                raise ValueError(
+                    "exec='gossip' needs the agent count to compile its "
+                    "participation/churn plan; pass num_agents")
+            sched = config.churn if config.churn is not None \
+                else ChurnSchedule()
+            gossip = sched.plan(num_agents,
+                                participation=config.participation,
+                                size=config.gossip_size, device=device)
         return cls(comm=config.resolved_comm, primal=config.primal,
                    inner_steps=config.inner_steps, inner_lr=config.inner_lr,
                    cg_tol=config.cg_tol, cg_maxiter=config.cg_maxiter,
                    cta_lr=config.cta_lr, online_lr=config.online_lr,
                    online_batch=config.online_batch, qc_eta=config.qc_eta,
-                   topology=config.topology)
+                   topology=config.topology, gossip=gossip)
 
 
 @dataclasses.dataclass(frozen=True)

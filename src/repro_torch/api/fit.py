@@ -7,12 +7,13 @@ the reference has `lax.scan`), the per-iteration metric recording and the
 optional progress callbacks, and walk the same `phase_plan`. Admission is
 the capability table's (`api/capabilities.py`): the reference's
 ValueErrors first, then NotImplementedError naming the ROADMAP.md item for
-what the port does not run yet (gossip, personalization, `mesh=`). The
-port runs the simulator backend (every registered solver, each primal),
-the spmd backend and the fused backend (its megakernel path and its
-fallback to the ring runtime), each with any comm chain (Censor, Quantize,
-Drop) and, where the reference runs one, a topology schedule; fit_stream
-runs the streaming solvers on the simulator and spmd.
+what the port does not run yet (personalization, `mesh=`). The port runs
+the simulator backend (every registered solver, each primal), the spmd
+backend and the fused backend (its megakernel path and its fallback to the
+ring runtime), each with any comm chain (Censor, Quantize, Drop), under
+synchronous or gossip execution (participation sampling; churn on the
+simulator and spmd) and, where the reference runs one, a topology
+schedule; fit_stream runs the streaming solvers on the simulator and spmd.
 """
 from __future__ import annotations
 
@@ -142,10 +143,11 @@ def _phased_runner(make_runner, plan):
     return runners[0][0], chunk_fn, runners[-1][2]
 
 
-def _solve_context(config: FitConfig, device, dtype) -> SolveContext:
-    """The config's SolveContext, with a topology schedule beside the
-    problem."""
-    ctx = SolveContext.from_config(config)
+def _solve_context(config: FitConfig, device, dtype,
+                   num_agents: int) -> SolveContext:
+    """The config's SolveContext, with a topology schedule and a gossip
+    plan beside the problem."""
+    ctx = SolveContext.from_config(config, num_agents, device)
     if ctx.topology is not None:
         ctx = dataclasses.replace(ctx, topology=ctx.topology.to(device,
                                                                 dtype))
@@ -192,7 +194,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
             f"topology schedule is over {config.topology.num_agents} "
             f"agents but the problem has {problem.num_agents}")
 
-    ctx = _solve_context(config, problem.device, problem.feats.dtype)
+    ctx = _solve_context(config, problem.device, problem.feats.dtype,
+                         problem.num_agents)
 
     def make_runner(c: SolveContext):
         if config.backend == "simulator":
@@ -244,7 +247,7 @@ def fit_stream(config: FitConfig, stream: StreamProblem | None = None, *,
     if theta0 is not None:
         theta0 = torch.as_tensor(theta0, device=dev)
 
-    ctx = _solve_context(config, dev, stream.feats.dtype)
+    ctx = _solve_context(config, dev, stream.feats.dtype, stream.num_agents)
 
     def make_runner(c: SolveContext):
         if config.backend == "simulator":

@@ -11,7 +11,9 @@ subproblem (`primal_aware`), and has gossip and personalization forms
 (`api/capabilities.py`) reads them. The simulator backend drives a solver
 through `prepare_host` / `prepare_traced` (once per fit), `init_state`,
 then `step` and `metrics` per iteration, and `theta_of`; the spmd and
-fused backends read only `consensus_strategy` and `_policy`.
+fused backends read only `consensus_strategy` and `_policy`. Under
+exec="gossip" the simulator's ADMM and streaming steps run through
+`core.gossip` on a `NeighborTable` made once per fit.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.api.config import SolveContext
 from repro_torch.api.registry import register_solver
 from repro_torch.core import admm, cta, online, ridge
 from repro_torch.core import comm as comm_mod
+from repro_torch.core import gossip as gossip_mod
 from repro_torch.core.admm import Problem
 from repro_torch.core.graph import Graph, metropolis_weights
 from repro_torch.distributed.consensus import consensus_gap
@@ -76,22 +79,35 @@ class _ADMMSolver:
     topology_aware = True
     # these solvers have a (21a) primal subproblem the exact solves apply to
     primal_aware = True
-    # the reference's gossip and personalized forms (not ported yet: the
-    # capability table raises NotImplementedError for them)
+    # the ADMM update has an asynchronous form: sampled participants step,
+    # sleepers hold, duals delayed but correct (core.gossip.gossip_coke_step)
     gossip_aware = True
+    # the reference's personalized form (not ported yet: the capability
+    # table raises NotImplementedError for it)
     personalization_aware = True
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
         raise NotImplementedError
 
     def prepare_host(self, problem: Problem, ctx: SolveContext):
+        """Under gossip the padded neighbour table (gathers, no (N, N) on
+        the step), made once from the adjacency on the host."""
+        if ctx.gossip is not None:
+            return gossip_mod.NeighborTable.from_adjacency(
+                problem.adjacency, device=problem.device)
         return None
 
     def _primal_mode(self, problem: Problem, ctx: SolveContext) -> str:
         """Cholesky / CG across the big-D crossover, gradient for general
-        losses (core.admm.resolve_primal)."""
-        return admm.resolve_primal(ctx.primal, problem.feature_dim,
+        losses (core.admm.resolve_primal). Under churn the degrees change
+        over the run, so Cholesky falls to the matrix-free CG solve (an
+        explicit primal="cholesky" is rejected by the capability table)."""
+        mode = admm.resolve_primal(ctx.primal, problem.feature_dim,
                                    problem.loss)
+        if mode == "cholesky" and ctx.gossip is not None \
+                and ctx.gossip.has_churn:
+            mode = "cg"
+        return mode
 
     def prepare_traced(self, problem: Problem, ctx: SolveContext, host_aux):
         """{"chol": the (N, D, D) factor stack or None, "terms": the (21a)
@@ -101,6 +117,14 @@ class _ADMMSolver:
         and coke_step picks the active graph's. The reference builds these
         inside every compiled chunk; the port builds them once per fit."""
         mode = self._primal_mode(problem, ctx)
+        if ctx.gossip is not None:
+            # the factors from the table's degrees (the same values as the
+            # adjacency's on a static graph)
+            chol = (admm._ridge_factors(problem, deg=host_aux.degrees())
+                    if mode == "cholesky" else None)
+            terms = (admm.primal_terms(problem, jacobi=mode == "cg")
+                     if mode in ("cholesky", "cg") else None)
+            return {"table": host_aux, "chol": chol, "terms": terms}
         if mode == "cholesky":
             if ctx.topology is None:
                 chol = admm._ridge_factors(problem)
@@ -120,6 +144,14 @@ class _ADMMSolver:
 
     def step(self, problem: Problem, ctx: SolveContext, aux, state):
         mode = self._primal_mode(problem, ctx)
+        if ctx.gossip is not None:
+            return gossip_mod.gossip_coke_step(
+                problem, self._policy(ctx), state, aux["table"], ctx.gossip,
+                chol=aux["chol"], inner_steps=ctx.inner_steps,
+                inner_lr=ctx.inner_lr,
+                primal=mode if mode in ("cg", "cholesky") else "gradient",
+                cg_tol=ctx.cg_tol, cg_maxiter=ctx.cg_maxiter,
+                terms=aux["terms"])
         aux = aux or {}
         return admm.coke_step(problem, self._policy(ctx), state,
                               aux.get("chol"), ctx.inner_steps, ctx.inner_lr,
@@ -237,9 +269,12 @@ class _OnlineSolver:
     consensus_strategy = None
     comm_aware = True
     topology_aware = False
-    # the reference's gossip and personalized forms (not ported yet: the
-    # capability table raises NotImplementedError for them)
+    # the streaming round has the ADMM round's asynchronous form: sampled
+    # participants take the minibatch step and gossip, sleepers hold
+    # (core.gossip.gossip_stream_step)
     gossip_aware = True
+    # the reference's personalized form (not ported yet: the capability
+    # table raises NotImplementedError for it)
     personalization_aware = True
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
@@ -250,10 +285,13 @@ class _OnlineSolver:
         return None
 
     def prepare_host(self, problem, ctx: SolveContext):
+        if ctx.gossip is not None:
+            return gossip_mod.NeighborTable.from_adjacency(
+                problem.adjacency, device=problem.device)
         return None
 
     def prepare_traced(self, problem, ctx: SolveContext, host_aux):
-        return host_aux
+        return host_aux   # gossip: the neighbour table; sync: None
 
     def init_state(self, problem, ctx: SolveContext) -> OnlineFitState:
         inner = online.init_state(problem.num_agents, problem.feature_dim,
@@ -286,10 +324,16 @@ class _OnlineSolver:
     def step(self, problem, ctx: SolveContext, aux,
              state: OnlineFitState) -> OnlineFitState:
         feats, labels = self._round_batch(problem, ctx, state.inner.step)
-        inner, inst = online.stream_step(
-            state.inner, feats, labels, problem.adjacency,
-            self._policy(ctx), lam=problem.lam, rho=problem.rho,
-            lr=ctx.online_lr, eta=self._eta(ctx))
+        if ctx.gossip is not None:
+            inner, inst = gossip_mod.gossip_stream_step(
+                state.inner, feats, labels, aux, self._policy(ctx),
+                ctx.gossip, lam=problem.lam, rho=problem.rho,
+                lr=ctx.online_lr, eta=self._eta(ctx))
+        else:
+            inner, inst = online.stream_step(
+                state.inner, feats, labels, problem.adjacency,
+                self._policy(ctx), lam=problem.lam, rho=problem.rho,
+                lr=ctx.online_lr, eta=self._eta(ctx))
         return OnlineFitState(inner, inst)
 
     def metrics(self, problem, ctx: SolveContext, aux,

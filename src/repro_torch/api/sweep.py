@@ -130,7 +130,11 @@ def sweep(configs_or_base: FitConfig | Sequence[FitConfig],
     elif problem.device != dev:
         problem = problem.to(dev)
     G = len(cells)
-    ctx = _solve_context(base, problem.device, problem.feats.dtype)
+    # under exec="gossip" each lane draws its own participation: the draw
+    # folds the lane's chain key, which folds every numeric policy
+    # parameter of its cell
+    ctx = _solve_context(base, problem.device, problem.feats.dtype,
+                         problem.num_agents)
     if solver.comm_aware:   # the policy lanes as one batch
         ctx = dataclasses.replace(ctx, comm=stacked)
 

@@ -238,15 +238,21 @@ class Chain:
         return state
 
     def apply(self, theta: torch.Tensor, prev: torch.Tensor, k: int,
-              state: CommState
+              state: CommState, active: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, CommState]:
-        """Run one synchronous broadcast round of (N, D) candidates against
-        the (N, D) stale copies at the host iteration k. Returns
-        (theta_hat, send, new_state)."""
+        """Run one broadcast round of (N, D) candidates against the (N, D)
+        stale copies at the host iteration k. Returns (theta_hat, send,
+        new_state).
+
+        active — optional (N,) bool participation mask (gossip): an
+        inactive agent is silent this round whatever the stages decide,
+        pays zero bits, and its receivers keep the stale value. None (and
+        an all-true mask) is exactly the synchronous broadcast."""
         num_agents, dim = theta.shape[0], theta.shape[-1]
         ones = torch.ones((num_agents,), dtype=torch.bool, device=theta.device)
-        msg = Msg(payload=theta, prev=prev, send=ones, delivered=ones,
-                  bits_per_value=FP_BITS, overhead_bits=0.0)
+        msg = Msg(payload=theta, prev=prev,
+                  send=ones if active is None else active.to(torch.bool),
+                  delivered=ones, bits_per_value=FP_BITS, overhead_bits=0.0)
         # per-round entropy: the carried key is constant through the fit;
         # folding in k and the stage index gives a replayable stream that
         # differs per round and per stage
@@ -497,10 +503,11 @@ class LaneChain(Chain):
         return self._memo[memo_key]
 
     def apply(self, theta: torch.Tensor, prev: torch.Tensor, k: int,
-              state: CommState
+              state: CommState, active: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, CommState]:
         """One broadcast round of every lane: (G, N, D) candidates against
-        the (G, N, D) stale copies at the host iteration k. Returns
+        the (G, N, D) stale copies at the host iteration k; `active` the
+        optional (G, N) participation mask (see `Chain.apply`). Returns
         (theta_hat (G, N, D), send (G, N), new_state)."""
         G, N, dim = theta.shape
         dev = theta.device
@@ -508,7 +515,8 @@ class LaneChain(Chain):
         per_stage, per_msg = self._static_tables(dim, dev)
         drawn = {i: j for j, i in enumerate(self._drawn())}
         ones = torch.ones((G, N), dtype=torch.bool, device=dev)
-        payload, send, delivered = theta, ones, ones
+        payload, delivered = theta, ones
+        send = ones if active is None else active.to(torch.bool)
         c = 0
         for i, s in enumerate(self.stages):
             if isinstance(s, Censor):
@@ -557,11 +565,13 @@ def unflatten_agents(flat: torch.Tensor, leaves: list, like=None):
 
 
 def apply_tree(chain: Chain, params_tree, prev_tree, k: int,
-               state: CommState):
+               state: CommState, active: torch.Tensor | None = None):
     """Chain.apply over agent-stacked trees: flatten both to (N, D_total)
     float32, run the policy once (one decision per agent), unflatten the
-    broadcast. Equal to the flat path on a single (N, D) leaf."""
+    broadcast. Equal to the flat path on a single (N, D) leaf. `active` is
+    the gossip participation mask (see Chain.apply)."""
     flat, leaves = flatten_agents(params_tree)
     prev_flat, _ = flatten_agents(prev_tree)
-    hat_flat, send, state = chain.apply(flat, prev_flat, k, state)
+    hat_flat, send, state = chain.apply(flat, prev_flat, k, state,
+                                        active=active)
     return unflatten_agents(hat_flat, leaves, params_tree), send, state

@@ -7,56 +7,29 @@ threefry2x32 generator (`jax_threefry_partitionable=True`).
 A key is a pair of Python ints below 2^32, as the reference's uint32[2] key
 data. `PRNGKey` and `fold_in` run on the host: the port's loops carry the
 round counter k as a host int, so deriving a round's key reads nothing from
-the device. Only `random_bits` / `uniform` touch the device, as elementwise
-tensor ops; nothing is read back.
+the device. Only `random_bits` / `uniform` touch the device: on the card
+they are one launch of the threefry kernel (K5, `kernels/threefry`), on
+the CPU its plain version, the same hash in int64 tensor ops
+(`kernels/threefry/ref.py`). Both give the same bits; nothing is read back.
 
 A batch of G keys (what the reference draws under `vmap`, one key per
 sweep lane) is a (G, 2) int64 tensor on the device: `random_bits` and
 `uniform` then return (G, *shape), lane g bitwise the single draw under
-key g, in the same ~175 launches as one draw. `fold_in_lanes` derives such
-keys on the host with numpy, many rounds and lanes at once.
+key g, in one launch. `fold_in_lanes` derives such keys on the host with
+numpy, many rounds and lanes at once.
 
-The threefry words are carried in int64 tensors and masked to 32 bits after
-every addition (PyTorch cannot add uint32 tensors): a rotation of a value
-below 2^32 by r <= 31 fits in int64. The same code runs on the CPU and on
-the card and gives the same bits. `split` and `normal` are not here: no
-path of the port draws them yet (the RFF draw uses a torch.Generator by
-design, and gossip sampling arrives with its own slice).
+`split` and `normal` are not here: no path of the port draws them (the RFF
+draw uses a torch.Generator by design).
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
-MASK32 = 0xFFFFFFFF
-_KS_PARITY = 0x1BD11BDA
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+from repro_torch.kernels.threefry import ops as _k5
+from repro_torch.kernels.threefry.ref import MASK32, threefry2x32
 
 Key = tuple[int, int]
-
-
-def _rotl(x, r: int):
-    return ((x << r) & MASK32) | (x >> (32 - r))
-
-
-def threefry2x32(key, x0, x1):
-    """Threefry-2x32 with 20 rounds (jax's `_threefry2x32_lowering`) over
-    counters (x0, x1). The key words and the counters are Python ints, or
-    int64 tensors / numpy arrays holding values below 2^32, broadcast
-    against each other. Returns the two output words, broadcast."""
-    k0, k1 = key
-    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ((ks[(i + 2) % 3] + i + 1) & MASK32)) & MASK32
-    return x0, x1
 
 
 def PRNGKey(seed: int) -> Key:
@@ -96,15 +69,7 @@ def random_bits(key, shape, device: torch.device | str = "cpu"
 
     key is a host pair, or a (G, 2) int64 tensor of G keys: the result is
     then (G, *shape), one draw per key."""
-    shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    if isinstance(key, torch.Tensor):
-        hi, lo = threefry2x32((key[:, 0:1], key[:, 1:2]), idx >> 32,
-                              idx & MASK32)
-        return (hi ^ lo).reshape((key.shape[0],) + shape)
-    hi, lo = threefry2x32(key, idx >> 32, idx & MASK32)
-    return (hi ^ lo).reshape(shape)
+    return _k5.random_bits(key, shape, device)
 
 
 def uniform(key, shape, device: torch.device | str = "cpu"
@@ -112,6 +77,4 @@ def uniform(key, shape, device: torch.device | str = "cpu"
     """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23 bits
     of each word as the mantissa of a float in [1, 2), minus 1. With a
     (G, 2) tensor of keys, (G, *shape): lane g is the draw under key g."""
-    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats, 0.0)
+    return _k5.uniform(key, shape, device)

@@ -2,20 +2,23 @@
 family, as in the reference's `core/step.py`.
 
 Every iteration runs the same named stages: `exchange` (the graph view),
-`primal` (the (21a) update), the comm chain's broadcast decision, the
-(21b) dual ascent against the fresh broadcasts, and the transmission
-count. A backend substitutes stages; `run_step` owns the order.
+`primal` (the (21a) update), `comm_decide` (who speaks: gossip
+participation sampling), the comm chain's broadcast decision, the (21b)
+dual ascent against the fresh broadcasts, and the transmission count. A
+backend substitutes stages; `run_step` owns the order.
 
-Only synchronous execution is ported: the reference's `comm_decide`
-stage (gossip participation) arrives with ROADMAP.md Queue 1 item 10.
-The simulator's exchange is `dense_view` (`A @ x` over the adjacency);
-the fused megakernel path builds its own ring view.
+The simulator's exchange is `dense_view` (`A @ x` over the adjacency), or
+under gossip `table_view` (gathers over a `core.gossip.NeighborTable`,
+alive-weighted under churn); the fused megakernel path builds its own ring
+view. With a `comm_decide` stage (`sampled_stage`), sleepers hold theta,
+are silent in the broadcast (zero bits) and freeze their duals; under
+churn a (re)joining agent restarts from zero.
 
 A sweep runs G policy cells as one program on a leading lane axis: theta,
 theta_hat and gamma are (G, N, D), `comms` is (G,), and the chain is a
 `core.comm.LaneChain`. The stages broadcast over the lane axis (`A @ x`
-over (G, N, D), degrees as (N, 1)); where the reference `vmap`s a whole
-fit, the port batches one step.
+over (G, N, D), degrees as (N, 1), participation masks (G, N)); where the
+reference `vmap`s a whole fit, the port batches one step.
 
 `stream_primal` is the streaming family's featurize + primal stage
 (online-DKLA / online-COKE, and QC-ODKLA's linearized-ADMM form).
@@ -25,17 +28,83 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
+
+from repro_torch.core import prng
+
+#: fold-in tag separating the participation stream from the comm stages'
+#: per-round streams (Chain.apply folds the stage index; this sentinel can
+#: never collide with one)
+PARTICIPATION_TAG = 0x9E3779B1
+
+
+def participation_key(key: prng.Key, k: int, rate: float) -> prng.Key:
+    """The host key of round k's participation draw under the chain key:
+    fold_in(key, k), then PARTICIPATION_TAG, then the rate's float32 bit
+    pattern (the reference's `comm._fold_value`)."""
+    r = prng.fold_in(prng.fold_in(key, k), PARTICIPATION_TAG)
+    return prng.fold_in(r, int(np.float32(rate).view(np.uint32)))
+
+
+def participation_mask(key, k: int, num_agents: int, plan,
+                       alive: torch.Tensor | None = None) -> torch.Tensor:
+    """(N,) bool: who computes and broadcasts in round k (the reference's
+    `participation_mask`). `key` is the chain-level `CommState.key`: a host
+    pair, or a sweep's (G, 2) array of lane keys, which gives (G, N), each
+    lane drawing under its own key (`GossipPlan.lane_keys`). One
+    `prng.uniform` of N words per round (G x N under lane keys).
+
+    Straggler slowdowns scale the threshold or score, not the stream: in
+    Bernoulli mode the acceptance probability divides by the slowdown; in
+    fixed-size mode the draw is multiplied by it and the `size` lowest
+    scores fire. The reference takes `top_k(-score)`, which breaks ties by
+    the lower index; a stable descending sort of -score keeps that rule
+    (`torch.topk` does not promise it). Dead agents score +inf and are
+    masked afterwards. rate = 1.0 is exactly the all-ones mask."""
+    dev = plan.participation.device
+    if isinstance(key, np.ndarray):
+        u = prng.uniform(plan.lane_keys(key, k, dev), (num_agents,), dev)
+    else:
+        u = prng.uniform(participation_key(key, k, plan.rate),
+                         (num_agents,), dev)
+    if plan.size is not None:
+        score = u if plan.slowdown is None else u * plan.slowdown
+        if alive is not None:
+            score = torch.where(alive, score, torch.inf)
+        order = torch.sort(-score, dim=-1, descending=True, stable=True)[1]
+        m = torch.zeros(u.shape, dtype=torch.bool, device=dev).scatter_(
+            -1, order[..., :plan.size], True)
+    else:
+        p = plan.participation
+        if plan.slowdown is not None:
+            p = torch.clamp_max(p / plan.slowdown, 1.0)
+        m = u < p
+    if alive is not None:
+        m = m & alive
+    return m
+
+
+def _mask_rows(m: torch.Tensor, new, old):
+    """Row-select over agent-stacked tuples of (..., N, D) tensors: agent
+    i's rows take `new` iff m[i]. m is (N,), or (G, N) over a sweep's lanes
+    ((N,) masks broadcast over the lanes). With an all-true mask this is
+    bitwise `new`, the degenerate-gossip contract."""
+    keep = m[..., None]
+    return tuple(torch.where(keep, a, b) for a, b in zip(new, old))
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphView:
     """What one iteration sees of the consensus graph: (N,) degrees, a
-    neighbour-sum operator x (N, ...) -> sum_n w x_n, and, under a topology
-    schedule, the Cholesky factors of the graph in effect."""
+    neighbour-sum operator x (N, ...) -> sum_n w x_n, under churn the
+    liveness mask and the rows that (re)joined this iteration, and, under a
+    topology schedule, the Cholesky factors of the graph in effect."""
 
     deg: torch.Tensor
     nbr_sum: Callable[[torch.Tensor], torch.Tensor]
+    alive: torch.Tensor | None = None
+    joined: torch.Tensor | None = None
     chol: torch.Tensor | None = None
 
 
@@ -45,6 +114,28 @@ def dense_view(adjacency: torch.Tensor, deg: torch.Tensor | None = None,
     simulator exchanges."""
     d = torch.sum(adjacency, dim=1) if deg is None else deg
     return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x, chol=chol)
+
+
+def table_view(table, plan, k: int) -> GraphView:
+    """Padded NeighborTable gathers under a gossip plan: alive-weighted
+    degrees and sums, never an (N, N) tensor. `joined` marks the rows whose
+    churn event fired at exactly iteration k, and is None where none did
+    (the reference's all-false mask, which changes no row). The event index
+    is found on the host; the alive row is a view of the device stack."""
+    i = plan.event_index(k)
+    alive = None if i is None else plan.alive_stack[i]
+    deg, weights = plan.table_weights(table, i)
+    return GraphView(deg=deg,
+                     nbr_sum=lambda x: table.gather_sum(x, weights),
+                     alive=alive, joined=plan.joined_at(k))
+
+
+def sampled_stage(plan) -> Callable:
+    """The gossip comm_decide stage: CommState-keyed participation
+    sampling, masked to the live rows under churn."""
+    def stage(key, k, g: GraphView):
+        return participation_mask(key, k, g.deg.shape[-1], plan, g.alive)
+    return stage
 
 
 def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
@@ -88,7 +179,9 @@ class StepProgram:
     """One per-iteration program: the comm chain, the dual stepsize and the
     substitutable stages. `exchange(state, k)` gives the GraphView;
     `primal(k, g, theta0, theta_hat0, gamma0, nbr_hat)` returns (theta_new,
-    extras). `primal_owns_exchange=True` declares that the primal stage
+    extras); `comm_decide(key, k, g)`, if set, returns the participation
+    mask (None: synchronous, every agent updates and `chain.apply` runs
+    unmasked). `primal_owns_exchange=True` declares that the primal stage
     reads its neighbours' theta_hat itself (the fused megakernel does), so
     `run_step` skips the pre-primal neighbour sum and passes nbr_hat=None."""
 
@@ -96,6 +189,7 @@ class StepProgram:
     rho: float
     exchange: Callable[[Any, int], GraphView]
     primal: Callable
+    comm_decide: Callable | None = None
     primal_owns_exchange: bool = False
 
 
@@ -109,16 +203,34 @@ def run_step(program: StepProgram, state):
     g = program.exchange(state, k)
 
     theta0, theta_hat0, gamma0 = state.theta, state.theta_hat, state.gamma
+    if g.joined is not None:
+        # a (re)joining agent restarts cold: zero primal, broadcast, dual
+        old = (theta0, theta_hat0, gamma0)
+        theta0, theta_hat0, gamma0 = _mask_rows(
+            g.joined, tuple(torch.zeros_like(t) for t in old), old)
     nbr_hat = (None if program.primal_owns_exchange
                else g.nbr_sum(theta_hat0))
-    theta, extras = program.primal(k, g, theta0, theta_hat0, gamma0, nbr_hat)
+    theta_new, extras = program.primal(k, g, theta0, theta_hat0, gamma0,
+                                       nbr_hat)
+
+    m = None
+    theta = theta_new
+    if program.comm_decide is not None:
+        # gossip: sleepers hold their primal iterate, are silent in the
+        # broadcast (zero bits), and their duals freeze (delayed but
+        # correct: the next wake integrates (21b) against the broadcasts
+        # of then)
+        m = program.comm_decide(comm_state.key, k, g)
+        (theta,) = _mask_rows(m, (theta_new,), (theta0,))
 
     theta_hat, send, comm_state = chain.apply(theta, theta_hat0, k,
-                                              comm_state)
+                                              comm_state, active=m)
 
     # dual (21b): gamma_i += rho * sum_n (theta_hat_i - theta_hat_n)
     nbr_new = g.nbr_sum(theta_hat)
     gamma = gamma0 + program.rho * (g.deg[..., None] * theta_hat - nbr_new)
+    if m is not None:
+        (gamma,) = _mask_rows(m, (gamma,), (gamma0,))
 
     new_state = type(state)(
         theta=theta, theta_hat=theta_hat, gamma=gamma, step=k,

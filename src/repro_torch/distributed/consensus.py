@@ -32,10 +32,18 @@ ring (fit_stream's spmd backend): the fresh-minibatch gradient or QC-ODKLA
 linearized-ADMM primal, the shared `core.comm` broadcast, and the dual
 update's neighbour fetch cached for the next round's primal.
 
+Gossip (`participate=`): sleepers hold params, optimizer state and dual,
+are silent in the broadcast (zero bits) and integrate the dual drift at
+their next wake; the rolls still run every round (value masking). Churn
+(`alive=` / `joined=`, static ring only): dead agents are zeroed out of
+every degree and neighbour sum before the rolls (`_alive_ring_sum`), the
+cached fetch is bypassed and carried untouched, and joiners restart cold
+(zero primal, broadcast, dual and a fresh optimizer slot), as on the
+simulator.
+
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
-item: gossip participation and churn (item 10), a dense learned graph
-(item 11), and the allreduce / coke_et strategies of the deep-net layer
-(item 15).
+item: a dense learned graph (item 11), and the allreduce / coke_et
+strategies of the deep-net layer (item 15).
 """
 from __future__ import annotations
 
@@ -53,10 +61,6 @@ from repro_torch.optim.optimizers import (OptConfig, apply_updates,
                                           init_opt_state, opt_update)
 
 _LATER = {
-    "participate": "gossip participation is not ported to repro_torch yet: "
-                   "ROADMAP.md Queue 1 item 10",
-    "churn": "churn (alive/joined masks) is not ported to repro_torch yet: "
-             "ROADMAP.md Queue 1 item 10",
     "adjacency": "a dense (learned) adjacency is not ported to repro_torch "
                  "yet: ROADMAP.md Queue 1 item 11",
     "strategy": "the allreduce and coke_et strategies belong to the "
@@ -150,6 +154,34 @@ def _ring_neighbors(tree, offsets: tuple = (1,)):
     return left, right
 
 
+def _degb(deg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (N,) per-agent degree vector shaped to broadcast against an
+    agent-stacked leaf (N, ...)."""
+    return deg.reshape((deg.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def _alive_ring_sum(tree, alive_f: torch.Tensor, offsets: tuple):
+    """Liveness-masked circulant neighbour sum: dead agents' values are
+    zeroed before the rolls, so each agent accumulates exactly sum_n
+    alive_n x_n, bitwise the simulator's alive-weighted NeighborTable
+    gather on deg-2 rings (masking by 1.0/0.0 is exact; two-term sums
+    commute)."""
+    masked = tree_map(lambda x: x * _degb(alive_f, x), tree)
+    left, right = _ring_neighbors(masked, offsets)
+    return tree_map(torch.add, left, right)
+
+
+def _mask_rows(m: torch.Tensor, new, old):
+    """Row-select over agent-stacked trees: agent i's leaves take `new`
+    iff m[i]; scalar leaves pass through. With an all-true mask this is
+    bitwise `new`, the degenerate-gossip contract."""
+    def sel(a, b):
+        if a.ndim == 0:
+            return a
+        return torch.where(m.reshape(m.shape + (1,) * (a.ndim - 1)), a, b)
+    return tree_map(sel, new, old)
+
+
 def _agent_norms(diff_tree) -> torch.Tensor:
     """Per-agent l2 norm over all parameters: (N,)."""
     sq = sum(torch.sum(torch.square(x.to(torch.float32)),
@@ -198,11 +230,8 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
                 "requires use_fused_kernel=False")
     if ccfg.strategy not in ("dkla", "coke", "cta"):
         raise NotImplementedError(_LATER["strategy"])
-    for what, given in (("participate", participate is not None),
-                        ("churn", alive is not None or joined is not None),
-                        ("adjacency", dense)):
-        if given:
-            raise NotImplementedError(_LATER[what])
+    if dense:
+        raise NotImplementedError(_LATER["adjacency"])
 
 
 def _vmapped_opt_update(opt_cfg: OptConfig, grads, opt, params):
@@ -221,8 +250,11 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     legacy chain from ccfg's censor knobs.
     primal_solve — (params, theta_hat, gamma, nbr_sum, deg) -> new params:
     the exact primal, in place of the optimizer step (grads are not read).
-    The other keyword arguments are the reference's hooks for gossip, a
-    learned graph and churn; they raise (see the module docstring)."""
+    participate — (N,) bool gossip participation mask (dkla/coke).
+    alive / joined — (N,) bool churn masks (dkla/coke on the static ring):
+    the alive-weighted exchange, and the rows that restart cold (None
+    where no row does).
+    adjacency — a learned dense graph: raises (see the module docstring)."""
     _check_supported(ccfg, participate, adjacency, alive, joined)
     step = state["step"] + 1
     metrics: dict[str, torch.Tensor] = {}
@@ -246,6 +278,14 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     theta_hat, gamma = state["theta_hat"], state["gamma"]
     chain = ccfg.comm_chain() if comm is None else comm_mod.as_chain(comm)
     rho = ccfg.rho
+    opt0 = state["opt"]
+    if joined is not None:
+        # a (re)joining agent restarts cold: zero primal / broadcast / dual
+        # rows and a fresh optimizer slot (core.gossip semantics)
+        params, theta_hat, gamma, opt0 = (
+            _mask_rows(joined, tree_map(torch.zeros_like, t), t)
+            for t in (params, theta_hat, gamma, opt0))
+    summed = alive is not None
     if ccfg.offset_schedule:
         variants = ccfg.offset_schedule
         offsets = variants[(step - 1) % len(variants)]
@@ -255,6 +295,14 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         # the cached fetch belongs to the previous step's graph: fetch
         # theta_hat^{k-1} again under the graph in effect at step k
         left, right = _ring_neighbors(theta_hat, offsets)
+    elif summed:
+        # churn: alive-weighted (N,) degrees and masked roll sums; the
+        # cache, unmasked and stale across an event, is carried untouched
+        offsets = ccfg.offsets
+        alive_f = alive.to(torch.float32)
+        deg_l, deg_r = _ring_neighbors(alive_f, offsets)
+        deg = deg_l + deg_r
+        nbr_sum = _alive_ring_sum(theta_hat, alive_f, offsets)
     else:
         offsets, deg = ccfg.offsets, ccfg.degree
         # neighbours' theta_hat^{k-1}: served from the cache filled by the
@@ -266,9 +314,18 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     # Lagrangian gradient g_aug = g + 2 rho deg theta + gamma
     #                              - rho (deg theta_hat + sum_n theta_hat_n)
     if primal_solve is not None:
-        nbr_sum = tree_map(torch.add, left, right)
+        if not summed:
+            nbr_sum = tree_map(torch.add, left, right)
         new_params = primal_solve(params, theta_hat, gamma, nbr_sum, deg)
-        opt = state["opt"]
+        opt = opt0
+    elif summed:
+        # the reference's summed-form expressions over (N,) degrees
+        g_aug = tree_map(
+            lambda g, p, th, gm, nb: (
+                g.to(torch.float32)
+                + 2.0 * rho * _degb(deg, p) * p.to(torch.float32)
+                + gm - rho * (_degb(deg, th) * th + nb)),
+            grads, params, theta_hat, gamma, nbr_sum)
     elif ccfg.use_fused_kernel:
         # the reference hands the kernel two equal halves of the neighbour
         # sum, not the two roll halves; the norm is recomputed below
@@ -282,9 +339,13 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         g, _ = coke_update_ref(*(f for f, _ in flat), rho=rho, deg=deg)
         g_aug = comm_mod.unflatten_agents(g, flat[0][1], params)
     if primal_solve is None:
-        updates, opt = _vmapped_opt_update(opt_cfg, g_aug, state["opt"],
-                                           params)
+        updates, opt = _vmapped_opt_update(opt_cfg, g_aug, opt0, params)
         new_params = apply_updates(params, updates)
+
+    # gossip: sleepers hold their primal iterate and optimizer state
+    if participate is not None:
+        new_params = _mask_rows(participate, new_params, params)
+        opt = _mask_rows(participate, opt, opt0)
 
     # the communication policy over the flattened agent-stacked message,
     # with stale-value fallback (shared decision code with the other paths)
@@ -292,13 +353,25 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     comm_state = chain.ensure_state(state.get("comm"), num_agents,
                                     leaf.device)
     new_theta_hat, send, comm_state = comm_mod.apply_tree(
-        chain, new_params, theta_hat, step, comm_state)
+        chain, new_params, theta_hat, step, comm_state, active=participate)
 
     # dual (21b) with theta_hat^k: on a static ring the step's only
     # neighbour fetch, cached for the next primal update
-    hat_l, hat_r = _ring_neighbors(new_theta_hat, offsets)
-    new_gamma = tree_map(lambda gm, th, l, r: gm + rho * (deg * th - l - r),
-                         gamma, new_theta_hat, hat_l, hat_r)
+    if summed:
+        nbr_new = _alive_ring_sum(new_theta_hat, alive_f, offsets)
+        new_gamma = tree_map(
+            lambda gm, th, nb: gm + rho * (_degb(deg, th) * th - nb),
+            gamma, new_theta_hat, nbr_new)
+        hat_l, hat_r = state["nbr_left"], state["nbr_right"]
+    else:
+        hat_l, hat_r = _ring_neighbors(new_theta_hat, offsets)
+        new_gamma = tree_map(
+            lambda gm, th, l, r: gm + rho * (deg * th - l - r),
+            gamma, new_theta_hat, hat_l, hat_r)
+    # gossip: sleepers' duals freeze (delayed but correct: the next wake
+    # integrates (21b) against the broadcasts of then)
+    if participate is not None:
+        new_gamma = _mask_rows(participate, new_gamma, gamma)
 
     metrics["send_frac"] = torch.mean(send.to(torch.float32))
     metrics["bits"] = torch.sum(comm_state.bits)
@@ -341,21 +414,25 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
     decision code as the simulator's `core.online.stream_step` (send
     decisions and bits match across backends), then the dual update, whose
     neighbour fetch is cached for the next round: 2 rolls per round per
-    offset. The gossip (`participate`), learned-graph (`adjacency`) and
-    churn (`alive`/`joined`) hooks raise NotImplementedError naming their
-    ROADMAP.md item. Returns (new_params, new_state, metrics) with the
-    pre-update instantaneous MSE and the cumulative bits."""
-    for what, given in (("participate", participate is not None),
-                        ("churn", alive is not None or joined is not None),
-                        ("adjacency", adjacency is not None)):
-        if given:
-            raise NotImplementedError(_LATER[what])
+    offset. `participate` (gossip) and `alive` / `joined` (churn) have
+    `consensus_update`'s semantics; the round's minibatch still flows to
+    sleepers (the regret sample covers every agent). The learned-graph hook
+    (`adjacency`) raises NotImplementedError naming its ROADMAP.md item.
+    Returns (new_params, new_state, metrics) with the pre-update
+    instantaneous MSE and the cumulative bits."""
+    if adjacency is not None:
+        raise NotImplementedError(_LATER["adjacency"])
     theta = params["theta"]
     theta_hat, gamma = state["theta_hat"], state["gamma"]
     N = theta.shape[0]
     rho = ccfg.rho
     chain = comm_mod.as_chain(comm)
     k = state["step"] + 1
+
+    if joined is not None:
+        theta, theta_hat, gamma = (
+            _mask_rows(joined, torch.zeros_like(t), t)
+            for t in (theta, theta_hat, gamma))
 
     preds = torch.einsum("nbd,nd->nb", feats, theta)
     inst_mse = torch.mean((labels - preds) ** 2)
@@ -364,25 +441,48 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
     resid = preds - labels
     g_data = true_div(2.0 * torch.einsum("nb,nbd->nd", resid, feats),
                       feats.shape[1])
-    deg = ccfg.degree       # a host float: circulant topologies only
-    nbr_sum = state["nbr_left"] + state["nbr_right"]
+    if alive is not None:
+        # churn: alive-weighted (N, 1) degrees and masked roll sums (the
+        # stale cache is bypassed and carried untouched)
+        alive_f = alive.to(torch.float32)
+        deg_l, deg_r = _ring_neighbors(alive_f, ccfg.offsets)
+        deg = (deg_l + deg_r)[:, None]
+        nbr_sum = _alive_ring_sum(theta_hat, alive_f, ccfg.offsets)
+    else:
+        deg = ccfg.degree       # a host float: circulant topologies only
+        nbr_sum = state["nbr_left"] + state["nbr_right"]
     g = (g_data + (2.0 * lam / N) * theta
          + 2.0 * rho * deg * theta
          + gamma
          - rho * (deg * theta_hat + nbr_sum))
     if eta is None:
         new_theta = theta - lr * g
+    elif alive is not None:
+        new_theta = theta - g / (eta + 2.0 * rho * deg)
     else:
         new_theta = theta - true_div(g, eta + 2.0 * rho * deg)
+    # gossip: sleepers hold their primal iterate
+    if participate is not None:
+        new_theta = _mask_rows(participate, new_theta, theta)
 
     comm_state = chain.ensure_state(state.get("comm"), N, theta.device)
     new_theta_hat, send, comm_state = chain.apply(new_theta, theta_hat, k,
-                                                  comm_state)
+                                                  comm_state,
+                                                  active=participate)
 
     # dual with theta_hat^k: the round's only neighbour fetch, cached for
-    # the next primal
-    hat_l, hat_r = _ring_neighbors(new_theta_hat, ccfg.offsets)
-    new_gamma = gamma + rho * (deg * new_theta_hat - hat_l - hat_r)
+    # the next primal (churn: the masked sum again, the cache untouched)
+    if alive is not None:
+        new_gamma = gamma + rho * (
+            deg * new_theta_hat
+            - _alive_ring_sum(new_theta_hat, alive_f, ccfg.offsets))
+        hat_l, hat_r = state["nbr_left"], state["nbr_right"]
+    else:
+        hat_l, hat_r = _ring_neighbors(new_theta_hat, ccfg.offsets)
+        new_gamma = gamma + rho * (deg * new_theta_hat - hat_l - hat_r)
+    # gossip: sleepers' duals freeze
+    if participate is not None:
+        new_gamma = _mask_rows(participate, new_gamma, gamma)
 
     metrics = {"instant_mse": inst_mse,
                "bits": torch.sum(comm_state.bits)}

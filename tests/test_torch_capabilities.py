@@ -24,21 +24,22 @@ from repro.api import capabilities as jcap
 from repro.api.registry import get_solver as jax_get_solver
 from repro.api.registry import list_solvers as jax_list_solvers
 
-from repro_torch.api import Censor, Chain, FitConfig, fit, fit_stream, sweep
+from repro_torch.api import (Censor, Chain, ChurnSchedule, FitConfig, fit,
+                             fit_stream, sweep)
 from repro_torch.api import capabilities as cap
 from repro_torch.api.registry import get_solver, list_solvers
 from repro_torch.core.graph import TopologySchedule
 
 torch.set_num_threads(2)
 
-#: each package's probe objects; the port has no churn or personalization
-#: objects yet (the rules read only whether the field is set)
+#: each package's probe objects; the port has no personalization object
+#: yet (the rules read only whether the field is set)
 OBJS = {
     "ref": dict(topo=JTopologySchedule.circulant_cycle(8, [(1,)]),
                 churn=JChurnSchedule(leave=((2, 0),)),
                 pz=JPersonalization(), comm=JChain((JCensor(0.3, 0.97),))),
     "port": dict(topo=TopologySchedule.circulant_cycle(8, [(1,)]),
-                 churn=JChurnSchedule(leave=((2, 0),)),
+                 churn=ChurnSchedule(leave=((2, 0),)),
                  pz=JPersonalization(), comm=Chain((Censor(0.3, 0.97),))),
 }
 
@@ -88,9 +89,6 @@ TRIGGERS = {
 NOT_PORTED_TRIGGERS = {
     "mesh": ("batch", dict(algorithm="coke"), dict(mesh=object()),
              "item 14"),
-    "gossip": ("batch", dict(algorithm="dkla", exec="gossip",
-                             participation=0.5, backend="spmd"), {},
-               "item 10"),
     "personalization": ("batch", dict(algorithm="coke", personalization="pz",
                                       backend="spmd"), {}, "item 11"),
 }
@@ -185,11 +183,56 @@ def test_registry_specs_carry_the_reference_flags():
 
 def test_supported_cells_admit():
     """The ✅ cells through the same entry points: a schedule on the
-    batch ADMM solvers."""
+    batch ADMM solvers; gossip on every backend, churn off the fused one;
+    gossip streams and sweeps."""
     topo = OBJS["port"]["topo"]
+    churn = OBJS["port"]["churn"]
     for backend in ("simulator", "spmd", "fused"):
         cap.check_fit(FitConfig(algorithm="coke", backend=backend,
                                 topology=topo), get_solver("coke"))
+        cap.check_fit(FitConfig(algorithm="dkla", backend=backend,
+                                exec="gossip", participation=0.5),
+                      get_solver("dkla"))
+    for backend in ("simulator", "spmd"):
+        cap.check_fit(FitConfig(algorithm="coke", backend=backend,
+                                exec="gossip", churn=churn),
+                      get_solver("coke"))
+        cap.check_stream(FitConfig(algorithm="qc_odkla", backend=backend,
+                                   exec="gossip", churn=churn),
+                         get_solver("qc_odkla"))
+    cap.check_sweep(FitConfig(algorithm="coke", exec="gossip",
+                              participation=0.5), get_solver("coke"))
+
+
+def test_gossip_cell_runs_like_the_reference():
+    """The row NOT_PORTED held for gossip (dkla on spmd at participation
+    0.5) now runs: the reference's problem through both packages' fit,
+    comms and bits exactly equal, theta within 1e-5."""
+    import numpy as np
+    from repro.api import KRRConfig as JKRRConfig
+    from repro.api import build_problem as jax_build_problem
+    from repro.api import fit as jax_fit
+
+    from repro_torch import convert
+    from repro_torch.api import KRRConfig
+
+    krr = dict(num_agents=8, samples_per_agent=12, num_features=16,
+               lam=1e-3, rho=0.1, seed=0)
+    knobs = dict(algorithm="dkla", exec="gossip", participation=0.5,
+                 backend="spmd", graph="ring", num_iters=20)
+    jcfg = JFitConfig(krr=JKRRConfig(**krr), **knobs)
+    jp = jax_build_problem(jcfg).problem
+    ref = jax_fit(jcfg, problem=jp)
+    port = fit(FitConfig(krr=KRRConfig(**krr), **knobs),
+               problem=convert.problem_from_numpy(
+                   np.asarray(jp.feats), np.asarray(jp.labels),
+                   np.asarray(jp.adjacency), jp.lam, jp.rho, device="cpu"),
+               device="cpu")
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(port.history[k].numpy(),
+                                      np.asarray(ref.history[k]))
+    np.testing.assert_allclose(port.theta.numpy(), np.asarray(ref.theta),
+                               atol=1e-5, rtol=0)
 
 
 def test_port_matrix_marks_follow_the_reference_matrix():

@@ -281,17 +281,19 @@ def test_stack_params_and_state_layout():
 # ---------------------------------------------------------------------------
 
 _HOOKS = {
-    "participate": lambda: dict(participate=np.ones(N, bool)),
+    # gossip: agents 1 and 3 sleep in every one of the three steps
+    "participate": lambda: dict(participate=np.arange(N) % 2 == 0),
     "adjacency": lambda: dict(adjacency=np.asarray(jax_ring(N).adjacency,
                                                    np.float32)),
-    "alive": lambda: dict(alive=np.ones(N, bool),
-                          joined=np.zeros(N, bool)),
+    # churn: agent 2 is dead and agent 1 restarts cold in every step
+    "alive": lambda: dict(alive=np.arange(N) != 2,
+                          joined=np.arange(N) == 1),
     "schedule": lambda: dict(ccfg=dict(offset_schedule=((1,), (2,)))),
 }
 
 
 #: hooks the port runs (the rest raise NotImplementedError for now)
-_PORTED_HOOKS = ("schedule",)
+_PORTED_HOOKS = ("schedule", "participate", "alive")
 
 
 def _call_both(strategy, fused, hook):
@@ -328,8 +330,9 @@ def _call_both(strategy, fused, hook):
 def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
     """Where the reference raises ValueError the port raises the same
     ValueError; where the reference runs, the port runs a ported hook (the
-    offset schedule) to the reference's values and raises
-    NotImplementedError, naming the ROADMAP.md item, for the others."""
+    offset schedule, gossip participation, churn) to the reference's
+    values and raises NotImplementedError, naming the ROADMAP.md item, for
+    the others."""
     ref, port = _call_both(strategy, fused, hook)
     if isinstance(ref, ValueError):
         assert type(port) is ValueError and str(port) == str(ref)
@@ -337,12 +340,15 @@ def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
         assert not isinstance(port, Exception), port
         (jp, jst), (tp, tst) = ref, port
         assert int(tst["comms"]) == int(jst["comms"])
-        for got, want in ((tp["theta"], jp["theta"]),
-                          (tst["theta_hat"]["theta"],
-                           jst["theta_hat"]["theta"]),
-                          (tst["gamma"]["theta"], jst["gamma"]["theta"])):
+        pairs = [(tp["theta"], jp["theta"])]
+        if "theta_hat" in jst:   # cta carries no broadcast or dual
+            pairs += [(tst["theta_hat"]["theta"], jst["theta_hat"]["theta"]),
+                      (tst["gamma"]["theta"], jst["gamma"]["theta"])]
+        for got, want in pairs:
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        atol=1e-6)
+        np.testing.assert_array_equal(
+            tst["opt"]["count"].numpy(), np.asarray(jst["opt"]["count"]))
     else:
         assert isinstance(port, NotImplementedError)
         assert "ROADMAP.md Queue 1 item" in str(port)

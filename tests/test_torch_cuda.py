@@ -540,6 +540,51 @@ def test_prng_on_card_is_bitwise_the_cpu_and_jax(cuda):
     assert tuple(int(v) for v in u.view(torch.int32)) == smoke.JAX_UNIFORM_PIN
 
 
+THREEFRY_SIZES = [1, 20, 255, 256, 257, 512, 4097, 81920, 262145,
+                  # more words than MAX_BLOCKS * THREADS: the grid-stride loop
+                  1024 * 256 * 3 + 5]
+
+
+@pytest.mark.parametrize("n", THREEFRY_SIZES)
+def test_threefry_kernel_matches_plain(cuda, n):
+    """K5, one launch per draw, bitwise its plain version: uniform floats
+    and random_bits words, single keys and (G, 2) key tensors."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import threefry as k5
+    from repro_torch.kernels.threefry.ref import random_bits_ref, uniform_ref
+    key = prng.fold_in(prng.PRNGKey(n), 2**32 - 1)
+    cpu = torch.device("cpu")
+    before = k5.LAUNCHES
+    u = prng.uniform(key, (n,), cuda)
+    bits = prng.random_bits(key, (n,), cuda)
+    assert k5.LAUNCHES - before == 2
+    assert u.dtype == torch.float32 and bits.dtype == torch.int64
+    assert torch.equal(u.cpu().view(torch.int32),
+                       uniform_ref(key, (n,), cpu).view(torch.int32))
+    assert torch.equal(bits.cpu(), random_bits_ref(key, (n,), cpu))
+    keys = [prng.fold_in(key, g) for g in range(8)]
+    lanes = torch.tensor(keys, dtype=torch.int64, device=cuda)
+    ul = prng.uniform(lanes, (n,), cuda).cpu()
+    assert k5.LAUNCHES - before == 3
+    want = uniform_ref(lanes.cpu(), (n,), cpu)
+    assert torch.equal(ul.view(torch.int32), want.view(torch.int32))
+    for g in (0, 7):
+        assert torch.equal(ul[g].view(torch.int32),
+                           uniform_ref(keys[g], (n,), cpu).view(torch.int32))
+
+
+def test_threefry_kernel_raises_on_operands_it_does_not_take(cuda):
+    from repro_torch.core import prng
+    with pytest.raises(ValueError, match="int64"):
+        prng.uniform(torch.zeros((3, 2), dtype=torch.int32, device=cuda),
+                     (4,), cuda)
+    with pytest.raises(ValueError, match="lie on"):
+        prng.uniform(torch.zeros((3, 2), dtype=torch.int64), (4,), cuda)
+    with pytest.raises(OverflowError):
+        prng.uniform((2**32, 0), (4,), cuda)
+    assert prng.uniform((1, 2), (0, 3), cuda).shape == (0, 3)
+
+
 def test_chain_fits_on_card_match_cpu(cuda):
     """Chain([Censor, Quantize, Drop]) on the simulator, spmd, the
     megakernel path (K2 twice per iteration) and the fused fallback (K3
@@ -597,6 +642,99 @@ def test_chain_fits_on_card_match_cpu(cuda):
                                        atol=smoke.SMALL_THETA_TOL + steps)
     finally:
         fit_mod._chunked_scan = real_scan
+
+
+def test_gossip_fits_on_card_match_cpu(cuda):
+    """exec="gossip" at participation 0.5 on the simulator, spmd, the
+    megakernel path (K2 twice per iteration, the mask after it) and the
+    fused fallback (K3 once per iteration), and churn with the CG primal
+    on the simulator and spmd, card against CPU, the fit loops with host
+    syncs raising: comms and bits equal, theta within 1e-5 (the CG runs
+    within 1e-4); the participation draw is one K5 launch per iteration."""
+    from repro_torch.api import ChurnSchedule
+    from repro_torch.kernels.threefry import threefry as k5
+    smoke = _chip_smoke()
+    cfg = FitConfig(krr=KRRConfig(num_agents=6, samples_per_agent=40,
+                                  num_features=32, lam=1e-2, rho=0.1),
+                    graph="ring", censor_v=0.3, censor_mu=0.97,
+                    num_iters=20, primal="gradient", inner_steps=1,
+                    inner_lr=0.05, exec="gossip", participation=0.5)
+    built = build_problem(cfg, device="cpu")
+    logistic = _classification(built.problem, "logistic")
+    churn = ChurnSchedule(leave=((5, 2),), join=((12, 4), (15, 2)),
+                          start_absent=(4,))
+    cases = [(dict(backend=b, algorithm=a), built.problem, 1e-5)
+             for b in ("simulator", "spmd", "fused") for a in ("coke",
+                                                              "dkla")]
+    cases += [(dict(backend="fused", algorithm=a), logistic, 1e-5)
+              for a in ("coke", "dkla")]
+    cases += [(dict(backend=b, primal="cg", churn=churn), built.problem,
+               1e-4) for b in ("simulator", "spmd")]
+    cases += [(dict(backend="spmd", gossip_size=3, churn=ChurnSchedule(
+        slowdown=((1, 2.0),))), built.problem, 1e-5)]
+    with smoke.StrictFits():
+        for over, prob, tol in cases:
+            c = cfg.replace(**over)
+            cpu = fit(c, problem=prob, device="cpu")
+            before = (k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES, k5.LAUNCHES)
+            gpu = fit(c, problem=prob, device=cuda)
+            rose = (k2.LAUNCHES - before[0],
+                    k2.FUSED_UPDATE_LAUNCHES - before[1],
+                    k5.LAUNCHES - before[2])
+            fused = c.backend == "fused"
+            want = (40 if fused and prob.loss == "quadratic" else 0,
+                    20 if fused and prob.loss == "logistic" else 0, 20)
+            assert rose == want, (over, prob.loss, rose)
+            for k in ("comms", "bits"):
+                np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                              cpu.history[k].numpy())
+            torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                       atol=tol)
+
+
+def test_gossip_sweep_and_streams_on_card_match_cpu(cuda):
+    """A gossip sweep (each lane its own participation draw, one K5
+    launch per grid iteration for all lanes) and gossip streams with
+    churn, card against CPU, the loops under set_sync_debug_mode("error"):
+    comms and bits equal, theta within 1e-5."""
+    from repro_torch.api import ChurnSchedule, build_stream, fit_stream, \
+        sweep
+    from repro_torch.kernels.threefry import threefry as k5
+    smoke = _chip_smoke()
+    base = FitConfig(krr=KRRConfig(num_agents=6, samples_per_agent=40,
+                                   num_features=32, lam=1e-2, rho=0.1),
+                     graph="ring", num_iters=30, censor_v=None,
+                     censor_mu=None, exec="gossip", participation=0.5)
+    built = build_problem(base, device="cpu")
+    grid = [(0.3, 0.97), (0.3, 0.97), (0.05, 0.9)]
+    cpu = sweep(base, grid, problem=built.problem, device="cpu")
+    before = k5.LAUNCHES
+    with smoke.StrictLoops():
+        gpu = sweep(base, grid, problem=built.problem, device=cuda)
+    assert k5.LAUNCHES - before == 30
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                      cpu.history[k].numpy())
+    torch.testing.assert_close(gpu.thetas.cpu(), cpu.thetas, rtol=0,
+                               atol=1e-5)
+    scfg = FitConfig(krr=KRRConfig(num_agents=6, num_features=16, lam=1e-2,
+                                   rho=0.1),
+                     algorithm="qc_odkla", graph="ring", censor_v=0.2,
+                     censor_mu=0.99, num_iters=40, online_batch=8,
+                     exec="gossip", participation=0.4,
+                     churn=ChurnSchedule(leave=((10, 1),),
+                                         join=((25, 1),)))
+    stream = build_stream(scfg, device="cpu").stream
+    for backend in ("simulator", "spmd"):
+        c = scfg.replace(backend=backend)
+        cpu = fit_stream(c, stream=stream, device="cpu")
+        with smoke.StrictLoops():
+            gpu = fit_stream(c, stream=stream, device=cuda)
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                   atol=1e-5)
 
 
 def test_sweep_on_card_matches_cpu(cuda):

@@ -466,7 +466,7 @@ def test_build_names_libraries_by_source_hash():
     """Every kernel is built from csrc/ for sm_90a; the library name
     carries a hash of the source and flags, so an edit forces a rebuild."""
     assert build.SOURCES == ("coke_fused_update", "coke_megastep",
-                             "flash_attention", "rff")
+                             "flash_attention", "rff", "threefry")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.SOURCES:
         p = build.library_path(name)

@@ -711,12 +711,20 @@ def test_registry_runs_every_ported_solver_behind_the_contract():
 
 def test_simulator_still_raises_for_unported_axes(small):
     cfg = FitConfig(krr=KRRConfig(**KRR), **BASE)
-    for over, item in ((dict(exec="gossip", participation=0.5), "item 10"),
-                       (dict(personalization=object()), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            fit(cfg.replace(**over), problem=small[1], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fit(cfg.replace(personalization=object()), problem=small[1],
+            device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         fit(cfg, problem=small[1], device="cpu", mesh=object())
+
+
+def test_simulator_gossip_matches_reference(small):
+    """exec="gossip" at participation 0.5 on the simulator, which raised
+    NotImplementedError before gossip was ported: comms and bits exact,
+    theta within 1e-5 (the primals' own tolerances above)."""
+    ref, port = _fit_both(small[0], small[1],
+                          **dict(BASE, exec="gossip", participation=0.5))
+    _assert_match(ref, port, "simulator gossip")
 
 
 def test_dataclass_problem_degrees_follow_the_adjacency(small):
