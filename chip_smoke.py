@@ -150,7 +150,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      the reference's figures; (h) ms and launches per iteration of each
      gossip path beside its sync one, one draw with K5 and with its plain
      version.
-Before each of phases 4-6, 10, each part of 12 and each path of 13-16
+ 17. personalization (`personalize_phase`), the loops under
+     set_sync_debug_mode("error"), on the heterogeneous dataset at full
+     width (N=20 ring, 3 tasks, T=3500, D=4096, censor_v=0, rho=0.01,
+     Personalization(k=5, every=5, warmup=30), CG, 100 iterations): (a)
+     sync on the simulator and spmd: iterations 1-30 bitwise the static
+     CG run, comms and bits equal across the backends, the learned graphs
+     symmetric, zero-diagonal, of degree <= k, of equal support; (b)
+     to_models(): each of the 20 models' fused evaluate launches K1 once,
+     its MSE the plain product's; a save/load round trip; to_model()
+     raises; (c) gossip at participation 0.5 (K5 once per draw), comms and
+     bits equal across backends, and at 1.0 bitwise (a); (d) online_coke
+     and qc_odkla at paper_online's shape on a ring, sync and gossip,
+     simulator against spmd; (e) personalized sweeps at
+     BENCH_personalize.json's shape (4 cells with a twin, warmup 0 and 30),
+     each lane against its own fit, and the all-warmup grid bitwise the
+     static sweep; (f) the reference's acceptance experiment there
+     (personalized beats consensus at equal bits, graph_recovery > 0.6);
+     (g) ms and launches per iteration: warmup, live without and with a
+     refresh, gossip, spmd, streams; one learned_adjacency at N=20 and 512.
+Before each of phases 4-6, 10, each part of 12 and each path of 13-17
 every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
@@ -165,6 +184,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -377,6 +397,29 @@ N200 = dict(num_agents=200, samples_per_agent=5, num_features=32,
 N200_REFERENCE_MSE = (0.025010, 0.011904)
 # K5 against its plain version: single keys at the path's sizes (the
 # participation draw N, a Quantize draw N x D) and ragged ones
+# phase 17, personalization: the heterogeneous dataset at the fit cells'
+# width (N_AGENTS on a ring, SAMPLES, FEATURES) with PZ_TASKS latent tasks,
+# BENCH_personalize.json's knobs (benchmarks/personalize_bench.py: lam
+# 1e-3, rho 0.01, censor_v 0 so both arms send every iteration, k=5,
+# every=5, warmup=30, CG) for PZ_ITERS iterations; its own shape for the
+# sweeps and the acceptance experiment, and the reference's recorded
+# figures there (per-agent test MSE personalized, consensus; recovery)
+PZ_TASKS = 3
+PZ_FULL = dict(k=5, every=5, warmup=30)
+PZ_ITERS = 100
+PZ_GOSSIP_P = 0.5
+PZ_STREAM = dict(k=3, every=5, warmup=10)
+PZ_BENCH = dict(dataset="heterogeneous", num_agents=20,
+                samples_per_agent=100, num_tasks=3, num_features=64,
+                lam=1e-3, rho=0.01, censor_v=0.0, censor_mu=0.97, seed=0)
+PZ_BENCH_ITERS = 300
+PZ_REFERENCE = (0.00412, 0.00983, 0.896)
+# a censor grid of G=4 cells, the last a twin of the first
+PZ_GRID = ((0.0, 0.97), (0.01, 0.99), (0.05, 0.98), (0.0, 0.97))
+PZ_SWEEP_WARMUPS = (0, 30)
+PZ_SCALE_N = 512
+# a per-agent model's test MSE through K1 against the plain product
+PZ_DEPLOY_RTOL = 1e-5
 K5_SIZES = (N_AGENTS, 512, N_AGENTS * FEATURES, 4097, 1027 * 1031)
 K5_LANES = 8
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
@@ -2580,6 +2623,425 @@ def gossip_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def pz_history(tag, h, iters, n_agents):
+    """check_history for a personalized run: per_agent_mse is (iters, N)."""
+    check_history(tag, {k: v for k, v in h.items() if k != "per_agent_mse"},
+                  iters)
+    pam = h["per_agent_mse"]
+    if pam.shape != (iters, n_agents) or not torch.isfinite(pam).all():
+        raise AssertionError(f"{tag}: per_agent_mse is not ({iters}, "
+                             f"{n_agents}) finite values")
+
+
+def check_graph(tag, A, k):
+    """A learned graph: symmetric, zero diagonal, row degrees <= k,
+    weights in [0, 1]."""
+    A = A.cpu()
+    deg = int((A > 0).sum(1).max())
+    if not (torch.equal(A, A.T) and not A.diagonal().any() and deg <= k
+            and float(A.min()) >= 0.0 and float(A.max()) <= 1.0 + 1e-6):
+        raise AssertionError(f"{tag}: the learned graph is not symmetric, "
+                             f"zero-diagonal, of degree <= {k} (max "
+                             f"{deg}) with weights in [0, 1]")
+    return deg
+
+
+def personalize_phase(dev, card, reset_counts, counts):
+    """Phase 17: personalization (a learned mutual top-k collaboration
+    graph) for fit, fit_stream and sweep on the simulator and spmd, sync
+    and gossip; the per-agent deploy through K1 (one launch per model's
+    fused evaluate); K5 once per participation draw. No kernel runs in a
+    personalized fit's loop: the fused backend, whose kernels take a fixed
+    ring, rejects personalization."""
+    from repro_torch.api import (Censor, Chain, FitConfig, KernelModel,
+                                 KRRConfig, Personalization, build_problem,
+                                 build_stream, fit, fit_stream, get_solver,
+                                 graph_recovery, sweep)
+    from repro_torch.api.backends import (consensus_runner,
+                                          stream_consensus_runner)
+    from repro_torch.api.config import SolveContext
+    from repro_torch.api.fit import _simulator_runner
+    from repro_torch.core import personalize as P
+
+    def theta_err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def equal_comms(tag, ha, hb):
+        for k in ("comms", "bits"):
+            if not torch.equal(ha[k].cpu(), hb[k].cpu()):
+                raise AssertionError(f"{tag}: {k} differ")
+
+    def no_kernels(what, k5=0):
+        c = counts()
+        if c["threefry"] != k5 or any(v for k, v in c.items()
+                                      if k != "threefry"):
+            raise AssertionError(f"{what}: launches {c}, K5 expected {k5}")
+
+    def runner(c, prob, ctx_over=None):
+        """(carry0, chunk_fn, theta_fn) of config `c` on its backend, with
+        the SolveContext fields `ctx_over` replaced (a phase's context)."""
+        solver = get_solver(c.algorithm)
+        ctx = SolveContext.from_config(c, prob.num_agents, dev)
+        if ctx_over:
+            ctx = dataclasses.replace(ctx, **ctx_over)
+        if c.backend == "simulator":
+            return _simulator_runner(solver, prob, ctx, None)
+        if getattr(solver, "streaming", False):
+            return stream_consensus_runner(c, solver, prob, ctx)
+        return consensus_runner(c, solver, prob, ctx, None)
+
+    def per_agent_test_mse(b, theta):
+        pred = torch.einsum("nsd,nd->ns", b.feats_test, theta)
+        return float(torch.mean((b.labels_test - pred) ** 2))
+
+    # ---- the full-width clustered problem, built once ------------------
+    krr = KRRConfig(dataset="heterogeneous", num_agents=N_AGENTS,
+                    samples_per_agent=SAMPLES, num_tasks=PZ_TASKS,
+                    num_features=FEATURES, lam=1e-3, rho=0.01,
+                    censor_v=0.0, censor_mu=0.97, seed=0)
+    cfg = FitConfig(krr=krr, graph="ring", num_iters=PZ_ITERS, primal="cg")
+    t0 = time.perf_counter()
+    built = build_problem(cfg, device=dev)
+    torch.cuda.synchronize()
+    prob = built.problem
+    N, T, D = prob.feats.shape
+    pz = Personalization(**PZ_FULL)
+    W, K = pz.warmup, pz.k
+    pcfg = cfg.replace(personalization=pz)
+    log(17, f"heterogeneous problem: N={N} ring, {PZ_TASKS} tasks, T={T} "
+            f"train / {built.x_test.shape[1]} test rows per agent, d=5, "
+            f"D={D}, Phi {prob.feats.numel() * 4 / 1e9:.3f} GB, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (a) sync on the simulator and spmd ------------------------------
+    runs = {}
+    for backend in ("simulator", "spmd"):
+        reset_counts()
+        with StrictFits():
+            static = fit(cfg.replace(backend=backend,
+                                     num_iters=PZ_ITERS if backend ==
+                                     "simulator" else W),
+                         problem=prob, device=dev)
+            t0 = time.perf_counter()
+            pers = fit(pcfg.replace(backend=backend), problem=prob,
+                       device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        no_kernels(f"personalized sync {backend}")
+        h = {k: v.cpu() for k, v in pers.history.items()}
+        pz_history(f"personalized sync {backend}", h, PZ_ITERS, N)
+        for k, v in static.history.items():
+            if not torch.equal(v[:W].cpu(), h[k][:W]):
+                raise AssertionError(f"personalized {backend}: iterations "
+                                     f"1-{W} of {k} are not bitwise the "
+                                     "static CG run")
+        deg = check_graph(f"personalized sync {backend}",
+                          pers.learned_adjacency, K)
+        runs[backend] = (pers, static, deg, wall)
+    (sim, cons, deg, wall_s), (spmd, _, _, wall_p) = (runs["simulator"],
+                                                      runs["spmd"])
+    equal_comms("personalized sync, simulator against spmd", sim.history,
+                spmd.history)
+    A_s, A_p = sim.learned_adjacency.cpu(), spmd.learned_adjacency.cpu()
+    support = torch.equal(A_s > 0, A_p > 0)
+    a_err = float((A_s - A_p).abs().max())
+    e = theta_err(sim.theta, spmd.theta)
+    scale = float(sim.theta.abs().max())
+    mse_cons = per_agent_test_mse(built, torch.mean(cons.theta, 0).expand(
+        cons.theta.shape))
+    mse_pers = per_agent_test_mse(built, sim.theta)
+    mse_spmd = per_agent_test_mse(built, spmd.theta)
+    rec = float(graph_recovery(sim.learned_adjacency, built.clusters))
+    # why the two backends' graphs part: the reference's fp32 distances
+    # |t_i|^2 + |t_j|^2 - 2 t_i.t_j on the learned edges, against float64
+    t64 = sim.theta.double()
+    d2_exact = torch.sum((t64[:, None] - t64[None]) ** 2, dim=-1)
+    t32 = sim.theta.float()
+    sq = torch.sum(t32 * t32, dim=-1)
+    d2_fp32 = torch.clamp_min(sq[:, None] + sq[None] - 2.0 * (t32 @ t32.T),
+                              0.0).double()
+    edges = sim.learned_adjacency > 0
+    d2_err = ((d2_fp32 - d2_exact).abs() / d2_exact)[edges]
+    log(17, f"[{card}] (a) sync personalized COKE ({PZ_FULL}, CG, "
+            f"{PZ_ITERS} iterations) in {wall_s:.2f} / {wall_p:.2f} s wall "
+            f"(simulator / spmd), no kernel launched: iterations 1-{W} "
+            f"bitwise the static CG run on each backend; comms and bits "
+            f"equal across them; learned graphs symmetric, zero diagonal, "
+            f"degree <= {deg}. Across the backends: support "
+            f"{'equal' if support else 'different'}, weights {a_err:.3e} "
+            f"apart, theta max|err| {e:.3e} = {e / scale:.3e} relative "
+            f"({'within' if e <= SPMD_RTOL * scale else 'not within'} "
+            f"phase 6's rtol {SPMD_RTOL:g}; on the final thetas the "
+            f"learned edges' d2, median "
+            f"{float(d2_exact[edges].median()):.3e} against a median "
+            f"|theta|^2 of {float(sq.median()):.3f}, carry a relative fp32 "
+            f"error of median {float(d2_err.median()):.2e}, max "
+            f"{float(d2_err.max()):.2e} in the reference's formula "
+            f"|t_i|^2 + |t_j|^2 - 2 t_i.t_j); mean per-agent test MSE "
+            f"personalized "
+            f"{mse_pers:.5f} (spmd {mse_spmd:.5f}) against consensus "
+            f"{mse_cons:.5f} at equal bits ({float(sim.bits[-1]):.0f}); "
+            f"graph_recovery {rec:.3f} (printed only at full width)")
+    if not torch.equal(cons.history["bits"].cpu(), sim.history["bits"].cpu()):
+        raise AssertionError("personalized and consensus bits differ at "
+                             "censor_v=0")
+
+    # ---- (b) deploy per agent: one K1 launch per model -------------------
+    models = sim.to_models(built.rff_params)
+    if len(models) != N:
+        raise AssertionError(f"to_models gave {len(models)} models")
+    reset_counts()
+    evals = [m.evaluate(built.x_test[i], built.y_test[i], backend="fused")
+             for i, m in enumerate(models)]
+    torch.cuda.synchronize()
+    deploy_counts = counts()
+    if deploy_counts["rff_cos_bias"] != N or any(
+            v for k, v in deploy_counts.items() if k != "rff_cos_bias"):
+        raise AssertionError(f"the {N} per-agent evaluates launched "
+                             f"{deploy_counts}, not K1 once each")
+    worst = 0.0
+    for i, ev in enumerate(evals):
+        pred = built.feats_test[i] @ sim.theta[i]
+        want = float(torch.mean((built.y_test[i] - pred) ** 2))
+        worst = max(worst, abs(ev["test_mse"] - want) / want)
+    if not worst <= PZ_DEPLOY_RTOL:
+        raise AssertionError(f"per-agent MSE through K1 is {worst:.2e} "
+                             "from the plain product's")
+    try:
+        sim.to_model(built.rff_params)
+    except ValueError as exc:
+        if "personalized" not in str(exc):
+            raise
+    else:
+        raise AssertionError("to_model() accepted a personalized fit")
+    j = N // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / f"agent{j}")
+        models[j].save(path)
+        back = KernelModel.load(path, device=dev)
+    xj = built.x_test[j]
+    if not (torch.equal(back.predict(xj), models[j].predict(xj))
+            and back.meta["agent"] == j
+            and back.meta["personalization"]["k"] == K):
+        raise AssertionError("a per-agent model does not round-trip")
+    xs = [built.x_test[i] for i in range(N)]
+    k1_ms = time_ms(lambda: [m.featurize(x, "fused")
+                             for m, x in zip(models, xs)], reps=5)
+    log(17, f"[{card}] (b) to_models: {N} KernelModels; each evaluate on "
+            f"its own {xs[0].shape[0]} test rows with backend='fused' "
+            f"launched K1 once ({deploy_counts['rff_cos_bias']} in all, "
+            f"nothing else); test MSE within {worst:.2e} relative of the "
+            f"plain product on feats_test (tol {PZ_DEPLOY_RTOL:g}); agent "
+            f"{j}'s model round-trips save/load on the card with equal "
+            f"predictions and meta; to_model() raises 'personalized'. The "
+            f"{N} K1 launches: {k1_ms:.4f} ms ({k1_ms / N:.4f} ms each)")
+
+    # ---- (c) gossip personalization ---------------------------------------
+    gcfg = pcfg.replace(exec="gossip", participation=PZ_GOSSIP_P)
+    gruns = {}
+    for backend in ("simulator", "spmd"):
+        reset_counts()
+        with StrictFits():
+            g = fit(gcfg.replace(backend=backend), problem=prob, device=dev)
+            torch.cuda.synchronize()
+        no_kernels(f"personalized gossip {backend}", k5=PZ_ITERS)
+        pz_history(f"personalized gossip {backend}",
+                   {k: v.cpu() for k, v in g.history.items()}, PZ_ITERS, N)
+        check_graph(f"personalized gossip {backend}", g.learned_adjacency, K)
+        reset_counts()
+        with StrictFits():
+            full = fit(gcfg.replace(backend=backend, participation=1.0),
+                       problem=prob, device=dev)
+        no_kernels(f"personalized gossip p=1 {backend}", k5=PZ_ITERS)
+        sync = runs[backend][0]
+        if not (all(torch.equal(full.history[k], sync.history[k])
+                    for k in sync.history)
+                and torch.equal(full.theta, sync.theta)
+                and torch.equal(full.learned_adjacency,
+                                sync.learned_adjacency)):
+            raise AssertionError(f"personalized gossip at participation 1.0 "
+                                 f"is not bitwise sync on {backend}")
+        gruns[backend] = g
+    equal_comms("personalized gossip, simulator against spmd",
+                gruns["simulator"].history, gruns["spmd"].history)
+    gs, gp = gruns["simulator"], gruns["spmd"]
+    support = torch.equal(gs.learned_adjacency.cpu() > 0,
+                          gp.learned_adjacency.cpu() > 0)
+    log(17, f"[{card}] (c) gossip personalized COKE at participation "
+            f"{PZ_GOSSIP_P}: K5 {PZ_ITERS} launches per fit (one per draw), "
+            f"nothing else; comms {int(gs.comms[-1])}/{N * PZ_ITERS} and "
+            f"bits equal across simulator and spmd; graph support "
+            f"{'equal' if support else 'different'}, theta max|err| "
+            f"{theta_err(gs.theta, gp.theta):.3e}; at participation 1.0 "
+            f"bitwise (a)'s sync run on both backends")
+
+    # ---- (d) personalized streams ------------------------------------------
+    o = ONLINE
+    SN, R = o["num_agents"], o["rounds"]
+    sbase = FitConfig(krr=KRRConfig(num_agents=SN, num_features=o["features"],
+                                    lam=1e-3, rho=5e-2, seed=0),
+                      graph="ring", censor_v=None, censor_mu=None,
+                      comm=Chain([Censor(o["v"], o["mu"])]), num_iters=R,
+                      online_batch=o["batch"], online_lr=o["lr"],
+                      personalization=Personalization(**PZ_STREAM))
+    ss = build_stream(sbase, device=dev).stream
+    stream_cfgs = {}
+    for alg in ("online_coke", "qc_odkla"):
+        for exec_ in ("sync", "gossip"):
+            c = sbase.replace(algorithm=alg, exec=exec_,
+                              participation=(PZ_GOSSIP_P if exec_ == "gossip"
+                                             else 1.0),
+                              qc_eta=2.0 if alg == "qc_odkla" else None)
+            stream_cfgs[(alg, exec_)] = c
+            sr = {}
+            for backend in ("simulator", "spmd"):
+                reset_counts()
+                with StrictFits(), CensorRecord() as cens:
+                    t0 = time.perf_counter()
+                    r = fit_stream(c.replace(backend=backend), stream=ss,
+                                   device=dev)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                no_kernels(f"personalized stream {alg} {exec_} {backend}",
+                           k5=R if exec_ == "gossip" else 0)
+                check_history(f"personalized stream {alg}",
+                              {k: v.cpu() for k, v in r.history.items()}, R)
+                check_graph(f"personalized stream {alg} {backend}",
+                            r.learned_adjacency, PZ_STREAM["k"])
+                sr[backend] = (r, cens, wall)
+            (a, ca, wa), (b, cb, wb) = sr["simulator"], sr["spmd"]
+            parted, held = hold_until_parted(
+                f"personalized stream {alg} {exec_}", a.history, b.history,
+                ca, cb)
+            if parted:
+                gap = parted_mse(f"personalized stream {alg} {exec_}",
+                                 a.history, b.history, key="instant_mse")
+                held += f"; instant_mse over the last tenth {gap:.2e} apart"
+            log(17, f"(d) personalized {alg} {exec_} ({PZ_STREAM}, N={SN} "
+                    f"ring, b={o['batch']}, D={o['features']}, {R} rounds) in "
+                    f"{wa:.2f} / {wb:.2f} s wall (simulator / spmd): comms "
+                    f"{int(a.comms[-1])}/{SN * R}, K5 "
+                    f"{R if exec_ == 'gossip' else 0} launches per run; "
+                    f"simulator against spmd: {held}")
+
+    # ---- (e) personalized sweeps at BENCH_personalize.json's shape -------
+    bcfg = FitConfig(krr=KRRConfig(**PZ_BENCH), graph="ring",
+                     num_iters=PZ_BENCH_ITERS, primal="cg")
+    bb = build_problem(bcfg, device=dev)
+    bp = bb.problem
+    G = len(PZ_GRID)
+    for warmup in PZ_SWEEP_WARMUPS:
+        scfg = bcfg.replace(personalization=Personalization(
+            **dict(PZ_FULL, warmup=warmup)))
+        reset_counts()
+        with StrictLoops(), CensorRecord() as cens_lanes:
+            t0 = time.perf_counter()
+            sw = sweep(scfg, PZ_GRID, problem=bp, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        no_kernels(f"personalized sweep warmup={warmup}")
+        twin = all(torch.equal(sw.history[k][0], sw.history[k][G - 1])
+                   for k in sw.history) and torch.equal(sw.thetas[0],
+                                                         sw.thetas[G - 1])
+        if not twin:
+            raise AssertionError("two identical personalized lanes differ")
+        notes = []
+        for g in range(G - 1):
+            with StrictFits(), CensorRecord() as cens_fit:
+                f = fit(sw.cell_config(g), problem=bp, device=dev)
+            lane = {k: v[g] for k, v in sw.history.items()}
+            parted, held = hold_until_parted(
+                f"personalized sweep w={warmup} cell {g}", lane, f.history,
+                cens_lanes.lane(g), cens_fit)
+            if parted:
+                held += (f"; train_mse over the last tenth "
+                         f"{parted_mse('personalized sweep', lane, f.history):.2e}"
+                         " apart")
+            notes.append(f"cell {g} {PZ_GRID[g]}: {held}")
+        log(17, f"[{card}] (e) personalized sweep, warmup={warmup} ({G} "
+                f"cells, the last a twin of the first; N={bp.num_agents} "
+                f"ring, T={bp.feats.shape[1]}, D={bp.feature_dim}, CG, "
+                f"{PZ_BENCH_ITERS} iterations) in {wall:.2f} s wall, no "
+                f"kernel; the twin lanes bitwise equal; each lane against "
+                f"its own fit: " + "; ".join(notes))
+    with StrictLoops():
+        stat = sweep(bcfg, PZ_GRID, problem=bp, device=dev)
+        warm = sweep(bcfg.replace(personalization=Personalization(
+            **dict(PZ_FULL, warmup=10 * PZ_BENCH_ITERS))), PZ_GRID,
+            problem=bp, device=dev)
+    if not (all(torch.equal(stat.history[k], warm.history[k])
+                for k in stat.history)
+            and torch.equal(stat.thetas, warm.thetas)):
+        raise AssertionError("the all-warmup personalized sweep is not the "
+                             "static sweep")
+    log(17, "(e) the all-warmup grid (warmup >= the iteration count): every "
+            "history and theta bitwise the static sweep's")
+
+    # ---- (f) the reference's acceptance experiment ------------------------
+    with StrictFits():
+        bcons = fit(bcfg, problem=bp, device=dev)
+        bpers = fit(bcfg.replace(personalization=pz), problem=bp, device=dev)
+    if not torch.equal(bcons.history["bits"], bpers.history["bits"]):
+        raise AssertionError("acceptance: the two arms' bits differ")
+    b_cons = per_agent_test_mse(bb, torch.mean(bcons.theta, 0).expand(
+        bcons.theta.shape))
+    b_pers = per_agent_test_mse(bb, bpers.theta)
+    b_rec = float(graph_recovery(bpers.learned_adjacency, bb.clusters))
+    log(17, f"[{card}] (f) acceptance at BENCH_personalize.json's shape "
+            f"(N={bp.num_agents}, 100 samples, D={bp.feature_dim}, "
+            f"{PZ_BENCH_ITERS} iterations, {PZ_FULL}): mean per-agent test "
+            f"MSE personalized {b_pers:.5f} against consensus {b_cons:.5f} "
+            f"at equal bits ({float(bpers.bits[-1]):.0f}), graph_recovery "
+            f"{b_rec:.3f}; the reference (its own RFF draw, "
+            f"BENCH_personalize.json): {PZ_REFERENCE[0]} against "
+            f"{PZ_REFERENCE[1]}, recovery {PZ_REFERENCE[2]}")
+    if not (b_pers < b_cons and b_rec > 0.6):
+        raise AssertionError("acceptance: personalized does not beat "
+                             "consensus with graph_recovery > 0.6")
+
+    # ---- (g) times --------------------------------------------------------
+    sim_cfg = pcfg.replace(backend="simulator")
+    steps = 3
+    never = Personalization(**dict(PZ_FULL, warmup=10**9))
+    always = Personalization(**dict(PZ_FULL, every=1, warmup=0))
+    timed = [
+        ("warmup-phase iteration (the static CG program)", sim_cfg,
+         dict(pz_warmup=True)),
+        ("live iteration without a refresh", sim_cfg,
+         dict(personalization=never)),
+        ("live iteration with a refresh", sim_cfg,
+         dict(personalization=always)),
+        ("gossip live iteration with a refresh, participation "
+         f"{PZ_GOSSIP_P}", gcfg.replace(backend="simulator"),
+         dict(personalization=always)),
+        ("spmd live iteration with a refresh", pcfg.replace(backend="spmd"),
+         dict(personalization=always)),
+    ]
+    for what, c, over in timed:
+        per_iteration(card, 17, f"personalized COKE {what} (N={N}, T={T}, "
+                      f"D={D}, CG)", loop_of(runner(c, prob, over), steps),
+                      steps)
+    for alg, exec_ in (("online_coke", "sync"), ("qc_odkla", "gossip")):
+        c = stream_cfgs[(alg, exec_)]
+        per_iteration(card, 17, f"personalized {alg} {exec_} round "
+                      f"(N={SN}, b={o['batch']}, D={o['features']}, a "
+                      f"refresh every {PZ_STREAM['every']} rounds)",
+                      loop_of(runner(c, ss, dict(
+                          personalization=Personalization(
+                              **dict(PZ_STREAM, warmup=0))))))
+    for n in (N, PZ_SCALE_N):
+        th = torch.randn((n, FEATURES), generator=torch.Generator(
+            device=dev).manual_seed(n), device=dev)
+        ms = time_ms(lambda: P.learned_adjacency(pz, th), reps=5)
+        rows = profiled_kernels(lambda: P.learned_adjacency(pz, th), calls=1)
+        log(17, f"[{card}] one learned_adjacency at N={n}, D={FEATURES} "
+                f"(k={K}, rbf auto-scaled, row blocks of {min(128, n)}): "
+                f"{ms:.4f} ms, "
+                + (f"{sum(r[1] for r in rows)} launches"
+                   if rows else "launches not measured"))
+    return deploy_counts["rff_cos_bias"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3802,6 +4264,11 @@ def main() -> int:
         built=built, coke4=results["coke"], log_problem=log_problem,
         log_cfg=log_cfg, peaks=peaks, k5_ops=k5_ops))
     log(16, f"[{card}] threefry (K5): {kernels[-1]}")
+
+    # ---- 17. personalization ------------------------------------------------
+    pz_k1 = personalize_phase(dev, card, reset_counts, counts)
+    log(17, f"[{card}] K1 launches in phase 17's per-agent deploy: {pz_k1} "
+            "(one per model); K2, K3 and K4 never moved in phase 17")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,12 @@ partial_fit); `sweep` (a policy grid as one lane-batched simulator loop,
 (`build_stream`, `stream_from_arrays`); gossip execution
 (`FitConfig(exec="gossip", participation=0.25)`, or `gossip_size=k`) for
 all of these, on every backend, with `ChurnSchedule` scripting straggler
-slowdowns and join/leave events on the simulator and spmd.
+slowdowns and join/leave events on the simulator and spmd; personalization
+(`FitConfig(personalization=Personalization(k=3, every=5, warmup=15))`:
+a learned mutual top-k collaboration graph) for `fit`, `fit_stream` and
+`sweep` on the simulator and spmd, sync and gossip, deployed per agent by
+`FitResult.to_models()` (K1 in each model's fused predict), on the
+clustered `heterogeneous` dataset, scored by `graph_recovery`.
 Admission is the reference's capability table (`api/capabilities.py`);
 what is not ported yet raises NotImplementedError naming its ROADMAP.md
 item.
@@ -47,3 +52,6 @@ from repro_torch.core.comm import (Censor, Chain, CommState,  # noqa: F401
 from repro_torch.core.gossip import (ChurnSchedule,  # noqa: F401
                                      GossipPlan, NeighborTable)
 from repro_torch.core.graph import TopologySchedule  # noqa: F401
+from repro_torch.core.personalize import (Personalization,  # noqa: F401
+                                          graph_recovery)
+from repro_torch.data.synthetic import heterogeneous  # noqa: F401

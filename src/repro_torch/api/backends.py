@@ -28,6 +28,14 @@ around K2 (the kernel computes every agent's theta', the mask applies
 after it, as in the reference). Churn never reaches the fused backend:
 the capability table rejects it.
 
+A personalized fit's live phase carries the learned graph in the ring
+runtime's state (`cstate["adjacency"]`): each chunk refreshes it with
+`core.personalize.maybe_update` on the simulator's cadence before every
+update and passes it as `consensus_update` / `stream_update`'s dense
+`adjacency=`; the batch chunk also records `per_agent_mse` in both phases.
+Personalization never reaches the fused backend: the capability table
+rejects it (the kernels take a fixed ring).
+
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
 solving a different consensus problem. A topology schedule runs on the
@@ -44,10 +52,12 @@ import torch
 
 from repro_torch.api.config import FitConfig, SolveContext
 from repro_torch.api.registry import Solver
-from repro_torch.api.solvers import (_comm_metrics, _stacked_metrics,
-                                     _stream_metrics, _uncompressed_bits)
+from repro_torch.api.solvers import (_comm_metrics, _pz_live,
+                                     _stacked_metrics, _stream_metrics,
+                                     _uncompressed_bits)
 from repro_torch.core import admm
 from repro_torch.core import losses as losses_mod
+from repro_torch.core import personalize as personalize_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem, resolve_primal
 from repro_torch.core.graph import circulant
@@ -60,7 +70,7 @@ from repro_torch.optim.optimizers import OptConfig
 _HIST_DTYPES = {"train_mse": torch.float32, "comms": torch.int32,
                 "consensus_gap": torch.float32, "bits": torch.float32,
                 "send_frac": torch.float32, "dist_to_oracle": torch.float32,
-                "instant_mse": torch.float32}
+                "instant_mse": torch.float32, "per_agent_mse": torch.float32}
 
 
 def _validate_topology(problem: Problem, offsets: tuple[int, ...]) -> None:
@@ -170,10 +180,14 @@ class _FusedCarry(NamedTuple):
     comm: Any                 # core.comm.CommState
 
 
-def _stack_history(hist: dict[str, list], device) -> dict[str, torch.Tensor]:
-    return {k: (torch.stack(v) if v else
-                torch.empty((0,), dtype=_HIST_DTYPES[k], device=device))
-            for k, v in hist.items()}
+def _stack_history(hist: dict[str, list], device,
+                   num_agents: int = 0) -> dict[str, torch.Tensor]:
+    """Stack each key's per-iteration tensors; an empty key becomes a
+    (0,)-history ((0, N) for the per-agent MSE)."""
+    def empty(k):
+        shape = (0, num_agents) if k == "per_agent_mse" else (0,)
+        return torch.empty(shape, dtype=_HIST_DTYPES[k], device=device)
+    return {k: torch.stack(v) if v else empty(k) for k, v in hist.items()}
 
 
 def _gossip_masks(gossip, comm_state, k: int, n_agents: int):
@@ -268,18 +282,24 @@ def _megastep_chunk(problem: Problem, st: _FusedCarry, oracle, chain, *,
 
 def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
                      ccfg: cns.ConsensusConfig, opt_cfg: OptConfig,
-                     num_iters: int, primal_solve=None, gossip=None):
+                     num_iters: int, primal_solve=None, gossip=None,
+                     personalize=None, pz_metric: bool = False):
     """`num_iters` iterations of the ring runtime: local gradients, then
     `consensus_update` (through K3 when ccfg.use_fused_kernel). With a
     `primal_solve` (the CG primal) the solve replaces the gradient step:
     zero gradients are passed and `_local_grads` is skipped, as in the
     reference, which saves its two Phi reads. Under a gossip plan each
     round's participation (and churn) masks go into `consensus_update`.
-    History keys match the reference's spmd chunk: train_mse / comms /
-    consensus_gap / bits, then send_frac for dkla/coke [+ dist_to_oracle]."""
+    In a personalized fit's live phase (`personalize`) each round first
+    refreshes the carried graph if due and runs on it; `pz_metric` (both
+    phases) adds per_agent_mse. History keys match the reference's spmd
+    chunk: train_mse / comms / consensus_gap / bits, then send_frac for
+    dkla/coke [+ per_agent_mse] [+ dist_to_oracle]."""
     keys = ["train_mse", "comms", "consensus_gap", "bits"]
     if ccfg.is_admm:
         keys.append("send_frac")
+    if pz_metric:
+        keys.append("per_agent_mse")
     if oracle is not None:
         keys.append("dist_to_oracle")
     hist: dict[str, list] = {k: [] for k in keys}
@@ -293,30 +313,41 @@ def _consensus_chunk(problem: Problem, params, cstate, oracle, chain, *,
             participate, alive, joined = _gossip_masks(
                 gossip, cstate["comm"], cstate["step"] + 1,
                 problem.num_agents)
+        adjacency = None
+        if personalize is not None:   # the simulator's refresh
+            adjacency = personalize_mod.maybe_update(
+                personalize, params["theta"], cstate["step"] + 1,
+                cstate["adjacency"])
         params, cstate, extra = cns.consensus_update(
             ccfg, opt_cfg, params, grads, cstate, comm=chain,
             primal_solve=primal_solve, participate=participate,
-            alive=alive, joined=joined)
+            adjacency=adjacency, alive=alive, joined=joined)
+        if personalize is not None:
+            cstate = dict(cstate, adjacency=adjacency)
         bits = extra.get("bits")
         if bits is None:  # policy-unaware strategy (cta): full precision
             bits = _uncompressed_bits(problem, cstate["comms"])
-        m = _stacked_metrics(problem, params["theta"], cstate["comms"], bits)
+        m = _stacked_metrics(problem, params["theta"], cstate["comms"], bits,
+                             per_agent=pz_metric)
         m.update(extra)
         if oracle is not None:
             m["dist_to_oracle"] = torch.max(torch.linalg.norm(
                 params["theta"] - oracle, dim=-1))
         for k in keys:
             hist[k].append(m[k])
-    return (params, cstate), _stack_history(hist, problem.device)
+    return (params, cstate), _stack_history(hist, problem.device,
+                                            problem.num_agents)
 
 
 def _stream_chunk(stream, params, cstate, chain, *,
                   ccfg: cns.ConsensusConfig, num_iters: int, lam: float,
-                  lr: float, eta: float | None, gossip=None):
+                  lr: float, eta: float | None, gossip=None,
+                  personalize=None):
     """`num_iters` rounds of the ring runtime's streaming update, each on
     the stream's next round (wrapping), with the simulator's participation
-    and churn masks under a gossip plan. History keys are the simulator's
-    `_stream_metrics` keys."""
+    and churn masks under a gossip plan, and in a personalized live phase
+    on the carried graph, refreshed on the simulator's cadence. History
+    keys are the simulator's `_stream_metrics` keys."""
     keys = ["train_mse", "instant_mse", "comms", "consensus_gap", "bits"]
     hist: dict[str, list] = {k: [] for k in keys}
     for _ in range(num_iters):
@@ -325,16 +356,34 @@ def _stream_chunk(stream, params, cstate, chain, *,
             participate, alive, joined = _gossip_masks(
                 gossip, cstate["comm"], cstate["step"] + 1,
                 stream.num_agents)
+        adjacency = None
+        if personalize is not None:
+            adjacency = personalize_mod.maybe_update(
+                personalize, params["theta"], cstate["step"] + 1,
+                cstate["adjacency"])
         feats, labels = stream.round_batch(cstate["step"])
         params, cstate, extra = cns.stream_update(
             ccfg, params, cstate, feats, labels, lam=lam, lr=lr, eta=eta,
-            comm=chain, participate=participate, alive=alive,
-            joined=joined)
+            comm=chain, participate=participate, adjacency=adjacency,
+            alive=alive, joined=joined)
+        if personalize is not None:
+            cstate = dict(cstate, adjacency=adjacency)
         m = _stream_metrics(params["theta"], cstate["comms"],
                             extra["bits"], extra["instant_mse"])
         for k in keys:
             hist[k].append(m[k])
     return (params, cstate), _stack_history(hist, stream.device)
+
+
+def _pz_live_state(ctx: SolveContext, cstate: dict, adjacency):
+    """In a personalized fit's live phase: put the starting graph (the
+    configured one) into the ring runtime's state and return the
+    Personalization that refreshes it; else None. The warmup phase runs
+    the static ring program, with no graph in its state."""
+    if not _pz_live(ctx):
+        return None
+    cstate["adjacency"] = adjacency.to(torch.float32)
+    return ctx.personalization
 
 
 def stream_consensus_runner(config: FitConfig, solver: Solver, stream,
@@ -360,12 +409,14 @@ def stream_consensus_runner(config: FitConfig, solver: Solver, stream,
                                 device=stream.device).expand(N, D)
     params = {"theta": theta}
     cstate = cns.init_stream_state(ccfg, theta, comm=chain)
+    personalize = _pz_live_state(ctx, cstate, stream.adjacency)
 
     def chunk_fn(carry, n):
         params, cstate = carry
         return _stream_chunk(stream, params, cstate, chain, ccfg=ccfg,
                              num_iters=n, lam=stream.lam, lr=ctx.online_lr,
-                             eta=eta, gossip=ctx.gossip)
+                             eta=eta, gossip=ctx.gossip,
+                             personalize=personalize)
 
     return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]
 
@@ -395,13 +446,14 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     # megakernel admission (the reference's gate): the one-step gradient
     # primal on the quadratic loss over a fixed circulant (no schedule),
     # unsharded and not personalized (the capability table rejects those
-    # two); a CG fit falls back to the ring runtime. The comm chain is not
-    # part of the gate: it runs after K2, in run_step
+    # two first); a CG fit falls back to the ring runtime. The comm chain
+    # is not part of the gate: it runs after K2, in run_step
     use_mega = (config.backend == "fused"
                 and strategy in ("dkla", "coke")
                 and primal_mode == "gradient"
                 and problem.loss == "quadratic"
-                and offset_schedule is None)
+                and offset_schedule is None
+                and ctx.personalization is None)
     if use_mega:
         chain = solver._policy(ctx)
         carry0 = _FusedCarry(
@@ -434,6 +486,7 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     chain = solver._policy(ctx) if solver.comm_aware else None
     params = {"theta": torch.zeros((N, D), dtype=dtype, device=dev)}
     cstate = cns.init_consensus_state(ccfg, opt_cfg, params, comm=chain)
+    personalize = _pz_live_state(ctx, cstate, problem.adjacency)
 
     primal_solve = (_cg_primal_solve(problem, ctx.cg_tol, ctx.cg_maxiter)
                     if primal_mode == "cg" else None)
@@ -442,6 +495,8 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
         params, cstate = carry
         return _consensus_chunk(problem, params, cstate, oracle, chain,
                                 ccfg=ccfg, opt_cfg=opt_cfg, num_iters=n,
-                                primal_solve=primal_solve, gossip=ctx.gossip)
+                                primal_solve=primal_solve, gossip=ctx.gossip,
+                                personalize=personalize,
+                                pz_metric=ctx.personalization is not None)
 
     return (params, cstate), chunk_fn, lambda carry: carry[0]["theta"]

@@ -237,12 +237,6 @@ NOT_PORTED: tuple[Rule, ...] = (
         reason="mesh= (big-D feature sharding)",
         alternative="ROADMAP.md Queue 1 item 14 (big-D sharding)",
     ),
-    Rule(
-        id="personalization",
-        when=(("personalization", True),),
-        reason="personalization (a learned collaboration graph)",
-        alternative="ROADMAP.md Queue 1 item 11 (personalization)",
-    ),
 )
 
 
@@ -337,8 +331,7 @@ BEGIN_MARK = ("<!-- BEGIN port-support-matrix (generated: python -m "
               "repro_torch.api.capabilities) -->")
 END_MARK = "<!-- END port-support-matrix -->"
 
-#: the reference's probe columns; personalization has no port object yet,
-#: and the rules read only whether it is set
+#: the reference's probe columns
 _FEATURE_PROBES: tuple[tuple[str, dict[str, Any]], ...] = (
     ("`exec=\"sync\"`", {}),
     ("`exec=\"gossip\"`", {"exec": "gossip", "participation": 0.5}),
@@ -355,6 +348,7 @@ def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
     from repro_torch.api.config import FitConfig
     from repro_torch.core.gossip import ChurnSchedule
     from repro_torch.core.graph import TopologySchedule
+    from repro_torch.core.personalize import Personalization
 
     kw: dict[str, Any] = {"backend": backend, "algorithm": solver.name,
                           "exec": probe.get("exec", "sync")}
@@ -363,7 +357,7 @@ def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
     if probe.get("churn"):
         kw["churn"] = ChurnSchedule(leave=((2, 0),))
     if probe.get("personalization"):
-        kw["personalization"] = "personalization probe"
+        kw["personalization"] = Personalization()
     if probe.get("topology"):
         kw["topology"] = TopologySchedule.circulant_cycle(8, [(1,)])
     try:

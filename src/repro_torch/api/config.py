@@ -5,6 +5,8 @@ same in both packages. Its construction runs the capability table's
 solver-free rules (`api/capabilities.check_config`), as the reference's
 does; `fit` runs the rest, and raises NotImplementedError, naming the
 ROADMAP.md item, for any part of a config this port does not run yet.
+A personalized fit's `FitResult` deploys as one `KernelModel` per agent
+(`to_models`, `publish_models`); `to_model` refuses it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.core import comm as comm_mod
 from repro_torch.core.admm import PRIMAL_MODES
 from repro_torch.core.gossip import EXEC_MODES, ChurnSchedule, GossipPlan
 from repro_torch.core.graph import TopologySchedule
+from repro_torch.core.personalize import Personalization
 from repro_torch.data.synthetic import STREAM_KINDS
 
 BACKENDS = ("simulator", "spmd", "fused")
@@ -47,7 +50,8 @@ class FitConfig:
     gossip_size: int | None = None
     churn: ChurnSchedule | None = None
     topology: TopologySchedule | None = None
-    personalization: object | None = None
+    # learned collaboration graph: a core.personalize.Personalization
+    personalization: Personalization | None = None
 
     num_iters: int | None = None     # None = krr.num_iters
 
@@ -109,6 +113,12 @@ class FitConfig:
                 raise ValueError(
                     "churn must be a repro_torch.core.gossip.ChurnSchedule, "
                     f"got {type(self.churn).__name__}")
+        if self.personalization is not None and not isinstance(
+                self.personalization, Personalization):
+            raise ValueError(
+                "personalization must be a repro_torch.core.personalize."
+                "Personalization, got "
+                f"{type(self.personalization).__name__}")
         # the cross-axis admission: one declarative table, shared with the
         # drivers' solver-scoped checks and the README matrix
         check_config(self)
@@ -148,7 +158,10 @@ class FitConfig:
 @dataclasses.dataclass(frozen=True)
 class SolveContext:
     """The solver-facing slice of a FitConfig that this port's path reads;
-    `gossip` is the run's `core.gossip.GossipPlan` under exec="gossip"."""
+    `gossip` is the run's `core.gossip.GossipPlan` under exec="gossip".
+    `pz_warmup` marks the warmup phase of a personalized fit
+    (`api.fit.phase_plan`): that phase runs the static-graph program
+    itself, so its iterations are bitwise a run without personalization."""
 
     comm: comm_mod.Chain
     primal: str = "auto"
@@ -162,6 +175,8 @@ class SolveContext:
     qc_eta: float | None = None
     topology: TopologySchedule | None = None
     gossip: GossipPlan | None = None    # set exactly under exec="gossip"
+    personalization: Personalization | None = None
+    pz_warmup: bool = False
 
     @classmethod
     def from_config(cls, config: FitConfig, num_agents: int | None = None,
@@ -184,7 +199,8 @@ class SolveContext:
                    cg_tol=config.cg_tol, cg_maxiter=config.cg_maxiter,
                    cta_lr=config.cta_lr, online_lr=config.online_lr,
                    online_batch=config.online_batch, qc_eta=config.qc_eta,
-                   topology=config.topology, gossip=gossip)
+                   topology=config.topology, gossip=gossip,
+                   personalization=config.personalization)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +232,20 @@ class FitResult:
     def consensus_gap(self) -> torch.Tensor:
         return self.history["consensus_gap"]
 
+    @property
+    def learned_adjacency(self) -> torch.Tensor | None:
+        """The final learned collaboration graph of a personalized fit
+        ((N, N) weighted, symmetric, zero diagonal); None when the run was
+        not personalized."""
+        if self.config.personalization is None:
+            return None
+        A = getattr(self.state, "adjacency", None)   # simulator states
+        if A is not None:
+            return A
+        if isinstance(self.state, tuple):   # spmd: (params, cstate) carry
+            return self.state[1]["adjacency"]
+        return None
+
     def _model_meta(self) -> dict:
         krr = self.config.krr
         v, mu = self.config.resolved_censor
@@ -233,18 +263,28 @@ class FitResult:
             "graph_p": krr.graph_p,
         }
 
-    def to_model(self, rff_params=None, *, include_per_agent: bool = True):
-        """Package the fitted thetas with their RFF map into a deployable
-        `KernelModel`. `rff_params` is required when fit() was handed a
-        pre-built problem."""
-        from repro_torch.api.model import KernelModel  # local: import cycle
-
+    def _resolved_rff(self, rff_params):
         params = self.rff_params if rff_params is None else rff_params
         if params is None:
             raise ValueError(
                 "this FitResult has no RFF parameters (fit() was given a "
                 "pre-built problem); pass them explicitly: "
                 "result.to_model(built.rff_params)")
+        return params
+
+    def to_model(self, rff_params=None, *, include_per_agent: bool = True):
+        """Package the fitted thetas with their RFF map into a deployable
+        `KernelModel`. `rff_params` is required when fit() was handed a
+        pre-built problem. A personalized fit raises: use `to_models`."""
+        from repro_torch.api.model import KernelModel  # local: import cycle
+
+        if self.config.personalization is not None:
+            raise ValueError(
+                "this fit was personalized: its per-agent thetas were "
+                "never meant to agree, and consensus-averaging them "
+                "destroys the per-cluster models — use to_models() (one "
+                "KernelModel per agent) or index result.theta yourself")
+        params = self._resolved_rff(rff_params)
         krr = self.config.krr
         return KernelModel(
             rff_params=params,
@@ -252,3 +292,35 @@ class FitResult:
             thetas=self.theta if include_per_agent else None,
             bandwidth=krr.bandwidth, kernel="gaussian",
             meta=self._model_meta())
+
+    def to_models(self, rff_params=None) -> list:
+        """One deployable `KernelModel` per agent, the personalized serving
+        path (on a consensus fit the N models are near-identical). Model i
+        predicts with theta_i alone; its meta records the agent index and
+        the personalization knobs. Each model's `predict` / `evaluate` with
+        backend="fused" featurizes through K1."""
+        from repro_torch.api.model import KernelModel  # local: import cycle
+
+        params = self._resolved_rff(rff_params)
+        krr = self.config.krr
+        meta = self._model_meta()
+        pz = self.config.personalization
+        if pz is not None:
+            meta["personalization"] = {
+                "k": pz.k, "every": pz.every, "warmup": pz.warmup,
+                "affinity": pz.affinity, "scale": float(pz.scale)}
+        return [KernelModel(rff_params=params, theta=self.theta[i],
+                            thetas=None, bandwidth=krr.bandwidth,
+                            kernel="gaussian", meta={**meta, "agent": i})
+                for i in range(self.theta.shape[0])]
+
+    def publish_models(self, registry, *, prefix: str = "agent",
+                       rff_params=None) -> list[tuple[str, int]]:
+        """Publish every per-agent model into a model registry (any object
+        with `publish(model_id, model) -> version`) as `{prefix}-{i:03d}`;
+        returns [(model_id, version), ...]."""
+        out = []
+        for i, model in enumerate(self.to_models(rff_params)):
+            model_id = f"{prefix}-{i:03d}"
+            out.append((model_id, registry.publish(model_id, model)))
+        return out

@@ -7,13 +7,14 @@ the reference has `lax.scan`), the per-iteration metric recording and the
 optional progress callbacks, and walk the same `phase_plan`. Admission is
 the capability table's (`api/capabilities.py`): the reference's
 ValueErrors first, then NotImplementedError naming the ROADMAP.md item for
-what the port does not run yet (personalization, `mesh=`). The port runs
-the simulator backend (every registered solver, each primal), the spmd
-backend and the fused backend (its megakernel path and its fallback to the
-ring runtime), each with any comm chain (Censor, Quantize, Drop), under
-synchronous or gossip execution (participation sampling; churn on the
-simulator and spmd) and, where the reference runs one, a topology
-schedule; fit_stream runs the streaming solvers on the simulator and spmd.
+what the port does not run yet (`mesh=`). The port runs the simulator
+backend (every registered solver, each primal), the spmd backend and the
+fused backend (its megakernel path and its fallback to the ring runtime),
+each with any comm chain (Censor, Quantize, Drop), under synchronous or
+gossip execution (participation sampling; churn on the simulator and spmd)
+and, where the reference runs one, a topology schedule or a learned
+collaboration graph (personalization, on the simulator and spmd);
+fit_stream runs the streaming solvers on the simulator and spmd.
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ from repro_torch.api.config import FitConfig, FitResult, SolveContext
 from repro_torch.api.problems import (StreamProblem, build_problem,
                                       build_stream)
 from repro_torch.api.registry import get_solver
+from repro_torch.api.solvers import OnlineFitState
 from repro_torch.core import ridge
-from repro_torch.core.admm import Problem
+from repro_torch.core.admm import COKEState, Problem
+from repro_torch.core.personalize import PersonalizedState
 from repro_torch.device import resolve_device
 
 ProgressCb = Callable[[int, dict], None]
@@ -93,15 +96,42 @@ def _chunked_scan(chunk_fn, carry, num_iters: int, chunk_size: int | None,
     return carry, {k: torch.cat([h[k] for h in hists]) for k in hists[0]}
 
 
-def phase_plan(ctx: SolveContext, num_iters: int):
+def _pz_enter_live(carry, adjacency: torch.Tensor):
+    """The carry transform at a personalized fit's warmup -> live boundary:
+    the live program's carry holds the learned graph (starting as the
+    configured static one), the warmup program's does not. A sweep's lane
+    carry (G, N, D) gets the graph broadcast to (G, N, N)."""
+    A0 = adjacency.to(torch.float32)
+    if isinstance(carry, OnlineFitState):
+        return carry._replace(adjacency=A0)
+    if isinstance(carry, COKEState):
+        if carry.theta.ndim == 3:
+            A0 = A0.expand(carry.theta.shape[0], *A0.shape)
+        return PersonalizedState(carry, A0)
+    params, cstate = carry   # the ring runtime's (params, cstate) carry
+    return params, dict(cstate, adjacency=A0)
+
+
+def phase_plan(ctx: SolveContext, num_iters: int, adjacency):
     """One fit as its phased program: a tuple of (phase_ctx, num_iters,
     enter_fn), where enter_fn (None on the first phase) transforms the
-    carry at the phase boundary. fit, fit_stream and sweep walk it. Every
-    fit the port runs is one phase; the reference's two-phase
-    personalized program (warmup, then the learned graph) arrives with
-    ROADMAP.md Queue 1 item 11, and the capability table rejects a
-    personalized config before a plan is made."""
-    return ((ctx, num_iters, None),)
+    carry at the phase boundary. fit, fit_stream and sweep walk it.
+    Ordinary fits are one phase; a personalized fit with warmup > 0 is two:
+    iterations 1..warmup run with ctx.pz_warmup=True, which takes the
+    static-consensus code path itself (so that prefix is bitwise a run
+    without personalization at the same primal), then the live phase
+    carries the learned graph. A zero-length live phase (warmup >=
+    num_iters) still applies its transform, so the final carry holds the
+    adjacency either way."""
+    if ctx.personalization is None:
+        return ((ctx, num_iters, None),)
+    W = min(int(ctx.personalization.warmup), num_iters)
+    if W <= 0:
+        return ((ctx, num_iters, None),)
+    ctx_warm = dataclasses.replace(ctx, pz_warmup=True)
+    return ((ctx_warm, W, None),
+            (ctx, num_iters - W,
+             lambda carry: _pz_enter_live(carry, adjacency)))
 
 
 def _phased_runner(make_runner, plan):
@@ -203,7 +233,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
         return consensus_runner(config, solver, problem, c, oracle)
 
     carry0, chunk_fn, theta_fn = _phased_runner(
-        make_runner, phase_plan(ctx, config.resolved_iters))
+        make_runner, phase_plan(ctx, config.resolved_iters,
+                                problem.adjacency))
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
                                    config.chunk_size, progress_cb)
     return FitResult(config=config, state=carry, history=history,
@@ -256,7 +287,8 @@ def fit_stream(config: FitConfig, stream: StreamProblem | None = None, *,
                                        theta0=theta0)
 
     carry0, chunk_fn, theta_fn = _phased_runner(
-        make_runner, phase_plan(ctx, config.resolved_iters))
+        make_runner, phase_plan(ctx, config.resolved_iters,
+                                stream.adjacency))
     if config.backend == "simulator" and theta0 is not None:
         carry0 = solver.warm_start(carry0, theta0)
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,

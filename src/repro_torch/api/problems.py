@@ -18,8 +18,9 @@ from repro_torch.configs.coke_krr import KRRConfig
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import rff
 from repro_torch.core.admm import Problem, make_problem
-from repro_torch.data.synthetic import (StreamDataset, paper_synthetic,
-                                        stream_synthetic, uci_standin)
+from repro_torch.data.synthetic import (StreamDataset, heterogeneous,
+                                        paper_synthetic, stream_synthetic,
+                                        uci_standin)
 from repro_torch.device import resolve_device
 
 
@@ -34,6 +35,9 @@ class BuiltProblem:
     # consumes — the model owns featurization at inference time
     x_test: torch.Tensor | None = None
     y_test: torch.Tensor | None = None
+    # ground-truth latent task of each agent (N,), only for the clustered
+    # non-IID dataset: what personalize.graph_recovery scores against
+    clusters: np.ndarray | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,9 +173,9 @@ def build_problem(config: FitConfig | KRRConfig,
                              seed=cfg.seed)
         g = build_graph(config, cfg.num_agents, seed=cfg.seed)
     elif cfg.dataset == "heterogeneous":
-        raise NotImplementedError(
-            "the heterogeneous dataset is not ported yet: ROADMAP.md Queue 1 "
-            "item 11 (personalization)")
+        ds = heterogeneous(num_agents=cfg.num_agents, samples_per_agent=n,
+                           num_tasks=cfg.num_tasks, seed=cfg.seed)
+        g = build_graph(config, cfg.num_agents, seed=cfg.seed)
     else:
         ds = uci_standin(cfg.dataset, num_agents=cfg.num_agents,
                          subsample=n * cfg.num_agents)
@@ -187,4 +191,5 @@ def build_problem(config: FitConfig | KRRConfig,
     return BuiltProblem(
         problem=prob, graph=g, rff_params=p,
         feats_test=rff.featurize(p, x_test),
-        labels_test=y_test, x_test=x_test, y_test=y_test)
+        labels_test=y_test, x_test=x_test, y_test=y_test,
+        clusters=getattr(ds, "cluster", None))

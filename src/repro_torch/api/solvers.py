@@ -13,7 +13,11 @@ through `prepare_host` / `prepare_traced` (once per fit), `init_state`,
 then `step` and `metrics` per iteration, and `theta_of`; the spmd and
 fused backends read only `consensus_strategy` and `_policy`. Under
 exec="gossip" the simulator's ADMM and streaming steps run through
-`core.gossip` on a `NeighborTable` made once per fit.
+`core.gossip` on a `NeighborTable` made once per fit. In the live phase of
+a personalized fit the state carries the learned adjacency
+(`core.personalize.PersonalizedState`, `OnlineFitState.adjacency`), which
+the step refreshes on cadence before it runs on it (under gossip through
+`core.personalize`'s dense steps); both phases record `per_agent_mse`.
 """
 from __future__ import annotations
 
@@ -28,27 +32,43 @@ from repro_torch.api.registry import register_solver
 from repro_torch.core import admm, cta, online, ridge
 from repro_torch.core import comm as comm_mod
 from repro_torch.core import gossip as gossip_mod
+from repro_torch.core import personalize as personalize_mod
 from repro_torch.core.admm import Problem
 from repro_torch.core.graph import Graph, metropolis_weights
+from repro_torch.core.personalize import PersonalizedState
 from repro_torch.distributed.consensus import consensus_gap
 
 
 def _stacked_metrics(problem: Problem, theta: torch.Tensor,
-                     comms: torch.Tensor,
-                     bits: torch.Tensor) -> dict[str, torch.Tensor]:
+                     comms: torch.Tensor, bits: torch.Tensor,
+                     per_agent: bool = False) -> dict[str, torch.Tensor]:
     """The paper's per-iteration train MSE, cumulative comms, consensus gap
     and cumulative bits, as device tensors (no host sync). The train MSE
     reads Phi once more, outside the kernels. Over a sweep's lanes, theta
     (G, N, D), comms and bits (G,), each metric is (G,), and Phi is read
-    once for all lanes."""
-    if theta.ndim == 3:
+    once for all lanes. per_agent=True adds the (N,) (lanes: (G, N))
+    per-agent train MSE of a personalized fit, from the same residuals."""
+    lanes = theta.ndim == 3
+    if lanes:
         preds = torch.bmm(problem.feats, theta.permute(1, 2, 0))  # (N,T,G)
-        mse = torch.mean((problem.labels[..., None] - preds) ** 2,
-                         dim=(0, 1))
+        sq = (problem.labels[..., None] - preds) ** 2
+        mse = torch.mean(sq, dim=(0, 1))
     else:
         preds = torch.einsum("ntd,nd->nt", problem.feats, theta)
-        mse = torch.mean((problem.labels - preds) ** 2)
-    return {"train_mse": mse, **_comm_metrics(theta, comms, bits)}
+        sq = (problem.labels - preds) ** 2
+        mse = torch.mean(sq)
+    m = {"train_mse": mse, **_comm_metrics(theta, comms, bits)}
+    if per_agent:
+        agents = torch.mean(sq, dim=1)            # (N,) or (N, G)
+        m["per_agent_mse"] = agents.T if lanes else agents
+    return m
+
+
+def _pz_live(ctx: SolveContext) -> bool:
+    """Does this phase run the learned-graph machinery? A personalized
+    fit's warmup phase (ctx.pz_warmup) takes the static-graph path itself;
+    only its live phase carries and refreshes the learned adjacency."""
+    return ctx.personalization is not None and not ctx.pz_warmup
 
 
 def _gap(theta: torch.Tensor) -> torch.Tensor:
@@ -82,8 +102,8 @@ class _ADMMSolver:
     # the ADMM update has an asynchronous form: sampled participants step,
     # sleepers hold, duals delayed but correct (core.gossip.gossip_coke_step)
     gossip_aware = True
-    # the reference's personalized form (not ported yet: the capability
-    # table raises NotImplementedError for it)
+    # the consensus penalty takes a learned weighted graph directly (deg_i
+    # becomes sum_j w_ij): FitConfig.personalization admits these solvers
     personalization_aware = True
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
@@ -91,21 +111,24 @@ class _ADMMSolver:
 
     def prepare_host(self, problem: Problem, ctx: SolveContext):
         """Under gossip the padded neighbour table (gathers, no (N, N) on
-        the step), made once from the adjacency on the host."""
-        if ctx.gossip is not None:
+        the step), made once from the adjacency on the host; not in the
+        live personalized phase, whose graph changes during the run."""
+        if ctx.gossip is not None and not _pz_live(ctx):
             return gossip_mod.NeighborTable.from_adjacency(
                 problem.adjacency, device=problem.device)
         return None
 
     def _primal_mode(self, problem: Problem, ctx: SolveContext) -> str:
         """Cholesky / CG across the big-D crossover, gradient for general
-        losses (core.admm.resolve_primal). Under churn the degrees change
-        over the run, so Cholesky falls to the matrix-free CG solve (an
+        losses (core.admm.resolve_primal). Under churn or a learned graph
+        the degrees change over the run, so Cholesky falls to the
+        matrix-free CG solve, in both phases of a personalized fit (an
         explicit primal="cholesky" is rejected by the capability table)."""
         mode = admm.resolve_primal(ctx.primal, problem.feature_dim,
                                    problem.loss)
-        if mode == "cholesky" and ctx.gossip is not None \
-                and ctx.gossip.has_churn:
+        if mode == "cholesky" and (
+                ctx.personalization is not None
+                or (ctx.gossip is not None and ctx.gossip.has_churn)):
             mode = "cg"
         return mode
 
@@ -117,6 +140,11 @@ class _ADMMSolver:
         and coke_step picks the active graph's. The reference builds these
         inside every compiled chunk; the port builds them once per fit."""
         mode = self._primal_mode(problem, ctx)
+        if _pz_live(ctx):
+            # no factors (the graph lives in the state); the CG system's
+            # invariant parts do not depend on it
+            return ({"chol": None, "terms": admm.primal_terms(problem)}
+                    if mode == "cg" else None)
         if ctx.gossip is not None:
             # the factors from the table's degrees (the same values as the
             # adjacency's on a static graph)
@@ -140,10 +168,38 @@ class _ADMMSolver:
         return None
 
     def init_state(self, problem: Problem, ctx: SolveContext):
-        return admm.init_state(problem, policy=self._policy(ctx))
+        inner = admm.init_state(problem, policy=self._policy(ctx))
+        if _pz_live(ctx):
+            # the learned graph starts as the configured one and rides in
+            # the state (one per lane over a sweep's (G, N, D) lanes)
+            A = problem.adjacency.to(torch.float32)
+            if inner.theta.ndim == 3:
+                A = A.expand(inner.theta.shape[0], *A.shape)
+            return PersonalizedState(inner, A)
+        return inner
 
     def step(self, problem: Problem, ctx: SolveContext, aux, state):
         mode = self._primal_mode(problem, ctx)
+        if _pz_live(ctx):
+            pz = ctx.personalization
+            terms = aux["terms"] if aux else None
+            if ctx.gossip is not None:
+                return personalize_mod.gossip_coke_step_dense(
+                    problem, self._policy(ctx), pz, state, ctx.gossip,
+                    inner_steps=ctx.inner_steps, inner_lr=ctx.inner_lr,
+                    primal="cg" if mode == "cg" else "gradient",
+                    cg_tol=ctx.cg_tol, cg_maxiter=ctx.cg_maxiter,
+                    terms=terms)
+            # sync: refresh the graph if due, then coke_step on it
+            A = personalize_mod.maybe_update(
+                pz, state.inner.theta, state.inner.step + 1,
+                state.adjacency)
+            inner = admm.coke_step(
+                dataclasses.replace(problem, adjacency=A),
+                self._policy(ctx), state.inner, None, ctx.inner_steps,
+                ctx.inner_lr, primal="cg" if mode == "cg" else "auto",
+                cg_tol=ctx.cg_tol, cg_maxiter=ctx.cg_maxiter, terms=terms)
+            return PersonalizedState(inner, A)
         if ctx.gossip is not None:
             return gossip_mod.gossip_coke_step(
                 problem, self._policy(ctx), state, aux["table"], ctx.gossip,
@@ -161,10 +217,17 @@ class _ADMMSolver:
                               terms=aux.get("terms"))
 
     def metrics(self, problem: Problem, ctx: SolveContext, aux, state):
-        return _stacked_metrics(problem, state.theta, state.comms,
-                                torch.sum(state.comm.bits, dim=-1))
+        # both personalized phases record per_agent_mse (one key set
+        # across the phases' concatenated histories)
+        inner = state.inner if isinstance(state, PersonalizedState) \
+            else state
+        return _stacked_metrics(problem, inner.theta, inner.comms,
+                                torch.sum(inner.comm.bits, dim=-1),
+                                per_agent=ctx.personalization is not None)
 
     def theta_of(self, state) -> torch.Tensor:
+        if isinstance(state, PersonalizedState):
+            return state.inner.theta
         return state.theta
 
 
@@ -230,6 +293,8 @@ class CTASolver:
 class OnlineFitState(NamedTuple):
     inner: online.OnlineState
     inst_mse: torch.Tensor   # pre-update MSE on the round's minibatch
+    # the learned collaboration graph, in a personalized fit's live phase
+    adjacency: torch.Tensor | None = None
 
 
 def _stream_metrics(theta: torch.Tensor, comms: torch.Tensor,
@@ -273,8 +338,8 @@ class _OnlineSolver:
     # participants take the minibatch step and gossip, sleepers hold
     # (core.gossip.gossip_stream_step)
     gossip_aware = True
-    # the reference's personalized form (not ported yet: the capability
-    # table raises NotImplementedError for it)
+    # the streaming consensus penalty takes a learned weighted graph as the
+    # batch one does (deg_i = sum_j w_ij)
     personalization_aware = True
 
     def _policy(self, ctx: SolveContext) -> comm_mod.Chain:
@@ -285,7 +350,7 @@ class _OnlineSolver:
         return None
 
     def prepare_host(self, problem, ctx: SolveContext):
-        if ctx.gossip is not None:
+        if ctx.gossip is not None and not _pz_live(ctx):
             return gossip_mod.NeighborTable.from_adjacency(
                 problem.adjacency, device=problem.device)
         return None
@@ -298,8 +363,9 @@ class _OnlineSolver:
                                   problem.feats.dtype,
                                   policy=self._policy(ctx),
                                   device=problem.device)
+        A = problem.adjacency.to(torch.float32) if _pz_live(ctx) else None
         return OnlineFitState(inner, torch.zeros(
-            (), dtype=problem.feats.dtype, device=problem.device))
+            (), dtype=problem.feats.dtype, device=problem.device), A)
 
     def warm_start(self, state: OnlineFitState, theta0) -> OnlineFitState:
         """Re-seed a fresh state from deployed parameters: theta and the
@@ -324,6 +390,22 @@ class _OnlineSolver:
     def step(self, problem, ctx: SolveContext, aux,
              state: OnlineFitState) -> OnlineFitState:
         feats, labels = self._round_batch(problem, ctx, state.inner.step)
+        if _pz_live(ctx):
+            # refresh the learned graph if due, then take the round on it
+            A = personalize_mod.maybe_update(
+                ctx.personalization, state.inner.theta,
+                state.inner.step + 1, state.adjacency)
+            if ctx.gossip is not None:
+                inner, inst = personalize_mod.gossip_stream_step_dense(
+                    state.inner, feats, labels, A, self._policy(ctx),
+                    ctx.gossip, lam=problem.lam, rho=problem.rho,
+                    lr=ctx.online_lr, eta=self._eta(ctx))
+            else:
+                inner, inst = online.stream_step(
+                    state.inner, feats, labels, A, self._policy(ctx),
+                    lam=problem.lam, rho=problem.rho, lr=ctx.online_lr,
+                    eta=self._eta(ctx))
+            return OnlineFitState(inner, inst, A)
         if ctx.gossip is not None:
             inner, inst = gossip_mod.gossip_stream_step(
                 state.inner, feats, labels, aux, self._policy(ctx),
@@ -342,10 +424,12 @@ class _OnlineSolver:
 
         bits = torch.sum(state.inner.comm.bits, dim=-1)
         if isinstance(problem, StreamProblem):
+            # a stream has no fixed per-agent set to score: no
+            # per_agent_mse, personalized or not
             return _stream_metrics(state.inner.theta, state.inner.comms,
                                    bits, state.inst_mse)
         m = _stacked_metrics(problem, state.inner.theta, state.inner.comms,
-                             bits)
+                             bits, per_agent=ctx.personalization is not None)
         m["instant_mse"] = state.inst_mse
         return m
 

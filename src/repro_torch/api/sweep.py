@@ -15,8 +15,11 @@ factors are made once and shared by every lane.
     idx, model = sw.select(x_test, y_test)                # operating point
 
 Grid cells may be (v, mu) pairs, (v, mu, bits) triples, or `core.comm`
-policies (Chain / stage / stage sequence) of one shared structure. The
-policy-unaware solvers (cta, ridge_oracle) ignore the cells: they run once
+policies (Chain / stage / stage sequence) of one shared structure. A
+personalized sweep replays fit()'s phased program on the lanes: the
+warmup phase is the static sweep itself; at the boundary every lane's
+carry gets the starting graph, and from then on each lane learns its own
+(G, N, N) graph from its own thetas. The policy-unaware solvers (cta, ridge_oracle) ignore the cells: they run once
 and every lane holds that run, as every lane of the reference's vmap
 computes the same thing.
 """
@@ -140,11 +143,12 @@ def sweep(configs_or_base: FitConfig | Sequence[FitConfig],
 
     carry0, chunk_fn, theta_fn = _phased_runner(
         lambda c: _simulator_runner(solver, problem, c, None),
-        phase_plan(ctx, base.resolved_iters))
+        phase_plan(ctx, base.resolved_iters, problem.adjacency))
     state, hist = chunk_fn(carry0, base.resolved_iters)
     theta = theta_fn(state)
-    if solver.comm_aware:   # (iters, G) -> (G, iters)
-        history = {k: v.T.contiguous() for k, v in hist.items()}
+    if solver.comm_aware:   # (iters, G, ...) -> (G, iters, ...)
+        history = {k: v.transpose(0, 1).contiguous()
+                   for k, v in hist.items()}
     else:                   # one run, held by every lane
         history = {k: _lanes(v, G) for k, v in hist.items()}
         theta = _lanes(theta, G)

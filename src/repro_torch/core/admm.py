@@ -96,7 +96,9 @@ class Problem:
 
     @property
     def degrees(self) -> torch.Tensor:
-        return torch.sum(self.adjacency, dim=1)
+        """Row sums of the adjacency: (N,), or (G, N) over a sweep's
+        per-lane learned graphs (G, N, N)."""
+        return torch.sum(self.adjacency, dim=-1)
 
     def to(self, device) -> "Problem":
         return dataclasses.replace(
@@ -177,13 +179,15 @@ def primal_terms(problem: Problem, jacobi: bool = True) -> PrimalTerms:
 
 
 def _diag_reg(problem: Problem, deg: torch.Tensor) -> torch.Tensor:
-    """(N, 1): 2 lam/N + 2 rho d_i, the (21a) system's diagonal shift."""
+    """(N, 1): 2 lam/N + 2 rho d_i, the (21a) system's diagonal shift
+    ((G, N, 1) over per-lane degrees (G, N))."""
     return (2.0 * problem.lam / problem.num_agents
-            + 2.0 * problem.rho * deg)[:, None]
+            + 2.0 * problem.rho * deg)[..., None]
 
 
 def _rhs(problem: Problem, phity, gamma, theta_ref, nbr_sum, deg):
-    return phity - gamma + problem.rho * (deg[:, None] * theta_ref + nbr_sum)
+    return phity - gamma + problem.rho * (deg[..., None] * theta_ref
+                                          + nbr_sum)
 
 
 def _as_columns(x: torch.Tensor) -> torch.Tensor:
@@ -312,7 +316,7 @@ def _primal_gradient(problem: Problem, inner_steps: int, inner_lr: float,
     N = problem.num_agents
     if deg is None:
         deg = problem.degrees
-    lin = gamma - problem.rho * (deg[:, None] * theta_ref + nbr_sum)
+    lin = gamma - problem.rho * (deg[..., None] * theta_ref + nbr_sum)
     rho_d = problem.rho * deg
     theta = theta0
     with torch.enable_grad():

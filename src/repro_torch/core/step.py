@@ -110,9 +110,11 @@ class GraphView:
 
 def dense_view(adjacency: torch.Tensor, deg: torch.Tensor | None = None,
                chol: torch.Tensor | None = None) -> GraphView:
-    """A dense (possibly Erdos-Renyi) graph: `A @ x` neighbour sums, as the
-    simulator exchanges."""
-    d = torch.sum(adjacency, dim=1) if deg is None else deg
+    """A dense (possibly Erdos-Renyi, or learned and weighted) graph:
+    `A @ x` neighbour sums and row-sum degrees, as the simulator exchanges.
+    A sweep's per-lane learned graphs (G, N, N) give (G, N) degrees and a
+    batched product over the lanes."""
+    d = torch.sum(adjacency, dim=-1) if deg is None else deg
     return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x, chol=chol)
 
 

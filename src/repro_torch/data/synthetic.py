@@ -6,8 +6,10 @@ T_i ~ U(4000, 6000) pairs from  y = sum_m b_m kappa(c_m, x) + e,
 b_m ~ U[0,1], c_m ~ N(0, I_5), x ~ N(0, I_5), e ~ N(0, 0.1),
 Gaussian kernel with bandwidth sigma = 5.
 
-`stream_synthetic` extends the synthetic model to per-agent minibatch
-streams (the online-learning workload), as the reference's does.
+`heterogeneous` splits the synthetic mixture into K latent tasks (the
+clustered non-IID workload of personalization), and `stream_synthetic`
+extends the synthetic model to per-agent minibatch streams (the
+online-learning workload), as the reference's do.
 
 `uci_standin` generates stand-ins for the UCI regression datasets used in
 Section 5.2. The real files are not shipped with the repo; the generators
@@ -85,6 +87,74 @@ def paper_synthetic(
     xtr, ytr, xte, yte = _split(x, y)
     return Dataset(xtr.astype(np.float32), ytr.astype(np.float32),
                    xte.astype(np.float32), yte.astype(np.float32), name)
+
+
+# ---------------------------------------------------------------------------
+# Clustered non-IID: K latent tasks, per-agent mixtures (personalization)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeterogeneousDataset(Dataset):
+    """A clustered non-IID `Dataset`: agent n's labels come from latent
+    task cluster[n] (plus a small cross-task mixture), so full consensus
+    averages models that were never meant to agree. The ground-truth
+    cluster assignment ships with the data — it is the reference the
+    graph-recovery metric scores learned adjacencies against."""
+
+    cluster: np.ndarray = None   # (N,) int — agent n's latent task
+    num_tasks: int = 0
+
+
+def heterogeneous(
+    num_agents: int = 20,
+    num_tasks: int = 3,
+    samples_per_agent: int = 500,
+    input_dim: int = 5,
+    num_components: int = 50,
+    bandwidth: float = 5.0,
+    noise_std: float = np.sqrt(0.1),
+    mix: float = 0.1,
+    seed: int = 0,
+    name: str = "heterogeneous",
+) -> HeterogeneousDataset:
+    """The paper's synthetic mixture split into K latent tasks.
+
+    All tasks share the component centers c_m (same input geometry), but
+    each task t draws its own mixture weights b_t — K distinct target
+    functions over a common feature space. Agent n is assigned to task
+    cluster[n] = n % K (balanced round-robin) and labels with the softened
+    weights  w_n = (1 - mix) b_{cluster[n]} + (mix / K) sum_t b_t : with
+    mix > 0 tasks overlap slightly (collaboration helps), with mix = 0
+    they are fully disjoint. Inputs stay iid across agents — the
+    heterogeneity is in the target function, which is exactly what theta
+    affinities can detect. Normalization/split follow paper_synthetic.
+    """
+    if not 1 <= num_tasks <= num_agents:
+        raise ValueError(
+            f"need 1 <= num_tasks <= num_agents, got K={num_tasks} over "
+            f"N={num_agents} agents")
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(0.0, 1.0, (num_tasks, num_components))   # per-task
+    c = rng.normal(size=(num_components, input_dim))          # shared
+    x = rng.normal(size=(num_agents, samples_per_agent, input_dim))
+
+    cluster = np.arange(num_agents) % num_tasks
+    onehot = np.eye(num_tasks)[cluster]                       # (N, K)
+    alpha = (1.0 - mix) * onehot + mix / num_tasks            # (N, K)
+    w = alpha @ b                                             # (N, M)
+
+    sq = ((x[:, :, None, :] - c[None, None, :, :]) ** 2).sum(-1)
+    kappa = np.exp(-sq / (2.0 * bandwidth**2))                # (N, T, M)
+    y = (np.einsum("ntm,nm->nt", kappa, w)
+         + rng.normal(scale=noise_std, size=(num_agents, samples_per_agent)))
+
+    x = _normalize01(x)
+    y = (y - y.min()) / max(y.max() - y.min(), 1e-9)
+    xtr, ytr, xte, yte = _split(x, y)
+    return HeterogeneousDataset(
+        xtr.astype(np.float32), ytr.astype(np.float32),
+        xte.astype(np.float32), yte.astype(np.float32), name,
+        cluster=cluster.astype(np.int32), num_tasks=num_tasks)
 
 
 #: stream generator kinds `stream_synthetic` implements (and

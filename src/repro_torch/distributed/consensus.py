@@ -41,9 +41,14 @@ cached fetch is bypassed and carried untouched, and joiners restart cold
 (zero primal, broadcast, dual and a fresh optimizer slot), as on the
 simulator.
 
+A dense (learned) adjacency (`adjacency=`, the personalization hook, ADMM
+strategies on the unfused path): weighted (N,) degrees sum(A, 1) and `A @
+x` neighbour sums (`_dense_neighbors`) replace the rolls and the cache,
+which belongs to a graph that may have changed and is carried untouched;
+the expressions are the churn path's summed forms, the simulator's.
+
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
-item: a dense learned graph (item 11), and the allreduce / coke_et
-strategies of the deep-net layer (item 15).
+item: the allreduce / coke_et strategies of the deep-net layer (item 15).
 """
 from __future__ import annotations
 
@@ -61,8 +66,6 @@ from repro_torch.optim.optimizers import (OptConfig, apply_updates,
                                           init_opt_state, opt_update)
 
 _LATER = {
-    "adjacency": "a dense (learned) adjacency is not ported to repro_torch "
-                 "yet: ROADMAP.md Queue 1 item 11",
     "strategy": "the allreduce and coke_et strategies belong to the "
                 "deep-net layer, not ported to repro_torch yet: ROADMAP.md "
                 "Queue 1 item 15",
@@ -160,6 +163,16 @@ def _degb(deg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return deg.reshape((deg.shape[0],) + (1,) * (x.ndim - 1))
 
 
+def _dense_neighbors(adjacency: torch.Tensor, tree):
+    """sum_n w_in x_n per agent: one (N, N) x (N, ...) product per leaf,
+    the dense graph's counterpart of the ring's roll halves; on (N, D)
+    leaves the simulator's `A @ theta_hat`."""
+    def one(x):
+        x = x.to(torch.float32)
+        return (adjacency @ x.reshape(x.shape[0], -1)).reshape(x.shape)
+    return tree_map(one, tree)
+
+
 def _alive_ring_sum(tree, alive_f: torch.Tensor, offsets: tuple):
     """Liveness-masked circulant neighbour sum: dead agents' values are
     zeroed before the rolls, so each agent accumulates exactly sum_n
@@ -230,8 +243,6 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
                 "requires use_fused_kernel=False")
     if ccfg.strategy not in ("dkla", "coke", "cta"):
         raise NotImplementedError(_LATER["strategy"])
-    if dense:
-        raise NotImplementedError(_LATER["adjacency"])
 
 
 def _vmapped_opt_update(opt_cfg: OptConfig, grads, opt, params):
@@ -254,7 +265,9 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     alive / joined — (N,) bool churn masks (dkla/coke on the static ring):
     the alive-weighted exchange, and the rows that restart cold (None
     where no row does).
-    adjacency — a learned dense graph: raises (see the module docstring)."""
+    adjacency — an (N, N) dense weighted graph (dkla/coke, unfused): its
+    row sums as the (N,) degrees and `A @ x` neighbour sums; the circulant
+    cache is bypassed and carried untouched."""
     _check_supported(ccfg, participate, adjacency, alive, joined)
     step = state["step"] + 1
     metrics: dict[str, torch.Tensor] = {}
@@ -285,7 +298,8 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         params, theta_hat, gamma, opt0 = (
             _mask_rows(joined, tree_map(torch.zeros_like, t), t)
             for t in (params, theta_hat, gamma, opt0))
-    summed = alive is not None
+    dense = adjacency is not None
+    summed = alive is not None or dense
     if ccfg.offset_schedule:
         variants = ccfg.offset_schedule
         offsets = variants[(step - 1) % len(variants)]
@@ -295,6 +309,16 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         # the cached fetch belongs to the previous step's graph: fetch
         # theta_hat^{k-1} again under the graph in effect at step k
         left, right = _ring_neighbors(theta_hat, offsets)
+    elif dense:
+        # a learned weighted graph: (N,) degrees and product neighbour
+        # sums; the cache belongs to an earlier graph and is carried
+        # untouched
+        offsets = ccfg.offsets
+        deg = torch.sum(adjacency, dim=1)
+
+        def fetch(x):
+            return _dense_neighbors(adjacency, x)
+        nbr_sum = fetch(theta_hat)
     elif summed:
         # churn: alive-weighted (N,) degrees and masked roll sums; the
         # cache, unmasked and stale across an event, is carried untouched
@@ -302,7 +326,10 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         alive_f = alive.to(torch.float32)
         deg_l, deg_r = _ring_neighbors(alive_f, offsets)
         deg = deg_l + deg_r
-        nbr_sum = _alive_ring_sum(theta_hat, alive_f, offsets)
+
+        def fetch(x):
+            return _alive_ring_sum(x, alive_f, offsets)
+        nbr_sum = fetch(theta_hat)
     else:
         offsets, deg = ccfg.offsets, ccfg.degree
         # neighbours' theta_hat^{k-1}: served from the cache filled by the
@@ -358,7 +385,7 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     # dual (21b) with theta_hat^k: on a static ring the step's only
     # neighbour fetch, cached for the next primal update
     if summed:
-        nbr_new = _alive_ring_sum(new_theta_hat, alive_f, offsets)
+        nbr_new = fetch(new_theta_hat)
         new_gamma = tree_map(
             lambda gm, th, nb: gm + rho * (_degb(deg, th) * th - nb),
             gamma, new_theta_hat, nbr_new)
@@ -416,12 +443,12 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
     neighbour fetch is cached for the next round: 2 rolls per round per
     offset. `participate` (gossip) and `alive` / `joined` (churn) have
     `consensus_update`'s semantics; the round's minibatch still flows to
-    sleepers (the regret sample covers every agent). The learned-graph hook
-    (`adjacency`) raises NotImplementedError naming its ROADMAP.md item.
+    sleepers (the regret sample covers every agent). `adjacency` (N, N), a
+    learned dense graph, has `consensus_update`'s semantics; the
+    expressions are the simulator's `core.online.stream_step`.
     Returns (new_params, new_state, metrics) with the pre-update
     instantaneous MSE and the cumulative bits."""
-    if adjacency is not None:
-        raise NotImplementedError(_LATER["adjacency"])
+    dense = adjacency is not None
     theta = params["theta"]
     theta_hat, gamma = state["theta_hat"], state["gamma"]
     N = theta.shape[0]
@@ -441,7 +468,12 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
     resid = preds - labels
     g_data = true_div(2.0 * torch.einsum("nb,nbd->nd", resid, feats),
                       feats.shape[1])
-    if alive is not None:
+    if dense:
+        # a learned graph: weighted (N, 1) degrees and the product sum
+        # (the cache is bypassed and carried untouched)
+        deg = torch.sum(adjacency, dim=1)[:, None]
+        nbr_sum = adjacency @ theta_hat
+    elif alive is not None:
         # churn: alive-weighted (N, 1) degrees and masked roll sums (the
         # stale cache is bypassed and carried untouched)
         alive_f = alive.to(torch.float32)
@@ -457,7 +489,7 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
          - rho * (deg * theta_hat + nbr_sum))
     if eta is None:
         new_theta = theta - lr * g
-    elif alive is not None:
+    elif alive is not None or dense:
         new_theta = theta - g / (eta + 2.0 * rho * deg)
     else:
         new_theta = theta - true_div(g, eta + 2.0 * rho * deg)
@@ -472,7 +504,11 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
 
     # dual with theta_hat^k: the round's only neighbour fetch, cached for
     # the next primal (churn: the masked sum again, the cache untouched)
-    if alive is not None:
+    if dense:
+        new_gamma = gamma + rho * (deg * new_theta_hat
+                                   - adjacency @ new_theta_hat)
+        hat_l, hat_r = state["nbr_left"], state["nbr_right"]
+    elif alive is not None:
         new_gamma = gamma + rho * (
             deg * new_theta_hat
             - _alive_ring_sum(new_theta_hat, alive_f, ccfg.offsets))

@@ -24,23 +24,22 @@ from repro.api import capabilities as jcap
 from repro.api.registry import get_solver as jax_get_solver
 from repro.api.registry import list_solvers as jax_list_solvers
 
-from repro_torch.api import (Censor, Chain, ChurnSchedule, FitConfig, fit,
-                             fit_stream, sweep)
+from repro_torch.api import (Censor, Chain, ChurnSchedule, FitConfig,
+                             Personalization, fit, fit_stream, sweep)
 from repro_torch.api import capabilities as cap
 from repro_torch.api.registry import get_solver, list_solvers
 from repro_torch.core.graph import TopologySchedule
 
 torch.set_num_threads(2)
 
-#: each package's probe objects; the port has no personalization object
-#: yet (the rules read only whether the field is set)
+#: each package's probe objects
 OBJS = {
     "ref": dict(topo=JTopologySchedule.circulant_cycle(8, [(1,)]),
                 churn=JChurnSchedule(leave=((2, 0),)),
                 pz=JPersonalization(), comm=JChain((JCensor(0.3, 0.97),))),
     "port": dict(topo=TopologySchedule.circulant_cycle(8, [(1,)]),
                  churn=ChurnSchedule(leave=((2, 0),)),
-                 pz=JPersonalization(), comm=Chain((Censor(0.3, 0.97),))),
+                 pz=Personalization(), comm=Chain((Censor(0.3, 0.97),))),
 }
 
 #: rule id -> (driver mode, FitConfig knobs naming probe objects by key):
@@ -89,8 +88,6 @@ TRIGGERS = {
 NOT_PORTED_TRIGGERS = {
     "mesh": ("batch", dict(algorithm="coke"), dict(mesh=object()),
              "item 14"),
-    "personalization": ("batch", dict(algorithm="coke", personalization="pz",
-                                      backend="spmd"), {}, "item 11"),
 }
 
 
@@ -202,6 +199,18 @@ def test_supported_cells_admit():
                          get_solver("qc_odkla"))
     cap.check_sweep(FitConfig(algorithm="coke", exec="gossip",
                               participation=0.5), get_solver("coke"))
+    pz = OBJS["port"]["pz"]
+    for backend in ("simulator", "spmd"):
+        for exec_ in ("sync", "gossip"):
+            cap.check_fit(FitConfig(algorithm="dkla", backend=backend,
+                                    exec=exec_, personalization=pz),
+                          get_solver("dkla"))
+            cap.check_stream(FitConfig(algorithm="online_coke",
+                                       backend=backend, exec=exec_,
+                                       personalization=pz),
+                             get_solver("online_coke"))
+    cap.check_sweep(FitConfig(algorithm="coke", personalization=pz),
+                    get_solver("coke"))
 
 
 def test_gossip_cell_runs_like_the_reference():
@@ -233,6 +242,46 @@ def test_gossip_cell_runs_like_the_reference():
                                       np.asarray(ref.history[k]))
     np.testing.assert_allclose(port.theta.numpy(), np.asarray(ref.theta),
                                atol=1e-5, rtol=0)
+
+
+def test_personalization_cell_runs_like_the_reference():
+    """The row NOT_PORTED held for personalization (coke on spmd, here with
+    a live learned graph) now runs: the reference's problem through both
+    packages' fit, comms and bits exactly equal, the learned graph's
+    support equal, theta within 1e-3 relative (the reference's own
+    tolerance between two personalized runs)."""
+    import numpy as np
+    from repro.api import KRRConfig as JKRRConfig
+    from repro.api import build_problem as jax_build_problem
+    from repro.api import fit as jax_fit
+
+    from repro_torch import convert
+    from repro_torch.api import KRRConfig
+
+    krr = dict(num_agents=8, samples_per_agent=12, num_features=16,
+               lam=1e-3, rho=0.1, seed=0)
+    knobs = dict(algorithm="coke", backend="spmd", graph="ring",
+                 num_iters=20, primal="cg")
+    jcfg = JFitConfig(krr=JKRRConfig(**krr), **knobs,
+                      personalization=JPersonalization(k=2, every=3,
+                                                       warmup=5))
+    jp = jax_build_problem(jcfg).problem
+    ref = jax_fit(jcfg, problem=jp)
+    port = fit(FitConfig(krr=KRRConfig(**krr), **knobs,
+                         personalization=Personalization(k=2, every=3,
+                                                         warmup=5)),
+               problem=convert.problem_from_numpy(
+                   np.asarray(jp.feats), np.asarray(jp.labels),
+                   np.asarray(jp.adjacency), jp.lam, jp.rho, device="cpu"),
+               device="cpu")
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(port.history[k].numpy(),
+                                      np.asarray(ref.history[k]))
+    np.testing.assert_array_equal(port.learned_adjacency.numpy() > 0,
+                                  np.asarray(ref.learned_adjacency) > 0)
+    want = np.asarray(ref.theta)
+    np.testing.assert_allclose(port.theta.numpy(), want, rtol=0,
+                               atol=1e-3 * max(1.0, np.abs(want).max()))
 
 
 def test_port_matrix_marks_follow_the_reference_matrix():

@@ -293,7 +293,7 @@ _HOOKS = {
 
 
 #: hooks the port runs (the rest raise NotImplementedError for now)
-_PORTED_HOOKS = ("schedule", "participate", "alive")
+_PORTED_HOOKS = ("schedule", "participate", "alive", "adjacency")
 
 
 def _call_both(strategy, fused, hook):
@@ -330,9 +330,9 @@ def _call_both(strategy, fused, hook):
 def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
     """Where the reference raises ValueError the port raises the same
     ValueError; where the reference runs, the port runs a ported hook (the
-    offset schedule, gossip participation, churn) to the reference's
-    values and raises NotImplementedError, naming the ROADMAP.md item, for
-    the others."""
+    offset schedule, gossip participation, churn, a dense adjacency) to the
+    reference's values and raises NotImplementedError, naming the
+    ROADMAP.md item, for the others."""
     ref, port = _call_both(strategy, fused, hook)
     if isinstance(ref, ValueError):
         assert type(port) is ValueError and str(port) == str(ref)

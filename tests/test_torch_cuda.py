@@ -737,6 +737,120 @@ def test_gossip_sweep_and_streams_on_card_match_cpu(cuda):
                                    atol=1e-5)
 
 
+def test_personalized_fits_on_card_match_cpu(cuda):
+    """Personalized COKE (CG, a learned graph refreshed every 3 iterations
+    after 5) on the simulator and spmd, sync and gossip, card against CPU,
+    the fit loops with host syncs raising: comms and bits equal, the graph's
+    support equal, theta within 1e-3 relative (two personalized runs of one
+    problem: tests/test_torch_personalize.py says why); gossip draws one K5
+    launch per iteration; no other kernel runs."""
+    from repro_torch.api import Personalization
+    from repro_torch.kernels.threefry import threefry as k5
+    smoke = _chip_smoke()
+    cfg = FitConfig(krr=KRRConfig(dataset="heterogeneous", num_agents=9,
+                                  samples_per_agent=40, num_features=32,
+                                  lam=1e-3, rho=0.05),
+                    graph="ring", censor_v=0.3, censor_mu=0.97,
+                    num_iters=20, primal="cg",
+                    personalization=Personalization(k=2, every=3, warmup=5))
+    built = build_problem(cfg, device="cpu")
+    with smoke.StrictFits():
+        for backend in ("simulator", "spmd"):
+            for over in (dict(), dict(exec="gossip", participation=0.5)):
+                c = cfg.replace(backend=backend, **over)
+                cpu = fit(c, problem=built.problem, device="cpu")
+                before = (k2.LAUNCHES, k2.FUSED_UPDATE_LAUNCHES,
+                          k5.LAUNCHES)
+                gpu = fit(c, problem=built.problem, device=cuda)
+                rose = (k2.LAUNCHES - before[0],
+                        k2.FUSED_UPDATE_LAUNCHES - before[1],
+                        k5.LAUNCHES - before[2])
+                assert rose == (0, 0, 20 if over else 0), (backend, rose)
+                for k in ("comms", "bits"):
+                    np.testing.assert_array_equal(
+                        gpu.history[k].cpu().numpy(), cpu.history[k].numpy())
+                np.testing.assert_array_equal(
+                    gpu.learned_adjacency.cpu().numpy() > 0,
+                    cpu.learned_adjacency.numpy() > 0)
+                scale = max(1.0, float(cpu.theta.abs().max()))
+                torch.testing.assert_close(gpu.theta.cpu(), cpu.theta,
+                                           rtol=0, atol=1e-3 * scale)
+
+
+def test_personalized_models_launch_k1_once_each(cuda):
+    """to_models() on the card: each per-agent model's fused evaluate on
+    its own test rows is one K1 launch, its MSE the plain product's within
+    1e-5 relative; the per-agent meta round-trips save/load."""
+    import tempfile
+
+    from repro_torch.api import KernelModel, Personalization
+    cfg = FitConfig(krr=KRRConfig(dataset="heterogeneous", num_agents=6,
+                                  samples_per_agent=40, num_features=64,
+                                  lam=1e-3, rho=0.05),
+                    graph="ring", num_iters=12, primal="cg",
+                    personalization=Personalization(k=2, every=3, warmup=4))
+    built = build_problem(cfg, device=cuda)
+    res = fit(cfg, problem=built.problem, device=cuda)
+    models = res.to_models(built.rff_params)
+    before = k1.LAUNCHES
+    for i, m in enumerate(models):
+        got = m.evaluate(built.x_test[i], built.y_test[i],
+                         backend="fused")["test_mse"]
+        pred = built.feats_test[i] @ res.theta[i]
+        want = float(torch.mean((built.y_test[i] - pred) ** 2))
+        assert abs(got - want) <= 1e-5 * want, i
+    assert k1.LAUNCHES - before == len(models)
+    with tempfile.TemporaryDirectory() as tmp:
+        models[2].save(tmp + "/m")
+        back = KernelModel.load(tmp + "/m", device=cuda)
+    assert back.meta["agent"] == 2 and back.meta["personalization"]["k"] == 2
+    assert torch.equal(back.predict(built.x_test[2]),
+                       models[2].predict(built.x_test[2]))
+
+
+def test_personalized_sweep_and_streams_on_card_match_cpu(cuda):
+    """A personalized sweep (one learned graph per lane) and personalized
+    gossip streams, card against CPU, the loops with host syncs raising:
+    comms and bits equal, theta within 1e-3 relative."""
+    from repro_torch.api import Personalization, build_stream, fit_stream, \
+        sweep
+    smoke = _chip_smoke()
+    pz = Personalization(k=2, every=3, warmup=4)
+    base = FitConfig(krr=KRRConfig(dataset="heterogeneous", num_agents=9,
+                                   samples_per_agent=40, num_features=32,
+                                   lam=1e-3, rho=0.05),
+                     graph="ring", num_iters=20, primal="cg",
+                     personalization=pz)
+    built = build_problem(base, device="cpu")
+    grid = [(0.3, 0.97), (0.3, 0.97), (0.05, 0.9)]
+    cpu = sweep(base, grid, problem=built.problem, device="cpu")
+    with smoke.StrictLoops():
+        gpu = sweep(base, grid, problem=built.problem, device=cuda)
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                      cpu.history[k].numpy())
+    scale = max(1.0, float(cpu.thetas.abs().max()))
+    torch.testing.assert_close(gpu.thetas.cpu(), cpu.thetas, rtol=0,
+                               atol=1e-3 * scale)
+    scfg = FitConfig(krr=KRRConfig(num_agents=6, num_features=16, lam=1e-2,
+                                   rho=0.1),
+                     algorithm="online_coke", graph="ring", censor_v=0.2,
+                     censor_mu=0.99, num_iters=40, online_batch=8,
+                     exec="gossip", participation=0.5, personalization=pz)
+    stream = build_stream(scfg, device="cpu").stream
+    for backend in ("simulator", "spmd"):
+        c = scfg.replace(backend=backend)
+        cpu = fit_stream(c, stream=stream, device="cpu")
+        with smoke.StrictLoops():
+            gpu = fit_stream(c, stream=stream, device=cuda)
+        for k in ("comms", "bits"):
+            np.testing.assert_array_equal(gpu.history[k].cpu().numpy(),
+                                          cpu.history[k].numpy())
+        scale = max(1.0, float(cpu.theta.abs().max()))
+        torch.testing.assert_close(gpu.theta.cpu(), cpu.theta, rtol=0,
+                                   atol=1e-3 * scale)
+
+
 def test_sweep_on_card_matches_cpu(cuda):
     """A policy grid as one lane-batched loop, card against CPU, with the
     loops under set_sync_debug_mode("error"): comms and bits equal, theta

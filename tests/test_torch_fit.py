@@ -368,10 +368,6 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
 
 
 OUT_OF_SLICE = {
-    # on spmd: the reference rejects personalization on fused (ValueError,
-    # tests/test_torch_capabilities.py)
-    "personalization": lambda cfg: dict(config=cfg.replace(
-        backend="spmd", personalization=object())),
     "mesh": lambda cfg: dict(config=cfg, mesh=object()),
 }
 
@@ -383,12 +379,45 @@ def test_out_of_slice_configs_raise_not_implemented(case, built):
         fit(kw.pop("config"), problem=built[1], device="cpu", **kw)
 
 
-@pytest.mark.parametrize("what", ["heterogeneous"])
-def test_other_entry_points_raise_not_implemented(what):
-    cfg = _configs()[1].replace(backend="simulator")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_problem(cfg.replace(krr=dataclasses.replace(
-            cfg.krr, dataset="heterogeneous")), device="cpu")
+@pytest.mark.parametrize("backend", ["simulator", "spmd"])
+def test_heterogeneous_personalized_fit_matches_the_reference(backend):
+    """The heterogeneous dataset and a personalized fit, which raised
+    NotImplementedError before personalization was ported: the port
+    builds the reference's arrays (bitwise) and, on the reference's
+    features, fits a personalized COKE with comms and bits exactly equal,
+    the learned graph's support equal and theta within 1e-3 relative (the
+    reference's own tolerance between two personalized runs;
+    tests/test_torch_personalize.py says why)."""
+    from repro.api import Personalization as JPersonalization
+
+    from repro_torch.api import Personalization
+    krr = dict(KRR, dataset="heterogeneous", num_tasks=2)
+    kw = dict(graph="ring", algorithm="coke", censor_v=0.3, censor_mu=0.97,
+              num_iters=30, primal="cg", backend=backend)
+    jcfg = JFitConfig(krr=JKRRConfig(**krr), **kw,
+                      personalization=JPersonalization(k=1, every=4,
+                                                       warmup=10))
+    tcfg = FitConfig(krr=KRRConfig(**krr), **kw,
+                     personalization=Personalization(k=1, every=4,
+                                                     warmup=10))
+    jb = jax_build_problem(jcfg)
+    tb = build_problem(tcfg, device="cpu")
+    np.testing.assert_array_equal(_np(tb.problem.labels),
+                                  np.asarray(jb.problem.labels))
+    np.testing.assert_array_equal(tb.clusters, jb.clusters)
+    ref = jax_fit(jcfg, problem=jb.problem)
+    port = fit(tcfg, problem=convert.problem_from_numpy(
+        np.asarray(jb.problem.feats), np.asarray(jb.problem.labels),
+        np.asarray(jb.problem.adjacency), jb.problem.lam, jb.problem.rho,
+        device="cpu"), device="cpu")
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(_np(port.history[k]),
+                                      np.asarray(ref.history[k]))
+    np.testing.assert_array_equal(_np(port.learned_adjacency) > 0,
+                                  np.asarray(ref.learned_adjacency) > 0)
+    want = np.asarray(ref.theta)
+    np.testing.assert_allclose(_np(port.theta), want, rtol=0,
+                               atol=1e-3 * max(1.0, np.abs(want).max()))
 
 
 #: configs that raised NotImplementedError before Quantize, Drop and

@@ -711,11 +711,40 @@ def test_registry_runs_every_ported_solver_behind_the_contract():
 
 def test_simulator_still_raises_for_unported_axes(small):
     cfg = FitConfig(krr=KRRConfig(**KRR), **BASE)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit(cfg.replace(personalization=object()), problem=small[1],
-            device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         fit(cfg, problem=small[1], device="cpu", mesh=object())
+
+
+def test_simulator_personalization_matches_reference(small):
+    """A personalized fit on the simulator, which raised NotImplementedError
+    before personalization was ported: with warmup 5 of 40 iterations,
+    comms and bits exact, the first five iterations within this file's
+    tolerance, the learned graph's support equal and theta within 1e-3
+    relative after the refreshes (the reference's own tolerance between
+    two personalized runs; tests/test_torch_personalize.py says why)."""
+    from repro.api import Personalization as JPersonalization
+
+    from repro_torch.api import Personalization
+    kw = dict(BASE, primal="cg")
+    ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **kw,
+                             personalization=JPersonalization(
+                                 k=1, every=3, warmup=5)),
+                  problem=small[0])
+    port = fit(FitConfig(krr=KRRConfig(**KRR), **kw,
+                         personalization=Personalization(k=1, every=3,
+                                                         warmup=5)),
+               problem=small[1], device="cpu")
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(_np(port.history[k]),
+                                      np.asarray(ref.history[k]))
+    np.testing.assert_allclose(_np(port.history["train_mse"])[:5],
+                               np.asarray(ref.history["train_mse"])[:5],
+                               rtol=CG_TOL, atol=CG_TOL)
+    np.testing.assert_array_equal(_np(port.learned_adjacency) > 0,
+                                  np.asarray(ref.learned_adjacency) > 0)
+    want = np.asarray(ref.theta)
+    np.testing.assert_allclose(_np(port.theta), want, rtol=0,
+                               atol=1e-3 * max(1.0, np.abs(want).max()))
 
 
 def test_simulator_gossip_matches_reference(small):

@@ -497,15 +497,44 @@ def test_run_stream_aligns_a_state_made_without_a_policy():
     assert tuple(stepped.comm.bits.shape) == (4,)
 
 
-@pytest.mark.parametrize("hook", ["adjacency"])
-def test_stream_update_raises_for_the_hooks_of_later_items(hook):
-    ccfg = port_cns.ConsensusConfig(rho=0.1)
-    theta = torch.zeros((4, 6))
-    state = port_cns.init_stream_state(ccfg, theta)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_cns.stream_update(ccfg, {"theta": theta}, state,
-                               torch.zeros((4, 3, 6)), torch.zeros((4, 3)),
-                               lam=0.1, lr=0.1, **{hook: torch.eye(4)})
+@pytest.mark.parametrize("eta", [None, 10.0], ids=["gradient", "qc"])
+def test_stream_update_adjacency_hook_matches_the_reference(eta):
+    """The learned-graph hook (adjacency=) of the ring runtime's streaming
+    round, which raised NotImplementedError before personalization was
+    ported: a seeded symmetric weighted graph (one for rounds 1-6, another
+    for 7-12, as a refresh swaps it), 12 rounds from seeded parameters,
+    the gradient and QC-ODKLA steps: comms exact, theta, theta_hat and
+    gamma within 1e-6; the circulant cache is carried untouched."""
+    rng = np.random.default_rng(7)
+    feats, labels, _ = _core_stream(seed=7)
+    N, D = feats.shape[1], feats.shape[-1]
+    theta0 = rng.standard_normal((N, D)).astype(np.float32)
+    graphs = []
+    for _ in range(2):
+        w = np.triu(rng.uniform(0.1, 1.0, (N, N))
+                    * (rng.uniform(size=(N, N)) < 0.6), 1)
+        graphs.append((w + w.T).astype(np.float32))
+    out = []
+    for cns, arr, chain in (
+            (jax_cns, jnp.asarray, JChain((JCensor(0.05, 0.97),))),
+            (port_cns, torch.tensor, Chain((Censor(0.05, 0.97),)))):
+        ccfg = cns.ConsensusConfig(rho=0.1)
+        p = {"theta": arr(theta0)}
+        st = cns.init_stream_state(ccfg, p["theta"], comm=chain)
+        cache = st["nbr_left"]
+        for k in range(12):
+            p, st, _ = cns.stream_update(ccfg, p, st, arr(feats[k]),
+                                         arr(labels[k]), lam=1e-2, lr=0.2,
+                                         eta=eta, comm=chain,
+                                         adjacency=arr(graphs[k // 6]))
+        assert st["nbr_left"] is cache
+        out.append((p, st))
+    (jp, jst), (tp, tst) = out
+    assert int(tst["comms"]) == int(jst["comms"])
+    for got, want in ((tp["theta"], jp["theta"]),
+                      (tst["theta_hat"], jst["theta_hat"]),
+                      (tst["gamma"], jst["gamma"])):
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6)
 
 
 @pytest.mark.parametrize("hook", ["participate", "alive"])

@@ -571,5 +571,6 @@ def test_phased_runner_hands_carries_across_phase_boundaries():
     assert hist["phase"].tolist() == [1] * 5 + [2] * 4
     assert hist["k"].tolist() == [0, 1, 2, 3, 4, 105, 106, 107, 108]
     assert carry == 109
-    one = fit_mod.phase_plan("ctx", 7)
-    assert one == (("ctx", 7, None),)
+    ctx = fit_mod.SolveContext(comm=Chain(()))
+    one = fit_mod.phase_plan(ctx, 7, None)
+    assert one == ((ctx, 7, None),)
