@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  1. build the five hand-written kernels from src/repro_torch/csrc with
+  1. build the six hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
      build/repro_torch/; K1's ptxas report per instance, its launch plan at
      the predict shape and at d=96, and its SASS instructions per output
@@ -169,8 +169,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      (personalized beats consensus at equal bits, graph_recovery > 0.6);
      (g) ms and launches per iteration: warmup, live without and with a
      refresh, gossip, spmd, streams; one learned_adjacency at N=20 and 512.
-Before each of phases 4-6, 10, each part of 12 and each path of 13-17
-every launch counter is set to 0, and read just after.
+ 18. many-model serving (`serve_phase`), backend="fused": phase 4's COKE
+     fit's featurizer (d=5, D=4096), its 20 per-agent models and 1004
+     variants published into a ModelRegistry; (a) a resident cell, 65 536
+     ids in one ThetaStore of 65 537 slots (1.07 GB) through one put_many,
+     under benchmarks/many_model_bench.py's load (8 clients x 250 requests
+     of 4 rows at uniform ids): QPS, rows/s, p50, p99, bucket calls, K1 and
+     K6 once per bucket call, peak memory, one 1024-row bucket call's
+     device and host time; one request alone and inside a full 1024-row
+     bucket bitwise equal; K1's rows at T=2 bitwise the same rows at
+     T=1024; hot swap under fire (2 clients, 4 publishes); one put's copy
+     of the whole stack; (b) a paged cell, the 1024 registry ids through
+     256 slots under the same load, with faults and evictions; every answer
+     of both cells bitwise score_rows at its own row count and within
+     SERVE_PREDICT_RTOL of predict; (c) K6 against its plain version at
+     B in 1, 2, 31, 1024 and D in 16, 4093, 4096 (both instances, which
+     give the same bits), and its time at (1024, 4096) beside its bound,
+     the plain version and the einsum pair.
+Before each of phases 4-6, 10, each part of 12, each path of 13-17 and
+each cell of 18 every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -178,6 +195,7 @@ checkout of the repo, it prints no result and exits 2.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import shutil
@@ -422,6 +440,27 @@ PZ_SCALE_N = 512
 PZ_DEPLOY_RTOL = 1e-5
 K5_SIZES = (N_AGENTS, 512, N_AGENTS * FEATURES, 4097, 1027 * 1031)
 K5_LANES = 8
+# phase 18, many-model serving: benchmarks/many_model_bench.py's load
+# (8 closed-loop clients, 4-row requests at uniform ids, max_delay_ms=1)
+# at the fit cells' featurizer (d=5, D=4096), backend="fused"
+SERVE_RESIDENT = 65536      # resident ids in one store of +1 slots, 1.07 GB
+SERVE_REGISTRY = 1024       # the 20 per-agent models + 1004 variants
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 250        # per client
+SERVE_BATCH = 4
+SERVE_DELAY_MS = 1.0
+SERVE_TRACE_REQUESTS = 50  # per client, the profiled run of each cell
+SERVE_SWAP_CLIENTS = 2
+SERVE_SWAP_PUBLISHES = 4
+SERVE_ROWDOT_B = (1, 2, 31, 1024)
+SERVE_ROWDOT_D = (16, 4093, 4096)
+# K6 against its plain version, of sum_k |phi theta| per row: K6 rounds a
+# chain of D/32 + 5 = 133 adds at D=4096 (7.9e-6 in units of 2^-24), the
+# plain sum a shallower tree
+ROWDOT_RTOL = 1e-5
+# a served answer (K6's order) against predict's matvec (cuBLAS's order)
+# over the same 4096 products, of sum_k |phi theta| per row
+SERVE_PREDICT_RTOL = 2e-5
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -436,7 +475,47 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "threefry": ("src/repro_torch/csrc/threefry.cu",
                  "src/repro/core/step.py:79 (jax.random.uniform inside "
                  "XLA; no Pallas kernel)"),
+    # no Pallas kernel: the reference gathers and row-dots inside XLA
+    "gather_rowdot": ("src/repro_torch/csrc/gather_rowdot.cu",
+                      "src/repro/serve/kernel_server.py:164-169 (einsum "
+                      "over stack[slots] inside XLA; no Pallas kernel)"),
 }
+
+# every kernel wrapper's launch count: name -> (module, attribute)
+LAUNCH_COUNTERS = {
+    "coke_megastep": ("repro_torch.kernels.coke_update.coke_update",
+                      "LAUNCHES"),
+    "rff_cos_bias": ("repro_torch.kernels.rff.rff", "LAUNCHES"),
+    "coke_fused_update": ("repro_torch.kernels.coke_update.coke_update",
+                          "FUSED_UPDATE_LAUNCHES"),
+    "flash_attention": ("repro_torch.kernels.flash_attention."
+                        "flash_attention", "LAUNCHES"),
+    "threefry": ("repro_torch.kernels.threefry.threefry", "LAUNCHES"),
+    "gather_rowdot": ("repro_torch.kernels.rowdot.rowdot", "LAUNCHES"),
+}
+
+
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for module, attr in LAUNCH_COUNTERS.values():
+        setattr(importlib.import_module(module), attr, 0)
+
+
+def counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {name: getattr(importlib.import_module(module), attr)
+            for name, (module, attr) in LAUNCH_COUNTERS.items()}
+
+
+def full_width_config():
+    """Phase 4's full-width cell, which phase 18 serves from: N = 20 ring,
+    SAMPLES rows per agent, D = FEATURES, the megakernel path."""
+    from repro_torch.api import PAPER_SETUPS, FitConfig
+    krr = dataclasses.replace(PAPER_SETUPS["synthetic"],
+                              samples_per_agent=SAMPLES,
+                              num_features=FEATURES)
+    return FitConfig(krr=krr, backend="fused", graph="ring",
+                     primal="gradient", num_iters=ITERS)
 
 
 def log(phase, msg):
@@ -3042,6 +3121,425 @@ def personalize_phase(dev, card, reset_counts, counts):
     return deploy_counts["rff_cos_bias"]
 
 
+def drive(server, ids, *, clients, requests, batch, seed):
+    """benchmarks/many_model_bench.py::_drive with every answer kept:
+    `clients` threads each fire `requests` tagged requests of `batch`
+    uniform rows at uniform ids, back to back (closed loop). Returns
+    (wall s, latencies ms, [(model id, x, answer)])."""
+    import threading
+
+    input_dim = server.model.input_dim
+    latencies, answers, failures = [], [], []
+    lock = threading.Lock()
+
+    def client(cid):
+        rng = np.random.default_rng(seed + cid)
+        mine, got = [], []
+        try:
+            for _ in range(requests):
+                mid = ids[int(rng.integers(0, len(ids)))]
+                x = rng.uniform(size=(batch, input_dim)).astype(np.float32)
+                t0 = time.perf_counter()
+                out = server.submit(x, mid).result(timeout=120)
+                mine.append((time.perf_counter() - t0) * 1e3)
+                got.append((mid, x, out))
+        except Exception as e:  # noqa: BLE001 - raised below
+            failures.append(e)
+        with lock:
+            latencies.extend(mine)
+            answers.extend(got)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a serving client failed: {failures[:1]}")
+    return wall, latencies, answers
+
+
+def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
+    """Phase 18: many-model serving at full width. One featurizer (phase
+    4's: d=5, D=4096) and its COKE fit's 20 per-agent models plus 1004
+    variants in a `ModelRegistry`; a resident cell (65 536 ids in one
+    `ThetaStore` of 65 537 slots, 1.07 GB) and a paged cell (the 1024
+    registry ids through 256 slots) under benchmarks/many_model_bench.py's
+    load, each bucket call one K1 and one K6 launch; every answer bitwise
+    `score_rows` at its own row count; hot swap under fire; K6 alone
+    against its plain version and its bound; one put's copy. Returns K6's
+    entry of the kernels line."""
+    from repro_torch.kernels.rff import rff as k1
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
+    from repro_torch.serve import (KernelServeConfig, KernelServer,
+                                   ModelRegistry, ThetaStore)
+
+    t_phase = time.perf_counter()
+    base = coke.to_model(built.rff_params, include_per_agent=False)
+    D = base.num_features
+    scfg = KernelServeConfig(backend="fused", max_delay_ms=SERVE_DELAY_MS)
+    load = dict(clients=SERVE_CLIENTS, requests=SERVE_REQUESTS,
+                batch=SERVE_BATCH)
+
+    # ---- the registry: 20 per-agent models and their variants -----------
+    tmp = tempfile.TemporaryDirectory(prefix="serve-registry-")
+    reg = ModelRegistry(tmp.name, device=dev)
+    t0 = time.perf_counter()
+    agent_ids = [m for m, _ in coke.publish_models(
+        reg, prefix="agent", rff_params=built.rff_params)]
+    rng = np.random.default_rng(42)
+    n_var = SERVE_REGISTRY - len(agent_ids)
+    variants = (base.theta.cpu().numpy()[None, :] + rng.normal(
+        scale=0.1, size=(n_var, D))).astype(np.float32)
+    var_ids = [f"v-{i:04d}" for i in range(n_var)]
+    for mid, th in zip(var_ids, variants):
+        reg.publish(mid, base.replace(theta=torch.from_numpy(th)))
+    reg_ids = agent_ids + var_ids
+    reg_thetas = torch.cat([coke.theta, torch.from_numpy(variants).to(dev)])
+    log(18, f"[{card}] published {len(reg_ids)} models ({len(agent_ids)} "
+            f"per-agent + {n_var} variants, D={D}) into a ModelRegistry in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    def bucket_calls(server, before):
+        s = server.stats()
+        return s["batches"] - before["batches"], s["rows"] - before["rows"]
+
+    def timed(obj, name, spent):
+        """Wrap obj.name to add its host seconds and calls to `spent`."""
+        inner = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+                spent[1] += 1
+
+        setattr(obj, name, wrapper)
+
+    def device_busy(server, ids, seed):
+        """A shorter run of the same load under the profiler (device
+        activity only): (window ms, kernel ms, launches by kernel)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            drive(server, ids, seed=seed, clients=SERVE_CLIENTS,
+                  requests=SERVE_TRACE_REQUESTS, batch=SERVE_BATCH)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+        rows = [(device_ms(e), e.count, e.key) for e in prof.key_averages()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA and device_ms(e) > 0]
+        return window, sum(r[0] for r in rows), rows
+
+    def busy_report(label, window, busy, rows):
+        if not rows:
+            log(18, f"{label}: the profiler recorded no device time: the "
+                    "device busy share is not measured")
+            return
+        top = ", ".join(f"{key[:40]} {ms:.3f} ms x {count}"
+                        for ms, count, key in sorted(rows, reverse=True)[:4])
+        log(18, f"[{card}] {label}, {SERVE_CLIENTS} x "
+                f"{SERVE_TRACE_REQUESTS} requests under the profiler: "
+                f"window {window:.2f} ms, kernels {busy:.3f} ms: device "
+                f"busy {busy / window:.2%}, idle {1 - busy / window:.2%} "
+                f"({top})")
+
+    def report(label, server, wall, lat, before, store_before=None):
+        calls, rows = bucket_calls(server, before)
+        lat = np.sort(np.asarray(lat))
+        n = len(lat)
+        c = counts()
+        msg = (f"[{card}] {label}: {n} requests of {SERVE_BATCH} rows from "
+               f"{SERVE_CLIENTS} clients in {wall:.3f} s: "
+               f"{n / wall:.1f} QPS, {n * SERVE_BATCH / wall:.1f} rows/s, "
+               f"p50 {lat[n // 2]:.4f} ms, p99 "
+               f"{lat[min(n - 1, int(n * 0.99))]:.4f} ms; {calls} bucket "
+               f"calls, {rows / calls:.2f} rows per call; launches {c}")
+        if store_before is not None:
+            s = server.stats()["store"]
+            faults = s["faults"] - store_before["faults"]
+            evictions = s["evictions"] - store_before["evictions"]
+            msg += f"; {faults} faults, {evictions} evictions"
+            if not (faults > 0 and evictions > 0):
+                raise AssertionError(f"{label}: the paged cell did not page "
+                                     f"({faults} faults, {evictions} "
+                                     "evictions)")
+        log(18, msg)
+        if not c["rff_cos_bias"] == c["gather_rowdot"] == calls or any(
+                v for k, v in c.items()
+                if k not in ("rff_cos_bias", "gather_rowdot")):
+            raise AssertionError(f"{label}: launches {c} over {calls} "
+                                 "bucket calls, not one K1 and one K6 each")
+        return c["gather_rowdot"]
+
+    worst = [0.0]
+
+    def check_answers(label, answers, theta_of):
+        """Every answer bitwise score_rows at its own row count, and
+        within SERVE_PREDICT_RTOL of predict's matvec (of sum |phi theta|
+        per row)."""
+        for mid, x, out in answers:
+            theta = theta_of(mid)
+            xt = torch.from_numpy(x).to(dev)
+            own = base.score_rows(xt, theta.expand(x.shape[0], D),
+                                  backend="fused").cpu().numpy()
+            if not np.array_equal(out, own):
+                raise AssertionError(f"{label}: the answer for {mid} is not "
+                                     "bitwise its score_rows")
+            model = base.replace(theta=theta)
+            pred = model.predict(xt, backend="fused")
+            scale = model.featurize(xt, "fused").abs() @ theta.abs()
+            rel = float(((torch.from_numpy(out).to(dev) - pred).abs()
+                         / scale).max())
+            worst[0] = max(worst[0], rel)
+            if not rel <= SERVE_PREDICT_RTOL:
+                raise AssertionError(f"{label}: the answer for {mid} is "
+                                     f"{rel:.3e} of sum|phi theta| from "
+                                     "predict")
+        log(18, f"{label}: all {len(answers)} answers bitwise score_rows "
+                f"at their own row count; worst distance from predict "
+                f"{worst[0]:.3e} of sum|phi theta| (tol "
+                f"{SERVE_PREDICT_RTOL:g})")
+
+    # ---- (a) the resident cell --------------------------------------------
+    res_ids = reg_ids + [f"r-{i:05d}"
+                         for i in range(SERVE_RESIDENT - len(reg_ids))]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    res_thetas = torch.cat([reg_thetas, base.theta + 0.1 * torch.randn(
+        (SERVE_RESIDENT - len(reg_ids), D), generator=gen, device=dev)])
+    slot_of = {m: i for i, m in enumerate(res_ids)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = ThetaStore(SERVE_RESIDENT + 1, D, device=dev)
+    t0 = time.perf_counter()
+    store.put_many(res_ids, res_thetas)
+    torch.cuda.synchronize()
+    log(18, f"[{card}] put_many of {SERVE_RESIDENT} ids into a ThetaStore "
+            f"of {store.capacity} slots ({store.stack.numel() * 4 / 1e9:.3f}"
+            f" GB): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    server = KernelServer(model=base, store=store, config=scfg, device=dev)
+    server.predict(np.zeros((SERVE_BATCH, 5), np.float32), res_ids[0])
+    flushes = [0.0, 0]
+    timed(server, "_flush", flushes)
+    before = server.stats()
+    reset_counts()
+    wall, lat, answers = drive(server, res_ids, seed=0, **load)
+    k6_launches = report(f"resident cell ({SERVE_RESIDENT} ids in one "
+                         "stack)", server, wall, lat, before)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(18, f"[{card}] resident cell: {flushes[1]} collector flushes, "
+            f"{flushes[0] * 1e3 / flushes[1]:.4f} ms of host each (resolve, "
+            f"pad, upload, K1, K6, copy back, scatter), "
+            f"{flushes[0] / wall:.1%} of the run's wall time")
+    busy_report("resident cell", *device_busy(server, res_ids, seed=50))
+    check_answers("resident cell", answers,
+                  lambda m: res_thetas[slot_of[m]])
+
+    # one 1024-row bucket call, device and host
+    xs = np.random.default_rng(1).uniform(size=(1024, 5)).astype(np.float32)
+    slots = np.random.default_rng(2).integers(
+        0, SERVE_RESIDENT, 1024).astype(np.int32)
+    snap = store.stack
+    bucket = paired_ms(lambda: server._score_padded_multi(snap, xs, slots),
+                       1)
+    log(18, f"[{card}] one 1024-row bucket call of the resident cell (K1 + "
+            f"K6 + the answers' copy to the host): {bucket[0]:.4f} ms on "
+            f"the device / {bucket[1]:.4f} ms on the host (paired_ms); peak "
+            f"memory over the cell {peak:.3f} GB")
+
+    # one request alone (bucket 32) and inside a full 1024-row bucket
+    x1 = np.random.default_rng(3).uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32)
+    alone = server.predict(x1, "v-0003")
+    server.stop()
+    full = KernelServer(model=base, store=store, config=scfg, device=dev,
+                        autostart=False)
+    rng = np.random.default_rng(4)
+    fill = [full.submit(rng.uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32), res_ids[int(rng.integers(0, SERVE_RESIDENT))])
+        for _ in range(1024 // SERVE_BATCH - 1)]
+    probe = full.submit(x1, "v-0003")
+    full.start()
+    for f in fill:
+        f.result(timeout=120)
+    cobatched = probe.result(timeout=120)
+    full.stop()
+    s = full.stats()
+    if (s["batches"], s["rows"], s["padded_rows"]) != (1, 1024, 0):
+        raise AssertionError(f"the full bucket ran as {s}")
+    if not np.array_equal(alone, cobatched):
+        raise AssertionError("a request scored alone and inside a full "
+                             "1024-row bucket differs")
+    log(18, "one request scored alone (bucket 32) and inside a full "
+            "1024-row bucket: bitwise equal")
+
+    # K1's rows do not depend on T
+    xk = torch.from_numpy(xs).to(dev)
+    phi = k1.rff_cos_bias(xk, base.omega, base.bias)
+    for lo in (0, 7, 500, 1022):
+        if not torch.equal(k1.rff_cos_bias(xk[lo:lo + 2].contiguous(),
+                                           base.omega, base.bias),
+                           phi[lo:lo + 2]):
+            raise AssertionError(f"K1's rows {lo}, {lo + 1} at T=2 differ "
+                                 "from the same rows at T=1024")
+    log(18, "K1's rows at T=2 bitwise the same rows at T=1024")
+
+    # hot swap under fire, full width
+    server = KernelServer(model=base, store=store, config=scfg, device=dev)
+    hot = "v-0007"
+    versions = [res_thetas[slot_of[hot]]] + [
+        res_thetas[slot_of[hot]] + 0.5 * (k + 1)
+        for k in range(SERVE_SWAP_PUBLISHES)]
+    xh = torch.from_numpy(x1).to(dev)
+    refs = [base.score_rows(xh, v.expand(SERVE_BATCH, D),
+                            backend="fused").cpu().numpy() for v in versions]
+    import threading
+    stop_fire = threading.Event()
+    fired, failures = [], []
+
+    def fire():
+        try:
+            while not stop_fire.is_set():
+                fired.append(server.submit(x1, hot).result(timeout=120))
+        except Exception as e:  # noqa: BLE001 - raised below
+            failures.append(e)
+
+    threads = [threading.Thread(target=fire)
+               for _ in range(SERVE_SWAP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for v in versions[1:]:
+        time.sleep(0.02)
+        server.publish(hot, v)
+    time.sleep(0.02)
+    stop_fire.set()
+    for t in threads:
+        t.join(timeout=120)
+    server.stop()
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"hot swap: a client failed {failures[:1]}")
+    seen = [next((i for i, r in enumerate(refs) if np.array_equal(o, r)),
+                 None) for o in fired]
+    if None in seen:
+        raise AssertionError("hot swap: an answer matched no published "
+                             "version (a torn read)")
+    log(18, f"hot swap under fire: {len(fired)} answers from "
+            f"{SERVE_SWAP_CLIENTS} clients across {SERVE_SWAP_PUBLISHES} "
+            f"publishes, each bitwise one version's score_rows; versions "
+            f"seen {sorted(set(seen))}")
+
+    # one put's copy on write at full size
+    theta_put = versions[-1].clone()
+    put_ms = time_ms(lambda: store.put(hot, theta_put, dirty=True), reps=5,
+                     runs=5, warmup=2)
+    put_host = host_call_ms(lambda: store.put(hot, theta_put, dirty=True),
+                            calls=20)
+    put_bound = 2 * store.stack.numel() * 4 / bw * 1e3
+    log(18, f"[{card}] one ThetaStore.put at {store.capacity} x {D} "
+            f"({store.stack.numel() * 4 / 1e9:.3f} GB, a copy of the whole "
+            f"stack): {put_ms:.4f} ms on the device, {put_host:.4f} ms host "
+            f"enqueue, against {put_bound:.4f} ms to read and write the "
+            f"stack once ({put_bound / put_ms:.1%})")
+    del server, full, snap, phi
+
+    # ---- (b) the paged cell -----------------------------------------------
+    paged = KernelServer(registry=reg, store_capacity=SERVE_REGISTRY // 4,
+                         config=scfg, device=dev)
+    paged.predict(np.zeros((SERVE_BATCH, 5), np.float32), reg_ids[1])
+    flushes, faults = [0.0, 0], [0.0, 0]
+    timed(paged, "_flush", flushes)
+    timed(paged.store, "fault", faults)
+    before = paged.stats()
+    store_before = dict(before["store"])
+    reset_counts()
+    wall, lat, answers = drive(paged, reg_ids, seed=100, **load)
+    k6_launches += report(f"paged cell ({SERVE_REGISTRY} registry ids "
+                          f"through {SERVE_REGISTRY // 4} slots)", paged,
+                          wall, lat, before, store_before)
+    log(18, f"[{card}] paged cell: {flushes[1]} collector flushes, "
+            f"{flushes[0] * 1e3 / flushes[1]:.4f} ms of host each, "
+            f"{flushes[0] / wall:.1%} of the run's wall time; {faults[1]} "
+            f"faults (registry load, featurizer check), "
+            f"{faults[0] * 1e3 / faults[1]:.4f} ms each, "
+            f"{faults[0] / wall:.1%} of the wall time")
+    busy_report("paged cell", *device_busy(paged, reg_ids, seed=150))
+    paged.stop()
+    reg_slot = {m: i for i, m in enumerate(reg_ids)}
+    check_answers("paged cell", answers, lambda m: reg_thetas[reg_slot[m]])
+    tmp.cleanup()
+
+    # ---- (c) K6 alone ---------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err = 0.0
+    for B in SERVE_ROWDOT_B:
+        for d in SERVE_ROWDOT_D:
+            p = math.sqrt(2.0 / d) * torch.cos(
+                6.3 * torch.rand((B, d), generator=gen, device=dev))
+            st = torch.randn((300, d), generator=gen, device=dev)
+            sl = torch.randint(0, 300, (B,), generator=gen,
+                               device=dev).to(torch.int32)
+            got = k6.gather_rowdot(p, st, sl.cpu().numpy())
+            want = gather_rowdot_ref(p, st, sl)
+            scale = (p * st[sl.long()]).abs().sum(-1)
+            e = float(((got - want).abs() / scale).max())
+            off = torch.empty(B * d + 1, device=dev)[1:].view(B, d)
+            off.copy_(p)
+            same = torch.equal(k6.gather_rowdot(off, st, sl.cpu().numpy()),
+                               got)
+            log(18, f"K6 gather_rowdot B={B} D={d} [{k6.staging(p, st)}]: "
+                    f"max|err| / sum|phi theta| {e:.3e} (tol "
+                    f"{ROWDOT_RTOL:g}); the 4-byte instance on an unaligned "
+                    f"copy gives the same bits: {same}")
+            if not (e <= ROWDOT_RTOL and same):
+                raise AssertionError(f"K6 disagrees with its plain version "
+                                     f"at B={B} D={d}")
+            if (B, d) == (1024, D):
+                err = float((got - want).abs().max())
+    stack = store.stack
+    phi = k1.rff_cos_bias(xk, base.omega, base.bias)
+    d_slots = torch.from_numpy(slots).to(dev)
+    long_slots = d_slots.long()
+    out = torch.empty(1024, device=dev)
+    k6_warm = graph_ms(lambda: k6.launch(phi, stack, d_slots, out))
+    flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
+    k6_cold = flushed_ms(lambda: k6.launch(phi, stack, d_slots, out), flush)
+    k6_ms = flushed_ms(lambda: k6.launch(phi, stack, d_slots, out), flush,
+                       clean=True)
+    del flush
+    k6_call_ms = time_ms(lambda: k6.gather_rowdot(phi, stack, slots))
+    plain_ms = time_ms(lambda: gather_rowdot_ref(phi, stack, d_slots))
+    lib_ms = time_ms(lambda: torch.einsum("bd,bd->b", phi,
+                                          stack[long_slots]))
+    nbytes = 4.0 * (2 * 1024 * D + 2 * 1024)
+    flops = 2.0 * 1024 * D
+    t_b, t_f = nbytes / bw * 1e3, flops / fp32 * 1e3
+    b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    log(18, f"[{card}] K6 at (B, D)=(1024, {D}) from the {store.capacity}-"
+            f"slot stack: {k6_ms:.6f} ms (the launch alone, cold L2: 256 MB "
+            f"written and read back before each call); {k6_cold:.6f} ms "
+            f"after a written flush (the call evicts dirty lines); "
+            f"{k6_warm:.6f} ms as a CUDA-graph replay (phi and the gathered "
+            f"rows stay in the L2); {k6_call_ms:.6f} ms per wrapper call "
+            f"(with the slots' upload); bound {b_ms:.6f} ms ({b_by}: "
+            f"{nbytes / 1e6:.3f} MB; {b_ms / k6_ms:.1%} of it cold), plain "
+            f"{plain_ms:.6f} ms (index_select, mul, sum), "
+            f"torch.einsum('bd,bd->b', phi, stack[slots]) {lib_ms:.6f} ms "
+            "(two calls: no single PyTorch call gathers and row-dots)")
+    log(18, f"[{card}] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    src, replaces = KERNEL_SOURCES["gather_rowdot"]
+    return {"name": "gather_rowdot", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": k6_launches,
+            "max_abs_err": err, "ms": k6_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3053,8 +3551,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.api import (FitConfig, KRRConfig, PAPER_SETUPS,
-                                 build_problem, fit, get_solver, make_problem)
+    from repro_torch.api import (FitConfig, KRRConfig, build_problem, fit,
+                                 get_solver, make_problem)
     from repro_torch.api.backends import _local_grads, consensus_runner
     from repro_torch.api.config import SolveContext
     from repro_torch.api.solvers import _stacked_metrics
@@ -3080,15 +3578,6 @@ def main() -> int:
     torch.cuda.set_device(dev)
     # K1's predict shape: every agent's held-out rows (30 000 at full size)
     predict_rows = N_AGENTS * (SAMPLES - int(SAMPLES * 0.7))
-
-    def reset_counts():
-        k1.LAUNCHES = k2.LAUNCHES = k2.FUSED_UPDATE_LAUNCHES = 0
-        k4.LAUNCHES = k5.LAUNCHES = 0
-
-    def counts():
-        return {"coke_megastep": k2.LAUNCHES, "rff_cos_bias": k1.LAUNCHES,
-                "coke_fused_update": k2.FUSED_UPDATE_LAUNCHES,
-                "flash_attention": k4.LAUNCHES, "threefry": k5.LAUNCHES}
 
     # ---- 0. device -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -3476,11 +3965,8 @@ def main() -> int:
                                  "card")
 
     # ---- 4. the megakernel path at full width -----------------------------
-    krr = dataclasses.replace(PAPER_SETUPS["synthetic"],
-                              samples_per_agent=SAMPLES,
-                              num_features=FEATURES)
-    cfg = FitConfig(krr=krr, backend="fused", graph="ring",
-                    primal="gradient", num_iters=ITERS)
+    cfg = full_width_config()
+    krr = cfg.krr
     t0 = time.perf_counter()
     built = build_problem(cfg, device=dev)
     torch.cuda.synchronize()
@@ -4068,7 +4554,8 @@ def main() -> int:
             f"call); launch counts over the serving path: {lm_counts}")
     if lm_counts != {"coke_megastep": 0, "rff_cos_bias": 0,
                      "coke_fused_update": 0,
-                     "flash_attention": lm_cfg.num_layers, "threefry": 0}:
+                     "flash_attention": lm_cfg.num_layers, "threefry": 0,
+                     "gather_rowdot": 0}:
         raise AssertionError(f"the serving path launched {lm_counts}, not "
                              f"K4 once per layer of the prefill")
     if served.shape != (LM_BATCH, LM_NEW_TOKENS) or not (
@@ -4269,6 +4756,11 @@ def main() -> int:
     pz_k1 = personalize_phase(dev, card, reset_counts, counts)
     log(17, f"[{card}] K1 launches in phase 17's per-agent deploy: {pz_k1} "
             "(one per model); K2, K3 and K4 never moved in phase 17")
+
+    # ---- 18. many-model serving ---------------------------------------------
+    kernels.append(serve_phase(dev, card, reset_counts, counts, built=built,
+                               coke=results["coke"], bw=bw, fp32=fp32))
+    log(18, f"[{card}] gather_rowdot (K6): {kernels[-1]}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

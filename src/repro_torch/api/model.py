@@ -4,6 +4,7 @@ fitted thetas, scored as f(x) = phi(x)' theta.
     model = fit(config).to_model()
     y_hat = model.predict(x_new, backend="fused")   # K1 kernel on the card
     model.evaluate(x_test, y_test, backend="fused")
+    model.score_rows(x, thetas, backend="fused")    # row i against theta i
     model.save("artifacts/coke")                    # npz + JSON sidecar
     model = KernelModel.load("artifacts/coke", device="cuda")
     refined, result = model.partial_fit(x_stream, labels=y_stream)
@@ -28,9 +29,45 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import rff
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rff.ops import featurize_fused
+from repro_torch.kernels.rowdot.ops import gather_rowdot, rowdot
 
 PREDICT_BACKENDS = ("ref", "fused")
 FORMAT = "repro.api.KernelModel/v1"
+
+
+def featurize(params: rff.RFFParams, x: torch.Tensor,
+              backend: str = "ref") -> torch.Tensor:
+    """phi(x) on the chosen backend — the one routing point of every
+    scoring path (predict, evaluate, score_rows, the KernelServer)."""
+    if backend == "ref":
+        return rff.featurize(params, x)
+    if backend == "fused":
+        if params.mapping != "cos_bias":
+            raise ValueError(
+                "the fused featurizer implements the 'cos_bias' mapping "
+                f"(Eq. 13); this model uses {params.mapping!r} — use "
+                "backend='ref'")
+        return featurize_fused(params, x)
+    raise ValueError(
+        f"unknown predict backend {backend!r}; choose from "
+        f"{PREDICT_BACKENDS}")
+
+
+def score_rows(params: rff.RFFParams, x: torch.Tensor, thetas: torch.Tensor,
+               slots=None, *, backend: str = "ref") -> torch.Tensor:
+    """The many-model scorer: featurize x (b, d) once, then row i of phi
+    against theta row i — thetas (b, D) with slots None, or the gathered
+    row thetas[slots[i]] of a resident (M, D) stack, slots host int32
+    (b,). The row-dot is K6 on the card (`kernels/rowdot`), whose row bits
+    depend only on that row's phi and theta; with backend="fused" the
+    featurizer is K1, whose row bits do not depend on b either. So a row
+    scores the same whatever else shares its batch, and `KernelModel.
+    score_rows` and the `KernelServer` give the same bits by
+    construction."""
+    phi = featurize(params, x, backend)
+    if slots is None:
+        return rowdot(phi, thetas)
+    return gather_rowdot(phi, thetas, slots)
 
 
 class KernelModel(nn.Module):
@@ -88,20 +125,23 @@ class KernelModel(nn.Module):
 
     # ---- scoring ---------------------------------------------------------
     def featurize(self, x: torch.Tensor, backend: str = "ref") -> torch.Tensor:
-        """phi(x) on the chosen backend — the one routing point of every
-        scoring path (predict, evaluate)."""
-        if backend == "ref":
-            return rff.featurize(self.rff_params, x)
-        if backend == "fused":
-            if self.rff_params.mapping != "cos_bias":
-                raise ValueError(
-                    "the fused featurizer implements the 'cos_bias' mapping "
-                    f"(Eq. 13); this model uses {self.rff_params.mapping!r} "
-                    "— use backend='ref'")
-            return featurize_fused(self.rff_params, x)
-        raise ValueError(
-            f"unknown predict backend {backend!r}; choose from "
-            f"{PREDICT_BACKENDS}")
+        """phi(x) on the chosen backend (module-level `featurize`)."""
+        return featurize(self.rff_params, x, backend)
+
+    def replace(self, **changes) -> "KernelModel":
+        """A new KernelModel with `changes` (rff_params, theta, thetas,
+        bandwidth, kernel, meta, model_id, version) and every other field
+        shared with this one; this model is left as it was."""
+        fields = dict(rff_params=self.rff_params, theta=self.theta,
+                      thetas=self.thetas, bandwidth=self.bandwidth,
+                      kernel=self.kernel, meta=self.meta,
+                      model_id=self.model_id, version=self.version)
+        unknown = set(changes) - set(fields)
+        if unknown:
+            raise TypeError(f"KernelModel has no field(s) {sorted(unknown)}")
+        fields.update(changes)
+        return KernelModel(fields.pop("rff_params"), fields.pop("theta"),
+                           fields.pop("thetas"), **fields)
 
     def forward(self, x, **kw) -> torch.Tensor:
         return self.predict(x, **kw)
@@ -148,6 +188,17 @@ class KernelModel(nn.Module):
                                for i in range(0, n, batch_size)])
         preds = preds.reshape(lead)
         return preds[0] if scalar else preds
+
+    def score_rows(self, x, thetas, *, backend: str = "ref") -> torch.Tensor:
+        """Row-tagged scoring: row i of x (b, d) against row i of thetas
+        (b, D), on the model's device — the bit-level reference of the
+        multi-tenant `KernelServer`, which runs the same module-level
+        `score_rows` on its gathered stack rows. A row's answer depends
+        only on its own input and theta, never on b; it differs from
+        `predict`'s (b, D) @ (D,) matvec only by the order of the sum."""
+        thetas = self._as_input(thetas).contiguous()
+        return score_rows(self.rff_params, self._as_input(x).contiguous(),
+                          thetas, backend=backend)
 
     def partial_fit(self, stream, config=None, *, labels=None,
                     progress_cb=None) -> tuple["KernelModel", Any]:

@@ -18,6 +18,7 @@ from repro_torch.core.rff import RFFParams
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import LM
+from repro_torch.serve.theta_store import ThetaStore
 
 
 def rff_params_from_numpy(omega, bias, mapping: str = "cos_bias", *,
@@ -75,6 +76,35 @@ def model_from_numpy(arrays: dict, sidecar: dict | None = None, *,
     keys (mapping, bandwidth, kernel, meta, ...)."""
     return model_from_arrays({k: np.asarray(v) for k, v in arrays.items()},
                              sidecar or {}, resolve_device(device))
+
+
+def theta_store_from_reference(store, *,
+                               device: torch.device | str | None = None
+                               ) -> ThetaStore:
+    """The port's ThetaStore in the state of a reference `ThetaStore`
+    (read under its lock, as numpy): the whole stack, each resident id in
+    LRU order with its slot, the free list, the versions, the dirty set,
+    the pins and the counters, so that the same operations then act the
+    same on both. The fault and writeback handlers are not carried: attach
+    the port's own."""
+    with store._lock:
+        stack = np.array(store.stack, copy=True)
+        slots = list(store._slots.items())
+        free = list(store._free)
+        versions = dict(store._versions)
+        dirty = set(store._dirty)
+        pins = dict(store._pins)
+        stats = dict(store._stats)
+    port = ThetaStore(store.capacity, store.num_features, device=device)
+    with port._lock:
+        port._stack = torch.tensor(stack, device=port.device)
+        port._slots.update(slots)
+        port._free = free
+        port._versions = versions
+        port._dirty = dirty
+        port._pins = pins
+        port._stats = stats
+    return port
 
 
 def _leaves(tree, prefix: str = ""):

@@ -1,0 +1,483 @@
+"""`KernelServer` — microbatched scoring for `KernelModel` artifacts,
+single-tenant or many-model, on one device.
+
+Sibling to the LLM `Engine`: where the Engine amortizes decode steps over a
+batch of sequences, the KernelServer amortizes RFF scoring over concurrent
+requests. Callers `submit()` arbitrarily-sized query batches from any
+thread; a collector thread coalesces everything waiting (until `max_batch`
+rows are in hand or `max_delay_ms` passes), slices the merged batch into
+largest-bucket-sized pieces and pads each piece to a bucketed shape, so
+every device call has one of the |buckets| shapes however the batch landed,
+scores them, and scatters the rows back to each request's future (numpy
+arrays, as in the reference).
+
+Two tenancy modes share that machinery:
+
+  - **single-tenant** (`KernelServer(model)`): one frozen `KernelModel`,
+    scored as `featurize(x) @ theta`.
+  - **multi-tenant** (`KernelServer(registry=...)` and/or `store=...`):
+    requests are tagged with a model id (`submit(x, model_id="user-42")`).
+    The collector resolves each id to a slot of the `ThetaStore`'s one
+    resident (M, D) stack, faulting misses in from the `ModelRegistry`
+    off the device-call path, and the bucket is scored by the module-level
+    `api.model.score_rows`: featurize once, then each row against its
+    gathered theta slot. With backend="fused" on the card a bucket call is
+    exactly one K1 launch (the featurizer) and one K6 launch (the gathered
+    row-dot, `kernels/rowdot`), with no (b, D) gathered copy of theta.
+    Both kernels give each row bits that depend only on its own input and
+    theta, so an answer equals `KernelModel.score_rows` at the request's
+    own row count, whoever shares its bucket. `publish()` hot-swaps a
+    refined theta atomically: registry first, then the resident slot; an
+    in-flight bucket holds its snapshot of the old stack, which the store
+    never writes into, so no request ever scores a torn theta.
+
+The collector launches on the current stream of the server's device (the
+default stream; no side streams), and each bucket call ends in one
+`.cpu()` of its answers, so a snapshot's memory is never reused under a
+running kernel. Sharded serving (`mesh=`) is ROADMAP.md Queue 1 item 14.
+
+    server = KernelServer(registry=ModelRegistry("models/"))   # on "cuda"
+    fut = server.submit(x, model_id="user-42")    # (b, d) -> Future[(b,)]
+    y = fut.result()
+    server.publish("user-42", refined_model)      # hot-swap, no restart
+    server.stop()
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from repro_torch.api.model import PREDICT_BACKENDS, KernelModel, score_rows
+from repro_torch.device import resolve_device
+from repro_torch.serve.theta_store import ThetaStore, not_sharded
+
+_STOP = object()
+_DEFAULT_ID = "default"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelServeConfig:
+    """Microbatching policy for the scoring server."""
+
+    max_batch: int = 1024            # rows per device call
+    max_delay_ms: float = 2.0        # collector wait for co-batchable work
+    buckets: tuple[int, ...] = (32, 128, 512, 1024)  # padded batch shapes
+    backend: str = "ref"             # "ref" | "fused" (the K1 featurizer)
+
+    def __post_init__(self):
+        if self.backend not in PREDICT_BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; choose from "
+                f"{PREDICT_BACKENDS}")
+        if not self.buckets or tuple(sorted(self.buckets)) != self.buckets:
+            raise ValueError("buckets must be a non-empty ascending tuple")
+
+
+@dataclasses.dataclass
+class _Request:
+    x: np.ndarray                    # (b, d)
+    future: Future
+    model_id: str | None = None      # None = the server's default model
+
+
+class KernelServer:
+    """Thread-safe microbatching front-end over one scoring call, on
+    `device` (None = "cuda"; pass device="cpu" without a card)."""
+
+    def __init__(self, model: KernelModel | None = None,
+                 config: KernelServeConfig | None = None,
+                 mesh=None, *, registry=None, store: ThetaStore | None = None,
+                 store_capacity: int = 1024, autostart: bool = True,
+                 device: torch.device | str | None = None):
+        not_sharded(mesh, "KernelServer")
+        self.cfg = config or KernelServeConfig()
+        self.device = resolve_device(device)
+        self.registry = registry
+        self.multi_tenant = registry is not None or store is not None
+        # one card: the batch extent is 1, so the buckets are the
+        # configured ones
+        self._buckets = self.cfg.buckets
+        self._max_batch = self.cfg.max_batch
+
+        # the template model defines the one featurizer every tenant
+        # shares (the common-seed RFF premise): an explicit model wins,
+        # else the registry's first catalogued model
+        if model is None:
+            if registry is None:
+                raise ValueError(
+                    "KernelServer needs a model, or a registry to take "
+                    "its featurizer template from")
+            ids = registry.models()
+            if not ids:
+                raise ValueError(
+                    "the registry is empty — pass model= so the server "
+                    "knows its featurizer (input_dim / D / RFF draw)")
+            model = registry.load(ids[0])
+        if model.device != self.device:
+            model = model.replace().to(self.device)   # the caller's stays
+        self.model = model
+
+        # eager backend/mapping validation at construction, through the one
+        # routing point all scoring paths share
+        model.featurize(torch.zeros((1, model.input_dim),
+                                    dtype=model.theta.dtype,
+                                    device=self.device), self.cfg.backend)
+
+        if self.multi_tenant:
+            self.store = store if store is not None else ThetaStore(
+                store_capacity, model.num_features, device=self.device)
+            if self.store.num_features != model.num_features:
+                raise ValueError(
+                    f"store is sized for D={self.store.num_features} but "
+                    f"the featurizer produces D={model.num_features}")
+            if self.store.stack.device != model.theta.device:
+                raise ValueError(
+                    f"the store lies on {self.store.stack.device}, the "
+                    f"server on {model.theta.device}")
+            if registry is not None:
+                if self.store.fault is None:
+                    self.store.fault = self._fault
+                if self.store.writeback is None:
+                    self.store.writeback = self._writeback
+            self._default_id = model.model_id or _DEFAULT_ID
+            self.store.put(self._default_id, model.theta,
+                           version=model.version,
+                           dirty=model.version is None)
+            params, backend = model.rff_params, self.cfg.backend
+
+            def score_multi(stack, x, slots):
+                # one featurize for the whole mixed bucket, then each row
+                # against its gathered theta slot: `KernelModel.score_rows`
+                # runs the same function
+                return score_rows(params, x, stack, slots, backend=backend)
+
+            self._score_multi = score_multi
+        else:
+            self.store = None
+            self._default_id = model.model_id
+            theta, backend = model.theta, self.cfg.backend
+
+            def score(x):
+                return model.featurize(x, backend) @ theta
+
+            self._score = score
+
+        self._queue: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._stats = {"requests": 0, "rows": 0, "batches": 0,
+                       "padded_rows": 0}
+        self._worker: threading.Thread | None = None
+        self._stopped = False
+        if autostart:
+            self.start()
+
+    # ---- lifecycle -------------------------------------------------------
+    def start(self) -> None:
+        if self._worker is not None:
+            return
+        self._stopped = False
+        self._worker = threading.Thread(target=self._loop, daemon=True,
+                                        name="kernel-server")
+        self._worker.start()
+
+    def stop(self) -> None:
+        """Drain outstanding requests, then stop the collector thread."""
+        with self._lock:
+            # same lock as submit(): every request that passed the _stopped
+            # check is on the queue before the sentinel, so none is lost
+            if self._stopped:
+                return
+            self._stopped = True
+            self._queue.put(_STOP)
+        if self._worker is not None:
+            self._worker.join()
+            self._worker = None
+        self._drain_inline()
+
+    def _drain_inline(self) -> None:
+        """Score anything still queued (requests enqueued while the worker
+        was shutting down, or with no worker ever started)."""
+        leftover = []
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not _STOP:
+                leftover.append(item)
+        if leftover:
+            self._flush(leftover)
+
+    def __enter__(self) -> "KernelServer":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # ---- many-model management -------------------------------------------
+    def _check_compatible(self, other: KernelModel, model_id: str) -> None:
+        """Every tenant must share the template's featurizer: that is what
+        lets a mixed bucket featurize once."""
+        tpl = self.model
+        dev = tpl.omega.device
+        if (other.input_dim != tpl.input_dim
+                or other.num_features != tpl.num_features
+                or other.rff_params.mapping != tpl.rff_params.mapping
+                or not torch.equal(other.omega.to(dev), tpl.omega)
+                or not torch.equal(other.bias.to(dev), tpl.bias)):
+            raise ValueError(
+                f"model {model_id!r} was fitted against a different RFF "
+                "featurizer than this server's template — many-model "
+                "serving shares ONE common-seed feature map; refit with "
+                "the shared draw or serve it from its own server")
+
+    def _fault(self, model_id: str):
+        """ThetaStore miss handler: load the latest registry version on
+        the collector thread, never inside a device call."""
+        loaded = self.registry.load(model_id)  # KeyError if unknown
+        self._check_compatible(loaded, model_id)
+        return loaded.theta, loaded.version
+
+    def _writeback(self, model_id: str, theta, version):
+        """ThetaStore dirty-eviction handler: page the refined theta back
+        into the registry as a fresh version."""
+        art = self.model.replace(
+            theta=theta, thetas=None,
+            meta={**self.model.meta, "published_via": "ThetaStore.evict"})
+        return self.registry.publish(model_id, art)
+
+    def publish(self, model_id: str, model) -> int | None:
+        """Hot-swap one tenant's parameters under live traffic.
+
+        `model` is a refined `KernelModel` (e.g. from `partial_fit`) or a
+        bare (D,) theta. The registry gains the new version FIRST, then
+        the resident slot flips: in-flight buckets finish on their
+        snapshot of the old stack, every later bucket sees the new theta,
+        and a crash in between leaves a valid catalog whose next fault
+        serves the new version. Returns the published version (None when
+        the server has no registry: the theta becomes resident and dirty,
+        to be written back on eviction)."""
+        if not self.multi_tenant:
+            raise RuntimeError(
+                "publish() needs a multi-tenant server — construct with "
+                "registry= and/or store=")
+        if isinstance(model, KernelModel):
+            self._check_compatible(model, model_id)
+            theta = model.theta
+            art = model
+        else:
+            theta = model if isinstance(model, torch.Tensor) \
+                else torch.tensor(np.asarray(model, np.float32))
+            art = self.model.replace(
+                theta=theta.to(self.device), thetas=None,
+                meta={**self.model.meta,
+                      "published_via": "KernelServer.publish"})
+        if self.registry is not None:
+            version = self.registry.publish(model_id, art)
+            self.store.put(model_id, theta, version=version, dirty=False)
+            return version
+        self.store.put(model_id, theta, dirty=True)
+        return None
+
+    # ---- request path ----------------------------------------------------
+    def submit(self, x, model_id: str | None = None) -> Future:
+        """Enqueue a query batch; resolves to (b,) predictions ((,) for a
+        bare (d,) vector). `model_id` tags the request with the tenant to
+        score against (multi-tenant servers; defaults to the server's
+        default model when it has one)."""
+        x = np.asarray(x, np.float32)
+        scalar = x.ndim == 1
+        if scalar:
+            x = x[None]
+        if x.ndim != 2 or x.shape[-1] != self.model.input_dim:
+            raise ValueError(
+                f"expected (b, {self.model.input_dim}) queries, got "
+                f"{x.shape}")
+        if model_id is None:
+            model_id = self._default_id
+            if self.multi_tenant and model_id is None:
+                raise ValueError(
+                    "this multi-tenant server has no default model — tag "
+                    "the request: submit(x, model_id=...)")
+        elif not self.multi_tenant and model_id != self._default_id:
+            raise ValueError(
+                f"this server serves only {self._default_id or 'its one'!s} "
+                f"model, not {model_id!r} — construct with registry=/store= "
+                "for many-model serving")
+        fut: Future = Future()
+        if scalar:
+            inner, fut = fut, Future()
+            inner.add_done_callback(
+                lambda f: fut.set_exception(f.exception())
+                if f.exception() else fut.set_result(f.result()[0]))
+            req = _Request(x, inner, model_id)
+        else:
+            req = _Request(x, fut, model_id)
+        with self._lock:
+            # check-and-enqueue under the stop() lock: either this request
+            # lands on the queue ahead of the _STOP sentinel, or it raises
+            if self._stopped:
+                raise RuntimeError("KernelServer is stopped")
+            self._queue.put(req)
+            self._stats["requests"] += 1
+        return fut
+
+    def predict(self, x, model_id: str | None = None) -> np.ndarray:
+        """Synchronous convenience wrapper around submit()."""
+        return self.submit(x, model_id).result()
+
+    def stats(self) -> dict:
+        with self._lock:
+            s = dict(self._stats)
+        s["mean_rows_per_batch"] = (s["rows"] / s["batches"]
+                                    if s["batches"] else 0.0)
+        if self.store is not None:
+            s["store"] = self.store.stats()
+        return s
+
+    # ---- collector -------------------------------------------------------
+    def _loop(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is _STOP:
+                return
+            batch = [item]
+            rows = item.x.shape[0]
+            deadline = time.monotonic() + self.cfg.max_delay_ms / 1e3
+            while rows < self._max_batch:
+                timeout = deadline - time.monotonic()
+                try:
+                    nxt = (self._queue.get_nowait() if timeout <= 0
+                           else self._queue.get(timeout=timeout))
+                except queue.Empty:
+                    break
+                if nxt is _STOP:
+                    self._flush(batch)
+                    return
+                batch.append(nxt)
+                rows += nxt.x.shape[0]
+            self._flush(batch)
+
+    def _pad_to_bucket(self, n: int) -> int:
+        """Smallest bucket holding n rows. Only defined up to the largest
+        bucket: `_flush` slices oversize batches into bucket-shaped device
+        calls first, so every scorer call has one of the |buckets| shapes
+        on ragged traffic."""
+        for b in self._buckets:
+            if n <= b:
+                return b
+        raise AssertionError(
+            f"_pad_to_bucket({n}) beyond the largest bucket "
+            f"{self._buckets[-1]} — oversize flushes must be sliced first")
+
+    def _upload(self, xs: np.ndarray) -> torch.Tensor:
+        # pageable memory is staged at once: no wait for the card
+        return torch.from_numpy(xs).to(self.device, non_blocking=True)
+
+    def _score_padded(self, xs: np.ndarray) -> tuple[np.ndarray, int]:
+        """One bucket-shaped device call: pad n <= max-bucket rows up to
+        their bucket, score, strip the padding. Returns (preds, pad rows);
+        the caller commits stats only once the WHOLE flush scored, so a
+        failing later slice leaves no stats counting rows no caller ever
+        received."""
+        n = xs.shape[0]
+        padded = self._pad_to_bucket(n)
+        if padded != n:
+            xs = np.concatenate(
+                [xs, np.zeros((padded - n, xs.shape[1]), xs.dtype)])
+        preds = self._score(self._upload(xs)).cpu().numpy()
+        return preds[:n], padded - n
+
+    def _score_padded_multi(self, stack: torch.Tensor, xs: np.ndarray,
+                            slots: np.ndarray) -> tuple[np.ndarray, int]:
+        """The multi-tenant twin of `_score_padded`: pads rows AND slot
+        ids (padding gathers slot 0, always a valid row of the stack, and
+        its results are stripped). The slots stay host int32: the scorer
+        checks their range before it uploads them."""
+        n = xs.shape[0]
+        padded = self._pad_to_bucket(n)
+        if padded != n:
+            xs = np.concatenate(
+                [xs, np.zeros((padded - n, xs.shape[1]), xs.dtype)])
+            slots = np.concatenate(
+                [slots, np.zeros(padded - n, slots.dtype)])
+        preds = self._score_multi(stack, self._upload(xs),
+                                  slots).cpu().numpy()
+        return preds[:n], padded - n
+
+    def _flush(self, batch: list[_Request]) -> None:
+        if not self.multi_tenant:
+            self._score_and_scatter(batch)
+            return
+        # Resolve every request's model id to a theta slot (faulting
+        # misses in from the registry) and snapshot ONE consistent stack
+        # per round. A request whose id cannot be resolved fails alone;
+        # requests DEFERRED under capacity pressure (more distinct models
+        # waiting than unpinned slots) page through in follow-up rounds
+        # once the current round's slots free up.
+        remaining = batch
+        while remaining:
+            stack, req_slots, errors = self.store.lookup_batch(
+                [r.model_id for r in remaining])
+            kept, deferred = [], []
+            for r, slot, err in zip(remaining, req_slots, errors):
+                if err is not None:
+                    r.future.set_exception(err)
+                elif slot < 0:
+                    deferred.append(r)
+                else:
+                    kept.append((r, slot))
+            if kept:
+                slots = np.concatenate(
+                    [np.full(r.x.shape[0], slot, np.int32)
+                     for r, slot in kept])
+                self._score_and_scatter([r for r, _ in kept], stack, slots)
+            elif deferred:
+                # no progress is possible: every slot is pinned by work
+                # outside this flush; fail rather than spin
+                err = RuntimeError(
+                    "ThetaStore has no unpinned slot for any waiting "
+                    "model — raise the store capacity")
+                for r in deferred:
+                    r.future.set_exception(err)
+                return
+            remaining = deferred
+
+    def _score_and_scatter(self, batch: list[_Request], stack=None,
+                           slots: np.ndarray | None = None) -> None:
+        # The collector coalesces until rows >= max_batch, so the LAST
+        # request can overshoot; and a single submit() may exceed max_batch
+        # outright. Slice the merged batch into largest-bucket-sized device
+        # calls instead of padding past the bucket table.
+        xs = np.concatenate([r.x for r in batch])
+        n = xs.shape[0]
+        cap = self._buckets[-1]
+        try:
+            if stack is not None:
+                scored = [self._score_padded_multi(stack, xs[off:off + cap],
+                                                   slots[off:off + cap])
+                          for off in range(0, n, cap)]
+            else:
+                scored = [self._score_padded(xs[off:off + cap])
+                          for off in range(0, n, cap)]
+        except Exception as e:  # fail every caller of it, keep serving
+            for r in batch:
+                r.future.set_exception(e)
+            return
+        preds = np.concatenate([p for p, _ in scored])
+        with self._lock:
+            self._stats["batches"] += len(scored)
+            self._stats["rows"] += n
+            self._stats["padded_rows"] += sum(pad for _, pad in scored)
+        off = 0
+        for r in batch:
+            b = r.x.shape[0]
+            r.future.set_result(preds[off:off + b])
+            off += b

@@ -1022,3 +1022,137 @@ def test_lm_on_card_launches_k4_once_per_layer(cuda):
     torch.cuda.synchronize()
     assert k4.LAUNCHES == before + cfg.num_layers
     torch.testing.assert_close(last.cpu(), want[:, -1:], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K6, the gathered row-dot, and many-model serving
+# ---------------------------------------------------------------------------
+
+# K6 sums D products in its own order (a chain of D/32 + 5 adds per row);
+# the plain version in ATen's: within ROWDOT_RTOL of sum_k |phi theta|
+ROWDOT_RTOL = 1e-5
+
+
+def _rowdot_operands(cuda, b, m, d, seed=0):
+    g = _gen(cuda, seed)
+    phi = math.sqrt(2.0 / d) * torch.cos(
+        6.3 * torch.rand((b, d), generator=g, device=cuda))
+    stack = torch.randn((m, d), generator=g, device=cuda)
+    slots = torch.randint(0, m, (b,), generator=g, device=cuda)
+    return phi, stack, slots.to(torch.int32).cpu().numpy()
+
+
+@pytest.mark.parametrize("d", [16, 4093, 4096])
+@pytest.mark.parametrize("b", [1, 2, 31, 1024])
+def test_rowdot_kernel_matches_plain(cuda, b, d):
+    """Both instances (16-byte loads at D % 4 == 0, aligned; 4-byte
+    otherwise) against the plain version, and the 4-byte instance on an
+    unaligned copy of the same operands gives the 16-byte instance's
+    bits: the two walk one order."""
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
+    phi, stack, slots = _rowdot_operands(cuda, b, 300, d)
+    before = k6.LAUNCHES
+    got = k6.gather_rowdot(phi, stack, slots)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == before + 1
+    want = gather_rowdot_ref(phi, stack, torch.from_numpy(slots).to(cuda))
+    scale = (phi * stack[torch.from_numpy(slots).long().to(cuda)]).abs() \
+        .sum(-1)
+    assert bool(((got - want).abs() <= ROWDOT_RTOL * scale).all())
+    assert torch.equal(got, k6.gather_rowdot(phi, stack, slots))
+    off_phi = torch.empty(b * d + 1, device=cuda)[1:].view(b, d)
+    off_phi.copy_(phi)
+    assert k6.staging(off_phi, stack) == "4-byte"
+    assert torch.equal(k6.gather_rowdot(off_phi, stack, slots), got)
+
+
+def test_rowdot_kernel_raises_on_operands_it_does_not_take(cuda):
+    from repro_torch.kernels.rowdot import rowdot as k6
+    phi, stack, slots = _rowdot_operands(cuda, 4, 6, 8)
+    with pytest.raises(ValueError, match="host int32"):
+        k6.gather_rowdot(phi, stack, torch.from_numpy(slots).to(cuda))
+    with pytest.raises(ValueError, match="lies on"):
+        k6.gather_rowdot(phi, stack.cpu(), slots)
+    with pytest.raises(IndexError):
+        k6.gather_rowdot(phi, stack, slots + 6)
+
+
+def test_k1_then_k6_rows_do_not_depend_on_the_batch(cuda):
+    """The multi-tenant scorer on the card (K1, then K6): rows scored at
+    B = 1, 2, 31 give the bits of the same rows inside B = 1024, with the
+    slots gathered or as (b, D) theta rows."""
+    from repro_torch.api.model import score_rows
+    from repro_torch.core.rff import RFFParams
+    from repro_torch.kernels.rowdot import rowdot as k6
+    g = _gen(cuda, 3)
+    D = 4096
+    params = RFFParams(omega=torch.randn((5, D), generator=g, device=cuda),
+                       bias=2 * math.pi * torch.rand((D,), generator=g,
+                                                     device=cuda))
+    x = torch.rand((1024, 5), generator=g, device=cuda)
+    stack = torch.randn((500, D), generator=g, device=cuda)
+    slots = np.random.default_rng(0).integers(0, 500, 1024).astype(np.int32)
+    before = (k1.LAUNCHES, k6.LAUNCHES)
+    full = score_rows(params, x, stack, slots, backend="fused")
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k6.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for lo, n in ((0, 1), (7, 2), (300, 31), (993, 31)):
+        part = score_rows(params, x[lo:lo + n].contiguous(), stack,
+                          slots[lo:lo + n], backend="fused")
+        rows = stack[torch.from_numpy(slots[lo:lo + n]).long().to(cuda)]
+        own = score_rows(params, x[lo:lo + n].contiguous(), rows,
+                         backend="fused")
+        assert torch.equal(part, full[lo:lo + n]), (lo, n)
+        assert torch.equal(own, full[lo:lo + n]), (lo, n)
+
+
+def test_multi_tenant_server_on_card_launches_k1_and_k6_per_bucket(cuda):
+    """A short multi-tenant run on the card with backend="fused": one K1
+    and one K6 launch per bucket call, every answer bitwise its model's
+    score_rows at the request's own row count, and faults past a small
+    store."""
+    import tempfile
+
+    from repro_torch.api import KernelModel
+    from repro_torch.core.rff import RFFParams
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.serve import (KernelServeConfig, KernelServer,
+                                   ModelRegistry)
+    g = _gen(cuda, 5)
+    D = 256
+    params = RFFParams(omega=torch.randn((5, D), generator=g, device=cuda),
+                       bias=2 * math.pi * torch.rand((D,), generator=g,
+                                                     device=cuda))
+    base = KernelModel(params, torch.randn((D,), generator=g, device=cuda))
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = ModelRegistry(tmp, device=cuda)
+        thetas = {}
+        for i in range(12):
+            th = base.theta + 0.1 * torch.randn((D,), generator=g,
+                                                device=cuda)
+            reg.publish(f"m{i}", base.replace(theta=th))
+            thetas[f"m{i}"] = th
+        server = KernelServer(registry=reg, store_capacity=4,
+                              config=KernelServeConfig(backend="fused",
+                                                       max_delay_ms=2.0),
+                              autostart=False, device=cuda)
+        reqs = []
+        for _ in range(40):
+            mid = f"m{rng.integers(0, 12)}"
+            x = rng.uniform(size=(int(rng.integers(1, 6)), 5)).astype(
+                np.float32)
+            reqs.append((mid, x, server.submit(x, mid)))
+        before = (k1.LAUNCHES, k6.LAUNCHES)
+        server.start()
+        outs = [f.result(timeout=60) for _, _, f in reqs]
+        server.stop()
+        launched = (k1.LAUNCHES - before[0], k6.LAUNCHES - before[1])
+        stats = server.stats()
+        assert launched == (stats["batches"], stats["batches"])
+        assert stats["store"]["faults"] > 0
+        for (mid, x, _), out in zip(reqs, outs):
+            rows = thetas[mid].expand(x.shape[0], D)
+            want = base.score_rows(x, rows, backend="fused")
+            assert np.array_equal(out, want.cpu().numpy()), mid

@@ -466,13 +466,33 @@ def test_build_names_libraries_by_source_hash():
     """Every kernel is built from csrc/ for sm_90a; the library name
     carries a hash of the source and flags, so an edit forces a rebuild."""
     assert build.SOURCES == ("coke_fused_update", "coke_megastep",
-                             "flash_attention", "rff", "threefry")
+                             "flash_attention", "gather_rowdot", "rff",
+                             "threefry")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.SOURCES:
         p = build.library_path(name)
         assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
         assert p == build.library_path(name)
     assert build.library_path("rff") != build.library_path("coke_megastep")
+
+
+def test_chip_smoke_counts_every_kernel_it_reports():
+    """chip_smoke.py keeps one table of launch counters, shared by every
+    phase and by scripts/serve_phase.py: it names each kernel of the
+    `kernels` line, each counter exists, and reset_counts zeroes them."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke.LAUNCH_COUNTERS) == set(smoke.KERNEL_SOURCES)
+    port_rff.LAUNCHES += 3
+    try:
+        assert smoke.counts()["rff_cos_bias"] >= 3
+    finally:
+        smoke.reset_counts()
+    assert smoke.counts() == dict.fromkeys(smoke.KERNEL_SOURCES, 0)
 
 
 def test_build_reports_the_log_of_a_cached_library(tmp_path, monkeypatch):
