@@ -186,8 +186,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      B in 1, 2, 31, 1024 and D in 16, 4093, 4096 (both instances, which
      give the same bits), and its time at (1024, 4096) beside its bound,
      the plain version and the einsum pair.
-Before each of phases 4-6, 10, each part of 12, each path of 13-17 and
-each cell of 18 every launch counter is set to 0, and read just after.
+ 19. big-D feature sharding (`shard_phase`) on a (data=2, model=4) mesh
+     whose every cell is the card: (a) phase 4's Phi blocked once into
+     eight (10, 3500, 1024) blocks; COKE on the simulator and spmd (CG, 30
+     iterations) against the unsharded runs (comms and bits equal, theta
+     within 1e-4), phase 4's fused COKE (the ring runtime, K3 once per
+     block: 8 x 50) against the megakernel fit, phase 5's logistic cell,
+     a Censor + Drop chain (K5 once per iteration) and one Quantize round
+     (one draw of the unsharded (N, D), bitwise the unsharded round), all
+     fit loops under set_sync_debug_mode("error"); ms per iteration beside
+     the unsharded paths, peak memory; (b) big_d_bench's D = 65536 point
+     (N=8, 128 rows) on (1, 4) and (2, 4) meshes against mesh=None; (c)
+     the COKE model sharded: predict on 30 000 rows (K1 once per feature
+     block), and phase 18(a)'s resident cell from a ThetaStore on the mesh
+     (four (65 537, 1024) blocks) through KernelServer(mesh=): QPS, p99,
+     K1 = K6 = 8 per bucket call, every answer bitwise the sharded
+     score_rows and within SERVE_PREDICT_RTOL of the unsharded answer, a
+     request alone bitwise inside a full bucket, one put. The kernels line
+     then carries phase 19's counts for K1, K3, K5 and K6.
+Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
+cell of 18 and each part of 19 every launch counter is set to 0, and read
+just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -461,6 +480,22 @@ ROWDOT_RTOL = 1e-5
 # a served answer (K6's order) against predict's matvec (cuBLAS's order)
 # over the same 4096 products, of sum_k |phi theta| per row
 SERVE_PREDICT_RTOL = 2e-5
+# phase 19, big-D feature sharding: a (data=2, model=4) mesh whose every
+# cell is the card
+SHARD_MESH = (2, 4)
+SHARD_CG_ITERS = 30
+SHARD_CG_TOL = 1e-4          # CG against CG in another order (phase 12)
+# benchmarks/big_d_bench.py's largest point: N=8 agents, 128 train rows
+# (183 samples at the 70/30 split), D=65536: Phi 0.27 GB
+SHARD_BIG_D = dict(num_agents=8, samples_per_agent=183, num_features=65536)
+SHARD_BIG_D_ITERS = 10
+SHARD_BIG_D_MESHES = ((1, 4), (2, 4))
+# timing windows per CG cell: the sharded CG iterations are host-bound
+# at 0.2-0.5 s each, so three runs of one iteration
+SHARD_RUNS = 3
+# a sharded predict (psum of 4 block partials) against the unsharded one
+# (cuBLAS's order), of sum_k |phi theta| per row
+SHARD_PREDICT_RTOL = 1e-5
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -1752,11 +1787,12 @@ def loop_of(runner, steps=10):
     return run
 
 
-def per_iteration(card, phase, what, fn, steps=10):
+def per_iteration(card, phase, what, fn, steps=10, runs=7):
     """Time `fn` (`steps` iterations per call): device and host ms per
-    iteration from one window, and kernels and launches per iteration by
-    the profiler. Returns (device ms, host ms, launches or None)."""
-    d_h = paired_ms(fn, steps)
+    iteration from one window (the median of `runs`), and kernels and
+    launches per iteration by the profiler. Returns (device ms, host ms,
+    launches or None)."""
+    d_h = paired_ms(fn, steps, runs=runs, warmup=min(2, runs))
     rows = profiled_kernels(fn, calls=1)
     launches = sum(r[1] for r in rows) / steps if rows else None
     busy = sum(r[0] for r in rows) / steps if rows else None
@@ -3540,6 +3576,380 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
+                coke4, log_problem, log_cfg, log_coke):
+    """Phase 19: big-D feature sharding on a SHARD_MESH mesh whose every
+    cell is the card. (a) phase 4's problem blocked once: COKE on the
+    simulator and spmd (CG) and phase 4's fused COKE (the K3 fallback,
+    once per block), phase 5's logistic cell, a Censor + Drop chain (K5
+    once per draw) and one Quantize round of the unsharded draw, each
+    against its unsharded run; (b) benchmarks/big_d_bench.py's D = 65536
+    point on (1, 4) and (2, 4) meshes against mesh=None; (c) phase 4's
+    COKE model sharded: predict (K1 once per feature block) and phase
+    18(a)'s resident cell from a sharded store through a sharded server
+    (K1 and K6 once per (row, feature) block per bucket call). Every fit
+    loop runs under set_sync_debug_mode("error"). Returns the phase's
+    launch counts by kernel."""
+    from repro_torch.api import (Censor, Chain, Drop, FitConfig, KRRConfig,
+                                 Quantize, build_problem, fit, get_solver)
+    from repro_torch.api.backends import consensus_runner
+    from repro_torch.api.config import SolveContext
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh, num_agents
+    from repro_torch.serve import KernelServeConfig, KernelServer, ThetaStore
+    fit_module = importlib.import_module("repro_torch.api.fit")
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(*SHARD_MESH, device=dev)
+    N, T, D = problem.feats.shape
+    blocks = mesh.size
+    seen = {k: 0 for k in LAUNCH_COUNTERS}
+
+    def tally(c):
+        for k, v in c.items():
+            seen[k] += v
+        return c
+
+    def strict(fn):
+        """fn with the fit loop (`_chunked_scan`) under
+        set_sync_debug_mode("error"); set-up may sync."""
+        real = fit_module._chunked_scan
+
+        def wrapped(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        fit_module._chunked_scan = wrapped
+        try:
+            out = fn()
+        finally:
+            fit_module._chunked_scan = real
+        torch.cuda.synchronize()
+        return out
+
+    def same_comms(tag, a, b):
+        for k in ("comms", "bits"):
+            if not torch.equal(a.history[k].cpu(), b.history[k].cpu()):
+                raise AssertionError(f"{tag}: {k} differ from the unsharded "
+                                     "run")
+
+    def err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def runner_of(c, prob, m):
+        ctx = SolveContext.from_config(c)
+        solver = get_solver(c.algorithm)
+        if c.backend == "simulator":
+            return fit_module._simulator_runner(solver, prob, ctx, None,
+                                                mesh=m)
+        return consensus_runner(c, solver, prob, ctx, None, mesh=m)
+
+    def only(tag, cnt, want):
+        """The launch counts of one part: exactly `want`, 0 elsewhere."""
+        got = {k: v for k, v in cnt.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+    # ---- (a) the fit cells at full width ----------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sp = sharding.shard_problem(problem, mesh)
+    torch.cuda.synchronize()
+    blk = sharding.local_block(sp.feats)
+    log(19, f"[{card}] shard_problem on a {SHARD_MESH} mesh ({blocks} cells, "
+            f"all {dev}): Phi {tuple(problem.feats.shape)} into "
+            f"{len(sp.feats.blocks)} contiguous blocks of {tuple(blk.shape)} "
+            f"in {(time.perf_counter() - t0) * 1e3:.2f} ms; the blocks hold "
+            f"{(torch.cuda.memory_allocated() - held) / 1e9:.3f} GB (the one "
+            "blocked copy: every fit below runs on it; on one card a mesh "
+            "is a layout, not a saving)")
+
+    cg_cfg = cfg.replace(algorithm="coke", primal="cg",
+                         num_iters=SHARD_CG_ITERS)
+    for backend in ("simulator", "spmd"):
+        c = cg_cfg.replace(backend=backend)
+        plain = fit(c, problem=problem, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        sh = strict(lambda: fit(c, problem=sp, device=dev, mesh=mesh))
+        wall = time.perf_counter() - t0
+        only(f"{backend} CG on the mesh", tally(counts()), {})
+        same_comms(f"{backend} CG", sh, plain)
+        e = err(sh.theta, plain.theta)
+        log(19, f"[{card}] COKE {backend} CG on the mesh, "
+                f"{SHARD_CG_ITERS} iterations in {wall:.2f} s wall: comms "
+                f"{int(sh.history['comms'][-1])}/{N * SHARD_CG_ITERS} and "
+                f"bits equal the unsharded run's, theta max|err| {e:.3e} "
+                f"(tol {SHARD_CG_TOL:g}); no kernel launched (the CG path "
+                "has none)")
+        if not e <= SHARD_CG_TOL:
+            raise AssertionError(f"{backend} CG on the mesh: theta differs")
+        for label, prob, m in (("sharded", sp, mesh),
+                               ("unsharded", problem, None)):
+            per_iteration(card, 19, f"COKE {backend} CG {label}",
+                          loop_of(runner_of(c, prob, m), steps=1), steps=1,
+                          runs=SHARD_RUNS)
+
+    # phase 4's fused COKE: on a mesh the megakernel's gate sends it to the
+    # ring runtime, K3 once per block of the carry
+    fc = cfg.replace(algorithm="coke")
+    reset_counts()
+    t0 = time.perf_counter()
+    sh = strict(lambda: fit(fc, problem=sp, device=dev, mesh=mesh))
+    wall = time.perf_counter() - t0
+    only("fused COKE on the mesh", tally(counts()),
+         {"coke_fused_update": blocks * ITERS})
+    same_comms("fused COKE", sh, coke4)
+    e = err(sh.theta, coke4.theta)
+    tol = SPMD_RTOL * float(coke4.theta.abs().max())
+    log(19, f"[{card}] phase 4's fused COKE on the mesh, {ITERS} iterations "
+            f"in {wall:.2f} s wall: K3 {blocks} x {ITERS} launches (one per "
+            f"block of the carry per iteration), K2 none; comms "
+            f"{int(sh.history['comms'][-1])}/{N * ITERS} and bits equal the "
+            f"megakernel fit's, theta max|err| {e:.3e} (tol {tol:.3e}, "
+            f"phase 6's)")
+    if not e <= tol:
+        raise AssertionError("fused COKE on the mesh: theta differs")
+    for label, prob, m in (("sharded (K3 per block)", sp, mesh),
+                           ("unsharded (K2)", problem, None)):
+        per_iteration(card, 19, f"fused COKE {label}",
+                      loop_of(runner_of(fc, prob, m), steps=5), steps=5)
+
+    # phase 5's logistic cell on the same blocks of Phi
+    _, lspec, _ = sharding.problem_specs(log_problem, mesh)
+    slp = dataclasses.replace(sp, labels=sharding.shard(
+        log_problem.labels, mesh, lspec), loss="logistic")
+    lc = log_cfg.replace(algorithm="coke")
+    reset_counts()
+    sh = strict(lambda: fit(lc, problem=slp, device=dev, mesh=mesh))
+    only("logistic COKE on the mesh", tally(counts()),
+         {"coke_fused_update": blocks * ITERS})
+    same_comms("logistic COKE", sh, log_coke)
+    e = err(sh.theta, log_coke.theta)
+    tol = SPMD_RTOL * float(log_coke.theta.abs().max())
+    log(19, f"[{card}] phase 5's logistic COKE on the mesh: K3 {blocks} x "
+            f"{ITERS}, comms {int(sh.history['comms'][-1])} and bits equal "
+            f"phase 5's, theta max|err| {e:.3e} (tol {tol:.3e})")
+    if not e <= tol:
+        raise AssertionError("logistic COKE on the mesh: theta differs")
+
+    # a chain with a drawing stage: Drop's (N,) draw once per iteration
+    v, mu = cfg.resolved_censor
+    chain = Chain([Censor(v, mu), Drop(CHAIN_DROP)])
+    cc = fc.replace(comm=chain, censor_v=None, censor_mu=None)
+    plain = fit(cc, problem=problem, device=dev)
+    reset_counts()
+    sh = strict(lambda: fit(cc, problem=sp, device=dev, mesh=mesh))
+    only("chain COKE on the mesh", tally(counts()),
+         {"coke_fused_update": blocks * ITERS, "threefry": ITERS})
+    same_comms("chain COKE", sh, plain)
+    e = err(sh.theta, plain.theta)
+    tol = SPMD_RTOL * float(plain.theta.abs().max())
+    log(19, f"[{card}] fused COKE with Chain([Censor({v}, {mu}), "
+            f"Drop({CHAIN_DROP})]) on the mesh: K5 {ITERS} (one draw per "
+            f"iteration, over the unsharded (N,)), K3 {blocks} x {ITERS}; "
+            f"comms and bits equal the unsharded (megakernel) chain fit's, "
+            f"theta max|err| {e:.3e} (tol {tol:.3e})")
+    if not e <= tol:
+        raise AssertionError("chain COKE on the mesh: theta differs")
+
+    # one Quantize round on blocks: one draw of the unsharded (N, D) shape
+    q = Chain([Censor(v, mu), Quantize(bits=CHAIN_BITS), Drop(CHAIN_DROP)])
+    prev = 0.5 * coke4.theta
+    want_hat, want_send, want_st = q.apply(coke4.theta, prev, 7,
+                                           q.init_state(N, dev))
+    bt = sharding.shard_features(coke4.theta, mesh, N)
+    bp = sharding.shard_features(prev, mesh, N)
+    reset_counts()
+    got_hat, got_send, got_st = q.apply(bt, bp, 7, q.init_state(N, dev))
+    torch.cuda.synchronize()
+    only("one Quantize round on the mesh", tally(counts()), {"threefry": 2})
+    if not (torch.equal(sharding.unshard(got_hat), want_hat)
+            and torch.equal(sharding.unshard(got_send), want_send)
+            and torch.equal(sharding.unshard(got_st.bits), want_st.bits)):
+        raise AssertionError("a Quantize round on blocks differs from the "
+                             "unsharded round")
+    log(19, f"[{card}] one Censor + Quantize({CHAIN_BITS}) + Drop round on "
+            f"blocks: K5 twice (one ({N}, {D}) draw split into the blocks, "
+            "one (N,) draw); payload, decisions and bits bitwise the "
+            "unsharded round's")
+    del sh, plain, bt, bp, slp
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(19, f"[{card}] (a) peak memory {peak:.3f} GB (phase 4's Phi "
+            f"{problem.feats.numel() * 4 / 1e9:.3f} GB, held by the caller, "
+            "plus its blocked copy and the fits' state)")
+    del sp
+    torch.cuda.empty_cache()
+
+    # ---- (b) the big-D point ----------------------------------------------
+    bcfg = FitConfig(krr=KRRConfig(lam=1e-3, rho=1e-2, seed=0,
+                                   **SHARD_BIG_D),
+                     graph="ring", algorithm="coke", censor_v=0.5,
+                     censor_mu=0.97, primal="cg",
+                     num_iters=SHARD_BIG_D_ITERS)
+    bprob = build_problem(bcfg, device=dev).problem
+    bn, bt_, bd = bprob.feats.shape
+    log(19, f"[{card}] big-D point: Phi {tuple(bprob.feats.shape)} "
+            f"({bprob.feats.numel() * 4 / 1e9:.3f} GB), CG, "
+            f"{SHARD_BIG_D_ITERS} iterations")
+    for backend in ("simulator", "spmd"):
+        c = bcfg.replace(backend=backend)
+        plain = fit(c, problem=bprob, device=dev)
+        base_t = per_iteration(card, 19, f"big-D {backend} CG unsharded",
+                               loop_of(runner_of(c, bprob, None), steps=1),
+                               steps=1, runs=SHARD_RUNS)
+        for shape in SHARD_BIG_D_MESHES:
+            m = make_host_mesh(*shape, device=dev)
+            bsp = sharding.shard_problem(bprob, m)
+            reset_counts()
+            sh = strict(lambda: fit(c, problem=bsp, device=dev, mesh=m))
+            only(f"big-D {backend} {shape}", tally(counts()), {})
+            same_comms(f"big-D {backend} {shape}", sh, plain)
+            e = err(sh.theta, plain.theta)
+            t = per_iteration(card, 19, f"big-D {backend} CG on {shape}",
+                              loop_of(runner_of(c, bsp, m), steps=1),
+                              steps=1, runs=SHARD_RUNS)
+            log(19, f"[{card}] big-D {backend} CG on a {shape} mesh: comms "
+                    f"{int(sh.history['comms'][-1])}/{bn * SHARD_BIG_D_ITERS}"
+                    f" and bits equal mesh=None's, theta max|err| {e:.3e} "
+                    f"(tol {SHARD_CG_TOL:g}); {t[0]:.4f} ms per iteration "
+                    f"on the device against {base_t[0]:.4f} ms unsharded")
+            if not e <= SHARD_CG_TOL:
+                raise AssertionError(f"big-D {backend} {shape}: theta "
+                                     "differs")
+            del bsp, sh
+    del bprob
+    torch.cuda.empty_cache()
+
+    # ---- (c) deploy and serve ---------------------------------------------
+    model = coke4.to_model(built.rff_params)
+    sm = model.shard(mesh)
+    x = built.x_test
+    reset_counts()
+    got = sm.predict(x, backend="fused")
+    torch.cuda.synchronize()
+    only("sharded predict", tally(counts()),
+         {"rff_cos_bias": mesh.shape["model"]})
+    want = model.predict(x, backend="fused")
+    flat = x.reshape(-1, x.shape[-1])
+    scale = (model.featurize(flat, "fused").abs()
+             @ model.theta.abs()).reshape(want.shape)
+    rel = float(((got - want).abs() / scale).max())
+    log(19, f"[{card}] the sharded COKE model's predict on "
+            f"{flat.shape[0]} rows: K1 {mesh.shape['model']} launches (one "
+            f"per feature block), within {rel:.3e} of sum|phi theta| of the "
+            f"unsharded predict (tol {SHARD_PREDICT_RTOL:g})")
+    if not (got.shape == want.shape and rel <= SHARD_PREDICT_RTOL):
+        raise AssertionError("the sharded predict differs")
+
+    base = coke4.to_model(built.rff_params, include_per_agent=False)
+    scfg = KernelServeConfig(backend="fused", max_delay_ms=SERVE_DELAY_MS)
+    res_ids = [f"r-{i:05d}" for i in range(SERVE_RESIDENT)]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    res_thetas = torch.cat([coke4.theta, base.theta + 0.1 * torch.randn(
+        (SERVE_RESIDENT - N, D), generator=gen, device=dev)])
+    slot_of = {m: i for i, m in enumerate(res_ids)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = ThetaStore(SERVE_RESIDENT + 1, D, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    store.put_many(res_ids, res_thetas)
+    torch.cuda.synchronize()
+    sblk = sharding.local_block(store.stack)
+    log(19, f"[{card}] put_many of {SERVE_RESIDENT} ids into a ThetaStore "
+            f"on the mesh: {len(store.stack.blocks)} blocks of "
+            f"{tuple(sblk.shape)} in {(time.perf_counter() - t0) * 1e3:.2f}"
+            " ms")
+    server = KernelServer(model=base, store=store, config=scfg, mesh=mesh,
+                          device=dev)
+    server.predict(np.zeros((SERVE_BATCH, 5), np.float32), res_ids[0])
+    cells = num_agents(mesh) * mesh.shape["model"]
+    before = server.stats()
+    reset_counts()
+    wall, lat, answers = drive(server, res_ids, seed=0,
+                               clients=SERVE_CLIENTS,
+                               requests=SERVE_REQUESTS, batch=SERVE_BATCH)
+    c = tally(counts())
+    s = server.stats()
+    calls = s["batches"] - before["batches"]
+    only("the sharded resident cell", c,
+         {"rff_cos_bias": cells * calls, "gather_rowdot": cells * calls})
+    lat = np.sort(np.asarray(lat))
+    n = len(lat)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(19, f"[{card}] sharded resident cell: {n} requests of "
+            f"{SERVE_BATCH} rows from {SERVE_CLIENTS} clients in "
+            f"{wall:.3f} s: {n / wall:.1f} QPS, p50 {lat[n // 2]:.4f} ms, "
+            f"p99 {lat[min(n - 1, int(n * 0.99))]:.4f} ms; {calls} bucket "
+            f"calls, K1 = K6 = {cells} x {calls} (one per (row, feature) "
+            f"block); peak memory {peak:.3f} GB")
+    worst = 0.0
+    for mid, xq, out in answers:
+        theta = res_thetas[slot_of[mid]]
+        xt = torch.from_numpy(xq).to(dev)
+        own = server.model.score_rows(xt, theta.expand(xq.shape[0], D),
+                                      backend="fused").cpu().numpy()
+        if not np.array_equal(out, own):
+            raise AssertionError(f"sharded cell: the answer for {mid} is "
+                                 "not bitwise the sharded score_rows")
+        plain_out = base.score_rows(xt, theta.expand(xq.shape[0], D),
+                                    backend="fused")
+        sc = base.featurize(xt, "fused").abs() @ theta.abs()
+        worst = max(worst, float(((torch.from_numpy(out).to(dev)
+                                   - plain_out).abs() / sc).max()))
+    log(19, f"sharded resident cell: all {len(answers)} answers bitwise the "
+            f"sharded score_rows at their own row count; worst distance "
+            f"from the unsharded answer {worst:.3e} of sum|phi theta| (tol "
+            f"{SERVE_PREDICT_RTOL:g})")
+    if not worst <= SERVE_PREDICT_RTOL:
+        raise AssertionError("a sharded answer is far from the unsharded")
+
+    # one request alone, and inside a full 1024-row bucket
+    x1 = np.random.default_rng(3).uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32)
+    alone = server.predict(x1, res_ids[7])
+    server.stop()
+    full = KernelServer(model=base, store=store, config=scfg, mesh=mesh,
+                        device=dev, autostart=False)
+    rng = np.random.default_rng(4)
+    fill = [full.submit(rng.uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32), res_ids[int(rng.integers(0, SERVE_RESIDENT))])
+        for _ in range(1024 // SERVE_BATCH - 1)]
+    probe = full.submit(x1, res_ids[7])
+    full.start()
+    for f in fill:
+        f.result(timeout=120)
+    cobatched = probe.result(timeout=120)
+    full.stop()
+    fs = full.stats()
+    if (fs["batches"], fs["rows"], fs["padded_rows"]) != (1, 1024, 0):
+        raise AssertionError(f"the full sharded bucket ran as {fs}")
+    if not np.array_equal(alone, cobatched):
+        raise AssertionError("a request alone and inside a full sharded "
+                             "bucket differs")
+    log(19, "one request alone and inside a full 1024-row bucket on the "
+            "mesh: bitwise equal")
+
+    # one put: a copy on write of every block
+    theta_put = res_thetas[7].clone()
+    put_ms = time_ms(lambda: store.put(res_ids[7], theta_put), reps=5,
+                     runs=5, warmup=2)
+    log(19, f"[{card}] one ThetaStore.put on the mesh "
+            f"({len(store.stack.blocks)} blocks, {store.capacity} x {D}): "
+            f"{put_ms:.4f} ms on the "
+            "device (each block copied, then written)")
+    del server, full, store, res_thetas, sm
+    torch.cuda.empty_cache()
+    log(19, f"[{card}] launches over phase 19: "
+            f"{ {k: v for k, v in seen.items() if v} }; phase 19 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4761,6 +5171,22 @@ def main() -> int:
     kernels.append(serve_phase(dev, card, reset_counts, counts, built=built,
                                coke=results["coke"], bw=bw, fp32=fp32))
     log(18, f"[{card}] gather_rowdot (K6): {kernels[-1]}")
+
+    # ---- 19. big-D feature sharding -----------------------------------------
+    shard_counts = shard_phase(
+        dev, card, reset_counts, counts, problem=problem, cfg=cfg,
+        built=built, coke4=results["coke"], log_problem=log_problem,
+        log_cfg=log_cfg, log_coke=log_results["coke"])
+    for entry in kernels:       # the kernels phase 19 runs: its counts
+        n19 = shard_counts[entry["name"]]
+        if n19:
+            log(19, f"{entry['name']}: launches {entry['launches']} on its "
+                    f"earlier path, {n19} over phase 19")
+            entry["launches"] = n19
+    for name in ("rff_cos_bias", "coke_fused_update", "gather_rowdot",
+                 "threefry"):
+        if not shard_counts[name]:
+            raise AssertionError(f"phase 19 never launched {name}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

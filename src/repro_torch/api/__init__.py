@@ -27,7 +27,10 @@ slowdowns and join/leave events on the simulator and spmd; personalization
 a learned mutual top-k collaboration graph) for `fit`, `fit_stream` and
 `sweep` on the simulator and spmd, sync and gossip, deployed per agent by
 `FitResult.to_models()` (K1 in each model's fused predict), on the
-clustered `heterogeneous` dataset, scored by `graph_recovery`.
+clustered `heterogeneous` dataset, scored by `graph_recovery`; big-D
+feature sharding (`fit(..., mesh=make_host_mesh(data, model))` on the
+simulator, spmd and fused backends, `KernelModel.shard(mesh)`, and
+`ThetaStore` / `KernelServer` with `mesh=`).
 Admission is the reference's capability table (`api/capabilities.py`);
 what is not ported yet raises NotImplementedError naming its ROADMAP.md
 item.

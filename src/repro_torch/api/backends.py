@@ -36,6 +36,11 @@ update and passes it as `consensus_update` / `stream_update`'s dense
 Personalization never reaches the fused backend: the capability table
 rejects it (the kernels take a fixed ring).
 
+On a mesh (`fit(mesh=)`) both backends run the ring runtime on the
+feature-sharded problem and carry (`distributed.sharding`); the
+megakernel's gate keeps the reference's `mesh is None`, so a fused fit on
+a mesh takes the fallback, K3 once per block of the carry.
+
 Both backends require a circulant graph, validated against the problem's
 adjacency, so a mismatched FitConfig fails loudly instead of silently
 solving a different consensus problem. A topology schedule runs on the
@@ -62,6 +67,7 @@ from repro_torch.core import step as step_mod
 from repro_torch.core.admm import CG_CROSSOVER_DIM, Problem, resolve_primal
 from repro_torch.core.graph import circulant
 from repro_torch.distributed import consensus as cns
+from repro_torch.distributed import sharding
 from repro_torch.kernels.coke_update.coke_update import coke_megastep
 from repro_torch.kernels.coke_update.ref import residual_sq
 from repro_torch.optim.optimizers import OptConfig
@@ -114,14 +120,12 @@ def _validate_schedule(problem: Problem, topology) -> None:
 def _local_grads(problem: Problem, theta: torch.Tensor) -> torch.Tensor:
     """Per-agent gradients of local_empirical_risk(theta_i, Phi_i, y_i,
     lam/N, loss): autograd of the agent sum, where each agent's risk
-    depends on its own row only. Reads Phi twice (forward and backward)."""
-    with torch.enable_grad():
-        th = theta.detach().requires_grad_(True)
-        risk = losses_mod.local_empirical_risk(
-            th, problem.feats, problem.labels,
-            problem.lam / problem.num_agents, problem.loss)
-        (grad,) = torch.autograd.grad(torch.sum(risk), th)
-    return grad
+    depends on its own row only. Reads Phi twice (forward and backward).
+    On a mesh Phi theta is a psum and the gradient block-local
+    (`losses.risk_grad`)."""
+    return losses_mod.risk_grad(theta, problem.feats, problem.labels,
+                                problem.lam / problem.num_agents,
+                                problem.loss)
 
 
 def _resolve_consensus_primal(config: FitConfig, problem: Problem,
@@ -422,8 +426,17 @@ def stream_consensus_runner(config: FitConfig, solver: Solver, stream,
 
 
 def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
-                     ctx: SolveContext, oracle: torch.Tensor | None):
-    """-> (carry0, chunk_fn, theta_fn) for the spmd / fused backends."""
+                     ctx: SolveContext, oracle: torch.Tensor | None,
+                     mesh=None):
+    """-> (carry0, chunk_fn, theta_fn) for the spmd / fused backends.
+
+    mesh — optional `launch.mesh.Mesh`: the problem and the consensus
+    carry (params, theta_hat, gamma, the neighbour caches, the optimizer
+    slots and the policy's bits) are placed with the feature dim cut over
+    the mesh's "model" axis and the agent dim over its batch axes
+    (`distributed.sharding.feature_spec`). The megakernel needs an
+    unsharded carry: on a mesh a fused fit runs the ring runtime through
+    K3, once per block, as the reference falls back to its ring runtime."""
     strategy = solver.consensus_strategy
     primal_mode = _resolve_consensus_primal(config, problem, strategy)
     offset_schedule = None
@@ -453,6 +466,7 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
                 and primal_mode == "gradient"
                 and problem.loss == "quadratic"
                 and offset_schedule is None
+                and mesh is None
                 and ctx.personalization is None)
     if use_mega:
         chain = solver._policy(ctx)
@@ -486,6 +500,11 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     chain = solver._policy(ctx) if solver.comm_aware else None
     params = {"theta": torch.zeros((N, D), dtype=dtype, device=dev)}
     cstate = cns.init_consensus_state(ccfg, opt_cfg, params, comm=chain)
+    if mesh is not None:
+        # the sharded problem is what the chunk and the CG solve read
+        problem = sharding.shard_problem(problem, mesh)
+        params = sharding.shard_features(params, mesh, N)
+        cstate = sharding.shard_features(cstate, mesh, N)
     personalize = _pz_live_state(ctx, cstate, problem.adjacency)
 
     primal_solve = (_cg_primal_solve(problem, ctx.cg_tol, ctx.cg_maxiter)

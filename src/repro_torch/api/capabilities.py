@@ -232,10 +232,18 @@ RUN_RULES: tuple[Rule, ...] = (
 #: names the ROADMAP.md item that ports it. Checked after RUN_RULES.
 NOT_PORTED: tuple[Rule, ...] = (
     Rule(
-        id="mesh",
-        when=(("mesh", True),),
-        reason="mesh= (big-D feature sharding)",
-        alternative="ROADMAP.md Queue 1 item 14 (big-D sharding)",
+        id="mesh-gossip",
+        when=(("mesh", True), ("exec", "gossip")),
+        reason="mesh= (big-D feature sharding) under exec='gossip'",
+        alternative="ROADMAP.md Queue 1 item 14b (a mesh under gossip "
+                    "and personalization)",
+    ),
+    Rule(
+        id="mesh-personalization",
+        when=(("mesh", True), ("personalization", True)),
+        reason="mesh= (big-D feature sharding) with personalization",
+        alternative="ROADMAP.md Queue 1 item 14b (a mesh under gossip "
+                    "and personalization)",
     ),
 )
 

@@ -35,6 +35,7 @@ from repro_torch.core import ridge
 from repro_torch.core.admm import COKEState, Problem
 from repro_torch.core.personalize import PersonalizedState
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 
 ProgressCb = Callable[[int, dict], None]
 
@@ -63,17 +64,24 @@ def _simulator_chunk(solver, problem: Problem, ctx: SolveContext, aux,
     return state, {k: torch.stack(v) for k, v in hist.items()}
 
 
-def _simulator_runner(solver, problem: Problem, ctx: SolveContext, oracle):
+def _simulator_runner(solver, problem: Problem, ctx: SolveContext, oracle,
+                      mesh=None):
     """-> (state0, chunk_fn, theta_fn). The reference prepares its traced
     aux (the Cholesky factors) inside every compiled chunk; here it is made
-    once per fit, with the same values."""
-    aux = solver.prepare_traced(problem, ctx,
-                                solver.prepare_host(problem, ctx))
+    once per fit, with the same values. On a mesh the problem and the
+    initial state are feature-sharded first, as the reference places
+    them, and the aux is made from the sharded problem."""
+    host_aux = solver.prepare_host(problem, ctx)
+    state0 = solver.init_state(problem, ctx)
+    if mesh is not None:
+        problem = sharding.shard_problem(problem, mesh)
+        state0 = sharding.shard_features(state0, mesh, problem.num_agents)
+    aux = solver.prepare_traced(problem, ctx, host_aux)
 
     def chunk_fn(state, n):
         return _simulator_chunk(solver, problem, ctx, aux, state, oracle, n)
 
-    return solver.init_state(problem, ctx), chunk_fn, solver.theta_of
+    return state0, chunk_fn, solver.theta_of
 
 
 def _chunked_scan(chunk_fn, carry, num_iters: int, chunk_size: int | None,
@@ -198,6 +206,14 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
     oracle      — theta* (D,) for a per-iteration distance-to-oracle;
                   computed in closed form when
                   `config.record_oracle_distance` is set and none is given.
+    mesh        — optional `launch.mesh.Mesh` for the big-D path: the
+                  problem's feature dim is cut over the mesh's "model"
+                  axis and the agent dim over its batch axes (theta,
+                  theta_hat and gamma as (N/b, D/s) blocks; see
+                  `distributed.sharding.feature_spec`). Its cells must lie
+                  on `device`. theta, the state and the history come back
+                  gathered into plain tensors. Pair it with primal="cg": the
+                  Cholesky primal gathers each agent's (D, D) factor.
     device      — None = "cuda" (raises when no card is present);
                   "cpu" runs the plain PyTorch versions of the kernels.
     """
@@ -208,6 +224,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
     dev = resolve_device(device)
     solver = get_solver(config.algorithm)
     check_fit(config, solver, mesh=mesh)
+    if mesh is not None:
+        _check_mesh_devices(mesh, dev)
     rff_params = None
     if problem is None:
         built = build_problem(config, device=dev)
@@ -229,16 +247,32 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
 
     def make_runner(c: SolveContext):
         if config.backend == "simulator":
-            return _simulator_runner(solver, problem, c, oracle)
-        return consensus_runner(config, solver, problem, c, oracle)
+            return _simulator_runner(solver, problem, c, oracle, mesh=mesh)
+        return consensus_runner(config, solver, problem, c, oracle,
+                                mesh=mesh)
 
     carry0, chunk_fn, theta_fn = _phased_runner(
         make_runner, phase_plan(ctx, config.resolved_iters,
                                 problem.adjacency))
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
                                    config.chunk_size, progress_cb)
+    if mesh is not None:   # gathered once, at the end
+        carry = sharding.unshard_tree(carry)
+        history = sharding.unshard_tree(history)
     return FitResult(config=config, state=carry, history=history,
                      theta=theta_fn(carry), rff_params=rff_params)
+
+
+def _check_mesh_devices(mesh, dev: torch.device) -> None:
+    """Every cell of a fit's mesh lies on the fit's device (the card it
+    runs on, or the CPU when asked for)."""
+    for d in mesh.distinct_devices():
+        if d.type != dev.type or (dev.index is not None
+                                  and d.index != dev.index):
+            raise ValueError(
+                f"the mesh has a cell on {d} but the fit runs on {dev}: "
+                "build the mesh with make_host_mesh(..., device=) on the "
+                "fit's device")
 
 
 def fit_stream(config: FitConfig, stream: StreamProblem | None = None, *,

@@ -18,6 +18,7 @@ here and predicts the same.
 from __future__ import annotations
 
 import json
+import math
 import os
 from typing import Any
 
@@ -28,7 +29,9 @@ from torch import nn
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import rff
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.kernels.rff.ops import featurize_fused
+from repro_torch.kernels.rff.rff import rff_cos_bias
 from repro_torch.kernels.rowdot.ops import gather_rowdot, rowdot
 
 PREDICT_BACKENDS = ("ref", "fused")
@@ -36,9 +39,13 @@ FORMAT = "repro.api.KernelModel/v1"
 
 
 def featurize(params: rff.RFFParams, x: torch.Tensor,
-              backend: str = "ref") -> torch.Tensor:
+              backend: str = "ref", mesh=None) -> torch.Tensor:
     """phi(x) on the chosen backend — the one routing point of every
-    scoring path (predict, evaluate, score_rows, the KernelServer)."""
+    scoring path (predict, evaluate, score_rows, the KernelServer).
+    `mesh`: the params of a sharded model (`KernelModel.shard`); phi
+    comes back in feature blocks (`_featurize_sharded`)."""
+    if mesh is not None:
+        return _featurize_sharded(params, x, backend, mesh)
     if backend == "ref":
         return rff.featurize(params, x)
     if backend == "fused":
@@ -53,8 +60,70 @@ def featurize(params: rff.RFFParams, x: torch.Tensor,
         f"{PREDICT_BACKENDS}")
 
 
+def _featurize_sharded(params: rff.RFFParams, x, backend: str, mesh):
+    """phi(x) of a sharded model, cut over "model" as its theta is
+    (`_div(D, mesh, "model")`); x may be cut into row blocks over the
+    batch axes (the server's buckets). cos_bias: each feature block is
+    its own map, omega_s and bias_s scaled for the whole width L: on
+    backend="fused" one K1 launch per (row, feature) block. cos_sin: the
+    cos and sin halves of an omega block are not one theta block (omega
+    splits L, theta splits 2L), so omega is gathered, phi made whole per
+    row block and cut into theta's blocks."""
+    if backend not in PREDICT_BACKENDS:
+        raise ValueError(
+            f"unknown predict backend {backend!r}; choose from "
+            f"{PREDICT_BACKENDS}")
+    L = params.omega.shape[1]
+    D = params.num_features
+    feat = sharding._div(D, mesh, "model") \
+        if "model" in mesh.axis_names else None
+    flat = x.reshape(-1, x.shape[-1])
+    rows = flat.spec[0] if isinstance(flat, sharding.Blocked) else None
+    if params.mapping == "cos_bias":
+        if backend == "fused":
+            def block(xb, om, b):
+                return rff_cos_bias(xb.contiguous(), om, b, num_features=L)
+        else:
+            def block(xb, om, b):
+                return math.sqrt(2.0) * torch.cos(xb @ om + b) \
+                    * math.sqrt(1.0 / L)
+        omega = params.omega if isinstance(params.omega, sharding.Blocked) \
+            else sharding.shard(params.omega, mesh, sharding.P(None, feat))
+        bias = params.bias if isinstance(params.bias, sharding.Blocked) \
+            else sharding.shard(params.bias, mesh, sharding.P(feat))
+        phi = sharding.blockwise(block, flat, omega, bias,
+                                 out=sharding.P(rows, feat), mesh=mesh)
+    elif backend == "fused":
+        raise ValueError(
+            "the fused featurizer implements the 'cos_bias' mapping "
+            f"(Eq. 13); this model uses {params.mapping!r} — use "
+            "backend='ref'")
+    else:
+        whole = rff.RFFParams(omega=sharding.unshard(params.omega),
+                              bias=sharding.unshard(params.bias),
+                              mapping=params.mapping)
+        phi = sharding.blockwise(
+            lambda xb: rff.featurize(whole, xb), flat,
+            out=sharding.P(rows, None), mesh=mesh)
+        phi = sharding.shard(sharding.unshard(phi), mesh,
+                             sharding.P(rows, feat))
+    return phi.reshape(*x.shape[:-1], D)
+
+
+def _dot(phi, theta):
+    """phi (..., D) @ theta (D,); on feature blocks the psum of the
+    blocks' partials, in ascending block order, gathered."""
+    if isinstance(phi, sharding.Blocked) or isinstance(theta,
+                                                       sharding.Blocked):
+        lead = "abc"[:phi.ndim - 1]
+        return sharding.unshard(torch.einsum(f"{lead}d,d->{lead}", phi,
+                                             theta))
+    return phi @ theta
+
+
 def score_rows(params: rff.RFFParams, x: torch.Tensor, thetas: torch.Tensor,
-               slots=None, *, backend: str = "ref") -> torch.Tensor:
+               slots=None, *, backend: str = "ref", mesh=None
+               ) -> torch.Tensor:
     """The many-model scorer: featurize x (b, d) once, then row i of phi
     against theta row i — thetas (b, D) with slots None, or the gathered
     row thetas[slots[i]] of a resident (M, D) stack, slots host int32
@@ -63,11 +132,47 @@ def score_rows(params: rff.RFFParams, x: torch.Tensor, thetas: torch.Tensor,
     featurizer is K1, whose row bits do not depend on b either. So a row
     scores the same whatever else shares its batch, and `KernelModel.
     score_rows` and the `KernelServer` give the same bits by
-    construction."""
+    construction.
+
+    mesh: a sharded model's scorer. phi comes in feature blocks (and row
+    blocks where x is cut over the batch axes), the stack (or thetas) in
+    the same feature blocks; K6 runs once per (row, feature) block on its
+    slots, and a row's answer is the psum of its blocks' partials in
+    ascending block order, so it is still independent of the batch."""
+    if mesh is not None:
+        return _score_rows_sharded(params, x, thetas, slots, backend, mesh)
     phi = featurize(params, x, backend)
     if slots is None:
         return rowdot(phi, thetas)
     return gather_rowdot(phi, thetas, slots)
+
+
+def _score_rows_sharded(params, x, thetas, slots, backend: str, mesh):
+    phi = featurize(params, x, backend, mesh=mesh)
+    if not isinstance(phi, sharding.Blocked):   # nothing cut: one block
+        stack = sharding.unshard(thetas)
+        return rowdot(phi, stack) if slots is None \
+            else gather_rowdot(phi, stack, slots)
+    if slots is None:          # thetas (b, D): row i against row i
+        stack = sharding.recut(thetas, phi)
+    else:
+        stack = thetas if isinstance(thetas, sharding.Blocked) else \
+            sharding.shard(thetas, mesh, sharding.P(None, phi.spec[1]))
+        slots = np.asarray(slots)
+    blocks = {}
+    for key, p in phi.blocks.items():
+        b, m, dev = key
+        if slots is None:      # this block's own rows of the thetas
+            sl = np.arange(p.shape[0], dtype=np.int32)
+        else:
+            sl = slots[sharding.block_index(phi, 0, b, m)]
+        st = stack.block(b, m, dev) \
+            if isinstance(stack, sharding.Blocked) else stack.to(dev)
+        blocks[key] = gather_rowdot(p, st, sl)
+    parts = sharding.Blocked(mesh, sharding.P(phi.spec[0]),
+                             (phi.shape[0],), blocks,
+                             partial="model" in phi.kinds)
+    return sharding.unshard(parts)
 
 
 class KernelModel(nn.Module):
@@ -89,13 +194,20 @@ class KernelModel(nn.Module):
                  thetas: torch.Tensor | None = None, *,
                  bandwidth: float = 1.0, kernel: str = "gaussian",
                  meta: dict[str, Any] | None = None,
-                 model_id: str | None = None, version: int | None = None):
+                 model_id: str | None = None, version: int | None = None,
+                 mesh=None):
         super().__init__()
         self.mapping = rff_params.mapping
-        self.register_buffer("omega", rff_params.omega)
-        self.register_buffer("bias", rff_params.bias)
-        self.register_buffer("theta", theta)
-        self.register_buffer("thetas", thetas)
+        self.mesh = mesh
+        for name, t in (("omega", rff_params.omega),
+                        ("bias", rff_params.bias), ("theta", theta),
+                        ("thetas", thetas)):
+            if isinstance(t, sharding.Blocked):
+                # a sharded array holds its blocks on their cells'
+                # devices: not a buffer, which `.to` would move
+                object.__setattr__(self, name, t)
+            else:
+                self.register_buffer(name, t)
         self.bandwidth = float(bandwidth)
         self.kernel = kernel
         self.meta = dict(meta or {})
@@ -123,19 +235,55 @@ class KernelModel(nn.Module):
     def device(self) -> torch.device:
         return self.theta.device
 
+    # ---- placement -------------------------------------------------------
+    def shard(self, mesh) -> "KernelModel":
+        """This model with its feature-dim arrays cut over the mesh's
+        "model" axis, as the reference places them: omega (d, L) and bias
+        (L,) split L, theta (D,) splits D, thetas (N, D) also spreads its
+        agents over the batch axes. A dim that does not divide stays
+        whole (replicated). `featurize`, `predict`, `evaluate`,
+        `score_rows` and a `KernelServer` built with the same mesh run on
+        the blocks: with backend="fused" one K1 launch per feature block,
+        then phi . theta as the psum of the blocks' partials. On one card
+        the blocks are a layout, not a saving: they hold the same bytes."""
+        has_model = "model" in mesh.axis_names
+        omega_l = self.omega.shape[1]
+        spec_feat = sharding._div(omega_l, mesh, "model") \
+            if has_model else None
+        feat = sharding._div(self.num_features, mesh, "model") \
+            if has_model else None
+        ba = sharding.batch_axes(mesh)
+
+        def put(x, spec):
+            return None if x is None else sharding.shard(
+                sharding.unshard(x), mesh, spec)
+
+        lead = (sharding._div(self.thetas.shape[0], mesh, ba)
+                if self.thetas is not None and ba else None)
+        params = rff.RFFParams(
+            omega=put(self.omega, sharding.P(None, spec_feat)),
+            bias=put(self.bias, sharding.P(spec_feat)),
+            mapping=self.mapping)
+        return self.replace(rff_params=params,
+                            theta=put(self.theta, sharding.P(feat)),
+                            thetas=put(self.thetas, sharding.P(lead, feat)),
+                            mesh=mesh)
+
     # ---- scoring ---------------------------------------------------------
     def featurize(self, x: torch.Tensor, backend: str = "ref") -> torch.Tensor:
-        """phi(x) on the chosen backend (module-level `featurize`)."""
-        return featurize(self.rff_params, x, backend)
+        """phi(x) on the chosen backend (module-level `featurize`); in
+        feature blocks on a sharded model."""
+        return featurize(self.rff_params, x, backend, mesh=self.mesh)
 
     def replace(self, **changes) -> "KernelModel":
         """A new KernelModel with `changes` (rff_params, theta, thetas,
-        bandwidth, kernel, meta, model_id, version) and every other field
+        bandwidth, kernel, meta, model_id, version, mesh) and every other field
         shared with this one; this model is left as it was."""
         fields = dict(rff_params=self.rff_params, theta=self.theta,
                       thetas=self.thetas, bandwidth=self.bandwidth,
                       kernel=self.kernel, meta=self.meta,
-                      model_id=self.model_id, version=self.version)
+                      model_id=self.model_id, version=self.version,
+                      mesh=self.mesh)
         unknown = set(changes) - set(fields)
         if unknown:
             raise TypeError(f"KernelModel has no field(s) {sorted(unknown)}")
@@ -169,7 +317,7 @@ class KernelModel(nn.Module):
             raise ValueError("this model was exported without per-agent "
                              "thetas; re-export with include_per_agent=True")
         else:
-            theta = self.thetas[agent]
+            theta = sharding.unshard(self.thetas)[agent]
 
         x = self._as_input(x)
         scalar = x.ndim == 1
@@ -179,12 +327,12 @@ class KernelModel(nn.Module):
         flat = x.reshape(-1, x.shape[-1])
         n = flat.shape[0]
         if batch_size is None or batch_size >= n:
-            preds = self.featurize(flat, backend) @ theta
+            preds = _dot(self.featurize(flat, backend), theta)
         else:
             if batch_size < 1:
                 raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-            preds = torch.cat([self.featurize(flat[i:i + batch_size],
-                                              backend) @ theta
+            preds = torch.cat([_dot(self.featurize(flat[i:i + batch_size],
+                                                   backend), theta)
                                for i in range(0, n, batch_size)])
         preds = preds.reshape(lead)
         return preds[0] if scalar else preds
@@ -198,7 +346,7 @@ class KernelModel(nn.Module):
         `predict`'s (b, D) @ (D,) matvec only by the order of the sum."""
         thetas = self._as_input(thetas).contiguous()
         return score_rows(self.rff_params, self._as_input(x).contiguous(),
-                          thetas, backend=backend)
+                          thetas, backend=backend, mesh=self.mesh)
 
     def partial_fit(self, stream, config=None, *, labels=None,
                     progress_cb=None) -> tuple["KernelModel", Any]:
@@ -307,11 +455,12 @@ class KernelModel(nn.Module):
         out: dict[str, Any] = {}
         if x.ndim == 3 and self.thetas is not None:
             phi = self.featurize(x, backend)                 # (N, S, D)
-            preds = torch.einsum("nsd,nd->ns", phi, self.thetas)
+            preds = sharding.unshard(torch.einsum("nsd,nd->ns", phi,
+                                                  self.thetas))
             err = (y - preds) ** 2
             out["test_mse"] = float(torch.mean(err))
             out["per_agent_mse"] = torch.mean(err, dim=-1)
-            consensus_preds = phi @ self.theta               # (N, S)
+            consensus_preds = _dot(phi, self.theta)          # (N, S)
             out["consensus_mse"] = float(
                 torch.mean((y - consensus_preds) ** 2))
         else:
@@ -323,12 +472,13 @@ class KernelModel(nn.Module):
 
     # ---- persistence -----------------------------------------------------
     def _array_tree(self) -> dict[str, torch.Tensor]:
+        """The artifact's arrays, whole (a sharded model's gathered)."""
         tree = {"omega": self.rff_params.omega,
                 "bias": self.rff_params.bias,
                 "theta": self.theta}
         if self.thetas is not None:
             tree["thetas"] = self.thetas
-        return tree
+        return {k: sharding.unshard(v) for k, v in tree.items()}
 
     def save(self, path: str) -> None:
         """Write `<path>.npz` (arrays) + `<path>.model.json` (mapping,

@@ -36,6 +36,7 @@ from repro_torch.core import personalize as personalize_mod
 from repro_torch.core.admm import Problem
 from repro_torch.core.graph import Graph, metropolis_weights
 from repro_torch.core.personalize import PersonalizedState
+from repro_torch.distributed import sharding
 from repro_torch.distributed.consensus import consensus_gap
 
 
@@ -508,7 +509,10 @@ class RidgeOracleSolver:
     def step(self, problem: Problem, ctx: SolveContext, aux,
              state: OracleState):
         theta = aux[None].expand(state.theta.shape).to(state.theta.dtype)
-        return OracleState(theta.clone(), state.step + 1, state.comms)
+        # on a mesh, theta* broadcast into the state's feature blocks
+        theta = sharding.recut(theta, state.theta) if isinstance(
+            state.theta, sharding.Blocked) else theta.clone()
+        return OracleState(theta, state.step + 1, state.comms)
 
     def metrics(self, problem: Problem, ctx: SolveContext, aux,
                 state: OracleState):

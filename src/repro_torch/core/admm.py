@@ -26,6 +26,14 @@ and gamma (G, N, D) against one problem. The lanes share the problem's
 Cholesky factors (no per-lane copy: the triangular solves take the G lanes
 as G right-hand sides) and its Phi (the CG and gradient products take the
 lanes as G columns).
+
+On a mesh (`fit(mesh=)`) Phi, theta, theta_hat and gamma are feature-
+sharded `distributed.sharding.Blocked` tensors: CG's Phi v is the psum of
+Phi_s v_s over the feature blocks and Phi' r stays block-local, its inner
+products are psums; the gradient primal's Phi theta is a psum and its
+gradient block-local; the Cholesky primal gathers each agent block's
+feature blocks for its (D, D) factor and the triangular solves, then cuts
+the solution back into blocks.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from repro_torch.core import comm as comm_mod
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.graph import Graph
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import Blocked
 
 #: primal modes FitConfig accepts (as in the reference)
 PRIMAL_MODES = ("auto", "cholesky", "cg", "gradient")
@@ -167,14 +177,26 @@ def primal_terms(problem: Problem, jacobi: bool = True) -> PrimalTerms:
     agent at a time: no (N, T, D) temporary. Each is rounded as the
     reference forms it: ((2/T_i) Phi_i') y_i, the scale on Phi before the
     product (scaling after moves the Cholesky trajectories by ~1e-5), and
-    (2/T_i) sum_t Phi_i[t]^2, the scale after the sum."""
+    (2/T_i) sum_t Phi_i[t]^2, the scale after the sum. On a mesh both are
+    block-local (each feature block of each agent block)."""
     phi = problem.feats
     s = 2.0 / phi.shape[1]
-    phity = torch.stack([(s * p.T) @ y for p, y in zip(phi, problem.labels)])
-    phisq = None
-    if jacobi:
-        phisq = s * torch.stack([torch.sum(torch.square(p), dim=0)
-                                 for p in phi])
+
+    def phity_of(p, labels):
+        return torch.stack([(s * a.T) @ y for a, y in zip(p, labels)])
+
+    def phisq_of(p):
+        return torch.stack([torch.sum(torch.square(a), dim=0) for a in p])
+
+    if isinstance(phi, Blocked):
+        out = sharding.P(phi.spec[0], phi.spec[2])
+        phity = sharding.blockwise(phity_of, phi, problem.labels,
+                                   out=out)
+        phisq = (s * sharding.blockwise(phisq_of, phi, out=out)
+                 if jacobi else None)
+        return PrimalTerms(phity, phisq)
+    phity = phity_of(phi, problem.labels)
+    phisq = s * phisq_of(phi) if jacobi else None
     return PrimalTerms(phity, phisq)
 
 
@@ -205,16 +227,30 @@ def _ridge_factors(problem: Problem, deg=None) -> torch.Tensor:
     """(N, D, D) lower Cholesky factors of the (18a) normal matrices
     (2/T_i) Phi_i' Phi_i + (2 lam/N + 2 rho d_i) I, batched over agents.
     The Gram stays fp32 (no TF32); `torch.linalg.cholesky` checks its
-    result, which syncs the host once."""
+    result, which syncs the host once. On a mesh the factor needs whole
+    feature rows: each agent block gathers its feature blocks (an
+    all-gather of Phi over "model", D/s -> D columns per agent) and holds
+    its agents' (D, D) factors, cut over the batch axes only."""
     N, Ti, D = problem.feats.shape
     if deg is None:
         deg = problem.degrees
     s = 2.0 / Ti
-    # ((2/T_i) Phi_i') Phi_i, scaled before the product as the reference
-    # rounds it, one agent at a time
-    gram = torch.stack([(s * p.T) @ p for p in problem.feats])
-    gram.diagonal(dim1=1, dim2=2).add_(_diag_reg(problem, deg))
-    return torch.linalg.cholesky(gram)
+
+    def factors(feats, d):
+        # ((2/T_i) Phi_i') Phi_i, scaled before the product as the
+        # reference rounds it, one agent at a time
+        gram = torch.stack([(s * p.T) @ p for p in feats])
+        gram.diagonal(dim1=1, dim2=2).add_(_diag_reg(problem, d))
+        return torch.linalg.cholesky(gram)
+
+    if isinstance(problem.feats, Blocked):
+        feats = sharding.all_gather(problem.feats, "model")
+        if isinstance(feats, Blocked):
+            return sharding.blockwise(
+                factors, feats, sharding.rows_like(deg, feats),
+                out=sharding.P(feats.spec[0], None, None))
+        return factors(feats, sharding.unshard(deg))
+    return factors(problem.feats, deg)
 
 
 def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
@@ -227,6 +263,21 @@ def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
     if terms is None:
         terms = primal_terms(problem, jacobi=False)
     rhs = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
+    if isinstance(rhs, Blocked):
+        # whole feature rows per agent block around the solves, then the
+        # solution cut back into the iterates' feature blocks
+        whole = sharding.all_gather(rhs, "model")
+
+        def solve(c, r):
+            z = torch.linalg.solve_triangular(c, r[..., None], upper=False)
+            return torch.linalg.solve_triangular(c.mT, z,
+                                                 upper=True)[..., 0]
+        if isinstance(whole, Blocked):
+            x = sharding.blockwise(solve, chol, whole,
+                                   out=whole.spec)
+        else:
+            x = solve(sharding.unshard(chol), whole)
+        return sharding.recut(x, rhs)
     if rhs.ndim == 3:   # G lanes: G right-hand sides of the one factor
         z = torch.linalg.solve_triangular(chol, _as_columns(rhs),
                                           upper=False)
@@ -270,9 +321,19 @@ def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
     b = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
     jacobi = terms.phisq + diag_reg
     s = 2.0 / Ti
-    phi_t = phi.transpose(1, 2)
+    phi_t = None if isinstance(phi, Blocked) else phi.transpose(1, 2)
 
     def matvec(v):
+        if isinstance(phi, Blocked):
+            # Phi_i v: a psum of the feature blocks' partials; Phi_i' u:
+            # block-local
+            u = sharding.blockwise(
+                lambda p, w: torch.bmm(p, w[..., None])[..., 0], phi, v,
+                out=sharding.P(phi.spec[0], None), partial=True)
+            return s * sharding.blockwise(
+                lambda p, w: torch.bmm(p.transpose(1, 2),
+                                       w[..., None])[..., 0], phi, u,
+                out=v.spec) + diag_reg * v
         if v.ndim == 3:
             return s * _from_columns(torch.bmm(
                 phi_t, torch.bmm(phi, _as_columns(v)))) + diag_reg * v
@@ -319,6 +380,15 @@ def _primal_gradient(problem: Problem, inner_steps: int, inner_lr: float,
     lin = gamma - problem.rho * (deg[..., None] * theta_ref + nbr_sum)
     rho_d = problem.rho * deg
     theta = theta0
+    if isinstance(theta, Blocked):
+        # the same gradient, Phi theta as a psum and the rest block-local
+        for _ in range(inner_steps):
+            grad = (losses_mod.risk_grad(theta, problem.feats,
+                                         problem.labels, problem.lam / N,
+                                         problem.loss)
+                    + rho_d[..., None] * (theta + theta) + lin)
+            theta = theta - inner_lr * grad
+        return theta
     with torch.enable_grad():
         for _ in range(inner_steps):
             th = theta.detach().requires_grad_(True)

@@ -21,6 +21,12 @@ draws run there. Stage parameters are host floats, so the bit accounting
 (`bits_per_value`, `overhead_bits`) is formed on the host in float32, as
 the reference forms it on the device, and reads nothing back.
 
+On a mesh the messages are feature-sharded `distributed.sharding.Blocked`
+tensors: the censor norm is the sqrt of the psum of the blocks' squared
+partials, Quantize's scale the max over the blocks' maxima, and each
+draw (Quantize's, Drop's) is made once over the unsharded shape, one
+K5 launch on the card as without a mesh, then split into the blocks.
+
 `Chain([Censor(v, mu), Quantize(bits=inf), Drop(p=0)])` is exactly the
 identity extension of the paper's rule: its trajectories equal COKE's bit
 for bit.
@@ -120,6 +126,9 @@ class Quantize:
             if key is None:   # bare-stage calls outside a Chain
                 key = prng.fold_in(prng.PRNGKey(self.seed), k)
             lo = torch.floor(x)
+            # one draw of the unsharded shape; on a mesh the comparison
+            # cuts it into the message's feature blocks, so the bits are
+            # those of the unsharded run
             u = prng.uniform(key, x.shape, x.device)
             x = lo + (u < (x - lo)).to(x.dtype)
         else:
@@ -547,6 +556,9 @@ def flatten_agents(tree) -> tuple[torch.Tensor, list]:
     float32 (N, D) leaf comes back as itself, not a copy."""
     leaves = tree_leaves(tree)
     n = leaves[0].shape[0]
+    if len(leaves) == 1 and leaves[0].ndim == 2:
+        # one (N, D) leaf (a feature-sharded one too) is its own message
+        return leaves[0].to(torch.float32), leaves
     parts = [leaf.reshape(n, -1).to(torch.float32) for leaf in leaves]
     flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return flat, leaves
@@ -555,6 +567,9 @@ def flatten_agents(tree) -> tuple[torch.Tensor, list]:
 def unflatten_agents(flat: torch.Tensor, leaves: list, like=None):
     """Inverse of flatten_agents; returns the leaves, or a tree with the
     structure of `like` when given."""
+    if len(leaves) == 1 and tuple(flat.shape) == tuple(leaves[0].shape):
+        out = [flat]
+        return out if like is None else tree_unflatten(like, out)
     out, off = [], 0
     n = leaves[0].shape[0]
     for leaf in leaves:

@@ -31,12 +31,10 @@ def cta_step(problem: Problem, mixing: torch.Tensor, lr: float,
              state: CTAState) -> CTAState:
     """mixing: (N, N) Metropolis weights (`core.graph.metropolis_weights`).
     The local gradients come from autograd of the agent sum of the local
-    risks, each of which depends on its own row only."""
+    risks, each of which depends on its own row only (`losses.risk_grad`,
+    which also takes feature-sharded operands)."""
     N = problem.num_agents
     combined = mixing @ state.theta
-    with torch.enable_grad():
-        th = combined.detach().requires_grad_(True)
-        risk = losses_mod.local_empirical_risk(
-            th, problem.feats, problem.labels, problem.lam / N, problem.loss)
-        (g,) = torch.autograd.grad(torch.sum(risk), th)
+    g = losses_mod.risk_grad(combined, problem.feats, problem.labels,
+                             problem.lam / N, problem.loss)
     return CTAState(combined - lr * g, state.step + 1, state.comms + N)

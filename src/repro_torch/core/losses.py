@@ -51,3 +51,45 @@ def local_empirical_risk(theta: torch.Tensor, feats: torch.Tensor,
     data_term = torch.mean(LOSSES[loss](labels, preds), dim=-1)
     return data_term + lam * torch.sum(theta * theta, dim=-1)
 
+
+
+def risk_grad(theta, feats, labels, lam: float,
+              loss: str = "quadratic"):
+    """d/dtheta of the agent sum of `local_empirical_risk`: (N, D), each
+    row the gradient of its own agent's risk. Plain tensors take autograd
+    of the agent sum. Feature-sharded (`distributed.sharding.Blocked`)
+    operands take the same derivative in the sharded layout: the
+    predictions Phi_i theta_i are the psum of the feature blocks'
+    partials, the loss derivative comes from autograd on each agent
+    block's (n, T) predictions, and Phi_i' dloss + 2 lam theta_i stays
+    block-local."""
+    from repro_torch.distributed import sharding
+
+    if not isinstance(theta, sharding.Blocked):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            risk = local_empirical_risk(th, feats, labels, lam, loss)
+            (grad,) = torch.autograd.grad(torch.sum(risk), th)
+        return grad
+
+    def dloss(preds, y):
+        with torch.enable_grad():
+            p = preds.detach().requires_grad_(True)
+            data = torch.mean(LOSSES[loss](y, p), dim=-1)
+            (g,) = torch.autograd.grad(torch.sum(data), p)
+        return g
+
+    rows = sharding.P(feats.spec[0], None)
+    preds = sharding.blockwise(
+        lambda f, t: (f @ t[..., None])[..., 0], feats, theta,
+        out=rows, partial=True)
+    if isinstance(preds, sharding.Blocked):
+        dpred = sharding.blockwise(dloss, preds, labels,
+                                   out=rows)
+    else:
+        dpred = dloss(preds, sharding.unshard(labels))
+    data_grad = sharding.blockwise(
+        lambda f, g: (f.transpose(-1, -2) @ g[..., None])[..., 0], feats,
+        dpred, out=theta.spec)
+    reg = lam * theta
+    return data_grad + (reg + reg)

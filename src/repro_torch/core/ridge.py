@@ -17,7 +17,11 @@ import torch
 def rf_ridge(feats_all: torch.Tensor, labels_all: torch.Tensor,
              lam: float) -> torch.Tensor:
     """Optimal theta* (D,) of the RF-space objective (25)/(26), with the
-    1/sqrt(T_i) row scaling of equal shards."""
+    1/sqrt(T_i) row scaling of equal shards. The oracle is the
+    centralized solve: on a mesh it gathers the feature-sharded Phi."""
+    from repro_torch.distributed.sharding import unshard
+
+    feats_all, labels_all = unshard(feats_all), unshard(labels_all)
     N, Ti, D = feats_all.shape
     # 1/sqrt(T_i) rounded to float32, as the reference forms it
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Ti)))

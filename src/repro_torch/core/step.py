@@ -113,7 +113,9 @@ def dense_view(adjacency: torch.Tensor, deg: torch.Tensor | None = None,
     """A dense (possibly Erdos-Renyi, or learned and weighted) graph:
     `A @ x` neighbour sums and row-sum degrees, as the simulator exchanges.
     A sweep's per-lane learned graphs (G, N, N) give (G, N) degrees and a
-    batched product over the lanes."""
+    batched product over the lanes. On a mesh (feature-sharded x, A cut
+    by rows) `A @ x` all-gathers x over the batch axes, then multiplies
+    each row block of A (`distributed.sharding`)."""
     d = torch.sum(adjacency, dim=-1) if deg is None else deg
     return GraphView(deg=d, nbr_sum=lambda x: adjacency @ x, chol=chol)
 

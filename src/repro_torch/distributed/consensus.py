@@ -47,6 +47,12 @@ x` neighbour sums (`_dense_neighbors`) replace the rolls and the cache,
 which belongs to a graph that may have changed and is carried untouched;
 the expressions are the churn path's summed forms, the simulator's.
 
+On a mesh (`api.fit(mesh=)`) the carry is feature-sharded
+(`distributed.sharding`): the rolls move rows across the agent blocks
+(`sharding.roll_agents`), the per-agent norms sum the feature blocks'
+partials (psum), and the fused path launches K3 once per block of the
+carry, its per-block xi^2 partials summed the same way.
+
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
 item: the allreduce / coke_et strategies of the deep-net layer (item 15).
 """
@@ -60,6 +66,7 @@ import torch
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.step import true_div
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import Blocked
 from repro_torch.kernels.coke_update.ops import coke_update_pytree
 from repro_torch.kernels.coke_update.ref import coke_update_ref
 from repro_torch.optim.optimizers import (OptConfig, apply_updates,
@@ -246,6 +253,15 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
 
 
 def _vmapped_opt_update(opt_cfg: OptConfig, grads, opt, params):
+    """The optimizer per agent row. On a mesh (blocked leaves) the update
+    runs on the blocks as they are: without gradient clipping the SGD
+    update is elementwise, the same per row as under vmap."""
+    if isinstance(tree_leaves(params)[0], Blocked):
+        if opt_cfg.grad_clip:
+            raise NotImplementedError(
+                "per-agent gradient clipping on a mesh (its global norm "
+                "per row would need a psum rule of its own)")
+        return opt_update(opt_cfg, grads, opt, params)
     return torch.func.vmap(lambda g, s, p: opt_update(opt_cfg, g, s, p))(
         grads, opt, params)
 
@@ -355,7 +371,8 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
             grads, params, theta_hat, gamma, nbr_sum)
     elif ccfg.use_fused_kernel:
         # the reference hands the kernel two equal halves of the neighbour
-        # sum, not the two roll halves; the norm is recomputed below
+        # sum, not the two roll halves; the norm is recomputed below. On a
+        # mesh K3 runs once per block of the carry
         half = tree_map(lambda l, r: 0.5 * (l + r), left, right)
         g_aug, _ = coke_update_pytree(params, theta_hat, gamma, grads, half,
                                       half, rho=rho, deg=deg)

@@ -4,13 +4,17 @@ Flattens agent-stacked parameter trees to (N, D), runs `coke_fused_update`
 (K3) and unflattens g_aug: the fused core of
 `repro_torch.distributed.consensus.consensus_update`. The kernel returns
 xi_sq, the *squared* censor norm; this wrapper returns xi_norm =
-sqrt(xi_sq), the quantity the censor policy compares against h(k).
+sqrt(xi_sq), the quantity the censor policy compares against h(k). On
+a mesh the trees' leaves are feature-sharded blocks and K3 runs once per
+block (`coke_update_blocks`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.comm import flatten_agents, unflatten_agents
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import Blocked
 from repro_torch.kernels.coke_update.coke_update import coke_fused_update
 
 
@@ -23,5 +27,24 @@ def coke_update_pytree(params, theta_hat, gamma, grads, left, right, *,
     g, _ = flatten_agents(grads)
     lf, _ = flatten_agents(left)
     rt, _ = flatten_agents(right)
-    gaug, xisq = coke_fused_update(th, hat, gm, g, lf, rt, rho=rho, deg=deg)
+    if isinstance(th, Blocked):
+        gaug, xisq = coke_update_blocks(th, hat, gm, g, lf, rt, rho=rho,
+                                        deg=deg)
+    else:
+        gaug, xisq = coke_fused_update(th, hat, gm, g, lf, rt, rho=rho,
+                                       deg=deg)
     return unflatten_agents(gaug, leaves, params), torch.sqrt(xisq)
+
+
+def coke_update_blocks(theta, theta_hat, gamma, grad, left, right, *,
+                       rho: float, deg: float = 2.0):
+    """K3 on a feature-sharded carry: one launch per block (every block a
+    contiguous (N/b, D/s) tensor of each operand), g_aug in the carry's
+    layout, and xi^2 (N,) as the psum of the blocks' partials in ascending
+    model-block order (`distributed.sharding.psum_model`)."""
+    ops = (theta, theta_hat, gamma, grad, left, right)
+    spec = theta.spec
+    return sharding.blockwise(
+        lambda *blocks: coke_fused_update(*blocks, rho=rho, deg=deg),
+        *ops, out=(spec, sharding.P(spec[0])),
+        partial=(False, True))

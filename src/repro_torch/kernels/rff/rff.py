@@ -199,12 +199,16 @@ def _check_operands(x, omega, bias) -> None:
 
 
 def rff_cos_bias(x: torch.Tensor, omega: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
-    """x (T, d), omega (d, L), bias (L,) -> (T, L) fp32 features."""
+                 bias: torch.Tensor, *,
+                 num_features: int | None = None) -> torch.Tensor:
+    """x (T, d), omega (d, L), bias (L,) -> (T, L) fp32 features, scaled
+    by sqrt(2 / num_features): a feature block of a map num_features wide
+    (the map's own width L when None) gives the bits of those columns of
+    the whole map."""
     global LAUNCHES
     _check_operands(x, omega, bias)
     if x.device.type == "cpu":
-        return rff_ref(x, omega, bias)
+        return rff_ref(x, omega, bias, num_features)
     for name, t in (("x", x), ("omega", omega), ("bias", bias)):
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes fp32; {name} is {t.dtype}")
@@ -213,6 +217,7 @@ def rff_cos_bias(x: torch.Tensor, omega: torch.Tensor,
                              f"{name} is not")
     T, d = x.shape
     L = omega.shape[1]
+    width = L if num_features is None else num_features
     out = torch.empty((T, L), device=x.device, dtype=torch.float32)
     if T == 0 or L == 0:
         return out
@@ -220,7 +225,7 @@ def rff_cos_bias(x: torch.Tensor, omega: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.rff_cos_bias(x.data_ptr(), omega.data_ptr(), bias.data_ptr(),
-                            out.data_ptr(), T, d, L, math.sqrt(2.0 / L),
+                            out.data_ptr(), T, d, L, math.sqrt(2.0 / width),
                             int(plan.instance == "bulk"), plan.strip,
                             plan.rows, plan.blocks, plan.smem_bytes, stream)
     build.check(lib, code, "rff_cos_bias")

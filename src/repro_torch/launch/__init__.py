@@ -1,1 +1,2 @@
-"""Command-line drivers of the port."""
+"""Command-line entry points of the port, and its device meshes
+(`mesh.py`)."""

@@ -118,7 +118,8 @@ def block_forward(params: DenseBlock, cfg: ModelConfig, x, positions,
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True (the reference's "
                                   "shard_activations) is not ported: "
-                                  "ROADMAP.md Queue 1 item 14 (sharding)")
+                                  "ROADMAP.md Queue 1 item 15f (the LM's "
+                                  "sharding rules)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params.ln1, cfg.norm_eps)
     cache = None

@@ -34,7 +34,16 @@ Two tenancy modes share that machinery:
 The collector launches on the current stream of the server's device (the
 default stream; no side streams), and each bucket call ends in one
 `.cpu()` of its answers, so a snapshot's memory is never reused under a
-running kernel. Sharded serving (`mesh=`) is ROADMAP.md Queue 1 item 14.
+running kernel.
+
+On a mesh (`mesh=`, cells on the server's device) the template model is
+sharded (`KernelModel.shard`) and the store holds its stack in column
+blocks (`ThetaStore(mesh=)`). Buckets are rounded up to multiples of the
+batch axes' extent, as in the reference, so a bucket's rows always split
+over the batch axes (`batch_specs`); each (row block, feature block)
+runs K1, then K6 on its stack block, and the blocks' partials are summed
+in the fixed block order. An answer is therefore still bitwise the
+sharded model's `score_rows` at the request's own row count.
 
     server = KernelServer(registry=ModelRegistry("models/"))   # on "cuda"
     fut = server.submit(x, model_id="user-42")    # (b, d) -> Future[(b,)]
@@ -53,9 +62,13 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from repro_torch.api.model import PREDICT_BACKENDS, KernelModel, score_rows
+from repro_torch.api.model import (PREDICT_BACKENDS, KernelModel, _dot,
+                                   score_rows)
 from repro_torch.device import resolve_device
-from repro_torch.serve.theta_store import ThetaStore, not_sharded
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import batch_specs
+from repro_torch.launch.mesh import num_agents
+from repro_torch.serve.theta_store import ThetaStore, check_mesh
 
 _STOP = object()
 _DEFAULT_ID = "default"
@@ -95,15 +108,18 @@ class KernelServer:
                  mesh=None, *, registry=None, store: ThetaStore | None = None,
                  store_capacity: int = 1024, autostart: bool = True,
                  device: torch.device | str | None = None):
-        not_sharded(mesh, "KernelServer")
         self.cfg = config or KernelServeConfig()
         self.device = resolve_device(device)
+        check_mesh(mesh, self.device, "KernelServer")
+        self.mesh = mesh
         self.registry = registry
         self.multi_tenant = registry is not None or store is not None
-        # one card: the batch extent is 1, so the buckets are the
-        # configured ones
-        self._buckets = self.cfg.buckets
-        self._max_batch = self.cfg.max_batch
+        # every padded shape must divide over the batch axes (extent 1
+        # without a mesh: the configured buckets)
+        extent = num_agents(mesh) if mesh is not None else 1
+        self._buckets = tuple(-(-b // extent) * extent
+                              for b in self.cfg.buckets)
+        self._max_batch = -(-self.cfg.max_batch // extent) * extent
 
         # the template model defines the one featurizer every tenant
         # shares (the common-seed RFF premise): an explicit model wins,
@@ -121,6 +137,8 @@ class KernelServer:
             model = registry.load(ids[0])
         if model.device != self.device:
             model = model.replace().to(self.device)   # the caller's stays
+        if mesh is not None and model.mesh is not mesh:
+            model = model.shard(mesh)
         self.model = model
 
         # eager backend/mapping validation at construction, through the one
@@ -131,7 +149,13 @@ class KernelServer:
 
         if self.multi_tenant:
             self.store = store if store is not None else ThetaStore(
-                store_capacity, model.num_features, device=self.device)
+                store_capacity, model.num_features, device=self.device,
+                mesh=mesh)
+            if mesh is not None and getattr(self.store, "mesh",
+                                            None) is not mesh:
+                raise ValueError(
+                    "a server on a mesh needs a store on the same mesh: "
+                    "ThetaStore(..., mesh=mesh)")
             if self.store.num_features != model.num_features:
                 raise ValueError(
                     f"store is sized for D={self.store.num_features} but "
@@ -155,7 +179,8 @@ class KernelServer:
                 # one featurize for the whole mixed bucket, then each row
                 # against its gathered theta slot: `KernelModel.score_rows`
                 # runs the same function
-                return score_rows(params, x, stack, slots, backend=backend)
+                return score_rows(params, x, stack, slots, backend=backend,
+                                  mesh=mesh)
 
             self._score_multi = score_multi
         else:
@@ -164,7 +189,7 @@ class KernelServer:
             theta, backend = model.theta, self.cfg.backend
 
             def score(x):
-                return model.featurize(x, backend) @ theta
+                return _dot(model.featurize(x, backend), theta)
 
             self._score = score
 
@@ -227,11 +252,14 @@ class KernelServer:
         lets a mixed bucket featurize once."""
         tpl = self.model
         dev = tpl.omega.device
+        whole = sharding.unshard
         if (other.input_dim != tpl.input_dim
                 or other.num_features != tpl.num_features
                 or other.rff_params.mapping != tpl.rff_params.mapping
-                or not torch.equal(other.omega.to(dev), tpl.omega)
-                or not torch.equal(other.bias.to(dev), tpl.bias)):
+                or not torch.equal(whole(other.omega).to(dev),
+                                   whole(tpl.omega))
+                or not torch.equal(whole(other.bias).to(dev),
+                                   whole(tpl.bias))):
             raise ValueError(
                 f"model {model_id!r} was fitted against a different RFF "
                 "featurizer than this server's template — many-model "
@@ -270,7 +298,7 @@ class KernelServer:
                 "registry= and/or store=")
         if isinstance(model, KernelModel):
             self._check_compatible(model, model_id)
-            theta = model.theta
+            theta = sharding.unshard(model.theta)
             art = model
         else:
             theta = model if isinstance(model, torch.Tensor) \
@@ -379,7 +407,12 @@ class KernelServer:
 
     def _upload(self, xs: np.ndarray) -> torch.Tensor:
         # pageable memory is staged at once: no wait for the card
-        return torch.from_numpy(xs).to(self.device, non_blocking=True)
+        x = torch.from_numpy(xs).to(self.device, non_blocking=True)
+        if self.mesh is None:
+            return x
+        # the bucket's rows over the batch axes, iff they divide
+        (spec,) = batch_specs(None, (x,), self.mesh)
+        return sharding.shard(x, self.mesh, spec)
 
     def _score_padded(self, xs: np.ndarray) -> tuple[np.ndarray, int]:
         """One bucket-shaped device call: pad n <= max-bucket rows up to

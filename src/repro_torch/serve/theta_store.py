@@ -30,7 +30,12 @@ current stream of the writing thread, which for every thread of a server
 is the device's default stream, so a snapshot's memory is never reused
 under a kernel still reading it.
 
-Sharded stacks (`mesh=`) are ROADMAP.md Queue 1 item 14.
+On a mesh (`mesh=`) the stack is laid out by `theta_stack_spec`: the
+slot axis whole, the feature dim cut over the mesh's "model" axis into
+contiguous (M, D/s) column blocks (`distributed.sharding.Blocked`), the
+blocks K6 reads. `put` / `put_many` copy on write block by block: every
+block is copied, written and the new blocks rebound together, so a
+snapshot's blocks never change either.
 """
 from __future__ import annotations
 
@@ -42,24 +47,49 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 
 # The stack is fp32: K6 and the shared scorer take nothing else.
 STACK_DTYPE = torch.float32
 
 
-def not_sharded(mesh, what: str) -> None:
-    """Raise for a mesh: sharded serving is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): a theta stack or batch sharded over a mesh "
-            "is ROADMAP.md Queue 1 item 14 (big-D sharding) and not ported "
-            "yet; the port serves from one card (mesh=None)")
+def check_mesh(mesh, device: torch.device, what: str) -> None:
+    """Every cell of a serving mesh lies on the serving device."""
+    if mesh is None:
+        return
+    for d in mesh.distinct_devices():
+        if d.type != device.type or (device.index is not None
+                                     and d.index != device.index):
+            raise ValueError(
+                f"{what}: the mesh has a cell on {d}, the store or server "
+                f"runs on {device}")
+
+
+def write_rows(stack, slots: list[int], thetas: torch.Tensor):
+    """A copy of `stack` with rows `slots` set to `thetas` (k, D); on a
+    mesh each column block is copied and written with its columns."""
+    def into(out, rows, dev):
+        if len(slots) == 1:
+            out[slots[0]] = rows[0]
+        else:
+            out[torch.tensor(slots, dtype=torch.long, device=dev)] = rows
+        return out
+    if not isinstance(stack, sharding.Blocked):
+        return into(stack.clone(), thetas, stack.device)
+    blocks = {}
+    for key, blk in stack.blocks.items():
+        b, m, dev = key
+        cols = sharding.block_index(stack, 1, b, m)
+        blocks[key] = into(blk.clone(), thetas[..., cols].to(dev), dev)
+    return sharding.Blocked(stack.mesh, stack.spec, stack.shape, blocks)
 
 
 class ThetaStore:
     """Paged (capacity, D) fp32 theta stack with LRU eviction and pinned
     slots, on `device` (None = "cuda").
 
+    mesh      — optional `launch.mesh.Mesh` (cells on `device`): the
+                stack in `theta_stack_spec`'s column blocks.
     fault     — optional `fault(model_id) -> (theta (D,), version | None)`
                 miss handler (KernelServer wires the registry load here).
     writeback — optional `writeback(model_id, theta, version) -> version`
@@ -72,16 +102,19 @@ class ThetaStore:
                  device: torch.device | str | None = None, mesh=None,
                  fault: Callable | None = None,
                  writeback: Callable | None = None):
-        not_sharded(mesh, "ThetaStore")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.device = resolve_device(device)
+        check_mesh(mesh, self.device, "ThetaStore")
+        self.mesh = mesh
         self.capacity = int(capacity)
         self.num_features = int(num_features)
         self.fault = fault
         self.writeback = writeback
         self._stack = torch.zeros((self.capacity, self.num_features),
                                   dtype=STACK_DTYPE, device=self.device)
+        if mesh is not None:
+            self._stack = sharding.shard_theta_stack(self._stack, mesh)
         self._lock = threading.RLock()
         self._slots: OrderedDict[str, int] = OrderedDict()  # LRU: old → new
         self._free = list(range(self.capacity - 1, -1, -1))
@@ -94,7 +127,8 @@ class ThetaStore:
     # ---- introspection ---------------------------------------------------
     @property
     def stack(self) -> torch.Tensor:
-        """The current (capacity, D) tensor. Snapshot it under
+        """The current (capacity, D) tensor (a Blocked of column blocks on
+        a mesh). Snapshot it under
         `lookup_batch` when slot indices must stay consistent with it;
         never write into it."""
         return self._stack
@@ -146,6 +180,8 @@ class ThetaStore:
 
     # ---- allocation / paging --------------------------------------------
     def _as_thetas(self, thetas, shape: tuple[int, ...]) -> torch.Tensor:
+        if isinstance(thetas, sharding.Blocked):
+            thetas = sharding.unshard(thetas)
         if not isinstance(thetas, torch.Tensor):
             thetas = torch.tensor(np.asarray(thetas))
         thetas = thetas.to(device=self.device, dtype=STACK_DTYPE)
@@ -177,7 +213,8 @@ class ThetaStore:
                     "only copy — attach a registry writeback or publish "
                     "it first")
             # a copy of the row, not a view of the stack
-            row = self._stack[self._slots[model_id]].clone()
+            row = sharding.unshard(
+                self._stack[self._slots[model_id]]).clone()
             new_v = self.writeback(model_id, row, self._versions[model_id])
             self._dirty.discard(model_id)
             self._versions[model_id] = new_v
@@ -210,9 +247,7 @@ class ThetaStore:
                 slot = self._allocate()
                 self._slots[model_id] = slot
             self._slots.move_to_end(model_id)
-            stack = self._stack.clone()
-            stack[slot] = theta
-            self._stack = stack
+            self._stack = write_rows(self._stack, [slot], theta[None])
             self._versions[model_id] = version
             if dirty:
                 self._dirty.add(model_id)
@@ -241,10 +276,7 @@ class ThetaStore:
                 else:
                     self._dirty.discard(model_id)
                 slots.append(slot)
-            stack = self._stack.clone()
-            stack[torch.tensor(slots, dtype=torch.long,
-                               device=self.device)] = thetas
-            self._stack = stack
+            self._stack = write_rows(self._stack, slots, thetas)
             return slots
 
     def ensure(self, model_id: str) -> int:

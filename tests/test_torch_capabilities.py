@@ -86,8 +86,12 @@ TRIGGERS = {
 
 #: NOT_PORTED id -> (driver mode, knobs, fit kwargs, ROADMAP.md item)
 NOT_PORTED_TRIGGERS = {
-    "mesh": ("batch", dict(algorithm="coke"), dict(mesh=object()),
-             "item 14"),
+    "mesh-gossip": ("batch", dict(algorithm="coke", exec="gossip",
+                                  participation=0.5),
+                    dict(mesh=object()), "item 14b"),
+    "mesh-personalization": ("batch", dict(algorithm="coke",
+                                           personalization="pz"),
+                             dict(mesh=object()), "item 14b"),
 }
 
 

@@ -1156,3 +1156,117 @@ def test_multi_tenant_server_on_card_launches_k1_and_k6_per_bucket(cuda):
             rows = thetas[mid].expand(x.shape[0], D)
             want = base.score_rows(x, rows, backend="fused")
             assert np.array_equal(out, want.cpu().numpy()), mid
+
+
+# ---------------------------------------------------------------------------
+# Big-D sharding: the kernels once per block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,data,model", [(20, 4096, 2, 4),
+                                            (8, 65536, 1, 4)], ids=str)
+def test_fused_update_once_per_block_matches_plain(cuda, n, d, data, model):
+    """K3 on a feature-sharded carry: one launch per block, each block's
+    g_aug against the plain version on that block, and xi^2 as the psum
+    of the blocks' partials against the plain unsharded xi^2."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.coke_update import ops as k3_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data, model, device=cuda)
+    ops = _update_operands(cuda, n, d, misalign=False)
+    th, hat, gm, gr, half, _ = ops
+    kw = dict(rho=0.37, deg=2.0)
+    want, want_xi = coke_update_ref(th, hat, gm, gr, half, half, **kw)
+    blocked = [sharding.shard_features(t, mesh, n)
+               for t in (th, hat, gm, gr, half)]
+    before = k2.FUSED_UPDATE_LAUNCHES
+    got, xi = k3_ops.coke_update_blocks(*blocked, blocked[4], **kw)
+    torch.cuda.synchronize()
+    assert k2.FUSED_UPDATE_LAUNCHES == before + data * model
+    for blk in got.blocks.values():
+        assert blk.shape == (n // data, d // model)
+    scale = max(float(t.abs().max()) for t in (
+        gr, 2.0 * 0.37 * 2.0 * th, gm, 0.37 * (2.0 * hat + 2 * half)))
+    torch.testing.assert_close(sharding.unshard(got), want, rtol=0,
+                               atol=UPDATE_ULPS * scale)
+    torch.testing.assert_close(sharding.unshard(xi), want_xi,
+                               rtol=UPDATE_XI_RTOL,
+                               atol=UPDATE_XI_RTOL * float(want_xi.max()))
+
+
+@pytest.mark.parametrize("d_block", [1024, 16384])
+def test_rowdot_on_a_column_block_matches_plain(cuda, d_block):
+    """K6 on a contiguous (M, D/s) column block of a sharded stack, as a
+    sharded bucket call runs it, against the plain version on the block;
+    K1 on the matching feature block with the whole map's scale gives
+    those columns of the whole map."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    D = 4 * d_block
+    mesh = make_host_mesh(1, 4, device=cuda)
+    g = _gen(cuda, 9)
+    stack = torch.randn((300, D), generator=g, device=cuda)
+    phi = torch.randn((64, D), generator=g, device=cuda)
+    slots = np.random.default_rng(1).integers(0, 300, 64).astype(np.int32)
+    bstack = sharding.shard_theta_stack(stack, mesh)
+    bphi = sharding.shard(phi, mesh, sharding.P(None, "model"))
+    for m in range(4):
+        blk = sharding.local_block(bstack, 0, m)
+        assert blk.is_contiguous() and blk.shape == (300, d_block)
+        p = sharding.local_block(bphi, 0, m)
+        before = k6.LAUNCHES
+        got = k6.gather_rowdot(p, blk, slots)
+        torch.cuda.synchronize()
+        assert k6.LAUNCHES == before + 1
+        want = gather_rowdot_ref(p, blk, torch.from_numpy(slots).to(cuda))
+        scale = (p * blk[torch.from_numpy(slots).long().to(cuda)]).abs() \
+            .sum(-1)
+        assert bool(((got - want).abs() <= ROWDOT_RTOL * scale).all())
+    x = torch.rand((257, 5), generator=g, device=cuda)
+    om = torch.randn((5, D), generator=g, device=cuda)
+    b = 2 * math.pi * torch.rand((D,), generator=g, device=cuda)
+    cols = slice(d_block, 2 * d_block)
+    part = k1.rff_cos_bias(x, om[:, cols].contiguous(), b[cols].contiguous(),
+                           num_features=D)
+    torch.testing.assert_close(part, rff_ref(x, om, b)[:, cols], rtol=0,
+                               atol=RFF_ATOL)
+
+
+def test_sharded_fit_and_serving_on_card_match_cpu(cuda):
+    """fit(mesh=) on a (2, 4) card mesh against the same fit on a CPU
+    mesh (CG on spmd, the fused fallback through K3 once per block), then
+    the sharded model's fused predict: K1 once per feature block."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.rff import rff as k1mod
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = FitConfig(krr=KRRConfig(num_agents=4, samples_per_agent=40,
+                                  num_features=256, lam=1e-2, rho=0.1,
+                                  seed=0),
+                    graph="ring", algorithm="coke", censor_v=0.3,
+                    censor_mu=0.97, num_iters=10, primal="cg")
+    built = build_problem(cfg, device="cpu")
+    for backend, primal in (("spmd", "cg"), ("fused", "gradient")):
+        c = cfg.replace(backend=backend, primal=primal)
+        before = k2.FUSED_UPDATE_LAUNCHES
+        card = fit(c, problem=built.problem, device=cuda,
+                   mesh=make_host_mesh(2, 4, device=cuda))
+        torch.cuda.synchronize()
+        if backend == "fused":
+            assert k2.FUSED_UPDATE_LAUNCHES == before + 8 * 10
+        cpu = fit(c, problem=built.problem, device="cpu",
+                  mesh=make_host_mesh(2, 4, device="cpu"))
+        assert torch.equal(card.history["comms"].cpu(), cpu.history["comms"])
+        assert torch.equal(card.history["bits"].cpu(), cpu.history["bits"])
+        torch.testing.assert_close(card.theta.cpu(), cpu.theta, rtol=0,
+                                   atol=1e-4)
+    model = card.to_model(built.rff_params.to(cuda)).shard(
+        make_host_mesh(2, 4, device=cuda))
+    x = torch.rand((300, 5), device=cuda)
+    before = k1mod.LAUNCHES
+    got = model.predict(x, backend="fused")
+    torch.cuda.synchronize()
+    assert k1mod.LAUNCHES == before + 4
+    want = card.to_model(built.rff_params.to(cuda)).predict(x, backend="ref")
+    assert isinstance(model.theta, sharding.Blocked)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -368,7 +368,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
 
 
 OUT_OF_SLICE = {
-    "mesh": lambda cfg: dict(config=cfg, mesh=object()),
+    # a mesh under gossip or personalization: ROADMAP.md item 14b
+    "mesh-gossip": lambda cfg: dict(
+        config=cfg.replace(exec="gossip", participation=0.5),
+        mesh=object()),
 }
 
 

@@ -357,7 +357,7 @@ def test_what_the_port_does_not_run_raises():
     model = M.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 15"):
         Engine(cfg.with_overrides(encoder_layers=2), model, ServeConfig())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 15f"):
         M.forward(model, cfg.with_overrides(seq_parallel=True),
                   {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="item 15"):

@@ -319,13 +319,39 @@ def test_entry_points_default_to_the_card(base_model, tmp_path,
 
 def test_theta_stack_spec_shards_feature_dim(base_model):
     """The reference shards the stack's feature dim over a mesh's "model"
-    axis; the port serves from one card and names the item that ports
-    sharded serving."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ThetaStore(8, 16, device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        KernelServer(base_model, mesh=object(), device=CPU,
-                     autostart=False)
+    axis and keeps the slot axis whole; the port's store lays its stack
+    out by the same spec, as contiguous (M, D/s) column blocks, one per
+    model block on a one-device mesh, and a server on the mesh keeps that
+    store."""
+    from jax.sharding import AbstractMesh
+
+    from repro.distributed.sharding import theta_stack_spec as jspec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+
+    for data, model, D in ((2, 4, 16), (1, 4, 16), (2, 4, 18), (4, 2, 16)):
+        mesh = make_host_mesh(data, model, device=CPU)
+        store = ThetaStore(8, D, device=CPU, mesh=mesh)
+        want = jspec((8, D), AbstractMesh((data, model), ("data", "model")))
+        assert tuple(sharding.theta_stack_spec((8, D), mesh)) == \
+            tuple(want)
+        stack = store.stack
+        if want[-1] is None:          # D does not divide: one whole stack
+            assert isinstance(stack, torch.Tensor)
+            assert tuple(stack.shape) == (8, D)
+            continue
+        assert tuple(stack.spec) == tuple(want)
+        assert len(stack.blocks) == model
+        for blk in stack.blocks.values():
+            assert blk.is_contiguous() and tuple(blk.shape) == (8,
+                                                                D // model)
+    mesh = make_host_mesh(2, 4, device=CPU)
+    server = KernelServer(base_model, mesh=mesh, device=CPU,
+                          autostart=False, store=ThetaStore(
+                              8, base_model.num_features, device=CPU,
+                              mesh=mesh))
+    assert server.store.stack.spec == sharding.theta_stack_spec(
+        (8, base_model.num_features), mesh)
 
 
 @pytest.mark.parametrize("backend", ["ref", "fused"])

@@ -710,9 +710,23 @@ def test_registry_runs_every_ported_solver_behind_the_contract():
 
 
 def test_simulator_still_raises_for_unported_axes(small):
+    """A mesh under gossip is item 14b; a synchronous fit on a (2, 4)
+    mesh, which raised before sharding was ported, is a layout change of
+    the reference's unsharded run: comms and bits exact, theta and the
+    trajectories within this file's tolerance (the Cholesky primal,
+    which gathers each agent block's features for its factor)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(2, 4, device="cpu")
     cfg = FitConfig(krr=KRRConfig(**KRR), **BASE)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fit(cfg, problem=small[1], device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        fit(cfg.replace(exec="gossip", participation=0.5),
+            problem=small[1], device="cpu", mesh=mesh)
+    kw = dict(BASE, primal="cholesky")
+    ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **kw), problem=small[0])
+    port = fit(FitConfig(krr=KRRConfig(**KRR), **kw), problem=small[1],
+               device="cpu", mesh=mesh)
+    _assert_match(ref, port, "mesh:cholesky")
 
 
 def test_simulator_personalization_matches_reference(small):
