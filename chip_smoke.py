@@ -202,14 +202,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      (four (65 537, 1024) blocks) through KernelServer(mesh=): QPS, p99,
      K1 = K6 = 8 per bucket call, every answer bitwise the sharded
      score_rows and within SERVE_PREDICT_RTOL of the unsharded answer, a
-     request alone bitwise inside a full bucket, one put. The kernels line
-     then carries phase 19's counts for K1, K3, K5 and K6.
+     request alone bitwise inside a full bucket, one put. After each part
+     the kernels it ran are held against their plain versions on one
+     block of each operand at the part's block shapes: K3 on the carry's
+     (10, 1024) blocks, K5 at the draws' shapes, K1 on the predict rows
+     and a bucket's row block per feature block (scaled for D = 4096),
+     K6 on those rows against a (65 537, 1024) stack block. The kernels
+     line then carries phase 19's counts and errors for K1, K3, K5 and K6.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18 and each part of 19 every launch counter is set to 0, and read
 just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
+
+    python3 chip_smoke.py --phase19   # build, phases 4 and 5's fits, 19
+
+runs phase 19 alone (after the fits it holds its sharded runs against)
+and prints its launch counts and errors, not the result lines.
 """
 from __future__ import annotations
 
@@ -879,12 +889,14 @@ def ptxas_report(nvcc_log):
     return out
 
 
-def k1_tolerance(x, omega):
+def k1_tolerance(x, omega, num_features=None):
     """1e-6 absolute on phi, or 16 ulps of the largest |x @ omega| times
     sqrt(2/L) where that is larger: the kernel's fmaf chain and cuBLAS
-    round the d-term projection differently, and cos passes that on."""
+    round the d-term projection differently, and cos passes that on. L is
+    num_features for a feature block of a wider map."""
+    L = omega.shape[1] if num_features is None else num_features
     proj = float((x.abs() @ omega.abs()).max())
-    return max(1e-6, math.sqrt(2.0 / omega.shape[1]) * 16 * 2**-23 * proj)
+    return max(1e-6, math.sqrt(2.0 / L) * 16 * 2**-23 * proj)
 
 
 def k3_tolerance(theta, hat, gamma, grad, left, right, rho, deg):
@@ -3594,7 +3606,16 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
                                  Quantize, build_problem, fit, get_solver)
     from repro_torch.api.backends import consensus_runner
     from repro_torch.api.config import SolveContext
+    from repro_torch.core import prng
     from repro_torch.distributed import sharding
+    from repro_torch.kernels.coke_update import ops as k3_ops
+    from repro_torch.kernels.coke_update.ref import coke_update_ref
+    from repro_torch.kernels.rff import rff as k1
+    from repro_torch.kernels.rff.ref import rff_ref
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
+    from repro_torch.kernels.threefry import threefry as k5
+    from repro_torch.kernels.threefry.ref import uniform_ref
     from repro_torch.launch.mesh import make_host_mesh, num_agents
     from repro_torch.serve import KernelServeConfig, KernelServer, ThetaStore
     fit_module = importlib.import_module("repro_torch.api.fit")
@@ -3651,6 +3672,36 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
         got = {k: v for k, v in cnt.items() if v}
         if got != {k: v for k, v in want.items() if v}:
             raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+    # each kernel of the phase against its plain version on the same
+    # inputs, at the block shapes the path above gave it (these launches
+    # come after the part's counts were read, and are not counted)
+    errs = {}
+
+    def hold(name, tag, e, tol, launches):
+        log(19, f"[{card}] {name} at {tag}: max|err| {e:.3e} (tol "
+                f"{tol:.3e}) against its plain version; {launches} "
+                "launches in the part above")
+        if not e <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {tag}: {e} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    def hold_k1(tag, xb, omega, bias, launches):
+        """K1 on every feature block of omega, bias, scaled for the whole
+        width D, against rff_ref on the same block."""
+        worst, tol = 0.0, 0.0
+        for m in range(mesh.shape["model"]):
+            ob = sharding.local_block(omega, 0, m)
+            bb = sharding.local_block(bias, 0, m)
+            got = k1.rff_cos_bias(xb, ob, bb, num_features=D)
+            want = rff_ref(xb, ob, bb, D)
+            worst = max(worst, float((got - want).abs().max()))
+            tol = max(tol, k1_tolerance(xb, ob, D))
+        torch.cuda.synchronize()
+        hold("rff_cos_bias", f"{tag}, x {tuple(xb.shape)} on "
+             f"{mesh.shape['model']} feature blocks of {tuple(ob.shape)}",
+             worst, tol, launches)
 
     # ---- (a) the fit cells at full width ----------------------------------
     torch.cuda.synchronize()
@@ -3714,6 +3765,43 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             f"phase 6's)")
     if not e <= tol:
         raise AssertionError("fused COKE on the mesh: theta differs")
+    # K3 per carry block: the path's wrapper on the fit's theta, one
+    # neighbour tensor as both halves as the fallback passes it
+    g19 = torch.Generator(device=dev).manual_seed(19)
+    th = coke4.theta
+    half = 0.5 * (th.roll(1, 0) + th.roll(-1, 0))
+    ops = [th, 0.5 * th] + [1e-2 * torch.randn(th.shape, generator=g19,
+                                               device=dev)
+                            for _ in range(2)] + [half]
+    blocked = [sharding.shard_features(t, mesh, N) for t in ops]
+    kw = dict(rho=problem.rho, deg=2.0)
+    got_g, got_xi = k3_ops.coke_update_blocks(*blocked, blocked[4], **kw)
+    worst_g = worst_xi = tol_g = 0.0
+    cut_b = num_agents(mesh) if N % num_agents(mesh) == 0 else 1
+    got_xi = sharding.unshard(got_xi)
+    for b in range(cut_b):
+        xi = None
+        for m in range(mesh.shape["model"]):
+            blk = [sharding.local_block(t, b, m) for t in blocked]
+            want, want_xi = coke_update_ref(*blk, blk[4], **kw)
+            worst_g = max(worst_g, float(
+                (sharding.local_block(got_g, b, m) - want).abs().max()))
+            tol_g = max(tol_g, k3_tolerance(*blk, blk[4], **kw))
+            xi = want_xi if xi is None else xi + want_xi
+        rows = sharding.block_index(got_g, 0, b, 0)
+        worst_xi = max(worst_xi, float((got_xi[rows] - xi).abs().max()
+                                       / xi.abs().max()))
+    torch.cuda.synchronize()
+    hold("coke_fused_update", f"the carry's {blocks} blocks of "
+         f"{tuple(sharding.local_block(blocked[0]).shape)} (g_aug)",
+         worst_g, tol_g, blocks * ITERS)
+    log(19, f"[{card}]   and its xi^2, the psum of the blocks' partials "
+            f"against the plain partials summed in block order: max "
+            f"relative err {worst_xi:.3e} (tol {K3_XI_RTOL:g})")
+    if not worst_xi <= K3_XI_RTOL:
+        raise AssertionError("K3's xi^2 on blocks disagrees with its plain "
+                             "version")
+    del blocked, ops, half, got_g, got_xi
     for label, prob, m in (("sharded (K3 per block)", sp, mesh),
                            ("unsharded (K2)", problem, None)):
         per_iteration(card, 19, f"fused COKE {label}",
@@ -3777,6 +3865,13 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             f"blocks: K5 twice (one ({N}, {D}) draw split into the blocks, "
             "one (N,) draw); payload, decisions and bits bitwise the "
             "unsharded round's")
+    key = prng.fold_in(prng.PRNGKey(19), 7)
+    same = all(torch.equal(
+        k5.threefry_draw(key, shape, dev, uniform=True).view(torch.int32),
+        uniform_ref(key, shape, dev).view(torch.int32))
+        for shape in ((N,), (N, D)))
+    hold("threefry", f"the draws' shapes ({N},) and ({N}, {D}), bitwise",
+         0.0 if same else math.inf, 0.0, seen["threefry"])
     del sh, plain, bt, bp, slp
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(19, f"[{card}] (a) peak memory {peak:.3f} GB (phase 4's Phi "
@@ -3845,6 +3940,8 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             f"unsharded predict (tol {SHARD_PREDICT_RTOL:g})")
     if not (got.shape == want.shape and rel <= SHARD_PREDICT_RTOL):
         raise AssertionError("the sharded predict differs")
+    hold_k1("the sharded predict", flat, sm.omega, sm.bias,
+            mesh.shape["model"])
 
     base = coke4.to_model(built.rff_params, include_per_agent=False)
     scfg = KernelServeConfig(backend="fused", max_delay_ms=SERVE_DELAY_MS)
@@ -3907,6 +4004,29 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             f"{SERVE_PREDICT_RTOL:g})")
     if not worst <= SERVE_PREDICT_RTOL:
         raise AssertionError("a sharded answer is far from the unsharded")
+    # a full bucket's row block: 1024 rows over the batch axes
+    rb = 1024 // num_agents(mesh)
+    xb = torch.rand((rb, 5), generator=gen, device=dev)
+    hold_k1("a bucket's row block", xb, server.model.omega,
+            server.model.bias, cells * calls)
+    slots = np.random.default_rng(5).integers(
+        0, SERVE_RESIDENT, rb).astype(np.int32)
+    worst6 = 0.0
+    for m in range(mesh.shape["model"]):
+        ob = sharding.local_block(server.model.omega, 0, m)
+        bb = sharding.local_block(server.model.bias, 0, m)
+        pb = k1.rff_cos_bias(xb, ob, bb, num_features=D)
+        st = sharding.local_block(store.stack, 0, m)
+        got6 = k6.gather_rowdot(pb, st, slots)
+        sl = torch.from_numpy(slots).to(dev)
+        want6 = gather_rowdot_ref(pb, st, sl)
+        sc = (pb * st[sl.long()]).abs().sum(-1)
+        worst6 = max(worst6, float(((got6 - want6).abs() / sc).max()))
+    torch.cuda.synchronize()
+    hold("gather_rowdot", f"{mesh.shape['model']} blocks of "
+         f"{tuple(pb.shape)} rows against stack blocks of "
+         f"{tuple(st.shape)} (of sum|phi theta| per row)", worst6,
+         ROWDOT_RTOL, cells * calls)
 
     # one request alone, and inside a full 1024-row bucket
     x1 = np.random.default_rng(3).uniform(size=(SERVE_BATCH, 5)).astype(
@@ -3947,7 +4067,7 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     log(19, f"[{card}] launches over phase 19: "
             f"{ {k: v for k, v in seen.items() if v} }; phase 19 took "
             f"{time.perf_counter() - t_phase:.1f} s")
-    return seen
+    return seen, errs
 
 
 def main() -> int:
@@ -5173,16 +5293,19 @@ def main() -> int:
     log(18, f"[{card}] gather_rowdot (K6): {kernels[-1]}")
 
     # ---- 19. big-D feature sharding -----------------------------------------
-    shard_counts = shard_phase(
+    shard_counts, shard_errs = shard_phase(
         dev, card, reset_counts, counts, problem=problem, cfg=cfg,
         built=built, coke4=results["coke"], log_problem=log_problem,
         log_cfg=log_cfg, log_coke=log_results["coke"])
-    for entry in kernels:       # the kernels phase 19 runs: its counts
+    for entry in kernels:       # the kernels phase 19 runs: its numbers
         n19 = shard_counts[entry["name"]]
         if n19:
-            log(19, f"{entry['name']}: launches {entry['launches']} on its "
-                    f"earlier path, {n19} over phase 19")
+            log(19, f"{entry['name']}: launches {entry['launches']} and "
+                    f"max|err| {entry['max_abs_err']:.3e} on its earlier "
+                    f"path, {n19} and {shard_errs[entry['name']]:.3e} over "
+                    "phase 19")
             entry["launches"] = n19
+            entry["max_abs_err"] = shard_errs[entry["name"]]
     for name in ("rff_cos_bias", "coke_fused_update", "gather_rowdot",
                  "threefry"):
         if not shard_counts[name]:
@@ -5196,5 +5319,52 @@ def main() -> int:
     return 0
 
 
+def phase19_alone() -> int:
+    """Phase 19 alone: build the kernels, fit phase 4's full-width COKE
+    cell on the megakernel path and phase 5's logistic COKE cell on the
+    fused fallback (what phase 19 holds its sharded runs against), then
+    run `shard_phase` and print its launch counts and errors."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import FitConfig, build_problem, fit, make_problem
+    from repro_torch.core.graph import ring
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = full_width_config()
+    built = build_problem(cfg, device=dev)
+    problem = built.problem
+    coke = fit(cfg.replace(algorithm="coke"), problem=problem, device=dev)
+    labels = torch.where(problem.labels > problem.labels.median(), 1.0, -1.0)
+    log_problem = make_problem(problem.feats, labels,
+                               ring(problem.num_agents), problem.lam,
+                               problem.rho, loss="logistic")
+    log_cfg = FitConfig(krr=cfg.krr, backend="fused", graph="ring",
+                        num_iters=ITERS)
+    log_coke = fit(log_cfg.replace(algorithm="coke"), problem=log_problem,
+                   device=dev)
+    torch.cuda.synchronize()
+    log(19, f"[{card}] built the kernels and fitted phases 4 and 5's COKE "
+            f"cells in {time.perf_counter() - t0:.1f} s")
+    seen, errs = shard_phase(dev, card, reset_counts, counts,
+                             problem=problem, cfg=cfg, built=built,
+                             coke4=coke, log_problem=log_problem,
+                             log_cfg=log_cfg, log_coke=log_coke)
+    print(card)
+    print(json.dumps({"launches": seen, "max_abs_err": errs}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase19_alone() if sys.argv[1:] == ["--phase19"] else main())

@@ -430,10 +430,11 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
                      mesh=None):
     """-> (carry0, chunk_fn, theta_fn) for the spmd / fused backends.
 
-    mesh — optional `launch.mesh.Mesh`: the problem and the consensus
-    carry (params, theta_hat, gamma, the neighbour caches, the optimizer
-    slots and the policy's bits) are placed with the feature dim cut over
-    the mesh's "model" axis and the agent dim over its batch axes
+    mesh — optional `launch.mesh.Mesh` the problem was placed on
+    (`fit` shards it once): the consensus carry (params, theta_hat,
+    gamma, the neighbour caches, the optimizer slots and the policy's
+    bits) is placed the same way, the feature dim cut over the mesh's
+    "model" axis and the agent dim over its batch axes
     (`distributed.sharding.feature_spec`). The megakernel needs an
     unsharded carry: on a mesh a fused fit runs the ring runtime through
     K3, once per block, as the reference falls back to its ring runtime."""
@@ -501,8 +502,6 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     params = {"theta": torch.zeros((N, D), dtype=dtype, device=dev)}
     cstate = cns.init_consensus_state(ccfg, opt_cfg, params, comm=chain)
     if mesh is not None:
-        # the sharded problem is what the chunk and the CG solve read
-        problem = sharding.shard_problem(problem, mesh)
         params = sharding.shard_features(params, mesh, N)
         cstate = sharding.shard_features(cstate, mesh, N)
     personalize = _pz_live_state(ctx, cstate, problem.adjacency)

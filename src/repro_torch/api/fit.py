@@ -68,15 +68,14 @@ def _simulator_runner(solver, problem: Problem, ctx: SolveContext, oracle,
                       mesh=None):
     """-> (state0, chunk_fn, theta_fn). The reference prepares its traced
     aux (the Cholesky factors) inside every compiled chunk; here it is made
-    once per fit, with the same values. On a mesh the problem and the
-    initial state are feature-sharded first, as the reference places
-    them, and the aux is made from the sharded problem."""
-    host_aux = solver.prepare_host(problem, ctx)
+    once per fit, with the same values. On a mesh the problem comes
+    feature-sharded (`fit` places it once) and the initial state is
+    placed the same way, as the reference places them."""
+    aux = solver.prepare_traced(problem, ctx,
+                                solver.prepare_host(problem, ctx))
     state0 = solver.init_state(problem, ctx)
     if mesh is not None:
-        problem = sharding.shard_problem(problem, mesh)
         state0 = sharding.shard_features(state0, mesh, problem.num_agents)
-    aux = solver.prepare_traced(problem, ctx, host_aux)
 
     def chunk_fn(state, n):
         return _simulator_chunk(solver, problem, ctx, aux, state, oracle, n)
@@ -244,6 +243,10 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
 
     ctx = _solve_context(config, problem.device, problem.feats.dtype,
                          problem.num_agents)
+    if mesh is not None:
+        # placed once: every phase's runner reads these blocks (a problem
+        # already in this layout is kept as it is, not copied)
+        problem = sharding.shard_problem(problem, mesh)
 
     def make_runner(c: SolveContext):
         if config.backend == "simulator":

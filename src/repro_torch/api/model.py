@@ -78,7 +78,7 @@ def _featurize_sharded(params: rff.RFFParams, x, backend: str, mesh):
     feat = sharding._div(D, mesh, "model") \
         if "model" in mesh.axis_names else None
     flat = x.reshape(-1, x.shape[-1])
-    rows = flat.spec[0] if isinstance(flat, sharding.Blocked) else None
+    rows = sharding.spec_of(flat, 0)[0]
     if params.mapping == "cos_bias":
         if backend == "fused":
             def block(xb, om, b):
@@ -87,10 +87,9 @@ def _featurize_sharded(params: rff.RFFParams, x, backend: str, mesh):
             def block(xb, om, b):
                 return math.sqrt(2.0) * torch.cos(xb @ om + b) \
                     * math.sqrt(1.0 / L)
-        omega = params.omega if isinstance(params.omega, sharding.Blocked) \
-            else sharding.shard(params.omega, mesh, sharding.P(None, feat))
-        bias = params.bias if isinstance(params.bias, sharding.Blocked) \
-            else sharding.shard(params.bias, mesh, sharding.P(feat))
+        # a model placed by .shard(mesh) is in this layout already
+        omega = sharding.shard(params.omega, mesh, sharding.P(None, feat))
+        bias = sharding.shard(params.bias, mesh, sharding.P(feat))
         phi = sharding.blockwise(block, flat, omega, bias,
                                  out=sharding.P(rows, feat), mesh=mesh)
     elif backend == "fused":
@@ -156,23 +155,19 @@ def _score_rows_sharded(params, x, thetas, slots, backend: str, mesh):
     if slots is None:          # thetas (b, D): row i against row i
         stack = sharding.recut(thetas, phi)
     else:
-        stack = thetas if isinstance(thetas, sharding.Blocked) else \
-            sharding.shard(thetas, mesh, sharding.P(None, phi.spec[1]))
+        stack = sharding.shard(thetas, mesh, sharding.P(None, phi.spec[1]))
         slots = np.asarray(slots)
-    blocks = {}
-    for key, p in phi.blocks.items():
-        b, m, dev = key
+
+    def score(cell, p, st):
+        """K6 on one (row, feature) block, on that row block's slots."""
         if slots is None:      # this block's own rows of the thetas
             sl = np.arange(p.shape[0], dtype=np.int32)
         else:
-            sl = slots[sharding.block_index(phi, 0, b, m)]
-        st = stack.block(b, m, dev) \
-            if isinstance(stack, sharding.Blocked) else stack.to(dev)
-        blocks[key] = gather_rowdot(p, st, sl)
-    parts = sharding.Blocked(mesh, sharding.P(phi.spec[0]),
-                             (phi.shape[0],), blocks,
-                             partial="model" in phi.kinds)
-    return sharding.unshard(parts)
+            sl = slots[sharding.block_index(phi, 0, *cell)]
+        return gather_rowdot(p, st, sl)
+    return sharding.unshard(sharding.blockwise(
+        score, phi, stack, out=sharding.P(phi.spec[0]), partial=True,
+        index=True))
 
 
 class KernelModel(nn.Module):

@@ -509,9 +509,8 @@ class RidgeOracleSolver:
     def step(self, problem: Problem, ctx: SolveContext, aux,
              state: OracleState):
         theta = aux[None].expand(state.theta.shape).to(state.theta.dtype)
-        # on a mesh, theta* broadcast into the state's feature blocks
-        theta = sharding.recut(theta, state.theta) if isinstance(
-            state.theta, sharding.Blocked) else theta.clone()
+        # a copy, on a mesh in the state's feature blocks
+        theta = sharding.recut(theta.contiguous(), state.theta)
         return OracleState(theta, state.step + 1, state.comms)
 
     def metrics(self, problem: Problem, ctx: SolveContext, aux,

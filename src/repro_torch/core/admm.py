@@ -47,7 +47,6 @@ from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
 from repro_torch.core.graph import Graph
 from repro_torch.distributed import sharding
-from repro_torch.distributed.sharding import Blocked
 
 #: primal modes FitConfig accepts (as in the reference)
 PRIMAL_MODES = ("auto", "cholesky", "cg", "gradient")
@@ -188,15 +187,10 @@ def primal_terms(problem: Problem, jacobi: bool = True) -> PrimalTerms:
     def phisq_of(p):
         return torch.stack([torch.sum(torch.square(a), dim=0) for a in p])
 
-    if isinstance(phi, Blocked):
-        out = sharding.P(phi.spec[0], phi.spec[2])
-        phity = sharding.blockwise(phity_of, phi, problem.labels,
-                                   out=out)
-        phisq = (s * sharding.blockwise(phisq_of, phi, out=out)
-                 if jacobi else None)
-        return PrimalTerms(phity, phisq)
-    phity = phity_of(phi, problem.labels)
-    phisq = s * phisq_of(phi) if jacobi else None
+    out = sharding.spec_of(phi, 0, 2)
+    phity = sharding.blockwise(phity_of, phi, problem.labels, out=out)
+    phisq = s * sharding.blockwise(phisq_of, phi, out=out) if jacobi \
+        else None
     return PrimalTerms(phity, phisq)
 
 
@@ -243,14 +237,9 @@ def _ridge_factors(problem: Problem, deg=None) -> torch.Tensor:
         gram.diagonal(dim1=1, dim2=2).add_(_diag_reg(problem, d))
         return torch.linalg.cholesky(gram)
 
-    if isinstance(problem.feats, Blocked):
-        feats = sharding.all_gather(problem.feats, "model")
-        if isinstance(feats, Blocked):
-            return sharding.blockwise(
-                factors, feats, sharding.rows_like(deg, feats),
-                out=sharding.P(feats.spec[0], None, None))
-        return factors(feats, sharding.unshard(deg))
-    return factors(problem.feats, deg)
+    feats = sharding.all_gather(problem.feats, "model")
+    return sharding.blockwise(factors, feats, sharding.rows_like(deg, feats),
+                              out=sharding.spec_of(feats, 0, None, None))
 
 
 def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
@@ -263,29 +252,21 @@ def _primal_closed_form(problem: Problem, chol, gamma, theta_ref, nbr_sum,
     if terms is None:
         terms = primal_terms(problem, jacobi=False)
     rhs = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
-    if isinstance(rhs, Blocked):
-        # whole feature rows per agent block around the solves, then the
-        # solution cut back into the iterates' feature blocks
-        whole = sharding.all_gather(rhs, "model")
-
-        def solve(c, r):
-            z = torch.linalg.solve_triangular(c, r[..., None], upper=False)
-            return torch.linalg.solve_triangular(c.mT, z,
-                                                 upper=True)[..., 0]
-        if isinstance(whole, Blocked):
-            x = sharding.blockwise(solve, chol, whole,
-                                   out=whole.spec)
-        else:
-            x = solve(sharding.unshard(chol), whole)
-        return sharding.recut(x, rhs)
     if rhs.ndim == 3:   # G lanes: G right-hand sides of the one factor
         z = torch.linalg.solve_triangular(chol, _as_columns(rhs),
                                           upper=False)
         return _from_columns(torch.linalg.solve_triangular(chol.mT, z,
                                                            upper=True))
-    z = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
-    x = torch.linalg.solve_triangular(chol.mT, z, upper=True)
-    return x[..., 0]
+
+    def solve(c, r):
+        z = torch.linalg.solve_triangular(c, r[..., None], upper=False)
+        return torch.linalg.solve_triangular(c.mT, z, upper=True)[..., 0]
+    # on a mesh: whole feature rows per agent block around the solves,
+    # then the solution cut back into the iterates' feature blocks
+    whole = sharding.all_gather(rhs, "model")
+    x = sharding.blockwise(solve, chol, whole,
+                           out=sharding.spec_of(whole, 0, 1))
+    return sharding.recut(x, rhs)
 
 
 def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -321,24 +302,16 @@ def _primal_cg(problem: Problem, gamma, theta_ref, nbr_sum, deg=None,
     b = _rhs(problem, terms.phity, gamma, theta_ref, nbr_sum, deg)
     jacobi = terms.phisq + diag_reg
     s = 2.0 / Ti
-    phi_t = None if isinstance(phi, Blocked) else phi.transpose(1, 2)
 
     def matvec(v):
-        if isinstance(phi, Blocked):
-            # Phi_i v: a psum of the feature blocks' partials; Phi_i' u:
-            # block-local
-            u = sharding.blockwise(
-                lambda p, w: torch.bmm(p, w[..., None])[..., 0], phi, v,
-                out=sharding.P(phi.spec[0], None), partial=True)
-            return s * sharding.blockwise(
-                lambda p, w: torch.bmm(p.transpose(1, 2),
-                                       w[..., None])[..., 0], phi, u,
-                out=v.spec) + diag_reg * v
         if v.ndim == 3:
+            phi_t = phi.transpose(1, 2)
             return s * _from_columns(torch.bmm(
                 phi_t, torch.bmm(phi, _as_columns(v)))) + diag_reg * v
-        return s * torch.bmm(phi_t, torch.bmm(phi, v[..., None]))[..., 0] \
-            + diag_reg * v
+        # on a mesh Phi_i v is the psum of the feature blocks' partials
+        # and Phi_i' u block-local
+        u = torch.einsum("ntd,nd->nt", phi, v)
+        return s * torch.einsum("ntd,nt->nd", phi, u) + diag_reg * v
 
     atol2 = (tol * tol) * _rowdot(b, b)
     x = theta0
@@ -378,28 +351,17 @@ def _primal_gradient(problem: Problem, inner_steps: int, inner_lr: float,
     if deg is None:
         deg = problem.degrees
     lin = gamma - problem.rho * (deg[..., None] * theta_ref + nbr_sum)
-    rho_d = problem.rho * deg
+    rho_d = (problem.rho * deg)[..., None]
+    lam = problem.lam / N
     theta = theta0
-    if isinstance(theta, Blocked):
-        # the same gradient, Phi theta as a psum and the rest block-local
-        for _ in range(inner_steps):
-            grad = (losses_mod.risk_grad(theta, problem.feats,
-                                         problem.labels, problem.lam / N,
-                                         problem.loss)
-                    + rho_d[..., None] * (theta + theta) + lin)
-            theta = theta - inner_lr * grad
-        return theta
-    with torch.enable_grad():
-        for _ in range(inner_steps):
-            th = theta.detach().requires_grad_(True)
-            risk = losses_mod.local_empirical_risk(
-                th, problem.feats, problem.labels, problem.lam / N,
-                problem.loss)
-            aug = risk + rho_d * torch.sum(th * th, dim=-1) \
-                + torch.sum(th * lin, dim=-1)
-            (grad,) = torch.autograd.grad(torch.sum(aug), th)
-            theta = theta - inner_lr * grad
-    return theta.detach()
+    for _ in range(inner_steps):
+        # the terms in the order autograd of the summed objective adds
+        # them, so the bits are its bits
+        reg, prox = lam * theta, rho_d * theta
+        grad = ((((lin + prox) + prox) + reg) + reg) + losses_mod.data_grad(
+            theta, problem.feats, problem.labels, problem.loss)
+        theta = theta - inner_lr * grad
+    return theta
 
 
 def _primal_stage(problem: Problem, primal: str, *, chol=None,

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
+
 
 def quadratic(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
     """(y - y_hat)^2 — regression (the paper's analyzed case)."""
@@ -52,44 +54,37 @@ def local_empirical_risk(theta: torch.Tensor, feats: torch.Tensor,
     return data_term + lam * torch.sum(theta * theta, dim=-1)
 
 
+def _dloss(preds: torch.Tensor, labels: torch.Tensor,
+           loss: str) -> torch.Tensor:
+    """d/dpreds of the agent sum of the mean losses, by autograd."""
+    with torch.enable_grad():
+        p = preds.detach().requires_grad_(True)
+        data = torch.mean(LOSSES[loss](labels, p), dim=-1)
+        (g,) = torch.autograd.grad(torch.sum(data), p)
+    return g
+
+
+def data_grad(theta, feats, labels, loss: str = "quadratic"):
+    """d/dtheta of the agent sum of the data terms of
+    `local_empirical_risk`: Phi_i' dloss_i for theta (N, D), or a sweep's
+    lanes theta (G, N, D) against the same feats. The products are those
+    autograd of the risk takes, so the bits are its bits. On feature-
+    sharded (`distributed.sharding.Blocked`) operands Phi_i theta_i is the
+    psum of the feature blocks' partials and Phi_i' dloss_i block-local."""
+    if theta.ndim == 3 and feats.ndim == 3:
+        preds = torch.bmm(feats, theta.permute(1, 2, 0)).permute(2, 0, 1)
+        dp = _dloss(preds, labels, loss)
+        return torch.bmm(feats.transpose(1, 2),
+                         dp.permute(1, 2, 0)).permute(2, 0, 1)
+    preds = torch.einsum("ntd,nd->nt", feats, theta)
+    dp = sharding.local(_dloss, preds, labels, loss)
+    return torch.einsum("ntd,nt->nd", feats, dp)
+
 
 def risk_grad(theta, feats, labels, lam: float,
               loss: str = "quadratic"):
     """d/dtheta of the agent sum of `local_empirical_risk`: (N, D), each
-    row the gradient of its own agent's risk. Plain tensors take autograd
-    of the agent sum. Feature-sharded (`distributed.sharding.Blocked`)
-    operands take the same derivative in the sharded layout: the
-    predictions Phi_i theta_i are the psum of the feature blocks'
-    partials, the loss derivative comes from autograd on each agent
-    block's (n, T) predictions, and Phi_i' dloss + 2 lam theta_i stays
-    block-local."""
-    from repro_torch.distributed import sharding
-
-    if not isinstance(theta, sharding.Blocked):
-        with torch.enable_grad():
-            th = theta.detach().requires_grad_(True)
-            risk = local_empirical_risk(th, feats, labels, lam, loss)
-            (grad,) = torch.autograd.grad(torch.sum(risk), th)
-        return grad
-
-    def dloss(preds, y):
-        with torch.enable_grad():
-            p = preds.detach().requires_grad_(True)
-            data = torch.mean(LOSSES[loss](y, p), dim=-1)
-            (g,) = torch.autograd.grad(torch.sum(data), p)
-        return g
-
-    rows = sharding.P(feats.spec[0], None)
-    preds = sharding.blockwise(
-        lambda f, t: (f @ t[..., None])[..., 0], feats, theta,
-        out=rows, partial=True)
-    if isinstance(preds, sharding.Blocked):
-        dpred = sharding.blockwise(dloss, preds, labels,
-                                   out=rows)
-    else:
-        dpred = dloss(preds, sharding.unshard(labels))
-    data_grad = sharding.blockwise(
-        lambda f, g: (f.transpose(-1, -2) @ g[..., None])[..., 0], feats,
-        dpred, out=theta.spec)
+    row the gradient of its own agent's risk, summed as autograd of the
+    risk sums it (the data term, then the ridge term's two halves)."""
     reg = lam * theta
-    return data_grad + (reg + reg)
+    return data_grad(theta, feats, labels, loss) + (reg + reg)

@@ -51,7 +51,8 @@ On a mesh (`api.fit(mesh=)`) the carry is feature-sharded
 (`distributed.sharding`): the rolls move rows across the agent blocks
 (`sharding.roll_agents`), the per-agent norms sum the feature blocks'
 partials (psum), and the fused path launches K3 once per block of the
-carry, its per-block xi^2 partials summed the same way.
+carry. As without a mesh, K3's xi^2 (the norm of the old iterate) is not
+the censor's norm (of the new one): it is left unsummed, unused.
 
 Not ported yet, and raising NotImplementedError naming the ROADMAP.md
 item: the allreduce / coke_et strategies of the deep-net layer (item 15).
@@ -371,11 +372,12 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
             grads, params, theta_hat, gamma, nbr_sum)
     elif ccfg.use_fused_kernel:
         # the reference hands the kernel two equal halves of the neighbour
-        # sum, not the two roll halves; the norm is recomputed below. On a
-        # mesh K3 runs once per block of the carry
+        # sum, not the two roll halves; the censor's norm is of the new
+        # iterate, below, so K3's xi_sq goes unused. On a mesh K3 runs once
+        # per block of the carry
         half = tree_map(lambda l, r: 0.5 * (l + r), left, right)
         g_aug, _ = coke_update_pytree(params, theta_hat, gamma, grads, half,
-                                      half, rho=rho, deg=deg)
+                                      half, rho=rho, deg=deg, norm=False)
     else:
         # the kernel's plain version over the flattened trees: no launch
         flat = [comm_mod.flatten_agents(t)

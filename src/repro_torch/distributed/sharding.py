@@ -12,27 +12,27 @@ PartitionSpec: a tuple of one entry per dim (None, an axis name, or a
 tuple of names; a one-name tuple is the name, as jax normalizes it).
 
 The layout. Under GSPMD the reference places an array and the compiler
-inserts the collectives. Here `shard` cuts a tensor into a `Blocked`: one
-contiguous tensor per block of the sharded dims, each on its cell's
-device. A block is keyed (batch block, model block, device); a dim that a
-spec replicates is not cut, so a replicated axis holds one tensor per
-distinct device, not one per cell (on one card a (2, 4) mesh holds a
-(None, "model") spec as four tensors). A fully replicated value is a
-plain tensor.
+inserts the collectives. Here `shard` cuts a tensor into a `Blocked`:
+its blocks stacked in one contiguous tensor (B, M, *block) on the mesh's
+device, B the blocks of the dim cut over the batch axes and M those of
+the dim cut over "model" (1 for an axis the spec replicates, so a
+replicated axis costs nothing; a fully replicated value is a plain
+tensor). Every block data[b, m] is itself contiguous, so K1, K3 and K6
+take it as it is. The cells of a mesh lie on one device (on one card a
+mesh is a layout, not a saving); a layout across cards is not built.
 
-Arithmetic runs block by block: `Blocked` answers torch's elementwise
-functions and operators itself (a plain operand that holds the full size
-of a cut dim is sliced to each block, so the one unsharded draw of a
-stochastic stage splits into the blocks it meets), and the collectives
-GSPMD would insert are named functions:
+Arithmetic is one torch call on the stacked data: `Blocked` answers
+torch's elementwise functions and operators itself (a plain operand that
+holds the full size of a cut dim is viewed in the blocks' layout, so the
+one unsharded draw of a stochastic stage splits into the blocks it
+meets), and the collectives GSPMD would insert are named functions:
 
   psum_model — per-model-block partials (a contraction or a reduction
                over the cut feature dim) summed in ascending block order,
                by explicit adds in the partials' dtype (fp32);
   the batch-axis reduction — after psum_model, the batch blocks in
                ascending order, the same way;
-  roll_agents — the ring roll of the agent axis across batch blocks: each
-               output block concatenates the runs of rows it receives;
+  roll_agents — the ring roll of the agent axis across batch blocks;
   all_gather — the blocks of one axis concatenated (the dense graph's
                A @ x gathers x over the batch axis first, then multiplies
                each row block of A);
@@ -41,7 +41,9 @@ GSPMD would insert are named functions:
 Reductions (`torch.sum`, `mean`, `amax`, `max`, `linalg.norm`) and the
 two-operand `torch.einsum` contractions over the feature dim go through
 them; an operation that no rule covers raises NotImplementedError naming
-it, never a silent gather. The LM's rules (`param_specs`,
+it, never a silent gather. `blockwise` runs a function (a kernel's
+wrapper) once per block; `local` runs one that maps blocks to blocks
+once on the stacked data. The LM's rules (`param_specs`,
 `decode_state_specs`, `step_in_specs`) and `shard_activations` are not in
 this module (ROADMAP.md Queue 1 item 15f).
 """
@@ -184,22 +186,22 @@ def _spec_of(mesh, kinds) -> P:
     return memo[kinds]
 
 
-def _keys(mesh, kinds, partial: bool = False):
-    """The distinct (batch block, model block, device) keys of a layout
-    in cell order: an uncut axis contributes block 0."""
-    cut_b = "batch" in kinds
-    cut_m = "model" in kinds or partial
-    memo = getattr(mesh, "_keys", None)
-    if memo is not None and (cut_b, cut_m) in memo:
-        return memo[(cut_b, cut_m)]
-    out = []
-    for b, m, dev in mesh.cells():
-        key = (b if cut_b else 0, m if cut_m else 0, dev)
-        if key not in out:
-            out.append(key)
-    if memo is not None:
-        memo[(cut_b, cut_m)] = out
-    return out
+def mesh_device(mesh) -> torch.device:
+    """The one device every cell of `mesh` lies on: the layout stacks a
+    tensor's blocks in one tensor there."""
+    devs = mesh.distinct_devices()
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"a mesh over {len(devs)} devices: the blocked layout holds a "
+            "tensor's blocks on one device (a layout across cards is "
+            "ROADMAP.md Queue 1 item 14c)")
+    return devs[0]
+
+
+def _lead(mesh, kinds, partial: bool = False) -> tuple[int, int]:
+    """(B, M): the batch blocks and the model blocks of a layout."""
+    return (_extent(mesh, "batch") if "batch" in kinds else 1,
+            _extent(mesh, "model") if ("model" in kinds or partial) else 1)
 
 
 def _broadcast(shapes) -> torch.Size:
@@ -223,28 +225,49 @@ def _block_range(size: int, extent: int, idx: int) -> slice:
 class Blocked:
     """A tensor of `shape` cut into blocks by `spec` over `mesh`.
 
-    blocks  — {(batch block, model block, device): contiguous tensor}.
+    data    — every block stacked in one contiguous tensor (B, M, *block)
+              on the mesh's device: B the batch blocks (1 where no dim is
+              cut over the batch axes), M the model blocks (1 where none
+              is cut over "model" and the value is not partial). Block
+              (b, m) is data[b, m], itself contiguous: a kernel takes it
+              as it is, and elementwise arithmetic is one torch call on
+              data.
     partial — the blocks are per-model-block partials of one value of
               `shape` (a contraction over the cut feature dim), which
               `psum_model` sums; no arithmetic runs on them before that.
     """
 
-    __slots__ = ("mesh", "spec", "kinds", "shape", "blocks", "partial")
+    __slots__ = ("mesh", "_spec", "kinds", "shape", "data", "partial")
 
-    def __init__(self, mesh, spec, shape, blocks: dict,
+    def __init__(self, mesh, spec, shape, data: torch.Tensor,
                  partial: bool = False, kinds=None):
         self.mesh = mesh
-        self.spec = spec if isinstance(spec, P) else P(*spec)
-        self.kinds = tuple(_kind(mesh, e) for e in self.spec) \
-            if kinds is None else tuple(kinds)
         self.shape = torch.Size(shape)
-        self.blocks = blocks
+        self.data = data
         self.partial = partial
+        if kinds is not None:          # the layout's own calls
+            self._spec = spec
+            self.kinds = tuple(kinds)
+            return
+        self._spec = spec if isinstance(spec, P) else P(*spec)
+        self.kinds = tuple(_kind(mesh, e) for e in self._spec)
         if len(self.kinds) != len(self.shape):
             raise ValueError(f"spec {self.spec} does not fit shape "
                              f"{tuple(self.shape)}")
+        want = (*_lead(mesh, self.kinds, partial), *(
+            s // _extent(mesh, k) if k else s
+            for s, k in zip(self.shape, self.kinds)))
+        if tuple(data.shape) != want or not data.is_contiguous():
+            raise ValueError(f"data {tuple(data.shape)} is not the "
+                             f"contiguous stack {want} of this layout")
 
     # ---- tensor-like surface ---------------------------------------------
+    @property
+    def spec(self) -> P:
+        if self._spec is None:
+            self._spec = _spec_of(self.mesh, self.kinds)
+        return self._spec
+
     @property
     def ndim(self) -> int:
         return len(self.shape)
@@ -263,16 +286,25 @@ class Blocked:
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(iter(self.blocks.values())).dtype
+        return self.data.dtype
 
     @property
     def device(self) -> torch.device:
-        return next(iter(self.blocks))[2]
+        return self.data.device
+
+    @property
+    def blocks(self) -> dict:
+        """{(batch block, model block, device): block}, views of data."""
+        B, M = self.data.shape[:2]
+        dev = self.data.device
+        return {(b, m, dev): self.data[b, m]
+                for b in range(B) for m in range(M)}
 
     def __repr__(self) -> str:
         return (f"Blocked(shape={tuple(self.shape)}, spec={self.spec}, "
-                f"dtype={self.dtype}, blocks={len(self.blocks)}"
-                + (", partial" if self.partial else "") + ")")
+                f"dtype={self.dtype}, blocks={self.data.shape[0]}x"
+                f"{self.data.shape[1]}" + (", partial" if self.partial
+                                           else "") + ")")
 
     def __iter__(self):
         raise NotImplementedError(
@@ -282,22 +314,15 @@ class Blocked:
     def __bool__(self):
         raise NotImplementedError("a blocked tensor has no truth value")
 
-    def block(self, b: int, m: int, dev: torch.device) -> torch.Tensor:
-        """The block a cell (batch index b, model index m, device) holds."""
-        key = (b if "batch" in self.kinds else 0,
-               m if ("model" in self.kinds or self.partial) else 0, dev)
-        got = self.blocks.get(key)
-        if got is None:   # a cell of another mesh on another device
-            for (bb, mm, _), t in self.blocks.items():
-                if (bb, mm) == key[:2]:
-                    return t.to(dev)
-            raise KeyError(f"no block {key[:2]} in {self!r}")
-        return got
+    def block(self, b: int = 0, m: int = 0) -> torch.Tensor:
+        """The block that cell (batch index b, model index m) holds."""
+        B, M = self.data.shape[:2]
+        return self.data[b if B > 1 else 0, m if M > 1 else 0]
 
     # ---- methods ---------------------------------------------------------
     def to(self, *args, **kwargs):
-        """A dtype conversion block by block. A device is accepted only
-        where it is the one every block already lies on."""
+        """A dtype conversion. A device is accepted only where it is the
+        one the blocks already lie on."""
         dev = kwargs.pop("device", None)
         rest = []
         for a in args:
@@ -306,12 +331,12 @@ class Blocked:
             else:
                 rest.append(a)
         if dev is not None:
-            want, held = torch.device(dev), self.mesh.distinct_devices()
-            if len(held) != 1 or want.type != held[0].type or \
-                    want.index not in (None, held[0].index):
+            want, held = torch.device(dev), self.data.device
+            if want.type != held.type or want.index not in (None,
+                                                            held.index):
                 raise NotImplementedError(
                     f"moving a blocked tensor to {dev}: its blocks stay "
-                    "on their cells' devices")
+                    "on their cells' device")
         if not rest and not kwargs:
             return self
         return _elementwise(torch.Tensor.to, (self, *rest), kwargs)
@@ -327,10 +352,10 @@ class Blocked:
         return _elementwise(torch.Tensor.clone, (self,), {})
 
     def contiguous(self):
-        return _elementwise(torch.Tensor.contiguous, (self,), {})
+        return self
 
     def detach(self):
-        return _elementwise(torch.Tensor.detach, (self,), {})
+        return self
 
     def abs(self):
         return _elementwise(torch.abs, (self,), {})
@@ -366,10 +391,10 @@ class Blocked:
             raise NotImplementedError(
                 f"reshaping a blocked tensor {tuple(self.shape)} -> "
                 f"{tuple(full)}")
-        blocks = {key: t.reshape(*full[:-1], t.shape[-1])
-                  for key, t in self.blocks.items()}
-        return _wrap(self.mesh, [None] * (len(full) - 1)
-                     + [self.kinds[-1]], full, blocks)
+        data = self.data.reshape(*self.data.shape[:2], *full[:-1],
+                                 self.data.shape[-1])
+        return _wrap(self.mesh, [None] * (len(full) - 1) + [self.kinds[-1]],
+                     full, data)
 
     def __getitem__(self, idx):
         return _getitem(self, idx)
@@ -386,7 +411,7 @@ class Blocked:
         if func in _REDUCTIONS:
             return _REDUCTIONS[func](*args, **kwargs)
         if func in (torch.roll, torch.Tensor.roll):
-            return _roll(*args, **kwargs)
+            return roll_agents(*args, **kwargs)
         if func in (torch.matmul, torch.Tensor.matmul,
                     torch.Tensor.__matmul__):
             return _matmul(*args)
@@ -400,7 +425,9 @@ class Blocked:
             return _cat(*args, **kwargs)
         if func in _ELEMENTWISE:
             return _elementwise(func, args, kwargs)
-        return _replicated_call(func, args, kwargs)
+        raise NotImplementedError(
+            f"{getattr(func, '__name__', func)} has no rule for blocked "
+            "tensors")
 
 
 _OPERATORS = ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
@@ -411,7 +438,8 @@ _OPERATORS = ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
 
 
 def _operators():
-    """Blocked's arithmetic and comparison operators, block by block."""
+    """Blocked's arithmetic and comparison operators, on the stacked
+    data."""
     def op(name):
         fn = getattr(torch.Tensor, name)
 
@@ -442,32 +470,42 @@ for _name in _OPERATORS + ("to", "float", "double", "clone", "contiguous",
 _operators()
 
 
-def _wrap(mesh, kinds, shape, blocks: dict, partial: bool = False):
-    """A Blocked of these blocks, or the plain tensor of a fully
-    replicated value held on one device."""
-    if not partial and not any(kinds) and len(blocks) == 1:
-        return next(iter(blocks.values()))
-    return Blocked(mesh, _spec_of(mesh, kinds), shape, blocks, partial,
-                   kinds=kinds)
+def _wrap(mesh, kinds, shape, data: torch.Tensor, partial: bool = False):
+    """A Blocked of this (B, M, *block) data (made contiguous), or the
+    plain tensor of a value that nothing cuts."""
+    if not partial and not any(kinds):
+        return data[0, 0]
+    if not data.is_contiguous():
+        data = data.contiguous()
+    return Blocked(mesh, None, shape, data, partial, kinds=kinds)
 
 
-def _slice_full(t: torch.Tensor, out_shape, out_kinds, held, b: int,
-                m: int, mesh) -> torch.Tensor:
-    """Cut an operand that holds the full size of a cut output dim (the
-    dims right-aligned, as broadcasting aligns them) down to block (b, m).
-    `held` lists the operand's own kinds (None where it is uncut)."""
-    nd, od = t.ndim, len(out_shape)
-    index = [slice(None)] * nd
-    cut = False
-    for k, kind in enumerate(out_kinds):
-        ko = k - (od - nd)
-        if kind is None or ko < 0 or held[ko] is not None:
+def _view(x, shape, kinds, mesh) -> torch.Tensor:
+    """x — a Blocked, or a plain tensor on the mesh's device, its dims
+    right-aligned with `shape` as broadcasting aligns them — as a
+    (B or 1, M or 1, *block) view that broadcasts against the stacked
+    data of the `kinds` layout of `shape`: each dim that the layout cuts
+    and x holds whole is split into (blocks, block), its block axis moved
+    to the lead. Splitting and moving dims copies nothing."""
+    if isinstance(x, Blocked):
+        v, held = x.data, x.kinds
+    else:
+        v, held = x.reshape(1, 1, *x.shape), (None,) * x.ndim
+    od, nd = len(shape), len(held)
+    if nd < od:
+        v = v.reshape(*v.shape[:2], *([1] * (od - nd)), *v.shape[2:])
+        held = (None,) * (od - nd) + tuple(held)
+    for k, kind in enumerate(kinds):
+        n = v.shape[2 + k]
+        if kind is None or held[k] is not None or n == 1:
             continue
-        if t.shape[ko] == out_shape[k] and out_shape[k] != 1:
-            index[ko] = _block_range(out_shape[k], _extent(mesh, kind),
-                                     b if kind == "batch" else m)
-            cut = True
-    return t[tuple(index)] if cut else t
+        lead = 0 if kind == "batch" else 1
+        if v.shape[lead] != 1:
+            raise NotImplementedError("two dims cut over one mesh axis")
+        e = _extent(mesh, kind)
+        v = v.unflatten(2 + k, (e, n // e)).movedim(2 + k, lead) \
+            .squeeze(lead + 1)
+    return v
 
 
 def _flat_args(args, kwargs):
@@ -479,7 +517,23 @@ def _flat_args(args, kwargs):
 
 
 def _elementwise(func, args, kwargs):
-    """func block by block over broadcast operands (see the module doc)."""
+    """func once over the stacked data of broadcast operands: a plain
+    operand that holds the full size of a cut dim is viewed in the
+    blocks' layout (so the one unsharded draw of a stochastic stage splits
+    into the blocks it meets)."""
+    first, same = None, not kwargs
+    for a in args:
+        if isinstance(a, Blocked):
+            if first is None:
+                first = a
+            elif a.kinds != first.kinds or a.shape != first.shape:
+                same = False
+        elif isinstance(a, (torch.Tensor, list, tuple)):
+            same = False
+    if same and not first.partial:
+        # the common case: operands of one layout, scalars beside them
+        return _wrap(first.mesh, first.kinds, first.shape, func(*(
+            a.data if isinstance(a, Blocked) else a for a in args)))
     flat = list(_flat_args(args, kwargs))
     blocked = [a for a in flat if isinstance(a, Blocked)]
     if any(a.partial for a in blocked):
@@ -487,157 +541,69 @@ def _elementwise(func, args, kwargs):
             f"{getattr(func, '__name__', func)} on model partials: "
             "psum_model them first")
     first = blocked[0]
-    mesh = first.mesh
+    mesh, dev = first.mesh, first.data.device
     tensors = [a for a in flat if isinstance(a, (Blocked, torch.Tensor))]
-    if not kwargs and len(tensors) == len(blocked) == sum(
-            1 for a in args if isinstance(a, Blocked)) and all(
+    if len(tensors) == len(blocked) and all(
             a.kinds == first.kinds and a.shape == first.shape
             for a in blocked):
-        # the common case: operands of one layout, scalars beside them
-        held = [a.blocks if isinstance(a, Blocked) else None for a in args]
-        keys = list(first.blocks)
-        return _wrap(mesh, first.kinds, first.shape, dict(zip(keys, _run(
-            func, [[a if h is None else h[key] for a, h in zip(args, held)]
-                   for key in keys]))))
-    shapes = [a.shape for a in tensors]
-    out_shape = _broadcast(shapes)
-    od = len(out_shape)
-    out_kinds: list[str | None] = [None] * od
-    for a in blocked:
-        for ko, kind in enumerate(a.kinds):
-            k = ko + od - a.ndim
-            if kind is None or a.shape[ko] != out_shape[k]:
-                continue
-            if out_kinds[k] not in (None, kind):
-                raise NotImplementedError(
-                    f"operands cut dim {k} over different axes")
-            out_kinds[k] = kind
-    if len({k for k in out_kinds if k}) != sum(1 for k in out_kinds if k):
-        raise NotImplementedError("two dims cut over one mesh axis")
+        kinds, shape = first.kinds, first.shape
 
-    def needs_cut(a, held):
-        """Does operand `a` hold the whole of a dim the output cuts?"""
-        nd = a.ndim
-        for k, kind in enumerate(out_kinds):
-            ko = k - (od - nd)
-            if kind is not None and ko >= 0 and held[ko] is None \
-                    and a.shape[ko] == out_shape[k] and out_shape[k] != 1:
-                return True
-        return False
-
-    def plan(a):
-        if isinstance(a, Blocked):
-            cut = needs_cut(a, a.kinds)
-            return lambda b, m, dev: _slice_full(
-                a.block(b, m, dev), out_shape, out_kinds, a.kinds, b, m,
-                mesh) if cut else a.block(b, m, dev)
-        if isinstance(a, torch.Tensor):
-            cut = needs_cut(a, (None,) * a.ndim)
-
-            def local(b, m, dev):
-                t = a if a.device == dev else a.to(dev)
-                return _slice_full(t, out_shape, out_kinds,
-                                   (None,) * a.ndim, b, m, mesh) \
-                    if cut else t
-            return local
-        if isinstance(a, (list, tuple)):
-            parts = [plan(x) for x in a]
-            return lambda b, m, dev: type(a)(p(b, m, dev) for p in parts)
-        return lambda b, m, dev: a
-
-    arg_plans = [plan(a) for a in args]
-    kw_plans = {n: plan(v) for n, v in kwargs.items()}
-    keys = _keys(mesh, out_kinds)
-    if kw_plans:
-        out = [func(*(p(*key) for p in arg_plans),
-                    **{n: p(*key) for n, p in kw_plans.items()})
-               for key in keys]
+        def conv(a):
+            if isinstance(a, Blocked):
+                return a.data
+            if isinstance(a, (list, tuple)):
+                return type(a)(conv(x) for x in a)
+            return a
     else:
-        out = _run(func, [[p(*key) for p in arg_plans] for key in keys])
-    return _wrap(mesh, out_kinds, out_shape, dict(zip(keys, out)))
+        shape = _broadcast([a.shape for a in tensors])
+        od = len(shape)
+        out_kinds: list[str | None] = [None] * od
+        for a in blocked:
+            for ko, kind in enumerate(a.kinds):
+                k = ko + od - a.ndim
+                if kind is None or a.shape[ko] != shape[k]:
+                    continue
+                if out_kinds[k] not in (None, kind):
+                    raise NotImplementedError(
+                        f"operands cut dim {k} over different axes")
+                out_kinds[k] = kind
+        kinds = tuple(out_kinds)
+        if len({k for k in kinds if k}) != sum(1 for k in kinds if k):
+            raise NotImplementedError("two dims cut over one mesh axis")
+
+        def conv(a):
+            if isinstance(a, torch.Tensor) and a.ndim and a.device != dev:
+                a = a.to(dev)
+            if isinstance(a, (Blocked, torch.Tensor)):
+                return _view(a, shape, kinds, mesh)
+            if isinstance(a, (list, tuple)):
+                return type(a)(conv(x) for x in a)
+            return a
+    out = func(*(conv(a) for a in args),
+               **{n: conv(v) for n, v in kwargs.items()})
+    return _wrap(mesh, kinds, shape, out)
 
 
-#: elementwise functions torch also runs over lists of tensors in one
-#: call (`torch._foreach_*`: on the card one launch for a list of
-#: same-shape blocks). Each computes the same single rounding per element
-#: as the function itself; division by a host scalar is left out (CUDA
-#: divides a tensor by a host scalar through its reciprocal, a foreach
-#: division does not).
-_FOREACH: dict = {}
-for _fn, _name in ((("add", "__add__", "__radd__"), "add"),
-                   (("sub", "__sub__"), "sub"),
-                   (("mul", "__mul__", "__rmul__"), "mul"),
-                   (("div", "true_divide", "__truediv__"), "div"),
-                   (("neg", "__neg__"), "neg"),
-                   (("sqrt",), "sqrt"), (("abs", "__abs__"), "abs")):
-    for _f in _fn:
-        for _owner in (torch, torch.Tensor):
-            if hasattr(_owner, _f):
-                _FOREACH[getattr(_owner, _f)] = getattr(torch,
-                                                        f"_foreach_{_name}")
-
-
-def _run(func, calls: list) -> list:
-    """func over each key's argument list, as one `torch._foreach_*` call
-    where torch has one for it and the arguments allow it."""
-    fe = _FOREACH.get(func)
-    if fe is not None and calls:
-        first = calls[0]
-        x = first[0]
-        if isinstance(x, torch.Tensor) and x.is_floating_point():
-            xs = [c[0] for c in calls]
-            if len(first) == 1 and fe in (torch._foreach_neg,
-                                          torch._foreach_sqrt,
-                                          torch._foreach_abs):
-                return list(fe(xs))
-            if len(first) == 2:
-                y = first[1]
-                if isinstance(y, torch.Tensor) and y.dtype == x.dtype \
-                        and y.device == x.device:
-                    return list(fe(xs, [c[1] for c in calls]))
-                if type(y) in (int, float) and fe is not torch._foreach_div:
-                    return list(fe(xs, y))
-    return [func(*c) for c in calls]
-
-
-def _combine(mesh, parts: dict, out_kinds, over: set, op) -> dict:
-    """Fold partials over the cut axes in `over`, for every key of the
-    `out_kinds` layout: within each batch block the model blocks in
-    ascending order, then the batch blocks in ascending order. A partial
-    held on another device is moved to the key's."""
-    by_bm: dict = {}
-    for (b, m, dev), t in parts.items():
-        by_bm.setdefault((b, m), {})[dev] = t
-
-    def get(b, m, dev):
-        held = by_bm[(b, m)]
-        return held[dev] if dev in held else next(iter(held.values())).to(dev)
-
-    bs_all = sorted({b for b, _ in by_bm})
-    ms_all = sorted({m for _, m in by_bm})
-    out = {}
-    for key in _keys(mesh, out_kinds):
-        b, m, dev = key
-        acc = None
-        for bb in (bs_all if "batch" in over else [b]):
-            row = None
-            for mm in (ms_all if "model" in over else [m]):
-                t = get(bb, mm, dev)
-                row = t if row is None else op(row, t)
-            acc = row if acc is None else op(acc, row)
-        out[key] = acc
-    return out
+def _fold(t: torch.Tensor, axis: int, op) -> torch.Tensor:
+    """The left fold of t's slices along `axis` (kept, of size 1): block
+    0, then 1, ... in ascending order, by explicit ops."""
+    acc = t.narrow(axis, 0, 1)
+    for i in range(1, t.shape[axis]):
+        acc = op(acc, t.narrow(axis, i, 1))
+    return acc
 
 
 def psum_model(x):
     """Sum the model-axis partials of `x` in ascending block order."""
     if not isinstance(x, Blocked) or not x.partial:
         return x
-    parts = _combine(x.mesh, x.blocks, x.kinds, {"model"}, torch.add)
-    return _wrap(x.mesh, x.kinds, x.shape, parts)
+    return _wrap(x.mesh, x.kinds, x.shape, _fold(x.data, 1, torch.add))
 
 
 def _reduce(op: str, x, dim, keepdim: bool, dtype):
+    """A reduction: within each block on the stacked data, then the
+    blocks' results folded over the cut axes it spans, the model blocks
+    in ascending order, then the batch blocks."""
     if not isinstance(x, Blocked):
         raise TypeError("not a blocked tensor")
     if x.partial:
@@ -651,22 +617,25 @@ def _reduce(op: str, x, dim, keepdim: bool, dtype):
         dims = tuple(sorted(d % nd for d in (
             dim if isinstance(dim, (tuple, list)) else (dim,))))
     over = {x.kinds[d] for d in dims} - {None}
-    out_kinds = [None if d in dims else x.kinds[d] for d in range(nd)]
-    out_shape = [1 if d in dims else x.shape[d] for d in range(nd)]
-    if not keepdim:
-        out_kinds = [k for d, k in enumerate(out_kinds) if d not in dims]
-        out_shape = [s for d, s in enumerate(out_shape) if d not in dims]
     red = "sum" if op == "mean" else op
-    parts = {key: _REDUCTIONS_PLAIN[red](t, dims, keepdim, dtype)
-             for key, t in x.blocks.items()}
-    combined = _combine(x.mesh, parts, out_kinds, over,
-                        torch.add if red == "sum" else torch.maximum)
+    t = _REDUCTIONS_PLAIN[red](x.data, tuple(d + 2 for d in dims), True,
+                               dtype)
+    fold = torch.add if red == "sum" else torch.maximum
+    if "model" in over:
+        t = _fold(t, 1, fold)
+    if "batch" in over:
+        t = _fold(t, 0, fold)
     if op == "mean":
         count = math.prod(x.shape[d] for d in dims)
-        combined = {k: t / torch.full((), count, dtype=t.dtype,
-                                      device=t.device)
-                    for k, t in combined.items()}
-    return _wrap(x.mesh, out_kinds, out_shape, combined)
+        t = t / torch.full((), count, dtype=t.dtype, device=t.device)
+    kinds = [None if d in dims else x.kinds[d] for d in range(nd)]
+    shape = [1 if d in dims else x.shape[d] for d in range(nd)]
+    if not keepdim:
+        keep = [d for d in range(nd) if d not in dims]
+        t = t.reshape(*t.shape[:2], *(t.shape[2 + d] for d in keep))
+        kinds = [kinds[d] for d in keep]
+        shape = [shape[d] for d in keep]
+    return _wrap(x.mesh, tuple(kinds), shape, t)
 
 
 def _plain_sum(t, dims, keepdim, dtype):
@@ -745,40 +714,34 @@ def _getitem(x: Blocked, idx):
         if not isinstance(i, int):
             kinds.append(kind)
         d += 1
-    shape = torch.empty(x.shape, device="meta")[tuple(expanded)].shape
-    blocks = {key: t[tuple(expanded)] for key, t in x.blocks.items()}
-    return _wrap(x.mesh, kinds, shape, blocks)
+    data = x.data[(slice(None), slice(None), *expanded)]
+    shape = [s * _extent(x.mesh, k) if k else s
+             for s, k in zip(data.shape[2:], kinds)]
+    return _wrap(x.mesh, tuple(kinds), shape, data, x.partial)
 
 
 def all_gather(x, axis: str = "batch"):
     """Concatenate the blocks of the dim cut over `axis` ("batch" or
-    "model"): the result holds that dim whole on every device."""
+    "model"): the result holds that dim whole."""
     if not isinstance(x, Blocked) or axis not in x.kinds:
         return x
     if x.partial:
         raise NotImplementedError("all_gather of model partials")
     d = x.kinds.index(axis)
-    kinds = [None if k == axis else k for k in x.kinds]
-    ext = _extent(x.mesh, axis)
-    blocks = {}
-    for key in _keys(x.mesh, kinds):
-        b, m, dev = key
-        parts = [x.block(i if axis == "batch" else b,
-                         i if axis == "model" else m, dev).to(dev)
-                 for i in range(ext)]
-        blocks[key] = torch.cat(parts, dim=d)
-    return _wrap(x.mesh, kinds, x.shape, blocks)
+    lead = 0 if axis == "batch" else 1
+    # the block axis beside the dim, as its major part, then merged
+    data = x.data.movedim(lead, 1 + d).flatten(1 + d, 2 + d) \
+        .unsqueeze(lead)
+    kinds = tuple(None if k == axis else k for k in x.kinds)
+    return _wrap(x.mesh, kinds, x.shape, data)
 
 
 def unshard(x, device: torch.device | None = None):
     """Gather a blocked tensor into one plain tensor (on `device`, default
-    the first block's); anything else passes through."""
+    the mesh's); anything else passes through."""
     if not isinstance(x, Blocked):
         return x
-    x = psum_model(x)
-    x = all_gather(all_gather(x, "model"), "batch")
-    if isinstance(x, Blocked):   # replicated over several devices
-        x = next(iter(x.blocks.values()))
+    x = all_gather(all_gather(psum_model(x), "model"), "batch")
     return x if device is None else x.to(device)
 
 
@@ -786,43 +749,34 @@ def unshard_tree(tree):
     return _map_leaves(unshard, tree)
 
 
-def _roll(x, shifts, dims=None):
-    """torch.roll; over a batch-cut agent axis, the ring roll across batch
-    blocks: each output block concatenates the runs of source rows it
-    receives (a permute of rows between blocks, no full gather)."""
+def roll_agents(x, shifts, dims=None):
+    """torch.roll (which a Blocked routes here); over a batch-cut agent
+    axis, the ring roll across batch blocks (the blocks' rows in agent
+    order, rolled, cut again)."""
     if isinstance(dims, (tuple, list)):
         if len(dims) != 1:
             raise NotImplementedError("roll over several dims")
         dims = dims[0]
     if isinstance(shifts, (tuple, list)):
         shifts = shifts[0]
+    if not isinstance(x, Blocked):
+        return torch.roll(x, shifts, dims)
     if dims is None:
         raise NotImplementedError("a flattened roll of a blocked tensor")
+    if x.partial:
+        raise NotImplementedError("rolling model partials")
     d = dims % x.ndim
     if x.kinds[d] is None:
-        return _elementwise(torch.roll, (x, shifts, d), {})
+        return _wrap(x.mesh, x.kinds, x.shape,
+                     torch.roll(x.data, shifts, 2 + d))
     if x.kinds[d] != "batch":
         raise NotImplementedError("rolling the cut feature dim")
-    n = x.shape[d]
-    ext = _extent(x.mesh, "batch")
-    rows = n // ext
-    blocks = {}
-    for key in _keys(x.mesh, x.kinds):
-        b, m, dev = key
-        parts, r = [], b * rows
-        while r < (b + 1) * rows:
-            src = (r - shifts) % n
-            sb, off = divmod(src, rows)
-            take = min(rows - off, (b + 1) * rows - r)
-            blk = x.block(sb, m, dev).to(dev)
-            parts.append(blk.narrow(d, off, take))
-            r += take
-        blocks[key] = parts[0].contiguous() if len(parts) == 1 \
-            else torch.cat(parts, dim=d)
-    return _wrap(x.mesh, x.kinds, x.shape, blocks)
+    B = x.data.shape[0]
+    rows = x.data.movedim(0, 1 + d).flatten(1 + d, 2 + d)
+    back = torch.roll(rows, shifts, 1 + d).unflatten(1 + d, (B, -1)) \
+        .movedim(1 + d, 0)
+    return _wrap(x.mesh, x.kinds, x.shape, back)
 
-
-roll_agents = _roll
 
 
 def _matmul(a, b):
@@ -840,28 +794,25 @@ def _matmul(a, b):
     row_kind = a.kinds[0] if isinstance(a, Blocked) else (
         b.kinds[0] if isinstance(b, Blocked) else None)
     xg = all_gather(b, "batch")
-    rest = list(xg.kinds[1:]) if isinstance(xg, Blocked) else \
-        [None] * (b.ndim - 1)
-    kinds = [row_kind] + rest
-    shape = (a.shape[0], *b.shape[1:])
-    blocks = {}
-    for key in _keys(mesh, kinds):
-        bb, m, dev = key
-        if isinstance(a, Blocked):
-            ab = a.block(bb, m, dev)
-        else:
-            ab = a.to(dev)
-            if row_kind is not None:
-                ab = ab[_block_range(a.shape[0], _extent(mesh, row_kind),
-                                     bb)]
-        xb = xg.block(0, m, dev) if isinstance(xg, Blocked) else xg.to(dev)
-        blocks[key] = ab @ xb
-    return _wrap(mesh, kinds, shape, blocks)
+    if isinstance(xg, Blocked):
+        xv, rest = xg.data, list(xg.kinds[1:])
+    else:
+        xv, rest = xg.reshape(1, 1, *xg.shape), [None] * (b.ndim - 1)
+    av = _view(a, a.shape, (row_kind, None), mesh)
+    kinds = (row_kind, *rest)
+    B, M = _lead(mesh, kinds)
+    # one product per block: a broadcast batched product would round
+    # otherwise than the plain A @ x
+    out = torch.stack([av[min(b, av.shape[0] - 1), 0]
+                       @ xv[0, min(m, xv.shape[1] - 1)]
+                       for b in range(B) for m in range(M)])
+    return _wrap(mesh, kinds, (a.shape[0], *b.shape[1:]),
+                 out.reshape(B, M, *out.shape[1:]))
 
 
 def _einsum(eq: str, *ops):
     """A two-operand contraction whose contracted letters may be cut over
-    "model": per-block products, then psum_model."""
+    "model": one einsum over the stacked blocks, then psum_model."""
     if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
         ops = tuple(ops[0])
     ins, out = eq.replace(" ", "").split("->")
@@ -885,34 +836,23 @@ def _einsum(eq: str, *ops):
     if any(letter_kind[ch] == "batch" for ch in contracted):
         raise NotImplementedError("einsum contracting the batch-cut dim")
     partial = any(letter_kind[ch] == "model" for ch in contracted)
-    kinds = [letter_kind.get(ch) for ch in out]
+    kinds = tuple(letter_kind.get(ch) for ch in out)
     sizes = {}
     for sub, op in zip(ins, ops):
         for ch, s in zip(sub, op.shape):
             sizes[ch] = s
-    shape = [sizes[ch] for ch in out]
-
-    def local(sub, op, b, m, dev):
-        if isinstance(op, Blocked):
-            t, held = op.block(b, m, dev), op.kinds
-        else:
-            t, held = op.to(dev), (None,) * op.ndim
-        index = []
-        for ch, h, s in zip(sub, held, t.shape):
-            kind = letter_kind.get(ch)
-            if kind is not None and h is None and s == sizes[ch]:
-                index.append(_block_range(s, _extent(mesh, kind),
-                                          b if kind == "batch" else m))
-            else:
-                index.append(slice(None))
-        return t[tuple(index)]
-
-    blocks = {}
-    for key in _keys(mesh, kinds, partial):
-        b, m, dev = key
-        blocks[key] = torch.einsum(eq, *(local(s, o, b, m, dev)
-                                         for s, o in zip(ins, ops)))
-    return psum_model(_wrap(mesh, kinds, shape, blocks, partial))
+    views = [_view(op, op.shape, tuple(letter_kind.get(ch) for ch in sub),
+                   mesh) for sub, op in zip(ins, ops)]
+    # one lead for all: einsum broadcasting a lead of 1 against the
+    # blocks would copy the other operand (all of Phi), expanding copies
+    # only the small one
+    lead = (max(v.shape[0] for v in views), max(v.shape[1] for v in views))
+    views = [v.expand(*lead, *v.shape[2:]) for v in views]
+    y, z = [c for c in "YZABCDEFGHIJKLMNOPQRSTUVWX" if c not in eq][:2]
+    res = torch.einsum(",".join(y + z + sub for sub in ins) + "->" + y + z
+                       + out, *views)
+    return psum_model(_wrap(mesh, kinds, [sizes[ch] for ch in out], res,
+                            partial))
 
 
 def _stack(tensors, dim=0):
@@ -922,11 +862,11 @@ def _stack(tensors, dim=0):
     first = tensors[0]
     if dim != 0 or not all(isinstance(t, Blocked) and t.spec == first.spec
                            and not t.partial for t in tensors):
-        return _replicated_call(torch.stack, (tensors,), {"dim": dim})
-    blocks = {key: torch.stack([t.blocks[key] for t in tensors])
-              for key in first.blocks}
+        raise NotImplementedError("torch.stack of blocked tensors other "
+                                  "than equal layouts along dim 0")
     return _wrap(first.mesh, (None, *first.kinds),
-                 (len(tensors), *first.shape), blocks)
+                 (len(tensors), *first.shape),
+                 torch.stack([t.data for t in tensors], dim=2))
 
 
 def _cat(tensors, dim=0):
@@ -937,31 +877,12 @@ def _cat(tensors, dim=0):
     if first.kinds[d] is not None or not all(
             isinstance(t, Blocked) and t.kinds == first.kinds
             and not t.partial for t in tensors):
-        return _replicated_call(torch.cat, (tensors,), {"dim": dim})
-    blocks = {key: torch.cat([t.blocks[key] for t in tensors], dim=d)
-              for key in first.blocks}
+        raise NotImplementedError("torch.cat of blocked tensors other "
+                                  "than equal layouts along an uncut dim")
     shape = list(first.shape)
     shape[d] = sum(t.shape[d] for t in tensors)
-    return _wrap(first.mesh, first.kinds, shape, blocks)
-
-
-def _replicated_call(func, args, kwargs):
-    """Any other function: allowed only when no operand is cut (it runs
-    on the replica); otherwise NotImplementedError naming it."""
-    blocked = [a for a in _flat_args(args, kwargs) if isinstance(a, Blocked)]
-    if any(any(a.kinds) or a.partial for a in blocked):
-        raise NotImplementedError(
-            f"{getattr(func, '__name__', func)} has no rule for blocked "
-            f"tensors ({', '.join(repr(a) for a in blocked)})")
-
-    def local(a):
-        if isinstance(a, Blocked):
-            return next(iter(a.blocks.values()))
-        if isinstance(a, (list, tuple)):
-            return type(a)(local(x) for x in a)
-        return a
-    return func(*(local(a) for a in args),
-                **{k: local(v) for k, v in kwargs.items()})
+    return _wrap(first.mesh, first.kinds, shape,
+                 torch.cat([t.data for t in tensors], dim=2 + d))
 
 
 # ---------------------------------------------------------------------------
@@ -969,12 +890,12 @@ def _replicated_call(func, args, kwargs):
 # ---------------------------------------------------------------------------
 
 def shard(x: torch.Tensor, mesh, spec) -> Any:
-    """Cut `x` into the blocks of `spec` over `mesh`, each a contiguous
-    tensor on its cell's device (a block that is already a contiguous
-    slice of `x` on that device is that slice, not a copy). A spec that
-    cuts nothing on a one-device mesh gives `x` itself on the device; a
-    Blocked already in this layout on this mesh is returned as it is (so a
-    problem sharded once can be passed to several `fit(mesh=)` calls)."""
+    """Cut `x` into the blocks of `spec` over `mesh`, stacked in one
+    contiguous tensor on the mesh's device (no copy where x already is
+    that stack, as a batch-only cut of a contiguous tensor is). A spec
+    that cuts nothing gives `x` itself on the device; a Blocked already in
+    this layout on this mesh is returned as it is (so a problem sharded
+    once can be passed to several `fit(mesh=)` calls)."""
     kinds = tuple(_kind(mesh, e) for e in P(*spec))
     if isinstance(x, Blocked):
         if x.mesh is mesh and x.kinds == kinds and not x.partial:
@@ -988,16 +909,8 @@ def shard(x: torch.Tensor, mesh, spec) -> Any:
             raise ValueError(
                 f"dim {d} of size {x.shape[d]} does not divide over the "
                 f"{_extent(mesh, kind)} blocks of {kind!r}")
-    blocks = {}
-    for key in _keys(mesh, kinds):
-        b, m, dev = key
-        index = tuple(
-            _block_range(x.shape[d], _extent(mesh, kind),
-                         b if kind == "batch" else m)
-            if kind is not None else slice(None)
-            for d, kind in enumerate(kinds))
-        blocks[key] = x[index].contiguous().to(dev)
-    return _wrap(mesh, kinds, x.shape, blocks)
+    x = x.to(mesh_device(mesh))
+    return _wrap(mesh, kinds, x.shape, _view(x, x.shape, kinds, mesh))
 
 
 def shard_features(tree, mesh, num_agents: int):
@@ -1035,15 +948,17 @@ def shard_theta_stack(stack: torch.Tensor, mesh):
     return shard(stack, mesh, theta_stack_spec(tuple(stack.shape), mesh))
 
 
-def blockwise(fn: Callable, *xs, out, partial=False, mesh=None):
-    """fn over aligned blocks. For every (batch block, model block,
-    device) key of the layout the operands and results cut together, fn
-    gets each Blocked operand's block for that cell and every other
-    argument as it is. `out` is the spec of the result (a tuple of specs
-    when fn returns a tuple); `partial` (a bool, or one per output) marks
-    results that are per-model-block partials, summed by `psum_model`
-    into `out`. A result's full shape is its block's shape times the cut
-    extents. `mesh` is needed only when no operand is blocked."""
+def blockwise(fn: Callable, *xs, out, partial=False, mesh=None,
+              index: bool = False):
+    """fn over aligned blocks. For every (batch block, model block) of
+    the layout the operands and results cut together, fn gets each
+    Blocked operand's block for that cell and every other argument as it
+    is (with index=True, the cell's (b, m) first). `out` is the spec of
+    the result (a tuple of specs when fn returns a tuple); `partial` (a
+    bool, or one per output) marks results that are per-model-block
+    partials, summed by `psum_model` into `out`. A result's full shape is
+    its block's shape times the cut extents. `mesh` is needed only when
+    no operand is blocked."""
     blocked = [x for x in xs if isinstance(x, Blocked)]
     mesh = blocked[0].mesh if blocked else mesh
     single = not isinstance(out, tuple) or isinstance(out, P)
@@ -1055,42 +970,69 @@ def blockwise(fn: Callable, *xs, out, partial=False, mesh=None):
         union |= set(x.kinds)
     for spec in specs:
         union |= {_kind(mesh, e) for e in P(*spec)}
-    keys = _keys(mesh, tuple(union), any(partials) and "model" in union)
-    results = {key: fn(*(x.block(key[0], key[1], key[2])
-                         if isinstance(x, Blocked) else x for x in xs))
-               for key in keys}
+    B, M = _lead(mesh, union, any(partials) and "model" in union)
+    results = []
+    for b in range(B):
+        for m in range(M):
+            args = [x.block(b, m) if isinstance(x, Blocked) else x
+                    for x in xs]
+            results.append(fn((b, m), *args) if index else fn(*args))
     wrapped = []
     for j, (spec, part) in enumerate(zip(specs, partials)):
         kinds = tuple(_kind(mesh, e) for e in P(*spec))
-        blocks = {}
-        for key, r in results.items():
-            b, m, dev = key
-            okey = (b if "batch" in kinds else 0,
-                    m if ("model" in kinds or part) else 0, dev)
-            blocks[okey] = r if single else r[j]
-        first = next(iter(blocks.values()))
+        outs = [r if single else r[j] for r in results]
+        blk = outs[0].shape
+        data = outs[0].reshape(1, 1, *blk) if len(outs) == 1 else \
+            torch.stack(outs).reshape(B, M, *blk)
+        part = part and "model" in union
+        if "batch" not in kinds:            # replicas: one is kept
+            data = data[:1]
+        if "model" not in kinds and not part:
+            data = data[:, :1]
         shape = [s * _extent(mesh, k) if k else s
-                 for s, k in zip(first.shape, kinds)]
-        res = _wrap(mesh, kinds, shape, blocks,
-                    partial=part and "model" in union)
-        wrapped.append(psum_model(res))
+                 for s, k in zip(blk, kinds)]
+        wrapped.append(psum_model(_wrap(mesh, kinds, shape, data,
+                                        partial=part)))
     return wrapped[0] if single else tuple(wrapped)
 
 
+def local(fn: Callable, *xs):
+    """fn on plain operands as they are, or once on the stacked blocks of
+    Blocked operands of one layout: for an fn that maps each block to the
+    same block of its result (elementwise, or reducing nothing that is
+    cut), such as a loss derivative by autograd, which cannot run on a
+    Blocked."""
+    blocked = [x for x in xs if isinstance(x, Blocked)]
+    if not blocked:
+        return fn(*xs)
+    first = blocked[0]
+    if any(x.partial or x.kinds != first.kinds or x.shape != first.shape
+           for x in blocked) or any(isinstance(x, torch.Tensor)
+                                    for x in xs):
+        raise NotImplementedError(
+            "local() takes Blocked operands of one layout")
+    return _wrap(first.mesh, first.kinds, first.shape,
+                 fn(*(x.data if isinstance(x, Blocked) else x for x in xs)))
+
+
+def spec_of(x, *dims) -> P:
+    """The spec entries of x's dims `dims` (None for a None entry, and
+    for every dim of a plain tensor): the layout of a result built from
+    those dims of x, for `blockwise`."""
+    spec = x.spec if isinstance(x, Blocked) else None
+    return P(*(spec[d] if spec is not None and d is not None else None
+               for d in dims))
+
+
 def recut(x, like):
-    """x laid out as `like`: the dims that `like` cuts and x holds whole
-    are cut (each block a contiguous copy); x's own cuts must agree."""
-    mesh = like.mesh
-    blocks = {}
-    for key in _keys(mesh, like.kinds):
-        b, m, dev = key
-        if isinstance(x, Blocked):
-            t, held = x.block(b, m, dev), x.kinds
-        else:
-            t, held = x.to(dev), (None,) * x.ndim
-        blocks[key] = _slice_full(t, like.shape, like.kinds, held, b, m,
-                                  mesh).contiguous()
-    return _wrap(mesh, like.kinds, like.shape, blocks)
+    """x (of like's shape) laid out as `like`: the dims that `like` cuts
+    and x holds whole are cut; x's own cuts must agree. x itself where
+    like is a plain tensor."""
+    if not isinstance(like, Blocked):
+        return x
+    v = _view(x, like.shape, like.kinds, like.mesh)
+    return _wrap(like.mesh, like.kinds, like.shape,
+                 v.expand(*like.data.shape[:2], *v.shape[2:]))
 
 
 def rows_like(t, like):
@@ -1100,6 +1042,25 @@ def rows_like(t, like):
             or like.kinds[0] != "batch":
         return t
     return shard(t, like.mesh, P(like.spec[0], *([None] * (t.ndim - 1))))
+
+
+def with_rows(x, index, rows):
+    """A copy of x with rows `index` of its uncut leading dim set to
+    `rows` — an int index and a row, or a long index tensor and (k, ...)
+    rows — cut as x is: the copy on write of a serving stack."""
+    if not isinstance(x, Blocked):
+        out = x.clone()
+        out[index] = rows
+        return out
+    if x.kinds[0] is not None:
+        raise NotImplementedError("writing rows of a cut dim")
+    data = x.data.clone()
+    if isinstance(index, int):
+        v = _view(rows, x.shape[1:], x.kinds[1:], x.mesh)
+    else:
+        v = _view(rows, (len(index), *x.shape[1:]), x.kinds, x.mesh)
+    data[:, :, index] = v
+    return _wrap(x.mesh, x.kinds, x.shape, data)
 
 
 def block_index(x: Blocked, dim: int, b: int, m: int) -> slice:
@@ -1112,10 +1073,10 @@ def block_index(x: Blocked, dim: int, b: int, m: int) -> slice:
 
 
 def local_block(x, b: int = 0, m: int = 0):
-    """One block of x (any device), for tests and probes."""
+    """Block (b, m) of x, for tests and probes."""
     if not isinstance(x, Blocked):
         return x
-    for (bb, mm, _), t in x.blocks.items():
-        if (bb, mm) == (b, m):
-            return t
-    raise KeyError((b, m))
+    B, M = x.data.shape[:2]
+    if b >= B or m >= M:
+        raise KeyError((b, m))
+    return x.data[b, m]

@@ -45,27 +45,10 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = {a: int(n) for a, n in zip(self.axis_names,
                                                 grid.shape)}
-        self._cells = tuple(self._walk())
-        self._keys: dict = {}
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
-
-    def cells(self) -> tuple:
-        """(batch index, model index, device) of every cell, batch-major:
-        the batch index runs over the batch axes jointly (row-major in
-        their order), the model index over "model" (0 without one)."""
-        return self._cells
-
-    def _walk(self):
-        ba = batch_axes(self)
-        bshape = [self.shape[a] for a in ba]
-        for idx in np.ndindex(self.devices.shape):
-            pos = dict(zip(self.axis_names, idx))
-            b = int(np.ravel_multi_index([pos[a] for a in ba], bshape)) \
-                if ba else 0
-            yield b, pos.get("model", 0), self.devices[idx]
 
     def distinct_devices(self) -> list[torch.device]:
         out: list[torch.device] = []

@@ -67,21 +67,12 @@ def check_mesh(mesh, device: torch.device, what: str) -> None:
 
 def write_rows(stack, slots: list[int], thetas: torch.Tensor):
     """A copy of `stack` with rows `slots` set to `thetas` (k, D); on a
-    mesh each column block is copied and written with its columns."""
-    def into(out, rows, dev):
-        if len(slots) == 1:
-            out[slots[0]] = rows[0]
-        else:
-            out[torch.tensor(slots, dtype=torch.long, device=dev)] = rows
-        return out
-    if not isinstance(stack, sharding.Blocked):
-        return into(stack.clone(), thetas, stack.device)
-    blocks = {}
-    for key, blk in stack.blocks.items():
-        b, m, dev = key
-        cols = sharding.block_index(stack, 1, b, m)
-        blocks[key] = into(blk.clone(), thetas[..., cols].to(dev), dev)
-    return sharding.Blocked(stack.mesh, stack.spec, stack.shape, blocks)
+    mesh every column block is copied and written with its columns."""
+    if len(slots) == 1:
+        return sharding.with_rows(stack, slots[0], thetas[0])
+    return sharding.with_rows(
+        stack, torch.tensor(slots, dtype=torch.long, device=stack.device),
+        thetas)
 
 
 class ThetaStore:
@@ -180,8 +171,7 @@ class ThetaStore:
 
     # ---- allocation / paging --------------------------------------------
     def _as_thetas(self, thetas, shape: tuple[int, ...]) -> torch.Tensor:
-        if isinstance(thetas, sharding.Blocked):
-            thetas = sharding.unshard(thetas)
+        thetas = sharding.unshard(thetas)
         if not isinstance(thetas, torch.Tensor):
             thetas = torch.tensor(np.asarray(thetas))
         thetas = thetas.to(device=self.device, dtype=STACK_DTYPE)

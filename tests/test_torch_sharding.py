@@ -15,6 +15,7 @@ configuration (N=4, 40 rows, D=64, CG, 30 iterations). The meshes are
 `make_host_mesh(data, model, device="cpu")`: every cell is the CPU.
 """
 import dataclasses
+import importlib
 import threading
 
 import jax.numpy as jnp
@@ -200,9 +201,7 @@ def test_psum_model_adds_in_ascending_block_order():
     the blocks, not re-associated)."""
     mesh = make_host_mesh(1, 4, device=CPU)
     vals = [1e8, 1.0, -1e8, 1.0]
-    parts = {(0, m, torch.device("cpu")):
-             torch.tensor([v], dtype=torch.float32)
-             for m, v in enumerate(vals)}
+    parts = torch.tensor(vals, dtype=torch.float32).reshape(1, 4, 1)
     p = sharding.Blocked(mesh, sharding.P(None), (1,), parts, partial=True)
     want = torch.tensor([0.0])
     for v in vals:
@@ -478,6 +477,44 @@ def test_cta_oracle_and_online_solvers_on_a_mesh(shard_problem):
         if alg == "ridge_oracle":   # the closed form's own tolerance
             np.testing.assert_allclose(_np(port.theta),
                                        np.asarray(ref.theta), atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["simulator", "spmd"])
+def test_fit_places_the_problem_once(shard_problem, monkeypatch, backend):
+    """fit(mesh=) blocks Phi once, before any runner is made: every
+    runner of a scheduled fit reads the same blocks, and a problem the
+    caller placed already is used as it is (no second copy of Phi)."""
+    fit_mod = importlib.import_module("repro_torch.api.fit")
+    from repro_torch.core.graph import TopologySchedule as TS
+    _, tprob = shard_problem
+    mesh = make_host_mesh(2, 4, device=CPU)
+    seen = []
+    for name in ("_simulator_runner", "consensus_runner"):
+        real = getattr(fit_mod, name)
+
+        def spy(*a, _real=real, **k):
+            seen.append(a[1] if _real.__name__ == "_simulator_runner"
+                        else a[2])
+            return _real(*a, **k)
+        monkeypatch.setattr(fit_mod, name, spy)
+    cfg = FitConfig(krr=KRRConfig(**KRR), **dict(
+        SHARD, num_iters=4, backend=backend,
+        topology=TS.circulant_cycle(4, [(1,), (1,)])))
+    placed = sharding.shard_problem(tprob, mesh)
+    for prob in (tprob, placed):
+        seen.clear()
+        fit(cfg, problem=prob, device=CPU, mesh=mesh)
+        assert seen and all(isinstance(p.feats, sharding.Blocked)
+                            for p in seen)
+        assert len({id(p.feats) for p in seen}) == 1
+    assert seen[0].feats is placed.feats
+
+
+def test_a_mesh_over_several_devices_is_not_laid_out():
+    mesh = tmesh.Mesh.__new__(tmesh.Mesh)
+    mesh.distinct_devices = lambda: [CPU, torch.device("meta")]
+    with pytest.raises(NotImplementedError, match="item 14c"):
+        sharding.mesh_device(mesh)
 
 
 def test_mesh_devices_must_be_the_fit_device(shard_problem):
