@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   0. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  1. build the six hand-written kernels from src/repro_torch/csrc with
+  1. build the seven hand-written kernels from src/repro_torch/csrc with
      nvcc (one process per source, started together) into
      build/repro_torch/; K1's ptxas report per instance, its launch plan at
      the predict shape and at d=96, and its SASS instructions per output
@@ -209,17 +209,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      and a bucket's row block per feature block (scaled for D = 4096),
      K6 on those rows against a (65 537, 1024) stack block. The kernels
      line then carries phase 19's counts and errors for K1, K3, K5 and K6.
+ 20. training (`train_phase`), the port's `launch/train.py` path: (a) K7,
+     the attention backward, against its plain version at the training
+     shape (B=8, S=64, 16/8 heads of 128), the prefill shape (2 x 4096), a
+     window, an odd length and the reduced model's heads, each error
+     beside K7_RTOL, and at the training and prefill shapes its time with
+     a cold L2 beside its bound, the plain version and autograd through
+     F.scaled_dot_product_attention; (b) full-width qwen3-1.7b (28 layers,
+     fp32), allreduce, AdamW lr 3e-3, clip 1.0, B=8, S=64 from
+     TokenStream, 5 steps: the loss per step (finite), ms per step device
+     and host, K4 and K7 once per layer per step, their ms per step (the
+     profiler over a sixth step), peak memory; (c) dkla, coke, coke_et
+     (local_steps=2) and cta at full width with 2 agents and the depth cut
+     to 2 layers, 5 steps each: loss, comms, send_frac, ms per step, peak
+     memory; (d) the reduced model, 4 agents on a ring, tests/
+     test_system.py's coke run (20 steps, v=20, mu=0.5) on the card and on
+     the CPU from the same weights, unfused and with K3 on the LM tree:
+     comms and send_frac equal every step, losses within TRAIN_SMALL_RTOL.
+     The kernels line gains K7 (flash_attention_bwd) with (b)'s launches.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
-cell of 18 and each part of 19 every launch counter is set to 0, and read
-just after.
+cell of 18, each part of 19 and each run of 20 every launch counter is set
+to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
 
     python3 chip_smoke.py --phase19   # build, phases 4 and 5's fits, 19
+    python3 chip_smoke.py --phase20   # build, phase 20
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
-and prints its launch counts and errors, not the result lines.
+and prints its launch counts and errors, or phase 20 alone and its K7
+entry; neither prints the result lines.
 """
 from __future__ import annotations
 
@@ -323,6 +343,11 @@ MIXTRAL_HEADS = (32, 8, 128, 4096)
 # full softmax (the reference's own tolerance, tests/test_kernels.py); bf16
 # outputs within an ulp of bf16 (2^-7 relative) after rounding
 K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# K7 (the attention backward, fp32 FMAs) against its plain version: sums
+# over keys (dQ) or queries (dK, dV) in another order, P recomputed from
+# K4's log-sum-exp: each gradient within this share of its largest
+# magnitude
+K7_RTOL = 1e-4
 # the tensor-core instructions each K4 instance must compile to (SASS):
 # bf16 m16n8k16 and the TF32 m16n8k8 of the fp32 instance's 3xTF32
 K4_HMMA = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
@@ -506,6 +531,29 @@ SHARD_RUNS = 3
 # a sharded predict (psum of 4 block partials) against the unsharded one
 # (cuBLAS's order), of sum_k |phi theta| per row
 SHARD_PREDICT_RTOL = 1e-5
+# phase 20, training: the reference's launch/train.py defaults (B=8, S=64,
+# AdamW at lr 3e-3, grad_clip 1.0) at full width, 5 steps
+TRAIN_BATCH = 8
+TRAIN_SEQ = 64
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-3
+# the consensus strategies at full width: 2 agents, the depth cut to 2
+# layers (a consensus step holds ~10 copies of the 2.89 GB per-agent tree:
+# params, m, v, theta_hat, gamma, the neighbour cache, g_aug, the update)
+TRAIN_AGENTS = 2
+TRAIN_CONSENSUS_LAYERS = 2
+TRAIN_STRATEGIES = ("dkla", "coke", "coke_et", "cta")
+# K7's shapes: name -> (B, H, KV, S, D, window), all causal
+K7_SHAPES = {"training": (8, 16, 8, 64, 128, 0),
+             "prefill": (2, 16, 8, 4096, 128, 0),
+             "window": (2, 16, 8, 1000, 128, 256),
+             "odd length": (3, 16, 8, 77, 128, 0),
+             "reduced": (8, 4, 2, 64, 64, 0)}
+# (d): tests/test_system.py's coke run, card against CPU; fp32 through two
+# layers with cuBLAS and K4/K7 against ATen and the plain softmax, carried
+# through 20 AdamW steps
+TRAIN_SMALL_STEPS = 20
+TRAIN_SMALL_RTOL = 1e-4
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -524,6 +572,12 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "gather_rowdot": ("src/repro_torch/csrc/gather_rowdot.cu",
                       "src/repro/serve/kernel_server.py:164-169 (einsum "
                       "over stack[slots] inside XLA; no Pallas kernel)"),
+    # no Pallas kernel: the reference differentiates blockwise_attention
+    # inside XLA
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/train/steps.py:38 (jax.value_and_"
+                            "grad through blockwise_attention inside XLA; "
+                            "no Pallas kernel)"),
 }
 
 # every kernel wrapper's launch count: name -> (module, attribute)
@@ -537,6 +591,8 @@ LAUNCH_COUNTERS = {
                         "flash_attention", "LAUNCHES"),
     "threefry": ("repro_torch.kernels.threefry.threefry", "LAUNCHES"),
     "gather_rowdot": ("repro_torch.kernels.rowdot.rowdot", "LAUNCHES"),
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention."
+                            "flash_attention_bwd", "LAUNCHES"),
 }
 
 
@@ -4070,6 +4126,308 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     return seen, errs
 
 
+def k7_operands(gen, dev, B, H, KV, S, D):
+    """(B, S, heads, D) q, k, v and dO, the model's layout."""
+    return tuple(torch.randn(shape, generator=gen, device=dev)
+                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                               (B, S, H, D)))
+
+
+def admissible_pairs(S, window):
+    """Causal (query, key) pairs within `window` (0: none)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def k7_library_ms(q, k, v, do, window):
+    """(ms, how) of the backward alone of one F.scaled_dot_product_attention
+    call (memory-efficient backend, fp32) on q (B, H, S, D) and k/v
+    repeated to H heads before the call: torch.autograd.grad of its output
+    at do, the graph kept. The yardstick of K7, called nowhere in the
+    port."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[1] // k.shape[1]
+    qq = q.detach().requires_grad_()
+    kk = k.repeat_interleave(rep, dim=1).detach().requires_grad_()
+    vv = v.repeat_interleave(rep, dim=1).detach().requires_grad_()
+    mask = None
+    if window:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+        ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                 retain_graph=True),
+                     reps=1, runs=5, warmup=1)
+    return ms, (f"backward of EFFICIENT_ATTENTION, fp32, K/V repeated "
+                f"{rep}x before the call, "
+                f"{'boolean mask' if window else 'is_causal'}")
+
+
+def train_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 20: the port's training path (`train.steps`, the code of
+    `launch/train.py`) through K4 and K7. (a) K7 alone against its plain
+    version; (b) full-width allreduce training; (c) the consensus
+    strategies at full width, depth cut; (d) the reduced coke run on the
+    card against the CPU. Returns the kernels line's entry for K7."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import agent_batch, make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    bw, fp32 = peaks[0], peaks[1]
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
+    t = lambda x: x.transpose(1, 2)
+
+    # ---- (a) K7 alone against its plain version --------------------------
+    entry = None
+    for tag, (B, H, KV, S, D, window) in K7_SHAPES.items():
+        q, k, v, do = k7_operands(gen, dev, B, H, KV, S, D)
+        lse = torch.empty((B, H, S), device=dev)
+        out = k4.launch(q, k, v, heads_dim=2, causal=True, window=window,
+                        lse=lse)
+
+        def bwd():
+            return k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True,
+                                    window=window)
+
+        got = bwd()
+        want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
+                                 causal=True, window=window)
+        errs, rel = [], []
+        for g, w in zip(got, want):
+            e = float((g - t(w)).abs().max())
+            errs.append(e)
+            rel.append(e / float(w.abs().max()))
+        del got, want
+        log(20, f"K7 {tag} (B={B}, S={S}, H={H}, KV={KV}, D={D}, causal, "
+                f"window={window}): max|err| dq {errs[0]:.3e}, dk "
+                f"{errs[1]:.3e}, dv {errs[2]:.3e}; relative to each max "
+                f"{max(rel):.3e} (tol {K7_RTOL:g})")
+        if not max(rel) <= K7_RTOL:
+            raise AssertionError(f"K7 disagrees with its plain version at "
+                                 f"the {tag} shape")
+        if tag not in ("training", "prefill"):
+            continue
+        big = S > 1000
+        ms = flushed_ms(bwd, flush, reps=5 if big else 50,
+                        warmup=1 if big else 3)
+        pairs = admissible_pairs(S, window)
+        # the backward's five products (S and dP recomputed, dV, dK, dQ):
+        # 2.5 x the forward's 4 D flops a pair, on fp32 CUDA cores; its
+        # bytes: q, o, dO read and dQ written (4 of (B, S, H, D)), k, v
+        # read and dK, dV written (4 of (B, S, KV, D)), L read
+        flops = 10.0 * D * pairs * B * H
+        nbytes = 4.0 * (B * S * D * (4 * H + 4 * KV) + B * H * S)
+        t_f, t_b = flops / fp32 * 1e3, nbytes / bw * 1e3
+        b_ms, b_by = (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
+        plain_ms = time_ms(lambda: attention_bwd_ref(
+            t(q), t(k), t(v), t(out), t(do), causal=True, window=window),
+            reps=1, runs=3, warmup=1)
+        lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window)
+        log(20, f"[{card}] K7 at the {tag} shape: {ms:.4f} ms with a cold "
+                f"L2, bound {b_ms:.4f} ms ({b_by}: {flops / 1e12:.4f} TFLOP "
+                f"at {fp32 / 1e12:g} TFLOP/s fp32, {nbytes / 1e9:.4f} GB; "
+                f"{b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
+                f"library {lib_ms:.4f} ms ({lib_how})")
+        if tag == "training":
+            entry = {"name": "flash_attention_bwd", "route": "cuda",
+                     "source": KERNEL_SOURCES["flash_attention_bwd"][0],
+                     "replaces": KERNEL_SOURCES["flash_attention_bwd"][1],
+                     "launches": None, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms}
+        del q, k, v, do, lse, out
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- (b) full-width allreduce training ----------------------------------
+    cfg = get_config(LM_ARCH)
+    opt_cfg = OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+
+    def upload(i, agents=None, device=dev):
+        toks, labels = stream.batch(i)
+        b = {"tokens": torch.as_tensor(toks, device=device),
+             "labels": torch.as_tensor(labels, device=device)}
+        return agent_batch(b, agents) if agents else b
+
+    def run(tag, step_fns, state, batches, want):
+        """Steps timed one by one (CUDA events and the host clock), launch
+        counts over them; returns (state, [(metrics, dev ms, host ms)])."""
+        rows = []
+        reset_counts()
+        for fn, batch in zip(step_fns, batches):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = fn(state, batch)
+            end.record()
+            host = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            rows.append(({k: float(v) for k, v in m.items()},
+                         start.elapsed_time(end), host))
+        got = {k: v for k, v in counts().items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{tag} launched {got}, expected {want}")
+        losses = [r[0]["loss"] for r in rows]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{tag}: losses {losses}")
+        return state, rows
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_fn, step_fn, _ = make_train_step(cfg, opt_cfg)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in state["params"].values())
+    log(20, f"{LM_ARCH} allreduce: {n_params / 1e9:.3f} B fp32 parameters "
+            f"drawn, AdamW slots allocated in {time.perf_counter() - t0:.1f}"
+            " s")
+    L = cfg.num_layers
+    n = TRAIN_STEPS
+    state, rows = run("allreduce", [step_fn] * n, state,
+                      [upload(i) for i in range(n)],
+                      {"flash_attention": L * n, "flash_attention_bwd": L * n})
+    for i, (m, d_ms, h_ms) in enumerate(rows):
+        log(20, f"[{card}] allreduce step {i}: loss {m['loss']:.6f}, "
+                f"device {d_ms:.2f} ms, host {h_ms:.2f} ms")
+    steady = rows[1:]
+    d_med = statistics.median(r[1] for r in steady)
+    h_med = statistics.median(r[2] for r in steady)
+    # K4 and K7 per step, by the profiler over a sixth step
+    batch = upload(n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    k4_ms = k7_ms = busy = 0.0
+    top = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = device_ms(e)
+        busy += ms
+        top.append((ms, e.count, e.key))
+        if "flash_attention_kernel" in e.key:
+            k4_ms += ms
+        elif any(x in e.key for x in ("dkdv_kernel", "dq_kernel",
+                                       "delta_kernel")):
+            k7_ms += ms
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(20, f"[{card}] allreduce at full width ({L} layers, B={TRAIN_BATCH}, "
+            f"S={TRAIN_SEQ}): steps 1-{n - 1} median device {d_med:.2f} ms,"
+            f" host {h_med:.2f} ms per step; K4 and K7 {L} launches each "
+            f"per step; over a profiled step K4 {k4_ms:.3f} ms, K7 "
+            f"{k7_ms:.3f} ms of {busy:.2f} ms of kernels"
+            + ("" if busy else " (the profiler recorded no device time: "
+               "not measured)")
+            + f"; peak memory {peak:.2f} GB")
+    for ms, count, key in sorted(top, reverse=True)[:8]:
+        log(20, f"  {ms:.3f} ms  {count:>5} calls  {key[:100]}")
+    entry["launches"] = L * n
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # ---- (c) the consensus strategies at full width, depth cut ------------
+    ccfg_model = cfg.with_overrides(num_layers=TRAIN_CONSENSUS_LAYERS)
+    N, Lc = TRAIN_AGENTS, TRAIN_CONSENSUS_LAYERS
+    for strategy in TRAIN_STRATEGIES:
+        local_steps = 2 if strategy == "coke_et" else 1
+        ccfg = ConsensusConfig(strategy=strategy, rho=1e-3, censor_v=1.0,
+                               censor_mu=0.99, local_steps=local_steps)
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, local_fn = make_train_step(ccfg_model, opt_cfg,
+                                                     ccfg, num_agents=N)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        fns = [local_fn if (i + 1) % local_steps else step_fn
+               for i in range(n)]
+        state, rows = run(strategy, fns, state,
+                          [upload(i, N) for i in range(n)],
+                          {"flash_attention": N * Lc * n,
+                           "flash_attention_bwd": N * Lc * n})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for i, (m, d_ms, h_ms) in enumerate(rows):
+            extra = "".join(f", {k} {m[k]:g}" for k in
+                            ("comms", "send_frac", "consensus_gap")
+                            if k in m)
+            log(20, f"[{card}] {strategy} step {i} "
+                    f"({'local' if fns[i] is local_fn else 'consensus'}): "
+                    f"loss {m['loss']:.6f}{extra}; device {d_ms:.2f} ms, "
+                    f"host {h_ms:.2f} ms")
+        log(20, f"[{card}] {strategy} at full width, {N} agents, {Lc} "
+                f"layers: K4 and K7 {N * Lc} launches each per step; peak "
+                f"memory {peak:.2f} GB")
+        del state
+        torch.cuda.empty_cache()
+
+    # ---- (d) the reduced coke run, card against CPU -----------------------
+    # K3 runs here at the reduced size: on the full-width LM tree its
+    # flatten would hold six more (N, 722 M) copies than phase (c) has room
+    # for
+    small = get_config(LM_ARCH).reduced()
+    weights = M.param_dict(M.init_params(small,
+                                         torch.Generator().manual_seed(0)))
+    small_stream = TokenStream(TokenStreamConfig(
+        vocab_size=small.vocab_size, seq_len=48, global_batch=8,
+        structure=0.9))
+    for fused in (False, True):
+        ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
+                               censor_mu=0.5, use_fused_kernel=fused)
+        runs = {}
+        for where in ("cpu", dev):
+            init_fn, step_fn, _ = make_train_step(small, OptConfig(lr=3e-3),
+                                                  ccfg, num_agents=4)
+            state = init_fn({k: x.to(where) for k, x in weights.items()})
+            batches = []
+            for i in range(TRAIN_SMALL_STEPS):
+                toks, labels = small_stream.batch(i)
+                batches.append(agent_batch(
+                    {"tokens": torch.as_tensor(toks, device=where),
+                     "labels": torch.as_tensor(labels, device=where)}, 4))
+            steps = TRAIN_SMALL_STEPS
+            want = ({} if where == "cpu" else
+                    {"flash_attention": 4 * small.num_layers * steps,
+                     "flash_attention_bwd": 4 * small.num_layers * steps,
+                     "coke_fused_update": steps if fused else 0})
+            _, rows = run(f"the reduced coke run on {where}",
+                          [step_fn] * steps, state, batches, want)
+            runs[str(where)] = [r[0] for r in rows]
+        cpu, gpu = runs["cpu"], runs[str(dev)]
+        same = all(a["comms"] == b["comms"] and a["send_frac"] ==
+                   b["send_frac"] for a, b in zip(gpu, cpu))
+        worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(gpu, cpu))
+        log(20, f"reduced {LM_ARCH}, 4 agents, coke v=20 mu=0.5, "
+                f"{TRAIN_SMALL_STEPS} steps{' with K3' if fused else ''}: "
+                f"card comms {[int(r['comms']) for r in gpu]}, send_frac "
+                f"{[r['send_frac'] for r in gpu]}; equal to the CPU's every "
+                f"step: {same}; losses {gpu[0]['loss']:.5f} -> "
+                f"{gpu[-1]['loss']:.5f}, max relative difference to the "
+                f"CPU's {worst:.3e} (tol {TRAIN_SMALL_RTOL:g})")
+        if not (same and worst <= TRAIN_SMALL_RTOL):
+            raise AssertionError("the reduced coke run differs between card "
+                                 "and CPU")
+    log(20, f"[{card}] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5085,7 +5443,7 @@ def main() -> int:
     if lm_counts != {"coke_megastep": 0, "rff_cos_bias": 0,
                      "coke_fused_update": 0,
                      "flash_attention": lm_cfg.num_layers, "threefry": 0,
-                     "gather_rowdot": 0}:
+                     "gather_rowdot": 0, "flash_attention_bwd": 0}:
         raise AssertionError(f"the serving path launched {lm_counts}, not "
                              f"K4 once per layer of the prefill")
     if served.shape != (LM_BATCH, LM_NEW_TOKENS) or not (
@@ -5311,6 +5669,10 @@ def main() -> int:
         if not shard_counts[name]:
             raise AssertionError(f"phase 19 never launched {name}")
 
+    # ---- 20. training through K4 and K7 ---------------------------------
+    kernels.append(train_phase(dev, card, reset_counts, counts, peaks=peaks))
+    log(20, f"[{card}] flash_attention_bwd (K7): {kernels[-1]}")
+
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5366,5 +5728,33 @@ def phase19_alone() -> int:
     return 0
 
 
+def phase20_alone() -> int:
+    """Phase 20 alone: build the kernels and run `train_phase`; prints its
+    K7 entry, not the result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    entry = train_phase(dev, card, reset_counts, counts,
+                        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps(entry))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(phase19_alone() if sys.argv[1:] == ["--phase19"] else main())
+    alone = {"--phase19": phase19_alone, "--phase20": phase20_alone}
+    sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
+             else main())

@@ -135,3 +135,33 @@ def lm_params_from_numpy(cfg: ModelConfig, params: dict, *,
     model = LM(cfg, device=resolve_device(device))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of `lm_params_from_numpy`: the reference's parameter tree
+    as numpy arrays, blocks stacked along a leading layer axis. `params` is
+    an `LM` or a dict of tensors by parameter name (`models.model.
+    param_dict`), optionally agent-stacked (N, ...) as the consensus
+    strategies' state is; then every leaf keeps the agent axis first and
+    the blocks stack along the next one, the reference's layout."""
+    if isinstance(params, LM):
+        params = {n: p.detach() for n, p in params.named_parameters()}
+    agents = params["embed"].ndim == 3
+    tree: dict = {}
+    layers: dict[str, list] = {}
+    for name, t in params.items():
+        arr = t.detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(".".join(parts[2:]), []).append(
+                (int(parts[1]), arr))
+        else:
+            tree[name] = arr
+    for rest, items in layers.items():
+        arrs = [a for _, a in sorted(items, key=lambda x: x[0])]
+        node = tree.setdefault("blocks", {})
+        *path, leaf = rest.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.stack(arrs, axis=1 if agents else 0)
+    return tree

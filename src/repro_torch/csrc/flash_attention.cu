@@ -72,6 +72,12 @@
 //    is still -inf uses 0 in its place, so exp never sees (-inf) - (-inf).
 //    A row that no key may see (possible only with a window and
 //    Sq > Sk + window - 1) is written as 0.
+//  * Training (the fp32 instance only, a template flag, so the serving
+//    instances compile as before): given a non-null `lse`, the kernel also
+//    writes each row's log-sum-exp L = m + log(l) of the scaled scores, in
+//    natural-log units, fp32 (B, H, Sq) contiguous, +inf for a row that no
+//    key may see. The backward kernel (csrc/flash_attention_bwd.cu)
+//    recomputes P = exp(S scale - L) from it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -89,6 +95,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                      // (B, H, Sq) or null (the LSE instances)
   int64_t q_sb, q_ss, q_sh;        // element strides of q: batch, seq, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -411,8 +418,8 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_stride,
 }
 
 // MT: m16 tiles of query rows per warp; NJ: 64-wide groups of output
-// columns (Dv <= 64 NJ).
-template <class P, int MT, int NJ>
+// columns (Dv <= 64 NJ); LSE: also write the rows' log-sum-exp.
+template <class P, int MT, int NJ, bool LSE>
 __global__ void __launch_bounds__(NT, 2)
 flash_attention_kernel(const Params p) {
   using T = typename P::T;
@@ -573,6 +580,10 @@ flash_attention_kernel(const Params p) {
       const int qr = q0 + row0 + mt * 16 + g + 8 * r;
       if (qr >= p.Sq) continue;
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
+      if (LSE && t == 0)     // m in log2 units of the scaled scores
+        p.lse[((int64_t)b * p.H + h) * p.Sq + qr] =
+            sum > 0.f ? (m[mt][r] + log2f(sum)) * 0.6931471805599453f
+                      : INFINITY;
       T* orow = ob + (int64_t)qr * p.o_ss;
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
@@ -589,7 +600,7 @@ struct Plan {
   int bq, bk, stages, smem, blocks_per_sm;
 };
 
-template <class P, int MT, int NJ>
+template <class P, int MT, int NJ, bool LSE>
 cudaError_t plan(int Dh, int Dv, Plan* out) {
   constexpr int E = sizeof(typename P::T);
   const int bq = 16 * MT * NW, bk = P::BK;
@@ -604,28 +615,28 @@ cudaError_t plan(int Dh, int Dv, Plan* out) {
   for (int stages = 2; stages <= 3; ++stages) {
     const int smem = bq * qst + stages * bk * (qst + vst);
     if (smem > optin) break;
-    err = cudaFuncSetAttribute(flash_attention_kernel<P, MT, NJ>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<P, MT, NJ, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     int blocks = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_attention_kernel<P, MT, NJ>, NT, smem);
+          &blocks, flash_attention_kernel<P, MT, NJ, LSE>, NT, smem);
     if (err != cudaSuccess) return err;
     if (blocks > 0 && blocks >= best.blocks_per_sm)
       best = Plan{bq, bk, stages, smem, blocks};
   }
   if (best.stages == 0) return cudaErrorInvalidValue;
   *out = best;
-  return cudaFuncSetAttribute(flash_attention_kernel<P, MT, NJ>,
+  return cudaFuncSetAttribute(flash_attention_kernel<P, MT, NJ, LSE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               best.smem);
 }
 
-template <class P, int MT, int NJ>
+template <class P, int MT, int NJ, bool LSE = false>
 int run(Params p, int B, cudaStream_t stream, Plan* plan_only) {
   Plan pl;
-  cudaError_t err = plan<P, MT, NJ>(p.Dh, p.Dv, &pl);
+  cudaError_t err = plan<P, MT, NJ, LSE>(p.Dh, p.Dv, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (plan_only) {
     *plan_only = pl;
@@ -633,16 +644,24 @@ int run(Params p, int B, cudaStream_t stream, Plan* plan_only) {
   }
   p.stages = pl.stages;
   const dim3 grid((p.Sq + pl.bq - 1) / pl.bq, B * p.H);
-  flash_attention_kernel<P, MT, NJ><<<grid, NT, pl.smem, stream>>>(p);
+  flash_attention_kernel<P, MT, NJ, LSE><<<grid, NT, pl.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: 128-row query tiles (MT = 2) up to Dv = 128, 64 rows past it (the
-// accumulator would not fit the registers); fp32: 64-row tiles.
+// accumulator would not fit the registers); fp32: 64-row tiles. The LSE
+// instances are fp32's only.
 int dispatch(const Params& p, int B, int dtype, cudaStream_t stream,
              Plan* plan_only) {
   const int nj = (p.Dv + 63) / 64;
-  if (dtype == 0) {
+  if (dtype == 0 && p.lse) {
+    switch (nj) {
+      case 1: return run<Tf32x3, 1, 1, true>(p, B, stream, plan_only);
+      case 2: return run<Tf32x3, 1, 2, true>(p, B, stream, plan_only);
+      case 3: return run<Tf32x3, 1, 3, true>(p, B, stream, plan_only);
+      case 4: return run<Tf32x3, 1, 4, true>(p, B, stream, plan_only);
+    }
+  } else if (dtype == 0) {
     switch (nj) {
       case 1: return run<Tf32x3, 1, 1>(p, B, stream, plan_only);
       case 2: return run<Tf32x3, 1, 2>(p, B, stream, plan_only);
@@ -678,21 +697,24 @@ const char* error_string(int code) {
 // q (B, Sq, H, Dh) by its strides, k (B, Sk, KV, Dh), v (B, Sk, KV, Dv),
 // out (B, Sq, H, Dv); strides in elements for batch, sequence and head, the
 // last dim contiguous. dtype 0 = fp32, 1 = bf16 (all four tensors alike).
-// Query head h reads KV head h / (H / KV). window 0 = no window. Launches
-// on `stream` and returns cudaGetLastError() (0 on success); does not
-// synchronise.
+// Query head h reads KV head h / (H / KV). window 0 = no window. lse, null
+// or fp32 (B, H, Sq) contiguous, takes each row's log-sum-exp (dtype 0
+// only). Launches on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, const int64_t* strides, int B, int H,
                         int KV, int Sq, int Sk, int Dh, int Dv, int causal,
-                        int window, float scale, int dtype, void* stream) {
+                        int window, float scale, int dtype, float* lse,
+                        void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || Dh <= 0 || Dh > MAX_HEAD_DIM || Dv <= 0 ||
       Dv > MAX_HEAD_DIM || Sk < 0 || window < 0 ||
-      (int64_t)B * H > 65535 || (dtype != 0 && dtype != 1))
+      (int64_t)B * H > 65535 || (dtype != 0 && dtype != 1) ||
+      (lse && dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int elem = dtype == 0 ? 4 : 2;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.out = out;
+  p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -712,7 +734,7 @@ int flash_attention_plan(int Dh, int Dv, int dtype, int* out) {
   if (Dh <= 0 || Dh > MAX_HEAD_DIM || Dv <= 0 || Dv > MAX_HEAD_DIM)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
-  p.Dh = Dh; p.Dv = Dv;
+  p.Dh = Dh; p.Dv = Dv;   // lse null: the serving instances' plan
   Plan pl;
   const int code = dispatch(p, 1, dtype, nullptr, &pl);
   if (code == 0) {

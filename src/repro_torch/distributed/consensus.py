@@ -1,16 +1,22 @@
 """The ring consensus runtime: COKE/DKLA/CTA as a data-parallel strategy.
 
 Each agent holds its own parameter copy theta_i as a row of an
-agent-stacked tree ({"theta": (N, D)}); the consensus graph is a circulant
-ring. Neighbour exchange is `torch.roll` along the agent axis.
+agent-stacked tree ({"theta": (N, D)}, or a deep net's dict of weights);
+the consensus graph is a circulant ring. Neighbour exchange is
+`torch.roll` along the agent axis.
 
-Strategies ported here:
-  dkla — decentralized ADMM (Alg. 1) with an inexact inner argmin (one
-         optimizer step on the augmented Lagrangian),
-  coke — dkla + communication censoring (Alg. 2): the exchange always
-         runs but carries the *stale* theta_hat when censored, which is
-         the same as not transmitting; transmissions are counted exactly,
-  cta  — the diffusion combine-then-adapt baseline (ring Metropolis mix).
+Strategies:
+  allreduce — standard DP (the mean gradient; `train.steps` runs it and
+              keeps no agent stack: `needs_agent_stack`),
+  dkla    — decentralized ADMM (Alg. 1) with an inexact inner argmin (one
+            optimizer step on the augmented Lagrangian),
+  coke    — dkla + communication censoring (Alg. 2): the exchange always
+            runs but carries the *stale* theta_hat when censored, which is
+            the same as not transmitting; transmissions are counted exactly,
+  cta     — the diffusion combine-then-adapt baseline (ring Metropolis mix),
+  coke_et — the event-triggered variant: `local_steps` purely local
+            optimizer steps (`local_update`) between consensus rounds,
+            each round coke's ADMM round.
 
 The broadcast is governed by a `core.comm` policy chain passed to
 `consensus_update(comm=...)`; the legacy `censor_v`/`censor_mu` knobs map
@@ -54,8 +60,11 @@ partials (psum), and the fused path launches K3 once per block of the
 carry. As without a mesh, K3's xi^2 (the norm of the old iterate) is not
 the censor's norm (of the new one): it is left unsummed, unused.
 
-Not ported yet, and raising NotImplementedError naming the ROADMAP.md
-item: the allreduce / coke_et strategies of the deep-net layer (item 15).
+`consensus_update` and `local_update` take the entries they consume out
+of their own copy of `state` and drop each tree after its last use: a
+caller that keeps no other reference to `params`, `grads` or `state`
+(the deep-net train steps) holds about one copy of the state during a
+step instead of two.
 """
 from __future__ import annotations
 
@@ -69,16 +78,9 @@ from repro_torch.core.step import true_div
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.distributed.sharding import Blocked
 from repro_torch.kernels.coke_update.ops import coke_update_pytree
-from repro_torch.kernels.coke_update.ref import coke_update_ref
+from repro_torch.kernels.coke_update.ref import g_aug_ref
 from repro_torch.optim.optimizers import (OptConfig, apply_updates,
                                           init_opt_state, opt_update)
-
-_LATER = {
-    "strategy": "the allreduce and coke_et strategies belong to the "
-                "deep-net layer, not ported to repro_torch yet: ROADMAP.md "
-                "Queue 1 item 15",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusConfig:
@@ -86,7 +88,11 @@ class ConsensusConfig:
     rho: float = 1e-3
     censor_v: float = 1.0
     censor_mu: float = 0.99
+    local_steps: int = 1         # coke_et: local steps per consensus round
     mix_weight: float = 1.0 / 3.0  # cta ring mixing (self + 2 neighbours)
+    # consensus_gap is a reduction over the whole parameter tree; the deep
+    # net's train step leaves it out with track_gap=False
+    track_gap: bool = True
     # circulant topology: agent i ~ i +- o for each offset o; (1,) = ring
     offsets: tuple = (1,)
     # time-varying topology: a tuple of offset tuples, cycled per iteration
@@ -108,6 +114,10 @@ class ConsensusConfig:
             return comm_mod.Chain(())
         return comm_mod.Chain((comm_mod.Censor(self.censor_v,
                                                self.censor_mu),))
+
+
+def needs_agent_stack(cfg: ConsensusConfig) -> bool:
+    return cfg.strategy != "allreduce"
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +223,7 @@ def _agent_norms(diff_tree) -> torch.Tensor:
 
 def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
                      joined) -> None:
-    """The reference's ValueErrors, then NotImplementedError for what the
-    port does not run yet."""
+    """The reference's ValueErrors, raised before anything runs."""
     dense = adjacency is not None
     if ccfg.offset_schedule and not ccfg.is_admm:
         raise ValueError(
@@ -249,8 +258,6 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
                 "the fused coke_update kernel bakes the graph degree in "
                 "as a static parameter; churn (a traced alive mask) "
                 "requires use_fused_kernel=False")
-    if ccfg.strategy not in ("dkla", "coke", "cta"):
-        raise NotImplementedError(_LATER["strategy"])
 
 
 def _vmapped_opt_update(opt_cfg: OptConfig, grads, opt, params):
@@ -278,14 +285,15 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     legacy chain from ccfg's censor knobs.
     primal_solve — (params, theta_hat, gamma, nbr_sum, deg) -> new params:
     the exact primal, in place of the optimizer step (grads are not read).
-    participate — (N,) bool gossip participation mask (dkla/coke).
-    alive / joined — (N,) bool churn masks (dkla/coke on the static ring):
-    the alive-weighted exchange, and the rows that restart cold (None
-    where no row does).
-    adjacency — an (N, N) dense weighted graph (dkla/coke, unfused): its
-    row sums as the (N,) degrees and `A @ x` neighbour sums; the circulant
+    participate — (N,) bool gossip participation mask (ADMM strategies).
+    alive / joined — (N,) bool churn masks (ADMM on the static ring): the
+    alive-weighted exchange, and the rows that restart cold (None where no
+    row does).
+    adjacency — an (N, N) dense weighted graph (ADMM, unfused): its row
+    sums as the (N,) degrees and `A @ x` neighbour sums; the circulant
     cache is bypassed and carried untouched."""
     _check_supported(ccfg, participate, adjacency, alive, joined)
+    state = dict(state)
     step = state["step"] + 1
     metrics: dict[str, torch.Tensor] = {}
     num_agents = tree_leaves(params)[0].shape[0]
@@ -297,18 +305,20 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
             lambda p, l, r: ((1 - ccfg.degree * w) * p.to(torch.float32)
                              + w * (l + r).to(torch.float32)).to(p.dtype),
             params, left, right)
-        updates, opt = _vmapped_opt_update(opt_cfg, grads, state["opt"],
+        del params, left, right
+        updates, opt = _vmapped_opt_update(opt_cfg, grads, state.pop("opt"),
                                            combined)
+        del grads
         new_params = apply_updates(combined, updates)
         new_state = dict(state, opt=opt, step=step,
                          comms=state["comms"] + num_agents)
         return new_params, new_state, metrics
 
-    # --- ADMM family (dkla / coke) on a circulant -------------------------
-    theta_hat, gamma = state["theta_hat"], state["gamma"]
+    # --- ADMM family (dkla / coke / coke_et) on a circulant ---------------
+    theta_hat, gamma = state.pop("theta_hat"), state.pop("gamma")
     chain = ccfg.comm_chain() if comm is None else comm_mod.as_chain(comm)
     rho = ccfg.rho
-    opt0 = state["opt"]
+    opt0 = state.pop("opt")
     if joined is not None:
         # a (re)joining agent restarts cold: zero primal / broadcast / dual
         # rows and a fresh optimizer slot (core.gossip semantics)
@@ -351,7 +361,7 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         offsets, deg = ccfg.offsets, ccfg.degree
         # neighbours' theta_hat^{k-1}: served from the cache filled by the
         # previous step's dual-update fetch, no roll here
-        left, right = state["nbr_left"], state["nbr_right"]
+        left, right = state.pop("nbr_left"), state.pop("nbr_right")
 
     # primal update (21a): exact when the caller supplies a solve (the
     # matrix-free CG path), otherwise one optimizer step on the augmented
@@ -378,28 +388,36 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
         half = tree_map(lambda l, r: 0.5 * (l + r), left, right)
         g_aug, _ = coke_update_pytree(params, theta_hat, gamma, grads, half,
                                       half, rho=rho, deg=deg, norm=False)
+        del half
     else:
-        # the kernel's plain version over the flattened trees: no launch
-        flat = [comm_mod.flatten_agents(t)
-                for t in (params, theta_hat, gamma, grads, left, right)]
-        g, _ = coke_update_ref(*(f for f, _ in flat), rho=rho, deg=deg)
-        g_aug = comm_mod.unflatten_agents(g, flat[0][1], params)
+        # the kernel's plain version, leaf by leaf: no launch
+        g_aug = tree_map(
+            lambda p, th, gm, g, l, r: g_aug_ref(p, th, gm, g, l, r,
+                                                 rho=rho, deg=deg),
+            params, theta_hat, gamma, grads, left, right)
+    del grads
+    if not summed:
+        del left, right
     if primal_solve is None:
         updates, opt = _vmapped_opt_update(opt_cfg, g_aug, opt0, params)
+        del g_aug
         new_params = apply_updates(params, updates)
+        del updates
 
     # gossip: sleepers hold their primal iterate and optimizer state
     if participate is not None:
         new_params = _mask_rows(participate, new_params, params)
         opt = _mask_rows(participate, opt, opt0)
+    del params, opt0
 
     # the communication policy over the flattened agent-stacked message,
     # with stale-value fallback (shared decision code with the other paths)
-    leaf = tree_leaves(params)[0]
+    leaf = tree_leaves(new_params)[0]
     comm_state = chain.ensure_state(state.get("comm"), num_agents,
                                     leaf.device)
     new_theta_hat, send, comm_state = comm_mod.apply_tree(
         chain, new_params, theta_hat, step, comm_state, active=participate)
+    del theta_hat
 
     # dual (21b) with theta_hat^k: on a static ring the step's only
     # neighbour fetch, cached for the next primal update
@@ -426,6 +444,17 @@ def consensus_update(ccfg: ConsensusConfig, opt_cfg: OptConfig,
                      theta_hat=new_theta_hat, gamma=new_gamma,
                      nbr_left=hat_l, nbr_right=hat_r, comm=comm_state)
     return new_params, new_state, metrics
+
+
+def local_update(opt_cfg: OptConfig, params, grads, state):
+    """A purely local step (no exchange over the agent axis): the censored
+    rounds of the event-triggered coke_et strategy."""
+    state = dict(state)
+    updates, opt = _vmapped_opt_update(opt_cfg, grads, state.pop("opt"),
+                                       params)
+    del grads
+    new_params = apply_updates(params, updates)
+    return new_params, dict(state, opt=opt, step=state["step"] + 1)
 
 
 def init_stream_state(ccfg: ConsensusConfig, theta0: torch.Tensor,

@@ -16,13 +16,20 @@ import torch
 from repro_torch.kernels.coke_update.coke_update import megastep_scalars
 
 
+def g_aug_ref(theta, theta_hat, gamma, grad, left, right, *, rho,
+              deg=2.0):
+    """The augmented gradient alone, elementwise over any shape, fp32."""
+    f = lambda a: a.to(torch.float32)
+    return (f(grad) + 2.0 * rho * deg * f(theta) + f(gamma)
+            - rho * (deg * f(theta_hat) + f(left) + f(right)))
+
+
 def coke_update_ref(theta, theta_hat, gamma, grad, left, right, *, rho,
                     deg=2.0):
     """-> (g_aug (N, D) fp32, xi_sq (N,) fp32), the squared censor norm."""
-    f = lambda a: a.to(torch.float32)
-    gaug = (f(grad) + 2.0 * rho * deg * f(theta) + f(gamma)
-            - rho * (deg * f(theta_hat) + f(left) + f(right)))
-    xi = f(theta_hat) - f(theta)
+    gaug = g_aug_ref(theta, theta_hat, gamma, grad, left, right, rho=rho,
+                     deg=deg)
+    xi = theta_hat.to(torch.float32) - theta.to(torch.float32)
     return gaug, torch.sum(xi * xi, dim=-1)
 
 

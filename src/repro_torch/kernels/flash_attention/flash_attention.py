@@ -5,7 +5,9 @@ Port of `repro/kernels/flash_attention/flash_attention.py::flash_attention`.
 On CPU tensors it runs the plain version (`ref.attention_ref`); on CUDA
 tensors it launches the kernel once, on PyTorch's current stream, or
 raises. `LAUNCHES` counts kernel launches, of this entry point and of
-`ops.gqa_flash`, which launches the same kernel on the model's layout.
+`ops.gqa_flash`, which launches the same kernel on the model's layout
+(and, when autograd needs it, with each row's log-sum-exp for the
+backward, `flash_attention_bwd`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ MAX_HEAD_DIM = 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": (_I, [_P, _P, _P, _P, ctypes.POINTER(
-        ctypes.c_int64)] + [_I] * 9 + [_F, _I, _P]),
+        ctypes.c_int64)] + [_I] * 9 + [_F, _I, _P, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,10 +74,13 @@ def check_operands(q, k, v, *, heads_dim: int, causal, window: int,
             raise ValueError(f"{name} must be an int >= {least}; got {val!r}")
 
 
-def launch(q, k, v, *, heads_dim: int, causal: bool,
-           window: int) -> torch.Tensor:
+def launch(q, k, v, *, heads_dim: int, causal: bool, window: int,
+           lse: torch.Tensor | None = None) -> torch.Tensor:
     """One kernel launch on CUDA tensors of either layout, already checked
-    by `check_operands`. Returns the output in q's layout and dtype."""
+    by `check_operands`. Returns the output in q's layout and dtype. `lse`,
+    an fp32 (B, H, Sq) contiguous tensor (fp32 operands only), takes each
+    query row's log-sum-exp of the scaled scores (+inf where no key may be
+    seen); None launches the serving instance, which writes none."""
     global LAUNCHES
     seq_dim = 3 - heads_dim
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -91,6 +96,13 @@ def launch(q, k, v, *, heads_dim: int, causal: bool,
     shape = list(q.shape)
     shape[3] = Dv
     out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    if lse is not None and (q.dtype != torch.float32
+                            or lse.dtype != torch.float32
+                            or tuple(lse.shape) != (B, H, Sq)
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError("lse must be an fp32 (B, H, Sq) contiguous tensor "
+                         "on q's device, beside fp32 operands")
     if out.numel() == 0:
         return out
     strides = []
@@ -101,7 +113,8 @@ def launch(q, k, v, *, heads_dim: int, causal: bool,
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         (ctypes.c_int64 * 12)(*strides), B, H, KV, Sq, Sk, Dh, Dv,
-        int(causal), window, 1.0 / (Dh ** 0.5), _DTYPES[q.dtype], stream)
+        int(causal), window, 1.0 / (Dh ** 0.5), _DTYPES[q.dtype],
+        None if lse is None else lse.data_ptr(), stream)
     build.check(lib, code, "flash_attention_fwd")
     LAUNCHES += 1
     return out

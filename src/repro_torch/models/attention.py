@@ -1,10 +1,11 @@
 """Grouped-query attention (optional qk-norm and sliding window): the
-prefill pass through the flash-attention kernel, and single-token decode
-against a (rolling) KV cache.
+training and prefill pass through the flash-attention kernels, and
+single-token decode against a (rolling) KV cache.
 
 Port of the GQA part of `repro/models/attention.py`. The reference's
-prefill runs `blockwise_attention`, a jnp mirror of its Pallas flash
-kernel; the port runs the kernel itself (`kernels/flash_attention`). MLA
+prefill and training run `blockwise_attention`, a jnp mirror of its
+Pallas flash kernel; the port runs the kernel itself
+(`kernels/flash_attention`: K4 forward, K7 backward under autograd). MLA
 raises NotImplementedError naming `common.LATER_ARCHS`.
 """
 from __future__ import annotations
@@ -138,10 +139,10 @@ def gqa_forward(params: GQAAttention, cfg: ModelConfig, x, positions, *,
     """Training / prefill attention. x: (B, S, d); positions: (S,), which
     rotate q and k. With cache_len, also returns the KV cache for decode.
 
-    The attention itself is the flash kernel (`gqa_flash`), which masks by
-    index: query i and key j stand at positions i and j. That is what the
-    reference's `blockwise_attention` computes for the positions every
-    caller passes, arange(S)."""
+    The attention itself is the flash kernel (`gqa_flash`, differentiable:
+    its backward is K7), which masks by index: query i and key j stand at
+    positions i and j. That is what the reference's `blockwise_attention`
+    computes for the positions every caller passes, arange(S)."""
     w = cfg.sliding_window if window is None else window
     q, k, v = _gqa_project_qkv(params, cfg, x, positions)
     out = gqa_flash(q, k, v, causal=causal, window=w)

@@ -225,14 +225,19 @@ def dense_init(generator: torch.Generator | None, shape: tuple[int, ...],
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter of the serving model: the port runs inference only."""
+    """A parameter of the model, kept out of autograd: serving runs the
+    module as it is, and training differentiates a dict of tensors put in
+    the parameters' places (`models.model.loss_fn`)."""
     return nn.Parameter(t, requires_grad=False)
 
 
 def init_device(generator: torch.Generator | None,
                 device: torch.device | str | None) -> torch.device:
     """Where a module's weights live: the generator's device when weights
-    are drawn, else `device` (None means "cuda")."""
+    are drawn, else `device` (None means "cuda"; "meta" gives a module of
+    shapes only, whose weights are always passed in)."""
     if generator is not None:
         return generator.device
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
     return resolve_device(device)

@@ -7,8 +7,15 @@ over the blocks (the reference stacks the layers and scans). The public
 entry points keep the reference's names and arguments, with the module in
 the place of the param pytree:
 
-  init_params, forward(batch) -> (logits, aux),
+  init_params, forward(batch) -> (logits, aux), loss_fn,
   init_serve_state, prefill, prefill_with_state, decode_step.
+
+Training differentiates a dict of tensors by parameter name
+(`param_dict`), put in the places of a module's weights by
+`torch.func.functional_call` on a shapes-only `skeleton`: `loss_fn` takes
+either. The reference's `cfg.remat` (jax.checkpoint around each layer) is
+not mapped: activations are kept, and each layer runs its attention
+kernel once forward and once backward.
 
 Hybrid, enc-dec, MoE, SSM and MLA models raise NotImplementedError naming
 `common.LATER_ARCHS`.
@@ -69,10 +76,26 @@ class LM(nn.Module):
             blk.DenseBlock(cfg, generator, device=dev)
             for _ in range(cfg.num_layers))
 
+    def forward(self, cfg: ModelConfig, batch: dict):
+        """The module-level `forward` on this module's weights (the entry
+        `torch.func.functional_call` calls)."""
+        return forward(self, cfg, batch)
+
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     """The model with weights drawn from `generator`, on its device."""
     return LM(cfg, generator)
+
+
+def param_dict(model: LM) -> dict[str, torch.Tensor]:
+    """{parameter name: tensor} of `model`, sharing its storage."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def skeleton(cfg: ModelConfig) -> LM:
+    """The model's structure on the meta device: no weights are allocated;
+    `loss_fn` puts a dict of tensors in their places."""
+    return LM(cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +129,23 @@ def forward(params: LM, cfg: ModelConfig, batch: dict):
     x, aux = _decoder_only_forward(params, cfg, x, positions)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01,
+            *, model: LM | None = None):
+    """Mean next-token NLL (log-softmax in fp32) plus aux_weight * aux.
+    `params`: an LM, or a dict of tensors by parameter name run through
+    `model` (a skeleton of the same config, made here when None) by
+    `torch.func.functional_call`. Returns (loss, {"nll", "aux"})."""
+    if isinstance(params, LM):
+        logits, aux = forward(params, cfg, batch)
+    else:
+        logits, aux = torch.func.functional_call(
+            skeleton(cfg) if model is None else model, params, (cfg, batch))
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    loss = torch.mean(nll) + aux_weight * aux
+    return loss, {"nll": torch.mean(nll), "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -138,11 +138,36 @@ def test_sgd_matches_reference(momentum, clip):
 
 
 def test_adamw_is_not_ported_yet():
-    assert port_opt.OptConfig().kind == "sgd"     # the default runs
-    port_opt.init_opt_state(port_opt.OptConfig(), {"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port_opt.init_opt_state(port_opt.OptConfig(kind="adamw"),
-                                {"a": torch.zeros(3)})
+    """AdamW (the reference's default kind) against the reference: three
+    steps with and without clipping and weight decay, params within 1e-6
+    (fp32 elementwise chains; the bias corrections are fp32 powers)."""
+    assert port_opt.OptConfig().kind == jax_opt.OptConfig().kind == "adamw"
+    rng = np.random.default_rng(2)
+    params = {"w": rng.standard_normal((4, 6)).astype(np.float32),
+              "b": rng.standard_normal(6).astype(np.float32)}
+    for clip, wd in ((0.0, 0.0), (0.5, 0.0), (0.0, 0.1), (1.0, 0.01)):
+        kw = dict(kind="adamw", lr=0.05, grad_clip=clip, weight_decay=wd)
+        jcfg, tcfg = jax_opt.OptConfig(**kw), port_opt.OptConfig(**kw)
+        jp, tp = _j(params), _t(params)
+        js = jax_opt.init_opt_state(jcfg, jp)
+        ts = port_opt.init_opt_state(tcfg, tp)
+        assert set(ts) == set(js) == {"m", "v", "count"}
+        assert ts["m"]["w"].dtype == torch.float32
+        assert ts["count"].dtype == torch.int32
+        for _ in range(3):
+            g = {k: rng.standard_normal(v.shape).astype(np.float32)
+                 for k, v in params.items()}
+            ju, js = jax_opt.opt_update(jcfg, _j(g), js, jp)
+            tu, ts = port_opt.opt_update(tcfg, _t(g), ts, tp)
+            jp = jax_opt.apply_updates(jp, ju)
+            tp = port_opt.apply_updates(tp, tu)
+            for k in params:
+                np.testing.assert_allclose(_np(tp[k]), np.asarray(jp[k]),
+                                           rtol=0, atol=1e-6)
+                np.testing.assert_allclose(_np(ts["v"][k]),
+                                           np.asarray(js["v"][k]),
+                                           rtol=1e-6, atol=0)
+        assert int(ts["count"]) == int(js["count"]) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +379,82 @@ def test_unported_hooks_raise_like_the_reference(strategy, fused, hook):
         assert "ROADMAP.md Queue 1 item" in str(port)
 
 
+def _quadratic(seed=0, n=8):
+    """tests/test_consensus.py's problem: agent i's loss mean((A_i x -
+    b_i)^2), A (n, 6, 4), b (n, 6)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, 6, 4)).astype(np.float32),
+            rng.normal(size=(n, 6)).astype(np.float32))
+
+
+def _quadratic_grads(A, b, x):
+    """(n, 4) per-agent gradients 2 A_i^T (A_i x_i - b_i) / 6, in numpy
+    float32, handed to both packages."""
+    r = np.einsum("nij,nj->ni", A, x) - b
+    return (2.0 * np.einsum("nij,ni->nj", A, r) / r.shape[1]).astype(
+        np.float32)
+
+
 def test_exact_primal_and_deep_net_strategies_raise_not_implemented():
-    opt = port_opt.OptConfig(kind="sgd", lr=0.1)
-    p = {"theta": torch.zeros(N, D)}
-    for strategy in ("allreduce", "coke_et"):
-        ccfg = port_cns.ConsensusConfig(strategy=strategy)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            port_cns.consensus_update(ccfg, opt, p, p,
-                                      port_cns.init_consensus_state(ccfg, opt,
-                                                                    p))
+    """The deep-net strategies on the quadratic problem of
+    tests/test_consensus.py, against the reference: coke_et alternating
+    `local_update` (local_steps=2) and the consensus round (coke's ADMM
+    round), AdamW and SGD, 20 steps, params and duals within 1e-5, comms
+    and send_frac exact; allreduce keeps no agent stack, its state is the
+    reference's, and consensus_update fails on it as the reference's
+    does (a KeyError: allreduce has no broadcast to update)."""
+    A, b = _quadratic()
+    for kind in ("sgd", "adamw"):
+        jopt = jax_opt.OptConfig(kind=kind, lr=0.05)
+        topt = port_opt.OptConfig(kind=kind, lr=0.05)
+        kw = dict(strategy="coke_et", rho=0.05, censor_v=0.3,
+                  censor_mu=0.9, local_steps=2)
+        jccfg = jax_cns.ConsensusConfig(**kw)
+        tccfg = port_cns.ConsensusConfig(**kw)
+        assert port_cns.needs_agent_stack(tccfg)
+        x0 = {"x": np.zeros((A.shape[0], 4), np.float32)}
+        jp, tp = _j(x0), _t(x0)
+        js = jax_cns.init_consensus_state(jccfg, jopt, jp)
+        ts = port_cns.init_consensus_state(tccfg, topt, tp)
+        assert set(ts) == set(js)
+        sends = []
+        for i in range(20):
+            g = _quadratic_grads(A, b, _np(tp["x"]))
+            if (i + 1) % tccfg.local_steps:
+                jp, js = jax_cns.local_update(jopt, jp, {"x": jnp.asarray(g)},
+                                              js)
+                tp, ts = port_cns.local_update(topt, tp,
+                                               {"x": torch.tensor(g)}, ts)
+            else:
+                jp, js, jm = jax_cns.consensus_update(
+                    jccfg, jopt, jp, {"x": jnp.asarray(g)}, js)
+                tp, ts, tm = port_cns.consensus_update(
+                    tccfg, topt, tp, {"x": torch.tensor(g)}, ts)
+                assert float(tm["send_frac"]) == float(jm["send_frac"])
+                sends.append(float(tm["send_frac"]))
+            assert ts["step"] == int(js["step"])
+            assert int(ts["comms"]) == int(js["comms"])
+            np.testing.assert_allclose(_np(tp["x"]), np.asarray(jp["x"]),
+                                       rtol=0, atol=TOL)
+            for k in ("theta_hat", "gamma"):
+                np.testing.assert_allclose(_np(ts[k]["x"]),
+                                           np.asarray(js[k]["x"]), rtol=0,
+                                           atol=TOL, err_msg=k)
+        assert 0 < sum(sends) < len(sends)   # the censor both sends and not
+
+    jopt = jax_opt.OptConfig(kind="sgd", lr=0.1)
+    topt = port_opt.OptConfig(kind="sgd", lr=0.1)
+    jccfg = jax_cns.ConsensusConfig(strategy="allreduce")
+    tccfg = port_cns.ConsensusConfig(strategy="allreduce")
+    assert not port_cns.needs_agent_stack(tccfg)
+    assert port_cns.needs_agent_stack(tccfg) == jax_cns.needs_agent_stack(
+        jccfg)
+    p = {"theta": np.zeros((N, D), np.float32)}
+    js = jax_cns.init_consensus_state(jccfg, jopt, _j(p))
+    ts = port_cns.init_consensus_state(tccfg, topt, _t(p))
+    assert set(ts) == set(js) == {"opt", "step", "comms"}
+    for cns, opt, st, arr in ((jax_cns, jopt, js, _j), (port_cns, topt, ts,
+                                                        _t)):
+        ccfg = cns.ConsensusConfig(strategy="allreduce")
+        with pytest.raises(KeyError, match="theta_hat"):
+            cns.consensus_update(ccfg, opt, arr(p), arr(p), st)

@@ -1025,6 +1025,162 @@ def test_lm_on_card_launches_k4_once_per_layer(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K7, the attention backward, and training through K4 and K7
+# ---------------------------------------------------------------------------
+
+# K7 against its plain version: fp32 sums over the keys (dQ) or the
+# queries (dK, dV) in another order, P recomputed from K4's log-sum-exp:
+# each gradient within 1e-4 of its largest magnitude
+ATTN_BWD_RTOL = 1e-4
+# (B, H, KV, Sq, Sk, D, causal, window): the training shape (B=8, S=64,
+# qwen3's 16/8 heads of 128), the prefill shape, a window, an odd length,
+# the reduced model's heads (Dh=64, H=4, KV=2); then the edges: a row no
+# key may see (window, Sq > Sk), D not a multiple of 16, D = 256,
+# non-causal, one KV head for 8 query heads
+ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
+                   (2, 16, 8, 4096, 4096, 128, True, 0),
+                   (2, 16, 8, 1000, 1000, 128, True, 256),
+                   (3, 4, 2, 77, 77, 64, True, 0),
+                   (8, 4, 2, 64, 64, 64, True, 0),
+                   (1, 2, 2, 90, 40, 64, True, 16),
+                   (2, 2, 1, 100, 100, 40, True, 0),
+                   (1, 2, 2, 130, 130, 256, True, 0),
+                   (2, 4, 4, 70, 50, 128, False, 0),
+                   (1, 8, 1, 200, 200, 128, True, 64)]
+
+
+def _bwd_operands(cuda, B, H, KV, Sq, Sk, D, seed=5):
+    """(B, S, heads, D) q, k, v and dO, as the model gives them."""
+    g = _gen(cuda, seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda)
+    k = torch.randn((B, Sk, KV, D), generator=g, device=cuda)
+    v = torch.randn((B, Sk, KV, D), generator=g, device=cuda)
+    do = torch.randn((B, Sq, H, D), generator=g, device=cuda)
+    return q, k, v, do
+
+
+def _k4_with_lse(q, k, v, causal, window):
+    B, Sq, H = q.shape[:3]
+    lse = torch.empty((B, H, Sq), device=q.device)
+    out = k4.launch(q, k, v, heads_dim=2, causal=causal, window=window,
+                    lse=lse)
+    return out, lse
+
+
+@pytest.mark.parametrize("shape", ATTN_BWD_SHAPES, ids=str)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, H, KV, Sq, Sk, D, causal, window = shape
+    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D)
+    out, lse = _k4_with_lse(q, k, v, causal, window)
+    before = k7.LAUNCHES
+    got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
+                           window=window)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == before + 1
+    t = lambda x: x.transpose(1, 2)
+    want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do), causal=causal,
+                             window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = t(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        tol = ATTN_BWD_RTOL * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+
+
+def test_flash_attention_bwd_kernel_is_deterministic(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    q, k, v, do = _bwd_operands(cuda, 2, 16, 8, 300, 300, 128)
+    out, lse = _k4_with_lse(q, k, v, True, 0)
+    a = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
+    b = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_attention_bwd_raises_before_any_launch(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    before = (k4.LAUNCHES, k7.LAUNCHES)
+    q, k, v, _ = _bwd_operands(cuda, 1, 2, 2, 16, 16, 32)
+    for args in ((q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                 (q, k, v[..., :16].contiguous())):
+        leaves = [a.detach().requires_grad_() for a in args]
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            gqa_flash(*leaves, causal=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            k7.gqa_flash_bwd(*args, args[0], args[0], None)
+    assert (k4.LAUNCHES, k7.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 8, 64, 64, 128, True, 0),
+                                   (1, 2, 2, 90, 40, 64, True, 16),
+                                   (2, 4, 2, 77, 77, 40, False, 0)], ids=str)
+def test_flash_attention_lse_leaves_the_output_bits(cuda, shape):
+    """K4 with the log-sum-exp gives the serving instance's output bits,
+    and its L is the plain log-sum-exp within 1e-5 relative (+inf where no
+    key may be seen)."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    B, H, KV, Sq, Sk, D, causal, window = shape
+    q, k, v, _ = _bwd_operands(cuda, B, H, KV, Sq, Sk, D)
+    plain = gqa_flash(q, k, v, causal=causal, window=window)
+    out, lse = _k4_with_lse(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    want = attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             causal=causal, window=window)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+def test_training_through_k4_and_k7_matches_the_cpu(cuda):
+    """The reduced qwen3 (grouped heads), 4 agents on a ring, coke with
+    tests/test_system.py's censor (v=20, mu=0.5), 6 steps, on the card and
+    on the CPU from the same weights, with and without K3: comms and
+    send_frac equal, losses within 1e-4 relative; K4 and K7 once per layer
+    per agent per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import agent_batch, make_train_step
+    cfg = get_config("qwen3-1.7b").reduced().with_overrides(num_kv_heads=2)
+    weights = M.param_dict(M.init_params(cfg, torch.Generator().manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=48, global_batch=8,
+                                           structure=0.9))
+    for fused in (False, True):
+        ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
+                               censor_mu=0.5, use_fused_kernel=fused)
+        runs = {}
+        for dev in ("cpu", cuda):
+            init_fn, step_fn, _ = make_train_step(cfg, OptConfig(lr=3e-3),
+                                                  ccfg, num_agents=4)
+            state = init_fn({n: t.to(dev) for n, t in weights.items()})
+            before = (k4.LAUNCHES, k7.LAUNCHES)
+            rows = []
+            for i in range(6):
+                toks, labels = stream.batch(i)
+                b = agent_batch({"tokens": torch.as_tensor(toks, device=dev),
+                                 "labels": torch.as_tensor(labels,
+                                                           device=dev)}, 4)
+                state, m = step_fn(state, b)
+                rows.append((float(m["loss"]), int(m["comms"]),
+                             float(m["send_frac"])))
+            runs[str(dev)] = rows
+            launched = (k4.LAUNCHES - before[0], k7.LAUNCHES - before[1])
+            want = (0, 0) if dev == "cpu" else (6 * 4 * cfg.num_layers,) * 2
+            assert launched == want
+        cpu, card = runs["cpu"], runs[str(cuda)]
+        assert [r[1:] for r in card] == [r[1:] for r in cpu]
+        for (lc, _, _), (lg, _, _) in zip(card, cpu):
+            assert abs(lc - lg) <= 1e-4 * abs(lg)
+
+
+# ---------------------------------------------------------------------------
 # K6, the gathered row-dot, and many-model serving
 # ---------------------------------------------------------------------------
 

@@ -466,8 +466,8 @@ def test_build_names_libraries_by_source_hash():
     """Every kernel is built from csrc/ for sm_90a; the library name
     carries a hash of the source and flags, so an edit forces a rebuild."""
     assert build.SOURCES == ("coke_fused_update", "coke_megastep",
-                             "flash_attention", "gather_rowdot", "rff",
-                             "threefry")
+                             "flash_attention", "flash_attention_bwd",
+                             "gather_rowdot", "rff", "threefry")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for name in build.SOURCES:
         p = build.library_path(name)
