@@ -227,19 +227,46 @@ Phases, in order; any failure raises and the script exits non-zero:
      the CPU from the same weights, unfused and with K3 on the LM tree:
      comms and send_frac equal every step, losses within TRAIN_SMALL_RTOL.
      The kernels line gains K7 (flash_attention_bwd) with (b)'s launches.
+ 21. a mesh under gossip and personalization (`mesh_gossip_phase`) on
+     phase 19's (data=2, model=4) mesh of the card, every fit loop under
+     set_sync_debug_mode("error"): (a) phase 4's problem blocked once;
+     gossip at participation 0.5 and at gossip_size 5, COKE and DKLA, on
+     the simulator and spmd (CG, 15 iterations) and the fused backend (the
+     ring runtime, K3 once per block of the carry: 8 x 50), and phase 16's
+     churn on spmd, each against its unsharded run: K5 once per draw,
+     comms and bits equal until the runs part (`hold_until_parted`),
+     theta within 1e-4; (b) phase 17's personalized cell cut to 41
+     iterations (refreshes 31, 36, 41), sync and gossip at 0.5 on the
+     simulator and spmd: the warmup prefix bitwise the sharded static run,
+     the learned graph's support at every refresh against the unsharded
+     run's (a refresh that parts is printed with the float64 gap of the
+     parted rows' k-th and (k+1)-th peers, which must lie within what
+     fp32 rounding moves d2 by), comms and bits equal until then; then
+     to_models() of the sharded simulator fit, and each of the 20 models
+     sharded and evaluated with backend="fused" (K1 once per feature
+     block: 20 x 4), its MSE against the unsharded evaluate's; (c) ms per
+     iteration, device and host, with launches, sharded beside unsharded
+     (gossip CG on both backends, fused gossip, live personalized gossip
+     with one refresh in five), and peak memory; (d) K3 on the carry's
+     (10, 1024) blocks, K5 at the participation draw's (20,) and K1 on a
+     per-agent evaluate's rows per feature block, against their plain
+     versions. The kernels line then carries phase 21's counts and errors
+     for K1, K3 and K5.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
-cell of 18, each part of 19 and each run of 20 every launch counter is set
-to 0, and read just after.
+cell of 18, each part of 19, each run of 20 and each cell of 21 every
+launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
 
     python3 chip_smoke.py --phase19   # build, phases 4 and 5's fits, 19
     python3 chip_smoke.py --phase20   # build, phase 20
+    python3 chip_smoke.py --phase21   # build, phase 4's problem, 21
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
-and prints its launch counts and errors, or phase 20 alone and its K7
-entry; neither prints the result lines.
+and prints its launch counts and errors, phase 20 alone and its K7
+entry, or phase 21 alone and its launch counts and errors; none prints
+the result lines.
 """
 from __future__ import annotations
 
@@ -554,6 +581,13 @@ K7_SHAPES = {"training": (8, 16, 8, 64, 128, 0),
 # through 20 AdamW steps
 TRAIN_SMALL_STEPS = 20
 TRAIN_SMALL_RTOL = 1e-4
+# phase 21, a mesh under gossip and personalization, on SHARD_MESH: the CG
+# gossip cells' depth (a sharded CG iteration takes ~90 ms, host-bound),
+# the personalized cells' (phase 17's warmup 30 and every 5: refreshes at
+# 31, 36 and 41), and theta against the unsharded run of the same cell
+MESH_GOSSIP_ITERS = 15
+MESH_PZ_ITERS = 41
+MESH_THETA_TOL = 1e-4
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -3644,6 +3678,67 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def k1_block_errors(mesh, xb, omega, bias, num_features):
+    """K1 on rows xb against rff_ref, on every feature block of a sharded
+    omega and bias, scaled for the whole width: (max |err|, tolerance,
+    the blocks' shape)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.rff import rff as k1
+    from repro_torch.kernels.rff.ref import rff_ref
+
+    worst = tol = 0.0
+    for m in range(mesh.shape["model"]):
+        ob = sharding.local_block(omega, 0, m)
+        bb = sharding.local_block(bias, 0, m)
+        got = k1.rff_cos_bias(xb, ob, bb, num_features=num_features)
+        want = rff_ref(xb, ob, bb, num_features)
+        worst = max(worst, float((got - want).abs().max()))
+        tol = max(tol, k1_tolerance(xb, ob, num_features))
+    torch.cuda.synchronize()
+    return worst, tol, tuple(ob.shape)
+
+
+def k3_block_errors(mesh, theta, rho, seed):
+    """The ring runtime's K3 call on every block of a feature-sharded
+    carry (the path's wrapper on `theta` and its ring neighbours, one
+    neighbour tensor as both halves as the fallback passes it) against
+    coke_update_ref on the same blocks: (max |g_aug err|, its tolerance,
+    max relative err of xi^2 against the plain partials summed in block
+    order, the blocks' shape)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.coke_update import ops as k3_ops
+    from repro_torch.kernels.coke_update.ref import coke_update_ref
+    from repro_torch.launch.mesh import num_agents
+
+    N = theta.shape[0]
+    gen = torch.Generator(device=theta.device).manual_seed(seed)
+    half = 0.5 * (theta.roll(1, 0) + theta.roll(-1, 0))
+    ops = [theta, 0.5 * theta] + [1e-2 * torch.randn(
+        theta.shape, generator=gen, device=theta.device)
+        for _ in range(2)] + [half]
+    blocked = [sharding.shard_features(t, mesh, N) for t in ops]
+    kw = dict(rho=rho, deg=2.0)
+    got_g, got_xi = k3_ops.coke_update_blocks(*blocked, blocked[4], **kw)
+    worst_g = worst_xi = tol_g = 0.0
+    cut_b = num_agents(mesh) if N % num_agents(mesh) == 0 else 1
+    got_xi = sharding.unshard(got_xi)
+    for b in range(cut_b):
+        xi = None
+        for m in range(mesh.shape["model"]):
+            blk = [sharding.local_block(t, b, m) for t in blocked]
+            want, want_xi = coke_update_ref(*blk, blk[4], **kw)
+            worst_g = max(worst_g, float(
+                (sharding.local_block(got_g, b, m) - want).abs().max()))
+            tol_g = max(tol_g, k3_tolerance(*blk, blk[4], **kw))
+            xi = want_xi if xi is None else xi + want_xi
+        rows = sharding.block_index(got_g, 0, b, 0)
+        worst_xi = max(worst_xi, float((got_xi[rows] - xi).abs().max()
+                                       / xi.abs().max()))
+    torch.cuda.synchronize()
+    return worst_g, tol_g, worst_xi, tuple(sharding.local_block(
+        blocked[0]).shape)
+
+
 def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
                 coke4, log_problem, log_cfg, log_coke):
     """Phase 19: big-D feature sharding on a SHARD_MESH mesh whose every
@@ -3664,10 +3759,7 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     from repro_torch.api.config import SolveContext
     from repro_torch.core import prng
     from repro_torch.distributed import sharding
-    from repro_torch.kernels.coke_update import ops as k3_ops
-    from repro_torch.kernels.coke_update.ref import coke_update_ref
     from repro_torch.kernels.rff import rff as k1
-    from repro_torch.kernels.rff.ref import rff_ref
     from repro_torch.kernels.rowdot import rowdot as k6
     from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
     from repro_torch.kernels.threefry import threefry as k5
@@ -3744,20 +3836,10 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
         errs[name] = max(errs.get(name, 0.0), e)
 
     def hold_k1(tag, xb, omega, bias, launches):
-        """K1 on every feature block of omega, bias, scaled for the whole
-        width D, against rff_ref on the same block."""
-        worst, tol = 0.0, 0.0
-        for m in range(mesh.shape["model"]):
-            ob = sharding.local_block(omega, 0, m)
-            bb = sharding.local_block(bias, 0, m)
-            got = k1.rff_cos_bias(xb, ob, bb, num_features=D)
-            want = rff_ref(xb, ob, bb, D)
-            worst = max(worst, float((got - want).abs().max()))
-            tol = max(tol, k1_tolerance(xb, ob, D))
-        torch.cuda.synchronize()
+        worst, tol, shape = k1_block_errors(mesh, xb, omega, bias, D)
         hold("rff_cos_bias", f"{tag}, x {tuple(xb.shape)} on "
-             f"{mesh.shape['model']} feature blocks of {tuple(ob.shape)}",
-             worst, tol, launches)
+             f"{mesh.shape['model']} feature blocks of {shape}", worst, tol,
+             launches)
 
     # ---- (a) the fit cells at full width ----------------------------------
     torch.cuda.synchronize()
@@ -3821,43 +3903,17 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
             f"phase 6's)")
     if not e <= tol:
         raise AssertionError("fused COKE on the mesh: theta differs")
-    # K3 per carry block: the path's wrapper on the fit's theta, one
-    # neighbour tensor as both halves as the fallback passes it
-    g19 = torch.Generator(device=dev).manual_seed(19)
-    th = coke4.theta
-    half = 0.5 * (th.roll(1, 0) + th.roll(-1, 0))
-    ops = [th, 0.5 * th] + [1e-2 * torch.randn(th.shape, generator=g19,
-                                               device=dev)
-                            for _ in range(2)] + [half]
-    blocked = [sharding.shard_features(t, mesh, N) for t in ops]
-    kw = dict(rho=problem.rho, deg=2.0)
-    got_g, got_xi = k3_ops.coke_update_blocks(*blocked, blocked[4], **kw)
-    worst_g = worst_xi = tol_g = 0.0
-    cut_b = num_agents(mesh) if N % num_agents(mesh) == 0 else 1
-    got_xi = sharding.unshard(got_xi)
-    for b in range(cut_b):
-        xi = None
-        for m in range(mesh.shape["model"]):
-            blk = [sharding.local_block(t, b, m) for t in blocked]
-            want, want_xi = coke_update_ref(*blk, blk[4], **kw)
-            worst_g = max(worst_g, float(
-                (sharding.local_block(got_g, b, m) - want).abs().max()))
-            tol_g = max(tol_g, k3_tolerance(*blk, blk[4], **kw))
-            xi = want_xi if xi is None else xi + want_xi
-        rows = sharding.block_index(got_g, 0, b, 0)
-        worst_xi = max(worst_xi, float((got_xi[rows] - xi).abs().max()
-                                       / xi.abs().max()))
-    torch.cuda.synchronize()
-    hold("coke_fused_update", f"the carry's {blocks} blocks of "
-         f"{tuple(sharding.local_block(blocked[0]).shape)} (g_aug)",
-         worst_g, tol_g, blocks * ITERS)
+    # K3 per carry block: the path's wrapper on the fit's theta
+    worst_g, tol_g, worst_xi, shape = k3_block_errors(mesh, coke4.theta,
+                                                      problem.rho, 19)
+    hold("coke_fused_update", f"the carry's {blocks} blocks of {shape} "
+         "(g_aug)", worst_g, tol_g, blocks * ITERS)
     log(19, f"[{card}]   and its xi^2, the psum of the blocks' partials "
             f"against the plain partials summed in block order: max "
             f"relative err {worst_xi:.3e} (tol {K3_XI_RTOL:g})")
     if not worst_xi <= K3_XI_RTOL:
         raise AssertionError("K3's xi^2 on blocks disagrees with its plain "
                              "version")
-    del blocked, ops, half, got_g, got_xi
     for label, prob, m in (("sharded (K3 per block)", sp, mesh),
                            ("unsharded (K2)", problem, None)):
         per_iteration(card, 19, f"fused COKE {label}",
@@ -4122,6 +4178,331 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     torch.cuda.empty_cache()
     log(19, f"[{card}] launches over phase 19: "
             f"{ {k: v for k, v in seen.items() if v} }; phase 19 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return seen, errs
+
+
+def mesh_gossip_phase(dev, card, reset_counts, counts, *, problem, cfg):
+    """Phase 21: a mesh under gossip and under personalization, on
+    SHARD_MESH of the one card. (a) phase 4's problem blocked once: gossip
+    at participation GOSSIP_P and at gossip_size GOSSIP_SIZE, COKE and
+    DKLA, on the simulator (CG), spmd (CG) and the fused backend (the K3
+    fallback, once per block of the carry), and phase 16's churn on spmd,
+    each against its unsharded run (comms and bits equal until the runs
+    part, theta within MESH_THETA_TOL); (b) phase 17's personalized cell
+    (cut to MESH_PZ_ITERS iterations, three refreshes), sync and gossip on
+    the simulator and spmd: the learned graph's support at every refresh
+    against the unsharded run's (a refresh that parts is reported with its
+    float64 margin, which must lie within the fp32 rounding of the
+    reference's d2 formula), comms and bits equal until then, the warmup
+    prefix bitwise the sharded static run; then to_models() and each
+    model's sharded fused evaluate (K1 once per feature block); (c) ms per
+    iteration sharded beside unsharded, and peak memory; (d) K3, K5 and K1
+    against their plain versions at the phase's block shapes. Every fit
+    loop runs under set_sync_debug_mode("error"). Returns the phase's
+    launch counts and errors by kernel."""
+    from repro_torch.api import (ChurnSchedule, FitConfig, KRRConfig,
+                                 Personalization, build_problem, fit,
+                                 get_solver)
+    from repro_torch.api.backends import consensus_runner
+    from repro_torch.core import personalize as P
+    from repro_torch.core import prng
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.threefry import threefry as k5
+    from repro_torch.kernels.threefry.ref import uniform_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    fit_module = importlib.import_module("repro_torch.api.fit")
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(*SHARD_MESH, device=dev)
+    M = mesh.shape["model"]
+    blocks = mesh.size
+    seen = {k: 0 for k in LAUNCH_COUNTERS}
+    errs = {}
+
+    def only(tag, want):
+        """The part's launch counts, added to the phase's: exactly
+        `want`, 0 elsewhere."""
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        for k, v in got.items():
+            seen[k] += v
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}")
+        return got
+
+    def hold(name, tag, e, tol, launches):
+        log(21, f"[{card}] {name} at {tag}: max|err| {e:.3e} (tol "
+                f"{tol:.3e}) against its plain version; {launches} "
+                "launches in the phase")
+        if not e <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {tag}: {e} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    def err(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    def runner_of(c, prob, m):
+        ctx = fit_module._solve_context(c, dev, torch.float32,
+                                        prob.num_agents)
+        solver = get_solver(c.algorithm)
+        if c.backend == "simulator":
+            return fit_module._simulator_runner(solver, prob, ctx, None,
+                                                mesh=m)
+        return consensus_runner(c, solver, prob, ctx, None, mesh=m)
+
+    def figures(what, c, pairs, steps, runs):
+        """ms per iteration of `c` on each (label, problem, mesh)."""
+        out = {}
+        for label, prob, m in pairs:
+            out[label] = per_iteration(
+                card, 21, f"{what} {label}",
+                loop_of(runner_of(c, prob, m), steps=steps), steps=steps,
+                runs=runs)
+        return out
+
+    # ---- (a) gossip on phase 4's problem, blocked once --------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    N, T, D = problem.feats.shape
+    sp = sharding.shard_problem(problem, mesh)
+    execs = {"p": dict(participation=GOSSIP_P),
+             "size": dict(gossip_size=GOSSIP_SIZE)}
+    cells = [(alg, backend, tag, kn) for alg in ("coke", "dkla")
+             for backend in ("simulator", "spmd", "fused")
+             for tag, kn in execs.items()]
+    cells += [(alg, "spmd", "churn", dict(
+        participation=GOSSIP_P, churn=ChurnSchedule(**GOSSIP_CHURN)))
+        for alg in ("coke", "dkla")]
+    fused_theta = None
+    for alg, backend, ex, kn in cells:
+        if backend == "fused":      # phase 4's cell: the gradient primal
+            c = cfg.replace(algorithm=alg, exec="gossip", **kn)
+        else:
+            c = cfg.replace(algorithm=alg, backend=backend, primal="cg",
+                            num_iters=MESH_GOSSIP_ITERS, exec="gossip", **kn)
+        iters = c.resolved_iters
+        tag = f"gossip {ex} {alg} {backend}"
+        with CensorRecord() as cu:
+            plain = fit(c, problem=problem, device=dev)
+        reset_counts()
+        with StrictFits(), CensorRecord() as cs:
+            t0 = time.perf_counter()
+            sh = fit(c, problem=sp, device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = only(tag, {"threefry": iters,
+                         "coke_fused_update": (blocks * iters
+                                               if backend == "fused" else 0)})
+        parted, note = hold_until_parted(tag, sh.history, plain.history, cs,
+                                         cu)
+        e = err(sh.theta, plain.theta)
+        if parted:
+            gap = parted_mse(tag, sh.history, plain.history)
+            held = f"parted: final train MSE {gap:.2e} apart"
+        else:
+            held = f"theta max|err| {e:.3e} (tol {MESH_THETA_TOL:g})"
+            if not e <= MESH_THETA_TOL:
+                raise AssertionError(f"{tag}: theta differs")
+        log(21, f"[{card}] {tag} on the mesh ({iters} iterations, "
+                f"{wall:.2f} s wall): launches {got}; comms "
+                f"{int(sh.history['comms'][-1])}/{N * iters}, {note}; "
+                f"{held}")
+        if backend == "fused" and alg == "coke" and ex == "p":
+            fused_theta = sh.theta
+    del plain, sh
+    gc = cfg.replace(algorithm="coke", exec="gossip",
+                     participation=GOSSIP_P)
+    for backend in ("simulator", "spmd"):
+        c = gc.replace(backend=backend, primal="cg")
+        figures(f"gossip COKE {backend} CG p={GOSSIP_P}", c,
+                (("sharded", sp, mesh), ("unsharded", problem, None)),
+                steps=1, runs=SHARD_RUNS)
+    figures(f"gossip COKE fused p={GOSSIP_P}", gc,
+            (("sharded (K3 per block)", sp, mesh),
+             ("unsharded (K2)", problem, None)), steps=5, runs=7)
+    log(21, f"[{card}] (a) peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (phase 4's "
+            f"Phi {problem.feats.numel() * 4 / 1e9:.3f} GB and its blocked "
+            "copy, plus the fits' state)")
+    worst_g, tol_g, worst_xi, shape = k3_block_errors(mesh, fused_theta,
+                                                      problem.rho, 21)
+    hold("coke_fused_update", f"the carry's {blocks} blocks of {shape} "
+         "(g_aug)", worst_g, tol_g, seen["coke_fused_update"])
+    if not worst_xi <= K3_XI_RTOL:
+        raise AssertionError("K3's xi^2 on blocks disagrees with its plain "
+                             "version")
+    key = prng.fold_in(prng.PRNGKey(21), 3)
+    same = torch.equal(
+        k5.threefry_draw(key, (N,), dev, uniform=True).view(torch.int32),
+        uniform_ref(key, (N,), dev).view(torch.int32))
+    hold("threefry", f"the participation draw's shape ({N},), bitwise",
+         0.0 if same else math.inf, 0.0, seen["threefry"])
+    del sp, fused_theta
+    torch.cuda.empty_cache()
+
+    # ---- (b) personalization: phase 17's cell, cut in depth ---------------
+    torch.cuda.reset_peak_memory_stats()
+    krr = KRRConfig(dataset="heterogeneous", num_agents=N_AGENTS,
+                    samples_per_agent=SAMPLES, num_tasks=PZ_TASKS,
+                    num_features=FEATURES, lam=1e-3, rho=0.01,
+                    censor_v=0.0, censor_mu=0.97, seed=0)
+    pz = Personalization(**PZ_FULL)
+    W, K = pz.warmup, pz.k
+    refreshes = [k for k in range(1, MESH_PZ_ITERS + 1)
+                 if P.should_update(pz, k)]
+    pcfg = FitConfig(krr=krr, graph="ring", num_iters=MESH_PZ_ITERS,
+                     primal="cg", personalization=pz)
+    hb = build_problem(pcfg, device=dev)
+    hprob = hb.problem
+    hsp = sharding.shard_problem(hprob, mesh)
+    real_update = P.maybe_update
+
+    def recorded(fn):
+        """fn() with every refresh's (graph, thetas) recorded."""
+        rec = {}
+
+        def spy(pz_, thetas, k, adjacency):
+            out = real_update(pz_, thetas, k, adjacency)
+            if P.should_update(pz_, k):
+                rec[k] = (out.clone(), thetas.clone())
+            return out
+        P.maybe_update = spy
+        try:
+            return fn(), rec
+        finally:
+            P.maybe_update = real_update
+
+    def knife_edge(A_u, A_s, t_u, t_s):
+        """(rows, margin, noise) of a refresh whose support parts: the
+        float64 gap between the k-th and (k+1)-th nearest peers (exact
+        differences of the unsharded run's thetas) of the agents whose
+        neighbourhoods differ, against what moves d2 between the runs:
+        the fp32 rounding of |t_i|^2 + |t_j|^2 - 2 t_i.t_j (16 ulps of
+        its terms) and the runs' own theta difference."""
+        t = sharding.unshard(t_u).double().cpu()
+        dt = (sharding.unshard(t_s).double().cpu() - t).abs().amax(1)
+        d2 = torch.sum((t[:, None] - t[None]) ** 2, dim=-1)
+        d2.fill_diagonal_(math.inf)
+        srt = torch.sort(d2, dim=1).values
+        gap = srt[:, K] - srt[:, K - 1]
+        sq = torch.sum(t * t, dim=-1)
+        noise = (16 * 2.0**-23 * (sq + sq.max())
+                 + 4 * float(sq.max().sqrt()) * (dt + dt.max()))
+        rows = torch.nonzero(((A_u.cpu() > 0) != (A_s.cpu() > 0)).any(1))
+        rows = rows.flatten()
+        return rows.tolist(), float(gap[rows].min()), float(
+            noise[rows].max())
+
+    runs = {}
+    for backend in ("simulator", "spmd"):
+        for ex in ("sync", "gossip"):
+            c = pcfg.replace(backend=backend)
+            if ex == "gossip":
+                c = c.replace(exec="gossip", participation=PZ_GOSSIP_P)
+            tag = f"personalized {ex} {backend}"
+            plain, rec_u = recorded(lambda: fit(c, problem=hprob,
+                                                device=dev))
+            with StrictFits():
+                static = fit(c.replace(personalization=None, num_iters=W),
+                             problem=hsp, device=dev, mesh=mesh)
+            reset_counts()
+            with StrictFits():
+                t0 = time.perf_counter()
+                sh, rec_s = recorded(lambda: fit(c, problem=hsp, device=dev,
+                                                 mesh=mesh))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = only(tag, {"threefry": MESH_PZ_ITERS if ex == "gossip"
+                             else 0})
+            if sorted(rec_s) != refreshes or sorted(rec_u) != refreshes:
+                raise AssertionError(f"{tag}: refreshes at {sorted(rec_s)}")
+            for k, v in static.history.items():
+                if not torch.equal(sh.history[k][:W].cpu(), v.cpu()):
+                    raise AssertionError(f"{tag}: iterations 1-{W} of {k} "
+                                         "are not bitwise the sharded static "
+                                         "run")
+            check_graph(tag, sh.learned_adjacency, K)
+            parted = next((k for k in refreshes if not torch.equal(
+                rec_u[k][0] > 0, rec_s[k][0] > 0)), None)
+            end = None if parted is None else parted - 1
+            for key in ("comms", "bits"):
+                if not torch.equal(sh.history[key][:end].cpu(),
+                                   plain.history[key][:end].cpu()):
+                    raise AssertionError(f"{tag}: {key} differ before the "
+                                         "graphs part")
+            if parted is None:
+                note = (f"the support equal at every refresh {refreshes}; "
+                        "comms and bits equal throughout")
+            else:
+                rows, margin, noise = knife_edge(
+                    rec_u[parted][0], rec_s[parted][0], rec_u[parted][1],
+                    rec_s[parted][1])
+                note = (f"the support equal through refresh "
+                        f"{[k for k in refreshes if k < parted]}, parts at "
+                        f"refresh {parted} in rows {rows}: float64 gap "
+                        f"between their {K}th and {K + 1}th nearest peers "
+                        f"{margin:.3e}, within the fp32 rounding "
+                        f"{noise:.3e} of the reference's d2 formula; comms "
+                        f"and bits equal through iteration {end}")
+                if not margin <= noise:
+                    raise AssertionError(f"{tag}: the graphs part at refresh "
+                                         f"{parted} by {margin:.3e}, more "
+                                         f"than fp32 rounding ({noise:.3e})")
+            runs[(backend, ex)] = sh
+            log(21, f"[{card}] {tag} on the mesh ({PZ_FULL}, CG, "
+                    f"{MESH_PZ_ITERS} iterations, {wall:.2f} s wall): "
+                    f"launches {got}; iterations 1-{W} bitwise the sharded "
+                    f"static run; {note}; theta "
+                    f"{err(sh.theta, plain.theta):.3e} from the unsharded "
+                    f"run's (max|theta| {float(plain.theta.abs().max()):.3f})")
+
+    # to_models: each per-agent model's sharded fused evaluate
+    models = runs[("simulator", "sync")].to_models(hb.rff_params)
+    want = [m.evaluate(hb.x_test[i], hb.y_test[i], backend="fused")
+            for i, m in enumerate(models)]
+    bounds = []
+    for i, m in enumerate(models):       # the MSE's reach from the predict
+        phi = m.featurize(hb.x_test[i].reshape(-1, 5), "fused")
+        dev_p = SHARD_PREDICT_RTOL * (phi.abs() @ m.theta.abs())
+        resid = (hb.y_test[i].reshape(-1) - phi @ m.theta).abs()
+        bounds.append(float(torch.mean(2 * resid * dev_p + dev_p ** 2)))
+    sharded = [m.shard(mesh) for m in models]
+    reset_counts()
+    got_ev = [m.evaluate(hb.x_test[i], hb.y_test[i], backend="fused")
+              for i, m in enumerate(sharded)]
+    only("the per-agent sharded evaluates", {"rff_cos_bias": N * M})
+    worst = max(abs(g["test_mse"] - w["test_mse"]) / b
+                for g, w, b in zip(got_ev, want, bounds))
+    log(21, f"[{card}] to_models of the sharded simulator fit: {N} models, "
+            f"each sharded and evaluated on its {hb.x_test.shape[1]} test "
+            f"rows with backend='fused': K1 {N} x {M} (once per feature "
+            f"block); test MSE within {worst:.3f} of its bound from the "
+            f"unsharded evaluate's (SHARD_PREDICT_RTOL of sum|phi theta| per "
+            "prediction)")
+    if not worst <= 1.0:
+        raise AssertionError("a per-agent sharded evaluate is off the "
+                             "unsharded MSE")
+    e1, t1, shape = k1_block_errors(mesh, hb.x_test[0], sharded[0].omega,
+                                    sharded[0].bias, D)
+    hold("rff_cos_bias", f"a per-agent evaluate, x {tuple(hb.x_test[0].shape)}"
+         f" on {M} feature blocks of {shape}", e1, t1, N * M)
+
+    # live personalized iterations (warmup 0: one refresh in five)
+    live = pcfg.replace(personalization=Personalization(
+        **dict(PZ_FULL, warmup=0)), exec="gossip", participation=PZ_GOSSIP_P)
+    for backend in ("simulator", "spmd"):
+        figures(f"personalized gossip {backend} (a refresh in "
+                f"{PZ_FULL['every']})", live.replace(backend=backend),
+                (("sharded", hsp, mesh), ("unsharded", hprob, None)),
+                steps=PZ_FULL["every"], runs=SHARD_RUNS)
+    log(21, f"[{card}] (b) peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del hb, hprob, hsp, runs, models, sharded
+    torch.cuda.empty_cache()
+    log(21, f"[{card}] launches over phase 21: "
+            f"{ {k: v for k, v in seen.items() if v} }; phase 21 took "
             f"{time.perf_counter() - t_phase:.1f} s")
     return seen, errs
 
@@ -5673,6 +6054,22 @@ def main() -> int:
     kernels.append(train_phase(dev, card, reset_counts, counts, peaks=peaks))
     log(20, f"[{card}] flash_attention_bwd (K7): {kernels[-1]}")
 
+    # ---- 21. a mesh under gossip and personalization ----------------------
+    mesh_counts, mesh_errs = mesh_gossip_phase(
+        dev, card, reset_counts, counts, problem=problem, cfg=cfg)
+    for entry in kernels:       # the kernels phase 21 runs: its numbers
+        n21 = mesh_counts[entry["name"]]
+        if n21:
+            log(21, f"{entry['name']}: launches {entry['launches']} and "
+                    f"max|err| {entry['max_abs_err']:.3e} on its earlier "
+                    f"path, {n21} and {mesh_errs[entry['name']]:.3e} over "
+                    "phase 21")
+            entry["launches"] = n21
+            entry["max_abs_err"] = mesh_errs[entry["name"]]
+    for name in ("rff_cos_bias", "coke_fused_update", "threefry"):
+        if not mesh_counts[name]:
+            raise AssertionError(f"phase 21 never launched {name}")
+
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5728,6 +6125,38 @@ def phase19_alone() -> int:
     return 0
 
 
+def phase21_alone() -> int:
+    """Phase 21 alone: build the kernels and phase 4's problem, then run
+    `mesh_gossip_phase` and print its launch counts and errors."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import build_problem
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = full_width_config()
+    problem = build_problem(cfg, device=dev).problem
+    torch.cuda.synchronize()
+    log(21, f"[{card}] built the kernels and phase 4's problem in "
+            f"{time.perf_counter() - t0:.1f} s")
+    seen, errs = mesh_gossip_phase(dev, card, reset_counts, counts,
+                                   problem=problem, cfg=cfg)
+    print(card)
+    print(json.dumps({"launches": seen, "max_abs_err": errs}))
+    return 0
+
+
 def phase20_alone() -> int:
     """Phase 20 alone: build the kernels and run `train_phase`; prints its
     K7 entry, not the result lines."""
@@ -5755,6 +6184,7 @@ def phase20_alone() -> int:
 
 
 if __name__ == "__main__":
-    alone = {"--phase19": phase19_alone, "--phase20": phase20_alone}
+    alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
+             "--phase21": phase21_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

@@ -437,7 +437,10 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     "model" axis and the agent dim over its batch axes
     (`distributed.sharding.feature_spec`). The megakernel needs an
     unsharded carry: on a mesh a fused fit runs the ring runtime through
-    K3, once per block, as the reference falls back to its ring runtime."""
+    K3, once per block, as the reference falls back to its ring runtime.
+    A personalized fit's live phase starts its learned graph from the
+    problem's, gathered whole once here, and keeps it whole in the
+    carry."""
     strategy = solver.consensus_strategy
     primal_mode = _resolve_consensus_primal(config, problem, strategy)
     offset_schedule = None
@@ -504,7 +507,8 @@ def consensus_runner(config: FitConfig, solver: Solver, problem: Problem,
     if mesh is not None:
         params = sharding.shard_features(params, mesh, N)
         cstate = sharding.shard_features(cstate, mesh, N)
-    personalize = _pz_live_state(ctx, cstate, problem.adjacency)
+    personalize = _pz_live_state(ctx, cstate,
+                                 sharding.unshard(problem.adjacency))
 
     primal_solve = (_cg_primal_solve(problem, ctx.cg_tol, ctx.cg_maxiter)
                     if primal_mode == "cg" else None)

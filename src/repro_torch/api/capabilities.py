@@ -6,19 +6,14 @@ Every cross-axis admission rule lives here as declarative data.
 drivers consult RUN_RULES through `check_fit` / `check_stream` /
 `check_sweep` once the solver is resolved. `Rule`, CONFIG_RULES and
 RUN_RULES are the reference's, word for word: a combination the reference
-rejects raises the same ValueError here, even where its axis is not ported
-yet.
-
-NOT_PORTED is the port's own: rules of the same shape for what the
-reference runs and this port does not run yet. They fire after the
-ValueError rules and raise NotImplementedError naming the ROADMAP.md item
-that ports them. `python -m repro_torch.api.capabilities` writes the port's
-support matrix, decided by these same rules, into its block of the README.
+rejects raises the same ValueError here, and every combination it admits
+runs (with or without `mesh=`). `python -m repro_torch.api.capabilities`
+writes the port's support matrix, decided by these same rules, into its
+block of the README.
 """
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Any
 
 
@@ -228,26 +223,6 @@ RUN_RULES: tuple[Rule, ...] = (
 )
 
 
-#: what the reference runs and the port does not run yet; `alternative`
-#: names the ROADMAP.md item that ports it. Checked after RUN_RULES.
-NOT_PORTED: tuple[Rule, ...] = (
-    Rule(
-        id="mesh-gossip",
-        when=(("mesh", True), ("exec", "gossip")),
-        reason="mesh= (big-D feature sharding) under exec='gossip'",
-        alternative="ROADMAP.md Queue 1 item 14b (a mesh under gossip "
-                    "and personalization)",
-    ),
-    Rule(
-        id="mesh-personalization",
-        when=(("mesh", True), ("personalization", True)),
-        reason="mesh= (big-D feature sharding) with personalization",
-        alternative="ROADMAP.md Queue 1 item 14b (a mesh under gossip "
-                    "and personalization)",
-    ),
-)
-
-
 def _config_view(config) -> dict[str, Any]:
     return {
         "exec": config.exec,
@@ -265,12 +240,11 @@ def _config_view(config) -> dict[str, Any]:
     }
 
 
-def _run_view(config, solver, mode: str, mesh=None) -> dict[str, Any]:
+def _run_view(config, solver, mode: str) -> dict[str, Any]:
     view = _config_view(config)
     stream_backends = getattr(solver, "stream_backends", ())
     view.update({
         "mode": mode,
-        "mesh": mesh is not None,
         "algorithm": repr(config.algorithm),
         "solver_backends": repr(tuple(solver.backends)),
         "stream_backends": repr(tuple(stream_backends)),
@@ -294,41 +268,26 @@ def _enforce(view: dict[str, Any], rules: tuple[Rule, ...]) -> None:
                 + f" — nearest supported: {rule.alternative}")
 
 
-def _enforce_ported(view: dict[str, Any]) -> None:
-    for rule in NOT_PORTED:
-        if rule.matches(view):
-            raise NotImplementedError(
-                f"{rule.reason.format(**view)} is not ported to "
-                f"repro_torch yet: {rule.alternative}")
-
-
 def check_config(config) -> None:
     """The solver-free cross-axis admission — FitConfig.__post_init__."""
     _enforce(_config_view(config), CONFIG_RULES)
 
 
-def check_fit(config, solver, mesh=None) -> None:
-    """The batch-driver admission (fit): the reference's rules, then what
-    the port does not run yet."""
-    view = _run_view(config, solver, "batch", mesh)
-    _enforce(view, RUN_RULES)
-    _enforce_ported(view)
+def check_fit(config, solver) -> None:
+    """The batch-driver admission (fit)."""
+    _enforce(_run_view(config, solver, "batch"), RUN_RULES)
 
 
 def check_stream(config, solver) -> None:
     """The streaming-driver admission (fit_stream)."""
-    view = _run_view(config, solver, "stream")
-    _enforce(view, RUN_RULES)
-    _enforce_ported(view)
+    _enforce(_run_view(config, solver, "stream"), RUN_RULES)
 
 
 def check_sweep(config, solver) -> None:
     """The sweep admission: a cell must pass both the sweep- and the
     batch-scoped rules, as in the reference."""
-    view = _run_view(config, solver, "sweep")
-    _enforce(view, RUN_RULES)
+    _enforce(_run_view(config, solver, "sweep"), RUN_RULES)
     _enforce(_run_view(config, solver, "batch"), RUN_RULES)
-    _enforce_ported(view)
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +311,7 @@ _FEATURE_PROBES: tuple[tuple[str, dict[str, Any]], ...] = (
 
 def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
     """✅ when the drivers run the combination, — when they reject it
-    (the reference's ValueError), "item N" when it is not ported yet."""
+    (the reference's ValueError)."""
     from repro_torch.api.config import FitConfig
     from repro_torch.core.gossip import ChurnSchedule
     from repro_torch.core.graph import TopologySchedule
@@ -378,8 +337,6 @@ def _cell(solver, backend: str, probe: dict[str, Any]) -> str:
             check_fit(config, solver)
     except ValueError:
         return "—"
-    except NotImplementedError as e:
-        return re.search(r"item \d+", str(e)).group(0)
     return "✅"
 
 

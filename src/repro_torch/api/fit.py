@@ -69,13 +69,20 @@ def _simulator_runner(solver, problem: Problem, ctx: SolveContext, oracle,
     """-> (state0, chunk_fn, theta_fn). The reference prepares its traced
     aux (the Cholesky factors) inside every compiled chunk; here it is made
     once per fit, with the same values. On a mesh the problem comes
-    feature-sharded (`fit` places it once) and the initial state is
-    placed the same way, as the reference places them."""
-    aux = solver.prepare_traced(problem, ctx,
-                                solver.prepare_host(problem, ctx))
-    state0 = solver.init_state(problem, ctx)
+    feature-sharded (`fit` places it once); as in the reference, the host
+    aux (the gossip NeighborTable) and the initial state are made from the
+    graph whole (gathered once here), and the state is then placed with
+    the feature layout. A learned graph (N, N) in the state stays whole:
+    its trailing dim indexes agents, not features."""
+    host = problem if mesh is None else dataclasses.replace(
+        problem, adjacency=sharding.unshard(problem.adjacency))
+    aux = solver.prepare_traced(problem, ctx, solver.prepare_host(host, ctx))
+    state0 = solver.init_state(host, ctx)
     if mesh is not None:
+        graph = getattr(state0, "adjacency", None)
         state0 = sharding.shard_features(state0, mesh, problem.num_agents)
+        if graph is not None:
+            state0 = state0._replace(adjacency=graph)
 
     def chunk_fn(state, n):
         return _simulator_chunk(solver, problem, ctx, aux, state, oracle, n)
@@ -222,7 +229,7 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
             "fit_stream(config, stream=...)")
     dev = resolve_device(device)
     solver = get_solver(config.algorithm)
-    check_fit(config, solver, mesh=mesh)
+    check_fit(config, solver)
     if mesh is not None:
         _check_mesh_devices(mesh, dev)
     rff_params = None
@@ -254,9 +261,10 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
         return consensus_runner(config, solver, problem, c, oracle,
                                 mesh=mesh)
 
+    # a personalized fit's live phase starts from the graph whole
     carry0, chunk_fn, theta_fn = _phased_runner(
         make_runner, phase_plan(ctx, config.resolved_iters,
-                                problem.adjacency))
+                                sharding.unshard(problem.adjacency)))
     carry, history = _chunked_scan(chunk_fn, carry0, config.resolved_iters,
                                    config.chunk_size, progress_cb)
     if mesh is not None:   # gathered once, at the end

@@ -24,3 +24,9 @@ def get_config(name: str) -> ModelConfig:
                        f"{list_archs()}; the reference's other "
                        f"architectures come with {LATER_ARCHS}")
     return importlib.import_module(_ARCH_MODULES[name]).CONFIG
+
+
+def get_krr_config(setup: str = "synthetic"):
+    """One of the paper's kernel-ridge setups (`configs.coke_krr`)."""
+    from repro_torch.configs.coke_krr import PAPER_SETUPS
+    return PAPER_SETUPS[setup]

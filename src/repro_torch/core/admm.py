@@ -38,6 +38,7 @@ the solution back into blocks.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -45,6 +46,7 @@ import torch
 from repro_torch.core import comm as comm_mod
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import step as step_mod
+from repro_torch.core.censor import CensorSchedule
 from repro_torch.core.graph import Graph
 from repro_torch.distributed import sharding
 
@@ -438,3 +440,42 @@ def coke_step(problem: Problem, policy, state: COKEState,
                              legacy_auto=True))
     new_state, _ = step_mod.run_step(program, state)
     return new_state
+
+
+# --------------------------------------------------------------------------
+# The legacy driver (deprecated)
+# --------------------------------------------------------------------------
+
+class RunResult(NamedTuple):
+    state: COKEState
+    train_mse: torch.Tensor      # (K,) global training MSE per iteration
+    comms: torch.Tensor          # (K,) cumulative transmissions
+    consensus_gap: torch.Tensor  # (K,) max_i ||theta_i - mean(theta)||
+
+
+def run(problem: Problem, schedule, num_iters: int, inner_steps: int = 50,
+        inner_lr: float = 0.1) -> RunResult:
+    """Deprecated entry point: use `api.fit(FitConfig(...))`, which this
+    runs. COKE (DKLA when schedule.v == 0) on the simulator with the
+    legacy primal: the closed form on the quadratic loss, else the
+    gradient steps. Warns with the reference's text."""
+    warnings.warn(
+        "repro.core.admm.run is deprecated; use repro.api.fit("
+        "FitConfig(algorithm='coke'|'dkla', ...))",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import FitConfig, fit  # import cycle
+
+    res = fit(FitConfig(algorithm="coke", comm=schedule,
+                        num_iters=num_iters, inner_steps=inner_steps,
+                        inner_lr=inner_lr,
+                        primal="cholesky" if problem.loss == "quadratic"
+                        else "gradient"),
+              problem=problem, device=problem.device)
+    h = res.history
+    return RunResult(res.state, h["train_mse"], h["comms"],
+                     h["consensus_gap"])
+
+
+def dkla_schedule() -> CensorSchedule:
+    """The h == 0 schedule under which COKE is DKLA."""
+    return CensorSchedule(v=0.0, mu=0.5)

@@ -45,6 +45,7 @@ from repro_torch.core.online import OnlineState
 from repro_torch.core.step import (PARTICIPATION_TAG,  # noqa: F401
                                    _mask_rows, participation_mask)
 from repro_torch.core.tree import tree_map
+from repro_torch.distributed.sharding import Blocked, fold_add, neighbor_sum
 
 EXEC_MODES = ("sync", "gossip")
 
@@ -105,11 +106,16 @@ class NeighborTable:
     def gather_sum(self, x: torch.Tensor, weights: torch.Tensor
                    ) -> torch.Tensor:
         """sum_k weights[i, k] x[idx[i, k]] for x (N,), (N, D) or a sweep's
-        (G, N, D) (agent axis second to last)."""
+        (G, N, D) (agent axis second to last), summed over k = 0, 1, ... in
+        turn (`sharding.fold_add`). On a mesh (x blocked, its agent dim
+        cut over the batch axes) the layout's `neighbor_sum`, bitwise this
+        plain sum."""
+        if isinstance(x, Blocked):
+            return neighbor_sum(x, self.idx, weights)
         if x.ndim == 1:
-            return torch.sum(weights * x[self.idx], dim=1)
+            return fold_add(weights * x[self.idx], 1)
         g = x[..., self.idx, :]                      # (..., N, K, D)
-        return torch.sum(weights[..., None] * g, dim=-2)
+        return fold_add(weights[..., None] * g, -2)
 
     def nbr_sum(self, x: torch.Tensor,
                 alive: torch.Tensor | None = None) -> torch.Tensor:

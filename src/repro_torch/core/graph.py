@@ -37,6 +37,35 @@ class Graph:
     def neighbors(self, i: int) -> np.ndarray:
         return np.nonzero(self.adjacency[i])[0]
 
+    # ---- incidence matrices (Shi et al. 2014 notation) -------------------
+    def edge_list(self) -> list[tuple[int, int]]:
+        N = self.num_agents
+        return [(i, n) for i in range(N) for n in range(i + 1, N)
+                if self.adjacency[i, n]]
+
+    def incidence(self) -> tuple[np.ndarray, np.ndarray]:
+        """(S_plus, S_minus): the unsigned and signed edge-node incidence,
+        one row per directed edge (both orientations), 2|C| x N."""
+        edges = self.edge_list()
+        E = len(edges)
+        S_plus = np.zeros((2 * E, self.num_agents))
+        S_minus = np.zeros((2 * E, self.num_agents))
+        for e, (i, n) in enumerate(edges):
+            for row, (src, dst) in ((e, (i, n)), (e + E, (n, i))):
+                S_plus[row, src] = 1.0
+                S_plus[row, dst] = 1.0
+                S_minus[row, src] = 1.0
+                S_minus[row, dst] = -1.0
+        return S_plus, S_minus
+
+    def sigma_terms(self) -> tuple[float, float]:
+        """(sigma_max(S_+), sigma_min_nonzero(S_-)) for the Theorem-2 rho
+        bound."""
+        S_plus, S_minus = self.incidence()
+        smax = float(np.linalg.svd(S_plus, compute_uv=False)[0])
+        sv = np.linalg.svd(S_minus, compute_uv=False)
+        return smax, float(sv[sv > 1e-9][-1])
+
     def is_connected(self) -> bool:
         N = self.num_agents
         seen = {0}
@@ -158,3 +187,23 @@ def metropolis_weights(graph: Graph) -> np.ndarray:
                 W[i, n] = 1.0 / (1.0 + max(deg[i], deg[n]))
         W[i, i] = 1.0 - W[i].sum()
     return W
+
+
+def admissible_rho(graph: Graph, m_R: float, M_R: float, nu: float = 2.0,
+                   eta1: float = 1.0, eta2: float = 1.0,
+                   eta3: float | None = None) -> float:
+    """The largest rho the Theorem-2 bound (Eqs. 23/32) admits. eta3
+    defaults to half the value that keeps the third term positive,
+    eta3 < m_R sigma_min^2(S_-) / (nu M_R^2); raises ValueError where no
+    rho is admissible."""
+    smax, smin = graph.sigma_terms()
+    if eta3 is None:
+        eta3 = 0.5 * m_R * smin**2 / (nu * M_R**2)
+    t1 = 4.0 * m_R / eta1
+    t2 = (nu - 1.0) * smin**2 / (nu * eta3 * smax**2)
+    gap = m_R - eta3 * nu * M_R**2 / smin**2
+    t3 = gap / (eta1 / 4.0 + eta2 * smax**2 / 8.0)
+    rho = min(t1, t2, t3)
+    if rho <= 0:
+        raise ValueError("no admissible rho; loosen eta constants")
+    return rho

@@ -43,6 +43,7 @@ from repro_torch.core.admm import COKEState, PrimalTerms, Problem, \
     _primal_stage
 from repro_torch.core.gossip import GossipPlan
 from repro_torch.core.online import OnlineState
+from repro_torch.distributed.sharding import P, Blocked, all_gather, blockwise
 
 AFFINITY_KINDS = ("rbf", "cosine")
 
@@ -114,13 +115,19 @@ def topk_neighbors(thetas: torch.Tensor, k: int, affinity: str = "rbf",
     in [0, 1]. The scores are made one (B, N) tile at a time, B = min(block,
     N); the last block is padded with clamped rows and trimmed, as in the
     reference, so every tile's product has one shape. fp32 throughout (the
-    card's products without TF32, PyTorch's default)."""
+    card's products without TF32, PyTorch's default).
+
+    On a mesh (a blocked (N, D) stack) the rows are gathered over the
+    batch axes; |t_i|^2 and each tile of dots are per-feature-block
+    partials summed by psum_model in ascending block order. The scores,
+    the sort, the top-k and the weights are plain tensors."""
     N = thetas.shape[-2]
     if not 1 <= k <= N - 1:
         raise ValueError(
             f"top-k needs 1 <= k <= N-1 (k={k}, N={N} agents)")
     dev = thetas.device
-    t = thetas.to(torch.float32)
+    t = all_gather(thetas.to(torch.float32), "batch")
+    blocked = isinstance(t, Blocked)
     sq = torch.sum(t * t, dim=-1)                     # (..., N)
     norms = torch.sqrt(sq) if affinity == "cosine" else None
     B = min(block, N)
@@ -128,11 +135,16 @@ def topk_neighbors(thetas: torch.Tensor, k: int, affinity: str = "rbf",
     all_rows = torch.clamp_max(torch.arange(num_blocks * B, device=dev),
                                N - 1)
     col = torch.arange(N, device=dev)
-    t_cols = t.transpose(-1, -2)                      # (..., D, N)
+    t_cols = None if blocked else t.transpose(-1, -2)   # (..., D, N)
     idx_parts, val_parts = [], []
     for i0 in range(0, num_blocks * B, B):
         rows = all_rows[i0:i0 + B]
-        dots = torch.index_select(t, -2, rows) @ t_cols   # (..., B, N)
+        if blocked:
+            dots = blockwise(
+                lambda tb: torch.index_select(tb, 0, rows) @ tb.T, t,
+                out=P(None, None), partial=True)
+        else:
+            dots = torch.index_select(t, -2, rows) @ t_cols   # (..., B, N)
         sq_rows = torch.index_select(sq, -1, rows)
         if affinity == "rbf":
             d2 = torch.clamp_min(

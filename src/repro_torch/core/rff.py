@@ -75,3 +75,25 @@ def featurize(params: RFFParams, x: torch.Tensor) -> torch.Tensor:
         return feats * math.sqrt(1.0 / L)
     feats = math.sqrt(2.0) * torch.cos(proj + params.bias)
     return feats * math.sqrt(1.0 / L)
+
+
+def approx_kernel(params: RFFParams, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """kappa_hat_L(x, y) = phi_L(x)' phi_L(y), Eq. (11)."""
+    return featurize(params, x) @ featurize(params, y).T
+
+
+def exact_gaussian_kernel(x: torch.Tensor, y: torch.Tensor,
+                          bandwidth: float) -> torch.Tensor:
+    """The exact Gaussian Gram matrix: the oracle the RFF approximation is
+    held to."""
+    sq = (torch.sum(x * x, -1)[:, None] - 2.0 * x @ y.T
+          + torch.sum(y * y, -1)[None, :])
+    return torch.exp(-sq / (2.0 * bandwidth**2))
+
+
+def featurize_jit(params: RFFParams, x: torch.Tensor) -> torch.Tensor:
+    """The reference's name for its compiled featurize, the data
+    pipeline's entry point: here `featurize` itself (the port runs it
+    eagerly; K1 is `kernels.rff`)."""
+    return featurize(params, x)

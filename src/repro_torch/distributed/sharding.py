@@ -35,7 +35,8 @@ meets), and the collectives GSPMD would insert are named functions:
   roll_agents — the ring roll of the agent axis across batch blocks;
   all_gather — the blocks of one axis concatenated (the dense graph's
                A @ x gathers x over the batch axis first, then multiplies
-               each row block of A);
+               each row block of A; the gossip table's `neighbor_sum`
+               gathers x so, then each row block takes its neighbours);
   unshard    — every block gathered into one plain tensor.
 
 Reductions (`torch.sum`, `mean`, `amax`, `max`, `linalg.norm`) and the
@@ -593,6 +594,14 @@ def _fold(t: torch.Tensor, axis: int, op) -> torch.Tensor:
     return acc
 
 
+def fold_add(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """The sum of t's slices along `axis` (dropped) as the left fold
+    0, 1, ...: one order whatever t's other dims (torch.sum's order over a
+    dim that is not the innermost depends on the tensor's shape), so a
+    block's rows sum as the whole tensor's rows do."""
+    return _fold(t, axis, torch.add).squeeze(axis)
+
+
 def psum_model(x):
     """Sum the model-axis partials of `x` in ascending block order."""
     if not isinstance(x, Blocked) or not x.partial:
@@ -777,6 +786,28 @@ def roll_agents(x, shifts, dims=None):
         .movedim(1 + d, 0)
     return _wrap(x.mesh, x.kinds, x.shape, back)
 
+
+def neighbor_sum(x, idx: torch.Tensor, weights: torch.Tensor):
+    """sum_k weights[i, k] x[idx[i, k]] over the agent dim of x, (N,) or
+    (N, D): the gossip NeighborTable's gather, with the plain (N, K)
+    idx and weights. x is gathered over the batch axes, then each row
+    block gathers its own rows' neighbours (feature blocks stay
+    block-local) and sums over K by the plain form's `fold_add`, so every
+    row is bitwise the plain gather's."""
+    if not isinstance(x, Blocked) or x.ndim not in (1, 2):
+        raise NotImplementedError(
+            "neighbor_sum takes a blocked (N,) or (N, D) tensor")
+    if x.partial:
+        raise NotImplementedError("gathering model partials")
+    xg = all_gather(x, "batch")
+    v = xg.data[0] if isinstance(xg, Blocked) else xg[None]   # (M, N, ...)
+    N, K = idx.shape
+    B = _extent(x.mesh, "batch") if x.kinds[0] == "batch" else 1
+    g = v[:, idx.reshape(B, N // B, K)].movedim(1, 0)   # (B, M, N/B, K, ...)
+    w = weights.reshape(B, 1, N // B, K)
+    out = fold_add(w * g, -1) if x.ndim == 1 else fold_add(
+        w[..., None] * g, -2)
+    return _wrap(x.mesh, x.kinds, x.shape, out)
 
 
 def _matmul(a, b):

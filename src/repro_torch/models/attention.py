@@ -152,6 +152,15 @@ def gqa_forward(params: GQAAttention, cfg: ModelConfig, x, positions, *,
     return y, _build_kv_cache(k, v, positions, cache_len)
 
 
+def gqa_prefill_cache(params: GQAAttention, cfg: ModelConfig, x, positions,
+                      cache_len: int) -> KVCache:
+    """The decode cache after a prefill pass over x (B, S, d), without the
+    attention itself: the last `cache_len` tokens' k and v (rolling for a
+    sliding window)."""
+    _, k, v = _gqa_project_qkv(params, cfg, x, positions)
+    return _build_kv_cache(k, v, positions, cache_len)
+
+
 def gqa_decode(params: GQAAttention, cfg: ModelConfig, x, cache: KVCache,
                position: int):
     """One-token decode. x: (B, 1, d). Returns (out (B, 1, d), cache).

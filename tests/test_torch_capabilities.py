@@ -4,10 +4,11 @@ reference's (`repro.api.capabilities`), on the CPU.
 The reference's rules are copied word for word: every trigger of the
 reference's `tests/test_capabilities.py` goes through both packages' real
 entry points (config construction, fit, fit_stream, sweep) and must raise
-the same ValueError text. The port's NOT_PORTED rows raise
-NotImplementedError naming their ROADMAP.md item, and only after every
-ValueError rule has passed. The port's README matrix block must be in sync
-with its table (the reference's block is pinned by the reference's test).
+the same ValueError text. Every combination the reference admits runs in
+the port, on a mesh too: the two rows the port once held back (a mesh
+under gossip, a mesh with personalization) run against the reference's
+unsharded fit. The port's README matrix block must be in sync with its
+table (the reference's block is pinned by the reference's test).
 """
 import pathlib
 
@@ -84,14 +85,11 @@ TRIGGERS = {
     "sweep-backend": ("sweep", dict(algorithm="coke", backend="spmd")),
 }
 
-#: NOT_PORTED id -> (driver mode, knobs, fit kwargs, ROADMAP.md item)
-NOT_PORTED_TRIGGERS = {
-    "mesh-gossip": ("batch", dict(algorithm="coke", exec="gossip",
-                                  participation=0.5),
-                    dict(mesh=object()), "item 14b"),
-    "mesh-personalization": ("batch", dict(algorithm="coke",
-                                           personalization="pz"),
-                             dict(mesh=object()), "item 14b"),
+#: the rows the port held back until a mesh ran under gossip and
+#: personalization: id -> FitConfig knobs (coke, CG, on spmd)
+FORMERLY_NOT_PORTED = {
+    "mesh-gossip": dict(exec="gossip", participation=0.5),
+    "mesh-personalization": dict(personalization="pz"),
 }
 
 
@@ -137,7 +135,7 @@ def test_the_reference_rules_are_copied_word_for_word():
 def test_every_rule_has_a_trigger():
     ids = {r.id for r in jcap.CONFIG_RULES + jcap.RUN_RULES}
     assert set(TRIGGERS) == ids
-    assert set(NOT_PORTED_TRIGGERS) == {r.id for r in cap.NOT_PORTED}
+    assert not hasattr(cap, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("rule_id", sorted(TRIGGERS))
@@ -154,15 +152,47 @@ def test_reference_rule_raises_the_same_value_error(rule_id):
     assert rule.alternative in str(port_err.value)
 
 
-@pytest.mark.parametrize("rule_id", sorted(NOT_PORTED_TRIGGERS))
-def test_not_ported_row_raises_not_implemented_naming_its_item(rule_id):
-    """The reference admits each of these; the port says which ROADMAP.md
-    item ports it."""
-    mode, knobs, fit_kw, item = NOT_PORTED_TRIGGERS[rule_id]
-    _ref_call(mode, knobs)                   # the reference admits it
-    with pytest.raises(NotImplementedError) as err:
-        _port_call(mode, knobs, **fit_kw)
-    assert f"ROADMAP.md Queue 1 {item} " in str(err.value)
+@pytest.mark.parametrize("rule_id", sorted(FORMERLY_NOT_PORTED))
+def test_formerly_not_ported_row_runs_on_a_mesh(rule_id):
+    """The reference admits each of these and the port now runs it on a
+    (2, 4) mesh. The reference's own sharded run cannot run on this jax
+    (ROADMAP.md, tests/test_torch_mesh_gossip.py), so the port is held to
+    the reference's unsharded fit of the same problem: comms and bits
+    exact, theta within 1e-4 (CG), or 1e-3 relative and the learned
+    graph's support equal under personalization."""
+    import numpy as np
+    from repro.api import KRRConfig as JKRRConfig
+    from repro.api import build_problem as jax_build_problem
+    from repro.api import fit as jax_fit
+
+    from repro_torch import convert
+    from repro_torch.api import KRRConfig
+    from repro_torch.launch.mesh import make_host_mesh
+
+    krr = dict(num_agents=8, samples_per_agent=12, num_features=16,
+               lam=1e-3, rho=0.1, seed=0)
+    knobs = dict(algorithm="coke", backend="spmd", graph="ring",
+                 num_iters=20, primal="cg", **FORMERLY_NOT_PORTED[rule_id])
+    jcfg = _config("ref", dict(knobs, krr=JKRRConfig(**krr)))
+    tcfg = _config("port", dict(knobs, krr=KRRConfig(**krr)))
+    jp = jax_build_problem(jcfg).problem
+    ref = jax_fit(jcfg, problem=jp)
+    port = fit(tcfg, problem=convert.problem_from_numpy(
+        np.asarray(jp.feats), np.asarray(jp.labels),
+        np.asarray(jp.adjacency), jp.lam, jp.rho, device="cpu"),
+        device="cpu", mesh=make_host_mesh(2, 4, device="cpu"))
+    for k in ("comms", "bits"):
+        np.testing.assert_array_equal(port.history[k].numpy(),
+                                      np.asarray(ref.history[k]))
+    want = np.asarray(ref.theta)
+    if tcfg.personalization is None:
+        np.testing.assert_allclose(port.theta.numpy(), want, rtol=0,
+                                   atol=1e-4)
+    else:
+        np.testing.assert_array_equal(port.learned_adjacency.numpy() > 0,
+                                      np.asarray(ref.learned_adjacency) > 0)
+        np.testing.assert_allclose(port.theta.numpy(), want, rtol=0,
+                                   atol=1e-3 * max(1.0, np.abs(want).max()))
 
 
 def tuple_or(value):
@@ -289,8 +319,8 @@ def test_personalization_cell_runs_like_the_reference():
 
 
 def test_port_matrix_marks_follow_the_reference_matrix():
-    """Where the reference's matrix has ✅ the port's has ✅ or "item N";
-    where the reference's has — the port's has — too."""
+    """Where the reference's matrix has ✅ the port's has ✅; where the
+    reference's has — the port's has — too."""
     def rows(text):
         out = {}
         for line in text.splitlines():
@@ -306,7 +336,7 @@ def test_port_matrix_marks_follow_the_reference_matrix():
             if ref == "—":
                 assert mine == "—", key
             else:
-                assert mine == "✅" or mine.startswith("item "), key
+                assert mine == "✅", key
 
 
 def test_readme_port_matrix_in_sync():

@@ -179,6 +179,50 @@ def test_build_problem_with_carried_rff_matches_reference(built,
     assert (q.lam, q.rho, q.loss) == (p.lam, p.rho, p.loss)
 
 
+@pytest.mark.parametrize("mapping", ["cos_bias", "cos_sin"])
+def test_rff_kernels_match_reference(mapping):
+    """approx_kernel (Eq. 11), exact_gaussian_kernel and featurize_jit
+    (the port's plain featurize under the reference's name) on the
+    reference's omega and bias: within 1e-5 of the largest entry."""
+    from repro.core import rff as jax_rff
+
+    from repro_torch.core import rff as port_rff
+    rng = np.random.default_rng(7)
+    omega = rng.normal(size=(5, 24)).astype(np.float32)
+    bias = rng.uniform(0, 2 * np.pi, size=24).astype(np.float32)
+    x = rng.uniform(size=(9, 5)).astype(np.float32)
+    y = rng.uniform(size=(6, 5)).astype(np.float32)
+    jp = jax_rff.RFFParams(jnp.asarray(omega), jnp.asarray(bias), mapping)
+    tp = convert.rff_params_from_numpy(omega, bias, mapping, device="cpu")
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    for got, want in (
+            (port_rff.approx_kernel(tp, tx, ty),
+             jax_rff.approx_kernel(jp, jnp.asarray(x), jnp.asarray(y))),
+            (port_rff.exact_gaussian_kernel(tx, ty, 0.7),
+             jax_rff.exact_gaussian_kernel(jnp.asarray(x), jnp.asarray(y),
+                                           0.7)),
+            (port_rff.featurize_jit(tp, tx),
+             jax_rff.featurize_jit(jp, jnp.asarray(x)))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(_np(got), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    assert torch.equal(port_rff.featurize_jit(tp, tx),
+                       port_rff.featurize(tp, tx))
+
+
+def test_get_krr_config_matches_reference():
+    from repro.configs import get_krr_config as jax_get_krr_config
+    from repro.configs.coke_krr import PAPER_SETUPS as JAX_SETUPS
+
+    from repro_torch.configs import get_krr_config
+    for setup in JAX_SETUPS:
+        assert dataclasses.asdict(get_krr_config(setup)) == \
+            dataclasses.asdict(jax_get_krr_config(setup)), setup
+    assert get_krr_config() == get_krr_config("synthetic")
+    with pytest.raises(KeyError):
+        get_krr_config("no-such-setup")
+
+
 def test_build_problem_draws_its_own_rff_from_the_seed():
     """The port's draw is a torch.Generator draw: reproducible at a seed
     and on the shape the config asks for (not the reference's numbers)."""
@@ -367,19 +411,27 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(built, tmp_path):
         KernelModel.load(path)
 
 
-OUT_OF_SLICE = {
-    # a mesh under gossip or personalization: ROADMAP.md item 14b
-    "mesh-gossip": lambda cfg: dict(
-        config=cfg.replace(exec="gossip", participation=0.5),
-        mesh=object()),
+#: the config that raised NotImplementedError until a mesh ran under
+#: gossip, now run on a (2, 4) mesh
+MESH_CONFIGS = {
+    "mesh-gossip": dict(exec="gossip", participation=0.5),
 }
 
 
-@pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
-def test_out_of_slice_configs_raise_not_implemented(case, built):
-    kw = OUT_OF_SLICE[case](_configs()[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fit(kw.pop("config"), problem=built[1], device="cpu", **kw)
+@pytest.mark.parametrize("case", sorted(MESH_CONFIGS))
+def test_mesh_configs_match_the_unsharded_reference(case, built):
+    """The megakernel config under gossip on a (2, 4) mesh: its gate keeps
+    the reference's `mesh is None`, so the ring runtime runs, K3 once per
+    block of the carry. Held to the reference's unsharded spmd fit (its
+    own sharded run cannot run on this jax, ROADMAP.md): comms and bits
+    exact, the rest within 1e-5."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    jcfg, tcfg = _configs(**MESH_CONFIGS[case])
+    ref = jax_fit(jcfg.replace(backend="spmd"), problem=built[0].problem)
+    port = fit(tcfg, problem=built[1], device="cpu",
+               mesh=make_host_mesh(2, 4, device="cpu"))
+    _assert_history_match(ref, port, case)
 
 
 @pytest.mark.parametrize("backend", ["simulator", "spmd"])

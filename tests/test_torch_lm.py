@@ -119,6 +119,35 @@ def test_gqa_forward_and_block_forward_per_layer(pair, cache_len):
 
 
 @pytest.mark.parametrize("cache_len", [64, 16])
+def test_gqa_prefill_cache_matches_reference_and_decodes(pair, cache_len):
+    """gqa_prefill_cache: the reference's cache (full and rolling) within
+    this file's tolerance; where the cache holds every token, a decode
+    from it gives the forward's next position, as tests/test_attention.py
+    holds the reference."""
+    jcfg, jp, cfg, model = pair
+    B, S = 2, 29
+    x = np.random.default_rng(2).standard_normal(
+        (B, S + 1, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S + 1, dtype=np.int32)
+    lp = _layer(jp, 0)
+    want = jax_attn.gqa_prefill_cache(lp["attn"], jcfg,
+                                      jnp.asarray(x[:, :S]),
+                                      jnp.asarray(pos[:S]), cache_len)
+    p0 = model.blocks[0].attn
+    got = attn.gqa_prefill_cache(p0, cfg, torch.from_numpy(x[:, :S]),
+                                 torch.from_numpy(pos[:S]), cache_len)
+    _close(got.k, want.k)
+    _close(got.v, want.v)
+    np.testing.assert_array_equal(got.slot_positions.numpy(),
+                                  np.asarray(want.slot_positions))
+    if cache_len > S:
+        full = attn.gqa_forward(p0, cfg, torch.from_numpy(x),
+                                torch.from_numpy(pos))
+        out, _ = attn.gqa_decode(p0, cfg, torch.from_numpy(x[:, S:]), got, S)
+        _close(out, full[:, S:].detach())
+
+
+@pytest.mark.parametrize("cache_len", [64, 16])
 def test_prefill_with_state_matches_reference(pair, cache_len):
     """Last-position logits and every layer's cache, full and rolling."""
     jcfg, jp, cfg, model = pair

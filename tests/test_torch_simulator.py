@@ -525,6 +525,88 @@ def test_metropolis_weights_equal_reference(family):
     np.testing.assert_allclose(w.sum(1), 1.0, atol=1e-12)
 
 
+@pytest.mark.parametrize("family", ["ring", "erdos_renyi", "circulant"])
+def test_admissible_rho_equals_reference(family):
+    """The Theorem-2 bound: the same float from the same numpy algebra,
+    and the reference's ValueError where no rho is admissible."""
+    make = {"ring": lambda m: m.ring(8),
+            "erdos_renyi": lambda m: m.erdos_renyi(12, 0.3, seed=4),
+            "circulant": lambda m: m.circulant(9, (1, 3))}[family]
+    for kw in (dict(m_R=0.5, M_R=2.0), dict(m_R=0.1, M_R=1.0, nu=3.0,
+                                            eta1=2.0, eta2=0.5)):
+        assert port_graph.admissible_rho(make(port_graph), **kw) == \
+            jax_graph.admissible_rho(make(jax_graph), **kw), kw
+    assert port_graph.Graph(make(jax_graph).adjacency).sigma_terms() == \
+        make(jax_graph).sigma_terms()
+    bad = dict(m_R=1e-9, M_R=1e3, eta3=1e6)
+    with pytest.raises(ValueError) as ref_err:
+        jax_graph.admissible_rho(make(jax_graph), **bad)
+    with pytest.raises(ValueError) as port_err:
+        port_graph.admissible_rho(make(port_graph), **bad)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+#: tests/test_deprecations.py's configuration
+LEGACY_KRR = dict(num_agents=4, samples_per_agent=30, num_features=8,
+                  lam=1e-2, rho=0.5, seed=3)
+
+
+@pytest.fixture(scope="module")
+def legacy():
+    jb = jax_build_problem(JFitConfig(krr=JKRRConfig(**LEGACY_KRR)))
+    return jb, _carry(jb.problem)
+
+
+def _warned(fn):
+    with pytest.warns(DeprecationWarning) as rec:
+        out = fn()
+    return out, [str(w.message) for w in rec
+                 if issubclass(w.category, DeprecationWarning)]
+
+
+@pytest.mark.parametrize("schedule", ["coke", "dkla"])
+def test_deprecated_admm_run_warns_and_matches_reference(schedule, legacy):
+    """core.admm.run: the reference's DeprecationWarning text, then fit's
+    run of the legacy loop: comms exact, theta and the trajectories
+    within 1e-5 of the reference's shim, and bitwise the port's own fit."""
+    jb, tprob = legacy
+    jsch, tsch = ((JCensorSchedule(0.4, 0.96), CensorSchedule(0.4, 0.96))
+                  if schedule == "coke" else
+                  (jax_admm.dkla_schedule(), port_admm.dkla_schedule()))
+    assert (tsch.v, tsch.mu) == (jsch.v, jsch.mu)
+    want, jmsg = _warned(lambda: jax_admm.run(jb.problem, jsch, 25))
+    got, msg = _warned(lambda: port_admm.run(tprob, tsch, 25))
+    assert msg == jmsg and "repro.api.fit" in msg[0]
+    np.testing.assert_array_equal(_np(got.comms), np.asarray(want.comms))
+    for k in ("train_mse", "consensus_gap"):
+        np.testing.assert_allclose(_np(getattr(got, k)),
+                                   np.asarray(getattr(want, k)), rtol=TOL,
+                                   atol=TOL, err_msg=k)
+    np.testing.assert_allclose(_np(got.state.theta),
+                               np.asarray(want.state.theta), atol=TOL)
+    own = fit(FitConfig(krr=KRRConfig(**LEGACY_KRR), algorithm="coke",
+                        comm=tsch, num_iters=25, primal="cholesky"),
+              problem=tprob, device="cpu")
+    assert torch.equal(got.train_mse, own.history["train_mse"])
+    assert torch.equal(got.state.theta, own.theta)
+
+
+def test_deprecated_cta_run_warns_and_matches_reference(legacy):
+    jb, tprob = legacy
+    want, jmsg = _warned(lambda: jax_cta.run(jb.problem, jb.graph, lr=0.85,
+                                             num_iters=25))
+    got, msg = _warned(lambda: port_cta.run(
+        tprob, port_graph.Graph(np.asarray(jb.graph.adjacency)), lr=0.85,
+        num_iters=25))
+    assert msg == jmsg and "algorithm='cta'" in msg[0]
+    np.testing.assert_array_equal(_np(got.comms), np.asarray(want.comms))
+    np.testing.assert_allclose(_np(got.train_mse),
+                               np.asarray(want.train_mse), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(_np(got.state.theta),
+                               np.asarray(want.state.theta), atol=TOL)
+
+
 @pytest.fixture(scope="module")
 def kernel_matrix():
     rng = np.random.default_rng(6)
@@ -710,23 +792,24 @@ def test_registry_runs_every_ported_solver_behind_the_contract():
 
 
 def test_simulator_still_raises_for_unported_axes(small):
-    """A mesh under gossip is item 14b; a synchronous fit on a (2, 4)
-    mesh, which raised before sharding was ported, is a layout change of
-    the reference's unsharded run: comms and bits exact, theta and the
-    trajectories within this file's tolerance (the Cholesky primal,
-    which gathers each agent block's features for its factor)."""
+    """The axes that raised on the simulator now run on a (2, 4) mesh:
+    a synchronous fit (which raised before sharding was ported) and a
+    gossip fit (which raised until a mesh ran under gossip) are layout
+    changes of the reference's unsharded runs: comms and bits exact,
+    theta and the trajectories within this file's tolerance (the Cholesky
+    primal, which gathers each agent block's features for its factor)."""
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(2, 4, device="cpu")
-    cfg = FitConfig(krr=KRRConfig(**KRR), **BASE)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        fit(cfg.replace(exec="gossip", participation=0.5),
-            problem=small[1], device="cpu", mesh=mesh)
-    kw = dict(BASE, primal="cholesky")
-    ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **kw), problem=small[0])
-    port = fit(FitConfig(krr=KRRConfig(**KRR), **kw), problem=small[1],
-               device="cpu", mesh=mesh)
-    _assert_match(ref, port, "mesh:cholesky")
+    for name, kw in (("mesh:cholesky", dict(BASE, primal="cholesky")),
+                     ("mesh:gossip", dict(BASE, primal="cholesky",
+                                          exec="gossip",
+                                          participation=0.5))):
+        ref = jax_fit(JFitConfig(krr=JKRRConfig(**KRR), **kw),
+                      problem=small[0])
+        port = fit(FitConfig(krr=KRRConfig(**KRR), **kw), problem=small[1],
+                   device="cpu", mesh=mesh)
+        _assert_match(ref, port, name)
 
 
 def test_simulator_personalization_matches_reference(small):
