@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the predict shape and at d=96, and its SASS instructions per output
      (cuobjdump -sass); K5's SASS instructions per word; count K4's
      tensor-core instructions in its SASS (both HMMA kinds must be there)
-     and print its launch plans;
+     and print its launch plans; K7's ptxas report (registers, spills),
+     shared memory and blocks per SM per instance, none may spill, and its
+     SASS must hold K7_HMMA;
   2. each kernel against its plain PyTorch version on the card, on inputs
      from seeded torch.Generators, at the main paths' shapes and at ragged
      ones, each error printed beside its tolerance; K1 with both store
@@ -149,7 +151,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      its own fit; (g) the reference's N=200, p=0.25 cell, printed beside
      the reference's figures; (h) ms and launches per iteration of each
      gossip path beside its sync one, one draw with K5 and with its plain
-     version.
+     version, and K5's launch floor: a replay of one launch that does no
+     work.
  17. personalization (`personalize_phase`), the loops under
      set_sync_debug_mode("error"), on the heterogeneous dataset at full
      width (N=20 ring, 3 tasks, T=3500, D=4096, censor_v=0, rho=0.01,
@@ -214,8 +217,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      shape (B=8, S=64, 16/8 heads of 128), the prefill shape (2 x 4096), a
      window, an odd length and the reduced model's heads, each error
      beside K7_RTOL, and at the training and prefill shapes its time with
-     a cold L2 beside its bound, the plain version and autograd through
-     F.scaled_dot_product_attention; (b) full-width qwen3-1.7b (28 layers,
+     a cold L2 and its plan beside its bound (the larger of its bytes at
+     the memory rate and its flops at 3xTF32), the plain version and
+     autograd through F.scaled_dot_product_attention; (b) full-width
+     qwen3-1.7b (28 layers,
      fp32), allreduce, AdamW lr 3e-3, clip 1.0, B=8, S=64 from
      TokenStream, 5 steps: the loss per step (finite), ms per step device
      and host, K4 and K7 once per layer per step, their ms per step (the
@@ -370,11 +375,13 @@ MIXTRAL_HEADS = (32, 8, 128, 4096)
 # full softmax (the reference's own tolerance, tests/test_kernels.py); bf16
 # outputs within an ulp of bf16 (2^-7 relative) after rounding
 K4_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# K7 (the attention backward, fp32 FMAs) against its plain version: sums
-# over keys (dQ) or queries (dK, dV) in another order, P recomputed from
-# K4's log-sum-exp: each gradient within this share of its largest
-# magnitude
+# K7 (the attention backward, 3xTF32 on the tensor cores) against its
+# plain version: sums over keys (dQ) or queries (dK, dV) in another order,
+# P recomputed from K4's log-sum-exp: each gradient within this share of
+# its largest magnitude
 K7_RTOL = 1e-4
+# the tensor-core instruction K7's 3xTF32 products compile to (SASS)
+K7_HMMA = "HMMA.1688.F32.TF32"
 # the tensor-core instructions each K4 instance must compile to (SASS):
 # bf16 m16n8k16 and the TF32 m16n8k8 of the fp32 instance's 3xTF32
 K4_HMMA = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
@@ -802,6 +809,39 @@ def hmma_count(library):
         for tok in line.split() if tok.startswith("HMMA")))
 
 
+def k7_phase1(build):
+    """Phase 1's hold of K7: every instance's ptxas report (registers,
+    spills) beside its dynamic shared memory and blocks per SM (occupancy
+    API); no instance may spill, and the SASS must hold K7_HMMA."""
+    import re
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    report = build.build(("flash_attention_bwd",))["flash_attention_bwd"]
+    ptxas = ptxas_report(report["log"])
+    spilled = []
+    for fn, props in ptxas.items():
+        log(1, f"  K7 ptxas {fn}: {props or 'no report'}")
+        if re.search(r"[1-9]\d* bytes spill (stores|loads)", props):
+            spilled.append(fn)
+    for width, instances in k7.INSTANCES.items():
+        for rw, cw, ns in instances:
+            for kvp in (True, False):
+                _, _, smem, blocks = k7.pass_limits(width, kvp, rw, cw, ns)
+                log(1, f"  K7 {'dK/dV' if kvp else 'dQ'}<width {width}, "
+                       f"{rw}x{cw} warps, ns={ns}>: {smem} B of shared "
+                       f"memory, {blocks} block(s) per SM")
+    if spilled or not any("bwd_kernel" in line for line in
+                          report["log"].splitlines()):
+        raise AssertionError(f"K7 spills in {spilled}, or its ptxas report "
+                             "is missing")
+    hmma = hmma_count(build.library_path("flash_attention_bwd"))
+    log(1, f"flash_attention_bwd SASS tensor-core instructions (cuobjdump "
+           f"-sass): {hmma}")
+    if not hmma.get(K7_HMMA, 0):
+        raise AssertionError(f"the flash_attention_bwd library lacks "
+                             f"{K7_HMMA} (found {hmma}): K7 does not run on "
+                             "the tensor cores")
+
+
 def k1_sass_counts(sass):
     """Instructions a thread issues per output on the cosine's fast path,
     in the SASS of K1's bulk instance for d = 5 (`cuobjdump -sass` text,
@@ -946,8 +986,9 @@ def ptxas_report(nvcc_log):
     """{kernel: "N registers, spill line"} from nvcc's -Xptxas -v output,
     K2's stream-kernel instances named by their template arguments
     (V float4 column groups per thread, R rows per stage, bulk or cp.async
-    staging), K1's by its store path (TMA bulk stores or 4-byte stores)
-    and K3's by its load width, neighbour reads and loads in flight (U).
+    staging), K1's by its store path (TMA bulk stores or 4-byte stores),
+    K3's by its load width, neighbour reads and loads in flight (U) and
+    K7's by its pass, head-dim width, warps (rw x cw) and n8 tiles (ns).
     Empty when the library came from the build cache."""
     import re
     out, fn = {}, None
@@ -960,6 +1001,8 @@ def ptxas_report(nvcc_log):
             k1 = re.search(r"rff_strip_kernelILb([01])ELi(\d+)E", fn)
             k3 = re.search(r"coke_fused_update_kernelI(6float4|f)Lb([01])ELi"
                            r"(\d+)E", fn)
+            k7 = re.search(r"bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb"
+                           r"([01])E", fn)
             if t:
                 fn = (f"stream<V={t.group(1)}, R={t.group(2)}, "
                       f"{'bulk' if t.group(3) == '1' else 'cp.async'}>")
@@ -971,6 +1014,10 @@ def ptxas_report(nvcc_log):
                 reads = "one" if k3.group(2) == "1" else "two"
                 fn = (f"coke_fused_update<{width}, {reads} neighbour "
                       f"read(s), U={k3.group(3)}>")
+            elif k7:
+                fn = (f"{'dK/dV' if k7.group(5) == '1' else 'dQ'}<width "
+                      f"{k7.group(1)}, {k7.group(2)}x{k7.group(3)} warps, "
+                      f"ns={k7.group(4)}>")
             elif "combine_kernel" in fn:
                 fn = "combine"
             out[fn] = ""
@@ -2810,6 +2857,9 @@ def gossip_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     key = prng.fold_in(prng.PRNGKey(7), 11)
     k5_eager = time_ms(lambda: prng.uniform(key, (N,), dev), reps=100)
     k5_graph = graph_ms(lambda: prng.uniform(key, (N,), dev))
+    # the launch floor: a replay of one launch that does no work (zero_()
+    # on one element), beside K5's replay
+    k5_floor = graph_ms(torch.zeros(1, device=dev).zero_)
     k5_host = host_call_ms(lambda: prng.uniform(key, (N,), dev))
     plain = time_ms(lambda: uniform_ref(key, (N,), dev), reps=20)
     plain_wide = time_ms(lambda: uniform_ref(key, (N, D), dev), reps=20)
@@ -2819,7 +2869,10 @@ def gossip_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     b_bytes = 4.0 * N / bw * 1e3
     bound_ms, bound_by = max((b_ops, "operations"), (b_bytes, "bytes"))
     log(16, f"[{card}] one uniform of N={N} words: K5 {k5_graph:.6f} ms as a "
-            f"CUDA-graph replay, {k5_eager:.4f} ms eager ({k5_host:.4f} ms "
+            f"CUDA-graph replay (the launch floor, one zero_() on one "
+            f"element replayed the same way: {k5_floor:.6f} ms; K5 "
+            f"{k5_graph - k5_floor:+.6f} ms above it), "
+            f"{k5_eager:.4f} ms eager ({k5_host:.4f} ms "
             f"of host per call); plain version (~173 launches) "
             f"{plain:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}: "
             f"{ops_word:.1f} instructions per word at "
@@ -4567,7 +4620,7 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
     from repro_torch.train.steps import agent_batch, make_train_step
     from torch.profiler import ProfilerActivity, profile
 
-    bw, fp32 = peaks[0], peaks[1]
+    bw, tf32 = peaks[0], peaks[3]
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(20)
     flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
@@ -4607,23 +4660,33 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
         ms = flushed_ms(bwd, flush, reps=5 if big else 50,
                         warmup=1 if big else 3)
         pairs = admissible_pairs(S, window)
-        # the backward's five products (S and dP recomputed, dV, dK, dQ):
-        # 2.5 x the forward's 4 D flops a pair, on fp32 CUDA cores; its
-        # bytes: q, o, dO read and dQ written (4 of (B, S, H, D)), k, v
-        # read and dK, dV written (4 of (B, S, KV, D)), L read
+        # the backward's five products (S and dP recomputed once, dV, dK,
+        # dQ): 2.5 x the forward's 4 D flops a pair, at the least
+        # fp32-accurate route, 3xTF32 (three TF32 MMAs a product) on the
+        # tensor cores; its bytes: q, o, dO read and dQ written (4 of (B,
+        # S, H, D)), k, v read and dK, dV written (4 of (B, S, KV, D)), L
+        # read
         flops = 10.0 * D * pairs * B * H
         nbytes = 4.0 * (B * S * D * (4 * H + 4 * KV) + B * H * S)
-        t_f, t_b = flops / fp32 * 1e3, nbytes / bw * 1e3
+        t_f, t_b = 3 * flops / tf32 * 1e3, nbytes / bw * 1e3
         b_ms, b_by = (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
+        plan = k7.device_plan(q, k)
         plain_ms = time_ms(lambda: attention_bwd_ref(
             t(q), t(k), t(v), t(out), t(do), causal=True, window=window),
             reps=1, runs=3, warmup=1)
         lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window)
         log(20, f"[{card}] K7 at the {tag} shape: {ms:.4f} ms with a cold "
-                f"L2, bound {b_ms:.4f} ms ({b_by}: {flops / 1e12:.4f} TFLOP "
-                f"at {fp32 / 1e12:g} TFLOP/s fp32, {nbytes / 1e9:.4f} GB; "
+                f"L2, bound {b_ms:.4f} ms ({b_by}: 3 x {flops / 1e12:.4f} "
+                f"TFLOP at {tf32 / 1e12:g} TFLOP/s, 3xTF32, "
+                f"{nbytes / 1e9:.4f} GB at {bw / 1e12:g} TB/s; "
                 f"{b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
-                f"library {lib_ms:.4f} ms ({lib_how})")
+                f"library {lib_ms:.4f} ms ({lib_how}); plan: dK/dV "
+                f"{plan.kv.rows}-key tiles, {plan.kv.warps} warps "
+                f"({plan.kv.rw}x{plan.kv.cw}), {plan.kv.step_rows} query "
+                f"rows a step, {plan.kv.smem} B, grid {plan.kv.grid}; dQ "
+                f"{plan.q.rows}-query tiles, {plan.q.warps} warps "
+                f"({plan.q.rw}x{plan.q.cw}), {plan.q.step_rows} key rows a "
+                f"step, {plan.q.smem} B, grid {plan.q.grid}")
         if tag == "training":
             entry = {"name": "flash_attention_bwd", "route": "cuda",
                      "source": KERNEL_SOURCES["flash_attention_bwd"][0],
@@ -4708,8 +4771,7 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
         top.append((ms, e.count, e.key))
         if "flash_attention_kernel" in e.key:
             k4_ms += ms
-        elif any(x in e.key for x in ("dkdv_kernel", "dq_kernel",
-                                       "delta_kernel")):
+        elif any(x in e.key for x in ("::bwd_kernel<", "::delta_kernel(")):
             k7_ms += ms
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(20, f"[{card}] allreduce at full width ({L} layers, B={TRAIN_BATCH}, "
@@ -4869,8 +4931,9 @@ def main() -> int:
     log(1, f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s "
            f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for src, r in sorted(report.items()):
-        if src in ("coke_megastep", "rff", "coke_fused_update"):
-            # per instance: K1 below, K3 in phase 2, K2 in phase 7
+        if src in ("coke_megastep", "rff", "coke_fused_update",
+                   "flash_attention_bwd"):
+            # per instance: K1 and K7 below, K3 in phase 2, K2 in phase 7
             continue
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -4920,6 +4983,7 @@ def main() -> int:
                f"{bq}-row query tiles, {bk}-key tiles in {stages} cp.async "
                f"stages, {smem} B of shared memory, {blocks} block(s) per "
                "SM")
+    k7_phase1(build)
 
     # ---- 2. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(11)

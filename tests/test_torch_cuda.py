@@ -22,6 +22,7 @@ from repro_torch.kernels.coke_update.ref import (coke_megastep_ref,
                                                  coke_update_ref,
                                                  xi_sq_in_kernel_order)
 from repro_torch.kernels.flash_attention import flash_attention as k4
+from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rff import rff as k1
@@ -1036,7 +1037,9 @@ ATTN_BWD_RTOL = 1e-4
 # qwen3's 16/8 heads of 128), the prefill shape, a window, an odd length,
 # the reduced model's heads (Dh=64, H=4, KV=2); then the edges: a row no
 # key may see (window, Sq > Sk), D not a multiple of 16, D = 256,
-# non-causal, one KV head for 8 query heads
+# non-causal, one KV head for 8 query heads; D not a multiple of the
+# MMA's k = 8 (20) and D = 1, and lengths that end inside a 16-row
+# fragment (17, 33)
 ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
                    (2, 16, 8, 4096, 4096, 128, True, 0),
                    (2, 16, 8, 1000, 1000, 128, True, 256),
@@ -1046,7 +1049,11 @@ ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
                    (2, 2, 1, 100, 100, 40, True, 0),
                    (1, 2, 2, 130, 130, 256, True, 0),
                    (2, 4, 4, 70, 50, 128, False, 0),
-                   (1, 8, 1, 200, 200, 128, True, 64)]
+                   (1, 8, 1, 200, 200, 128, True, 64),
+                   (2, 4, 2, 33, 33, 20, True, 0),
+                   (2, 4, 2, 17, 17, 1, True, 0),
+                   (1, 4, 2, 17, 17, 128, True, 0),
+                   (1, 4, 2, 33, 33, 64, False, 0)]
 
 
 def _bwd_operands(cuda, B, H, KV, Sq, Sk, D, seed=5):
@@ -1087,6 +1094,52 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, shape):
         assert g.shape == w.shape and g.dtype == torch.float32
         tol = ATTN_BWD_RTOL * float(w.abs().max())
         torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+
+
+def _hold_bwd(cuda, shape, plan=None):
+    """K7 with `plan` (the device's by default) against the plain
+    backward at `shape`, within ATTN_BWD_RTOL of each gradient's max."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, H, KV, Sq, Sk, D, causal, window = shape
+    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D)
+    out, lse = _k4_with_lse(q, k, v, causal, window)
+    got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
+                           window=window, plan=plan)
+    t = lambda x: x.transpose(1, 2)
+    want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do), causal=causal,
+                             window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = t(w)
+        tol = ATTN_BWD_RTOL * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+
+
+def test_flash_attention_bwd_training_shape_takes_small_tiles(cuda):
+    """At the training shape (B=8, S=64, 16/8 heads of 128) the device's
+    plan takes 16- or 32-row tiles, so that both passes' grids cover the
+    SMs, and holds to the plain version."""
+    shape = ATTN_BWD_SHAPES[0]
+    q, k, _, _ = _bwd_operands(cuda, *shape[:6])
+    plan = k7.device_plan(q, k)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.kv.rows in (16, 32) and plan.q.rows in (16, 32)
+    assert plan.kv.blocks >= sms and plan.q.blocks >= sms
+    _hold_bwd(cuda, shape, plan)
+
+
+@pytest.mark.parametrize("width,instance",
+                         [(w, i) for w, ins in k7.INSTANCES.items()
+                          for i in ins], ids=str)
+def test_flash_attention_bwd_every_instance_matches_plain(cuda, width,
+                                                          instance):
+    """Each built instance, in both passes, at a ragged causal shape with
+    a GQA group of 2 (D = width - 3: not a multiple of 8)."""
+    shape = (2, 4, 2, 77, 77, width - 3, True, 0)
+    plan = k7.AttentionBwdPlan(
+        width, min(width, 128),
+        k7.pass_plan(width, instance, True, 77, 2 * 2),
+        k7.pass_plan(width, instance, False, 77, 2 * 4))
+    _hold_bwd(cuda, shape, plan)
 
 
 def test_flash_attention_bwd_kernel_is_deterministic(cuda):
