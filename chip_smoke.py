@@ -257,9 +257,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      per-agent evaluate's rows per feature block, against their plain
      versions. The kernels line then carries phase 21's counts and errors
      for K1, K3 and K5.
+ 22. the LM families beside qwen3 (`lm_family_phase`): (a) the reduced
+     granite-3-8b, llama3-405b, mixtral-8x7b (window 64), minicpm3-4b and
+     deepseek-v2-lite-16b served on the card against the CPU from the same
+     weights (96-token prompts, 8 new): equal greedy tokens, prefill
+     logits within LM_RTOL, K4 once per layer; (b) at full width, one
+     model drawn, served and freed at a time, weights drawn on the card in
+     fp32: deepseek-v2-lite-16b (27 layers, MLA + MoE, 2 x 4096 prompts),
+     minicpm3-4b (62 layers, MLA, 2 x 4096), mixtral-8x7b (8 of its 32
+     layers, MoE, window 4096, 1 x 8192 into a rolling cache of 4096) and
+     granite-3-8b (40 layers, 2 x 1024), 16 new tokens each, greedy: K4
+     exactly once per layer of the prefill and no other kernel; (c) per
+     model, layer 0's attention through K4 against its plain version at
+     the model's shape (8 heads), layer 0's MoE on 512 tokens on the card
+     against the CPU (expert indices and the drop set equal, y within
+     MOE_RTOL), and layer 0's decode step at position S after a prefill
+     of S (the absorbed MLA decode; Mixtral's rolling cache, S past its
+     window) against the plain fp32 attention of the last of S + 1 tokens,
+     within LM_RTOL; (d) the
+     prefill split into K4 and the rest, decode per token, peak memory,
+     and K4 at each model's shape beside its plan, bound and SDPA. The
+     kernels line's K4 entry then carries (b)'s launches and the largest
+     error of phases 10 and 22.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
-cell of 18, each part of 19, each run of 20 and each cell of 21 every
-launch counter is set to 0, and read just after.
+cell of 18, each part of 19, each run of 20, each cell of 21 and each
+generate of 22 every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -267,11 +289,13 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase19   # build, phases 4 and 5's fits, 19
     python3 chip_smoke.py --phase20   # build, phase 20
     python3 chip_smoke.py --phase21   # build, phase 4's problem, 21
+    python3 chip_smoke.py --phase22   # build, phase 22
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
-entry, or phase 21 alone and its launch counts and errors; none prints
-the result lines.
+entry, phase 21 alone and its launch counts and errors, or phase 22
+alone and K4's launches and largest error there; none prints the result
+lines.
 """
 from __future__ import annotations
 
@@ -389,6 +413,25 @@ K4_HMMA = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
 # and K4 against ATen's CPU matmuls and the plain softmax, ~1e-6 relative
 # per op: logits within 1e-5 of their largest magnitude
 LM_RTOL = 1e-5
+# phase 22(a), the reduced configs of the LM families beside qwen3's
+LM_FAMILY_REDUCED = ("granite-3-8b", "llama3-405b", "mixtral-8x7b",
+                     "minicpm3-4b", "deepseek-v2-lite-16b")
+# phase 22, the other LM families at full width, one model at a time:
+# (arch, layers served (None: all), batch, prompt tokens, cache slots)
+LM_FAMILY = (
+    ("deepseek-v2-lite-16b", None, 2, 4096, 4096 + LM_NEW_TOKENS),
+    ("minicpm3-4b", None, 2, 4096, 4096 + LM_NEW_TOKENS),
+    # 8 of 32 layers: 32 would hold 187 GB of fp32 weights; the cache of
+    # the window's 4096 slots rolls over the 8192-token prompt
+    ("mixtral-8x7b", 8, 1, 8192, 4096),
+    ("granite-3-8b", None, 2, 1024, 1024 + LM_NEW_TOKENS),
+)
+# phase 22(c): layer 0's MoE on this many of the prompt's tokens, card
+# against CPU
+LM_FAMILY_MOE_TOKENS = 512
+# phase 22(c): the MoE layer on the card against the CPU, fp32 matmuls in
+# other orders: y within this share of its largest magnitude
+MOE_RTOL = 1e-5
 # phase 12, the simulator backend: the paper's own call at its defaults
 # (PAPER_SETUPS["synthetic"]: N=20 on an Erdos-Renyi p=0.3 graph, 500
 # samples per agent, L=100, Cholesky, 1000 iterations), then the CG primal
@@ -4871,6 +4914,294 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
     return entry
 
 
+def lm_family_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 22: the LM families beside qwen3 (`LM_FAMILY`): (a) each
+    reduced config served on the card against the CPU from the same
+    weights; (b) each at full width, weights drawn on the card, serving
+    LM_NEW_TOKENS greedy tokens, K4 once per layer of the prefill and no
+    other kernel; (c) at full width, layer 0's attention through K4 against
+    its plain version, layer 0's MoE on the card against the CPU (the MoE
+    models), and layer 0's decode step after a prefill of S tokens against
+    the plain attention of the last of S + 1 (the absorbed MLA decode;
+    Mixtral's rolling window). End to end over all the layers the two
+    paths part by more than LM_RTOL: scripts/lm_hold_probe.py; (d)
+    the prefill split into K4 and the rest, decode per token, peak memory,
+    and K4 at each model's shape beside its bound and SDPA. One model is
+    drawn, served and freed before the next. Returns (K4 launches over
+    (b)'s four generates, K4's largest error over (c))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    bw = peaks[0]
+    t = lambda x: x.transpose(1, 2)
+    idle = {name: 0 for name in KERNEL_SOURCES}
+
+    def pair(d_h):
+        return f"{d_h[0]:.4f} ms on the device / {d_h[1]:.4f} ms host enqueue"
+
+    # ---- (a) the reduced configs, card against CPU --------------------------
+    for arch in LM_FAMILY_REDUCED:
+        cfg = get_config(arch).reduced()
+        gpu = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        cpu = M.LM(cfg, device="cpu")
+        cpu.load_state_dict({n: w.cpu() for n, w in gpu.state_dict().items()})
+        prompts = np.random.default_rng(22).integers(0, cfg.vocab_size,
+                                                     (2, 96))
+        scfg = ServeConfig(max_new_tokens=8,
+                           cache_len=cfg.sliding_window or 104)
+        reset_counts()
+        toks_gpu = Engine(cfg, gpu, scfg).generate(prompts)
+        torch.cuda.synchronize()
+        seen = counts()
+        toks_cpu = Engine(cfg, cpu, scfg).generate(prompts)
+        log(22, f"(a) reduced {arch} ({M.layer_kind(cfg)} layers, "
+                f"{cfg.attn_kind}, window {cfg.sliding_window}), 2 x 96 "
+                f"prompt tokens, 8 new, cache {scfg.cache_len}: card tokens "
+                f"{toks_gpu.tolist()}; equal to the CPU's: "
+                f"{bool((toks_gpu == toks_cpu).all())}; launches {seen}")
+        if seen != dict(idle, flash_attention=cfg.num_layers) or not (
+                toks_gpu == toks_cpu).all():
+            raise AssertionError(f"reduced {arch}: the card's tokens or "
+                                 "launches differ")
+        batch = torch.as_tensor(prompts)
+        lg_gpu, _ = M.prefill_with_state(gpu, cfg, {"tokens": batch.to(dev)},
+                                         104)
+        lg_cpu, _ = M.prefill_with_state(cpu, cfg, {"tokens": batch}, 104)
+        err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+        tol = LM_RTOL * float(lg_cpu.abs().max())
+        log(22, f"(a) reduced {arch} prefill, card against CPU: logits "
+                f"max|err| {err:.3e} (tol {tol:.3e}, rtol {LM_RTOL:g} of "
+                "max|logit|)")
+        if not err <= tol:
+            raise AssertionError(f"reduced {arch}: the card's prefill logits "
+                                 "differ beyond the LM tolerance")
+        del gpu, cpu
+
+    # ---- (b)-(d) each family at full width, one model at a time -------------
+    launches, worst = 0, 0.0
+    for arch, layers, B, S, cache in LM_FAMILY:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.with_overrides(num_layers=layers)
+        cut = (f"{layers} of {get_config(arch).num_layers} layers"
+               if layers else f"all {cfg.num_layers} layers")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(w.numel() for w in lm.parameters())
+        log(22, f"(b) {arch}, {cut}: {n_params / 1e9:.3f} B parameters "
+                f"drawn on the card in fp32 ({n_params * 4 / 1e9:.2f} GB) in "
+                f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(22)
+        prompts = rng.integers(0, cfg.vocab_size, (B, S))
+        engine = Engine(cfg, lm, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                             cache_len=cache))
+        reset_counts()
+        t0 = time.perf_counter()
+        served = engine.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(22, f"(b) {arch} generate: {B} x {S} prompt tokens, "
+                f"{LM_NEW_TOKENS} new each, cache {cache}, in {wall:.2f} s "
+                f"wall (first call); launch counts {seen}; peak memory "
+                f"{peak / 1e9:.2f} GB; ids (first 8 of each row) "
+                f"{served[:, :8].tolist()}")
+        if seen != dict(idle, flash_attention=cfg.num_layers):
+            raise AssertionError(f"{arch}: the serving path launched {seen}, "
+                                 "not K4 once per layer of the prefill")
+        if served.shape != (B, LM_NEW_TOKENS) or not (
+                (served >= 0) & (served < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: generate gave {served.shape} "
+                                 "tokens outside the vocabulary")
+        launches += seen["flash_attention"]
+        tokens = torch.as_tensor(prompts, device=dev)
+        window = cfg.sliding_window
+        with torch.inference_mode():
+            # ---- (c) layer 0's attention: K4 against its plain version ---
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
+            lp = lm.blocks[0]
+            x0 = torch.nn.functional.embedding(tokens, lm.embed)
+            h0 = rms_norm(x0, lp.ln1, cfg.norm_eps)
+            if cfg.attn_kind == "mla":
+                (q0, k0, v0), _ = A._mla_expand(lp.attn, cfg, h0, pos)
+            else:
+                q0, k0, v0 = A._gqa_project_qkv(lp.attn, cfg, h0, pos)
+            H, KV = q0.shape[2], k0.shape[2]
+            Dh, Dv = q0.shape[3], v0.shape[3]
+            got = gqa_flash(q0, k0, v0, causal=True, window=window)
+            heads = torch.arange(0, H, max(1, H // 8), device=dev)[:8]
+            kv_heads = heads // (H // KV)
+            want = attention_ref(t(q0[:, :, heads]), t(k0[:, :, kv_heads]),
+                                 t(v0[:, :, kv_heads]), causal=True,
+                                 window=window)
+            err = float((got[:, :, heads] - t(want)).abs().max())
+            worst = max(worst, err)
+            log(22, f"(c) {arch} layer 0 attention (B={B}, S={S}, H={H}, "
+                    f"KV={KV}, Dh={Dh}, Dv={Dv}, window {window}; v strides "
+                    f"{tuple(v0.stride())}), K4 against its plain version on "
+                    f"heads {heads.tolist()}: max|err| {err:.3e} (tol "
+                    f"{K4_TOL[torch.float32]:g})")
+            if not err <= K4_TOL[torch.float32]:
+                raise AssertionError(f"{arch}: K4 disagrees with its plain "
+                                     "version on layer 0")
+            del want, got
+
+            # ---- (c) layer 0's MoE, card against CPU ---------------------
+            if cfg.is_moe:
+                n = LM_FAMILY_MOE_TOKENS
+                p0 = pos[:n]
+                x1 = x0[:1, :n] + blk.attn_forward(lp.attn, cfg,
+                                                   h0[:1, :n], p0)
+                h1 = rms_norm(x1, lp.ln2, cfg.norm_eps)
+                moe_cpu = moe_mod.MoE(cfg, device="cpu")
+                moe_cpu.load_state_dict({k: w.cpu() for k, w in
+                                         lp.moe.state_dict().items()})
+                h1_cpu = h1.cpu()
+                C = moe_mod._capacity(cfg, n)
+                r_gpu = moe_mod.route(lp.moe.router, cfg, h1, C)
+                r_cpu = moe_mod.route(moe_cpu.router, cfg, h1_cpu, C)
+                y_gpu, aux_gpu = moe_mod.moe_forward(lp.moe, cfg, h1)
+                y_cpu, aux_cpu = moe_mod.moe_forward(moe_cpu, cfg, h1_cpu)
+                top = torch.sort(r_cpu.probs, dim=-1, descending=True)[0]
+                margin = float((top[..., cfg.top_k - 1]
+                                - top[..., cfg.top_k]).min())
+                same = bool(torch.equal(r_gpu.expert_idx.cpu(),
+                                        r_cpu.expert_idx))
+                kept = bool(torch.equal(r_gpu.keep.cpu(), r_cpu.keep))
+                e_y = float((y_gpu.cpu() - y_cpu).abs().max())
+                tol_y = MOE_RTOL * float(y_cpu.abs().max())
+                log(22, f"(c) {arch} layer 0 MoE on {n} tokens (E="
+                        f"{cfg.num_experts}, top-{cfg.top_k}, "
+                        f"{cfg.num_shared_experts} shared, C={C}), card "
+                        f"against CPU: expert_idx equal {same}, keep mask "
+                        f"equal {kept} ({int((~r_cpu.keep).sum())} of "
+                        f"{r_cpu.keep.numel()} token-slots dropped), "
+                        f"smallest top-{cfg.top_k} probability margin "
+                        f"{margin:.3e}; y max|err| {e_y:.3e} (tol "
+                        f"{tol_y:.3e}, rtol {MOE_RTOL:g}); aux "
+                        f"{float(aux_gpu):.6f} / {float(aux_cpu):.6f}")
+                if not (same and kept and e_y <= tol_y):
+                    raise AssertionError(f"{arch}: layer 0's MoE differs "
+                                         "between card and CPU")
+                del moe_cpu, h1_cpu, y_cpu, y_gpu, x1, h1
+
+            # ---- (c) one decode step against the prefill, layer 0 ---------
+            # the served sequence's S + 1 tokens into layer 0's attention:
+            # the cache of a prefill of the first S (the serving path's
+            # attn_forward with cache_len: latents for MLA, rolling for a
+            # window), one attn_decode of token S, against the plain
+            # version's fp32 attention of the last row over the keys it
+            # may see, through the same output projection
+            seq = torch.cat([tokens, torch.as_tensor(
+                served[:, :1], dtype=torch.long, device=dev)], dim=1)
+            pos1 = torch.arange(S + 1, dtype=torch.int32, device=dev)
+            h = rms_norm(torch.nn.functional.embedding(seq, lm.embed),
+                         lp.ln1, cfg.norm_eps)
+            _, c0 = blk.attn_forward(lp.attn, cfg, h[:, :S], pos1[:S],
+                                     cache_len=cache)
+            y_dec, _ = blk.attn_decode(lp.attn, cfg, h[:, S:], c0, S)
+            if cfg.attn_kind == "mla":
+                (q1, k1, v1), _ = A._mla_expand(lp.attn, cfg, h, pos1)
+            else:
+                q1, k1, v1 = A._gqa_project_qkv(lp.attn, cfg, h, pos1)
+            lo = max(0, S + 1 - window) if window else 0
+            last = attention_ref(t(q1[:, -1:]), t(k1[:, lo:]),
+                                 t(v1[:, lo:]), causal=False)
+            y_ref = A._out_project(lp.attn, t(last))
+            e_dec = float((y_dec - y_ref).abs().max())
+            tol_dec = LM_RTOL * float(y_ref.abs().max())
+            log(22, f"(c) {arch} layer 0, one decode step at position {S} "
+                    f"(cache {cache}, "
+                    f"{'latent, absorbed' if cfg.attn_kind == 'mla' else 'KV'}"
+                    f"{f', rolling: keys {lo}..{S}' if lo else ''}) against "
+                    f"the plain attention of the prefill's last row: "
+                    f"max|err| {e_dec:.3e} (tol {tol_dec:.3e}, rtol "
+                    f"{LM_RTOL:g} of max|y|)")
+            if not e_dec <= tol_dec:
+                raise AssertionError(f"{arch}: the decode step differs from "
+                                     "the prefill's attention")
+            del c0, h, q1, k1, v1, last, y_ref, y_dec
+
+            # ---- (d) times ------------------------------------------------
+            batch = {"tokens": tokens}
+            prefill_t = paired_ms(lambda: M.prefill_with_state(
+                lm, cfg, batch, cache), 1, runs=3, warmup=0)
+            k4_t = paired_ms(lambda: gqa_flash(q0, k0, v0, causal=True,
+                                               window=window),
+                             1, runs=5, warmup=1)
+            k4_share = cfg.num_layers * k4_t[0]
+            log(22, f"[{card}] (d) {arch} prefill of {B} x {S} tokens: "
+                    f"{pair(prefill_t)}. K4: {cfg.num_layers} launches x "
+                    f"{pair(k4_t)} = {k4_share:.4f} ms on the device "
+                    f"({k4_share / prefill_t[0]:.1%} of the prefill); the "
+                    f"rest {prefill_t[0] - k4_share:.4f} ms")
+            _, lm_state = M.prefill_with_state(lm, cfg, batch, cache)
+            token = torch.as_tensor(served[:, :1], dtype=torch.long,
+                                    device=dev)
+
+            def decode_steps():
+                for i in range(LM_NEW_TOKENS - 1):
+                    M.decode_step(lm, cfg, token, lm_state, S + i)
+
+            decode_t = paired_ms(decode_steps, LM_NEW_TOKENS - 1, runs=2,
+                                 warmup=1)
+            log(22, f"[{card}] (d) {arch} decode per token (batch {B}, cache "
+                    f"{cache}): {pair(decode_t)}; reading the fp32 weights "
+                    f"once takes {n_params * 4 / bw * 1e3:.4f} ms at "
+                    f"{bw / 1e12} TB/s; peak memory of the generate "
+                    f"{peak / 1e9:.2f} GB")
+
+            # K4 at the model's shape: its plan, bound and the library call
+            if window:
+                n_pairs = (window * (window + 1) // 2
+                           + (S - window) * window)
+            else:
+                n_pairs = S * (S + 1) // 2
+            flops = 2.0 * B * H * (Dh + Dv) * n_pairs
+            nbytes = 4.0 * B * S * (H * Dh + KV * Dh + KV * Dv + H * Dv)
+            b_ms, b_by, b_how = k4_bound(nbytes, flops, torch.float32, peaks)
+            bq, bk, stages, smem, blocks = k4_plan(build, Dh, Dv,
+                                                   torch.float32)
+            try:
+                lib_ms, lib_how = sdpa_ms(t(q0), t(k0), t(v0), causal=True,
+                                          mask=None if not window else (
+                                              (pos[None, :] <= pos[:, None])
+                                              & (pos[None, :]
+                                                 > pos[:, None] - window)))
+                lib = f"{lib_ms:.4f} ms ({lib_how})"
+            except RuntimeError as e:
+                lib = f"not measured: {e}"
+            log(22, f"[{card}] (d) {arch} K4 at (B={B}, S={S}, H={H}, "
+                    f"KV={KV}, Dh={Dh}, Dv={Dv}, causal, window {window}, "
+                    f"fp32): {k4_t[0]:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                    f"{b_how}: {flops / 1e12:.4f} TFLOP over {n_pairs} "
+                    f"admissible pairs per head, {nbytes / 1e9:.4f} GB; "
+                    f"{b_ms / k4_t[0]:.1%} of it); plan {bq}-row query "
+                    f"tiles, {bk}-key tiles in {stages} stages, {smem} B of "
+                    f"shared memory, {blocks} block(s) per SM; "
+                    f"F.scaled_dot_product_attention {lib}")
+            del q0, k0, v0, x0, h0, lm_state
+        del lm, engine
+        torch.cuda.empty_cache()
+    log(22, f"[{card}] K4 over (b)'s four generates: {launches} launches; "
+            f"largest error over (c) {worst:.3e}; phase 22 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4881,6 +5212,7 @@ def main() -> int:
               "it from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_script = time.perf_counter()
 
     from repro_torch.api import (FitConfig, KRRConfig, build_problem, fit,
                                  get_solver, make_problem)
@@ -6134,6 +6466,18 @@ def main() -> int:
         if not mesh_counts[name]:
             raise AssertionError(f"phase 21 never launched {name}")
 
+    # ---- 22. the LM families beside qwen3, served at full width -------------
+    lm_launches, lm_err = lm_family_phase(dev, card, reset_counts, counts,
+                                          peaks=peaks)
+    for entry in kernels:       # K4's numbers: phase 22's four generates
+        if entry["name"] == "flash_attention":
+            log(22, f"flash_attention: launches {entry['launches']} and "
+                    f"max|err| {entry['max_abs_err']:.3e} on phase 10's "
+                    f"path, {lm_launches} and {lm_err:.3e} over phase 22")
+            entry["launches"] = lm_launches
+            entry["max_abs_err"] = max(entry["max_abs_err"], lm_err)
+    log(22, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6247,8 +6591,36 @@ def phase20_alone() -> int:
     return 0
 
 
+def phase22_alone() -> int:
+    """Phase 22 alone: build the kernels and run `lm_family_phase`; prints
+    its K4 launches and largest error, not the result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    launches, err = lm_family_phase(
+        dev, card, reset_counts, counts,
+        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps({"flash_attention": {"launches": launches,
+                                          "max_abs_err": err}}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
-             "--phase21": phase21_alone}
+             "--phase21": phase21_alone, "--phase22": phase22_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

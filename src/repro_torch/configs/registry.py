@@ -11,6 +11,18 @@ from repro_torch.models.common import LATER_ARCHS, ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+}
+# the reference's ids that the port does not list yet, by their model kind
+_LATER_IDS = {
+    "mamba2-2.7b": "ssm",
+    "zamba2-2.7b": "hybrid",
+    "internvl2-1b": "vlm",
+    "seamless-m4t-medium": "encdec",
 }
 
 
@@ -19,10 +31,14 @@ def list_archs() -> list[str]:
 
 
 def get_config(name: str) -> ModelConfig:
+    if name in _LATER_IDS:
+        raise KeyError(f"arch {name!r} is not in the port yet: "
+                       f"{LATER_ARCHS[_LATER_IDS[name]]}")
     if name not in _ARCH_MODULES:
-        raise KeyError(f"arch {name!r} is not in the port, which runs "
+        later = sorted(set(LATER_ARCHS.values()))
+        raise KeyError(f"unknown arch {name!r}: the port runs "
                        f"{list_archs()}; the reference's other "
-                       f"architectures come with {LATER_ARCHS}")
+                       f"architectures come with {' and '.join(later)}")
     return importlib.import_module(_ARCH_MODULES[name]).CONFIG
 
 

@@ -1,2 +1,2 @@
-"""The language models of the port: the dense GQA decoder (qwen3-1.7b)
-with its prefill through the flash-attention kernel."""
+"""The language models of the port: decoder-only GQA and MLA models with
+dense or MoE layers, their prefill through the flash-attention kernel."""

@@ -1,10 +1,12 @@
-"""Residual blocks: the dense pre-norm attention + SwiGLU MLP block.
+"""Residual blocks: the pre-norm attention block with a SwiGLU MLP (dense)
+or a mixture of experts (MoE), over GQA or MLA attention.
 
-Port of the dense part of `repro/models/blocks.py`. The reference builds
-stacks by a vmapped init and runs them under `lax.scan`; the port keeps
-one module per layer in an `nn.ModuleList` and loops (`models/model.py`).
-MoE, SSM and the cross-attention block raise NotImplementedError naming
-`common.LATER_ARCHS`.
+Port of the decoder blocks of `repro/models/blocks.py`. The reference
+builds stacks by a vmapped init and runs them under `lax.scan`; the port
+keeps one module per layer in an `nn.ModuleList` and loops
+(`models/model.py`). SSM blocks raise NotImplementedError naming their
+entry of `common.LATER_ARCHS`; the cross-attention blocks of enc-dec
+models are not here yet (the same, "encdec").
 """
 from __future__ import annotations
 
@@ -12,14 +14,17 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (LATER_ARCHS, ModelConfig, dense_init,
                                        frozen, init_device, rms_norm, swiglu)
 
 
-def _dense_only(kind: str) -> None:
-    if kind != "dense":
+def _check_kind(kind: str) -> None:
+    if kind == "ssm":
         raise NotImplementedError(f"block kind {kind!r} is not ported: "
-                                  f"{LATER_ARCHS}")
+                                  f"{LATER_ARCHS['ssm']}")
+    if kind not in ("dense", "moe"):
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -54,35 +59,50 @@ def mlp_forward(params: MLP, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention dispatch (GQA; MLA raises)
+# Attention dispatch (GQA vs MLA)
 # ---------------------------------------------------------------------------
 
 def init_attn_params(cfg: ModelConfig,
-                     generator: torch.Generator) -> attn.GQAAttention:
-    return attn.GQAAttention(cfg, generator)
+                     generator: torch.Generator | None = None, *,
+                     device: torch.device | str | None = None):
+    """The attention layer `cfg.attn_kind` names: MLAAttention or
+    GQAAttention."""
+    if cfg.attn_kind == "mla":
+        return attn.MLAAttention(cfg, generator, device=device)
+    if cfg.attn_kind != "gqa":
+        raise ValueError(f"attn_kind={cfg.attn_kind!r} has no attention "
+                         "layer")
+    return attn.GQAAttention(cfg, generator, device=device)
 
 
 def attn_forward(params, cfg: ModelConfig, x, positions, *, causal=True,
                  window=None, cache_len=None):
-    return attn.gqa_forward(params, cfg, x, positions, causal=causal,
-                            window=window, cache_len=cache_len)
+    fwd = attn.mla_forward if cfg.attn_kind == "mla" else attn.gqa_forward
+    return fwd(params, cfg, x, positions, causal=causal, window=window,
+               cache_len=cache_len)
 
 
 def attn_decode(params, cfg: ModelConfig, x, cache, position):
+    if cfg.attn_kind == "mla":
+        return attn.mla_decode(params, cfg, x, cache, position)
     return attn.gqa_decode(params, cfg, x, cache, position)
 
 
 def attn_empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
-                     device: torch.device | str) -> attn.KVCache:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"attn_kind={cfg.attn_kind!r} is not "
-                                  f"ported: {LATER_ARCHS}")
+                     device: torch.device | str):
+    slots = torch.full((cache_len,), -1, dtype=torch.int32, device=device)
+    if cfg.attn_kind == "mla":
+        return attn.MLACache(
+            ckv=torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                            dtype=dtype, device=device),
+            krope=torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                              dtype=dtype, device=device),
+            slot_positions=slots)
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return attn.KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        slot_positions=torch.full((cache_len,), -1, dtype=torch.int32,
-                                  device=device))
+        slot_positions=slots)
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +110,7 @@ def attn_empty_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 class DenseBlock(nn.Module):
-    """Pre-norm residual block weights: ln1, attn, ln2, mlp."""
+    """Pre-norm residual block weights: ln1, attn (GQA or MLA), ln2, mlp."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None, *,
@@ -99,28 +119,52 @@ class DenseBlock(nn.Module):
         dev = init_device(generator, device)
         d = cfg.d_model
         self.ln1 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
-        self.attn = attn.GQAAttention(cfg, generator, device=dev)
+        self.attn = init_attn_params(cfg, generator, device=dev)
         self.ln2 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
         self.mlp = MLP(cfg, generator, device=dev)
 
 
+class MoEBlock(nn.Module):
+    """Pre-norm residual block weights: ln1, attn (GQA or MLA), ln2, moe."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: torch.Generator | None = None, *,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        dev = init_device(generator, device)
+        d = cfg.d_model
+        self.ln1 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.attn = init_attn_params(cfg, generator, device=dev)
+        self.ln2 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.moe = moe_mod.MoE(cfg, generator, device=dev)
+
+
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock}
+
+
 def init_block_params(cfg: ModelConfig, generator: torch.Generator,
-                      kind: str) -> DenseBlock:
-    """kind: dense (moe and ssm raise)."""
-    _dense_only(kind)
-    return DenseBlock(cfg, generator)
+                      kind: str):
+    """kind: dense | moe (ssm raises)."""
+    _check_kind(kind)
+    return BLOCKS[kind](cfg, generator)
 
 
-def block_forward(params: DenseBlock, cfg: ModelConfig, x, positions,
-                  kind: str, *, causal=True, window=None, cache_len=None):
+def _ffn(params, cfg: ModelConfig, h, kind: str):
+    """The block's second half on the normed h: (y, aux)."""
+    if kind == "moe":
+        return moe_mod.moe_forward(params.moe, cfg, h)
+    return mlp_forward(params.mlp, h), None
+
+
+def block_forward(params, cfg: ModelConfig, x, positions, kind: str, *,
+                  causal=True, window=None, cache_len=None):
     """Pre-norm residual block. Returns (x, aux_loss[, cache])."""
-    _dense_only(kind)
+    _check_kind(kind)
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True (the reference's "
                                   "shard_activations) is not ported: "
                                   "ROADMAP.md Queue 1 item 15f (the LM's "
                                   "sharding rules)")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params.ln1, cfg.norm_eps)
     cache = None
     if cache_len is not None:
@@ -132,26 +176,28 @@ def block_forward(params: DenseBlock, cfg: ModelConfig, x, positions,
                          window=window)
     x = x + y
     h = rms_norm(x, params.ln2, cfg.norm_eps)
-    x = x + mlp_forward(params.mlp, h)
+    y, aux = _ffn(params, cfg, h, kind)
+    x = x + y
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache_len is not None:
         return x, aux, cache
     return x, aux
 
 
-def block_decode(params: DenseBlock, cfg: ModelConfig, x, positions_unused,
-                 kind: str, cache, position):
+def block_decode(params, cfg: ModelConfig, x, positions_unused, kind: str,
+                 cache, position):
     """Single-token decode through one block. Returns (x, cache), the cache
-    updated in place (`attention.gqa_decode`)."""
-    _dense_only(kind)
+    updated in place (`attention.gqa_decode`, `attention.mla_decode`)."""
+    _check_kind(kind)
     h = rms_norm(x, params.ln1, cfg.norm_eps)
     y, new_cache = attn_decode(params.attn, cfg, h, cache, position)
     x = x + y
     h = rms_norm(x, params.ln2, cfg.norm_eps)
-    return x + mlp_forward(params.mlp, h), new_cache
+    return x + _ffn(params, cfg, h, kind)[0], new_cache
 
 
 def block_empty_cache(cfg: ModelConfig, kind: str, batch: int,
-                      cache_len: int, dtype,
-                      device: torch.device | str) -> attn.KVCache:
-    _dense_only(kind)
+                      cache_len: int, dtype, device: torch.device | str):
+    _check_kind(kind)
     return attn_empty_cache(cfg, batch, cache_len, dtype, device)

@@ -1,9 +1,11 @@
 """Shared model components: the unified ModelConfig, norms, RoPE, init.
 
 Port of `repro/models/common.py`. One config dataclass covers every
-architecture of the reference, field for field; the port runs the dense
-GQA decoder (qwen3-1.7b). The other kinds raise NotImplementedError naming
-`LATER_ARCHS`.
+architecture of the reference, field for field; the port runs the
+decoder-only models with GQA or MLA attention and dense or MoE layers
+(qwen3-1.7b, granite-3-8b, llama3-405b, mixtral-8x7b, minicpm3-4b,
+deepseek-v2-lite-16b). The other kinds raise NotImplementedError naming
+their entry of `LATER_ARCHS`.
 """
 from __future__ import annotations
 
@@ -17,9 +19,13 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-#: where the model kinds the port does not run yet are planned
-LATER_ARCHS = ("ROADMAP.md Queue 1 item 15 (MoE, MLA, SSM, hybrid and "
-               "enc-dec models)")
+#: where each model kind the port does not run yet is planned
+LATER_ARCHS = {
+    "ssm": "ROADMAP.md Queue 1 item 15c (SSM and hybrid models)",
+    "vlm": "ROADMAP.md Queue 1 item 15d (the VLM prefix and enc-dec models)",
+}
+LATER_ARCHS["hybrid"] = LATER_ARCHS["ssm"]
+LATER_ARCHS["encdec"] = LATER_ARCHS["vlm"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
-"""The decoder-only dense language model and its serving steps.
+"""The decoder-only language models and their serving steps.
 
-Port of the decoder-only dense part of `repro/models/model.py`: the model
-is an `nn.Module` holding the embedding, an `nn.ModuleList` of dense
-blocks, the final norm and the LM head, and every pass is a Python loop
-over the blocks (the reference stacks the layers and scans). The public
+Port of the decoder-only part of `repro/models/model.py`: the model is an
+`nn.Module` holding the embedding, an `nn.ModuleList` of blocks (dense or
+MoE, with GQA or MLA attention, `layer_kind`), the final norm and the LM
+head, and every pass is a Python loop over the blocks (the reference
+stacks the layers and scans). The public
 entry points keep the reference's names and arguments, with the module in
 the place of the param pytree:
 
@@ -17,8 +18,8 @@ either. The reference's `cfg.remat` (jax.checkpoint around each layer) is
 not mapped: activations are kept, and each layer runs its attention
 kernel once forward and once backward.
 
-Hybrid, enc-dec, MoE, SSM and MLA models raise NotImplementedError naming
-`common.LATER_ARCHS`.
+SSM, hybrid and enc-dec models and the VLM prefix raise
+NotImplementedError naming their entry of `common.LATER_ARCHS`.
 """
 from __future__ import annotations
 
@@ -39,25 +40,27 @@ def layer_kind(cfg: ModelConfig) -> str:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a model kind the port does not run."""
-    what = None
     if cfg.is_encdec:
-        what = "enc-dec models"
+        what, later = "enc-dec models", "encdec"
     elif cfg.arch_type == "hybrid":
-        what = "hybrid models"
-    elif layer_kind(cfg) != "dense":
-        what = f"{layer_kind(cfg)} layers"
-    elif cfg.attn_kind != "gqa":
-        what = f"attn_kind={cfg.attn_kind!r}"
-    if what:
-        raise NotImplementedError(f"{cfg.name}: {what} are not ported: "
-                                  f"{LATER_ARCHS}")
+        what, later = "hybrid models", "hybrid"
+    elif layer_kind(cfg) == "ssm":
+        what, later = "ssm layers", "ssm"
+    else:
+        if cfg.attn_kind not in ("gqa", "mla"):
+            raise ValueError(f"{cfg.name}: attn_kind={cfg.attn_kind!r} "
+                             "outside an SSM model")
+        return
+    raise NotImplementedError(f"{cfg.name}: {what} are not ported: "
+                              f"{LATER_ARCHS[later]}")
 
 
 class LM(nn.Module):
-    """Decoder-only dense LM weights: embed (Vp, d), blocks, final_norm (d,)
-    and lm_head (d, Vp), Vp the padded vocabulary. Drawn from `generator`
-    on its device, or allocated and not drawn when generator is None
-    (weights that are loaded next; `device` None means "cuda")."""
+    """Decoder-only LM weights: embed (Vp, d), blocks (the `layer_kind`
+    block's, `blocks.BLOCKS`), final_norm (d,) and lm_head (d, Vp), Vp the
+    padded vocabulary. Drawn from `generator` on its device, or allocated
+    and not drawn when generator is None (weights that are loaded next;
+    `device` None means "cuda")."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None, *,
@@ -72,9 +75,9 @@ class LM(nn.Module):
                                             device=dev))
         self.lm_head = frozen(dense_init(generator, (d, Vp), cfg.dtype,
                                          device=dev))
-        self.blocks = nn.ModuleList(
-            blk.DenseBlock(cfg, generator, device=dev)
-            for _ in range(cfg.num_layers))
+        block = blk.BLOCKS[layer_kind(cfg)]
+        self.blocks = nn.ModuleList(block(cfg, generator, device=dev)
+                                    for _ in range(cfg.num_layers))
 
     def forward(self, cfg: ModelConfig, batch: dict):
         """The module-level `forward` on this module's weights (the entry
@@ -107,7 +110,7 @@ def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict):
     no multimodal prefix, so the offset is 0."""
     if cfg.prefix_len and "prefix_embeds" in batch:
         raise NotImplementedError("multimodal prefix embeddings are not "
-                                  f"ported: {LATER_ARCHS}")
+                                  f"ported: {LATER_ARCHS['vlm']}")
     x = F.embedding(batch["tokens"], params.embed)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions, 0
@@ -155,8 +158,9 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01,
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=None, enc_len: int = 0, *,
                      device: torch.device | str | None = None) -> dict:
-    """Empty caches for decode from scratch: {"layers": [KVCache per
-    layer]} (the reference stacks them along a leading layer axis)."""
+    """Empty caches for decode from scratch: {"layers": [a KVCache (GQA) or
+    MLACache per layer]} (the reference stacks them along a leading layer
+    axis)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype

@@ -46,7 +46,7 @@ class Engine:
         if cfg.is_encdec:
             raise NotImplementedError("the enc-dec engine path (the "
                                       "reference's _fill_cross_memory) is "
-                                      f"not ported: {LATER_ARCHS}")
+                                      f"not ported: {LATER_ARCHS['encdec']}")
         model_lib.check_ported(cfg)
         self.cfg = cfg
         self.params = params

@@ -953,7 +953,14 @@ ATTN_SHAPES = [(1, 2, 2, 100, 100, 64, 64, True, 0),
                (1, 2, 1, 300, 300, 256, 256, True, 0),
                (1, 2, 2, 20, 20, 128, 128, True, 16),
                (1, 2, 2, 97, 97, 128, 128, False, 0),
-               (1, 2, 2, 50, 50, 33, 17, True, 0)]
+               (1, 2, 2, 50, 50, 33, 17, True, 0),
+               # the served models' new head dims: minicpm3-4b's MLA
+               # (Dh 96 = 64 + 32, Dv 64) and deepseek-v2-lite-16b's (192 =
+               # 128 + 64, Dv 128), KV = H; Mixtral's window over grouped
+               # heads, past twice the window so it excludes whole key tiles
+               (1, 4, 4, 130, 130, 96, 64, True, 0),
+               (1, 4, 4, 257, 257, 192, 128, True, 0),
+               (1, 8, 2, 300, 300, 128, 128, True, 64)]
 
 
 def _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype, seed=3):
@@ -1023,6 +1030,39 @@ def test_lm_on_card_launches_k4_once_per_layer(cuda):
     torch.cuda.synchronize()
     assert k4.LAUNCHES == before + cfg.num_layers
     torch.testing.assert_close(last.cpu(), want[:, -1:], rtol=0, atol=1e-4)
+
+
+# the reduced configs of every served family but qwen3's (above): dense GQA,
+# MoE with Mixtral's window of 64, MLA, MLA with MoE
+LM_FAMILY = ["granite-3-8b", "llama3-405b", "mixtral-8x7b", "minicpm3-4b",
+             "deepseek-v2-lite-16b"]
+
+
+@pytest.mark.parametrize("arch", LM_FAMILY)
+def test_lm_family_served_on_card_matches_cpu(cuda, arch):
+    """The reduced model served on the card and on the CPU from the same
+    weights: equal greedy tokens from 96-token prompts (Mixtral decodes past
+    its window in a rolling cache of 64), K4 once per layer of the card's
+    prefill and never in decode, and the prefill's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config(arch).reduced()
+    gpu = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 96))
+    scfg = ServeConfig(max_new_tokens=8, cache_len=cfg.sliding_window or 104)
+    before = k4.LAUNCHES
+    got = Engine(cfg, gpu, scfg).generate(prompts)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + cfg.num_layers
+    np.testing.assert_array_equal(got, Engine(cfg, cpu, scfg).generate(
+        prompts))
+    toks = torch.as_tensor(prompts)
+    last, _ = M.prefill_with_state(gpu, cfg, {"tokens": toks.to(cuda)}, 104)
+    want, _ = M.prefill_with_state(cpu, cfg, {"tokens": toks}, 104)
+    torch.testing.assert_close(last.cpu(), want, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
