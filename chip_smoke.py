@@ -279,9 +279,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      and K4 at each model's shape beside its plan, bound and SDPA. The
      kernels line's K4 entry then carries (b)'s launches and the largest
      error of phases 10 and 22.
+ 23. the SSM model and the grouped hybrid (`ssm_phase`): (a) the reduced
+     mamba2-2.7b and zamba2-2.7b served on the card against the CPU from
+     the same weights (2 x 197-token prompts, not a multiple of the
+     32-token chunk; 8 new): equal greedy tokens, prefill logits within
+     LM_RTOL, K4 once per shared-block application; (b) at full width,
+     one model drawn, served and freed at a time, weights drawn on the
+     card in fp32: mamba2-2.7b (64 SSM layers) and zamba2-2.7b (54 SSM
+     layers, the shared attention block after every 6: 9 applications, Dh
+     = Dv = 80), 2 x 4096 prompts, 16 new tokens each, greedy: K4 never
+     for mamba2, 9 times for zamba2, and no other kernel; (c) layer 0's
+     mixer on 512 tokens on the card and on the CPU against float64 (y
+     and the state within SSM_F64_RATIO of the CPU's error), zamba2's
+     first shared-block application through K4 against its plain version
+     and against the float64 attention (within K4_TOL x max|v| of the
+     latter), and
+     layer 0's recurrent decode step after a chunked prefill of S tokens
+     against the chunked prefill of S + 1, within LM_RTOL; (d) the prefill split into the SSD scan, K4 and the
+     rest, decode per token beside one read of the weights, peak memory,
+     and K4 at (2, 4096, 32/32, 80) beside its plan, bound and SDPA, and
+     at Dv = 64, 80, 128. The kernels line's K4 entry then adds (b)'s
+     launches and the largest error over (c).
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21 and each
-generate of 22 every launch counter is set to 0, and read just after.
+generate of 22 and 23 every launch counter is set to 0, and read just
+after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -290,12 +312,13 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase20   # build, phase 20
     python3 chip_smoke.py --phase21   # build, phase 4's problem, 21
     python3 chip_smoke.py --phase22   # build, phase 22
+    python3 chip_smoke.py --phase23   # build, phase 23
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
-entry, phase 21 alone and its launch counts and errors, or phase 22
-alone and K4's launches and largest error there; none prints the result
-lines.
+entry, phase 21 alone and its launch counts and errors, or phase 22 or
+23 alone and K4's launches and largest error there; none prints the
+result lines.
 """
 from __future__ import annotations
 
@@ -432,6 +455,27 @@ LM_FAMILY_MOE_TOKENS = 512
 # phase 22(c): the MoE layer on the card against the CPU, fp32 matmuls in
 # other orders: y within this share of its largest magnitude
 MOE_RTOL = 1e-5
+# phase 23, the SSM model and the grouped hybrid at full width, one at a
+# time: (arch, batch, prompt tokens); each serves LM_NEW_TOKENS greedy
+# tokens into a cache of prompt + LM_NEW_TOKENS slots
+SSM_FAMILY = (("mamba2-2.7b", 2, 4096), ("zamba2-2.7b", 2, 4096))
+# phase 23(a): the reduced configs' prompt, past three of their 32-token
+# chunks and not a multiple of the chunk
+SSM_REDUCED_PROMPT = 2 * 96 + 5
+# phase 23(c): layer 0's mixer on this many of the prompt's tokens (two
+# chunks of 256), card against CPU
+SSM_HOLD_TOKENS = 512
+# phase 23(c): layer 0's mixer at full width on the card and on the CPU,
+# each against the same mixer in float64 (on the CPU): fp32's own error
+# there is ~1.3e-5 of max|y| (the rms norm after the scan scales each
+# row's error up to the row's own scale), so card and CPU part by as much;
+# the hold is that the card's output and state are as close to float64 as
+# the CPU's, within this factor
+SSM_F64_RATIO = 2.0
+# phase 23(d): K4 at zamba2's head dim Dh = 80 with these value widths:
+# Dv = 64 runs the nj = 1 instance, 80 and 128 the nj = 2 instance, so
+# 80 against 128 shows what its 48 idle output columns cost
+SSM_K4_DV = (64, 80, 128)
 # phase 12, the simulator backend: the paper's own call at its defaults
 # (PAPER_SETUPS["synthetic"]: N=20 on an Erdos-Renyi p=0.3 graph, 500
 # samples per agent, L=100, Cholesky, 1000 iterations), then the CG primal
@@ -5202,6 +5246,372 @@ def lm_family_phase(dev, card, reset_counts, counts, *, peaks):
     return launches, worst
 
 
+def ssm_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 23: the SSM model and the grouped hybrid (`SSM_FAMILY`): (a)
+    each reduced config served on the card against the CPU from the same
+    weights, at a prompt that is not a multiple of the chunk; (b) each at
+    full width, weights drawn on the card, serving LM_NEW_TOKENS greedy
+    tokens, K4 once per application of the hybrid's shared block (9 for
+    zamba2), never for mamba2, and no other kernel; (c) layer 0's mixer on
+    SSM_HOLD_TOKENS tokens on the card and on the CPU against float64,
+    zamba2's first
+    shared-block application through K4 against its plain version, and
+    layer 0's recurrent decode step after a prefill of S tokens against
+    the chunked prefill of S + 1 (the state-space duality at full width);
+    (d) the prefill split into the SSD scan, K4 and the rest, decode per
+    token, peak memory, and K4 at zamba2's shape beside its bound and SDPA,
+    with Dv = 64, 80 and 128 at Dh = 80. One model is drawn, served and
+    freed before the next. Returns (K4 launches over (b)'s generates, K4's
+    largest error over (c))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    bw = peaks[0]
+    t = lambda x: x.transpose(1, 2)
+    idle = {name: 0 for name in KERNEL_SOURCES}
+
+    def pair(d_h):
+        return f"{d_h[0]:.4f} ms on the device / {d_h[1]:.4f} ms host enqueue"
+
+    def applications(cfg):
+        """Launches of K4 a prefill makes: one per shared-block application
+        of a hybrid, none in a pure SSM model."""
+        if cfg.arch_type == "hybrid":
+            return cfg.num_layers // cfg.shared_attn_every
+        return 0
+
+    def rel(got, want):
+        """max|got - want| / max|want|, on the CPU in float64."""
+        got, want = got.double().cpu(), want.double().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    # ---- (a) the reduced configs, card against CPU --------------------------
+    for arch, _, _ in SSM_FAMILY:
+        cfg = get_config(arch).reduced()
+        gpu = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        cpu = M.LM(cfg, device="cpu")
+        cpu.load_state_dict({n: w.cpu() for n, w in gpu.state_dict().items()})
+        S = SSM_REDUCED_PROMPT
+        prompts = np.random.default_rng(23).integers(0, cfg.vocab_size,
+                                                     (2, S))
+        scfg = ServeConfig(max_new_tokens=8, cache_len=S + 8)
+        reset_counts()
+        toks_gpu = Engine(cfg, gpu, scfg).generate(prompts)
+        torch.cuda.synchronize()
+        seen = counts()
+        toks_cpu = Engine(cfg, cpu, scfg).generate(prompts)
+        apps = applications(cfg)
+        log(23, f"(a) reduced {arch} ({cfg.num_layers} SSM layers, chunk "
+                f"{cfg.ssm_chunk}, {apps} shared-block application(s)), 2 x "
+                f"{S} prompt tokens, 8 new: card tokens {toks_gpu.tolist()}; "
+                f"equal to the CPU's: {bool((toks_gpu == toks_cpu).all())}; "
+                f"launches {seen}")
+        if seen != dict(idle, flash_attention=apps) or not (
+                toks_gpu == toks_cpu).all():
+            raise AssertionError(f"reduced {arch}: the card's tokens or "
+                                 "launches differ")
+        batch = torch.as_tensor(prompts)
+        lg_gpu, _ = M.prefill_with_state(gpu, cfg, {"tokens": batch.to(dev)},
+                                         S + 8)
+        lg_cpu, _ = M.prefill_with_state(cpu, cfg, {"tokens": batch}, S + 8)
+        err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+        tol = LM_RTOL * float(lg_cpu.abs().max())
+        log(23, f"(a) reduced {arch} prefill, card against CPU: logits "
+                f"max|err| {err:.3e} (tol {tol:.3e}, rtol {LM_RTOL:g} of "
+                "max|logit|)")
+        if not err <= tol:
+            raise AssertionError(f"reduced {arch}: the card's prefill logits "
+                                 "differ beyond the LM tolerance")
+        del gpu, cpu
+
+    # ---- (b)-(d) each model at full width, one at a time ---------------------
+    launches, worst = 0, 0.0
+    for arch, B, S in SSM_FAMILY:
+        cfg = get_config(arch)
+        cache = S + LM_NEW_TOKENS
+        apps = applications(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(w.numel() for w in lm.parameters())
+        log(23, f"(b) {arch}, all {cfg.num_layers} SSM layers"
+                f"{f', shared block every {cfg.shared_attn_every}' if apps else ''}"
+                f": {n_params / 1e9:.3f} B parameters drawn on the card in "
+                f"fp32 ({n_params * 4 / 1e9:.2f} GB) in "
+                f"{time.perf_counter() - t0:.1f} s")
+        prompts = np.random.default_rng(23).integers(0, cfg.vocab_size,
+                                                     (B, S))
+        engine = Engine(cfg, lm, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                             cache_len=cache))
+        reset_counts()
+        t0 = time.perf_counter()
+        served = engine.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(23, f"(b) {arch} generate: {B} x {S} prompt tokens, "
+                f"{LM_NEW_TOKENS} new each, cache {cache}, in {wall:.2f} s "
+                f"wall (first call); launch counts {seen}; peak memory "
+                f"{peak / 1e9:.2f} GB; ids (first 8 of each row) "
+                f"{served[:, :8].tolist()}")
+        if seen != dict(idle, flash_attention=apps):
+            raise AssertionError(f"{arch}: the serving path launched {seen}, "
+                                 f"not K4 {apps} times (once per shared-"
+                                 "block application) and nothing else")
+        if served.shape != (B, LM_NEW_TOKENS) or not (
+                (served >= 0) & (served < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: generate gave {served.shape} "
+                                 "tokens outside the vocabulary")
+        launches += seen["flash_attention"]
+        tokens = torch.as_tensor(prompts, device=dev)
+        first = lm.blocks[0][0] if apps else lm.blocks[0]
+        with torch.inference_mode():
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
+            x0 = torch.nn.functional.embedding(tokens, lm.embed)
+
+            # ---- (c) layer 0's mixer: card and CPU against float64 --------
+            n = SSM_HOLD_TOKENS
+            h = rms_norm(x0[:, :n], first.ln1, cfg.norm_eps)
+            y_gpu, c_gpu = ssm.ssm_forward(first.ssm, cfg, h,
+                                           return_cache=True)
+            weights = {k: w.cpu() for k, w in first.ssm.state_dict().items()}
+            outs = {}
+            for dtype in (torch.float32, torch.float64):
+                mixer = ssm.SSM(cfg.with_overrides(dtype=dtype),
+                                device="cpu")
+                mixer.load_state_dict(weights)
+                outs[dtype] = ssm.ssm_forward(mixer, cfg,
+                                              h.cpu().to(dtype),
+                                              return_cache=True)
+            (y_cpu, c_cpu), (y64, c64) = outs.values()
+            e = {what: (rel(g, w64), rel(c, w64), rel(g, c))
+                 for what, g, c, w64 in (
+                     ("y", y_gpu, y_cpu, y64),
+                     ("state", c_gpu.state, c_cpu.state, c64.state))}
+            e_t = max(float((g.cpu() - c).abs().max())
+                      for g, c in zip(c_gpu[:2], c_cpu[:2]))
+            log(23, f"(c) {arch} layer 0 mixer on {B} x {n} tokens (chunk "
+                    f"{cfg.ssm_chunk}, H={cfg.ssm_heads}, P="
+                    f"{cfg.ssm_head_dim}, N={cfg.ssm_state}), max|err| over "
+                    "max|float64|: "
+                    + "; ".join(f"{what} card {a:.3e}, CPU {b:.3e} (card "
+                                f"within {SSM_F64_RATIO:g}x the CPU's: "
+                                f"{a <= SSM_F64_RATIO * b}), card against "
+                                f"CPU {c:.3e}"
+                                for what, (a, b, c) in e.items())
+                    + f"; conv tails card against CPU max|err| {e_t:.3e}")
+            if not all(a <= SSM_F64_RATIO * b for a, b, _ in e.values()):
+                raise AssertionError(f"{arch}: layer 0's mixer on the card "
+                                     "is further from float64 than "
+                                     f"{SSM_F64_RATIO:g}x the CPU's")
+            del weights, outs, y_cpu, c_cpu, y64, c64, y_gpu, c_gpu, h
+
+            # ---- (c) one recurrent decode step against the chunked prefill
+            # of the served sequence's S + 1 tokens, layer 0
+            seq = torch.cat([tokens, torch.as_tensor(
+                served[:, :1], dtype=torch.long, device=dev)], dim=1)
+            h = rms_norm(torch.nn.functional.embedding(seq, lm.embed),
+                         first.ln1, cfg.norm_eps)
+            _, c0 = ssm.ssm_forward(first.ssm, cfg, h[:, :S],
+                                    return_cache=True)
+            y_dec, _ = ssm.ssm_decode(first.ssm, cfg, h[:, S:], c0)
+            y_full = ssm.ssm_forward(first.ssm, cfg, h)[:, S:]
+            e_dec = float((y_dec - y_full).abs().max())
+            tol_dec = LM_RTOL * float(y_full.abs().max())
+            log(23, f"(c) {arch} layer 0, one recurrent decode step at "
+                    f"position {S} after a chunked prefill of {S} against "
+                    f"the chunked prefill of {S + 1} ({(S + 1) % cfg.ssm_chunk}"
+                    f" token(s) in its last chunk): max|err| {e_dec:.3e} (tol "
+                    f"{tol_dec:.3e}, rtol {LM_RTOL:g} of max|y|)")
+            if not e_dec <= tol_dec:
+                raise AssertionError(f"{arch}: the decode step differs from "
+                                     "the chunked prefill")
+            del seq, h, c0, y_dec, y_full
+
+            # ---- (c) the first shared-block application: K4 against its
+            # plain version on the same operands
+            q0 = None
+            if apps:
+                x = x0
+                for lp in lm.blocks[0]:
+                    x, _ = blk.block_forward(lp, cfg, x, pos, "ssm")
+                hs = rms_norm(x, lm.shared_attn.ln1, cfg.norm_eps)
+                q0, k0, v0 = A._gqa_project_qkv(lm.shared_attn.attn, cfg, hs,
+                                                pos)
+                H, KV = q0.shape[2], k0.shape[2]
+                Dh, Dv = q0.shape[3], v0.shape[3]
+                got = gqa_flash(q0, k0, v0, causal=True)
+                heads = torch.arange(0, H, max(1, H // 8), device=dev)[:8]
+                kv_heads = heads // (H // KV)
+                ops = (t(q0[:, :, heads]), t(k0[:, :, kv_heads]),
+                       t(v0[:, :, kv_heads]))
+                want = attention_ref(*ops, causal=True)
+                # the exact attention: the same masked softmax in float64
+                q64, k64, v64 = (o.double() for o in ops)
+                s64 = (q64 @ k64.transpose(-1, -2)) / Dh ** 0.5
+                s64.masked_fill_(torch.ones((S, S), dtype=torch.bool,
+                                            device=dev).triu(1), -math.inf)
+                s_max = float(s64[s64 > -math.inf].abs().max())
+                exact = torch.softmax(s64, dim=-1) @ v64
+                del s64, q64, k64
+                mine = t(got[:, :, heads])
+                err = float((mine - want).abs().max())
+                err64 = float((mine.double() - exact).abs().max())
+                plain64 = float((want.double() - exact).abs().max())
+                v_max = float(v64.abs().max())
+                # K4_TOL holds at unit-scale values; K4's fp32 error is
+                # bounded against |v| (each output row is a convex
+                # combination of v's rows), so on real activations the
+                # tolerance scales with max|v|
+                tol = K4_TOL[torch.float32] * max(1.0, v_max)
+                worst = max(worst, err)
+                log(23, f"(c) {arch} first shared-block application (after "
+                        f"{cfg.shared_attn_every} SSM layers; B={B}, S={S}, "
+                        f"H={H}, KV={KV}, Dh={Dh}, Dv={Dv}; max|v| "
+                        f"{v_max:.3f}, max|out| "
+                        f"{float(exact.abs().max()):.3f}, max|score| "
+                        f"{s_max:.3f}) on heads {heads.tolist()}: K4 against "
+                        f"its plain version max|err| {err:.3e}; against the "
+                        f"float64 attention K4 {err64:.3e} (tol {tol:.3e} = "
+                        f"{K4_TOL[torch.float32]:g} x max|v|; "
+                        f"{err64 / K4_TOL[torch.float32]:.2f}x the unit-scale "
+                        f"tolerance), the plain version {plain64:.3e}")
+                if not err64 <= tol:
+                    raise AssertionError(f"{arch}: K4 is further than "
+                                         f"{tol:.3e} from the float64 "
+                                         "attention on the shared block")
+                del x, hs, got, want, exact, v64, mine, ops
+
+            # ---- (d) times -----------------------------------------------
+            batch = {"tokens": tokens}
+            prefill_t = paired_ms(lambda: M.prefill_with_state(
+                lm, cfg, batch, cache), 1, runs=3, warmup=0)
+            # the SSD scan alone on layer 0's operands
+            h = rms_norm(x0, first.ln1, cfg.norm_eps)
+            _, xs, bc, dt = ssm._project(first.ssm, cfg, h)
+            xs, _ = ssm._causal_conv(xs, first.ssm.conv_x, first.ssm.conv_bx)
+            bc, _ = ssm._causal_conv(bc, first.ssm.conv_bc,
+                                     first.ssm.conv_bbc)
+            N = cfg.ssm_state
+            xs = xs.reshape(B, S, cfg.ssm_heads, cfg.ssm_head_dim)
+            dt = torch.nn.functional.softplus(dt.float()
+                                              + first.ssm.dt_bias)
+            a_neg = -torch.exp(first.ssm.A_log)
+            ssd_t = paired_ms(lambda: ssm.ssd_chunked(
+                xs, dt, a_neg, bc[..., :N], bc[..., N:], cfg.ssm_chunk),
+                1, runs=5, warmup=1)
+            ssd_share = cfg.num_layers * ssd_t[0]
+            # the scan's bound: x, dt, B and C read once, y and the final
+            # state written once; the products C.B, the causal half of the
+            # scores times x, the chunk-end contributions and the
+            # inter-chunk output, and ~4 elementwise operations a score
+            H_s, P_s, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_chunk
+            nc, tri = -(-S // Q), Q * (Q + 1) // 2
+            ssd_flops = 2.0 * B * nc * (Q * Q * N + H_s * tri * P_s
+                                        + 2 * H_s * P_s * N * Q
+                                        + 2 * H_s * tri)
+            ssd_bytes = 4.0 * B * (2 * S * H_s * P_s + S * H_s + 2 * S * N
+                                   + H_s * P_s * N)
+            ssd_b = k4_bound(ssd_bytes, ssd_flops, torch.float32, peaks)
+            del h, xs, bc, dt
+            k4_share, k4_t = 0.0, None
+            if apps:
+                k4_t = paired_ms(lambda: gqa_flash(q0, k0, v0, causal=True),
+                                 1, runs=5, warmup=1)
+                k4_share = apps * k4_t[0]
+            rest = prefill_t[0] - ssd_share - k4_share
+            log(23, f"[{card}] (d) {arch} prefill of {B} x {S} tokens: "
+                    f"{pair(prefill_t)}. SSD scan: {cfg.num_layers} layers x "
+                    f"{pair(ssd_t)} = {ssd_share:.4f} ms on the device "
+                    f"({ssd_share / prefill_t[0]:.1%} of the prefill; "
+                    f"{S // cfg.ssm_chunk} chunks of {cfg.ssm_chunk}; a "
+                    f"layer's scan bound {ssd_b[0]:.4f} ms ({ssd_b[1]}, "
+                    f"{ssd_b[2]}: {ssd_flops / 1e9:.2f} GFLOP, "
+                    f"{ssd_bytes / 1e6:.1f} MB), {ssd_b[0] / ssd_t[0]:.1%} "
+                    "of it reached); K4: "
+                    + (f"{apps} launches x {pair(k4_t)} = {k4_share:.4f} ms "
+                       f"({k4_share / prefill_t[0]:.1%})" if apps else
+                       "none")
+                    + f"; the rest (GEMMs, conv, norms) {rest:.4f} ms")
+            _, lm_state = M.prefill_with_state(lm, cfg, batch, cache)
+            token = torch.as_tensor(served[:, :1], dtype=torch.long,
+                                    device=dev)
+
+            def decode_steps():
+                for i in range(LM_NEW_TOKENS - 1):
+                    M.decode_step(lm, cfg, token, lm_state, S + i)
+
+            decode_t = paired_ms(decode_steps, LM_NEW_TOKENS - 1, runs=2,
+                                 warmup=1)
+            log(23, f"[{card}] (d) {arch} decode per token (batch {B}): "
+                    f"{pair(decode_t)}; reading the fp32 weights once takes "
+                    f"{n_params * 4 / bw * 1e3:.4f} ms at {bw / 1e12} TB/s; "
+                    f"peak memory of the generate {peak / 1e9:.2f} GB")
+            del lm_state
+
+            # K4 at zamba2's shape: its plan, bound and the library call;
+            # then Dv = 64, 80, 128 at Dh = 80 on operands of that shape
+            if apps:
+                n_pairs = S * (S + 1) // 2
+                flops = 2.0 * B * H * (Dh + Dv) * n_pairs
+                nbytes = 4.0 * B * S * (H * Dh + KV * Dh + KV * Dv + H * Dv)
+                b_ms, b_by, b_how = k4_bound(nbytes, flops, torch.float32,
+                                             peaks)
+                bq, bk, stages, smem, blocks = k4_plan(build, Dh, Dv,
+                                                       torch.float32)
+                try:
+                    lib_ms, lib_how = sdpa_ms(t(q0), t(k0), t(v0),
+                                              causal=True)
+                    lib = f"{lib_ms:.4f} ms ({lib_how})"
+                except RuntimeError as e:
+                    lib = f"not measured: {e}"
+                plain_ms = time_ms(lambda: attention_ref(
+                    t(q0), t(k0), t(v0), causal=True), reps=1, runs=3,
+                    warmup=1)
+                log(23, f"[{card}] (d) {arch} K4 at (B={B}, S={S}, H={H}, "
+                        f"KV={KV}, Dh={Dh}, Dv={Dv}, causal, fp32): "
+                        f"{k4_t[0]:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                        f"{b_how}: {flops / 1e12:.4f} TFLOP over {n_pairs} "
+                        f"admissible pairs per head, {nbytes / 1e9:.4f} GB; "
+                        f"{b_ms / k4_t[0]:.1%} of it); plan {bq}-row query "
+                        f"tiles, {bk}-key tiles in {stages} stages, {smem} B "
+                        f"of shared memory, {blocks} block(s) per SM; its "
+                        f"plain version {plain_ms:.4f} ms; "
+                        f"F.scaled_dot_product_attention {lib}")
+                gen = torch.Generator(device=dev).manual_seed(23)
+                widths = []
+                for dv in SSM_K4_DV:
+                    v = torch.randn((B, S, KV, dv), generator=gen,
+                                    device=dev)
+                    ms = time_ms(lambda: gqa_flash(q0, k0, v, causal=True),
+                                 reps=3, runs=5, warmup=1)
+                    widths.append(f"Dv={dv} (nj={(dv + 63) // 64}) "
+                                  f"{ms:.4f} ms")
+                    del v
+                log(23, f"[{card}] (d) {arch} K4 at Dh={Dh} by value width, "
+                        f"same q and k: {'; '.join(widths)}")
+                del q0, k0, v0
+            del x0
+        del lm, engine
+        torch.cuda.empty_cache()
+    log(23, f"[{card}] K4 over (b)'s generates: {launches} launches; "
+            f"largest error over (c) {worst:.3e}; phase 23 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6476,7 +6886,18 @@ def main() -> int:
                     f"path, {lm_launches} and {lm_err:.3e} over phase 22")
             entry["launches"] = lm_launches
             entry["max_abs_err"] = max(entry["max_abs_err"], lm_err)
-    log(22, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 23. the SSM model and the grouped hybrid, served at full width -----
+    ssm_launches, ssm_err = ssm_phase(dev, card, reset_counts, counts,
+                                      peaks=peaks)
+    for entry in kernels:       # K4's numbers: phases 22 and 23's generates
+        if entry["name"] == "flash_attention":
+            log(23, f"flash_attention: launches {entry['launches']} and "
+                    f"max|err| {entry['max_abs_err']:.3e} over phases 10 and "
+                    f"22, {ssm_launches} and {ssm_err:.3e} over phase 23")
+            entry["launches"] += ssm_launches
+            entry["max_abs_err"] = max(entry["max_abs_err"], ssm_err)
+    log(23, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6619,8 +7040,37 @@ def phase22_alone() -> int:
     return 0
 
 
+def phase23_alone() -> int:
+    """Phase 23 alone: build the kernels and run `ssm_phase`; prints its K4
+    launches and largest error, not the result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    launches, err = ssm_phase(
+        dev, card, reset_counts, counts,
+        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps({"flash_attention": {"launches": launches,
+                                          "max_abs_err": err}}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
-             "--phase21": phase21_alone, "--phase22": phase22_alone}
+             "--phase21": phase21_alone, "--phase22": phase22_alone,
+             "--phase23": phase23_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

@@ -16,11 +16,11 @@ _ARCH_MODULES = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 # the reference's ids that the port does not list yet, by their model kind
 _LATER_IDS = {
-    "mamba2-2.7b": "ssm",
-    "zamba2-2.7b": "hybrid",
     "internvl2-1b": "vlm",
     "seamless-m4t-medium": "encdec",
 }

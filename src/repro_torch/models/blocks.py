@@ -1,12 +1,12 @@
 """Residual blocks: the pre-norm attention block with a SwiGLU MLP (dense)
-or a mixture of experts (MoE), over GQA or MLA attention.
+or a mixture of experts (MoE), over GQA or MLA attention; the pre-norm
+Mamba2 block (SSM).
 
 Port of the decoder blocks of `repro/models/blocks.py`. The reference
 builds stacks by a vmapped init and runs them under `lax.scan`; the port
 keeps one module per layer in an `nn.ModuleList` and loops
-(`models/model.py`). SSM blocks raise NotImplementedError naming their
-entry of `common.LATER_ARCHS`; the cross-attention blocks of enc-dec
-models are not here yet (the same, "encdec").
+(`models/model.py`). The cross-attention blocks of enc-dec models are not
+here yet: `common.LATER_ARCHS["encdec"]`.
 """
 from __future__ import annotations
 
@@ -15,15 +15,13 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (LATER_ARCHS, ModelConfig, dense_init,
-                                       frozen, init_device, rms_norm, swiglu)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (ModelConfig, dense_init, frozen,
+                                       init_device, rms_norm, swiglu)
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "ssm":
-        raise NotImplementedError(f"block kind {kind!r} is not ported: "
-                                  f"{LATER_ARCHS['ssm']}")
-    if kind not in ("dense", "moe"):
+    if kind not in BLOCKS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -139,12 +137,25 @@ class MoEBlock(nn.Module):
         self.moe = moe_mod.MoE(cfg, generator, device=dev)
 
 
-BLOCKS = {"dense": DenseBlock, "moe": MoEBlock}
+class SSMBlock(nn.Module):
+    """Pre-norm residual block weights: ln1, ssm (the Mamba2 mixer)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: torch.Generator | None = None, *,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        dev = init_device(generator, device)
+        self.ln1 = frozen(torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                     device=dev))
+        self.ssm = ssm_mod.SSM(cfg, generator, device=dev)
+
+
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "ssm": SSMBlock}
 
 
 def init_block_params(cfg: ModelConfig, generator: torch.Generator,
                       kind: str):
-    """kind: dense | moe (ssm raises)."""
+    """kind: dense | moe | ssm."""
     _check_kind(kind)
     return BLOCKS[kind](cfg, generator)
 
@@ -166,6 +177,13 @@ def block_forward(params, cfg: ModelConfig, x, positions, kind: str, *,
                                   "ROADMAP.md Queue 1 item 15f (the LM's "
                                   "sharding rules)")
     h = rms_norm(x, params.ln1, cfg.norm_eps)
+    if kind == "ssm":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cache_len is not None:
+            y, cache = ssm_mod.ssm_forward(params.ssm, cfg, h,
+                                           return_cache=True)
+            return x + y, aux, cache
+        return x + ssm_mod.ssm_forward(params.ssm, cfg, h), aux
     cache = None
     if cache_len is not None:
         y, cache = attn_forward(params.attn, cfg, h, positions,
@@ -188,9 +206,13 @@ def block_forward(params, cfg: ModelConfig, x, positions, kind: str, *,
 def block_decode(params, cfg: ModelConfig, x, positions_unused, kind: str,
                  cache, position):
     """Single-token decode through one block. Returns (x, cache), the cache
-    updated in place (`attention.gqa_decode`, `attention.mla_decode`)."""
+    updated in place (`attention.gqa_decode`, `attention.mla_decode`,
+    `ssm.ssm_decode`)."""
     _check_kind(kind)
     h = rms_norm(x, params.ln1, cfg.norm_eps)
+    if kind == "ssm":
+        y, new_cache = ssm_mod.ssm_decode(params.ssm, cfg, h, cache)
+        return x + y, new_cache
     y, new_cache = attn_decode(params.attn, cfg, h, cache, position)
     x = x + y
     h = rms_norm(x, params.ln2, cfg.norm_eps)
@@ -200,4 +222,14 @@ def block_decode(params, cfg: ModelConfig, x, positions_unused, kind: str,
 def block_empty_cache(cfg: ModelConfig, kind: str, batch: int,
                       cache_len: int, dtype, device: torch.device | str):
     _check_kind(kind)
+    if kind == "ssm":
+        W = cfg.ssm_conv_width
+        return ssm_mod.SSMCache(
+            conv_x=torch.zeros((batch, W - 1, cfg.d_inner), dtype=dtype,
+                               device=device),
+            conv_bc=torch.zeros((batch, W - 1, 2 * cfg.ssm_state),
+                                dtype=dtype, device=device),
+            state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state), dtype=torch.float32,
+                              device=device))
     return attn_empty_cache(cfg, batch, cache_len, dtype, device)

@@ -4,7 +4,8 @@ Port of `repro/models/common.py`. One config dataclass covers every
 architecture of the reference, field for field; the port runs the
 decoder-only models with GQA or MLA attention and dense or MoE layers
 (qwen3-1.7b, granite-3-8b, llama3-405b, mixtral-8x7b, minicpm3-4b,
-deepseek-v2-lite-16b). The other kinds raise NotImplementedError naming
+deepseek-v2-lite-16b), the SSM model (mamba2-2.7b) and the grouped
+hybrid (zamba2-2.7b). The other kinds raise NotImplementedError naming
 their entry of `LATER_ARCHS`.
 """
 from __future__ import annotations
@@ -21,10 +22,8 @@ from repro_torch.device import resolve_device
 
 #: where each model kind the port does not run yet is planned
 LATER_ARCHS = {
-    "ssm": "ROADMAP.md Queue 1 item 15c (SSM and hybrid models)",
     "vlm": "ROADMAP.md Queue 1 item 15d (the VLM prefix and enc-dec models)",
 }
-LATER_ARCHS["hybrid"] = LATER_ARCHS["ssm"]
 LATER_ARCHS["encdec"] = LATER_ARCHS["vlm"]
 
 
@@ -177,9 +176,15 @@ class ModelConfig:
 # Primitive layers
 # ---------------------------------------------------------------------------
 
+def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or in its own dtype where that is wider (float64, which
+    a float64 yardstick of an fp32 computation runs in)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_fp32(x)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 

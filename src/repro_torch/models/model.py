@@ -2,11 +2,15 @@
 
 Port of the decoder-only part of `repro/models/model.py`: the model is an
 `nn.Module` holding the embedding, an `nn.ModuleList` of blocks (dense or
-MoE, with GQA or MLA attention, `layer_kind`), the final norm and the LM
-head, and every pass is a Python loop over the blocks (the reference
-stacks the layers and scans). The public
-entry points keep the reference's names and arguments, with the module in
-the place of the param pytree:
+MoE, with GQA or MLA attention, or Mamba2 SSM blocks: `layer_kind`), the
+final norm and the LM head, and every pass is a Python loop over the
+blocks (the reference stacks the layers and scans). The grouped hybrid
+(zamba2) holds its SSM blocks as a ModuleList of groups of
+`shared_attn_every`, each group followed by one application of
+`shared_attn`, a dense GQA block whose weights every application shares;
+each application keeps its own KV cache. The public entry points keep the
+reference's names and arguments, with the module in the place of the
+param pytree:
 
   init_params, forward(batch) -> (logits, aux), loss_fn,
   init_serve_state, prefill, prefill_with_state, decode_step.
@@ -18,8 +22,8 @@ either. The reference's `cfg.remat` (jax.checkpoint around each layer) is
 not mapped: activations are kept, and each layer runs its attention
 kernel once forward and once backward.
 
-SSM, hybrid and enc-dec models and the VLM prefix raise
-NotImplementedError naming their entry of `common.LATER_ARCHS`.
+Enc-dec models and the VLM prefix raise NotImplementedError naming their
+entry of `common.LATER_ARCHS`.
 """
 from __future__ import annotations
 
@@ -39,28 +43,32 @@ def layer_kind(cfg: ModelConfig) -> str:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a model kind the port does not run."""
+    """Raise NotImplementedError for a model kind the port does not run,
+    ValueError for a config no model of the reference's takes."""
     if cfg.is_encdec:
-        what, later = "enc-dec models", "encdec"
-    elif cfg.arch_type == "hybrid":
-        what, later = "hybrid models", "hybrid"
-    elif layer_kind(cfg) == "ssm":
-        what, later = "ssm layers", "ssm"
-    else:
-        if cfg.attn_kind not in ("gqa", "mla"):
-            raise ValueError(f"{cfg.name}: attn_kind={cfg.attn_kind!r} "
-                             "outside an SSM model")
+        raise NotImplementedError(f"{cfg.name}: enc-dec models are not "
+                                  f"ported: {LATER_ARCHS['encdec']}")
+    if cfg.arch_type == "ssm":
         return
-    raise NotImplementedError(f"{cfg.name}: {what} are not ported: "
-                              f"{LATER_ARCHS[later]}")
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.name}: attn_kind={cfg.attn_kind!r} "
+                         "outside an SSM model")
+    if cfg.arch_type == "hybrid" and not (
+            cfg.shared_attn_every
+            and cfg.num_layers % cfg.shared_attn_every == 0):
+        raise ValueError(f"{cfg.name}: a hybrid needs num_layers "
+                         f"({cfg.num_layers}) a multiple of "
+                         f"shared_attn_every ({cfg.shared_attn_every})")
 
 
 class LM(nn.Module):
     """Decoder-only LM weights: embed (Vp, d), blocks (the `layer_kind`
     block's, `blocks.BLOCKS`), final_norm (d,) and lm_head (d, Vp), Vp the
-    padded vocabulary. Drawn from `generator` on its device, or allocated
-    and not drawn when generator is None (weights that are loaded next;
-    `device` None means "cuda")."""
+    padded vocabulary; a hybrid's blocks are groups of `shared_attn_every`
+    SSM blocks (blocks.g.e), and shared_attn is its one dense block. Drawn
+    from `generator` on its device, or allocated and not drawn when
+    generator is None (weights that are loaded next; `device` None means
+    "cuda")."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None, *,
@@ -76,8 +84,16 @@ class LM(nn.Module):
         self.lm_head = frozen(dense_init(generator, (d, Vp), cfg.dtype,
                                          device=dev))
         block = blk.BLOCKS[layer_kind(cfg)]
-        self.blocks = nn.ModuleList(block(cfg, generator, device=dev)
-                                    for _ in range(cfg.num_layers))
+        if cfg.arch_type == "hybrid":
+            every = cfg.shared_attn_every
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(block(cfg, generator, device=dev)
+                              for _ in range(every))
+                for _ in range(cfg.num_layers // every))
+            self.shared_attn = blk.DenseBlock(cfg, generator, device=dev)
+        else:
+            self.blocks = nn.ModuleList(block(cfg, generator, device=dev)
+                                        for _ in range(cfg.num_layers))
 
     def forward(self, cfg: ModelConfig, batch: dict):
         """The module-level `forward` on this module's weights (the entry
@@ -116,10 +132,39 @@ def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict):
     return x, positions, 0
 
 
+def _schedule(params: LM, cfg: ModelConfig) -> list:
+    """(block, kind) in the order a pass applies them: every layer, and in
+    a hybrid each group of SSM blocks followed by the shared block."""
+    if cfg.arch_type != "hybrid":
+        kind = layer_kind(cfg)
+        return [(lp, kind) for lp in params.blocks]
+    return [pair for group in params.blocks
+            for pair in [*((lp, "ssm") for lp in group),
+                         (params.shared_attn, "dense")]]
+
+
+def _serve_state(cfg: ModelConfig, kinds, caches) -> dict:
+    """The serve state from the caches of a pass, in `_schedule`'s order:
+    {"layers": [...]}, or a hybrid's {"ssm": [an SSMCache per SSM layer],
+    "shared": [a KVCache per application of the shared block]}."""
+    if cfg.arch_type != "hybrid":
+        return {"layers": list(caches)}
+    pairs = list(zip(kinds, caches))
+    return {"ssm": [c for k, c in pairs if k == "ssm"],
+            "shared": [c for k, c in pairs if k == "dense"]}
+
+
+def _schedule_caches(cfg: ModelConfig, kinds, state: dict) -> list:
+    """The serve state's caches in `_schedule`'s order."""
+    if cfg.arch_type != "hybrid":
+        return state["layers"]
+    ssm, shared = iter(state["ssm"]), iter(state["shared"])
+    return [next(ssm) if k == "ssm" else next(shared) for k in kinds]
+
+
 def _decoder_only_forward(params: LM, cfg: ModelConfig, x, positions):
-    kind = layer_kind(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params.blocks:
+    for lp, kind in _schedule(params, cfg):
         x, a = blk.block_forward(lp, cfg, x, positions, kind)
         aux = aux + a
     return x, aux
@@ -158,16 +203,21 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01,
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=None, enc_len: int = 0, *,
                      device: torch.device | str | None = None) -> dict:
-    """Empty caches for decode from scratch: {"layers": [a KVCache (GQA) or
-    MLACache per layer]} (the reference stacks them along a leading layer
-    axis)."""
+    """Empty caches for decode from scratch: {"layers": [a KVCache (GQA),
+    MLACache or SSMCache per layer]}, or a hybrid's {"ssm": [an SSMCache per
+    SSM layer], "shared": [a KVCache per application of the shared block]}
+    (the reference stacks them along leading layer axes)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    kind = layer_kind(cfg)
-    return {"layers": [blk.block_empty_cache(cfg, kind, batch, cache_len,
-                                             dtype, dev)
-                       for _ in range(cfg.num_layers)]}
+    if cfg.arch_type == "hybrid":
+        kinds = ["ssm"] * cfg.num_layers + ["dense"] * (
+            cfg.num_layers // cfg.shared_attn_every)
+    else:
+        kinds = [layer_kind(cfg)] * cfg.num_layers
+    return _serve_state(cfg, kinds, [
+        blk.block_empty_cache(cfg, k, batch, cache_len, dtype, dev)
+        for k in kinds])
 
 
 @torch.inference_mode()
@@ -177,13 +227,15 @@ def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor,
     `state` are updated in place and returned in it."""
     check_ported(cfg)
     x = F.embedding(token, params.embed)
-    kind = layer_kind(cfg)
+    schedule = _schedule(params, cfg)
+    kinds = [k for _, k in schedule]
     caches = []
-    for lp, cache in zip(params.blocks, state["layers"]):
+    for (lp, kind), cache in zip(schedule,
+                                 _schedule_caches(cfg, kinds, state)):
         x, cache = blk.block_decode(lp, cfg, x, None, kind, cache, position)
         caches.append(cache)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, {"layers": caches}
+    return x @ params.lm_head, _serve_state(cfg, kinds, caches)
 
 
 @torch.inference_mode()
@@ -205,13 +257,14 @@ def prefill_with_state(params: LM, cfg: ModelConfig, batch: dict,
     production prefill path. Returns (last-position logits, serve state)."""
     check_ported(cfg)
     x, positions, _ = _embed_inputs(params, cfg, batch)
-    kind = layer_kind(cfg)
+    schedule = _schedule(params, cfg)
     caches = []
-    for lp in params.blocks:
+    for lp, kind in schedule:
         x, _, cache = blk.block_forward(lp, cfg, x, positions, kind,
                                         cache_len=cache_len)
         caches.append(cache)
     # the head on the last position only: the same logits as the
     # reference's (x @ lm_head)[:, -1:], without an (S, Vp) product
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, {"layers": caches}
+    return x @ params.lm_head, _serve_state(cfg, [k for _, k in schedule],
+                                            caches)

@@ -960,7 +960,9 @@ ATTN_SHAPES = [(1, 2, 2, 100, 100, 64, 64, True, 0),
                # heads, past twice the window so it excludes whole key tiles
                (1, 4, 4, 130, 130, 96, 64, True, 0),
                (1, 4, 4, 257, 257, 192, 128, True, 0),
-               (1, 8, 2, 300, 300, 128, 128, True, 64)]
+               (1, 8, 2, 300, 300, 128, 128, True, 64),
+               # zamba2-2.7b's shared attention block: Dh = Dv = 80, KV = H
+               (1, 4, 4, 300, 300, 80, 80, True, 0)]
 
 
 def _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype, seed=3):
@@ -1062,6 +1064,37 @@ def test_lm_family_served_on_card_matches_cpu(cuda, arch):
     toks = torch.as_tensor(prompts)
     last, _ = M.prefill_with_state(gpu, cfg, {"tokens": toks.to(cuda)}, 104)
     want, _ = M.prefill_with_state(cpu, cfg, {"tokens": toks}, 104)
+    torch.testing.assert_close(last.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_models_served_on_card_match_cpu(cuda, arch):
+    """The reduced SSM model and grouped hybrid served on the card and on
+    the CPU from the same weights, at a prompt that is not a multiple of
+    the 32-token chunk: equal greedy tokens, K4 once per application of
+    the hybrid's shared block (never for the pure SSM model, never in
+    decode), and the prefill's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config(arch).reduced()
+    gpu = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    S = 2 * 96 + 5
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, S))
+    scfg = ServeConfig(max_new_tokens=8, cache_len=S + 8)
+    apps = (cfg.num_layers // cfg.shared_attn_every
+            if cfg.arch_type == "hybrid" else 0)
+    before = k4.LAUNCHES
+    got = Engine(cfg, gpu, scfg).generate(prompts)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + apps
+    np.testing.assert_array_equal(got, Engine(cfg, cpu, scfg).generate(
+        prompts))
+    toks = torch.as_tensor(prompts)
+    last, _ = M.prefill_with_state(gpu, cfg, {"tokens": toks.to(cuda)}, S)
+    want, _ = M.prefill_with_state(cpu, cfg, {"tokens": toks}, S)
     torch.testing.assert_close(last.cpu(), want, rtol=0, atol=1e-4)
 
 

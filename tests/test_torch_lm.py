@@ -6,9 +6,10 @@ reference's `init_params` weights carried into the port by
 `convert.lm_params_from_numpy`. On the CPU the port's prefill attention is
 K4's plain version; the reference runs its jnp `blockwise_attention`.
 Then every other architecture the port lists, reduced the same way
-(`NEW_ARCHS`: dense GQA, MoE with a sliding window, MLA, MLA with MoE),
-end to end: logits and the MoE aux loss, the loss, the prefill's caches
-and the engine's greedy tokens. The aux loss is held within 1e-6.
+(`NEW_ARCHS`: dense GQA, MoE with a sliding window, MLA, MLA with MoE,
+the Mamba2 SSM and the grouped hybrid with its weight-shared attention
+block), end to end: logits and the MoE aux loss, the loss, the prefill's
+caches and the engine's greedy tokens. The aux loss is held within 1e-6.
 
 Tolerance: fp32 through two layers with other summation orders (XLA's
 dots and blockwise online softmax against ATen's matmuls and a full
@@ -264,14 +265,15 @@ def test_registry_and_config_match_reference():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == (
         28, 2048, 16, 8, 128, 6144, 151936)
-    later = {"mamba2-2.7b": "item 15c", "zamba2-2.7b": "item 15c",
-             "internvl2-1b": "item 15d", "seamless-m4t-medium": "item 15d"}
+    later = {"internvl2-1b": "item 15d", "seamless-m4t-medium": "item 15d"}
     assert set(jax_list_archs()) - set(list_archs()) == set(later)
     for name, item in later.items():
         with pytest.raises(KeyError, match=item):
             get_config(name)
-    with pytest.raises(KeyError, match="item 15c .* item 15d"):
+    with pytest.raises(KeyError, match="item 15d"):
         get_config("no-such-arch")
+    for name in ("mamba2-2.7b", "zamba2-2.7b"):
+        assert get_config(name).source == jax_get_config(name).source
 
 
 @pytest.mark.parametrize("arch", sorted(jax_list_archs()))
@@ -383,15 +385,24 @@ def test_prefill_reaches_k4_once_per_layer_and_decode_never(pair, monkeypatch):
 
 
 def test_what_the_port_does_not_run_raises():
-    """MoE and MLA models run (the NEW_ARCHS cases below); SSM, hybrid,
+    """MoE, MLA, SSM and hybrid models run (the NEW_ARCHS cases below);
     enc-dec, the VLM prefix and seq_parallel raise, naming the item that
-    brings each."""
+    brings each; attn_kind="none" outside an SSM model and a hybrid whose
+    layers do not fill its groups are not models."""
     _, cfg = _configs("mha")
     with pytest.raises(NotImplementedError, match="item 15d"):
         M.LM(cfg.with_overrides(encoder_layers=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        M.LM(cfg.with_overrides(arch_type="hybrid", shared_attn_every=2),
+    hybrid = M.LM(cfg.with_overrides(arch_type="hybrid", shared_attn_every=2),
+                  device="cpu")
+    assert isinstance(hybrid.shared_attn, blk.DenseBlock)
+    assert [len(g) for g in hybrid.blocks] == [2]
+    with pytest.raises(ValueError, match="shared_attn_every"):
+        M.LM(cfg.with_overrides(arch_type="hybrid", shared_attn_every=3),
              device="cpu")
+    for arch_type in ("dense", "hybrid"):
+        with pytest.raises(ValueError, match="outside an SSM model"):
+            M.LM(cfg.with_overrides(arch_type=arch_type, attn_kind="none",
+                                    shared_attn_every=2), device="cpu")
     model = M.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 15d"):
         Engine(cfg.with_overrides(encoder_layers=2), model, ServeConfig())
@@ -402,21 +413,36 @@ def test_what_the_port_does_not_run_raises():
     with pytest.raises(NotImplementedError, match="item 15f"):
         M.forward(model, cfg.with_overrides(seq_parallel=True),
                   {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        blk.init_block_params(cfg, torch.Generator(), "ssm")
+    ssm_cfg = get_config("mamba2-2.7b").reduced()
+    ssm_block = blk.init_block_params(ssm_cfg, torch.Generator(), "ssm")
+    assert isinstance(ssm_block, blk.SSMBlock)
+    with pytest.raises(NotImplementedError, match="item 15f"):
+        blk.block_forward(ssm_block, ssm_cfg.with_overrides(seq_parallel=True),
+                          torch.zeros((1, 4, ssm_cfg.d_model)),
+                          torch.arange(4), "ssm")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blk.init_block_params(cfg, torch.Generator(), "cross")
 
 
 
 # ---------------------------------------------------------------------------
-# The other architectures: dense GQA, MoE (Mixtral's window), MLA, MLA + MoE
+# The other architectures: dense GQA, MoE (Mixtral's window), MLA, MLA + MoE,
+# the Mamba2 SSM and the grouped hybrid (zamba2)
 # ---------------------------------------------------------------------------
 
 NEW_ARCHS = ["granite-3-8b", "llama3-405b", "mixtral-8x7b", "minicpm3-4b",
-             "deepseek-v2-lite-16b"]
+             "deepseek-v2-lite-16b", "mamba2-2.7b", "zamba2-2.7b"]
 # 96-token prompts: past reduced Mixtral's window of 64, and 2 x 96 tokens
-# divide into the reduced MoE groups of 64 (the reference asserts it)
+# divide into the reduced MoE groups of 64 (the reference asserts it); the
+# SSM models take 3 x 32 + 5, past three of their reduced 32-token chunks
+# and not a multiple of the chunk
 PROMPT = 96
+SSM_PROMPT = 3 * 32 + 5
 NEW_TOKENS = 8
+
+
+def _prompt(cfg):
+    return SSM_PROMPT if M.layer_kind(cfg) == "ssm" else PROMPT
 
 
 @pytest.fixture(scope="module", params=NEW_ARCHS)
@@ -434,30 +460,45 @@ def arch_pair(request):
 def _cache_len(cfg):
     """A rolling cache of the window's length where the model has one (the
     decode then runs past it), else one that holds every token."""
-    return cfg.sliding_window or PROMPT + NEW_TOKENS
+    return cfg.sliding_window or _prompt(cfg) + NEW_TOKENS
 
 
 def test_new_arch_builds_the_reference_tree(arch_pair):
-    """The block kind and attention kind the config names, every weight
+    """The block kind and attention kind the config names (a hybrid's
+    groups of SSM blocks and its one shared attention block), every weight
     carried by name, and the reference's tree back out."""
     jcfg, jp, cfg, model = arch_pair
     kind = M.layer_kind(cfg)
-    assert isinstance(model.blocks[0], blk.BLOCKS[kind])
-    assert isinstance(model.blocks[0].attn, attn.MLAAttention
-                      if cfg.attn_kind == "mla" else attn.GQAAttention)
+    hybrid = cfg.arch_type == "hybrid"
+    first = model.blocks[0][0] if hybrid else model.blocks[0]
+    assert isinstance(first, blk.BLOCKS[kind])
+    if hybrid:
+        every = cfg.shared_attn_every
+        assert [len(g) for g in model.blocks] == [every] * (
+            cfg.num_layers // every)
+        attn_block = model.shared_attn
+    else:
+        assert len(model.blocks) == cfg.num_layers
+        attn_block = None if kind == "ssm" else first
+    assert hasattr(model, "shared_attn") == hybrid
+    if attn_block is not None:
+        assert isinstance(attn_block.attn, attn.MLAAttention
+                          if cfg.attn_kind == "mla" else attn.GQAAttention)
     back = lm_params_to_numpy(model)
     want = jax.tree.map(np.asarray, jp)
     assert jax.tree.structure(back) == jax.tree.structure(want)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
 
 def test_new_arch_forward_and_loss_match_reference(arch_pair):
     jcfg, jp, cfg, model = arch_pair
-    toks = _tokens(cfg, 2, PROMPT, seed=5)
+    S = _prompt(cfg)
+    toks = _tokens(cfg, 2, S, seed=5)
     want, want_aux = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
     got, aux = M.forward(model, cfg, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, PROMPT, cfg.padded_vocab)
+    assert got.shape == (2, S, cfg.padded_vocab)
     _close(got, want)
     assert abs(float(aux) - float(want_aux)) <= 1e-6, (float(aux),
                                                        float(want_aux))
@@ -472,34 +513,85 @@ def test_new_arch_forward_and_loss_match_reference(arch_pair):
     assert abs(float(parts["aux"]) - float(jparts["aux"])) <= 1e-6
 
 
+def _check_state(cfg, state, want_state):
+    """Every cache of a serve state against the reference's stacked one:
+    {"layers"} by layer, or a hybrid's {"ssm"} by (group, layer) and
+    {"shared"} by application; KV and latent caches with their slots, SSM
+    caches' conv tails and state."""
+    want = jax.tree.map(np.asarray, want_state)
+    if cfg.arch_type == "hybrid":
+        every = cfg.shared_attn_every
+        assert set(state) == {"ssm", "shared"}
+        assert len(state["ssm"]) == cfg.num_layers
+        assert len(state["shared"]) == cfg.num_layers // every
+        pairs = [(c, jax.tree.map(lambda a: a[i // every, i % every],
+                                  want["ssm"]))
+                 for i, c in enumerate(state["ssm"])]
+        pairs += [(c, jax.tree.map(lambda a: a[g], want["shared"]))
+                  for g, c in enumerate(state["shared"])]
+        # one KV cache per application: no two share storage
+        ks = [c.k for c in state["shared"]]
+        assert len({t.data_ptr() for t in ks}) == len(ks)
+    else:
+        assert set(state) == {"layers"}
+        assert len(state["layers"]) == cfg.num_layers
+        pairs = [(c, jax.tree.map(lambda a: a[i], want["layers"]))
+                 for i, c in enumerate(state["layers"])]
+    for cache, w in pairs:
+        assert type(cache).__name__ == type(w).__name__
+        assert cache._fields == w._fields
+        for name, got_t, want_t in zip(cache._fields, cache, w):
+            if name == "slot_positions":
+                np.testing.assert_array_equal(got_t.numpy(), want_t)
+            else:
+                assert got_t.dtype == torch.float32, name
+                _close(got_t, want_t)
+
+
 def test_new_arch_prefill_with_state_matches_reference(arch_pair):
-    """Last-position logits and every layer's cache (KV or latent; rolling
-    for Mixtral's window)."""
+    """Last-position logits and every layer's cache (KV or latent, rolling
+    for Mixtral's window; the SSM layers' conv tails and state; each of a
+    hybrid's shared-block applications its own KV cache)."""
     jcfg, jp, cfg, model = arch_pair
-    toks = _tokens(cfg, 2, PROMPT, seed=6)
+    toks = _tokens(cfg, 2, _prompt(cfg), seed=6)
     C = _cache_len(cfg)
     want_logits, want_state = JM.prefill_with_state(
         jp, jcfg, {"tokens": jnp.asarray(toks)}, C)
     logits, state = M.prefill_with_state(
         model, cfg, {"tokens": torch.from_numpy(toks)}, C)
     _close(logits, want_logits)
-    assert len(state["layers"]) == cfg.num_layers
-    for i, cache in enumerate(state["layers"]):
-        want = jax.tree.map(lambda a: np.asarray(a[i]), want_state["layers"])
-        assert type(cache).__name__ == type(want).__name__
-        for got_t, want_t in zip(cache[:-1], want[:-1]):
-            _close(got_t, want_t)
-        np.testing.assert_array_equal(cache.slot_positions.numpy(),
-                                      want.slot_positions)
+    _check_state(cfg, state, want_state)
+
+
+def test_new_arch_decode_step_matches_reference(arch_pair):
+    """Decode steps from the prefill's state: each step's logits and the
+    state after the last equal the reference's."""
+    jcfg, jp, cfg, model = arch_pair
+    S = _prompt(cfg)
+    toks = _tokens(cfg, 2, S + 3, seed=8)
+    C = _cache_len(cfg)
+    _, jstate = JM.prefill_with_state(
+        jp, jcfg, {"tokens": jnp.asarray(toks[:, :S])}, C)
+    _, state = M.prefill_with_state(
+        model, cfg, {"tokens": torch.from_numpy(toks[:, :S])}, C)
+    for t in range(S, S + 3):
+        want, jstate = JM.decode_step(jp, jcfg, jnp.asarray(toks[:, t:t + 1]),
+                                      jstate, jnp.asarray(t, jnp.int32))
+        got, state = M.decode_step(model, cfg,
+                                   torch.from_numpy(toks[:, t:t + 1]).long(),
+                                   state, t)
+        _close(got, want)
+    _check_state(cfg, state, jstate)
 
 
 def test_new_arch_engine_greedy_tokens_equal_reference(arch_pair):
-    """Same greedy tokens from 96-token prompts (Mixtral: decoding past
+    """Same greedy tokens from the arch's prompts (Mixtral: decoding past
     its window in a rolling cache of 64); each step's top-1/top-2 logit
     margin, replayed through the port's own prefill and decode, exceeds
     the logit tolerance, so the equality is not a tie broken alike."""
     jcfg, jp, cfg, model = arch_pair
-    prompts = _tokens(cfg, 2, PROMPT, seed=7)
+    S = _prompt(cfg)
+    prompts = _tokens(cfg, 2, S, seed=7)
     scfg = dict(max_new_tokens=NEW_TOKENS, cache_len=_cache_len(cfg))
     want = JaxEngine(jcfg, jp, JaxServeConfig(**scfg)).generate(prompts)
     got = Engine(cfg, model, ServeConfig(**scfg)).generate(prompts)
@@ -511,7 +603,7 @@ def test_new_arch_engine_greedy_tokens_equal_reference(arch_pair):
     for i in range(NEW_TOKENS - 1):
         logits, state = M.decode_step(
             model, cfg, torch.from_numpy(got[:, i:i + 1]).long(), state,
-            PROMPT + i)
+            S + i)
         steps.append(logits)
     steps = torch.cat(steps, dim=1)[..., :cfg.vocab_size]
     np.testing.assert_array_equal(steps.argmax(-1).numpy(), got)
@@ -528,3 +620,69 @@ def test_launch_serve_runs_each_arch_on_cpu(arch, capsys):
                        "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert out.startswith(f"arch={arch} batch=2 new=3 wall=")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b",
+                                  "minicpm3-4b", "zamba2-2.7b"])
+def test_prefill_with_state_matches_decode_replay(arch):
+    """tests/test_system.py's check of the reference, on the port: the one
+    prefill pass that builds every cache agrees with replaying the prompt
+    token by token through decode_step from empty caches, and the next
+    decode step from either state gives the same logits (held here to the
+    file's 1e-5 relative, not the reference test's 2e-3)."""
+    cfg = get_config(arch).reduced()
+    model = M.init_params(cfg, torch.Generator().manual_seed(9))
+    B, S, C = 2, 9, 16
+    toks = torch.from_numpy(_tokens(cfg, B, S, seed=10)).long()
+    logits_p, state_p = M.prefill_with_state(model, cfg, {"tokens": toks},
+                                             cache_len=C)
+    state_r = M.init_serve_state(cfg, B, cache_len=C, device="cpu")
+    for t in range(S):
+        logits_r, state_r = M.decode_step(model, cfg, toks[:, t:t + 1],
+                                          state_r, t)
+    _close(logits_r, logits_p)
+    nxt = torch.argmax(logits_p[:, :, :cfg.vocab_size], -1)
+    lp, _ = M.decode_step(model, cfg, nxt, state_p, S)
+    lr, _ = M.decode_step(model, cfg, nxt, state_r, S)
+    _close(lr, lp)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_models_reach_k4_once_per_attention_application(arch,
+                                                            monkeypatch):
+    """A hybrid's prefill goes through gqa_flash once per application of
+    its shared block (counted by wrapping it, since on the CPU the kernel's
+    counter does not move); the pure SSM model never does; decode never
+    does."""
+    jcfg = jax_get_config(arch).reduced().with_overrides(num_layers=4)
+    cfg = get_config(arch).reduced().with_overrides(num_layers=4)
+    model = M.init_params(cfg, torch.Generator().manual_seed(2))
+    calls = []
+    real = attn.gqa_flash
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attn, "gqa_flash", counting)
+    before = k4.LAUNCHES
+    Engine(cfg, model, ServeConfig(max_new_tokens=4, cache_len=16)).generate(
+        _tokens(cfg, 2, 9))
+    applications = (cfg.num_layers // cfg.shared_attn_every
+                    if cfg.arch_type == "hybrid" else 0)
+    assert applications == (2 if arch == "zamba2-2.7b" else 0)
+    assert len(calls) == applications
+    assert all(c == (2, 9, cfg.num_heads, cfg.resolved_head_dim)
+               for c in calls)
+    assert k4.LAUNCHES == before
+    # the reference's tree of the deeper hybrid: two groups, one shared block
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(6))
+    deep = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                device="cpu")
+    for a, b in zip(jax.tree.leaves(lm_params_to_numpy(deep)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, jp))):
+        np.testing.assert_array_equal(a, b)
+    toks = _tokens(cfg, 2, 37, seed=11)
+    want, _ = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = M.forward(deep, cfg, {"tokens": torch.from_numpy(toks)})
+    _close(got, want)
