@@ -44,6 +44,14 @@
 //    so each score tile has two short MMA chains instead of one long one;
 //    the MMA asm is not volatile, so the compiler interleaves independent
 //    products.
+//  * fp32: the tensor cores round their fp32 accumulation toward zero, not
+//    to nearest. O sums over every key of the row, so it is never an MMA
+//    accumulator: each key tile's P V goes into a fragment zeroed for the
+//    tile, and the CUDA cores fold that into O with one IEEE fmaf per
+//    element, o = o * corr + frag, which is also the online softmax's
+//    rescale. The error then stays flat in the row length instead of
+//    growing with the 1536 roundings of a 4096-key row (bf16 keeps its
+//    accumulator: P is rounded to bf16 there anyway).
 //  * Q and K fragments come from shared memory through ldmatrix (for fp32,
 //    each 32-bit element is a pair of b16 in ldmatrix's view, which gives
 //    the TF32 fragment layouts), V through ldmatrix.trans (bf16) or 32-bit
@@ -230,10 +238,15 @@ struct Bf16 {
     }
   }
   // the C fragments of n8 tiles 2 kk and 2 kk + 1, packed to bf16 pairs,
-  // are the A fragment of k16 step kk; V's B fragments by ldmatrix.trans
+  // are the A fragment of k16 step kk; V's B fragments by ldmatrix.trans.
+  // O accumulates in the MMAs across key tiles (P is rounded to bf16, so
+  // the sums' rounding is far below the instance's tolerance); the kernel
+  // rescales it by corr before each tile.
+  static constexpr bool FOLDS = false;
   template <int MT, int NS, int NV>
   static __device__ __forceinline__ void pv(float (&o)[MT][NV][4],
                                             const float (&s)[MT][NS][4],
+                                            const float (&)[MT][2],
                                             const unsigned char* vs, int vst,
                                             int lane, int dv) {
     const uint32_t base = smem_u32(vs) + (lane & 15) * vst + (lane >> 4) * 16;
@@ -325,52 +338,78 @@ struct Tf32x3 {
   }
   // n8 tile j of P is k8 step j with its keys in the order (0, 2, 4, 6 |
   // 1, 3, 5, 7): a = (c0, c2, c1, c3), and V's B fragment is (V[2t][g],
-  // V[2t + 1][g]). Output tiles go four at a time, small terms first.
+  // V[2t + 1][g]). The tensor cores round each fp32 sum toward zero, so an
+  // accumulator that lived across key tiles would drift toward zero by up
+  // to an ulp of O per MMA (three per k8 step: 1536 over 4096 keys). No MMA
+  // accumulator outlives the key tile: P is split once for all NS steps;
+  // each group of four n8 output tiles takes the tile's MMAs (twelve per
+  // output tile, small terms first in each k8 step) into a zeroed
+  // fragment, which the CUDA cores fold into O in IEEE fp32 with the row's
+  // rescale: o = o * corr + frag.
+  static constexpr bool FOLDS = true;
   template <int MT, int NS, int NV>
   static __device__ __forceinline__ void pv(float (&o)[MT][NV][4],
                                             const float (&s)[MT][NS][4],
+                                            const float (&corr)[MT][2],
                                             const unsigned char* vs, int vst,
                                             int lane, int dv) {
     const int g = lane >> 2, t = lane & 3;
     const int vw = vst / 4;
-    const float* vf = reinterpret_cast<const float*>(vs);
+    const float* v0 = reinterpret_cast<const float*>(vs) + 2 * t * vw + g;
+    uint32_t ab[MT][NS][4], as[MT][NS][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      uint32_t ab[MT][4], as[MT][4];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        split_tf32(s[mt][j][0], ab[mt][0], as[mt][0]);
-        split_tf32(s[mt][j][2], ab[mt][1], as[mt][1]);
-        split_tf32(s[mt][j][1], ab[mt][2], as[mt][2]);
-        split_tf32(s[mt][j][3], ab[mt][3], as[mt][3]);
+      for (int j = 0; j < NS; ++j) {
+        split_tf32(s[mt][j][0], ab[mt][j][0], as[mt][j][0]);
+        split_tf32(s[mt][j][2], ab[mt][j][1], as[mt][j][1]);
+        split_tf32(s[mt][j][1], ab[mt][j][2], as[mt][j][2]);
+        split_tf32(s[mt][j][3], ab[mt][j][3], as[mt][j][3]);
       }
-      const float* v0 = vf + (8 * j + 2 * t) * vw + g;
 #pragma unroll
-      for (int n0 = 0; n0 < NV; n0 += 4) {
-        if (8 * n0 >= dv) break;
+    for (int n0 = 0; n0 < NV; n0 += 4) {
+      if (8 * n0 >= dv) break;
+      float f[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[mt][u][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float* vj = v0 + 8 * j * vw;
         uint32_t bb[4][2], bs[4][2];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool on = 8 * (n0 + u) < dv;
-          split_tf32(on ? v0[8 * (n0 + u)] : 0.f, bb[u][0], bs[u][0]);
-          split_tf32(on ? v0[vw + 8 * (n0 + u)] : 0.f, bb[u][1], bs[u][1]);
+          split_tf32(on ? vj[8 * (n0 + u)] : 0.f, bb[u][0], bs[u][0]);
+          split_tf32(on ? vj[vw + 8 * (n0 + u)] : 0.f, bb[u][1], bs[u][1]);
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            mma_tf32(o[mt][n0 + u], as[mt], bb[u][0], bb[u][1]);
+            mma_tf32(f[mt][u], as[mt][j], bb[u][0], bb[u][1]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            mma_tf32(o[mt][n0 + u], ab[mt], bs[u][0], bs[u][1]);
+            mma_tf32(f[mt][u], ab[mt][j], bs[u][0], bs[u][1]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            mma_tf32(o[mt][n0 + u], ab[mt], bb[u][0], bb[u][1]);
+            mma_tf32(f[mt][u], ab[mt][j], bb[u][0], bb[u][1]);
       }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[mt][n0 + u][e] =
+                fmaf(o[mt][n0 + u][e], corr[mt][e >> 1], f[mt][u][e]);
     }
   }
 };
@@ -517,6 +556,7 @@ flash_attention_kernel(const Params p) {
     // mask where the tile straddles the band or the key tail, then the
     // online-softmax update of each row (rows g and g + 8 of each m16 tile;
     // the 4 lanes of a row are t = 0..3)
+    float cr[MT][2];                   // each row's rescale of O
     const bool full = k0 + BK <= p.Sk &&
                       (!p.causal || k0 + BK - 1 <= q0) &&
                       (p.window == 0 || k0 > q_last - p.window);
@@ -557,15 +597,19 @@ flash_attention_kernel(const Params p) {
           }
         l[mt][r] = l[mt][r] * corr + sum;   // this lane's share of the row
         m[mt][r] = m_new;
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          o[mt][n][2 * r] *= corr;
-          o[mt][n][2 * r + 1] *= corr;
-        }
+        cr[mt][r] = corr;
       }
+    if (!P::FOLDS) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) o[mt][n][u] *= cr[mt][u >> 1];
+    }
 
-    // O += P V, P from the registers
-    P::template pv<MT, NS, NV>(o, s, ks + BK * qst, vst, lane, p.Dv);
+    // O = O corr + P V, P from the registers (the policy folds or rescales)
+    P::template pv<MT, NS, NV>(o, s, cr, ks + BK * qst, vst, lane, p.Dv);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 

@@ -995,6 +995,28 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, layout):
                                atol=ATTN_TOL[dtype])
 
 
+def test_flash_attention_long_rows_stay_within_the_fp32_tolerance(cuda):
+    """4096-key causal rows of values with one sign down each channel (a
+    mean per channel plus a quarter of unit noise, max|v| 5, as on zamba2's
+    shared block), where sums that stayed in the tensor cores' accumulator
+    across key tiles would drift toward zero: K4 within 2e-5 of the float64
+    attention."""
+    g = _gen(cuda, 32)
+    B, H, S, D = 1, 2, 4096, 128
+    q, k = (torch.randn((B, H, S, D), generator=g, device=cuda)
+            for _ in range(2))
+    v = torch.randn((B, H, 1, D), generator=g, device=cuda) + \
+        0.25 * torch.randn((B, H, S, D), generator=g, device=cuda)
+    v *= 5.0 / v.abs().max()
+    got = k4.flash_attention(q, k, v, causal=True)
+    s = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(D)
+    s.masked_fill_(torch.ones((S, S), dtype=torch.bool,
+                              device=cuda).triu(1), -math.inf)
+    exact = torch.softmax(s, dim=-1) @ v.double()
+    torch.testing.assert_close(got.double(), exact, rtol=0,
+                               atol=ATTN_TOL[torch.float32])
+
+
 def test_flash_attention_kernel_raises_on_operands_it_does_not_take(cuda):
     q, k, v = _attn_operands(cuda, 1, 2, 2, 16, 16, 32, 32, torch.float32)
     with pytest.raises(TypeError):
@@ -1126,7 +1148,11 @@ ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
                    (2, 4, 2, 33, 33, 20, True, 0),
                    (2, 4, 2, 17, 17, 1, True, 0),
                    (1, 4, 2, 17, 17, 128, True, 0),
-                   (1, 4, 2, 33, 33, 64, False, 0)]
+                   (1, 4, 2, 33, 33, 64, False, 0),
+                   # zamba2's shared block, Dh = Dv = 80 on the width-128
+                   # instances: the training shape, and a ragged length
+                   (8, 32, 32, 64, 64, 80, True, 0),
+                   (2, 4, 4, 300, 300, 80, True, 0)]
 
 
 def _bwd_operands(cuda, B, H, KV, Sq, Sk, D, seed=5):
@@ -1304,6 +1330,50 @@ def test_training_through_k4_and_k7_matches_the_cpu(cuda):
         assert [r[1:] for r in card] == [r[1:] for r in cpu]
         for (lc, _, _), (lg, _, _) in zip(card, cpu):
             assert abs(lc - lg) <= 1e-4 * abs(lg)
+
+
+def test_hybrid_training_through_k7_at_head_dim_80_matches_the_cpu(cuda):
+    """The reduced zamba2 with its shared block at Dh = Dv = 80 (K7's
+    width-128 instances), 4 agents on a ring, coke (v=20, mu=0.5), 4 steps
+    on the card and on the CPU from the same weights: comms and send_frac
+    equal, losses within 1e-4 relative; K4 and K7 once per shared-block
+    application per agent per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import agent_batch, make_train_step
+    cfg = get_config("zamba2-2.7b").reduced().with_overrides(head_dim=80)
+    apps = cfg.num_layers // cfg.shared_attn_every
+    weights = M.param_dict(M.init_params(cfg, torch.Generator().manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=48, global_batch=8,
+                                           structure=0.9))
+    ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
+                           censor_mu=0.5)
+    runs = {}
+    for dev in ("cpu", cuda):
+        init_fn, step_fn, _ = make_train_step(cfg, OptConfig(lr=3e-3), ccfg,
+                                              num_agents=4)
+        state = init_fn({n: t.to(dev) for n, t in weights.items()})
+        before = (k4.LAUNCHES, k7.LAUNCHES)
+        rows = []
+        for i in range(4):
+            toks, labels = stream.batch(i)
+            b = agent_batch({"tokens": torch.as_tensor(toks, device=dev),
+                             "labels": torch.as_tensor(labels, device=dev)},
+                            4)
+            state, m = step_fn(state, b)
+            rows.append((float(m["loss"]), int(m["comms"]),
+                         float(m["send_frac"])))
+        runs[str(dev)] = rows
+        launched = (k4.LAUNCHES - before[0], k7.LAUNCHES - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (4 * 4 * apps,) * 2)
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert [r[1:] for r in card] == [r[1:] for r in cpu]
+    for (lc, _, _), (lg, _, _) in zip(card, cpu):
+        assert abs(lc - lg) <= 1e-4 * abs(lg)
 
 
 # ---------------------------------------------------------------------------

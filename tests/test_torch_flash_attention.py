@@ -374,3 +374,63 @@ def test_probabilities_stay_in_registers_between_the_products(mma):
     np.testing.assert_array_equal(got, p @ v)
     # and the output lands in the C fragments the accumulator holds
     np.testing.assert_array_equal(_c_fragments(got), _c_fragments(p @ v))
+
+
+def _rz_fp32(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded to fp32 toward zero."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _pv_row_sums(p: np.ndarray, v: np.ndarray, fold: bool) -> np.ndarray:
+    """O = P V over rows of keys (p (rows, S), v (S, D) fp32) as K4's fp32
+    instance sums it, each m16n8k8 MMA modelled as its exact sum rounded
+    to fp32 toward zero (the tensor cores' accumulation): per k8 step of 8
+    keys three MMAs, small terms first, in 32-key tiles. fold=False: one
+    accumulator across every tile (the design before the fold); fold=True:
+    a fragment zeroed for each tile, added to O in IEEE fp32 (the kernel's
+    fmaf(o, corr, frag) with corr = 1)."""
+    pb, vb = (_rna_tf32(torch.from_numpy(x)).numpy() for x in (p, v))
+    ps, vs = (_rz_tf32(torch.from_numpy(x - b)).numpy()
+              for x, b in ((p, pb), (v, vb)))
+    o = np.zeros((p.shape[0], v.shape[1]), np.float32)
+    for t0 in range(0, p.shape[1], 32):
+        acc = np.zeros_like(o) if fold else o
+        for k0 in range(t0, t0 + 32, 8):
+            ks = slice(k0, k0 + 8)
+            for a, b in ((ps, vb), (pb, vs), (pb, vb)):
+                acc = _rz_fp32(acc.astype(np.float64) + a[:, ks].astype(
+                    np.float64) @ b[ks].astype(np.float64))
+        o = o + acc if fold else acc
+    return o
+
+
+def test_folding_each_key_tile_keeps_round_toward_zero_from_drifting():
+    """Values of one sign down each channel (as on zamba2's shared block:
+    max|v| 5, every output a sum of like-signed terms). With the MMAs'
+    round-toward-zero sums, one accumulator across the row drifts toward
+    zero with the row length, past the fp32 tolerance at 4096 keys; a
+    fragment per key tile folded into O in IEEE fp32 keeps the error flat
+    and far inside it."""
+    rng = np.random.default_rng(32)
+    err = {}
+    for S in (512, 4096):
+        s = rng.standard_normal((16, S)).astype(np.float32)
+        p = np.exp(s - s.max(axis=1, keepdims=True)).astype(np.float32)
+        v = rng.standard_normal((1, 16)) + 0.25 * rng.standard_normal(
+            (S, 16))
+        v = (v * (5.0 / np.abs(v).max())).astype(np.float32)
+        exact = (p.astype(np.float64) @ v.astype(np.float64)) / p.astype(
+            np.float64).sum(axis=1, keepdims=True)
+        l = p.sum(axis=1, keepdims=True, dtype=np.float32)
+        for fold in (False, True):
+            d = _pv_row_sums(p, v, fold) / l - exact
+            err[S, fold] = float(np.abs(d).max())
+            if not fold:        # the drift is toward zero
+                assert float((d * np.sign(exact)).mean()) < 0
+    assert err[4096, False] > TOL["f32"]
+    assert err[4096, False] > 4 * err[512, False]
+    assert err[4096, True] <= 2 * err[512, True]
+    assert err[4096, True] <= TOL["f32"] / 4

@@ -4,7 +4,9 @@ The reduced qwen3-1.7b (2 layers, d_model 256, 4 heads of 64, vocab 1024)
 and its grouped variant (2 KV heads), on the reference's `init_params`
 weights carried by `convert.lm_params_from_numpy`: the token stream, the
 loss and its gradients, the attention Function's backward, AdamW, the
-allreduce and consensus train steps, `train.py` and its checkpoint. On the
+allreduce and consensus train steps, `train.py` and its checkpoint. The
+other served families, reduced (`FAMILIES`): the loss, its gradients and
+one AdamW step. On the
 CPU the attention is K4's plain version and its backward autograd through
 it; the reference runs its jnp `blockwise_attention` under
 `jax.value_and_grad`.
@@ -181,6 +183,73 @@ def test_loss_and_every_gradient_match_the_reference(pair):
     # every gradient leaf: 1e-5 of its largest magnitude
     _assert_tree_close(lm_params_to_numpy(grads), _np_tree(jg), GRAD_RTOL,
                        "grad")
+
+
+# the served families beside qwen3, reduced: dense GQA, MoE with Mixtral's
+# window, MLA, MLA with MoE, the SSM model and the grouped hybrid
+FAMILIES = ["granite-3-8b", "mixtral-8x7b", "minicpm3-4b",
+            "deepseek-v2-lite-16b", "mamba2-2.7b", "zamba2-2.7b"]
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    """A reduced family on the reference's weights and the reference's
+    loss and gradients at one batch of B=2, S=32 (B x S fills the reduced
+    MoE's groups of 64 tokens, which the reference asserts): (jax params,
+    port cfg, port model, batch, (loss, extras), jax gradients)."""
+    jcfg = jax_get_config(request.param).reduced()
+    cfg = get_config(request.param).reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    _, stream = _stream(cfg, B=2, S=32)
+    toks, labels = stream.batch(3)
+    (jl, jex), jg = jax.value_and_grad(JM.loss_fn, has_aux=True)(
+        jp, jcfg, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    return (jp, cfg, lm_params_from_numpy(cfg, _np_tree(jp), device="cpu"),
+            batch, (jl, jex), jg)
+
+
+def test_family_loss_and_every_gradient_match_the_reference(family):
+    """The loss, its nll and the MoE aux (0 where the family has no MoE)
+    within 1e-6 relative of jax.value_and_grad's, every gradient leaf
+    within 1e-5 of its largest magnitude: autograd through the MoE's
+    einsums, MLA's expansion for K4's plain version and the SSD scan's ATen
+    ops."""
+    _, cfg, model, batch, (jl, jex), jg = family
+    loss, extras, grads = steps._value_and_grad(M.skeleton(cfg), cfg,
+                                                M.param_dict(model), batch)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(extras["nll"]), float(jex["nll"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(extras["aux"]), float(jex["aux"]),
+                               rtol=LOSS_RTOL)
+    assert (float(jex["aux"]) != 0.0) == cfg.is_moe
+    _assert_tree_close(lm_params_to_numpy(grads), _np_tree(jg), GRAD_RTOL,
+                       "grad")
+
+
+def test_family_one_adamw_step_matches_the_reference(family):
+    """One AdamW step (the launcher's lr 3e-3, clip 1.0) from the
+    reference's gradients, fed to both: params within 1e-6 absolute."""
+    jp, cfg, model, _, _, jg = family
+    kw = dict(kind="adamw", lr=3e-3, grad_clip=1.0)
+    jcfg_o, tcfg_o = jax_opt.OptConfig(**kw), opt.OptConfig(**kw)
+    ju, _ = jax_opt.opt_update(jcfg_o, jg, jax_opt.init_opt_state(jcfg_o, jp),
+                               jp)
+    jnew = jax_opt.apply_updates(jp, ju)
+    params = M.param_dict(model)
+    tgrads = M.param_dict(lm_params_from_numpy(cfg, _np_tree(jg),
+                                               device="cpu"))
+    tu, _ = opt.opt_update(tcfg_o, tgrads, opt.init_opt_state(tcfg_o, params),
+                           params)
+    flat_r = dict(jax.tree_util.tree_flatten_with_path(_np_tree(jnew))[0])
+    flat_p = dict(jax.tree_util.tree_flatten_with_path(
+        lm_params_to_numpy(opt.apply_updates(params, tu)))[0])
+    assert set(flat_p) == set(flat_r)
+    for path, want in flat_r.items():
+        np.testing.assert_allclose(flat_p[path], want, rtol=0,
+                                   atol=ADAMW_ATOL,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 4, 4, 64, True, 0),
