@@ -231,6 +231,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      test_system.py's coke run (20 steps, v=20, mu=0.5) on the card and on
      the CPU from the same weights, unfused and with K3 on the LM tree:
      comms and send_frac equal every step, losses within TRAIN_SMALL_RTOL;
+     besides, from the CPU's state at each step, the card's loss for that
+     step and the next within TRAIN_SMALL_RTOL (as (f));
      (e) K7 at zamba2's shared block (Dh = Dv = 80) at (8, 64, 32/32) and
      (2, 4096, 32/32), held and timed as in (a); (f) the reduced mamba2
      and zamba2 (and zamba2 at head_dim 80), allreduce and coke at 4
@@ -323,10 +325,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain version, within LM_RTOL of max|logit|, and, reported without a
      hold, the prefill of S + 1 against the prefill of S and one decode
      step.
+ 25. MoE and MLA training (`moe_mla_train_phase`), through K4 and K7 at
+     Dh != Dv: (a) K7 against its plain version at deepseek-v2-lite's Dh
+     192 / Dv 128 and minicpm3-4b's 96 / 64 heads (B=8, S=64 and 2 x 4096)
+     and the reduced models' 48 / 32, within K7_RTOL, each timed with a
+     cold L2 beside its plan, its 3xTF32 bound (3 x (6 Dh + 4 Dv) flops a
+     pair), the plain version and SDPA's backward; (b) the reduced
+     granite-3-8b, mixtral-8x7b, minicpm3-4b and deepseek-v2-lite-16b,
+     allreduce and coke (v=20, mu=0.5) at 4 agents, B=8 at S=96 (past
+     Mixtral's reduced window), TRAIN_MOE_MLA_STEPS steps on the card and
+     on the CPU from the same weights: from the CPU's state at each step,
+     every MoE layer's expert indices and drop set equal the CPU's
+     (smallest top-k margin printed), comms and send_frac equal, and the
+     card's loss for that step and the next within TRAIN_MOE_MLA_RTOL; K4 =
+     K7 = agents x layers x card steps; (c) full-width deepseek-v2-lite-16b
+     (2 of 27 layers), minicpm3-4b (16 of 62) and mixtral-8x7b (1 of 32),
+     allreduce at 20(b)'s settings, one model drawn, stepped 5 times and
+     freed at a time: each cut with its reckoning, ms per step device and
+     host, K4 and K7 per step (the layers kept), peak memory, finite
+     losses. The kernels line's K7 entry adds (b) and (c)'s launches and
+     (a)'s largest error; K4's adds (b) and (c)'s launches.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
-generate of 22 and 23 and each prefill of 24 every launch counter is set
-to 0, and read just after.
+generate of 22 and 23, each prefill of 24 and each run of 25 every launch
+counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -337,12 +359,14 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase22   # build, phase 22
     python3 chip_smoke.py --phase23   # build, phase 23
     python3 chip_smoke.py --phase24   # build, phase 24
+    python3 chip_smoke.py --phase25   # build, phase 25
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
 entry, phase 21 alone and its launch counts and errors, phase 22 or 23
-alone and K4's launches and largest error there, or phase 24 alone and
-K4's largest error against float64; none prints the result lines.
+alone and K4's launches and largest error there, phase 24 alone and K4's
+largest error against float64, or phase 25 alone and K7's launches and
+largest error and K4's launches; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -716,7 +740,8 @@ K7_SHAPES = {"training": (8, 16, 8, 64, 128, 0),
              "reduced": (8, 4, 2, 64, 64, 0)}
 # (d): tests/test_system.py's coke run, card against CPU; fp32 through two
 # layers with cuBLAS and K4/K7 against ATen and the plain softmax, carried
-# through 20 AdamW steps
+# through 20 AdamW steps, and held step by step from the CPU's state as well
+# (`card_cpu_hold`)
 TRAIN_SMALL_STEPS = 20
 TRAIN_SMALL_RTOL = 1e-4
 # (e): K7 at zamba2's shared block, Dh = Dv = 80 (the width-128 instances),
@@ -730,6 +755,31 @@ TRAIN_SSM_REDUCED = (("mamba2-2.7b", {}), ("zamba2-2.7b", {}),
                      ("zamba2-2.7b", {"head_dim": 80}))
 # (g): full width, allreduce at (b)'s settings, one model at a time
 TRAIN_SSM_FULL = ("mamba2-2.7b", "zamba2-2.7b")
+# phase 25, MoE and MLA training: (a) K7 at MLA's Dh != Dv, name -> (B, H,
+# KV, S, Dh, window, Dv), all causal
+K7_MLA_SHAPES = {
+    "deepseek-v2-lite training": (8, 16, 16, 64, 192, 0, 128),
+    "deepseek-v2-lite prefill": (2, 16, 16, 4096, 192, 0, 128),
+    "minicpm3 training": (8, 40, 40, 64, 96, 0, 64),
+    "minicpm3 prefill": (2, 40, 40, 4096, 96, 0, 64),
+    "reduced MLA": (2, 4, 4, 96, 48, 0, 32)}
+# (b) the reduced families trained card against CPU as phase 20(f) does, B=8
+# at S=96: past Mixtral's reduced window of 64, so that K7's window path
+# runs inside a step, and each agent's 2 x 96 tokens fill three MoE groups
+# of 64. The hold is step by step, so 8 steps hold what 20 would.
+TRAIN_MOE_MLA_REDUCED = ("granite-3-8b", "mixtral-8x7b", "minicpm3-4b",
+                         "deepseek-v2-lite-16b")
+TRAIN_MOE_MLA_SEQ = 96
+TRAIN_MOE_MLA_STEPS = 8
+# (b)'s step-by-step hold: the card's loss from the CPU's state read
+# 6.6e-8 to 1.548e-6 of the CPU's in sound runs (NVIDIA H100 80GB HBM3)
+TRAIN_MOE_MLA_RTOL = 1e-5
+# (c) full width, allreduce at phase 20(b)'s settings, one model at a time,
+# the depth cut to what one card holds: (arch, layers kept). An AdamW step
+# peaks at ~9x the fp32 weights (qwen3-1.7b: 62.30 GB over 6.9 GB)
+TRAIN_MOE_MLA_FULL = (("deepseek-v2-lite-16b", 2), ("minicpm3-4b", 16),
+                      ("mixtral-8x7b", 1))
+TRAIN_PEAK_PER_WEIGHT = 9.0
 # phase 21, a mesh under gossip and personalization, on SHARD_MESH: the CG
 # gossip cells' depth (a sharded CG iteration takes ~90 ms, host-bound),
 # the personalized cells' (phase 17's warmup 30 and every 5: refreshes at
@@ -964,13 +1014,16 @@ def k7_phase1(build):
         log(1, f"  K7 ptxas {fn}: {props or 'no report'}")
         if re.search(r"[1-9]\d* bytes spill (stores|loads)", props):
             spilled.append(fn)
-    for width, instances in k7.INSTANCES.items():
+    pairs = [((w, w), ins) for w, ins in k7.INSTANCES.items()]
+    for (wh, wv), instances in pairs + list(k7.PAIR_INSTANCES.items()):
         for rw, cw, ns in instances:
             for kvp in (True, False):
-                _, _, smem, blocks = k7.pass_limits(width, kvp, rw, cw, ns)
-                log(1, f"  K7 {'dK/dV' if kvp else 'dQ'}<width {width}, "
-                       f"{rw}x{cw} warps, ns={ns}>: {smem} B of shared "
-                       f"memory, {blocks} block(s) per SM")
+                _, _, smem, blocks = k7.pass_limits(wh, wv, kvp, rw, cw,
+                                                    ns)
+                log(1, f"  K7 {'dK/dV' if kvp else 'dQ'}<width "
+                       f"{wh if wh == wv else f'{wh}/{wv}'}, {rw}x{cw} "
+                       f"warps, ns={ns}>: {smem} B of shared memory, "
+                       f"{blocks} block(s) per SM")
     if spilled or not any("bwd_kernel" in line for line in
                           report["log"].splitlines()):
         raise AssertionError(f"K7 spills in {spilled}, or its ptxas report "
@@ -1130,7 +1183,8 @@ def ptxas_report(nvcc_log):
     (V float4 column groups per thread, R rows per stage, bulk or cp.async
     staging), K1's by its store path (TMA bulk stores or 4-byte stores),
     K3's by its load width, neighbour reads and loads in flight (U) and
-    K7's by its pass, head-dim width, warps (rw x cw) and n8 tiles (ns),
+    K7's by its pass, head-dim widths (Dh's / Dv's where they differ),
+    warps (rw x cw) and n8 tiles (ns),
     K4's by its MMA policy, m16 tiles per warp (MT), 64-column output
     groups (NJ) and whether it writes the log-sum-exp. Empty when the
     library came from the build cache."""
@@ -1145,8 +1199,8 @@ def ptxas_report(nvcc_log):
             k1 = re.search(r"rff_strip_kernelILb([01])ELi(\d+)E", fn)
             k3 = re.search(r"coke_fused_update_kernelI(6float4|f)Lb([01])ELi"
                            r"(\d+)E", fn)
-            k7 = re.search(r"bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb"
-                           r"([01])E", fn)
+            k7 = re.search(r"bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
+                           r"(\d+)ELb([01])E", fn)
             k4 = re.search(r"flash_attention_kernelI\w*?(Bf16|Tf32x3)E"
                            r"Li(\d+)ELi(\d+)ELb([01])E", fn)
             if t:
@@ -1161,9 +1215,10 @@ def ptxas_report(nvcc_log):
                 fn = (f"coke_fused_update<{width}, {reads} neighbour "
                       f"read(s), U={k3.group(3)}>")
             elif k7:
-                fn = (f"{'dK/dV' if k7.group(5) == '1' else 'dQ'}<width "
-                      f"{k7.group(1)}, {k7.group(2)}x{k7.group(3)} warps, "
-                      f"ns={k7.group(4)}>")
+                wh, wv = k7.group(1), k7.group(2)
+                fn = (f"{'dK/dV' if k7.group(6) == '1' else 'dQ'}<width "
+                      f"{wh if wh == wv else f'{wh}/{wv}'}, {k7.group(3)}x"
+                      f"{k7.group(4)} warps, ns={k7.group(5)}>")
             elif k4:
                 fn = (f"K4<{k4.group(1)}, MT={k4.group(2)}, NJ={k4.group(3)}"
                       f"{', LSE' if k4.group(4) == '1' else ''}>")
@@ -4710,11 +4765,13 @@ def mesh_gossip_phase(dev, card, reset_counts, counts, *, problem, cfg):
     return seen, errs
 
 
-def k7_operands(gen, dev, B, H, KV, S, D):
-    """(B, S, heads, D) q, k, v and dO, the model's layout."""
+def k7_operands(gen, dev, B, H, KV, S, D, Dv=None):
+    """(B, S, heads, D) q, k and (B, S, heads, Dv) v, dO (Dv defaults to
+    D), the model's layout."""
+    Dv = D if Dv is None else Dv
     return tuple(torch.randn(shape, generator=gen, device=dev)
-                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
-                               (B, S, H, D)))
+                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv),
+                               (B, S, H, Dv)))
 
 
 def admissible_pairs(S, window):
@@ -4726,10 +4783,11 @@ def admissible_pairs(S, window):
 
 def k7_library_ms(q, k, v, do, window):
     """(ms, how) of the backward alone of one F.scaled_dot_product_attention
-    call (memory-efficient backend, fp32) on q (B, H, S, D) and k/v
-    repeated to H heads before the call: torch.autograd.grad of its output
-    at do, the graph kept. The yardstick of K7, called nowhere in the
-    port."""
+    call (memory-efficient backend, fp32) on q (B, H, S, Dh), v (B, KV, S,
+    Dv) and k/v repeated to H heads before the call: torch.autograd.grad
+    of its output at do, the graph kept. The yardstick of K7, called
+    nowhere in the port. (None, why) where the backend refuses the
+    shape."""
     import warnings
     from torch.nn.attention import SDPBackend, sdpa_kernel
     rep = q.shape[1] // k.shape[1]
@@ -4740,17 +4798,233 @@ def k7_library_ms(q, k, v, do, window):
     if window:
         i = torch.arange(q.shape[2], device=q.device)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    how = (f"backward of EFFICIENT_ATTENTION, fp32, K/V repeated {rep}x "
+           f"before the call, {'boolean mask' if window else 'is_causal'}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask, is_causal=mask is None)
-        ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
-                                                 retain_graph=True),
-                     reps=1, runs=5, warmup=1)
-    return ms, (f"backward of EFFICIENT_ATTENTION, fp32, K/V repeated "
-                f"{rep}x before the call, "
-                f"{'boolean mask' if window else 'is_causal'}")
+        try:
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+            ms = time_ms(lambda: torch.autograd.grad(
+                out, (qq, kk, vv), do, retain_graph=True),
+                reps=1, runs=5, warmup=1)
+        except RuntimeError as exc:
+            return None, f"{how}: refused ({str(exc).splitlines()[0]})"
+    return ms, how
+
+
+def k7_hold(phase, dev, card, gen, flush, peaks, tag, B, H, KV, S, D, window,
+            timed, Dv=None):
+    """K7 at one causal shape (q, k of head dim D; v, dO of Dv, default D)
+    against its plain version, within K7_RTOL of each gradient's max; where
+    `timed`, its cold-L2 time beside its bound, the plain version and SDPA's
+    backward. Returns the kernels line's entry for this shape (None where
+    not timed)."""
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    t = lambda x: x.transpose(1, 2)
+    Dv = D if Dv is None else Dv
+    q, k, v, do = k7_operands(gen, dev, B, H, KV, S, D, Dv)
+    lse = torch.empty((B, H, S), device=dev)
+    out = k4.launch(q, k, v, heads_dim=2, causal=True, window=window,
+                    lse=lse)
+
+    def bwd():
+        return k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True,
+                                window=window)
+
+    got = bwd()
+    want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
+                             causal=True, window=window)
+    errs, rel = [], []
+    for g, w in zip(got, want):
+        e = float((g - t(w)).abs().max())
+        errs.append(e)
+        rel.append(e / float(w.abs().max()))
+    del got, want
+    dims = f"D={D}" if Dv == D else f"Dh={D}, Dv={Dv}"
+    log(phase, f"K7 {tag} (B={B}, S={S}, H={H}, KV={KV}, {dims}, causal, "
+               f"window={window}): max|err| dq {errs[0]:.3e}, dk "
+               f"{errs[1]:.3e}, dv {errs[2]:.3e}; relative to each max "
+               f"{max(rel):.3e} (tol {K7_RTOL:g})")
+    if not max(rel) <= K7_RTOL:
+        raise AssertionError(f"K7 disagrees with its plain version at the "
+                             f"{tag} shape")
+    if not timed:
+        return None
+    bw, tf32 = peaks[0], peaks[3]
+    big = S > 1000
+    ms = flushed_ms(bwd, flush, reps=5 if big else 50,
+                    warmup=1 if big else 3)
+    pairs = admissible_pairs(S, window)
+    # the backward's five products (S and dP recomputed once, dV, dK, dQ):
+    # 6 Dh + 4 Dv flops a pair (10 D at Dh = Dv), at the least
+    # fp32-accurate route, 3xTF32 (three TF32 MMAs a product) on the
+    # tensor cores; its bytes: q, dQ (Dh) and o, dO (Dv) of (B, S, H), k,
+    # dK (Dh) and v, dV (Dv) of (B, S, KV), L, each once
+    flops = (6.0 * D + 4.0 * Dv) * pairs * B * H
+    nbytes = 4.0 * (B * S * 2 * (D + Dv) * (H + KV) + B * H * S)
+    t_f, t_b = 3 * flops / tf32 * 1e3, nbytes / bw * 1e3
+    b_ms, b_by = (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
+    plan = k7.device_plan(q, k, v)
+    plain_ms = time_ms(lambda: attention_bwd_ref(
+        t(q), t(k), t(v), t(out), t(do), causal=True, window=window),
+        reps=1, runs=3, warmup=1)
+    lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(phase, f"[{card}] K7 at the {tag} shape: {ms:.4f} ms with a cold "
+               f"L2, bound {b_ms:.4f} ms ({b_by}: 3 x {flops / 1e12:.4f} "
+               f"TFLOP at {tf32 / 1e12:g} TFLOP/s, 3xTF32, "
+               f"{nbytes / 1e9:.4f} GB at {bw / 1e12:g} TB/s; "
+               f"{b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
+               f"library {lib} ({lib_how}); plan: widths "
+               f"{plan.width}/{plan.width_v}, "
+               f"dK/dV {plan.kv.rows}-key tiles, {plan.kv.warps} warps "
+               f"({plan.kv.rw}x{plan.kv.cw}), {plan.kv.step_rows} query "
+               f"rows a step, {plan.kv.smem} B, grid {plan.kv.grid}; dQ "
+               f"{plan.q.rows}-query tiles, {plan.q.warps} warps "
+               f"({plan.q.rw}x{plan.q.cw}), {plan.q.step_rows} key rows a "
+               f"step, {plan.q.smem} B, grid {plan.q.grid}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": KERNEL_SOURCES["flash_attention_bwd"][0],
+            "replaces": KERNEL_SOURCES["flash_attention_bwd"][1],
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def state_on(tree, where):
+    """A copy of a train state (dicts, tuples, named tuples of tensors) on
+    `where`."""
+    if isinstance(tree, dict):
+        return {k: state_on(x, where) for k, x in tree.items()}
+    if isinstance(tree, tuple):
+        items = [state_on(x, where) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(where, copy=True)
+    return tree
+
+
+def card_cpu_hold(dev, cfg, weights, stream, ccfg, agents, steps,
+                  routes=None):
+    """Train `cfg` from `weights` on the CPU and on the card, `steps`
+    batches of `stream` (split over `agents` under the consensus config
+    `ccfg`; None trains allreduce), AdamW lr 3e-3, and compare them the way
+    fp32 allows: two fp32 runs of many AdamW steps part chaotically (with
+    no kernel at all, the plain attention on the card, the reduced qwen3
+    and zamba2 part from the CPU by ~1e-4; scripts/train_probe.py), so at
+    each step the card takes a copy of the CPU's state and runs that step
+    and the next, beside its own free run. With `routes`, a list that a
+    wrapped `models.moe.route` appends to, each step's routings of the
+    card's step from the CPU's state and of the CPU's step are kept too.
+    Returns a dict: per-step metrics `cpu`, `free`, the `forced` pairs;
+    `same` (comms and send_frac of the free run equal the CPU's every
+    step), `same_forced` (the same from the CPU's state), the worst
+    relative loss differences `worst_free`, `worst_step` (that step's from
+    the CPU's state), `worst_next` (the next step's, after the card's own
+    update), and `routed`, [(card routings, CPU routings)] per step."""
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import agent_batch, make_train_step
+    keys = ("loss", "comms", "send_frac") if ccfg else ("loss",)
+    fns, states, batches = {}, {}, {}
+    for where in ("cpu", dev):
+        init_fn, fns[where], _ = make_train_step(
+            cfg, OptConfig(lr=3e-3), ccfg, num_agents=agents)
+        states[where] = init_fn({k: x.to(where) for k, x in weights.items()})
+        batches[where] = []
+        for i in range(steps):
+            toks, labels = stream.batch(i)
+            b = {"tokens": torch.as_tensor(toks, device=where),
+                 "labels": torch.as_tensor(labels, device=where)}
+            batches[where].append(agent_batch(b, agents) if ccfg else b)
+    routes = [] if routes is None else routes
+    metrics = lambda m: {k: float(m[k]) for k in keys}
+    cpu, free, forced, routed = [], [], [], []
+    for i in range(steps):
+        routes.clear()
+        state = state_on(states["cpu"], dev)
+        state, m = fns[dev](state, batches[dev][i])
+        card_routes = list(routes)
+        pair = [metrics(m)]
+        if i + 1 < steps:
+            pair.append(metrics(fns[dev](state, batches[dev][i + 1])[1]))
+        forced.append(pair)
+        del state
+        states[dev], m = fns[dev](states[dev], batches[dev][i])
+        free.append(metrics(m))
+        routes.clear()
+        states["cpu"], m = fns["cpu"](states["cpu"], batches["cpu"][i])
+        cpu.append(metrics(m))
+        routed.append((card_routes, list(routes)))
+    torch.cuda.synchronize()
+    rel = lambda a, c: abs(a["loss"] - c["loss"]) / abs(c["loss"])
+    return {
+        "cpu": cpu, "free": free, "forced": forced, "routed": routed,
+        "same": all(a[k] == c[k] for a, c in zip(free, cpu)
+                    for k in keys[1:]),
+        "same_forced": all(x[k] == c[k] for i, pair in enumerate(forced)
+                           for x, c in zip(pair, cpu[i:i + 2])
+                           for k in keys[1:]),
+        "worst_free": max(rel(a, c) for a, c in zip(free, cpu)),
+        "worst_step": max(rel(pair[0], cpu[i])
+                          for i, pair in enumerate(forced)),
+        "worst_next": max((rel(pair[1], cpu[i + 1])
+                           for i, pair in enumerate(forced[:-1])),
+                          default=0.0)}
+
+
+def hold_line(h, consensus, tol=TRAIN_SMALL_RTOL, free_tol=None):
+    """The log text of a `card_cpu_hold` result; True where it holds: each
+    step from the CPU's state within `tol`, and with `free_tol` the free
+    run's losses within it too."""
+    free = h["free"]
+    sent = (f"; free run: comms {[int(r['comms']) for r in free]}, "
+            f"send_frac {[r['send_frac'] for r in free]}, equal to the "
+            f"CPU's every step: {h['same']}; from the CPU's state: equal "
+            f"every step: {h['same_forced']}" if consensus else "")
+    held = (f"tol {free_tol:g}" if free_tol is not None else
+            "not held: fp32 order alone parts two runs by as much")
+    text = (f"free-run losses {free[0]['loss']:.5f} -> "
+            f"{free[-1]['loss']:.5f}, max relative difference to the CPU's "
+            f"{h['worst_free']:.3e} ({held}); from the CPU's state each "
+            f"step: that step's loss {h['worst_step']:.3e}, the next step's "
+            f"after the card's update {h['worst_next']:.3e} (tol {tol:g})"
+            f"{sent}")
+    ok = (h["same"] and h["same_forced"]
+          and h["worst_step"] <= tol and h["worst_next"] <= tol
+          and (free_tol is None or h["worst_free"] <= free_tol))
+    return text, ok
+
+
+def timed_steps(tag, step_fns, state, batches, want, reset_counts, counts):
+    """Train steps timed one by one (CUDA events and the host clock), the
+    launch counts over them held to `want` and the losses to finite ones;
+    returns (state, [(metrics, dev ms, host ms)])."""
+    rows = []
+    reset_counts()
+    for fn, batch in zip(step_fns, batches):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = fn(state, batch)
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        rows.append(({k: float(v) for k, v in m.items()},
+                     start.elapsed_time(end), host))
+    got = {k: v for k, v in counts().items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{tag} launched {got}, expected {want}")
+    losses = [r[0]["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    return state, rows
 
 
 def train_phase(dev, card, reset_counts, counts, *, peaks):
@@ -4765,89 +5039,18 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
     from repro_torch.distributed.consensus import ConsensusConfig
-    from repro_torch.kernels.flash_attention import flash_attention as k4
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.models import model as M
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train.steps import agent_batch, make_train_step
     from torch.profiler import ProfilerActivity, profile
 
-    bw, tf32 = peaks[0], peaks[3]
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(20)
     flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
-    t = lambda x: x.transpose(1, 2)
 
-    def hold_k7(tag, B, H, KV, S, D, window, timed):
-        """K7 at one shape against its plain version, within K7_RTOL of each
-        gradient's max; where `timed`, its cold-L2 time beside its bound,
-        the plain version and SDPA's backward. Returns the kernels line's
-        entry for this shape."""
-        q, k, v, do = k7_operands(gen, dev, B, H, KV, S, D)
-        lse = torch.empty((B, H, S), device=dev)
-        out = k4.launch(q, k, v, heads_dim=2, causal=True, window=window,
-                        lse=lse)
-
-        def bwd():
-            return k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True,
-                                    window=window)
-
-        got = bwd()
-        want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
-                                 causal=True, window=window)
-        errs, rel = [], []
-        for g, w in zip(got, want):
-            e = float((g - t(w)).abs().max())
-            errs.append(e)
-            rel.append(e / float(w.abs().max()))
-        del got, want
-        log(20, f"K7 {tag} (B={B}, S={S}, H={H}, KV={KV}, D={D}, causal, "
-                f"window={window}): max|err| dq {errs[0]:.3e}, dk "
-                f"{errs[1]:.3e}, dv {errs[2]:.3e}; relative to each max "
-                f"{max(rel):.3e} (tol {K7_RTOL:g})")
-        if not max(rel) <= K7_RTOL:
-            raise AssertionError(f"K7 disagrees with its plain version at "
-                                 f"the {tag} shape")
-        if not timed:
-            return None
-        big = S > 1000
-        ms = flushed_ms(bwd, flush, reps=5 if big else 50,
-                        warmup=1 if big else 3)
-        pairs = admissible_pairs(S, window)
-        # the backward's five products (S and dP recomputed once, dV, dK,
-        # dQ): 2.5 x the forward's 4 D flops a pair, at the least
-        # fp32-accurate route, 3xTF32 (three TF32 MMAs a product) on the
-        # tensor cores; its bytes: q, o, dO read and dQ written (4 of (B,
-        # S, H, D)), k, v read and dK, dV written (4 of (B, S, KV, D)), L
-        # read
-        flops = 10.0 * D * pairs * B * H
-        nbytes = 4.0 * (B * S * D * (4 * H + 4 * KV) + B * H * S)
-        t_f, t_b = 3 * flops / tf32 * 1e3, nbytes / bw * 1e3
-        b_ms, b_by = (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
-        plan = k7.device_plan(q, k)
-        plain_ms = time_ms(lambda: attention_bwd_ref(
-            t(q), t(k), t(v), t(out), t(do), causal=True, window=window),
-            reps=1, runs=3, warmup=1)
-        lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window)
-        log(20, f"[{card}] K7 at the {tag} shape: {ms:.4f} ms with a cold "
-                f"L2, bound {b_ms:.4f} ms ({b_by}: 3 x {flops / 1e12:.4f} "
-                f"TFLOP at {tf32 / 1e12:g} TFLOP/s, 3xTF32, "
-                f"{nbytes / 1e9:.4f} GB at {bw / 1e12:g} TB/s; "
-                f"{b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
-                f"library {lib_ms:.4f} ms ({lib_how}); plan: dK/dV "
-                f"{plan.kv.rows}-key tiles, {plan.kv.warps} warps "
-                f"({plan.kv.rw}x{plan.kv.cw}), {plan.kv.step_rows} query "
-                f"rows a step, {plan.kv.smem} B, grid {plan.kv.grid}; dQ "
-                f"{plan.q.rows}-query tiles, {plan.q.warps} warps "
-                f"({plan.q.rw}x{plan.q.cw}), {plan.q.step_rows} key rows a "
-                f"step, {plan.q.smem} B, grid {plan.q.grid}")
-        return {"name": "flash_attention_bwd", "route": "cuda",
-                "source": KERNEL_SOURCES["flash_attention_bwd"][0],
-                "replaces": KERNEL_SOURCES["flash_attention_bwd"][1],
-                "launches": None, "max_abs_err": max(errs), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms}
+    def hold_k7(tag, *shape, timed):
+        return k7_hold(20, dev, card, gen, flush, peaks, tag, *shape,
+                       timed=timed)
 
     # ---- (a) K7 alone against its plain version --------------------------
     entry = None
@@ -4871,29 +5074,8 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
         return agent_batch(b, agents) if agents else b
 
     def run(tag, step_fns, state, batches, want):
-        """Steps timed one by one (CUDA events and the host clock), launch
-        counts over them; returns (state, [(metrics, dev ms, host ms)])."""
-        rows = []
-        reset_counts()
-        for fn, batch in zip(step_fns, batches):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            state, m = fn(state, batch)
-            end.record()
-            host = (time.perf_counter() - t0) * 1e3
-            end.synchronize()
-            rows.append(({k: float(v) for k, v in m.items()},
-                         start.elapsed_time(end), host))
-        got = {k: v for k, v in counts().items() if v}
-        if got != {k: v for k, v in want.items() if v}:
-            raise AssertionError(f"{tag} launched {got}, expected {want}")
-        losses = [r[0]["loss"] for r in rows]
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{tag}: losses {losses}")
-        return state, rows
+        return timed_steps(tag, step_fns, state, batches, want,
+                           reset_counts, counts)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4992,38 +5174,21 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
     for fused in (False, True):
         ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
                                censor_mu=0.5, use_fused_kernel=fused)
-        runs = {}
-        for where in ("cpu", dev):
-            init_fn, step_fn, _ = make_train_step(small, OptConfig(lr=3e-3),
-                                                  ccfg, num_agents=4)
-            state = init_fn({k: x.to(where) for k, x in weights.items()})
-            batches = []
-            for i in range(TRAIN_SMALL_STEPS):
-                toks, labels = small_stream.batch(i)
-                batches.append(agent_batch(
-                    {"tokens": torch.as_tensor(toks, device=where),
-                     "labels": torch.as_tensor(labels, device=where)}, 4))
-            steps = TRAIN_SMALL_STEPS
-            want = ({} if where == "cpu" else
-                    {"flash_attention": 4 * small.num_layers * steps,
-                     "flash_attention_bwd": 4 * small.num_layers * steps,
-                     "coke_fused_update": steps if fused else 0})
-            _, rows = run(f"the reduced coke run on {where}",
-                          [step_fn] * steps, state, batches, want)
-            runs[str(where)] = [r[0] for r in rows]
-        cpu, gpu = runs["cpu"], runs[str(dev)]
-        same = all(a["comms"] == b["comms"] and a["send_frac"] ==
-                   b["send_frac"] for a, b in zip(gpu, cpu))
-        worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                    for a, b in zip(gpu, cpu))
-        log(20, f"reduced {LM_ARCH}, 4 agents, coke v=20 mu=0.5, "
-                f"{TRAIN_SMALL_STEPS} steps{' with K3' if fused else ''}: "
-                f"card comms {[int(r['comms']) for r in gpu]}, send_frac "
-                f"{[r['send_frac'] for r in gpu]}; equal to the CPU's every "
-                f"step: {same}; losses {gpu[0]['loss']:.5f} -> "
-                f"{gpu[-1]['loss']:.5f}, max relative difference to the "
-                f"CPU's {worst:.3e} (tol {TRAIN_SMALL_RTOL:g})")
-        if not (same and worst <= TRAIN_SMALL_RTOL):
+        steps = TRAIN_SMALL_STEPS
+        reset_counts()
+        h = card_cpu_hold(dev, small, weights, small_stream, ccfg, 4, steps)
+        n = 4 * small.num_layers * (3 * steps - 1)
+        want = {"flash_attention": n, "flash_attention_bwd": n,
+                "coke_fused_update": 3 * steps - 1 if fused else 0}
+        seen = {k: v for k, v in counts().items() if v}
+        if seen != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"the reduced coke run launched {seen}, "
+                                 f"expected {want}")
+        text, ok = hold_line(h, True, free_tol=TRAIN_SMALL_RTOL)
+        log(20, f"reduced {LM_ARCH}, 4 agents, coke v=20 mu=0.5, {steps} "
+                f"steps{' with K3' if fused else ''}: {text}; K4 and K7 {n} "
+                f"launches each{f', K3 {3 * steps - 1}' if fused else ''}")
+        if not ok:
             raise AssertionError("the reduced coke run differs between card "
                                  "and CPU")
 
@@ -5040,26 +5205,9 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
                 if c.arch_type == "hybrid" else 0)
 
     # ---- (f) the reduced SSM model and hybrid, card against CPU -----------
-    # Two fp32 runs of 20 AdamW steps part chaotically: with no kernel at
-    # all (the plain attention on the card) the reduced qwen3 and zamba2
-    # part from the CPU by 0.95-1.3e-4 (scripts/train_probe.py). So the
-    # free-running runs are held to equal comms and send_frac, and the
-    # losses are held step by step from the CPU's state: at each step the
-    # card takes the CPU's state, runs that step and the next, and both
-    # losses (the second after the card's own backward and update) must
-    # lie within TRAIN_SMALL_RTOL of the CPU's.
-    def on(tree, where):
-        """A copy of a train state on `where`."""
-        if isinstance(tree, dict):
-            return {k: on(x, where) for k, x in tree.items()}
-        if isinstance(tree, tuple):
-            items = [on(x, where) for x in tree]
-            return type(tree)(*items) if hasattr(tree, "_fields") \
-                else tuple(items)
-        if isinstance(tree, torch.Tensor):
-            return tree.to(where, copy=True)
-        return tree
-
+    # held as (d), but for the free-running losses, which are printed: free
+    # runs to equal comms and send_frac, the losses step by step from the
+    # CPU's state (`card_cpu_hold`)
     k4_launches = k7_launches = 0
     for arch, over in TRAIN_SSM_REDUCED:
         small = get_config(arch).reduced().with_overrides(**over)
@@ -5074,78 +5222,26 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
                                     censor_mu=0.5)
                     if strategy == "coke" else None)
             steps = TRAIN_SMALL_STEPS
-            fns, states, batches = {}, {}, {}
-            for where in ("cpu", dev):
-                init_fn, fns[where], _ = make_train_step(
-                    small, OptConfig(lr=3e-3), ccfg, num_agents=agents)
-                states[where] = init_fn({k: x.to(where)
-                                         for k, x in weights.items()})
-                batches[where] = []
-                for i in range(steps):
-                    toks, labels = small_stream.batch(i)
-                    b = {"tokens": torch.as_tensor(toks, device=where),
-                         "labels": torch.as_tensor(labels, device=where)}
-                    batches[where].append(agent_batch(b, agents) if ccfg
-                                          else b)
-            keys = ("loss", "comms", "send_frac") if ccfg else ("loss",)
-            cpu, free, forced = [], [], []
             reset_counts()
-            for i in range(steps):
-                state = on(states["cpu"], dev)
-                state, m = fns[dev](state, batches[dev][i])
-                pair = [m]
-                if i + 1 < steps:
-                    pair.append(fns[dev](state, batches[dev][i + 1])[1])
-                forced.append([{k: float(x[k]) for k in keys}
-                               for x in pair])
-                del state
-                states[dev], m = fns[dev](states[dev], batches[dev][i])
-                free.append({k: float(m[k]) for k in keys})
-                states["cpu"], m = fns["cpu"](states["cpu"],
-                                              batches["cpu"][i])
-                cpu.append({k: float(m[k]) for k in keys})
-            torch.cuda.synchronize()
+            h = card_cpu_hold(dev, small, weights, small_stream, ccfg,
+                              agents, steps)
             n = agents * apps * (3 * steps - 1)
             seen = {k: v for k, v in counts().items() if v}
             if seen != {k: n for k in ("flash_attention",
                                        "flash_attention_bwd") if n}:
                 raise AssertionError(f"reduced {arch} {strategy} launched "
                                      f"{seen}, expected K4 = K7 = {n}")
-            same = all(a[k] == c[k] for a, c in zip(free, cpu)
-                       for k in keys[1:])
-            same_forced = all(x[k] == c[k]
-                              for i, pair in enumerate(forced)
-                              for x, c in zip(pair, cpu[i:i + 2])
-                              for k in keys[1:])
-            rel = lambda a, c: abs(a["loss"] - c["loss"]) / abs(c["loss"])
-            worst_free = max(rel(a, c) for a, c in zip(free, cpu))
-            worst_step = max(rel(pair[0], cpu[i])
-                             for i, pair in enumerate(forced))
-            worst_next = max(rel(pair[1], cpu[i + 1])
-                             for i, pair in enumerate(forced[:-1]))
             heads = (f", shared block Dh = Dv = {small.resolved_head_dim}"
                      if apps else "")
-            sent = (f"; free run: comms {[int(r['comms']) for r in free]}, "
-                    f"send_frac {[r['send_frac'] for r in free]}, equal to "
-                    f"the CPU's every step: {same}; from the CPU's state: "
-                    f"equal every step: {same_forced}" if ccfg else "")
+            text, ok = hold_line(h, ccfg is not None)
             log(20, f"(f) reduced {arch}{heads}, {strategy}, {agents} "
-                    f"agent(s), {steps} steps: free-run losses "
-                    f"{free[0]['loss']:.5f} -> {free[-1]['loss']:.5f}, "
-                    f"max relative difference to the CPU's {worst_free:.3e}"
-                    f" (not held: fp32 order alone parts two runs by as "
-                    f"much); from the CPU's state each step: that step's "
-                    f"loss {worst_step:.3e}, the next step's after the "
-                    f"card's update {worst_next:.3e} (tol "
-                    f"{TRAIN_SMALL_RTOL:g}){sent}; K4 and K7 {n} launches "
-                    "each")
-            if not (same and same_forced and worst_step <= TRAIN_SMALL_RTOL
-                    and worst_next <= TRAIN_SMALL_RTOL):
+                    f"agent(s), {steps} steps: {text}; K4 and K7 {n} "
+                    "launches each")
+            if not ok:
                 raise AssertionError(f"reduced {arch} {strategy} training "
                                      "differs between card and CPU")
             k4_launches += n
             k7_launches += n
-            del states
         del weights
 
     # ---- (g) full-width mamba2 and zamba2, allreduce, one at a time --------
@@ -5219,6 +5315,181 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
             f"{k7_launches}; phase 20 took "
             f"{time.perf_counter() - t_phase:.1f} s")
     return entry, k4_launches
+
+
+def moe_mla_train_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 25: the MoE and MLA families trained on the card through K4 and
+    K7 at Dh != Dv. (a) K7 against its plain version at MLA's head dims
+    (K7_MLA_SHAPES), timed with a cold L2 beside its bound, the plain
+    version and SDPA's backward; (b) the reduced granite-3-8b,
+    mixtral-8x7b, minicpm3-4b and deepseek-v2-lite-16b, allreduce and coke
+    (v=20, mu=0.5) at 4 agents, card against CPU from the same weights:
+    at each step the card takes the CPU's state, and every MoE layer's
+    expert indices and drop set, comms and send_frac, and the losses of
+    that step and the next lie with the CPU's; (c) full-width
+    deepseek-v2-lite, minicpm3 and mixtral, allreduce, the depth cut to
+    TRAIN_MOE_MLA_FULL, one model drawn, stepped and freed at a time.
+    Returns (K7's launches and largest error, K4's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
+    k7_err = 0.0
+
+    # ---- (a) K7 at MLA's head dims, alone ----------------------------------
+    for tag, (B, H, KV, S, D, window, Dv) in K7_MLA_SHAPES.items():
+        entry = k7_hold(25, dev, card, gen, flush, peaks, tag, B, H, KV, S,
+                        D, window, timed=True, Dv=Dv)
+        k7_err = max(k7_err, entry["max_abs_err"])
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- (b) the reduced families, card against CPU -----------------------
+    # The router's choice is discontinuous: the card's and the CPU's
+    # routing are held equal at every step from the CPU's state first, then
+    # the losses; a flip is printed with its margin and the seed.
+    routes = []
+    route = moe_mod.route
+
+    def recorded(router, cfg, xg, capacity):
+        r = route(router, cfg, xg, capacity)
+        top = torch.sort(r.probs.detach(), dim=-1, descending=True)[0]
+        margin = float((top[..., cfg.top_k - 1] - top[..., cfg.top_k]).min())
+        routes.append((r.expert_idx.cpu(), r.keep.cpu(), margin))
+        return r
+
+    k4_launches = k7_launches = 0
+    moe_mod.route = recorded
+    try:
+        for arch in TRAIN_MOE_MLA_REDUCED:
+            small = get_config(arch).reduced()
+            weights = M.param_dict(M.init_params(
+                small, torch.Generator().manual_seed(0)))
+            small_stream = TokenStream(TokenStreamConfig(
+                vocab_size=small.vocab_size, seq_len=TRAIN_MOE_MLA_SEQ,
+                global_batch=8, structure=0.9))
+            heads = (f"MLA Dh {small.qk_nope_dim + small.qk_rope_dim} / Dv "
+                     f"{small.v_head_dim}" if small.attn_kind == "mla" else
+                     f"GQA {small.num_heads}/{small.num_kv_heads} of "
+                     f"{small.resolved_head_dim}")
+            moe = (f", MoE {small.num_experts} experts top-{small.top_k}"
+                   if small.is_moe else "")
+            window = (f", window {small.sliding_window}"
+                      if small.sliding_window else "")
+            for strategy, agents in (("allreduce", 1), ("coke", 4)):
+                ccfg = (ConsensusConfig(strategy="coke", rho=1e-3,
+                                        censor_v=20.0, censor_mu=0.5)
+                        if strategy == "coke" else None)
+                steps = TRAIN_MOE_MLA_STEPS
+                reset_counts()
+                h = card_cpu_hold(dev, small, weights, small_stream, ccfg,
+                                  agents, steps, routes=routes)
+                same_routes, margin, flips = True, math.inf, []
+                for i, (card_routes, cpu_routes) in enumerate(h["routed"]):
+                    if len(card_routes) != len(cpu_routes):
+                        raise AssertionError(f"reduced {arch} {strategy} step"
+                                             f" {i}: {len(card_routes)} MoE "
+                                             f"routings on the card, "
+                                             f"{len(cpu_routes)} on the CPU")
+                    for layer, (a, c) in enumerate(zip(card_routes,
+                                                       cpu_routes)):
+                        margin = min(margin, c[2])
+                        if not (torch.equal(a[0], c[0])
+                                and torch.equal(a[1], c[1])):
+                            same_routes = False
+                            flips.append((i, layer, c[2]))
+                # K4 and K7 once per layer of each agent's forward
+                n = agents * small.num_layers * (3 * steps - 1)
+                seen = {k: v for k, v in counts().items() if v}
+                if seen != {"flash_attention": n, "flash_attention_bwd": n}:
+                    raise AssertionError(f"reduced {arch} {strategy} launched "
+                                         f"{seen}, expected K4 = K7 = {n}")
+                routing = ""
+                if small.is_moe:
+                    routing = (f"; routing from the CPU's state, every MoE "
+                               f"layer's expert indices and drop set equal "
+                               f"the CPU's at every step: {same_routes}, "
+                               f"smallest top-{small.top_k} margin "
+                               f"{margin:.3e}")
+                    for i, layer, mg in flips:
+                        routing += (f"; flip at step {i}, routing {layer}, "
+                                    f"margin {mg:.3e} (weights seed 0, "
+                                    f"stream seed {small_stream.cfg.seed})")
+                text, ok = hold_line(h, ccfg is not None,
+                                     tol=TRAIN_MOE_MLA_RTOL)
+                log(25, f"(b) reduced {arch} ({heads}{moe}{window}), "
+                        f"{strategy}, {agents} agent(s), {steps} steps of B=8"
+                        f" S={TRAIN_MOE_MLA_SEQ}: {text}{routing}; K4 and K7 "
+                        f"{n} launches each")
+                if not (same_routes and ok):
+                    raise AssertionError(f"reduced {arch} {strategy} training "
+                                         "differs between card and CPU")
+                k4_launches += n
+                k7_launches += n
+            del weights
+    finally:
+        moe_mod.route = route
+
+    # ---- (c) full width, allreduce, the depth cut, one model at a time ----
+    opt_cfg = OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    for arch, layers in TRAIN_MOE_MLA_FULL:
+        full = get_config(arch)
+        cfg_f = full.with_overrides(num_layers=layers)
+        n = TRAIN_STEPS
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, _ = make_train_step(cfg_f, opt_cfg)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(x.numel() for x in state["params"].values())
+        weights_gb = 4.0 * n_params / 1e9
+        f_stream = TokenStream(TokenStreamConfig(
+            vocab_size=cfg_f.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH))
+        batches = []
+        for i in range(n):
+            toks, labels = f_stream.batch(i)
+            batches.append({"tokens": torch.as_tensor(toks, device=dev),
+                            "labels": torch.as_tensor(labels, device=dev)})
+        state, rows = timed_steps(
+            f"(c) {arch}", [step_fn] * n, state, batches,
+            {"flash_attention": layers * n, "flash_attention_bwd": layers * n},
+            reset_counts, counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, batches
+        losses = [r[0]["loss"] for r in rows]
+        d_med = statistics.median(r[1] for r in rows[1:])
+        h_med = statistics.median(r[2] for r in rows[1:])
+        attn = (f"MLA Dh {cfg_f.qk_nope_dim + cfg_f.qk_rope_dim} / Dv "
+                f"{cfg_f.v_head_dim}" if cfg_f.attn_kind == "mla" else
+                f"GQA {cfg_f.num_heads}/{cfg_f.num_kv_heads} of "
+                f"{cfg_f.resolved_head_dim}")
+        log(25, f"[{card}] (c) {arch} allreduce at full width, {layers} of "
+                f"{full.num_layers} layers ({attn}"
+                f"{', MoE' if cfg_f.is_moe else ''}): {n_params / 1e9:.3f} B "
+                f"fp32 parameters, {weights_gb:.2f} GB, reckoned peak "
+                f"{TRAIN_PEAK_PER_WEIGHT:g} x = "
+                f"{TRAIN_PEAK_PER_WEIGHT * weights_gb:.1f} GB of the card's "
+                f"{total:.1f} GB; B={TRAIN_BATCH}, S={TRAIN_SEQ}: steps "
+                f"1-{n - 1} median device {d_med:.2f} ms, host {h_med:.2f} "
+                f"ms per step; K4 and K7 {layers} launches each per step; "
+                f"peak memory {peak:.2f} GB; losses "
+                f"{[round(x, 6) for x in losses]}")
+        k4_launches += layers * n
+        k7_launches += layers * n
+        torch.cuda.empty_cache()
+    log(25, f"[{card}] K4 and K7 launches over (b) and (c): {k4_launches}, "
+            f"{k7_launches}; K7's largest error over (a) {k7_err:.3e}; phase "
+            f"25 took {time.perf_counter() - t_phase:.1f} s")
+    return k7_launches, k7_err, k4_launches
 
 
 def lm_family_phase(dev, card, reset_counts, counts, *, peaks):
@@ -7337,7 +7608,22 @@ def main() -> int:
 
     # ---- 24. K4's fp32 accuracy at long rows and at full depth --------------
     k4_accuracy_phase(dev, card, reset_counts, counts)
-    log(24, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 25. MoE and MLA training through K4 and K7 at Dh != Dv -------------
+    k7_25, k7_err_25, k4_25 = moe_mla_train_phase(dev, card, reset_counts,
+                                                  counts, peaks=peaks)
+    for entry in kernels:       # K4 and K7 add phase 25's launches
+        if entry["name"] == "flash_attention_bwd":
+            log(25, f"flash_attention_bwd: launches {entry['launches']} and "
+                    f"max|err| {entry['max_abs_err']:.3e} over phase 20, "
+                    f"{k7_25} and {k7_err_25:.3e} over phase 25")
+            entry["launches"] += k7_25
+            entry["max_abs_err"] = max(entry["max_abs_err"], k7_err_25)
+        elif entry["name"] == "flash_attention":
+            log(25, f"flash_attention: {k4_25} launches over phase 25's "
+                    "training steps added")
+            entry["launches"] += k4_25
+    log(25, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7536,9 +7822,40 @@ def phase24_alone() -> int:
     return 0
 
 
+def phase25_alone() -> int:
+    """Phase 25 alone: build the kernels and run `moe_mla_train_phase`;
+    prints K7's launches and largest error and K4's launches, not the
+    result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    k7_launches, k7_err, k4_launches = moe_mla_train_phase(
+        dev, card, reset_counts, counts,
+        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps({"flash_attention_bwd": {"launches": k7_launches,
+                                              "max_abs_err": k7_err},
+                      "flash_attention": {"launches": k4_launches}}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
              "--phase21": phase21_alone, "--phase22": phase22_alone,
-             "--phase23": phase23_alone, "--phase24": phase24_alone}
+             "--phase23": phase23_alone, "--phase24": phase24_alone,
+             "--phase25": phase25_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

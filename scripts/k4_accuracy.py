@@ -3,7 +3,7 @@
 on a CUDA card.
 
     python3 scripts/k4_accuracy.py [--times] [--k7] [--rounds N] \
-        [NAME=SOURCE.cu ...]
+        [--k7-source NAME=SOURCE.cu ...] [NAME=SOURCE.cu ...]
 
 Builds K4 (`csrc/flash_attention.cu`) and each SOURCE, a K4 source with
 the same C entry points (for example an earlier design, from `git show
@@ -20,9 +20,15 @@ shapes, times the kernel and each source in turns, forward then backward
 the 3xTF32 bound; prints each median with the card's name and power limit.
 
 --k7: K7's dQ, dK and dV against the float64 backward at (1, S, 8/8, 128)
-causal, S = 1024 and 4096, on phase 24(a)'s operands (dO drawn as v is):
-each gradient's max|err| over its max|exact| and its mean signed error
-(err * sign(exact)) over its mean|exact|, beside the plain backward's.
+causal, S = 1024, 2048, 4096 and 8192 (or --k7-lengths), on phase 24(a)'s
+operands (dO drawn as v is): each gradient's max|err| over its max|exact|
+and its mean signed error (err * sign(exact)) over its mean|exact|, beside
+the plain backward's; for the kernel and each --k7-source, a K7 source
+with the kernel's C entry points (for an earlier design, its entry given
+the current `Dv` argument), built with the port's flags beside the kernel.
+With --times also K7 at qwen3's (2, 4096, 16/8, 128) and zamba2's (2,
+4096, 32/32, 80) causal shapes, the kernel and each --k7-source in turns
+(--rounds), each call with a cold L2 (`chip_smoke.flushed_ms`).
 
 Exits 2 without a card.
 """
@@ -47,28 +53,44 @@ sys.path.insert(0, str(ROOT))
 TIMED = (("qwen3-1.7b", 2, 16, 8, 4096, 128, 128),
          ("deepseek-v2-lite-16b", 2, 16, 16, 4096, 192, 128),
          ("zamba2-2.7b", 2, 32, 32, 4096, 80, 80))
-K7_LENGTHS = (1024, 4096)
+K7_LENGTHS = (1024, 2048, 4096, 8192)
+# (label, B, H, KV, S, D), causal fp32
+K7_TIMED = (("qwen3-1.7b", 2, 16, 8, 4096, 128),
+            ("zamba2-2.7b", 2, 32, 32, 4096, 80))
 
 
-def compile_source(name: str, src: Path) -> ctypes.CDLL:
-    """`src` built with the port's flags beside the kernel; prints its
-    ptxas report per instance."""
+def compile_sources(specs, kernel: str = "flash_attention"
+                    ) -> dict[str, ctypes.CDLL]:
+    """Each NAME=SOURCE.cu of `specs` built with the port's flags beside
+    the kernel, one nvcc each, all started together (a library newer than
+    its source is reused); prints each build's ptxas report per instance.
+    Returns {NAME: library}."""
     import chip_smoke
     from repro_torch.kernels import build
-    out = build.BUILD_DIR / "compare" / f"flash_attention-{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    res = subprocess.run([nvcc, *build.NVCC_FLAGS, "-o", str(out), str(src)],
-                         capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}"
-                           f"{res.stderr}")
-    for fn, props in chip_smoke.ptxas_report(res.stdout + res.stderr).items():
-        print(f"{name} ptxas {fn}: {props}", flush=True)
-    lib = ctypes.CDLL(str(out))
-    lib.error_string.restype = ctypes.c_char_p
-    lib.error_string.argtypes = [ctypes.c_int]
-    return lib
+    jobs = {}
+    for spec in specs:
+        name, src = spec.split("=", 1)
+        out = build.BUILD_DIR / "compare" / f"{kernel}-{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fresh = (out.exists()
+                 and out.stat().st_mtime >= Path(src).stat().st_mtime)
+        jobs[name] = (out, src, None if fresh else subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, src, proc) in jobs.items():
+        if proc is not None:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+            for fn, props in chip_smoke.ptxas_report(log).items():
+                print(f"{name} ptxas {fn}: {props}", flush=True)
+        lib = ctypes.CDLL(str(out))
+        lib.error_string.restype = ctypes.c_char_p
+        lib.error_string.argtypes = [ctypes.c_int]
+        libs[name] = lib
+    return libs
 
 
 def exact_backward(q, k, v, do, heads_at_once=2):
@@ -95,14 +117,19 @@ def exact_backward(q, k, v, do, heads_at_once=2):
     return tuple(torch.cat(x, dim=1) for x in outs)
 
 
-def k7_drift(dev):
+def k7_drift(dev, libs, card, lengths=K7_LENGTHS):
+    """K7's error along the row against float64 at each S of `lengths`,
+    for each K7 library in `libs` (name -> library) swapped in as the one
+    `gqa_flash_bwd` launches. Past 8192 rows the plain and float64
+    backwards run one head at a time."""
     import chip_smoke
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     t = lambda x: x.transpose(1, 2)
     H, D = chip_smoke.K4_CURVE_HEADS, 128
-    for S in K7_LENGTHS:
+    for S in lengths:
         gen = torch.Generator(device=dev).manual_seed(24)
         q, k = (torch.randn((1, S, H, D), generator=gen, device=dev)
                 for _ in range(2))
@@ -110,25 +137,71 @@ def k7_drift(dev):
                  for _ in range(2))
         lse = torch.empty((1, H, S), device=dev)
         out = k4.launch(q, k, v, heads_dim=2, causal=True, window=0, lse=lse)
-        got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
-        plain = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
-                                  causal=True)
-        exact = exact_backward(t(q), t(k), t(v), t(do))
-        parts = []
-        for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-            sign, big, mean = e.sign(), float(e.abs().max()), \
-                float(e.abs().mean())
-            stats = []
-            for x in (t(g), p):
-                d = x.double() - e
-                stats.append((float(d.abs().max()) / big,
-                              float((d * sign).mean()) / mean))
-            parts.append(f"{name} K7 max|err| {stats[0][0]:.3e} of max, mean "
-                         f"signed {stats[0][1]:+.3e} of mean|exact|; plain "
-                         f"{stats[1][0]:.3e}, {stats[1][1]:+.3e}")
-        print(f"K7 (1, {S}, {H}/{H}, {D}) causal fp32 against float64: "
-              + "; ".join(parts), flush=True)
-        del q, k, v, do, lse, out, got, plain, exact
+        hs = 2 if S <= 8192 else 1
+        plain = [torch.cat(x, dim=1) for x in zip(*(
+            attention_bwd_ref(*(t(x)[:, h:h + hs]
+                                for x in (q, k, v, out, do)), causal=True)
+            for h in range(0, H, hs)))]
+        exact = exact_backward(t(q), t(k), t(v), t(do), heads_at_once=hs)
+
+        def stats(x, e):
+            d = x.double() - e
+            return (float(d.abs().max()) / float(e.abs().max()),
+                    float((d * e.sign()).mean()) / float(e.abs().mean()))
+
+        ref = [stats(p, e) for p, e in zip(plain, exact)]
+        for name, lib in libs.items():
+            build._LIBS["flash_attention_bwd"] = lib
+            got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
+            parts = []
+            for gname, g, e, r in zip(("dq", "dk", "dv"), got, exact, ref):
+                m = stats(t(g), e)
+                parts.append(f"{gname} max|err| {m[0]:.3e} of max, mean "
+                             f"signed {m[1]:+.3e} of mean|exact| (plain "
+                             f"{r[0]:.3e}, {r[1]:+.3e})")
+            print(f"[{card}] K7 {name} (1, {S}, {H}/{H}, {D}) causal fp32 "
+                  f"against float64: " + "; ".join(parts), flush=True)
+            del got
+        del q, k, v, do, lse, out, plain, exact
+        torch.cuda.empty_cache()
+    build._LIBS["flash_attention_bwd"] = libs["kernel"]
+
+
+def k7_times(dev, libs, card, rounds):
+    """K7 at K7_TIMED's shapes, each library of `libs` in turns (the order
+    reversed every other round), each call with a cold L2."""
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    flush = torch.empty(64 * 2**20, device=dev)
+    names = list(libs)
+    for label, B, H, KV, S, D in K7_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(28)
+        q, k, v, do = chip_smoke.k7_operands(gen, dev, B, H, KV, S, D)
+        lse = torch.empty((B, H, S), device=dev)
+        out = k4.launch(q, k, v, heads_dim=2, causal=True, window=0, lse=lse)
+        times = {name: [] for name in names}
+        for r in range(rounds):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                build._LIBS["flash_attention_bwd"] = libs[name]
+                times[name].append(chip_smoke.flushed_ms(
+                    lambda: k7.gqa_flash_bwd(q, k, v, out, do, lse,
+                                             causal=True),
+                    flush, reps=5, warmup=1))
+        for name in names:
+            build._LIBS["flash_attention_bwd"] = libs[name]
+            passes = "; ".join(
+                f"{kms:.4f}" for kms, _, _ in chip_smoke.profiled_kernels(
+                    lambda: k7.gqa_flash_bwd(q, k, v, out, do, lse,
+                                             causal=True), calls=3))
+            print(f"[{card}] K7 {name} at {label}'s (B={B}, S={S}, H={H}, "
+                  f"KV={KV}, Dh=Dv={D}, causal, fp32): "
+                  f"{statistics.median(times[name]):.4f} ms cold L2 (runs "
+                  f"{', '.join(f'{x:.4f}' for x in times[name])}; warm by "
+                  f"kernel, largest first: {passes})", flush=True)
+        build._LIBS["flash_attention_bwd"] = libs["kernel"]
+        del q, k, v, do, lse, out
         torch.cuda.empty_cache()
 
 
@@ -137,6 +210,10 @@ def main() -> int:
     ap.add_argument("--times", action="store_true")
     ap.add_argument("--k7", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--k7-lengths", default=",".join(map(str, K7_LENGTHS)),
+                    help="--k7's row counts, comma-separated")
+    ap.add_argument("--k7-source", action="append", default=[],
+                    metavar="NAME=SOURCE.cu")
     ap.add_argument("sources", nargs="*", metavar="NAME=SOURCE.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -154,14 +231,15 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     report = build.build(("flash_attention", "flash_attention_bwd"))
-    for fn, props in chip_smoke.ptxas_report(
-            report["flash_attention"]["log"]).items():
-        print(f"kernel ptxas {fn}: {props}", flush=True)
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        for fn, props in chip_smoke.ptxas_report(
+                report[kernel]["log"]).items():
+            print(f"kernel ptxas {fn}: {props}", flush=True)
     dev = torch.device("cuda", 0)
+    k7_libs = {"kernel": build.load("flash_attention_bwd", {})}
+    k7_libs.update(compile_sources(args.k7_source, "flash_attention_bwd"))
     libs = {"kernel": build.load("flash_attention", {})}
-    for spec in args.sources:
-        name, src = spec.split("=", 1)
-        libs[name] = compile_source(name, Path(src))
+    libs.update(compile_sources(args.sources))
 
     def use(name):
         build._LIBS["flash_attention"] = libs[name]
@@ -173,7 +251,10 @@ def main() -> int:
                   flush=True)
     use("kernel")
     if args.k7:
-        k7_drift(dev)
+        k7_drift(dev, k7_libs, card,
+                 tuple(int(x) for x in args.k7_lengths.split(",")))
+        if args.times:
+            k7_times(dev, k7_libs, card, args.rounds)
     if args.times:
         peaks = chip_smoke.card_peaks(torch.cuda.get_device_name(0))
         t = lambda x: x.transpose(1, 2)

@@ -3,8 +3,10 @@
 report per instance and its tensor-core instructions, hold every instance
 against the plain backward (`ref.attention_bwd_ref`) at the card tests'
 shapes, and time each instance at the training shape (B=8, S=64, 16/8
-heads of 128) and the prefill shape (2 x 4096) beside the backward of
-F.scaled_dot_product_attention, in one call.
+heads of 128), the prefill shape (2 x 4096) and MLA's (2 x 4096 at
+deepseek-v2-lite's 16/16 heads of Dh 192 / Dv 128 and minicpm3-4b's 40/40
+of 96 / 64) beside the backward of F.scaled_dot_product_attention, in one
+call.
 
     python3 scripts/k7_probe.py [--quick]
 
@@ -24,7 +26,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (B, H, KV, Sq, Sk, D, causal, window): tests/test_torch_cuda.py's
+# (B, H, KV, Sq, Sk, D, causal, window[, Dv]): tests/test_torch_cuda.py's
 # ATTN_BWD_SHAPES
 SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
           (2, 16, 8, 1000, 1000, 128, True, 256),
@@ -39,8 +41,17 @@ SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
           (2, 4, 2, 17, 17, 1, True, 0),
           (1, 4, 2, 17, 17, 128, True, 0),
           (1, 4, 2, 33, 33, 64, False, 0),
+          (8, 32, 32, 64, 64, 80, True, 0),
+          (2, 4, 4, 300, 300, 80, True, 0),
+          (8, 16, 16, 64, 64, 192, True, 0, 128),
+          (2, 40, 40, 300, 300, 96, True, 0, 64),
+          (2, 4, 4, 77, 77, 48, True, 16, 32),
           (2, 16, 8, 4096, 4096, 128, True, 0)]
-TIMED = {"training": (8, 16, 8, 64, 128), "prefill": (2, 16, 8, 4096, 128)}
+# name -> (B, H, KV, S, Dh, Dv), causal
+TIMED = {"training": (8, 16, 8, 64, 128, 128),
+         "prefill": (2, 16, 8, 4096, 128, 128),
+         "deepseek prefill": (2, 16, 16, 4096, 192, 128),
+         "minicpm3 prefill": (2, 40, 40, 4096, 96, 64)}
 
 
 def main() -> int:
@@ -77,43 +88,46 @@ def main() -> int:
     t = lambda x: x.transpose(1, 2)
     bad = 0
 
-    def operands(B, H, KV, Sq, Sk, D, causal, window):
+    def operands(B, H, KV, Sq, Sk, D, causal, window, Dv=None):
+        Dv = D if Dv is None else Dv
         q = torch.randn((B, Sq, H, D), generator=gen, device=dev)
         k = torch.randn((B, Sk, KV, D), generator=gen, device=dev)
-        v = torch.randn((B, Sk, KV, D), generator=gen, device=dev)
-        do = torch.randn((B, Sq, H, D), generator=gen, device=dev)
+        v = torch.randn((B, Sk, KV, Dv), generator=gen, device=dev)
+        do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev)
         lse = torch.empty((B, H, Sq), device=dev)
         out = k4.launch(q, k, v, heads_dim=2, causal=causal, window=window,
                         lse=lse)
         return q, k, v, do, out, lse
 
-    def plans(q, k, every):
+    def plans(q, k, v, every):
         """The device's plan, then (with `every`) each built instance of
         each pass beside the plan's instance of the other."""
-        base = k7.device_plan(q, k)
+        base = k7.device_plan(q, k, v)
         yield "plan", base
         if not every:
             return
         B, H, Sq, KV, Sk = q.shape[0], q.shape[2], q.shape[1], k.shape[2], \
             k.shape[1]
+        wh, wv = base.width, base.width_v
         for kvp in (True, False):
             mine = base.kv if kvp else base.q
-            for inst in k7.INSTANCES[base.width]:
+            for inst in k7.instances(wh, wv):
                 if inst == mine.instance:
                     continue
-                pp = k7.pass_plan(base.width, inst, kvp, Sk if kvp else Sq,
-                                  B * (KV if kvp else H))
+                pp = k7.pass_plan(wh, inst, kvp, Sk if kvp else Sq,
+                                  B * (KV if kvp else H), wv)
                 yield (f"{'kv' if kvp else 'q'}={inst}",
-                       k7.AttentionBwdPlan(base.width, base.columns,
+                       k7.AttentionBwdPlan(wh, base.columns,
                                            pp if kvp else base.kv,
-                                           base.q if kvp else pp))
+                                           base.q if kvp else pp,
+                                           base.width_v))
 
     for shape in SHAPES:
-        B, H, KV, Sq, Sk, D, causal, window = shape
+        B, H, KV, Sq, Sk, D, causal, window = shape[:8]
         q, k, v, do, out, lse = operands(*shape)
         want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
                                  causal=causal, window=window)
-        for tag, plan in plans(q, k, not quick):
+        for tag, plan in plans(q, k, v, not quick):
             got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
                                    window=window, plan=plan)
             again = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
@@ -132,10 +146,10 @@ def main() -> int:
         return 1 if bad else 0
 
     flush = torch.empty(64 * 2**20, device=dev)
-    for name, (B, H, KV, S, D) in TIMED.items():
-        q, k, v, do, out, lse = operands(B, H, KV, S, S, D, True, 0)
+    for name, (B, H, KV, S, D, Dv) in TIMED.items():
+        q, k, v, do, out, lse = operands(B, H, KV, S, S, D, True, 0, Dv)
         big = S > 1000
-        for tag, plan in plans(q, k, True):
+        for tag, plan in plans(q, k, v, True):
             ms = chip_smoke.flushed_ms(
                 lambda: k7.gqa_flash_bwd(q, k, v, out, do, lse, plan=plan),
                 flush, reps=5 if big else 50, warmup=1 if big else 3)
@@ -147,7 +161,8 @@ def main() -> int:
             print(f"[{card}] K7 {name} {tag} {plan.args()}: {ms:.4f} ms "
                   f"cold L2 (warm, by kernel: {passes})", flush=True)
         lib_ms, how = chip_smoke.k7_library_ms(t(q), t(k), t(v), t(do), 0)
-        print(f"[{card}] SDPA backward {name}: {lib_ms:.4f} ms ({how})",
+        print(f"[{card}] SDPA backward {name}: "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({how})",
               flush=True)
         del q, k, v, do, out, lse
     return 1 if bad else 0

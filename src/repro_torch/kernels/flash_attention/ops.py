@@ -72,7 +72,8 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, Dh); k/v: (B, Sk, KV, *) -> (B, Sq, H, Dv).
     `block_q` and `block_k` are accepted and checked, as in
     `flash_attention`, and size nothing. Differentiable (`FlashAttention`);
-    on the card the backward takes fp32 with Dh == Dv and raises
+    on the card the backward takes fp32 at the head-dim widths K7 is built
+    for (`flash_attention_bwd.check_operands`) and raises
     NotImplementedError, before the forward launches, on the rest."""
     fa.check_operands(q, k, v, heads_dim=2, causal=causal, window=window,
                       block_q=block_q, block_k=block_k)

@@ -127,3 +127,105 @@ def test_bad_shapes_raise(bad):
     shape = dict(B=1, H=4, KV=2, Sq=16, Sk=16, D=64) | bad
     with pytest.raises(ValueError):
         k7.attention_bwd_plan(**shape, sm_count=SMS, smem_per_block=SMEM)
+
+
+# Dh != Dv (MLA): (B, H, KV, Sq, Sk, Dh, Dv) at deepseek-v2-lite's and
+# minicpm3-4b's training and prefill shapes, and the reduced models' heads
+MLA_SHAPES = [(8, 16, 16, 64, 64, 192, 128), (2, 16, 16, 4096, 4096, 192, 128),
+              (8, 40, 40, 64, 64, 96, 64), (2, 40, 40, 4096, 4096, 96, 64),
+              (2, 4, 4, 96, 96, 48, 32), (2, 40, 40, 300, 300, 96, 64),
+              (2, 4, 4, 77, 77, 48, 32)]
+
+
+def mla_plan(B, H, KV, Sq, Sk, Dh, Dv, **card):
+    card = dict(sm_count=SMS, smem_per_block=SMEM) | card
+    return k7.attention_bwd_plan(B, H, KV, Sq, Sk, Dh, Dv=Dv, **card)
+
+
+@pytest.mark.parametrize("pair", list(k7.PAIR_INSTANCES), ids=str)
+def test_pair_instances_tile_the_steps_and_fit(pair):
+    """Each width pair's instances: 32 or 64 streamed rows a step, 4 or 8
+    warps, largest first, and the shared memory of both passes, 4 x (BR x
+    (ST_h + ST_v) + 2 x BC x (ST_h + ST_v) + L and delta) bytes, within a
+    block's opt-in maximum."""
+    wh, wv = pair
+    assert wh > wv
+    rows = []
+    for rw, cw, ns in k7.PAIR_INSTANCES[pair]:
+        assert 8 * ns * cw in (32, 64) and rw * cw in (4, 8)
+        br, bc, st = 16 * rw, 8 * ns * cw, (wh + 4) + (wv + 4)
+        for kvp in (True, False):
+            smem = k7.pass_smem_bytes(wh, rw, cw, ns, kvp, width_v=wv)
+            assert smem == 4 * (br * st + 2 * bc * st +
+                                (4 * bc if kvp else 2 * br))
+            assert smem <= SMEM
+        rows.append(br)
+    assert rows == sorted(rows, reverse=True)
+
+
+def test_the_64_row_64_step_tile_does_not_fit_deepseeks_widths():
+    """At (256, 128) the (4, 2, 4) block would need ~302 KB, so the table
+    streams 32 rows a step at 64-row tiles there."""
+    assert k7.pass_smem_bytes(256, 4, 2, 4, True, width_v=128) > SMEM
+    assert (4, 2, 4) not in k7.PAIR_INSTANCES[(256, 128)]
+    assert k7.PAIR_INSTANCES[(256, 128)][0] == (4, 2, 2)
+
+
+def test_pair_instances_are_the_ones_the_source_builds():
+    cases = re.findall(r"K7_PAIR\((\d+), (\d+), (\d+), (\d+), (\d+)\)",
+                       SOURCE.read_text())
+    built = {}
+    for wh, wv, rw, cw, ns in cases:
+        built.setdefault((int(wh), int(wv)), []).append(
+            (int(rw), int(cw), int(ns)))
+    assert built == {w: list(v) for w, v in k7.PAIR_INSTANCES.items()}
+
+
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=str)
+def test_mla_plans_fit_and_cover_every_row_once(shape):
+    B, H, KV, Sq, Sk, Dh, Dv = shape
+    p = mla_plan(*shape)
+    wh, wv = k7.head_dim_width(Dh), k7.head_dim_width(Dv)
+    assert (p.width, p.width_v) == (wh, wv) and p.columns == min(wh, 128)
+    for kvp, pp, rows, heads in ((True, p.kv, Sk, KV), (False, p.q, Sq, H)):
+        assert pp.instance in k7.instances(wh, wv)
+        assert pp.smem == k7.pass_smem_bytes(wh, *pp.instance, kvp,
+                                             width_v=wv) <= SMEM
+        assert SMEM_PER_SM // (pp.smem + RESERVED) >= 1
+        assert pp.grid[0] * pp.rows >= rows > (pp.grid[0] - 1) * pp.rows
+        assert pp.grid[1] == B * heads
+        # at Dh's width 256 both outputs split into two column blocks
+        assert pp.grid[2] == (2 if wh == 256 else 1)
+    if Sq >= 4096:
+        assert p.kv.blocks >= SMS and p.q.blocks >= SMS
+        assert p.kv.rows == 64 and p.q.rows == 64
+
+
+@pytest.mark.parametrize("dh,dv", [(192, 128), (96, 64), (48, 32), (24, 16),
+                                   (128, 64), (256, 128), (100, 100)])
+def test_built_width_pairs_pass_the_operand_check(dh, dv):
+    q, k = torch.zeros(1, 4, 2, dh), torch.zeros(1, 4, 2, dh)
+    k7.check_operands(q, k, torch.zeros(1, 4, 2, dv))
+    p = mla_plan(1, 2, 2, 4, 4, dh, dv)
+    assert (p.width, p.width_v) == (k7.head_dim_width(dh),
+                                    k7.head_dim_width(dv))
+
+
+@pytest.mark.parametrize("dh,dv", [(32, 128), (64, 65), (192, 64), (256, 1)])
+def test_unbuilt_width_pairs_raise_naming_the_roadmap(dh, dv):
+    q, k, v = (torch.zeros(1, 4, 2, d) for d in (dh, dh, dv))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        k7.check_operands(q, k, v)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mla_plan(1, 2, 2, 4, 4, dh, dv)
+
+
+def test_operand_check_raises_for_bf16_and_bad_head_dims():
+    q = torch.zeros(1, 4, 2, 48)
+    v = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        k7.check_operands(q.bfloat16(), q.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        k7.check_operands(q, torch.zeros(1, 4, 2, 40), v)
+    with pytest.raises(ValueError, match="head dim"):
+        k7.check_operands(q, q, torch.zeros(1, 4, 2, 257))

@@ -1134,7 +1134,10 @@ ATTN_BWD_RTOL = 1e-4
 # key may see (window, Sq > Sk), D not a multiple of 16, D = 256,
 # non-causal, one KV head for 8 query heads; D not a multiple of the
 # MMA's k = 8 (20) and D = 1, and lengths that end inside a 16-row
-# fragment (17, 33)
+# fragment (17, 33). A trailing Dv where it differs from Dh (MLA):
+# deepseek-v2-lite's training shape (192 / 128, width pair (256, 128)),
+# minicpm3-4b's heads at a ragged length (96 / 64, (128, 64)) and the
+# reduced models' 48 / 32 with a window
 ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
                    (2, 16, 8, 4096, 4096, 128, True, 0),
                    (2, 16, 8, 1000, 1000, 128, True, 256),
@@ -1152,16 +1155,21 @@ ATTN_BWD_SHAPES = [(8, 16, 8, 64, 64, 128, True, 0),
                    # zamba2's shared block, Dh = Dv = 80 on the width-128
                    # instances: the training shape, and a ragged length
                    (8, 32, 32, 64, 64, 80, True, 0),
-                   (2, 4, 4, 300, 300, 80, True, 0)]
+                   (2, 4, 4, 300, 300, 80, True, 0),
+                   (8, 16, 16, 64, 64, 192, True, 0, 128),
+                   (2, 40, 40, 300, 300, 96, True, 0, 64),
+                   (2, 4, 4, 77, 77, 48, True, 16, 32)]
 
 
-def _bwd_operands(cuda, B, H, KV, Sq, Sk, D, seed=5):
-    """(B, S, heads, D) q, k, v and dO, as the model gives them."""
+def _bwd_operands(cuda, B, H, KV, Sq, Sk, D, Dv=None, seed=5):
+    """(B, S, heads, Dh) q, k and (B, S, heads, Dv) v, dO (Dv defaults to
+    Dh), as the model gives them."""
+    Dv = D if Dv is None else Dv
     g = _gen(cuda, seed)
     q = torch.randn((B, Sq, H, D), generator=g, device=cuda)
     k = torch.randn((B, Sk, KV, D), generator=g, device=cuda)
-    v = torch.randn((B, Sk, KV, D), generator=g, device=cuda)
-    do = torch.randn((B, Sq, H, D), generator=g, device=cuda)
+    v = torch.randn((B, Sk, KV, Dv), generator=g, device=cuda)
+    do = torch.randn((B, Sq, H, Dv), generator=g, device=cuda)
     return q, k, v, do
 
 
@@ -1177,8 +1185,8 @@ def _k4_with_lse(q, k, v, causal, window):
 def test_flash_attention_bwd_kernel_matches_plain(cuda, shape):
     from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    B, H, KV, Sq, Sk, D, causal, window = shape
-    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D)
+    B, H, KV, Sq, Sk, D, causal, window = shape[:8]
+    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D, *shape[8:])
     out, lse = _k4_with_lse(q, k, v, causal, window)
     before = k7.LAUNCHES
     got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
@@ -1199,8 +1207,8 @@ def _hold_bwd(cuda, shape, plan=None):
     """K7 with `plan` (the device's by default) against the plain
     backward at `shape`, within ATTN_BWD_RTOL of each gradient's max."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    B, H, KV, Sq, Sk, D, causal, window = shape
-    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D)
+    B, H, KV, Sq, Sk, D, causal, window = shape[:8]
+    q, k, v, do = _bwd_operands(cuda, B, H, KV, Sq, Sk, D, *shape[8:])
     out, lse = _k4_with_lse(q, k, v, causal, window)
     got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
                            window=window, plan=plan)
@@ -1236,9 +1244,50 @@ def test_flash_attention_bwd_every_instance_matches_plain(cuda, width,
     shape = (2, 4, 2, 77, 77, width - 3, True, 0)
     plan = k7.AttentionBwdPlan(
         width, min(width, 128),
-        k7.pass_plan(width, instance, True, 77, 2 * 2),
-        k7.pass_plan(width, instance, False, 77, 2 * 4))
+        k7.pass_plan(width, instance, True, 77, 2 * 2, width),
+        k7.pass_plan(width, instance, False, 77, 2 * 4, width), width)
     _hold_bwd(cuda, shape, plan)
+
+
+@pytest.mark.parametrize("pair,instance",
+                         [(w, i) for w, ins in k7.PAIR_INSTANCES.items()
+                          for i in ins], ids=str)
+def test_flash_attention_bwd_every_pair_instance_matches_plain(cuda, pair,
+                                                               instance):
+    """Each instance of a width pair Dh > Dv, in both passes, at a ragged
+    causal shape with a GQA group of 2 (each head dim its width - 3)."""
+    wh, wv = pair
+    shape = (2, 4, 2, 77, 77, wh - 3, True, 0, wv - 3)
+    plan = k7.AttentionBwdPlan(
+        wh, min(wh, 128),
+        k7.pass_plan(wh, instance, True, 77, 2 * 2, wv),
+        k7.pass_plan(wh, instance, False, 77, 2 * 4, wv), wv)
+    _hold_bwd(cuda, shape, plan)
+
+
+@pytest.mark.parametrize("dn,dv", [(128, 128), (64, 64), (32, 32)], ids=str)
+def test_flash_attention_bwd_reads_mla_v_in_place(cuda, dn, dv):
+    """MLA's v is a view of the latents' expansion (head stride dn + dv,
+    the last dim contiguous): K7 reads it through its strides and gives
+    the bits of the same values made contiguous (at deepseek-v2-lite's,
+    minicpm3-4b's and the reduced models' widths)."""
+    B, S, H, dr = 2, 100, 4, dn // 2
+    g = _gen(cuda, 9)
+    q, k = (torch.randn((B, S, H, dn + dr), generator=g, device=cuda)
+            for _ in range(2))
+    kv = torch.randn((B, S, H, dn + dv), generator=g, device=cuda)
+    v = kv[..., dn:]
+    assert not v.is_contiguous() and v.stride(3) == 1
+    do = torch.randn((B, S, H, dv), generator=g, device=cuda)
+    out, lse = _k4_with_lse(q, k, v, True, 0)
+    before = k7.LAUNCHES
+    got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
+    want = k7.gqa_flash_bwd(q, k, v.contiguous(), out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == before + 2
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert got[2].shape == v.shape
 
 
 def test_flash_attention_bwd_kernel_is_deterministic(cuda):
@@ -1252,11 +1301,13 @@ def test_flash_attention_bwd_kernel_is_deterministic(cuda):
 
 
 def test_flash_attention_bwd_raises_before_any_launch(cuda):
+    """bf16 operands, and head dims whose widths K7 is not built for (Dh
+    narrower than Dv), raise before K4 or K7 launches; Dh > Dv runs (held
+    by ATTN_BWD_SHAPES' MLA cases)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
     before = (k4.LAUNCHES, k7.LAUNCHES)
-    q, k, v, _ = _bwd_operands(cuda, 1, 2, 2, 16, 16, 32)
-    for args in ((q.bfloat16(), k.bfloat16(), v.bfloat16()),
-                 (q, k, v[..., :16].contiguous())):
+    q, k, v, _ = _bwd_operands(cuda, 1, 2, 2, 16, 16, 32, 128)
+    for args in ((q.bfloat16(), k.bfloat16(), v.bfloat16()), (q, k, v)):
         leaves = [a.detach().requires_grad_() for a in args]
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             gqa_flash(*leaves, causal=True)
@@ -1374,6 +1425,54 @@ def test_hybrid_training_through_k7_at_head_dim_80_matches_the_cpu(cuda):
     assert [r[1:] for r in card] == [r[1:] for r in cpu]
     for (lc, _, _), (lg, _, _) in zip(card, cpu):
         assert abs(lc - lg) <= 1e-4 * abs(lg)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b",
+                                  "mixtral-8x7b"])
+def test_moe_and_mla_training_through_k7_matches_the_cpu(cuda, arch,
+                                                         monkeypatch):
+    """The reduced MLA (Dh 48 / Dv 32) and MoE models, 4 agents on a ring,
+    coke (v=20, mu=0.5), B=8 S=96 (Mixtral's window of 64 bites, and each
+    agent's 192 tokens fill three MoE groups of 64): at each of 3 steps the
+    card takes the CPU's state and runs that step and the next
+    (`chip_smoke.card_cpu_hold`). Every MoE layer's expert indices and
+    drop set equal the CPU's, comms and send_frac equal, losses within
+    1e-4 relative; K4 and K7 once per layer per agent."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    smoke = _chip_smoke()
+    cfg = get_config(arch).reduced()
+    weights = M.param_dict(M.init_params(cfg, torch.Generator().manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=96, global_batch=8,
+                                           structure=0.9))
+    routes = []
+    route = moe_mod.route
+
+    def recorded(*args, **kw):
+        r = route(*args, **kw)
+        routes.append((r.expert_idx.cpu(), r.keep.cpu()))
+        return r
+
+    monkeypatch.setattr(moe_mod, "route", recorded)
+    ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
+                           censor_mu=0.5)
+    before = (k4.LAUNCHES, k7.LAUNCHES)
+    h = smoke.card_cpu_hold(cuda, cfg, weights, stream, ccfg, 4, 3,
+                            routes=routes)
+    # each agent's forward once per layer: 3 forced steps, 2 next, 3 free
+    n = 4 * cfg.num_layers * (3 * 3 - 1)
+    assert (k4.LAUNCHES - before[0], k7.LAUNCHES - before[1]) == (n, n)
+    for card_routes, cpu_routes in h["routed"]:
+        assert len(card_routes) == len(cpu_routes) == \
+            (4 * cfg.num_layers if cfg.is_moe else 0)
+        for (ei_c, keep_c), (ei, keep) in zip(card_routes, cpu_routes):
+            assert torch.equal(ei_c, ei) and torch.equal(keep_c, keep)
+    assert h["same"] and h["same_forced"]
+    assert h["worst_step"] <= 1e-4 and h["worst_next"] <= 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -255,17 +255,22 @@ def test_family_one_adamw_step_matches_the_reference(family):
 @pytest.mark.parametrize("shape", [(2, 37, 4, 4, 64, True, 0),
                                    (2, 40, 4, 2, 64, True, 0),
                                    (1, 50, 4, 2, 32, True, 16),
-                                   (1, 24, 2, 1, 16, False, 0)], ids=str)
+                                   (1, 24, 2, 1, 16, False, 0),
+                                   # MLA's Dh != Dv (the reduced models'
+                                   # 48 / 32), and with a window
+                                   (2, 37, 4, 4, 48, True, 0, 32),
+                                   (1, 50, 4, 2, 24, True, 16, 16)], ids=str)
 def test_attention_backward_matches_jax_grad(shape):
     """The Function's CPU backward (autograd through the plain version) and
     K7's plain version against jax.grad of the reference's
     blockwise_attention (blocks of 16, so the online softmax runs): each
     gradient within 1e-5 of its largest magnitude. K4 and K7 stay idle on
-    the CPU."""
-    B, S, H, KV, D, causal, window = shape
+    the CPU. (B, S, H, KV, Dh, causal, window[, Dv]); Dv defaults to Dh."""
+    B, S, H, KV, D, causal, window = shape[:7]
+    Dv = shape[7] if len(shape) > 7 else D
     rng = np.random.default_rng(4)
     q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
-        (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        (B, S, H, D), (B, S, KV, D), (B, S, KV, Dv), (B, S, H, Dv)))
     pos = jnp.arange(S, dtype=jnp.int32)
 
     def jf(q_, k_, v_):
