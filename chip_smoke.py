@@ -345,10 +345,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      host, K4 and K7 per step (the layers kept), peak memory, finite
      losses. The kernels line's K7 entry adds (b) and (c)'s launches and
      (a)'s largest error; K4's adds (b) and (c)'s launches.
+ 26. the VLM prefix and enc-dec serving (`multimodal_phase`): (a) K4
+     against its plain version within K4_TOL at internvl2-1b's (2, 4096,
+     14/2, 64) causal, seamless-m4t-medium's encoder (2, 2048, 16/16, 64)
+     without the mask, its decoder's self attention (the same, causal)
+     and its cross attention (Sq 256 over Sk 2048, no mask), each with a
+     cold L2 beside its plan, bound, plain version and SDPA; (b) the
+     reduced internvl2-1b and seamless-m4t-medium on the card against the
+     CPU from the same weights and stub embeddings: forward logits, the
+     VLM's prefill caches and the enc-dec cross k/v of every layer within
+     LM_RTOL, greedy tokens equal (VLM prompts of 5 and 96 tokens beside
+     its 8-row prefix); (c) internvl2-1b at full width, 2 x (256 patch
+     rows + 3840 tokens), cache 4112: one prefill_with_state launches K4
+     exactly 24 times and nothing else, layer 0's attention through K4
+     against the plain version within LM_RTOL, one generate of 16 tokens
+     with the prefix launches K4 24 times in all; (d) seamless-m4t-medium
+     at full width: one prefill of 2 x (2048 frames + 2048 tokens)
+     launches K4 exactly 36 times (12 encoder, 12 self, 12 cross),
+     encoder layer 0 and decoder layer 0's cross attention through K4
+     against the plain version within LM_RTOL, one generate over 2048
+     frames with 8-token prompts and 16 new tokens launches K4 12 times
+     (the encoder; the replay and the decode none); (c)-(d) the prefill
+     split into K4 and the rest, decode per token, peak memory. The
+     kernels line's K4 entry adds (b)-(d)'s launches and the largest
+     error of (a), (c) and (d).
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
-generate of 22 and 23, each prefill of 24 and each run of 25 every launch
-counter is set to 0, and read just after.
+generate of 22 and 23, each prefill of 24, each run of 25 and each
+counted prefill and generate of 26 every launch counter is set to 0, and
+read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -360,13 +385,14 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase23   # build, phase 23
     python3 chip_smoke.py --phase24   # build, phase 24
     python3 chip_smoke.py --phase25   # build, phase 25
+    python3 chip_smoke.py --phase26   # build, phase 26
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
-entry, phase 21 alone and its launch counts and errors, phase 22 or 23
-alone and K4's launches and largest error there, phase 24 alone and K4's
-largest error against float64, or phase 25 alone and K7's launches and
-largest error and K4's launches; none prints the result lines.
+entry, phase 21 alone and its launch counts and errors, phase 22, 23 or
+26 alone and K4's launches and largest error there, phase 24 alone and
+K4's largest error against float64, or phase 25 alone and K7's launches
+and largest error and K4's launches; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -787,6 +813,28 @@ TRAIN_PEAK_PER_WEIGHT = 9.0
 MESH_GOSSIP_ITERS = 15
 MESH_PZ_ITERS = 41
 MESH_THETA_TOL = 1e-4
+# phase 26, the VLM prefix and enc-dec serving: (a) K4 at the slice's
+# shapes, (what, B, Sq, Sk, H, KV, Dh = Dv, causal): internvl2-1b's prefill
+# of 256 patch rows + 3840 tokens (14 query heads over 2 KV heads);
+# seamless-m4t-medium's encoder over 2048 frames (no mask), its decoder's
+# self attention over 2048 tokens, and the cross attention of a 256-token
+# output over 2048 frames (no mask, Sq != Sk)
+MM_K4_SHAPES = (("internvl2-1b prefill", 2, 4096, 4096, 14, 2, 64, True),
+                ("seamless encoder", 2, 2048, 2048, 16, 16, 64, False),
+                ("seamless decoder self", 2, 2048, 2048, 16, 16, 64, True),
+                ("seamless cross", 2, 256, 2048, 16, 16, 64, False))
+# (b) the reduced models card against CPU: the VLM's prompts, shorter and
+# longer than its 8-row prefix; the enc-dec model's frames and prompt
+MM_REDUCED_VLM_PROMPTS = (5, 96)
+MM_REDUCED_FRAMES = 64
+MM_REDUCED_PROMPT = 24
+# (c) internvl2-1b at full width: (batch, patch rows, text tokens), the
+# split of 4096 by src/repro/configs/shapes.py::_token_specs
+MM_VLM = (2, 256, 3840)
+# (d) seamless-m4t-medium at full width: (batch, frames, decoder tokens),
+# _token_specs' even split of 4096; the generate's prompt tokens
+MM_ENCDEC = (2, 2048, 2048)
+MM_ENCDEC_PROMPT = 8
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -6302,6 +6350,400 @@ def k4_accuracy_phase(dev, card, reset_counts, counts):
     return worst, launches
 
 
+def multimodal_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 26: the VLM prefix and enc-dec serving. (a) K4 at
+    MM_K4_SHAPES against its plain version within K4_TOL, each timed with
+    a cold L2 beside its plan, bound, plain version and SDPA; (b) the
+    reduced internvl2-1b and seamless-m4t-medium on the card against the
+    CPU from the same weights and stub embeddings: forward logits, the
+    VLM's prefill caches, the enc-dec cross k/v of every layer, within
+    LM_RTOL, and equal greedy tokens (VLM prompts shorter and longer than
+    the prefix); (c) internvl2-1b at full width: one prefill_with_state
+    of 256 patch rows + 3840 tokens launches K4 once per layer and
+    nothing else, layer 0's attention through K4 against the plain
+    version, a generate of LM_NEW_TOKENS with the prefix (K4 in its
+    prefill only); (d) seamless-m4t-medium at full width: one prefill of
+    2048 frames + 2048 tokens launches K4 once per encoder layer, decoder
+    self attention and cross attention, encoder layer 0 and decoder layer
+    0's cross attention through K4 against the plain version, a generate
+    over 2048 frames (K4 in the encoder only: the prompt's replay and the
+    decode run none); (c)-(d) the prefill split into K4 and the rest,
+    decode per token and peak memory. One model drawn and freed at a
+    time. Returns (K4 launches over (b)-(d)'s counted runs, K4's largest
+    error against its plain version over (a), (c) and (d))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import _fill_cross_memory
+
+    t_phase = time.perf_counter()
+    bw = peaks[0]
+    t = lambda x: x.transpose(1, 2)
+    idle = {name: 0 for name in KERNEL_SOURCES}
+    tol = K4_TOL[torch.float32]
+    launches, worst = 0, 0.0
+
+    def pair(d_h):
+        return f"{d_h[0]:.4f} ms on the device / {d_h[1]:.4f} ms host enqueue"
+
+    def held(tag, got, want):
+        """Hold got within LM_RTOL of max|want|."""
+        err = float((got.cpu() - want.cpu()).abs().max())
+        scale = float(want.abs().max())
+        log(26, f"{tag}: max|err| {err:.3e} (tol {LM_RTOL * scale:.3e}, "
+                f"rtol {LM_RTOL:g} of max {scale:.3f})")
+        if not err <= LM_RTOL * scale:
+            raise AssertionError(f"{tag}: beyond LM_RTOL")
+
+    def k4_held(tag, q, k, v, causal):
+        """K4 on (B, S, heads, D) operands against its plain version,
+        within K4_TOL; returns the error."""
+        got = gqa_flash(q, k, v, causal=causal)
+        want = attention_ref(t(q), t(k), t(v), causal=causal)
+        err = float((t(got) - want).abs().max())
+        log(26, f"{tag}: K4 against its plain version, max|err| {err:.3e} "
+                f"(tol {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"{tag}: K4 disagrees with its plain "
+                                 "version")
+        return err
+
+    def plain_gqa(q, k, v, *, causal=True, window=0, block_q=128,
+                  block_k=128):
+        return ops._plain(q, k, v, causal, window)
+
+    def through_plain(fn):
+        """fn() with every attention of the model through K4's plain
+        version (swapped here for this call only); no kernel launches."""
+        A.gqa_flash = plain_gqa
+        try:
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            seen = counts()
+        finally:
+            A.gqa_flash = ops.gqa_flash
+        if seen != idle:
+            raise AssertionError(f"the plain attention launched {seen}")
+        return out
+
+    def counted(tag, fn, want):
+        """fn() between a reset and a read of the launch counters, which
+        must show K4 `want` times and nothing else."""
+        nonlocal launches
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        seen = counts()
+        if seen != dict(idle, flash_attention=want):
+            raise AssertionError(f"{tag}: launched {seen}, not K4 {want} "
+                                 "times and nothing else")
+        launches += want
+        return out
+
+    # ---- (a) K4 at the slice's shapes ---------------------------------------
+    flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for what, B, Sq, Sk, H, KV, D, causal in MM_K4_SHAPES:
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev)
+        k = torch.randn((B, Sk, KV, D), generator=gen, device=dev)
+        v = torch.randn((B, Sk, KV, D), generator=gen, device=dev)
+        shape = (f"(B={B}, Sq={Sq}, Sk={Sk}, H={H}, KV={KV}, Dh=Dv={D}, "
+                 f"{'causal' if causal else 'no mask'}, fp32)")
+        worst = max(worst, k4_held(f"(a) {what} {shape}", q, k, v, causal))
+        ms = flushed_ms(lambda: gqa_flash(q, k, v, causal=causal), flush,
+                        reps=20, warmup=2)
+        plain_ms = time_ms(lambda: attention_ref(t(q), t(k), t(v),
+                                                 causal=causal),
+                           reps=1, runs=3, warmup=1)
+        n_pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        flops = 2.0 * B * H * 2 * D * n_pairs
+        nbytes = 4.0 * B * D * 2 * (Sq * H + Sk * KV)
+        b_ms, b_by, b_how = k4_bound(nbytes, flops, torch.float32, peaks)
+        bq, bk, stages, smem, blocks = k4_plan(build, D, D, torch.float32)
+        try:
+            lib_ms, lib_how = sdpa_ms(t(q), t(k), t(v), causal=causal)
+            lib = f"{lib_ms:.4f} ms ({lib_how}; K4 {ms / lib_ms:.2f}x it)"
+        except RuntimeError as e:
+            lib = f"not measured: {e}"
+        log(26, f"[{card}] (a) {what} K4 {shape}: {ms:.4f} ms with a cold "
+                f"L2, bound {b_ms:.4f} ms ({b_by}, {b_how}: "
+                f"{flops / 1e12:.4f} TFLOP over {n_pairs} admissible pairs "
+                f"per head, {nbytes / 1e9:.4f} GB; {b_ms / ms:.1%} of it); "
+                f"plan {bq}-row query tiles, {bk}-key tiles in {stages} "
+                f"stages, {smem} B of shared memory, {blocks} block(s) per "
+                f"SM; plain {plain_ms:.4f} ms; "
+                f"F.scaled_dot_product_attention {lib}")
+        del q, k, v
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- (b) the reduced models, card against CPU ---------------------------
+    for arch in ("internvl2-1b", "seamless-m4t-medium"):
+        cfg = get_config(arch).reduced()
+        gpu = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        cpu = M.LM(cfg, device="cpu")
+        cpu.load_state_dict({n: w.cpu() for n, w in gpu.state_dict().items()})
+        rng = np.random.default_rng(26)
+        if cfg.is_encdec:
+            key, rows, want = ("encoder_embeds", MM_REDUCED_FRAMES,
+                               cfg.encoder_layers)
+            prompt_lens = (MM_REDUCED_PROMPT,)
+        else:
+            key, rows, want = "prefix_embeds", cfg.prefix_len, cfg.num_layers
+            prompt_lens = MM_REDUCED_VLM_PROMPTS
+        emb = rng.normal(size=(2, rows, cfg.d_model)).astype(np.float32)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 96))),
+            key: torch.from_numpy(emb)}
+        on_card = {n: x.to(dev) for n, x in batch.items()}
+        tag = f"(b) reduced {arch}"
+        with torch.inference_mode():
+            held(f"{tag} forward logits, card against CPU",
+                 M.forward(gpu, cfg, on_card)[0],
+                 M.forward(cpu, cfg, batch)[0])
+            if cfg.is_encdec:
+                s_gpu = _fill_cross_memory(cfg, gpu, M.init_serve_state(
+                    cfg, 2, 16, enc_len=rows, device=dev), on_card[key])
+                s_cpu = _fill_cross_memory(cfg, cpu, M.init_serve_state(
+                    cfg, 2, 16, enc_len=rows, device="cpu"), batch[key])
+                for name in ("cross_k", "cross_v"):
+                    for i, (a, b) in enumerate(zip(s_gpu[name],
+                                                   s_cpu[name])):
+                        held(f"{tag} {name} of decoder layer {i}", a, b)
+            else:
+                C = rows + 96
+                _, s_gpu = M.prefill_with_state(gpu, cfg, on_card, C)
+                _, s_cpu = M.prefill_with_state(cpu, cfg, batch, C)
+                for i, (a, b) in enumerate(zip(s_gpu["layers"],
+                                               s_cpu["layers"])):
+                    held(f"{tag} prefill cache k of layer {i}", a.k, b.k)
+                    held(f"{tag} prefill cache v of layer {i}", a.v, b.v)
+                    if not torch.equal(a.slot_positions.cpu(),
+                                       b.slot_positions):
+                        raise AssertionError(f"{tag}: the cache's slots "
+                                             "differ")
+            del s_gpu, s_cpu
+        for S in prompt_lens:
+            prompts = rng.integers(0, cfg.vocab_size, (2, S))
+            scfg = ServeConfig(max_new_tokens=8, cache_len=rows + S + 8)
+            toks_gpu = counted(f"{tag} generate", lambda: Engine(
+                cfg, gpu, scfg, extra_batch={key: emb}).generate(prompts),
+                want)
+            toks_cpu = Engine(cfg, cpu, scfg,
+                              extra_batch={key: emb}).generate(prompts)
+            same = bool((toks_gpu == toks_cpu).all())
+            log(26, f"{tag}, 2 x {S} prompt tokens after {rows} "
+                    f"{key.split('_')[0]} rows, 8 new, cache "
+                    f"{scfg.cache_len}: card tokens {toks_gpu.tolist()}; "
+                    f"equal to the CPU's: {same}; K4 {want} launches")
+            if not same:
+                raise AssertionError(f"{tag}: the card's greedy tokens "
+                                     "differ from the CPU's")
+        del gpu, cpu
+
+    # ---- (c) internvl2-1b at full width -------------------------------------
+    cfg = get_config("internvl2-1b")
+    B, P, S = MM_VLM
+    cache = P + S + LM_NEW_TOKENS
+    torch.cuda.empty_cache()
+    lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(w.numel() for w in lm.parameters())
+    prefix = torch.randn((B, P, cfg.d_model), generator=gen, device=dev)
+    prompts = np.random.default_rng(26).integers(0, cfg.vocab_size, (B, S))
+    tokens = torch.as_tensor(prompts, device=dev)
+    batch = {"tokens": tokens, "prefix_embeds": prefix}
+    tag = f"(c) internvl2-1b, {B} x ({P} patch rows + {S} tokens)"
+    log(26, f"{tag}: {n_params / 1e9:.3f} B parameters drawn on the card "
+            f"in fp32 ({n_params * 4 / 1e9:.2f} GB)")
+    with torch.inference_mode():
+        logits, state = counted(f"{tag} prefill_with_state", lambda:
+                                M.prefill_with_state(lm, cfg, batch, cache),
+                                cfg.num_layers)
+        rows = int((state["layers"][0].slot_positions >= 0).sum())
+        if logits.shape != (B, 1, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()) or rows != P + S:
+            raise AssertionError(f"{tag}: the prefill gave {logits.shape} "
+                                 f"logits and {rows} cached rows")
+        log(26, f"{tag} prefill_with_state: K4 {cfg.num_layers} launches, no "
+                f"other kernel; {rows} cached rows a layer; finite logits")
+        del state, logits
+        x0, pos, _ = M._embed_inputs(lm, cfg, batch)
+        lp = lm.blocks[0]
+        h0 = rms_norm(x0, lp.ln1, cfg.norm_eps)
+        held(f"{tag} layer 0's attention through K4 against the plain "
+             "version", A.gqa_forward(lp.attn, cfg, h0, pos),
+             through_plain(lambda: A.gqa_forward(lp.attn, cfg, h0, pos)))
+        q0, k0, v0 = A._gqa_project_qkv(lp.attn, cfg, h0, pos)
+        worst = max(worst, k4_held(f"{tag} layer 0", q0, k0, v0, True))
+    engine = Engine(cfg, lm, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                         cache_len=cache),
+                    extra_batch={"prefix_embeds": prefix})
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    served = counted(f"{tag} generate", lambda: engine.generate(prompts),
+                     cfg.num_layers)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(26, f"{tag} generate of {LM_NEW_TOKENS} tokens, cache {cache}: "
+            f"{wall:.2f} s wall; K4 {cfg.num_layers} launches (the "
+            f"prefill's), none in decode; ids (first 8 of each row) "
+            f"{served[:, :8].tolist()}")
+    if served.shape != (B, LM_NEW_TOKENS) or not (
+            (served >= 0) & (served < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: generate gave {served.shape} tokens "
+                             "outside the vocabulary")
+    with torch.inference_mode():
+        prefill_t = paired_ms(lambda: M.prefill_with_state(
+            lm, cfg, batch, cache), 1, runs=3, warmup=0)
+        k4_t = paired_ms(lambda: gqa_flash(q0, k0, v0, causal=True), 1,
+                         runs=5, warmup=1)
+        k4_share = cfg.num_layers * k4_t[0]
+        log(26, f"[{card}] {tag} prefill: {pair(prefill_t)}. K4: "
+                f"{cfg.num_layers} launches x {pair(k4_t)} = "
+                f"{k4_share:.4f} ms on the device "
+                f"({k4_share / prefill_t[0]:.1%} of the prefill); the rest "
+                f"{prefill_t[0] - k4_share:.4f} ms")
+        _, st = M.prefill_with_state(lm, cfg, batch, cache)
+        token = torch.as_tensor(served[:, :1], dtype=torch.long, device=dev)
+
+        def decode_steps():
+            for i in range(LM_NEW_TOKENS - 1):   # the engine's positions
+                M.decode_step(lm, cfg, token, st, S + i)
+
+        decode_t = paired_ms(decode_steps, LM_NEW_TOKENS - 1, runs=2,
+                             warmup=1)
+    log(26, f"[{card}] {tag} decode per token (batch {B}, cache {cache}): "
+            f"{pair(decode_t)}; reading the fp32 weights once takes "
+            f"{n_params * 4 / bw * 1e3:.4f} ms at {bw / 1e12} TB/s; peak "
+            f"memory of the generate {peak / 1e9:.2f} GB")
+    del lm, engine, st, x0, h0, q0, k0, v0, prefix, tokens, batch
+    torch.cuda.empty_cache()
+
+    # ---- (d) seamless-m4t-medium at full width ------------------------------
+    cfg = get_config("seamless-m4t-medium")
+    B, F_enc, S = MM_ENCDEC
+    L, E, Sp = cfg.num_layers, cfg.encoder_layers, MM_ENCDEC_PROMPT
+    lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(w.numel() for w in lm.parameters())
+    frames = torch.randn((B, F_enc, cfg.d_model), generator=gen, device=dev)
+    prompts = np.random.default_rng(26).integers(0, cfg.vocab_size, (B, S))
+    tokens = torch.as_tensor(prompts, device=dev)
+    batch = {"tokens": tokens, "encoder_embeds": frames}
+    tag = f"(d) seamless-m4t-medium, {B} x ({F_enc} frames + {S} tokens)"
+    log(26, f"{tag}: {n_params / 1e9:.3f} B parameters drawn on the card "
+            f"in fp32 ({n_params * 4 / 1e9:.2f} GB)")
+    with torch.inference_mode():
+        logits = counted(f"{tag} prefill", lambda: M.prefill(lm, cfg, batch),
+                         E + 2 * L)
+        if logits.shape != (B, 1, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: the prefill gave {logits.shape} "
+                                 "logits or values that are not finite")
+        log(26, f"{tag} prefill: K4 {E + 2 * L} launches ({E} encoder, {L} "
+                f"decoder self, {L} cross), no other kernel; finite logits")
+        # encoder layer 0
+        pos = torch.arange(F_enc, dtype=torch.int32, device=dev)
+        enc0 = lm.encoder[0]
+        held(f"{tag} encoder layer 0 through K4 against the plain version",
+             blk.block_forward(enc0, cfg, frames, pos, "dense",
+                               causal=False)[0],
+             through_plain(lambda: blk.block_forward(
+                 enc0, cfg, frames, pos, "dense", causal=False)[0]))
+        h = rms_norm(frames, enc0.ln1, cfg.norm_eps)
+        qe, ke, ve = A._gqa_project_qkv(enc0.attn, cfg, h, pos)
+        worst = max(worst, k4_held(f"{tag} encoder layer 0", qe, ke, ve,
+                                   False))
+        # decoder layer 0: its self attention, then the cross attention
+        memory, _ = M.encode(lm, cfg, frames)
+        dec0 = lm.decoder[0]
+        mk, mv = blk.cross_memory_kv(dec0.cross_attn, memory)
+        posd = torch.arange(S, dtype=torch.int32, device=dev)
+        x = torch.nn.functional.embedding(tokens, lm.embed)
+        h = rms_norm(x, dec0.ln1, cfg.norm_eps)
+        qs, ks, vs = A._gqa_project_qkv(dec0.self_attn, cfg, h, posd)
+        x = x + A.gqa_forward(dec0.self_attn, cfg, h, posd, window=0)
+        hx = rms_norm(x, dec0.ln_x, cfg.norm_eps)
+        held(f"{tag} decoder layer 0's cross attention through K4 against "
+             "the plain version",
+             blk.cross_attend(dec0.cross_attn, cfg, hx, mk, mv),
+             through_plain(lambda: blk.cross_attend(dec0.cross_attn, cfg,
+                                                    hx, mk, mv)))
+        qc = blk._project(hx, dec0.cross_attn.wq)
+        worst = max(worst, k4_held(f"{tag} decoder layer 0's cross "
+                                   "attention", qc, mk, mv, False))
+        del memory, x, h, hx, logits
+    engine = Engine(cfg, lm, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                         cache_len=Sp + LM_NEW_TOKENS),
+                    extra_batch={"encoder_embeds": frames})
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    served = counted(f"{tag} generate", lambda: engine.generate(
+        prompts[:, :Sp]), E)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(26, f"(d) seamless-m4t-medium generate over {F_enc} frames, "
+            f"{Sp}-token prompts, {LM_NEW_TOKENS} new: {wall:.2f} s wall; K4 "
+            f"{E} launches (the encoder's), none in the prompt's replay or "
+            f"the decode; ids (first 8 of each row) "
+            f"{served[:, :8].tolist()}")
+    if served.shape != (B, LM_NEW_TOKENS) or not (
+            (served >= 0) & (served < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: generate gave {served.shape} tokens "
+                             "outside the vocabulary")
+    with torch.inference_mode():
+        prefill_t = paired_ms(lambda: M.prefill(lm, cfg, batch), 1, runs=3,
+                              warmup=0)
+        k4_enc = paired_ms(lambda: gqa_flash(qe, ke, ve, causal=False), 1,
+                           runs=5, warmup=1)
+        k4_self = paired_ms(lambda: gqa_flash(qs, ks, vs, causal=True), 1,
+                            runs=5, warmup=1)
+        k4_cross = paired_ms(lambda: gqa_flash(qc, mk, mv, causal=False), 1,
+                             runs=5, warmup=1)
+        k4_share = E * k4_enc[0] + L * (k4_self[0] + k4_cross[0])
+        log(26, f"[{card}] {tag} prefill: {pair(prefill_t)}. K4: {E} "
+                f"encoder x {pair(k4_enc)}, {L} self x {pair(k4_self)}, {L} "
+                f"cross x {pair(k4_cross)} = {k4_share:.4f} ms on the device "
+                f"({k4_share / prefill_t[0]:.1%} of the prefill); the rest "
+                f"{prefill_t[0] - k4_share:.4f} ms")
+        state0 = M.init_serve_state(cfg, B, Sp + LM_NEW_TOKENS,
+                                    enc_len=F_enc, device=dev)
+        fill_t = paired_ms(lambda: _fill_cross_memory(cfg, lm, state0,
+                                                      frames),
+                           1, runs=3, warmup=1)
+        _, st, pos0 = engine._prefill_state(tokens[:, :Sp])
+        token = torch.as_tensor(served[:, :1], dtype=torch.long, device=dev)
+
+        def decode_steps():
+            for i in range(LM_NEW_TOKENS - 1):
+                M.decode_step(lm, cfg, token, st, pos0 + i)
+
+        decode_t = paired_ms(decode_steps, LM_NEW_TOKENS - 1, runs=2,
+                             warmup=1)
+    log(26, f"[{card}] (d) seamless-m4t-medium generate's encoding (the "
+            f"encoder and {L} layers' cross k/v over {F_enc} frames): "
+            f"{pair(fill_t)}; decode per token (batch {B}, {F_enc} frames "
+            f"of cross memory): {pair(decode_t)}; reading the fp32 weights "
+            f"once takes {n_params * 4 / bw * 1e3:.4f} ms at "
+            f"{bw / 1e12} TB/s; peak memory of the generate "
+            f"{peak / 1e9:.2f} GB")
+    del lm, engine, st, state0, frames, batch, tokens
+    del qe, ke, ve, qs, ks, vs, qc, mk, mv
+    torch.cuda.empty_cache()
+    log(26, f"[{card}] K4 over (b)-(d)'s counted runs: {launches} launches; "
+            f"largest error against its plain version over (a), (c) and "
+            f"(d) {worst:.3e}; phase 26 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7623,7 +8065,17 @@ def main() -> int:
             log(25, f"flash_attention: {k4_25} launches over phase 25's "
                     "training steps added")
             entry["launches"] += k4_25
-    log(25, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 26. the VLM prefix and enc-dec serving -----------------------------
+    mm_launches, mm_err = multimodal_phase(dev, card, reset_counts, counts,
+                                           peaks=peaks)
+    for entry in kernels:       # K4 adds phase 26's launches and error
+        if entry["name"] == "flash_attention":
+            log(26, f"flash_attention: {mm_launches} launches and max|err| "
+                    f"{mm_err:.3e} over phase 26 added")
+            entry["launches"] += mm_launches
+            entry["max_abs_err"] = max(entry["max_abs_err"], mm_err)
+    log(26, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7852,10 +8304,38 @@ def phase25_alone() -> int:
     return 0
 
 
+def phase26_alone() -> int:
+    """Phase 26 alone: build the kernels and run `multimodal_phase`; prints
+    its K4 launches and largest error, not the result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    launches, err = multimodal_phase(
+        dev, card, reset_counts, counts,
+        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps({"flash_attention": {"launches": launches,
+                                          "max_abs_err": err}}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
              "--phase21": phase21_alone, "--phase22": phase22_alone,
              "--phase23": phase23_alone, "--phase24": phase24_alone,
-             "--phase25": phase25_alone}
+             "--phase25": phase25_alone, "--phase26": phase26_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

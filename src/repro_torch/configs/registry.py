@@ -1,13 +1,9 @@
-"""Architecture registry: `--arch <id>` resolution.
-
-Lists only the architectures the port runs. The reference's other ids
-raise KeyError naming the ROADMAP item that brings them.
-"""
+"""Architecture registry: `--arch <id>` resolution."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.common import LATER_ARCHS, ModelConfig
+from repro_torch.models.common import ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
@@ -18,11 +14,8 @@ _ARCH_MODULES = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
-}
-# the reference's ids that the port does not list yet, by their model kind
-_LATER_IDS = {
-    "internvl2-1b": "vlm",
-    "seamless-m4t-medium": "encdec",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 
@@ -31,14 +24,8 @@ def list_archs() -> list[str]:
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _LATER_IDS:
-        raise KeyError(f"arch {name!r} is not in the port yet: "
-                       f"{LATER_ARCHS[_LATER_IDS[name]]}")
     if name not in _ARCH_MODULES:
-        later = sorted(set(LATER_ARCHS.values()))
-        raise KeyError(f"unknown arch {name!r}: the port runs "
-                       f"{list_archs()}; the reference's other "
-                       f"architectures come with {' and '.join(later)}")
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return importlib.import_module(_ARCH_MODULES[name]).CONFIG
 
 

@@ -116,23 +116,29 @@ def _leaves(tree, prefix: str = ""):
             yield f"{prefix}{name}", val
 
 
+# the reference's layer stacks: leaves stacked along a leading layer axis
+# (a hybrid's blocks along two, groups then layers)
+_STACKS = ("blocks", "encoder", "decoder")
+
+
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, *,
                          device: torch.device | str | None = None) -> LM:
     """The port's model with the reference's weights: `params` is the
     reference's `models.model.init_params` pytree as numpy arrays, whose
-    blocks are stacked along a leading layer axis, or in a hybrid along
-    two, (groups, shared_attn_every), beside its `shared_attn` block. Every
-    leaf must find its place in the port's module, and every weight of the
-    module must be given (`load_state_dict(strict=True)`)."""
-    lead = 2 if cfg.arch_type == "hybrid" else 1
+    blocks (an enc-dec model's encoder and decoder) are stacked along a
+    leading layer axis, or in a hybrid along two, (groups,
+    shared_attn_every), beside its `shared_attn` block. Every leaf must
+    find its place in the port's module, and every weight of the module
+    must be given (`load_state_dict(strict=True)`)."""
     state = {}
     for path, arr in _leaves(params):
         arr = np.asarray(arr)
-        if path.startswith("blocks."):
-            rest = path[len("blocks."):]
+        top, _, rest = path.partition(".")
+        if top in _STACKS:
+            lead = 2 if top == "blocks" and cfg.arch_type == "hybrid" else 1
             for idx in np.ndindex(arr.shape[:lead]):
                 where = ".".join(map(str, idx))
-                state[f"blocks.{where}.{rest}"] = torch.tensor(arr[idx])
+                state[f"{top}.{where}.{rest}"] = torch.tensor(arr[idx])
         else:
             state[path] = torch.tensor(arr)
     model = LM(cfg, device=resolve_device(device))
@@ -142,35 +148,35 @@ def lm_params_from_numpy(cfg: ModelConfig, params: dict, *,
 
 def lm_params_to_numpy(params) -> dict:
     """The inverse of `lm_params_from_numpy`: the reference's parameter tree
-    as numpy arrays, blocks stacked along a leading layer axis (a hybrid's
-    blocks.g.e along two, groups then layers). `params` is an `LM` or a
-    dict of tensors by parameter name (`models.model.param_dict`),
-    optionally agent-stacked (N, ...) as the consensus strategies' state
-    is; then every leaf keeps the agent axis first and the blocks stack
-    along the next ones, the reference's layout."""
+    as numpy arrays, blocks, encoder and decoder stacked along a leading
+    layer axis (a hybrid's blocks.g.e along two, groups then layers).
+    `params` is an `LM` or a dict of tensors by parameter name
+    (`models.model.param_dict`), optionally agent-stacked (N, ...) as the
+    consensus strategies' state is; then every leaf keeps the agent axis
+    first and the stacks follow it, the reference's layout."""
     if isinstance(params, LM):
         params = {n: p.detach() for n, p in params.named_parameters()}
     agents = params["embed"].ndim == 3
     tree: dict = {}
-    layers: dict[str, list] = {}
+    layers: dict[tuple[str, str], list] = {}
     for name, t in params.items():
         arr = t.detach().cpu().numpy()
         parts = name.split(".")
-        if parts[0] == "blocks":
+        if parts[0] in _STACKS:
             lead = 2 if parts[2].isdigit() else 1
             idx = tuple(int(p) for p in parts[1:1 + lead])
-            layers.setdefault(".".join(parts[1 + lead:]), []).append(
-                (idx, arr))
+            layers.setdefault((parts[0], ".".join(parts[1 + lead:])),
+                              []).append((idx, arr))
         else:
             tree[name] = arr
-    for rest, items in layers.items():
+    for (top, rest), items in layers.items():
         items.sort(key=lambda x: x[0])
         grid = tuple(n + 1 for n in items[-1][0])
         axis = 1 if agents else 0
         stacked = np.stack([a for _, a in items], axis=axis)
         stacked = stacked.reshape(*stacked.shape[:axis], *grid,
                                   *stacked.shape[axis + 1:])
-        node = tree.setdefault("blocks", {})
+        node = tree.setdefault(top, {})
         *path, leaf = rest.split(".")
         for key in path:
             node = node.setdefault(key, {})

@@ -4,7 +4,8 @@
       [--reduced] [--device cpu] --batch 4 --prompt-len 8 --new-tokens 16
 
 Weights are drawn from a seeded torch.Generator on the device (the card
-unless --device cpu), so nothing is downloaded. Prints the reference
+unless --device cpu), so nothing is downloaded; an enc-dec model gets the
+reference driver's 16 frames of encoder embeddings. Prints the reference
 driver's line.
 """
 from __future__ import annotations
@@ -39,9 +40,13 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
 
+    extra = {}
+    if cfg.is_encdec:
+        extra["encoder_embeds"] = np.random.default_rng(0).normal(
+            size=(args.batch, 16, cfg.d_model)).astype(np.float32)
     eng = Engine(cfg, params,
                  ServeConfig(max_new_tokens=args.new_tokens,
-                             cache_len=args.cache_len))
+                             cache_len=args.cache_len), extra_batch=extra)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()

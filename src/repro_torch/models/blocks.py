@@ -1,12 +1,10 @@
 """Residual blocks: the pre-norm attention block with a SwiGLU MLP (dense)
 or a mixture of experts (MoE), over GQA or MLA attention; the pre-norm
-Mamba2 block (SSM).
+Mamba2 block (SSM); the enc-dec decoder block with cross attention.
 
-Port of the decoder blocks of `repro/models/blocks.py`. The reference
-builds stacks by a vmapped init and runs them under `lax.scan`; the port
-keeps one module per layer in an `nn.ModuleList` and loops
-(`models/model.py`). The cross-attention blocks of enc-dec models are not
-here yet: `common.LATER_ARCHS["encdec"]`.
+Port of `repro/models/blocks.py`. The reference builds stacks by a
+vmapped init and runs them under `lax.scan`; the port keeps one module
+per layer in an `nn.ModuleList` and loops (`models/model.py`).
 """
 from __future__ import annotations
 
@@ -233,3 +231,89 @@ def block_empty_cache(cfg: ModelConfig, kind: str, batch: int,
                                cfg.ssm_state), dtype=torch.float32,
                               device=device))
     return attn_empty_cache(cfg, batch, cache_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder blocks)
+# ---------------------------------------------------------------------------
+
+class CrossBlock(nn.Module):
+    """Enc-dec decoder block weights, named as the reference's: ln1,
+    self_attn (causal GQA over the decoder), ln_x, cross_attn (a GQA
+    layer's weights: wq reads the decoder, wk and wv the encoder memory,
+    with neither rope nor qk-norm), ln2, mlp."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: torch.Generator | None = None, *,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        dev = init_device(generator, device)
+        d = cfg.d_model
+        self.ln1 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.self_attn = attn.GQAAttention(cfg, generator, device=dev)
+        self.ln_x = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.cross_attn = attn.GQAAttention(cfg, generator, device=dev)
+        self.ln2 = frozen(torch.ones((d,), dtype=cfg.dtype, device=dev))
+        self.mlp = MLP(cfg, generator, device=dev)
+
+
+def init_cross_block_params(cfg: ModelConfig,
+                            generator: torch.Generator) -> CrossBlock:
+    return CrossBlock(cfg, generator)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhe->bshe", x, w)."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
+
+
+def cross_attend(params: attn.GQAAttention, cfg: ModelConfig, x, memory_k,
+                 memory_v):
+    """Queries from x (B, S, d) by wq alone, against the encoder memory's
+    precomputed k/v (B, S_enc, KV, Dh): the flash kernel without a mask,
+    Sq = S, Sk = S_enc (the reference's `positions_q` is not taken: an
+    unmasked attention reads no position)."""
+    q = _project(x, params.wq)
+    out = attn.gqa_flash(q, memory_k, memory_v, causal=False, window=0)
+    return attn._out_project(params, out)
+
+
+def cross_memory_kv(params: attn.GQAAttention, memory: torch.Tensor):
+    """Project the encoder output (B, S_enc, d) into the cross attention's
+    k and v (B, S_enc, KV, Dh) once."""
+    return _project(memory, params.wk), _project(memory, params.wv)
+
+
+def cross_block_forward(params: CrossBlock, cfg: ModelConfig, x, positions,
+                        memory_k, memory_v):
+    """Decoder block over x (B, S, d): causal self attention, cross
+    attention to the memory's k/v, the MLP. Returns (x, aux = 0)."""
+    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    x = x + attn.gqa_forward(params.self_attn, cfg, h, positions,
+                             causal=True, window=0)
+    h = rms_norm(x, params.ln_x, cfg.norm_eps)
+    x = x + cross_attend(params.cross_attn, cfg, h, memory_k, memory_v)
+    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    return (x + mlp_forward(params.mlp, h),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def cross_block_decode(params: CrossBlock, cfg: ModelConfig, x, cache,
+                       position, memory_k, memory_v):
+    """Single-token decode through a decoder block: the self attention's
+    cache updated in place (`attention.gqa_decode`), the cross attention
+    over every row of the memory (`attention.decode_attention`, no
+    kernel). Returns (x, cache)."""
+    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    y, cache = attn.gqa_decode(params.self_attn, cfg, h, cache, position)
+    x = x + y
+    h = rms_norm(x, params.ln_x, cfg.norm_eps)
+    q = _project(h, params.cross_attn.wq)
+    S_enc = memory_k.shape[1]
+    slots = torch.arange(S_enc, dtype=torch.int32, device=x.device)
+    out = attn.decode_attention(q, memory_k, memory_v, slots, S_enc,
+                                window=0)
+    x = x + attn._out_project(params.cross_attn, out)
+    h = rms_norm(x, params.ln2, cfg.norm_eps)
+    return x + mlp_forward(params.mlp, h), cache

@@ -1,12 +1,12 @@
 """Shared model components: the unified ModelConfig, norms, RoPE, init.
 
 Port of `repro/models/common.py`. One config dataclass covers every
-architecture of the reference, field for field; the port runs the
-decoder-only models with GQA or MLA attention and dense or MoE layers
+architecture of the reference, field for field, and the port runs each:
+the decoder-only models with GQA or MLA attention and dense or MoE layers
 (qwen3-1.7b, granite-3-8b, llama3-405b, mixtral-8x7b, minicpm3-4b,
-deepseek-v2-lite-16b), the SSM model (mamba2-2.7b) and the grouped
-hybrid (zamba2-2.7b). The other kinds raise NotImplementedError naming
-their entry of `LATER_ARCHS`.
+deepseek-v2-lite-16b), the SSM model (mamba2-2.7b), the grouped hybrid
+(zamba2-2.7b), the VLM backbone with its patch prefix (internvl2-1b) and
+the encoder-decoder (seamless-m4t-medium).
 """
 from __future__ import annotations
 
@@ -19,12 +19,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-
-#: where each model kind the port does not run yet is planned
-LATER_ARCHS = {
-    "vlm": "ROADMAP.md Queue 1 item 15d (the VLM prefix and enc-dec models)",
-}
-LATER_ARCHS["encdec"] = LATER_ARCHS["vlm"]
 
 
 @dataclasses.dataclass(frozen=True)

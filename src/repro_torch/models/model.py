@@ -1,16 +1,25 @@
-"""The decoder-only language models and their serving steps.
+"""The language models and their serving steps.
 
-Port of the decoder-only part of `repro/models/model.py`: the model is an
-`nn.Module` holding the embedding, an `nn.ModuleList` of blocks (dense or
-MoE, with GQA or MLA attention, or Mamba2 SSM blocks: `layer_kind`), the
-final norm and the LM head, and every pass is a Python loop over the
-blocks (the reference stacks the layers and scans). The grouped hybrid
-(zamba2) holds its SSM blocks as a ModuleList of groups of
-`shared_attn_every`, each group followed by one application of
-`shared_attn`, a dense GQA block whose weights every application shares;
-each application keeps its own KV cache. The public entry points keep the
-reference's names and arguments, with the module in the place of the
-param pytree:
+Port of `repro/models/model.py`: the model is an `nn.Module` holding the
+embedding, the layers, the final norm and the LM head, and every pass is
+a Python loop over the layers (the reference stacks the layers and
+scans). Three templates, as in the reference:
+
+  * decoder-only: an `nn.ModuleList` of blocks (dense or MoE, with GQA or
+    MLA attention, or Mamba2 SSM blocks: `layer_kind`); the VLM backbone
+    (internvl2) is one, with `batch["prefix_embeds"]`, the stub's patch
+    embeddings, before the token embeddings;
+  * the grouped hybrid (zamba2): its SSM blocks a ModuleList of groups of
+    `shared_attn_every`, each group followed by one application of
+    `shared_attn`, a dense GQA block whose weights every application
+    shares; each application keeps its own KV cache;
+  * encoder-decoder (seamless-m4t): `encoder`, dense blocks run without
+    the causal mask over `batch["encoder_embeds"]`, the stub's frame
+    embeddings, then `enc_norm`; `decoder`, `blocks.CrossBlock`s, each
+    attending to the memory's k/v projected by its own cross attention.
+
+The public entry points keep the reference's names and arguments, with
+the module in the place of the param pytree:
 
   init_params, forward(batch) -> (logits, aux), loss_fn,
   init_serve_state, prefill, prefill_with_state, decode_step.
@@ -21,9 +30,6 @@ Training differentiates a dict of tensors by parameter name
 either. The reference's `cfg.remat` (jax.checkpoint around each layer) is
 not mapped: activations are kept, and each layer runs its attention
 kernel once forward and once backward.
-
-Enc-dec models and the VLM prefix raise NotImplementedError naming their
-entry of `common.LATER_ARCHS`.
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
-from repro_torch.models.common import (LATER_ARCHS, ModelConfig, dense_init,
-                                       frozen, init_device, rms_norm)
+from repro_torch.models.common import (ModelConfig, dense_init, frozen,
+                                       init_device, rms_norm)
 
 
 def layer_kind(cfg: ModelConfig) -> str:
@@ -43,11 +49,7 @@ def layer_kind(cfg: ModelConfig) -> str:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a model kind the port does not run,
-    ValueError for a config no model of the reference's takes."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: enc-dec models are not "
-                                  f"ported: {LATER_ARCHS['encdec']}")
+    """Raise ValueError for a config no model of the reference's takes."""
     if cfg.arch_type == "ssm":
         return
     if cfg.attn_kind not in ("gqa", "mla"):
@@ -62,13 +64,15 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 class LM(nn.Module):
-    """Decoder-only LM weights: embed (Vp, d), blocks (the `layer_kind`
-    block's, `blocks.BLOCKS`), final_norm (d,) and lm_head (d, Vp), Vp the
-    padded vocabulary; a hybrid's blocks are groups of `shared_attn_every`
-    SSM blocks (blocks.g.e), and shared_attn is its one dense block. Drawn
-    from `generator` on its device, or allocated and not drawn when
-    generator is None (weights that are loaded next; `device` None means
-    "cuda")."""
+    """LM weights: embed (Vp, d), final_norm (d,) and lm_head (d, Vp), Vp
+    the padded vocabulary; a decoder-only model's blocks (the `layer_kind`
+    block's, `blocks.BLOCKS`), where a hybrid's are groups of
+    `shared_attn_every` SSM blocks (blocks.g.e) and shared_attn is its one
+    dense block; an enc-dec model's encoder (`encoder_layers` dense
+    blocks), enc_norm (d,) and decoder (`num_layers` CrossBlocks), and no
+    blocks, as in the reference's tree. Drawn from `generator` on its
+    device, or allocated and not drawn when generator is None (weights
+    that are loaded next; `device` None means "cuda")."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None, *,
@@ -83,6 +87,16 @@ class LM(nn.Module):
                                             device=dev))
         self.lm_head = frozen(dense_init(generator, (d, Vp), cfg.dtype,
                                          device=dev))
+        if cfg.is_encdec:
+            self.encoder = nn.ModuleList(
+                blk.DenseBlock(cfg, generator, device=dev)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = frozen(torch.ones((d,), dtype=cfg.dtype,
+                                              device=dev))
+            self.decoder = nn.ModuleList(
+                blk.CrossBlock(cfg, generator, device=dev)
+                for _ in range(cfg.num_layers))
+            return
         block = blk.BLOCKS[layer_kind(cfg)]
         if cfg.arch_type == "hybrid":
             every = cfg.shared_attn_every
@@ -122,14 +136,16 @@ def skeleton(cfg: ModelConfig) -> LM:
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict):
-    """Token embedding. Returns (x, positions, text_offset); the port takes
-    no multimodal prefix, so the offset is 0."""
-    if cfg.prefix_len and "prefix_embeds" in batch:
-        raise NotImplementedError("multimodal prefix embeddings are not "
-                                  f"ported: {LATER_ARCHS['vlm']}")
+    """Token embedding + optional multimodal prefix. Returns (x, positions,
+    text_offset) where rows text_offset: of x align with batch tokens."""
     x = F.embedding(batch["tokens"], params.embed)
+    offset = 0
+    if cfg.prefix_len and "prefix_embeds" in batch:
+        prefix = batch["prefix_embeds"]
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        offset = prefix.shape[1]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    return x, positions, 0
+    return x, positions, offset
 
 
 def _schedule(params: LM, cfg: ModelConfig) -> list:
@@ -170,11 +186,44 @@ def _decoder_only_forward(params: LM, cfg: ModelConfig, x, positions):
     return x, aux
 
 
-def forward(params: LM, cfg: ModelConfig, batch: dict):
-    """-> (logits over the padded vocab aligned with batch['tokens'], aux)."""
-    check_ported(cfg)
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+def encode(params: LM, cfg: ModelConfig, encoder_embeds: torch.Tensor):
+    """The enc-dec encoder over frame embeddings (B, S_enc, d): dense
+    blocks without the causal mask, then enc_norm. Returns (memory, aux)."""
+    x = encoder_embeds.to(cfg.dtype)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params.encoder:
+        x, a = blk.block_forward(lp, cfg, x, pos, "dense", causal=False)
+        aux = aux + a
+    return rms_norm(x, params.enc_norm, cfg.norm_eps), aux
+
+
+def _encdec_forward(params: LM, cfg: ModelConfig, batch: dict):
+    memory, aux = encode(params, cfg, batch["encoder_embeds"])
+    x = F.embedding(batch["tokens"], params.embed)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for lp in params.decoder:
+        mk, mv = blk.cross_memory_kv(lp.cross_attn, memory)
+        x, a = blk.cross_block_forward(lp, cfg, x, pos, mk, mv)
+        aux = aux + a
+    return x, aux
+
+
+def _hidden(params: LM, cfg: ModelConfig, batch: dict):
+    """The last layer's output over the text positions (B, S, d), and
+    aux."""
+    if cfg.is_encdec:
+        return _encdec_forward(params, cfg, batch)
+    x, positions, offset = _embed_inputs(params, cfg, batch)
     x, aux = _decoder_only_forward(params, cfg, x, positions)
+    return x[:, offset:], aux
+
+
+def forward(params: LM, cfg: ModelConfig, batch: dict):
+    """-> (logits over the padded vocab aligned with batch['tokens'], aux).
+    A VLM's prefix rows get no logits (the reference slices them off)."""
+    check_ported(cfg)
+    x, aux = _hidden(params, cfg, batch)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, aux
 
@@ -204,12 +253,25 @@ def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=None, enc_len: int = 0, *,
                      device: torch.device | str | None = None) -> dict:
     """Empty caches for decode from scratch: {"layers": [a KVCache (GQA),
-    MLACache or SSMCache per layer]}, or a hybrid's {"ssm": [an SSMCache per
-    SSM layer], "shared": [a KVCache per application of the shared block]}
-    (the reference stacks them along leading layer axes)."""
+    MLACache or SSMCache per layer]}, a hybrid's {"ssm": [an SSMCache per
+    SSM layer], "shared": [a KVCache per application of the shared
+    block]}, or an enc-dec model's {"self": [a KVCache per decoder layer],
+    "cross_k": [...], "cross_v": [(B, enc_len, KV, Dh) zeros per decoder
+    layer]} (the reference stacks them along leading layer axes)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
+    if cfg.is_encdec:
+        L = cfg.num_layers
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {
+            "self": [blk.attn_empty_cache(cfg, batch, cache_len, dtype, dev)
+                     for _ in range(L)],
+            "cross_k": [torch.zeros(shape, dtype=dtype, device=dev)
+                        for _ in range(L)],
+            "cross_v": [torch.zeros(shape, dtype=dtype, device=dev)
+                        for _ in range(L)],
+        }
     if cfg.arch_type == "hybrid":
         kinds = ["ssm"] * cfg.num_layers + ["dense"] * (
             cfg.num_layers // cfg.shared_attn_every)
@@ -227,6 +289,15 @@ def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor,
     `state` are updated in place and returned in it."""
     check_ported(cfg)
     x = F.embedding(token, params.embed)
+    if cfg.is_encdec:
+        caches = []
+        for lp, cache, mk, mv in zip(params.decoder, state["self"],
+                                     state["cross_k"], state["cross_v"]):
+            x, cache = blk.cross_block_decode(lp, cfg, x, cache, position,
+                                              mk, mv)
+            caches.append(cache)
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        return x @ params.lm_head, dict(state, self=caches)
     schedule = _schedule(params, cfg)
     kinds = [k for _, k in schedule]
     caches = []
@@ -242,8 +313,7 @@ def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor,
 def prefill(params: LM, cfg: ModelConfig, batch: dict):
     """Full-sequence pass returning last-position logits (B, 1, Vp)."""
     check_ported(cfg)
-    x, positions, _ = _embed_inputs(params, cfg, batch)
-    x, _ = _decoder_only_forward(params, cfg, x, positions)
+    x, _ = _hidden(params, cfg, batch)
     # rms_norm and the head act on each position alone: the last position's
     # logits need neither the other positions nor an (S, Vp) product
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
@@ -254,8 +324,15 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict):
 def prefill_with_state(params: LM, cfg: ModelConfig, batch: dict,
                        cache_len: int):
     """One full-sequence pass that also builds the decode caches — the
-    production prefill path. Returns (last-position logits, serve state)."""
+    production prefill path. Decoder-only architectures; a VLM's caches
+    hold its prefix rows before the text's. Enc-dec models prefill in the
+    engine (`serve.engine._fill_cross_memory`, then the prompt replayed
+    through decode_step). Returns (last-position logits, serve state)."""
     check_ported(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an enc-dec prefill is the engine's "
+                         "(its cross memory, then the prompt replayed "
+                         "through decode_step)")
     x, positions, _ = _embed_inputs(params, cfg, batch)
     schedule = _schedule(params, cfg)
     caches = []

@@ -962,7 +962,12 @@ ATTN_SHAPES = [(1, 2, 2, 100, 100, 64, 64, True, 0),
                (1, 4, 4, 257, 257, 192, 128, True, 0),
                (1, 8, 2, 300, 300, 128, 128, True, 64),
                # zamba2-2.7b's shared attention block: Dh = Dv = 80, KV = H
-               (1, 4, 4, 300, 300, 80, 80, True, 0)]
+               (1, 4, 4, 300, 300, 80, 80, True, 0),
+               # internvl2-1b's 14 query heads over 2 KV heads (a group of
+               # 7), and seamless-m4t-medium's cross attention: no mask,
+               # fewer decoder rows than encoder rows
+               (1, 14, 2, 300, 300, 64, 64, True, 0),
+               (1, 4, 4, 64, 300, 64, 64, False, 0)]
 
 
 def _attn_operands(cuda, B, H, KV, Sq, Sk, Dh, Dv, dtype, seed=3):
@@ -1117,6 +1122,48 @@ def test_ssm_models_served_on_card_match_cpu(cuda, arch):
     toks = torch.as_tensor(prompts)
     last, _ = M.prefill_with_state(gpu, cfg, {"tokens": toks.to(cuda)}, S)
     want, _ = M.prefill_with_state(cpu, cfg, {"tokens": toks}, S)
+    torch.testing.assert_close(last.cpu(), want, rtol=0, atol=1e-4)
+
+
+
+@pytest.mark.parametrize("arch,S", [("internvl2-1b", 5),
+                                    ("internvl2-1b", 40),
+                                    ("seamless-m4t-medium", 40)])
+def test_multimodal_models_served_on_card_match_cpu(cuda, arch, S):
+    """The reduced VLM (prompts shorter and longer than its 8-row patch
+    prefix) and the reduced enc-dec model (48 encoder frames) served on the
+    card and on the CPU from the same weights and stub embeddings: equal
+    greedy tokens; K4 once per layer of the VLM's prefill, once per
+    encoder layer of the enc-dec generate (its prompt replay and decode
+    run none), and the forward's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config(arch).reduced()
+    gpu = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (2, S))
+    if cfg.is_encdec:
+        key, rows, launches = "encoder_embeds", 48, cfg.encoder_layers
+    else:
+        key, rows, launches = "prefix_embeds", cfg.prefix_len, cfg.num_layers
+    extra = {key: rng.normal(size=(2, rows, cfg.d_model)).astype(np.float32)}
+    scfg = ServeConfig(max_new_tokens=8, cache_len=64)
+    before = k4.LAUNCHES
+    got = Engine(cfg, gpu, scfg, extra_batch=extra).generate(prompts)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + launches
+    np.testing.assert_array_equal(got, Engine(cfg, cpu, scfg,
+                                              extra_batch=extra).generate(
+        prompts))
+    batch = {"tokens": torch.as_tensor(prompts),
+             key: torch.from_numpy(extra[key])}
+    with torch.inference_mode():
+        last, _ = M.forward(gpu, cfg, {k: v.to(cuda) for k, v in
+                                       batch.items()})
+        want, _ = M.forward(cpu, cfg, batch)
     torch.testing.assert_close(last.cpu(), want, rtol=0, atol=1e-4)
 
 

@@ -122,6 +122,34 @@ def test_head_dims_and_lengths_that_differ(Sq, Sk, causal, window):
                                    atol=TOL["f32"])
 
 
+# the VLM and enc-dec serving shapes (B, H, KV, Sq, Sk, Dh, Dv, causal,
+# window), as in tests/test_torch_cuda.py::ATTN_SHAPES: internvl2-1b's 14
+# query heads over 2 KV heads, causal; seamless-m4t-medium's cross
+# attention, no mask, Sq != Sk
+@pytest.mark.parametrize("shape", [(1, 14, 2, 300, 300, 64, 64, True, 0),
+                                   (1, 4, 4, 64, 300, 64, 64, False, 0)],
+                         ids=str)
+def test_gqa_flash_matches_reference_at_the_multimodal_shapes(shape):
+    """The model's layout, fp32: against the reference's gqa_flash (its
+    Pallas kernel in interpret mode, K and V repeated) and its
+    blockwise_attention."""
+    B, H, KV, Sq, Sk, Dh, Dv, causal, window = shape
+    qn, kn, vn = _normals(8, (B, Sq, H, Dh), (B, Sk, KV, Dh), (B, Sk, KV, Dv))
+    got = gqa_flash(*(torch.from_numpy(a) for a in (qn, kn, vn)),
+                    causal=causal, window=window)
+    assert got.shape == (B, Sq, H, Dv)
+    jq, jk, jv = (jnp.asarray(a) for a in (qn, kn, vn))
+    kernel = jax_gqa_flash(jq, jk, jv, causal=causal, window=window,
+                           block_q=64, block_k=64)
+    blockwise = blockwise_attention(
+        jq, jk, jv, jnp.arange(Sq, dtype=jnp.int32),
+        jnp.arange(Sk, dtype=jnp.int32), causal=causal, window=window,
+        block_q=64, block_k=64)
+    for want in (kernel, blockwise):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL["f32"])
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_rows_no_key_may_see_are_zero(causal):
     """With a window and Sq > Sk + window - 1, the last rows may see no key.
