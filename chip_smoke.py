@@ -369,9 +369,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      split into K4 and the rest, decode per token, peak memory. The
      kernels line's K4 entry adds (b)-(d)'s launches and the largest
      error of (a), (c) and (d).
+ 27. the VLM and the enc-dec model trained (`mm_train_phase`): (a) K7
+     against its plain version within K7_RTOL, and K4's output and the
+     log-sum-exp K7 reads within K4_TOL (+inf rows equal), at
+     internvl2-1b's (2, 4096, 14/2, 64) causal, seamless-m4t-medium's
+     encoder (2, 2048, 16/16, 64) without the mask and decoder self
+     attention (causal), its cross attention without the mask at Sq 256
+     over Sk 2048 and at Sq 2048 over Sk 256, and ragged (1, 200 / 1000,
+     14/2, 64) both ways, untimed; the rest with a cold L2 beside K7's
+     bound, plain version and SDPA's backward; (b) the reduced
+     internvl2-1b at 14/2 heads (8 patch rows + 88 tokens) and
+     seamless-m4t-medium (80 frames + 48 tokens), allreduce and coke
+     (v=20, mu=0.5) at 4 agents, TRAIN_MOE_MLA_STEPS steps of B=8 card
+     against CPU from the same weights and stub embeddings, held step by
+     step within TRAIN_MOE_MLA_RTOL, comms and send_frac equal; K4 = K7 =
+     agents x attentions x (3 steps - 1); (c) both at full width on
+     configs/shapes.py's train_4k split at B=2 (256 patch rows + 3840
+     tokens; 2048 frames + 2048 tokens), AdamW lr 3e-3 clip 1.0, 5 steps:
+     ms per step device and host, K4 and K7 per step (24; 12 + 2 x 12 =
+     36), peak memory, finite losses, the model flops of
+     launch/analysis.py and their share of the card's fp32 peak. The
+     kernels line's K7 and K4 entries add (b) and (c)'s launches and
+     (a)'s largest errors.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
-generate of 22 and 23, each prefill of 24, each run of 25 and each
+generate of 22 and 23, each prefill of 24, each run of 25 and 27 and each
 counted prefill and generate of 26 every launch counter is set to 0, and
 read just after.
 The line before the last is one JSON object describing the kernels; the
@@ -386,13 +408,15 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase24   # build, phase 24
     python3 chip_smoke.py --phase25   # build, phase 25
     python3 chip_smoke.py --phase26   # build, phase 26
+    python3 chip_smoke.py --phase27   # build, phase 27
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
 entry, phase 21 alone and its launch counts and errors, phase 22, 23 or
 26 alone and K4's launches and largest error there, phase 24 alone and
-K4's largest error against float64, or phase 25 alone and K7's launches
-and largest error and K4's launches; none prints the result lines.
+K4's largest error against float64, phase 25 alone and K7's launches
+and largest error and K4's launches, or phase 27 alone and K7's and K4's
+launches and largest errors; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -835,6 +859,32 @@ MM_VLM = (2, 256, 3840)
 # _token_specs' even split of 4096; the generate's prompt tokens
 MM_ENCDEC = (2, 2048, 2048)
 MM_ENCDEC_PROMPT = 8
+# phase 27, the VLM and the enc-dec model trained: (a) K7, and K4 with the
+# log-sum-exp it reads, at the slice's shapes, (what, B, Sq, Sk, H, KV,
+# Dh = Dv, causal, timed): internvl2-1b's 256 + 3840 rows (groups of 7);
+# seamless-m4t-medium's encoder (no mask) and decoder self attention over
+# 2048, its cross attention both ways (the training split of 4096 gives a
+# square one, so these hold the Sq != Sk limits), and ragged lengths on no
+# tile boundary
+MM_K7_SHAPES = (
+    ("internvl2-1b", 2, 4096, 4096, 14, 2, 64, True, True),
+    ("seamless encoder", 2, 2048, 2048, 16, 16, 64, False, True),
+    ("seamless decoder self", 2, 2048, 2048, 16, 16, 64, True, True),
+    ("cross, Sq < Sk", 2, 256, 2048, 16, 16, 64, False, True),
+    ("cross, Sq > Sk", 2, 2048, 256, 16, 16, 64, False, True),
+    ("ragged, Sq < Sk", 1, 200, 1000, 14, 2, 64, False, False),
+    ("ragged, Sq > Sk", 1, 1000, 200, 14, 2, 64, False, False))
+# (b) the reduced pair card against CPU as phase 25(b) does: the VLM with
+# 14 query heads over 2 KV heads (K7 sums groups of 7) on its 8 patch rows
+# + 88 tokens; the enc-dec model on 80 frames + 48 tokens (the cross
+# attention at Sq < Sk, neither on a tile boundary)
+MM_TRAIN_VLM_HEADS = (14, 2)
+MM_TRAIN_VLM_TOKENS = 88
+MM_TRAIN_ENC = (80, 48)
+# (c) full width at configs/shapes.py's train_4k split of 4096 (256 patch
+# rows + 3840 tokens; 2048 frames + 2048 tokens), its global batch of 256
+# cut to 2 for one card, AdamW at phase 20's settings, 5 steps
+MM_TRAIN_BATCH = 2
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -4813,29 +4863,34 @@ def mesh_gossip_phase(dev, card, reset_counts, counts, *, problem, cfg):
     return seen, errs
 
 
-def k7_operands(gen, dev, B, H, KV, S, D, Dv=None):
-    """(B, S, heads, D) q, k and (B, S, heads, Dv) v, dO (Dv defaults to
-    D), the model's layout."""
+def k7_operands(gen, dev, B, H, KV, S, D, Dv=None, Sk=None):
+    """(B, S, H, D) q, (B, Sk, KV, D) k, (B, Sk, KV, Dv) v and (B, S, H,
+    Dv) dO (Dv defaults to D, Sk to S), the model's layout."""
     Dv = D if Dv is None else Dv
+    Sk = S if Sk is None else Sk
     return tuple(torch.randn(shape, generator=gen, device=dev)
-                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv),
-                               (B, S, H, Dv)))
+                 for shape in ((B, S, H, D), (B, Sk, KV, D),
+                               (B, Sk, KV, Dv), (B, S, H, Dv)))
 
 
-def admissible_pairs(S, window):
-    """Causal (query, key) pairs within `window` (0: none)."""
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+def admissible_pairs(S, window, Sk=None, causal=True):
+    """(query, key) pairs the mask admits over S queries and Sk keys (Sk
+    defaults to S), query i and key j at positions i and j: j <= i where
+    causal, j > i - window where window (0: none)."""
+    Sk = S if Sk is None else Sk
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(S, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def k7_library_ms(q, k, v, do, window):
+def k7_library_ms(q, k, v, do, window, causal=True):
     """(ms, how) of the backward alone of one F.scaled_dot_product_attention
-    call (memory-efficient backend, fp32) on q (B, H, S, Dh), v (B, KV, S,
-    Dv) and k/v repeated to H heads before the call: torch.autograd.grad
-    of its output at do, the graph kept. The yardstick of K7, called
-    nowhere in the port. (None, why) where the backend refuses the
-    shape."""
+    call (memory-efficient backend, fp32) on q (B, H, Sq, Dh), v (B, KV,
+    Sk, Dv) and k/v repeated to H heads before the call, with the causal
+    mask or without it: torch.autograd.grad of its output at do, the graph
+    kept. The yardstick of K7, called nowhere in the port. (None, why)
+    where the backend refuses the shape."""
     import warnings
     from torch.nn.attention import SDPBackend, sdpa_kernel
     rep = q.shape[1] // k.shape[1]
@@ -4844,16 +4899,22 @@ def k7_library_ms(q, k, v, do, window):
     vv = v.repeat_interleave(rep, dim=1).detach().requires_grad_()
     mask = None
     if window:
-        i = torch.arange(q.shape[2], device=q.device)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = j > i - window
+        if causal:
+            mask = mask & (j <= i)
+    masked = ("boolean mask" if window else "is_causal" if causal
+              else "no mask")
     how = (f"backward of EFFICIENT_ATTENTION, fp32, K/V repeated {rep}x "
-           f"before the call, {'boolean mask' if window else 'is_causal'}")
+           f"before the call, {masked}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         try:
             with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
                 out = torch.nn.functional.scaled_dot_product_attention(
-                    qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+                    qq, kk, vv, attn_mask=mask,
+                    is_causal=causal and mask is None)
             ms = time_ms(lambda: torch.autograd.grad(
                 out, (qq, kk, vv), do, retain_graph=True),
                 reps=1, runs=5, warmup=1)
@@ -4863,64 +4924,92 @@ def k7_library_ms(q, k, v, do, window):
 
 
 def k7_hold(phase, dev, card, gen, flush, peaks, tag, B, H, KV, S, D, window,
-            timed, Dv=None):
-    """K7 at one causal shape (q, k of head dim D; v, dO of Dv, default D)
-    against its plain version, within K7_RTOL of each gradient's max; where
-    `timed`, its cold-L2 time beside its bound, the plain version and SDPA's
-    backward. Returns the kernels line's entry for this shape (None where
-    not timed)."""
+            timed, Dv=None, *, Sk=None, causal=True, hold_k4=False):
+    """K7 at one shape (S queries and Sk keys, default S; q, k of head dim
+    D; v, dO of Dv, default D; causal or without the mask) against its
+    plain version, within K7_RTOL of each gradient's max; with `hold_k4`,
+    K4's output and log-sum-exp that it reads too, within K4_TOL (the +inf
+    rows equal); where `timed`, its cold-L2 time beside its bound, the
+    plain version and SDPA's backward. Returns the kernels line's entry
+    for this shape (None where not timed); with `hold_k4`, (that, K7's
+    largest error, K4's largest error)."""
     from repro_torch.kernels.flash_attention import flash_attention as k4
     from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         attention_ref)
     t = lambda x: x.transpose(1, 2)
     Dv = D if Dv is None else Dv
-    q, k, v, do = k7_operands(gen, dev, B, H, KV, S, D, Dv)
+    Sk = S if Sk is None else Sk
+    q, k, v, do = k7_operands(gen, dev, B, H, KV, S, D, Dv, Sk)
     lse = torch.empty((B, H, S), device=dev)
-    out = k4.launch(q, k, v, heads_dim=2, causal=True, window=window,
+    out = k4.launch(q, k, v, heads_dim=2, causal=causal, window=window,
                     lse=lse)
+    mask = f"{'causal' if causal else 'no mask'}, window={window}"
+    lens = f"S={S}" if Sk == S else f"Sq={S}, Sk={Sk}"
+    dims = f"D={D}" if Dv == D else f"Dh={D}, Dv={Dv}"
+    k4_err = None
+    if hold_k4:
+        tol = K4_TOL[torch.float32]
+        want_o = attention_ref(t(q), t(k), t(v), causal=causal,
+                               window=window)
+        o_err = float((t(out) - want_o).abs().max())
+        del want_o
+        want_l = attention_lse_ref(t(q), t(k), causal=causal, window=window)
+        inf = torch.isinf(want_l)
+        same_inf = bool(torch.equal(torch.isinf(lse), inf))
+        l_err = float((lse[~inf] - want_l[~inf]).abs().max()) \
+            if bool((~inf).any()) else 0.0
+        k4_err = max(o_err, l_err)
+        log(phase, f"K4 {tag} ({lens}, H={H}, KV={KV}, {dims}, {mask}): "
+                   f"output max|err| {o_err:.3e}, log-sum-exp max|err| "
+                   f"{l_err:.3e} (tol {tol:g}), +inf rows "
+                   f"{int(inf.sum())}, equal: {same_inf}")
+        if not (k4_err <= tol and same_inf):
+            raise AssertionError(f"K4 or its log-sum-exp disagrees with its "
+                                 f"plain version at the {tag} shape")
 
     def bwd():
-        return k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True,
+        return k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=causal,
                                 window=window)
 
     got = bwd()
     want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
-                             causal=True, window=window)
+                             causal=causal, window=window)
     errs, rel = [], []
     for g, w in zip(got, want):
         e = float((g - t(w)).abs().max())
         errs.append(e)
         rel.append(e / float(w.abs().max()))
     del got, want
-    dims = f"D={D}" if Dv == D else f"Dh={D}, Dv={Dv}"
-    log(phase, f"K7 {tag} (B={B}, S={S}, H={H}, KV={KV}, {dims}, causal, "
-               f"window={window}): max|err| dq {errs[0]:.3e}, dk "
-               f"{errs[1]:.3e}, dv {errs[2]:.3e}; relative to each max "
-               f"{max(rel):.3e} (tol {K7_RTOL:g})")
+    log(phase, f"K7 {tag} (B={B}, {lens}, H={H}, KV={KV}, {dims}, {mask}): "
+               f"max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+               f"{errs[2]:.3e}; relative to each max {max(rel):.3e} (tol "
+               f"{K7_RTOL:g})")
     if not max(rel) <= K7_RTOL:
         raise AssertionError(f"K7 disagrees with its plain version at the "
                              f"{tag} shape")
     if not timed:
-        return None
+        return (None, max(errs), k4_err) if hold_k4 else None
     bw, tf32 = peaks[0], peaks[3]
-    big = S > 1000
+    big = max(S, Sk) > 1000
     ms = flushed_ms(bwd, flush, reps=5 if big else 50,
                     warmup=1 if big else 3)
-    pairs = admissible_pairs(S, window)
+    pairs = admissible_pairs(S, window, Sk, causal)
     # the backward's five products (S and dP recomputed once, dV, dK, dQ):
     # 6 Dh + 4 Dv flops a pair (10 D at Dh = Dv), at the least
     # fp32-accurate route, 3xTF32 (three TF32 MMAs a product) on the
-    # tensor cores; its bytes: q, dQ (Dh) and o, dO (Dv) of (B, S, H), k,
-    # dK (Dh) and v, dV (Dv) of (B, S, KV), L, each once
+    # tensor cores; its bytes: q, dQ (Dh) and o, dO (Dv) of (B, Sq, H), k,
+    # dK (Dh) and v, dV (Dv) of (B, Sk, KV), L, each once
     flops = (6.0 * D + 4.0 * Dv) * pairs * B * H
-    nbytes = 4.0 * (B * S * 2 * (D + Dv) * (H + KV) + B * H * S)
+    nbytes = 4.0 * (B * 2 * (D + Dv) * (S * H + Sk * KV) + B * H * S)
     t_f, t_b = 3 * flops / tf32 * 1e3, nbytes / bw * 1e3
     b_ms, b_by = (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
     plan = k7.device_plan(q, k, v)
     plain_ms = time_ms(lambda: attention_bwd_ref(
-        t(q), t(k), t(v), t(out), t(do), causal=True, window=window),
+        t(q), t(k), t(v), t(out), t(do), causal=causal, window=window),
         reps=1, runs=3, warmup=1)
-    lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window)
+    lib_ms, lib_how = k7_library_ms(t(q), t(k), t(v), t(do), window, causal)
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(phase, f"[{card}] K7 at the {tag} shape: {ms:.4f} ms with a cold "
                f"L2, bound {b_ms:.4f} ms ({b_by}: 3 x {flops / 1e12:.4f} "
@@ -4935,12 +5024,13 @@ def k7_hold(phase, dev, card, gen, flush, peaks, tag, B, H, KV, S, D, window,
                f"{plan.q.rows}-query tiles, {plan.q.warps} warps "
                f"({plan.q.rw}x{plan.q.cw}), {plan.q.step_rows} key rows a "
                f"step, {plan.q.smem} B, grid {plan.q.grid}")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": KERNEL_SOURCES["flash_attention_bwd"][0],
-            "replaces": KERNEL_SOURCES["flash_attention_bwd"][1],
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": KERNEL_SOURCES["flash_attention_bwd"][0],
+             "replaces": KERNEL_SOURCES["flash_attention_bwd"][1],
+             "launches": None, "max_abs_err": max(errs), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib_ms}
+    return (entry, max(errs), k4_err) if hold_k4 else entry
 
 
 def state_on(tree, where):
@@ -4958,7 +5048,7 @@ def state_on(tree, where):
 
 
 def card_cpu_hold(dev, cfg, weights, stream, ccfg, agents, steps,
-                  routes=None):
+                  routes=None, extra=None):
     """Train `cfg` from `weights` on the CPU and on the card, `steps`
     batches of `stream` (split over `agents` under the consensus config
     `ccfg`; None trains allreduce), AdamW lr 3e-3, and compare them the way
@@ -4974,7 +5064,11 @@ def card_cpu_hold(dev, cfg, weights, stream, ccfg, agents, steps,
     step), `same_forced` (the same from the CPU's state), the worst
     relative loss differences `worst_free`, `worst_step` (that step's from
     the CPU's state), `worst_next` (the next step's, after the card's own
-    update), and `routed`, [(card routings, CPU routings)] per step."""
+    update), and `routed`, [(card routings, CPU routings)] per step.
+    `extra` maps a batch key to a tensor of the global batch that every
+    step's batch carries beside the tokens (the VLM's prefix_embeds, the
+    enc-dec model's encoder_embeds): the family's stub embeddings, made
+    once and copied to both devices."""
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train.steps import agent_batch, make_train_step
     keys = ("loss", "comms", "send_frac") if ccfg else ("loss",)
@@ -4987,7 +5081,8 @@ def card_cpu_hold(dev, cfg, weights, stream, ccfg, agents, steps,
         for i in range(steps):
             toks, labels = stream.batch(i)
             b = {"tokens": torch.as_tensor(toks, device=where),
-                 "labels": torch.as_tensor(labels, device=where)}
+                 "labels": torch.as_tensor(labels, device=where),
+                 **{k: x.to(where) for k, x in (extra or {}).items()}}
             batches[where].append(agent_batch(b, agents) if ccfg else b)
     routes = [] if routes is None else routes
     metrics = lambda m: {k: float(m[k]) for k in keys}
@@ -6744,6 +6839,181 @@ def multimodal_phase(dev, card, reset_counts, counts, *, peaks):
     return launches, worst
 
 
+def mm_train_phase(dev, card, reset_counts, counts, *, peaks):
+    """Phase 27: internvl2-1b and seamless-m4t-medium trained on the card
+    through K4 and K7. (a) K7 against its plain version at MM_K7_SHAPES
+    (without the mask, at Sq != Sk both ways, over groups of 7), with K4's
+    output and log-sum-exp held there too, the timed shapes with a cold L2
+    beside K7's bound, its plain version and SDPA's backward; (b) the
+    reduced VLM (14/2 heads) and enc-dec model, allreduce and coke (v=20,
+    mu=0.5) at 4 agents, card against CPU from the same weights and stub
+    embeddings, held step by step (`card_cpu_hold`), K4 = K7 = agents x
+    attentions x (3 steps - 1); (c) both at full width on
+    `configs.shapes._token_specs`' train_4k split at B=2, allreduce, AdamW
+    lr 3e-3 clip 1.0, 5 steps: step times, peak memory, launches and the
+    model flops of `launch.analysis` against the card's fp32 peak. Returns
+    (K7's launches and largest error, K4's launches and largest error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, _token_specs
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.launch import analysis
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    flush = torch.empty(64 * 2**20, device=dev)      # 256 MB > the L2
+    k7_err = k4_err = 0.0
+    k4_launches = k7_launches = 0
+
+    def attentions(cfg):
+        """Attention calls in one forward: one per layer, or one per
+        encoder layer and two (self, cross) per decoder layer."""
+        return cfg.encoder_layers + (2 if cfg.is_encdec else 1) * \
+            cfg.num_layers
+
+    def batch_data(specs, stream, i, where, embeds):
+        """A batch of `specs`' shapes: the stream's tokens and labels of
+        step i, the stub embeddings given."""
+        toks, labels = stream.batch(i)
+        out = {"tokens": torch.as_tensor(toks, device=where),
+               "labels": torch.as_tensor(labels, device=where),
+               **{k: x.to(where) for k, x in embeds.items()}}
+        for k, spec in specs.items():
+            if out[k].shape != spec.shape or out[k].dtype != spec.dtype:
+                raise AssertionError(f"{k}: {out[k].dtype} "
+                                     f"{tuple(out[k].shape)}, the spec "
+                                     f"{spec.dtype} {tuple(spec.shape)}")
+        return out
+
+    def stub_embeds(specs, g):
+        """Seeded normals of each *_embeds spec's shape, on g's device."""
+        return {k: torch.randn(spec.shape, generator=g, device=g.device,
+                               dtype=spec.dtype)
+                for k, spec in specs.items() if k.endswith("_embeds")}
+
+    # ---- (a) K7 and K4's log-sum-exp at the slice's shapes ------------------
+    for tag, B, Sq, Sk, H, KV, D, causal, timed in MM_K7_SHAPES:
+        _, e7, e4 = k7_hold(27, dev, card, gen, flush, peaks, tag, B, H, KV,
+                            Sq, D, 0, timed, Sk=Sk, causal=causal,
+                            hold_k4=True)
+        k7_err, k4_err = max(k7_err, e7), max(k4_err, e4)
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- (b) the reduced pair, card against CPU -----------------------------
+    H, KV = MM_TRAIN_VLM_HEADS
+    vlm = get_config("internvl2-1b").reduced().with_overrides(
+        num_heads=H, num_kv_heads=KV)
+    P = vlm.prefix_len
+    enc = get_config("seamless-m4t-medium").reduced()
+    frames, dec_tokens = MM_TRAIN_ENC
+    cpu_gen = torch.Generator().manual_seed(27)
+    vlm_specs = _token_specs(vlm, TRAIN_BATCH, P + MM_TRAIN_VLM_TOKENS, True)
+    enc_specs = {"encoder_embeds": torch.empty(
+        (TRAIN_BATCH, frames, enc.d_model), device="meta")}
+    for cfg, specs, text, what in (
+            (vlm, vlm_specs, MM_TRAIN_VLM_TOKENS,
+             f"internvl2-1b (GQA {H}/{KV} of {vlm.resolved_head_dim}, {P} "
+             f"patch rows + {MM_TRAIN_VLM_TOKENS} tokens)"),
+            (enc, enc_specs, dec_tokens,
+             f"seamless-m4t-medium ({enc.num_heads}/{enc.num_kv_heads} of "
+             f"{enc.resolved_head_dim}, {frames} frames + {dec_tokens} "
+             f"tokens)")):
+        weights = M.param_dict(M.init_params(
+            cfg, torch.Generator().manual_seed(0)))
+        stream = TokenStream(TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=text,
+            global_batch=TRAIN_BATCH, structure=0.9))
+        extra = stub_embeds(specs, cpu_gen)
+        for strategy, agents in (("allreduce", 1), ("coke", 4)):
+            ccfg = (ConsensusConfig(strategy="coke", rho=1e-3,
+                                    censor_v=20.0, censor_mu=0.5)
+                    if strategy == "coke" else None)
+            steps = TRAIN_MOE_MLA_STEPS
+            reset_counts()
+            h = card_cpu_hold(dev, cfg, weights, stream, ccfg, agents, steps,
+                              extra=extra)
+            n = agents * attentions(cfg) * (3 * steps - 1)
+            seen = {k: v for k, v in counts().items() if v}
+            if seen != {"flash_attention": n, "flash_attention_bwd": n}:
+                raise AssertionError(f"reduced {cfg.name} {strategy} "
+                                     f"launched {seen}, expected K4 = K7 = "
+                                     f"{n}")
+            text_, ok = hold_line(h, ccfg is not None, tol=TRAIN_MOE_MLA_RTOL)
+            log(27, f"(b) reduced {what}, {strategy}, {agents} agent(s), "
+                    f"{steps} steps of B={TRAIN_BATCH}: {text_}; K4 and K7 "
+                    f"{n} launches each ({agents} x {attentions(cfg)} "
+                    f"attentions x {3 * steps - 1} forwards)")
+            if not ok:
+                raise AssertionError(f"reduced {cfg.name} {strategy} "
+                                     "training differs between card and CPU")
+            k4_launches += n
+            k7_launches += n
+        del weights, extra
+
+    # ---- (c) full width, allreduce, one model at a time ---------------------
+    opt_cfg = OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    shape = SHAPES["train_4k"]
+    B, S = MM_TRAIN_BATCH, shape.seq_len
+    for arch in ("internvl2-1b", "seamless-m4t-medium"):
+        cfg = get_config(arch)
+        specs = _token_specs(cfg, B, S, with_labels=True)
+        n, A = TRAIN_STEPS, attentions(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, _ = make_train_step(cfg, opt_cfg)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(x.numel() for x in state["params"].values())
+        mflops = analysis.model_flops(
+            cfg, "train", B, S,
+            analysis.active_params(cfg, M.param_shapes(cfg)))
+        stream = TokenStream(TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=specs["tokens"].shape[1],
+            global_batch=B))
+        embeds = stub_embeds(specs, gen)
+        batches = [batch_data(specs, stream, i, dev, embeds)
+                   for i in range(n)]
+        split = ", ".join(f"{k} {tuple(x.shape)}" for k, x in specs.items())
+        state, rows = timed_steps(
+            f"(c) {arch}", [step_fn] * n, state, batches,
+            {"flash_attention": A * n, "flash_attention_bwd": A * n},
+            reset_counts, counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, batches, embeds
+        losses = [r[0]["loss"] for r in rows]
+        d_med = statistics.median(r[1] for r in rows[1:])
+        h_med = statistics.median(r[2] for r in rows[1:])
+        share = mflops / (d_med * 1e-3) / peaks[1]
+        depth = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder"
+                 if cfg.is_encdec else f"{cfg.num_layers}")
+        log(27, f"[{card}] (c) {arch} allreduce at full width, {depth} "
+                f"layers (GQA {cfg.num_heads}/{cfg.num_kv_heads} of "
+                f"{cfg.resolved_head_dim}): {n_params / 1e9:.3f} B fp32 "
+                f"parameters, {4.0 * n_params / 1e9:.2f} GB of the card's "
+                f"{total:.1f} GB; {shape.name}'s split of {S} at B={B} (the "
+                f"global batch {shape.global_batch} cut for one card): "
+                f"{split}; steps 1-{n - 1} median device {d_med:.2f} ms, "
+                f"host {h_med:.2f} ms per step; K4 and K7 {A} launches each "
+                f"per step; peak memory {peak:.2f} GB; model flops "
+                f"{mflops / 1e12:.3f} TFLOP a step (launch/analysis.py), "
+                f"{share:.1%} of the card's fp32 peak of "
+                f"{peaks[1] / 1e12:g} TFLOP/s; losses "
+                f"{[round(x, 6) for x in losses]}")
+        k4_launches += A * n
+        k7_launches += A * n
+        torch.cuda.empty_cache()
+    log(27, f"[{card}] K4 and K7 launches over (b) and (c): {k4_launches}, "
+            f"{k7_launches}; largest error over (a): K7 {k7_err:.3e}, K4 "
+            f"{k4_err:.3e}; phase 27 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return k7_launches, k7_err, k4_launches, k4_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8075,7 +8345,22 @@ def main() -> int:
                     f"{mm_err:.3e} over phase 26 added")
             entry["launches"] += mm_launches
             entry["max_abs_err"] = max(entry["max_abs_err"], mm_err)
-    log(26, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 27. the VLM and the enc-dec model trained through K4 and K7 -------
+    k7_27, k7_err_27, k4_27, k4_err_27 = mm_train_phase(
+        dev, card, reset_counts, counts, peaks=peaks)
+    for entry in kernels:       # K4 and K7 add phase 27's launches, errors
+        if entry["name"] == "flash_attention_bwd":
+            log(27, f"flash_attention_bwd: {k7_27} launches and max|err| "
+                    f"{k7_err_27:.3e} over phase 27 added")
+            entry["launches"] += k7_27
+            entry["max_abs_err"] = max(entry["max_abs_err"], k7_err_27)
+        elif entry["name"] == "flash_attention":
+            log(27, f"flash_attention: {k4_27} launches and max|err| "
+                    f"{k4_err_27:.3e} over phase 27 added")
+            entry["launches"] += k4_27
+            entry["max_abs_err"] = max(entry["max_abs_err"], k4_err_27)
+    log(27, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -8332,10 +8617,41 @@ def phase26_alone() -> int:
     return 0
 
 
+def phase27_alone() -> int:
+    """Phase 27 alone: build the kernels and run `mm_train_phase`; prints
+    K7's and K4's launches and largest errors, not the result lines."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    k7_launches, k7_err, k4_launches, k4_err = mm_train_phase(
+        dev, card, reset_counts, counts,
+        peaks=card_peaks(torch.cuda.get_device_name(0)))
+    print(card)
+    print(json.dumps({"flash_attention_bwd": {"launches": k7_launches,
+                                              "max_abs_err": k7_err},
+                      "flash_attention": {"launches": k4_launches,
+                                          "max_abs_err": k4_err}}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
              "--phase21": phase21_alone, "--phase22": phase22_alone,
              "--phase23": phase23_alone, "--phase24": phase24_alone,
-             "--phase25": phase25_alone, "--phase26": phase26_alone}
+             "--phase25": phase25_alone, "--phase26": phase26_alone,
+             "--phase27": phase27_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

@@ -44,9 +44,25 @@ two-operand `torch.einsum` contractions over the feature dim go through
 them; an operation that no rule covers raises NotImplementedError naming
 it, never a silent gather. `blockwise` runs a function (a kernel's
 wrapper) once per block; `local` runs one that maps blocks to blocks
-once on the stacked data. The LM's rules (`param_specs`,
-`decode_state_specs`, `step_in_specs`) and `shard_activations` are not in
-this module (ROADMAP.md Queue 1 item 15f).
+once on the stacked data.
+
+The LM's rules, word for word too: `param_specs` shards a transformer's
+weights by tensor parallelism over "model" iff a dim divides
+(`_leaf_spec`), `decode_state_specs` its serve state (batch over the
+batch axes, KV heads over "model", else the cache length), and
+`step_in_specs` a step's inputs; `activation_spec` is the residual
+stream's spec under `seq_parallel` (`models.common.shard_activations`).
+The reference stacks a model's layers along leading dims of each leaf
+and scans; the port keeps each layer's leaf apart (blocks.3.attn.wq, a
+hybrid's blocks.1.2.ssm.w_x, a serve state's list of per-layer caches).
+A port leaf's spec is the reference's spec of its stack, leading stack
+entries and all, so the two compare entry for entry; the stack entries
+index the layer: they are None, except where `fsdp=True` finds no weight
+dim to put the batch axes on and puts them on the stack dim itself. Then
+layer i lives on batch block i // (layers / batch extent), which
+`param_shardings` records as the leaf's `layer_block`; `NamedSharding`
+pairs a spec with its mesh and `place` cuts the leaf by the spec of its
+own dims.
 """
 from __future__ import annotations
 
@@ -144,6 +160,249 @@ def batch_specs(cfg, specs_pytree, mesh):
         return P(b, *([None] * (len(leaf.shape) - 1)))
 
     return _map_leaves(rule, specs_pytree)
+
+
+# ---------------------------------------------------------------------------
+# The LM's rules (the reference's, word for word)
+# ---------------------------------------------------------------------------
+
+def _leaf_spec(cfg, mesh, path: str, shape: tuple[int, ...], n_stack: int,
+               fsdp: bool) -> P:
+    """PartitionSpec for the *unstacked* trailing dims; `n_stack` leading
+    scan dims get None (or FSDP over batch axes on the first stack dim)."""
+    m = "model"
+    name = path.split("/")[-1]
+    dims = shape[n_stack:]
+
+    def spec(*parts):
+        lead = [None] * n_stack
+        parts = list(parts)
+        if fsdp:
+            # ZeRO-style: shard the largest still-unsharded weight dim over
+            # the batch axes (falls back to the stack dim when divisible)
+            ba = batch_axes(mesh)
+            extent = math.prod(mesh.shape[a] for a in ba) if ba else 0
+            if extent:
+                cands = [(dims[i], i) for i in range(len(parts))
+                         if parts[i] is None and dims[i] % extent == 0
+                         and dims[i] >= extent]
+                if cands:
+                    _, idx = max(cands)
+                    parts[idx] = ba
+                elif n_stack >= 1 and shape[0] % extent == 0:
+                    lead[0] = ba
+        return P(*lead, *parts)
+
+    if name in ("embed",):                       # (Vp, d)
+        return spec(_div(dims[0], mesh, m), None)
+    if name == "lm_head":                        # (d, Vp)
+        return spec(None, _div(dims[1], mesh, m))
+    if name in ("wq", "wk", "wv"):               # (d, H, Dh)
+        return spec(None, _div(dims[1], mesh, m), None)
+    if name == "wo":                             # (H, Dh, d)
+        return spec(_div(dims[0], mesh, m), None, None)
+    if name == "wq_b" or name == "wkv_b":        # (r, H, e)
+        return spec(None, _div(dims[1], mesh, m), None)
+    if name in ("wq_a", "wkv_a"):                # (d, r) small latents
+        return spec(None, None)
+    if name in ("w_gate", "w_up"):
+        if len(dims) == 3:                       # MoE experts (E, d, f)
+            e = _div(dims[0], mesh, m)
+            return spec(e, None, _div(dims[2], mesh, m) if e is None else None)
+        return spec(None, _div(dims[1], mesh, m))   # dense (d, f)
+    if name == "w_down":
+        if len(dims) == 3:                       # (E, f, d)
+            e = _div(dims[0], mesh, m)
+            return spec(e, _div(dims[1], mesh, m) if e is None else None, None)
+        return spec(_div(dims[0], mesh, m), None)   # (f, d)
+    if name in ("shared_gate", "shared_up"):     # (d, fs)
+        return spec(None, _div(dims[1], mesh, m))
+    if name == "shared_down":                    # (fs, d)
+        return spec(_div(dims[0], mesh, m), None)
+    if name in ("w_z", "w_x"):                   # ssm (d, d_inner)
+        return spec(None, _div(dims[1], mesh, m))
+    if name == "w_dt":                           # ssm (d, H)
+        return spec(None, _div(dims[1], mesh, m))
+    if name == "w_bc":                           # ssm (d, 2N) — B/C shared
+        return spec(None, None)
+    if name == "conv_x":                         # ssm (W, d_inner)
+        return spec(None, _div(dims[1], mesh, m))
+    if name in ("conv_bc", "conv_bx", "conv_bbc"):
+        if name == "conv_bx":                    # (d_inner,)
+            return spec(_div(dims[0], mesh, m))
+        return spec(*([None] * len(dims)))
+    if name == "norm" and len(dims) == 1:        # ssm gated norm (d_inner,)
+        return spec(_div(dims[0], mesh, m))
+    if name == "out_proj":                       # ssm (d_inner, d)
+        return spec(_div(dims[0], mesh, m), None)
+    if name == "router":                         # (d, E) fp32, small
+        return spec(None, None)
+    # norms, biases, conv, A_log, D, dt_bias, scalars -> replicated
+    return spec(*([None] * len(dims)))
+
+
+_STACKED_ROOTS = ("blocks", "encoder", "decoder")
+
+
+def _stack_depth(cfg, path: str) -> int:
+    parts = path.split("/")
+    root = next((p for p in parts if p in _STACKED_ROOTS), None)
+    if root is None:
+        return 0
+    if root == "blocks" and cfg.arch_type == "hybrid":
+        return 2  # (groups, every, ...)
+    return 1
+
+
+def _stack_extents(cfg, path: str) -> tuple[int, ...]:
+    """The leading dims the reference stacks a leaf of `path` along."""
+    n = _stack_depth(cfg, path)
+    if n == 0:
+        return ()
+    if n == 2:
+        return (cfg.num_layers // cfg.shared_attn_every,
+                cfg.shared_attn_every)
+    if path.split("/")[0] == "encoder":
+        return (cfg.encoder_layers,)
+    return (cfg.num_layers,)
+
+
+def _ref_path(name: str) -> tuple[str, tuple[int, ...]]:
+    """A port parameter name -> (the reference's path, the layer index):
+    "blocks.3.attn.wq" -> ("blocks/attn/wq", (3,)), a hybrid's
+    "blocks.1.2.ssm.w_x" -> ("blocks/ssm/w_x", (1, 2))."""
+    parts = name.split(".")
+    return ("/".join(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def param_specs(cfg, shapes: dict, mesh, fsdp: bool = False) -> dict:
+    """{parameter name: P} over a {name: tensor} dict (`models.model.
+    param_dict`, or the meta tensors of `param_shapes`): each leaf's spec
+    is the reference's for its stack (the leaf's shape behind the layer
+    counts), leading stack entries included."""
+    out = {}
+    for name, leaf in shapes.items():
+        path, _ = _ref_path(name)
+        out[name] = _leaf_spec(cfg, mesh, path,
+                               _stack_extents(cfg, path) + tuple(leaf.shape),
+                               _stack_depth(cfg, path), fsdp)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec and its mesh. `spec` keeps a per-layer leaf's `n_stack`
+    leading stack entries; `layer_block` is the batch block that holds the
+    layer where fsdp put the stack dim over the batch axes (None where the
+    stack is not cut). `place` cuts a leaf by the spec of its own dims."""
+    mesh: Any
+    spec: P
+    n_stack: int = 0
+    layer_block: int | None = None
+
+    @property
+    def leaf_spec(self) -> P:
+        return P(*self.spec[self.n_stack:])
+
+    def place(self, x: torch.Tensor):
+        return shard(x, self.mesh, self.leaf_spec)
+
+
+def param_shardings(cfg, shapes: dict, mesh, fsdp: bool = False) -> dict:
+    """{parameter name: NamedSharding} of `param_specs`."""
+    out = {}
+    for name, spec in param_specs(cfg, shapes, mesh, fsdp).items():
+        path, index = _ref_path(name)
+        n = _stack_depth(cfg, path)
+        block = None
+        if n and spec[0] is not None:
+            per = _stack_extents(cfg, path)[0] // _extent(mesh, "batch")
+            block = index[0] // per
+        out[name] = NamedSharding(mesh, spec, n, block)
+    return out
+
+
+def activation_spec(cfg) -> P:
+    """The residual stream's (B, S, d) spec under `cfg.seq_parallel`: S
+    over the model axis, B over `cfg.act_batch_axes`."""
+    ba = cfg.act_batch_axes if len(cfg.act_batch_axes) > 1 \
+        else cfg.act_batch_axes[0]
+    return P(ba, cfg.act_model_axis, None)
+
+
+def _state_rule(mesh, name: str, shape: tuple[int, ...]) -> P:
+    """The reference's serve-state rule for one leaf of the stacked
+    `shape`, by its field name."""
+    ba = batch_axes(mesh)
+    ndim = len(shape)
+    if name == "slot_positions":                   # (L, C) or (G, C)
+        return P(*([None] * ndim))
+    if name in ("k", "v"):                         # (L, B, C, KV, Dh)
+        b = _div(shape[1], mesh, ba)
+        kv = _div(shape[3], mesh, "model")
+        c = None if kv else _div(shape[2], mesh, "model")
+        return P(None, b, c, kv, None)
+    if name in ("ckv", "krope"):                   # (L, B, C, r)
+        b = _div(shape[1], mesh, ba)
+        c = _div(shape[2], mesh, "model")
+        return P(None, b, c, None)
+    if name in ("cross_k", "cross_v"):             # (L, B, S_enc, KV, Dh)
+        b = _div(shape[1], mesh, ba)
+        kv = _div(shape[3], mesh, "model")
+        c = None if kv else _div(shape[2], mesh, "model")
+        return P(None, b, c, kv, None)
+    if name == "conv_x":                           # (.., B, W-1, di)
+        lead = ndim - 3
+        b = _div(shape[lead], mesh, ba)
+        return P(*([None] * lead), b, None, _div(shape[-1], mesh, "model"))
+    if name == "conv_bc":                          # (.., B, W-1, 2N)
+        lead = ndim - 3
+        b = _div(shape[lead], mesh, ba)
+        return P(*([None] * lead), b, None, None)
+    if name == "state":                            # (.., B, H, P, N)
+        lead = ndim - 4
+        b = _div(shape[lead], mesh, ba)
+        return P(*([None] * lead), b,
+                 _div(shape[lead + 1], mesh, "model"), None, None)
+    # fallback: replicate
+    return P(*([None] * ndim))
+
+
+def decode_state_specs(cfg, state: dict, mesh) -> dict:
+    """Serve-state sharding over the port's state (`models.model.
+    init_serve_state`: a list of per-layer caches, or tensors, under each
+    key): (L, B, C, KV, Dh) caches shard batch over the batch axes and KV
+    heads over "model", falling back to a sequence-parallel cache (C over
+    "model") where the heads do not divide. Each leaf's spec is the
+    reference's for the stack of the list (a hybrid's SSM caches stacked
+    as (groups, every)), in the place of the leaf."""
+    out = {}
+    for key, caches in state.items():
+        lead = (len(caches),)
+        if key == "ssm" and cfg.arch_type == "hybrid":
+            lead = (cfg.num_layers // cfg.shared_attn_every,
+                    cfg.shared_attn_every)
+
+        def rule(name, leaf, lead=lead):
+            return _state_rule(mesh, name, lead + tuple(leaf.shape))
+
+        out[key] = [type(c)(*(rule(f, x) for f, x in zip(c._fields, c)))
+                    if hasattr(c, "_fields") else rule(key, c)
+                    for c in caches]
+    return out
+
+
+def step_in_specs(cfg, kind: str, specs: dict, mesh):
+    """Input PartitionSpecs for a step of the given kind."""
+    if kind in ("train", "prefill"):
+        return batch_specs(cfg, specs, mesh)
+    ba = batch_axes(mesh)
+    return {
+        "token": P(_div(specs["token"].shape[0], mesh, ba), None),
+        "position": P(),
+        "state": decode_state_specs(cfg, specs["state"], mesh),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ dimension, the "model" axis the feature dimension
 tensors into blocks rather than a way to hold more of them.
 
 The reference's `make_production_mesh` (256 or 512 TPU chips for its
-dry run) has no counterpart here: the dry-run tooling is out of scope
-(ROADMAP.md Queue 1 item 16).
+dry run) has no counterpart here: the dry run that lowers XLA programs
+against those meshes is out of scope for the port (ROADMAP.md, "Out of
+scope").
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, dense_init, frozen,
-                                       init_device, rms_norm, swiglu)
+                                       init_device, rms_norm,
+                                       shard_activations, swiglu)
 
 
 def _check_kind(kind: str) -> None:
@@ -169,11 +170,7 @@ def block_forward(params, cfg: ModelConfig, x, positions, kind: str, *,
                   causal=True, window=None, cache_len=None):
     """Pre-norm residual block. Returns (x, aux_loss[, cache])."""
     _check_kind(kind)
-    if cfg.seq_parallel:
-        raise NotImplementedError("seq_parallel=True (the reference's "
-                                  "shard_activations) is not ported: "
-                                  "ROADMAP.md Queue 1 item 15f (the LM's "
-                                  "sharding rules)")
+    x = shard_activations(cfg, x)
     h = rms_norm(x, params.ln1, cfg.norm_eps)
     if kind == "ssm":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -190,7 +187,7 @@ def block_forward(params, cfg: ModelConfig, x, positions, kind: str, *,
     else:
         y = attn_forward(params.attn, cfg, h, positions, causal=causal,
                          window=window)
-    x = x + y
+    x = shard_activations(cfg, x + y)
     h = rms_norm(x, params.ln2, cfg.norm_eps)
     y, aux = _ffn(params, cfg, h, kind)
     x = x + y

@@ -176,6 +176,17 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def shard_activations(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The reference's sequence-parallel constraint on the residual
+    stream: under `cfg.seq_parallel` it asks XLA to lay (B, S, d)
+    activations out with S over the model axis and B over
+    `cfg.act_batch_axes` (`distributed.sharding.activation_spec`). A
+    layout constraint moves no value, and the port runs a model on one
+    device, where that layout cuts nothing: x is returned as it is, with
+    seq_parallel or without it."""
+    return x
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = at_least_fp32(x)

@@ -37,7 +37,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ModelConfig, dense_init, frozen,
                                        init_device, rms_norm)
@@ -129,6 +128,13 @@ def skeleton(cfg: ModelConfig) -> LM:
     """The model's structure on the meta device: no weights are allocated;
     `loss_fn` puts a dict of tensors in their places."""
     return LM(cfg, device="meta")
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """{parameter name: meta tensor} of the model: the skeleton's weights,
+    shapes and dtypes that allocate nothing (the reference's
+    ShapeDtypeStruct tree, one leaf per layer)."""
+    return param_dict(skeleton(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +265,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
     "cross_k": [...], "cross_v": [(B, enc_len, KV, Dh) zeros per decoder
     layer]} (the reference stacks them along leading layer axes)."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = init_device(None, device)
     dtype = dtype or cfg.dtype
     if cfg.is_encdec:
         L = cfg.num_layers

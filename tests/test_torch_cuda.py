@@ -1522,6 +1522,54 @@ def test_moe_and_mla_training_through_k7_matches_the_cpu(cuda, arch,
     assert h["worst_step"] <= 1e-4 and h["worst_next"] <= 1e-4
 
 
+@pytest.mark.parametrize("arch", ["internvl2-1b", "seamless-m4t-medium"])
+def test_multimodal_training_through_k7_matches_the_cpu(cuda, arch):
+    """The reduced VLM at 14 query heads over 2 KV heads (K7 sums groups of
+    7) on its 8 patch rows + 88 tokens, and the reduced enc-dec model on
+    80 frames + 48 tokens (the encoder without the mask, the cross
+    attention at Sq < Sk, neither on a tile boundary), 4 agents on a
+    ring, coke (v=20, mu=0.5), B=8, with the stub embeddings seeded
+    normals made once on the CPU: at each of 3 steps the card takes the
+    CPU's state and runs that step and the next
+    (`chip_smoke.card_cpu_hold`). Comms and send_frac equal, losses
+    within 1e-5 relative (chip_smoke's TRAIN_MOE_MLA_RTOL); K4 and K7 once
+    per attention per agent's forward (one per layer; one per encoder
+    layer and two per decoder layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.models import model as M
+    smoke = _chip_smoke()
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(27)
+    if cfg.is_encdec:
+        frames, text = smoke.MM_TRAIN_ENC
+        extra = {"encoder_embeds": torch.randn((8, frames, cfg.d_model),
+                                               generator=g)}
+        attentions = cfg.encoder_layers + 2 * cfg.num_layers
+    else:
+        cfg = cfg.with_overrides(num_heads=14, num_kv_heads=2)
+        text = smoke.MM_TRAIN_VLM_TOKENS
+        extra = {"prefix_embeds": torch.randn(
+            (8, cfg.prefix_len, cfg.d_model), generator=g)}
+        attentions = cfg.num_layers
+    weights = M.param_dict(M.init_params(cfg, torch.Generator().manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=text, global_batch=8,
+                                           structure=0.9))
+    ccfg = ConsensusConfig(strategy="coke", rho=1e-3, censor_v=20.0,
+                           censor_mu=0.5)
+    before = (k4.LAUNCHES, k7.LAUNCHES)
+    h = smoke.card_cpu_hold(cuda, cfg, weights, stream, ccfg, 4, 3,
+                            extra=extra)
+    # each agent's forward: 3 forced steps, 2 next, 3 free
+    n = 4 * attentions * (3 * 3 - 1)
+    assert (k4.LAUNCHES - before[0], k7.LAUNCHES - before[1]) == (n, n)
+    assert h["same"] and h["same_forced"]
+    tol = smoke.TRAIN_MOE_MLA_RTOL
+    assert h["worst_step"] <= tol and h["worst_next"] <= tol
+
+
 # ---------------------------------------------------------------------------
 # K6, the gathered row-dot, and many-model serving
 # ---------------------------------------------------------------------------

@@ -385,9 +385,11 @@ def test_prefill_reaches_k4_once_per_layer_and_decode_never(pair, monkeypatch):
 def test_what_the_port_does_not_run_raises():
     """MoE, MLA, SSM and hybrid models run (the NEW_ARCHS cases below), and
     so do enc-dec and the VLM prefix (tests/test_torch_multimodal.py has
-    their parity; here their raise cases run); seq_parallel raises,
-    naming the item that brings it; attn_kind="none" outside an SSM model
-    and a hybrid whose layers do not fill its groups are not models."""
+    their parity; here their raise cases run); seq_parallel runs and
+    gives the bits it gives off (its parity with the reference is in
+    tests/test_torch_lm_sharding.py); attn_kind="none" outside an SSM
+    model and a hybrid whose layers do not fill its groups are not
+    models."""
     _, cfg = _configs("mha")
     encdec = M.LM(cfg.with_overrides(encoder_layers=2), device="cpu")
     assert len(encdec.encoder) == 2 and len(encdec.decoder) == cfg.num_layers
@@ -413,16 +415,19 @@ def test_what_the_port_does_not_run_raises():
                           {"tokens": torch.zeros((1, 4), dtype=torch.long),
                            "prefix_embeds": torch.zeros((1, 8, cfg.d_model))})
     assert logits.shape == (1, 4, cfg.padded_vocab)
-    with pytest.raises(NotImplementedError, match="item 15f"):
-        M.forward(model, cfg.with_overrides(seq_parallel=True),
-                  {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    toks = {"tokens": torch.arange(4, dtype=torch.long)[None]}
+    assert torch.equal(
+        M.forward(model, cfg.with_overrides(seq_parallel=True), toks)[0],
+        M.forward(model, cfg, toks)[0])
     ssm_cfg = get_config("mamba2-2.7b").reduced()
     ssm_block = blk.init_block_params(ssm_cfg, torch.Generator(), "ssm")
     assert isinstance(ssm_block, blk.SSMBlock)
-    with pytest.raises(NotImplementedError, match="item 15f"):
+    x = torch.randn((1, 4, ssm_cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    assert torch.equal(
         blk.block_forward(ssm_block, ssm_cfg.with_overrides(seq_parallel=True),
-                          torch.zeros((1, 4, ssm_cfg.d_model)),
-                          torch.arange(4), "ssm")
+                          x, torch.arange(4), "ssm")[0],
+        blk.block_forward(ssm_block, ssm_cfg, x, torch.arange(4), "ssm")[0])
     with pytest.raises(ValueError, match="unknown block kind"):
         blk.init_block_params(cfg, torch.Generator(), "cross")
 

@@ -15,7 +15,10 @@ logits, layer outputs, caches and cross k/v within 1e-5 of their largest
 magnitude; the loss within 1e-6 relative; every gradient leaf within
 1e-5 of the leaf's largest magnitude (fp32 through two layers with other
 summation orders, ~1e-6 relative per op); greedy tokens equal, with each
-step's top-1/top-2 margin above the logit tolerance.
+step's top-1/top-2 margin above the logit tolerance; training (both
+families and the VLM at 14/2 heads): one AdamW step from the same
+gradients within 1e-6 absolute, a 4-agent coke run's comms and
+send_frac exact and its losses within 1e-3 relative.
 """
 import jax
 import jax.numpy as jnp
@@ -24,18 +27,24 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.data import tokens as jax_tokens
+from repro.distributed import consensus as jax_cns
 from repro.models import blocks as jax_blk
 from repro.models import model as JM
+from repro.optim import optimizers as jax_opt
 from repro.serve import Engine as JaxEngine
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import engine as jax_engine
+from repro.train import steps as jax_steps
 
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+from repro_torch.distributed import consensus as cns
 from repro_torch.kernels.flash_attention import flash_attention as k4
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as M
+from repro_torch.optim import optimizers as opt
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve import engine as engine_mod
 from repro_torch.train import steps
@@ -45,6 +54,8 @@ torch.set_num_threads(2)
 RTOL = 1e-5
 LOSS_RTOL = 1e-6
 GRAD_RTOL = 1e-5
+ADAMW_ATOL = 1e-6
+RUN_RTOL = 1e-3
 VLM, ENCDEC = "internvl2-1b", "seamless-m4t-medium"
 S_ENC = 24          # encoder frames of the parity batches
 NEW_TOKENS = 6
@@ -503,3 +514,91 @@ def test_encdec_reaches_k4_once_per_encoder_layer(encdec, monkeypatch):
            extra_batch=_extra(batch)).generate(batch["tokens"])
     assert calls == [(S_ENC, S_ENC, False)] * E
     assert k4.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# Training: one AdamW step, and a coke run at 4 agents
+# ---------------------------------------------------------------------------
+
+# the VLM also at 14 query heads over 2 KV heads, as the full model groups
+# them (the attention's backward sums groups of 7)
+TRAINED = {VLM: (VLM, {}), ENCDEC: (ENCDEC, {}),
+           "internvl2-1b-14-2": (VLM, {"num_heads": 14, "num_kv_heads": 2})}
+
+
+@pytest.fixture(scope="module", params=list(TRAINED))
+def trained(request):
+    """(jax cfg, jax params, port cfg, port model) of a reduced family on
+    the same weights, the 14/2 VLM with its heads overridden in both."""
+    arch, kw = TRAINED[request.param]
+    jcfg = jax_get_config(arch).reduced().with_overrides(**kw)
+    cfg = get_config(arch).reduced().with_overrides(**kw)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(14))
+    return jcfg, jp, cfg, lm_params_from_numpy(cfg, _np_tree(jp),
+                                               device="cpu")
+
+
+def test_one_adamw_step_matches_reference(trained):
+    """One AdamW step (the launcher's lr 3e-3, clip 1.0) from the
+    reference's gradients of a batch with the stub embeddings, fed to
+    both: params within 1e-6 absolute."""
+    jcfg, jp, cfg, model = trained
+    batch = _batch(cfg, 2, 16, seed=3, labels=True)
+    _, jg = jax.value_and_grad(JM.loss_fn, has_aux=True)(jp, jcfg,
+                                                         _jax(batch))
+    kw = dict(kind="adamw", lr=3e-3, grad_clip=1.0)
+    jcfg_o, tcfg_o = jax_opt.OptConfig(**kw), opt.OptConfig(**kw)
+    ju, _ = jax_opt.opt_update(jcfg_o, jg, jax_opt.init_opt_state(jcfg_o, jp),
+                               jp)
+    jnew = jax_opt.apply_updates(jp, ju)
+    params = M.param_dict(model)
+    tgrads = M.param_dict(lm_params_from_numpy(cfg, _np_tree(jg),
+                                               device="cpu"))
+    tu, _ = opt.opt_update(tcfg_o, tgrads, opt.init_opt_state(tcfg_o, params),
+                           params)
+    flat_r = dict(jax.tree_util.tree_flatten_with_path(_np_tree(jnew))[0])
+    flat_p = dict(jax.tree_util.tree_flatten_with_path(
+        lm_params_to_numpy(opt.apply_updates(params, tu)))[0])
+    assert set(flat_p) == set(flat_r)
+    for path, want in flat_r.items():
+        np.testing.assert_allclose(flat_p[path], want, rtol=0,
+                                   atol=ADAMW_ATOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_coke_run_matches_reference(trained):
+    """The reference's and the port's coke train steps (4 agents on a
+    ring, v=20, mu=0.5, AdamW lr 3e-3), 4 steps of B=8 from the same
+    weights, token batches and stub embeddings (made once, split over the
+    agents with the tokens): comms and send_frac exact every step, losses
+    within 1e-3 relative."""
+    jcfg, jp, cfg, model = trained
+    agents, S = 4, 24
+    kw = dict(vocab_size=cfg.vocab_size, seq_len=S, global_batch=8,
+              structure=0.9)
+    jstream = jax_tokens.TokenStream(jax_tokens.TokenStreamConfig(**kw))
+    extra = _extra(_batch(cfg, 8, S, seed=4))
+    ccfg_kw = dict(strategy="coke", rho=1e-3, censor_v=20.0, censor_mu=0.5)
+    jccfg = jax_cns.ConsensusConfig(**dict(ccfg_kw, use_fused_kernel=False))
+    jopt, topt = jax_opt.OptConfig(lr=3e-3), opt.OptConfig(lr=3e-3)
+    _, jstep, _ = jax_steps.make_train_step(jcfg, jopt, jccfg,
+                                            num_agents=agents)
+    tinit, tstep, _ = steps.make_train_step(
+        cfg, topt, cns.ConsensusConfig(**ccfg_kw), num_agents=agents)
+    stacked = jax_cns.stack_params(jp, agents)
+    js = {"params": stacked, "consensus": jax_cns.init_consensus_state(
+        jccfg, jopt, stacked)}
+    ts = tinit(M.param_dict(model))
+    jstep = jax.jit(jstep)
+    sends = []
+    for i in range(4):
+        toks, labels = jstream.batch(i)
+        batch = {"tokens": toks, "labels": labels, **extra}
+        js, jm = jstep(js, jax_steps.agent_batch(_jax(batch), agents))
+        ts, tm = tstep(ts, steps.agent_batch(_torch(batch), agents))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=RUN_RTOL, err_msg=f"step {i}")
+        for k in ("comms", "send_frac"):
+            assert float(tm[k]) == float(jm[k]), (i, k)
+        sends.append(float(tm["send_frac"]))
+    assert min(sends) < 1.0 and max(sends) == 1.0

@@ -259,24 +259,35 @@ def test_family_one_adamw_step_matches_the_reference(family):
                                    # MLA's Dh != Dv (the reduced models'
                                    # 48 / 32), and with a window
                                    (2, 37, 4, 4, 48, True, 0, 32),
-                                   (1, 50, 4, 2, 24, True, 16, 16)], ids=str)
+                                   (1, 50, 4, 2, 24, True, 16, 16),
+                                   # the enc-dec cross attention: Sq != Sk
+                                   # without the mask, both ways, off the
+                                   # blocks of 16; the VLM's groups of 7
+                                   (2, 20, 4, 4, 32, False, 0, 32, 45),
+                                   (2, 45, 4, 4, 32, False, 0, 32, 20),
+                                   (1, 40, 7, 1, 32, True, 0),
+                                   (1, 23, 7, 1, 32, False, 0, 32, 50)],
+                         ids=str)
 def test_attention_backward_matches_jax_grad(shape):
     """The Function's CPU backward (autograd through the plain version) and
     K7's plain version against jax.grad of the reference's
     blockwise_attention (blocks of 16, so the online softmax runs): each
     gradient within 1e-5 of its largest magnitude. K4 and K7 stay idle on
-    the CPU. (B, S, H, KV, Dh, causal, window[, Dv]); Dv defaults to Dh."""
+    the CPU. (B, S, H, KV, Dh, causal, window[, Dv[, Sk]]); Dv defaults to
+    Dh, the keys' length Sk to the queries' S."""
     B, S, H, KV, D, causal, window = shape[:7]
     Dv = shape[7] if len(shape) > 7 else D
+    Sk = shape[8] if len(shape) > 8 else S
     rng = np.random.default_rng(4)
     q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
-        (B, S, H, D), (B, S, KV, D), (B, S, KV, Dv), (B, S, H, Dv)))
-    pos = jnp.arange(S, dtype=jnp.int32)
+        (B, S, H, D), (B, Sk, KV, D), (B, Sk, KV, Dv), (B, S, H, Dv)))
+    q_pos = jnp.arange(S, dtype=jnp.int32)
+    k_pos = jnp.arange(Sk, dtype=jnp.int32)
 
     def jf(q_, k_, v_):
-        o = jax_attn.blockwise_attention(q_, k_, v_, pos, pos, causal=causal,
-                                         window=window, block_q=16,
-                                         block_k=16)
+        o = jax_attn.blockwise_attention(q_, k_, v_, q_pos, k_pos,
+                                         causal=causal, window=window,
+                                         block_q=16, block_k=16)
         return jnp.sum(o * jnp.asarray(do))
 
     want = jax.grad(jf, argnums=(0, 1, 2))(*(jnp.asarray(a)
