@@ -391,11 +391,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch/analysis.py and their share of the card's fp32 peak. The
      kernels line's K7 and K4 entries add (b) and (c)'s launches and
      (a)'s largest errors.
+ 28. phase 19's mesh across ranks (`ranks_phase`): the (data=2, model=4)
+     mesh's cells owned by the ranks of a gloo group, every rank on this
+     card (`make_host_mesh(..., group=)`; NCCL takes one rank per card),
+     spawned by torch.multiprocessing after phase 1's build (the ranks
+     only load the kernels): W = 2 (split (2, 1)) and W = 4 ((2, 2)).
+     Phase 19(a)'s cells at full width and phase 19's depth (COKE with
+     CG, 30 iterations, on the simulator and spmd at W = 2 and on spmd at
+     W = 4; the fused fallback through K3, the logistic cell and the
+     Censor + Drop chain through K5, 50), at W = 4 phase 19(b)'s D = 65536
+     point (10 iterations, both backends), and the sharded COKE model's
+     predict through K1, first on the one-process mesh, then on the
+     ranks: every cell sends (comms > 0), every rank's history, theta
+     and predictions bitwise its peers',
+     comms and bits equal to the one-process run until the runs part
+     (`hold_until_parted`), theta within phase 19's tolerance; K3 summed
+     over the ranks equal to the one-process count, K5 on every rank
+     equal to it (each rank draws every unsharded draw), K1 summed w_b
+     times it; K3, K1 and K5 held against their plain versions on each
+     rank's blocks. Per rank and cell: wall time, the gathers and the
+     bytes they moved, peak memory, host wall beside the device's time
+     between events on either side of the cell; per rank the share of Phi
+     it holds. The gloo transfers sync the host: these loops run
+     without set_sync_debug_mode("error"). The kernels line's
+     K1, K3 and K5 entries add the ranks' launches.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
-generate of 22 and 23, each prefill of 24, each run of 25 and 27 and each
-counted prefill and generate of 26 every launch counter is set to 0, and
-read just after.
+generate of 22 and 23, each prefill of 24, each run of 25 and 27, each
+counted prefill and generate of 26 and each cell of 28 (in every rank)
+every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -409,6 +433,7 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase25   # build, phase 25
     python3 chip_smoke.py --phase26   # build, phase 26
     python3 chip_smoke.py --phase27   # build, phase 27
+    python3 chip_smoke.py --phase28   # build, phase 28
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
@@ -416,7 +441,8 @@ entry, phase 21 alone and its launch counts and errors, phase 22, 23 or
 26 alone and K4's launches and largest error there, phase 24 alone and
 K4's largest error against float64, phase 25 alone and K7's launches
 and largest error and K4's launches, or phase 27 alone and K7's and K4's
-launches and largest errors; none prints the result lines.
+launches and largest errors, or phase 28 alone and its launch counts and
+errors; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -770,6 +796,16 @@ SHARD_RUNS = 3
 # a sharded predict (psum of 4 block partials) against the unsharded one
 # (cuBLAS's order), of sum_k |phi theta| per row
 SHARD_PREDICT_RTOL = 1e-5
+# phase 28, SHARD_MESH across ranks of a gloo group on the one card:
+# (W, (w_b, w_m)) per spawn; the big-D point runs at W = RANK_BIG_D_WORLD
+RANK_WORLDS = ((2, (2, 1)), (4, (2, 2)))
+RANK_BIG_D_WORLD = 4
+# the backends of the (2, 4) CG cell per W: at W = 4 a CG iteration takes
+# 0.7-1.3 s on an H100 host (four processes on the card, ~270 gathers an
+# iteration) against ~0.1 s on one process, so there the simulator's CG
+# crosses the model cut in the big-D cell only
+RANK_CG_BACKENDS = {2: ("simulator", "spmd"), 4: ("spmd",)}
+RANK_TIMEOUT_S = 120         # every collective's limit: a lost rank fails
 # phase 20, training: the reference's launch/train.py defaults (B=8, S=64,
 # AdamW at lr 3e-3, grad_clip 1.0) at full width, 5 steps
 TRAIN_BATCH = 8
@@ -2238,11 +2274,11 @@ def loop_of(runner, steps=10):
     return run
 
 
-def per_iteration(card, phase, what, fn, steps=10, runs=7):
+def per_iteration(card, phase, what, fn, steps=10, runs=3):
     """Time `fn` (`steps` iterations per call): device and host ms per
-    iteration from one window (the median of `runs`), and kernels and
-    launches per iteration by the profiler. Returns (device ms, host ms,
-    launches or None)."""
+    iteration from one window (the median of `runs`: three by default,
+    as phase 19's SHARD_RUNS), and kernels and launches per iteration by
+    the profiler. Returns (device ms, host ms, launches or None)."""
     d_h = paired_ms(fn, steps, runs=runs, warmup=min(2, runs))
     rows = profiled_kernels(fn, calls=1)
     launches = sum(r[1] for r in rows) / steps if rows else None
@@ -2385,24 +2421,21 @@ def sweep_phase(dev, card, reset_counts, counts, *, krr):
                               labels=pp.labels.double(),
                               adjacency=pp.adjacency.double())
     with StrictLoops():
-        t0 = time.perf_counter()
-        sw = sweep(base, PAPER_GRID, problem=pp, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        sw64 = sweep(base, PAPER_GRID, problem=p64, device=dev)
-        t0 = time.perf_counter()
-        fits = [fit(sw.cell_config(g), problem=pp, device=dev)
-                for g in range(len(sw))]
-        torch.cuda.synchronize()
-        wall_fits = time.perf_counter() - t0
-        # the same runs again, their send decisions recorded
+        # the lanes and the fits timed with their send decisions recorded
         with CensorRecord() as cens_lanes:
-            sweep(base, PAPER_GRID, problem=pp, device=dev)
-        cens_fits = []
+            t0 = time.perf_counter()
+            sw = sweep(base, PAPER_GRID, problem=pp, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        sw64 = sweep(base, PAPER_GRID, problem=p64, device=dev)
+        fits, cens_fits = [], []
+        t0 = time.perf_counter()
         for g in range(len(sw)):
             with CensorRecord() as rec:
-                fit(sw.cell_config(g), problem=pp, device=dev)
+                fits.append(fit(sw.cell_config(g), problem=pp, device=dev))
             cens_fits.append(rec)
+        torch.cuda.synchronize()
+        wall_fits = time.perf_counter() - t0
     for g, f in enumerate(fits):
         lane = {k: v[g] for k, v in sw.history.items()}
         parted, held = hold_until_parted(f"paper sweep cell {g}", lane,
@@ -2431,7 +2464,7 @@ def sweep_phase(dev, card, reset_counts, counts, *, krr):
     log(14, f"[{card}] paper sweep: {len(sw)} cells (N={n} Erdos-Renyi "
             f"p=0.3, T={t}, L={d}, Cholesky, {SWEEP_ITERS} iterations) in "
             f"{wall:.2f} s wall as one lane-batched loop; the {len(sw)} fits "
-            f"in turn {wall_fits:.2f} s")
+            f"in turn {wall_fits:.2f} s (each with its sends recorded)")
     paper_cells = cells_of(PAPER_GRID)
     g1 = per_iteration(card, 14, f"paper sweep G=1 (N={n}, T={t}, L={d})",
                        loop_of(lanes_runner(base, pp, paper_cells[:1])))
@@ -2451,12 +2484,11 @@ def sweep_phase(dev, card, reset_counts, counts, *, krr):
              for v, mu in BITS_CENSORS]
     base_b = base.replace(censor_v=None, censor_mu=None)
     with StrictLoops():
-        t0 = time.perf_counter()
-        swb = sweep(base_b, curve, problem=pp, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         with LaneQuantizerRecord() as q_lanes, CensorRecord() as c_lanes:
-            sweep(base_b, curve, problem=pp, device=dev)
+            t0 = time.perf_counter()
+            swb = sweep(base_b, curve, problem=pp, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         for g in range(len(swb)):
             with QuantizerRecord() as q_fit, CensorRecord() as c_fit:
                 f = fit(swb.cell_config(g), problem=pp, device=dev)
@@ -2479,7 +2511,7 @@ def sweep_phase(dev, card, reset_counts, counts, *, krr):
                     f"{float(f.train_mse[-1]):.6f}")
     fit_kernels_idle(counts, "the bits-curve sweep")
     log(14, f"[{card}] bits-curve sweep: {len(swb)} cells in {wall:.2f} s "
-            f"wall ({SWEEP_ITERS} iterations)")
+            f"wall ({SWEEP_ITERS} iterations, sends and roundings recorded)")
     per_iteration(card, 14, f"bits-curve sweep G={len(curve)}",
                   loop_of(lanes_runner(base_b, pp, curve)))
     per_iteration(card, 14, "one bits-curve fit, Quantize(4) (no lanes)",
@@ -4036,14 +4068,14 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
 
 def k1_block_errors(mesh, xb, omega, bias, num_features):
     """K1 on rows xb against rff_ref, on every feature block of a sharded
-    omega and bias, scaled for the whole width: (max |err|, tolerance,
-    the blocks' shape)."""
+    omega and bias that this process holds, scaled for the whole width:
+    (max |err|, tolerance, the blocks' shape)."""
     from repro_torch.distributed import sharding
     from repro_torch.kernels.rff import rff as k1
     from repro_torch.kernels.rff.ref import rff_ref
 
     worst = tol = 0.0
-    for m in range(mesh.shape["model"]):
+    for m in sorted({m for _, m in mesh.local_cells()}):
         ob = sharding.local_block(omega, 0, m)
         bb = sharding.local_block(bias, 0, m)
         got = k1.rff_cos_bias(xb, ob, bb, num_features=num_features)
@@ -4056,11 +4088,13 @@ def k1_block_errors(mesh, xb, omega, bias, num_features):
 
 def k3_block_errors(mesh, theta, rho, seed):
     """The ring runtime's K3 call on every block of a feature-sharded
-    carry (the path's wrapper on `theta` and its ring neighbours, one
+    carry that this process holds (the path's wrapper on `theta` and its
+    ring neighbours, one
     neighbour tensor as both halves as the fallback passes it) against
     coke_update_ref on the same blocks: (max |g_aug err|, its tolerance,
     max relative err of xi^2 against the plain partials summed in block
-    order, the blocks' shape)."""
+    order (None where other ranks hold some of a row's model blocks), the
+    blocks' shape)."""
     from repro_torch.distributed import sharding
     from repro_torch.kernels.coke_update import ops as k3_ops
     from repro_torch.kernels.coke_update.ref import coke_update_ref
@@ -4076,23 +4110,27 @@ def k3_block_errors(mesh, theta, rho, seed):
     kw = dict(rho=rho, deg=2.0)
     got_g, got_xi = k3_ops.coke_update_blocks(*blocked, blocked[4], **kw)
     worst_g = worst_xi = tol_g = 0.0
-    cut_b = num_agents(mesh) if N % num_agents(mesh) == 0 else 1
+    cut = N % num_agents(mesh) == 0
+    cells = mesh.local_cells()
     got_xi = sharding.unshard(got_xi)
-    for b in range(cut_b):
+    for b in sorted({b for b, _ in cells}) if cut else [0]:
         xi = None
-        for m in range(mesh.shape["model"]):
+        for m in sorted({m for _, m in cells}):
             blk = [sharding.local_block(t, b, m) for t in blocked]
             want, want_xi = coke_update_ref(*blk, blk[4], **kw)
             worst_g = max(worst_g, float(
                 (sharding.local_block(got_g, b, m) - want).abs().max()))
             tol_g = max(tol_g, k3_tolerance(*blk, blk[4], **kw))
             xi = want_xi if xi is None else xi + want_xi
+        if mesh.split[1] > 1:    # xi^2 sums model blocks other ranks hold
+            worst_xi = None
+            continue
         rows = sharding.block_index(got_g, 0, b, 0)
         worst_xi = max(worst_xi, float((got_xi[rows] - xi).abs().max()
                                        / xi.abs().max()))
     torch.cuda.synchronize()
     return worst_g, tol_g, worst_xi, tuple(sharding.local_block(
-        blocked[0]).shape)
+        blocked[0], *cells[0]).shape)
 
 
 def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
@@ -4860,6 +4898,373 @@ def mesh_gossip_phase(dev, card, reset_counts, counts, *, problem, cfg):
     log(21, f"[{card}] launches over phase 21: "
             f"{ {k: v for k, v in seen.items() if v} }; phase 21 took "
             f"{time.perf_counter() - t_phase:.1f} s")
+    return seen, errs
+
+
+def _censor_calls(rec):
+    """A CensorRecord's calls as plain host tensors (the norms of a
+    blocked run gathered whole: one collective per call, in the same order
+    on every rank)."""
+    from repro_torch.distributed import sharding
+    return [(sharding.unshard(n).cpu(), h.cpu() if torch.is_tensor(h)
+             else h) for n, h in rec.calls]
+
+
+def rank_cells(dev, mesh, reset_counts, counts, *, big_d,
+               cg_backends=("simulator", "spmd")):
+    """Phase 28's cells on `mesh` (the one-process mesh of the card, or a
+    rank's share of it): phase 19(a)'s COKE fits at full width (CG on
+    each of `cg_backends`, the fused fallback through K3 once per block,
+    the logistic cell, the Censor + Drop chain through K5), with `big_d`
+    phase 19(b)'s D = 65536 point on the same mesh, and the sharded COKE
+    model's predict through K1 once per feature block. Each
+    problem is built whole on the card from its seed, placed (each rank
+    keeps a copy of its own blocks) and dropped. Per cell: the history
+    and theta gathered whole on the host, the censor record, the launch
+    counts (every counter set to 0 just before, read just after), the
+    wall seconds beside the device's ms between events recorded on
+    either side of the cell (as `paired_ms`: where the two are close the
+    device waits on the host; no profiler, whose start-up costs each
+    rank ~13 s on an H100 host), the collectives' calls
+    and bytes and the peak memory. Also the K3 and K1 holds on this
+    process's blocks, the placement's memory figures, and K5 against its
+    plain version."""
+    from repro_torch.api import (Censor, Chain, Drop, FitConfig, KRRConfig,
+                                 build_problem, fit, make_problem)
+    from repro_torch.core import prng
+    from repro_torch.core.graph import ring
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.threefry import threefry as k5
+    from repro_torch.kernels.threefry.ref import uniform_ref
+
+    out = {"cells": {}, "holds": {}, "memory": {}}
+
+    def cell(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        traffic = dict(sharding.TRAFFIC)
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with CensorRecord() as rec:
+            res = fn()
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        out["cells"][name] = {
+            "history": {k: v.cpu() for k, v in res.history.items()},
+            "theta": res.theta.cpu(), "censor": _censor_calls(rec),
+            "launches": counts(), "wall": wall,
+            "device_ms": start.elapsed_time(end),
+            "gathers": sharding.TRAFFIC["calls"] - traffic["calls"],
+            "bytes": sharding.TRAFFIC["bytes"] - traffic["bytes"],
+            "peak": torch.cuda.max_memory_allocated()}
+        return res
+
+    def placed(prob):
+        """prob's blocks on this mesh, the whole problem dropped; the
+        bytes of Phi this process keeps."""
+        sp = sharding.shard_problem(prob, mesh)
+        return sp, sp.feats.data.nbytes
+
+    cfg = full_width_config()
+    built = build_problem(cfg, device=dev)
+    problem = built.problem
+    labels = torch.where(problem.labels > problem.labels.median(), 1.0, -1.0)
+    log_labels = labels.clone()
+    whole_phi = problem.feats.nbytes
+    torch.cuda.synchronize()
+    held_whole = torch.cuda.memory_allocated()
+    sp, own = placed(problem)
+    del problem, labels
+    built = dataclasses.replace(built, problem=None, feats_test=None)
+    torch.cuda.synchronize()
+    out["memory"]["phi"] = (whole_phi, own, held_whole,
+                            torch.cuda.memory_allocated())
+    cg_cfg = cfg.replace(algorithm="coke", primal="cg",
+                         num_iters=SHARD_CG_ITERS)
+    for backend in cg_backends:
+        c = cg_cfg.replace(backend=backend)
+        cell(f"COKE {backend} CG",
+             lambda: fit(c, problem=sp, device=dev, mesh=mesh))
+    fc = cfg.replace(algorithm="coke")
+    fused = cell("fused COKE (K3)",
+                 lambda: fit(fc, problem=sp, device=dev, mesh=mesh))
+    _, lspec, _ = sharding.problem_specs(sp, mesh)
+    slp = dataclasses.replace(sp, labels=sharding.shard(log_labels, mesh,
+                                                        lspec),
+                              loss="logistic")
+    lc = FitConfig(krr=cfg.krr, backend="fused", graph="ring",
+                   num_iters=ITERS, algorithm="coke")
+    cell("logistic COKE (K3)",
+         lambda: fit(lc, problem=slp, device=dev, mesh=mesh))
+    v, mu = cfg.resolved_censor
+    cc = fc.replace(comm=Chain([Censor(v, mu), Drop(CHAIN_DROP)]),
+                    censor_v=None, censor_mu=None)
+    cell("chain COKE (K3, K5)",
+         lambda: fit(cc, problem=sp, device=dev, mesh=mesh))
+    del slp
+
+    # the kernels on this process's blocks against their plain versions
+    # (after the counts were read: not counted)
+    worst_g, tol_g, _, shape = k3_block_errors(mesh, fused.theta,
+                                               sp.rho, 28)
+    out["holds"]["coke_fused_update"] = (worst_g, tol_g, shape)
+    key = prng.fold_in(prng.PRNGKey(28), 7)
+    N = fused.theta.shape[0]
+    same = all(torch.equal(
+        k5.threefry_draw(key, shape, dev, uniform=True).view(torch.int32),
+        uniform_ref(key, shape, dev).view(torch.int32))
+        for shape in ((N,), (N, FEATURES)))
+    out["holds"]["threefry"] = (0.0 if same else math.inf, 0.0, (N,))
+    del sp
+
+    # the sharded COKE model's predict: K1 once per feature block held
+    model = fused.to_model(built.rff_params)
+    sm = model.shard(mesh)
+    x = built.x_test
+    flat = x.reshape(-1, x.shape[-1])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sm.predict(x, backend="fused")
+    torch.cuda.synchronize()
+    out["predict"] = {"preds": got.cpu(), "launches": counts(),
+                      "wall": time.perf_counter() - t0,
+                      "want": model.predict(x, backend="fused").cpu(),
+                      "scale": (model.featurize(flat, "fused").abs()
+                                @ model.theta.abs()).reshape(
+                                    got.shape).cpu()}
+    e1, t1, shape = k1_block_errors(mesh, flat, sm.omega, sm.bias, FEATURES)
+    out["holds"]["rff_cos_bias"] = (e1, t1, shape)
+    del model, sm, built, fused
+
+    if big_d:
+        bcfg = FitConfig(krr=KRRConfig(lam=1e-3, rho=1e-2, seed=0,
+                                       **SHARD_BIG_D),
+                         graph="ring", algorithm="coke", censor_v=0.5,
+                         censor_mu=0.97, primal="cg",
+                         num_iters=SHARD_BIG_D_ITERS)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        bprob = build_problem(bcfg, device=dev).problem
+        whole = bprob.feats.nbytes
+        bsp, own = placed(bprob)
+        del bprob
+        torch.cuda.synchronize()
+        out["memory"]["big_d"] = (whole, own,
+                                  torch.cuda.max_memory_allocated() - before,
+                                  torch.cuda.memory_allocated() - before)
+        for backend in ("simulator", "spmd"):
+            c = bcfg.replace(backend=backend)
+            cell(f"big-D {backend} CG",
+                 lambda: fit(c, problem=bsp, device=dev, mesh=mesh))
+        del bsp
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(rank, world, split, tmp, device="cuda:0"):
+    """A rank of phase 28 (started by `torch.multiprocessing` with the
+    spawn method; the parent built the kernels, so this only loads them):
+    join the gloo group of `world` ranks on the card over a FileStore in
+    `tmp` (RANK_TIMEOUT_S to every collective), run `rank_cells` on its
+    share of the SHARD_MESH mesh and save what it got there."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(*SHARD_MESH, device=dev,
+                              group=dist.group.WORLD, split=split)
+        res = rank_cells(dev, mesh, reset_counts, counts,
+                         big_d=world == RANK_BIG_D_WORLD,
+                         cg_backends=RANK_CG_BACKENDS[world])
+        res.update(cells_held=mesh.local_cells(), wall=time.perf_counter()
+                   - t0, traffic=dict(sharding.TRAFFIC))
+        torch.save(res, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_phase(dev, card, reset_counts, counts):
+    """Phase 28: phase 19's (data=2, model=4) mesh across ranks of a gloo
+    group, every rank on this one card (NCCL refuses two ranks on one
+    card): the cells of `rank_cells` on the one-process mesh here, then
+    in W = 2 ranks (split (2, 1): each rank one batch block, all four
+    model blocks) and W = 4 ranks ((2, 2): a 1 x 2 rectangle each), each
+    split one spawn of `rank_main`. Every rank must get every cell's
+    history and theta bitwise its peers'; against the one-process run,
+    comms and bits equal until the runs part (`hold_until_parted`: a
+    rank's batched products may round otherwise on the card) and theta
+    within phase 19's tolerance; the launches over the ranks: K3 summed
+    equal to the one-process count (each block once), K5 on every rank
+    the one-process count (every rank draws each unsharded draw and keeps
+    its blocks), K1 summed w_b times the one-process count (predict's
+    rows are not cut: each batch row of ranks featurizes them for its
+    feature blocks). The gloo transfers sync the host, so the loops run
+    without phase 19's set_sync_debug_mode("error"). Prints per rank and
+    cell the host wall and the device time between events, the
+    collectives' calls and bytes and the peak memory, and per rank the
+    share of Phi it holds.
+    Returns the ranks' launch counts (summed over both splits) and the
+    largest errors of the kernels against their plain versions."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    base = rank_cells(dev, make_host_mesh(*SHARD_MESH, device=dev),
+                      reset_counts, counts, big_d=True)
+    for name, c in base["cells"].items():
+        log(28, f"[{card}] one process, {name}: {c['wall']:.2f} s wall, "
+                f"comms {int(c['history']['comms'][-1])}, launches "
+                f"{ {k: v for k, v in c['launches'].items() if v} }")
+        if not c["history"]["comms"][-1] > 0:
+            raise AssertionError(f"one process, {name}: no agent sent, so "
+                                 "the comms hold below would be empty")
+    seen = {k: 0 for k in LAUNCH_COUNTERS}
+    errs: dict[str, float] = {}
+    blocks = SHARD_MESH[0] * SHARD_MESH[1]
+    (ROOT / "build").mkdir(exist_ok=True)
+    for world, split in RANK_WORLDS:
+        tmp = tempfile.mkdtemp(prefix="phase28-", dir=ROOT / "build")
+        try:
+            t0 = time.perf_counter()
+            mp.start_processes(rank_main, args=(world, split, tmp,
+                                                str(dev)),
+                               nprocs=world, join=True,
+                               start_method="spawn")
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt",
+                                weights_only=False) for r in range(world)]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(28, f"[{card}] W = {world} ranks on {dev} over gloo, split "
+                f"{split} of the {SHARD_MESH} mesh: spawned, ran and "
+                f"joined in {spawn_s:.1f} s")
+        for name, want in base["cells"].items():
+            if name not in ranks[0]["cells"]:
+                continue
+            got = [r["cells"][name] for r in ranks]
+            for r, g in enumerate(got[1:], 1):
+                for k, v in g["history"].items():
+                    if not torch.equal(v, got[0]["history"][k]):
+                        raise AssertionError(f"{name}: rank {r}'s {k} is "
+                                             "not rank 0's")
+                if not torch.equal(g["theta"], got[0]["theta"]):
+                    raise AssertionError(f"{name}: rank {r}'s theta is not "
+                                         "rank 0's")
+            rec_a, rec_b = CensorRecord(), CensorRecord()
+            rec_a.calls, rec_b.calls = got[0]["censor"], want["censor"]
+            parted, note = hold_until_parted(
+                f"W={world} {name}", got[0]["history"], want["history"],
+                rec_a, rec_b)
+            if not got[0]["history"]["comms"][-1] > 0:
+                raise AssertionError(f"W={world} {name}: no agent sent")
+            e = float((got[0]["theta"].double()
+                       - want["theta"].double()).abs().max())
+            cg = "CG" in name
+            tol = SHARD_CG_TOL if cg else \
+                SPMD_RTOL * float(want["theta"].abs().max())
+            if parted:
+                parted_mse(f"W={world} {name}", got[0]["history"],
+                           want["history"])
+            elif not e <= tol:
+                raise AssertionError(f"W={world} {name}: theta {e} > {tol}")
+            total = {k: sum(g["launches"][k] for g in got)
+                     for k in LAUNCH_COUNTERS}
+            one = want["launches"]
+            if total["coke_fused_update"] != one["coke_fused_update"] or \
+                    any(g["launches"]["threefry"] != one["threefry"]
+                        for g in got) or {
+                        k for k, v in total.items() if v} - {
+                        "coke_fused_update", "threefry"}:
+                raise AssertionError(f"W={world} {name}: launches {total} "
+                                     f"over the ranks, one process {one}")
+            for k, v in total.items():
+                seen[k] += v
+            log(28, f"[{card}] W={world} {name}: every rank's history and "
+                    f"theta bitwise rank 0's; against one process {note}, "
+                    f"theta max|err| {e:.3e} (tol {tol:.3e}); launches over "
+                    f"the ranks { {k: v for k, v in total.items() if v} } "
+                    f"(one process { {k: v for k, v in one.items() if v} })")
+            for r, g in enumerate(got):
+                iters = want["history"]["comms"].numel()
+                log(28, f"[{card}]   rank {r}: {g['wall'] * 1e3:.1f} ms "
+                        f"wall, {g['device_ms']:.1f} ms on the device "
+                        f"({g['wall'] * 1e3 / iters:.2f} / "
+                        f"{g['device_ms'] / iters:.2f} an iteration; one "
+                        f"process {want['wall'] * 1e3 / iters:.2f} / "
+                        f"{want['device_ms'] / iters:.2f}); {g['gathers']} "
+                        f"gathers moving {g['bytes'] / 1e6:.3f} MB into the "
+                        f"rank; peak {g['peak'] / 1e9:.3f} GB")
+        # predict: every rank's bitwise the others', near the unsharded
+        pg = [r["predict"] for r in ranks]
+        if not all(torch.equal(p["preds"], pg[0]["preds"]) for p in pg):
+            raise AssertionError(f"W={world}: the ranks' predicts differ")
+        rel = float(((pg[0]["preds"] - base["predict"]["want"]).abs()
+                     / base["predict"]["scale"]).max())
+        k1 = sum(p["launches"]["rff_cos_bias"] for p in pg)
+        k1_one = base["predict"]["launches"]["rff_cos_bias"]
+        if not rel <= SHARD_PREDICT_RTOL or k1 != split[0] * k1_one:
+            raise AssertionError(f"W={world} predict: {rel} of sum|phi "
+                                 f"theta|, K1 {k1} over the ranks")
+        seen["rff_cos_bias"] += k1
+        log(28, f"[{card}] W={world} the sharded COKE model's predict on "
+                f"{pg[0]['preds'].numel()} rows: every rank's answer "
+                f"bitwise the others', within {rel:.3e} of sum|phi theta| "
+                f"of the unsharded predict (tol {SHARD_PREDICT_RTOL:g}); K1 "
+                f"{k1} launches over the ranks ({split[0]} x the one "
+                f"process's {k1_one}: each batch row of ranks featurizes "
+                f"the rows for its feature blocks); "
+                + ", ".join(f"rank {r} {p['wall'] * 1e3:.1f} ms"
+                            for r, p in enumerate(pg)))
+        for r, res in enumerate(ranks):
+            phi = res["memory"]["phi"]
+            line = (f"[{card}]   rank {r} holds cells {res['cells_held']}: "
+                    f"{phi[1] / 1e9:.3f} GB of Phi's {phi[0] / 1e9:.3f} GB "
+                    f"({phi[1] / phi[0]:.3f}); allocated {phi[2] / 1e9:.3f} "
+                    f"GB with the whole problem, {phi[3] / 1e9:.3f} GB once "
+                    "it was placed and dropped")
+            if "big_d" in res["memory"]:
+                bd = res["memory"]["big_d"]
+                line += (f"; big-D Phi {bd[1] / 1e9:.3f} of "
+                         f"{bd[0] / 1e9:.3f} GB ({bd[1] / bd[0]:.3f}), "
+                         f"peak {bd[2] / 1e9:.3f} GB while placing, "
+                         f"{bd[3] / 1e9:.3f} GB held after")
+            log(28, line + f"; {res['traffic']['calls']} gathers, "
+                    f"{res['traffic']['bytes'] / 1e6:.1f} MB in all, "
+                    f"{res['wall']:.1f} s")
+            for kname, (e, tol, shape) in res["holds"].items():
+                if not e <= tol:
+                    raise AssertionError(f"rank {r}: {kname} disagrees with "
+                                         f"its plain version: {e} > {tol}")
+                errs[kname] = max(errs.get(kname, 0.0), e)
+        log(28, f"[{card}] W={world}: K3 on each rank's carry blocks "
+                f"{ranks[0]['holds']['coke_fused_update'][2]}, K1 on its "
+                f"feature blocks {ranks[0]['holds']['rff_cos_bias'][2]} and "
+                "K5 at the draws' shapes held against their plain versions "
+                f"on every rank: max|err| {errs}")
+    log(28, f"[{card}] launches over phase 28's ranks: "
+            f"{ {k: v for k, v in seen.items() if v} } (blocks {blocks}); "
+            f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
     return seen, errs
 
 
@@ -8360,7 +8765,22 @@ def main() -> int:
                     f"{k4_err_27:.3e} over phase 27 added")
             entry["launches"] += k4_27
             entry["max_abs_err"] = max(entry["max_abs_err"], k4_err_27)
-    log(27, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 28. phase 19's mesh across ranks of a gloo group -------------------
+    rank_counts, rank_errs = ranks_phase(dev, card, reset_counts, counts)
+    for entry in kernels:       # K1, K3 and K5 add the ranks' launches
+        n28 = rank_counts[entry["name"]]
+        if n28:
+            log(28, f"{entry['name']}: {n28} launches over the ranks and "
+                    f"max|err| {rank_errs[entry['name']]:.3e} on their "
+                    "blocks added")
+            entry["launches"] += n28
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       rank_errs[entry["name"]])
+    for name in ("rff_cos_bias", "coke_fused_update", "threefry"):
+        if not rank_counts[name]:
+            raise AssertionError(f"phase 28's ranks never launched {name}")
+    log(28, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -8647,11 +9067,38 @@ def phase27_alone() -> int:
     return 0
 
 
+def phase28_alone() -> int:
+    """Phase 28 alone: build the kernels (the ranks only load them), then
+    run `ranks_phase` and print its launch counts and errors."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(28, f"[{card}] built the kernels in {time.perf_counter() - t0:.1f} s")
+    seen, errs = ranks_phase(dev, card, reset_counts, counts)
+    print(card)
+    print(json.dumps({"launches": seen, "max_abs_err": errs}))
+    return 0
+
+
 if __name__ == "__main__":
     alone = {"--phase19": phase19_alone, "--phase20": phase20_alone,
              "--phase21": phase21_alone, "--phase22": phase22_alone,
              "--phase23": phase23_alone, "--phase24": phase24_alone,
              "--phase25": phase25_alone, "--phase26": phase26_alone,
-             "--phase27": phase27_alone}
+             "--phase27": phase27_alone, "--phase28": phase28_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

@@ -7,7 +7,7 @@ the reference has `lax.scan`), the per-iteration metric recording and the
 optional progress callbacks, and walk the same `phase_plan`. Admission is
 the capability table's (`api/capabilities.py`): the reference's
 ValueErrors first, then NotImplementedError naming the ROADMAP.md item for
-what the port does not run yet (`mesh=`). The port runs the simulator
+what the port does not run yet. The port runs the simulator
 backend (every registered solver, each primal), the spmd backend and the
 fused backend (its megakernel path and its fallback to the ring runtime),
 each with any comm chain (Censor, Quantize, Drop), under synchronous or
@@ -216,10 +216,15 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
                   problem's feature dim is cut over the mesh's "model"
                   axis and the agent dim over its batch axes (theta,
                   theta_hat and gamma as (N/b, D/s) blocks; see
-                  `distributed.sharding.feature_spec`). Its cells must lie
-                  on `device`. theta, the state and the history come back
-                  gathered into plain tensors. Pair it with primal="cg": the
-                  Cholesky primal gathers each agent's (D, D) factor.
+                  `distributed.sharding.feature_spec`). This process's
+                  cells must lie on `device`. theta, the state and the
+                  history come back gathered into plain tensors. Pair it
+                  with primal="cg": the Cholesky primal gathers each
+                  agent's (D, D) factor. On a mesh across ranks
+                  (`make_host_mesh(..., group=)`) every rank calls fit
+                  with the same arguments (SPMD; a problem built from the
+                  same seed), runs its own cells' blocks, and gets the
+                  whole result.
     device      — None = "cuda" (raises when no card is present);
                   "cpu" runs the plain PyTorch versions of the kernels.
     """
@@ -275,8 +280,8 @@ def fit(config: FitConfig, problem: Problem | None = None, *,
 
 
 def _check_mesh_devices(mesh, dev: torch.device) -> None:
-    """Every cell of a fit's mesh lies on the fit's device (the card it
-    runs on, or the CPU when asked for)."""
+    """This process's cells of a fit's mesh lie on the fit's device (the
+    card it runs on, or the CPU when asked for)."""
     for d in mesh.distinct_devices():
         if d.type != dev.type or (dev.index is not None
                                   and d.index != dev.index):

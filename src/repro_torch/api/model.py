@@ -240,7 +240,9 @@ class KernelModel(nn.Module):
         `score_rows` and a `KernelServer` built with the same mesh run on
         the blocks: with backend="fused" one K1 launch per feature block,
         then phi . theta as the psum of the blocks' partials. On one card
-        the blocks are a layout, not a saving: they hold the same bytes."""
+        the blocks are a layout, not a saving: they hold the same bytes.
+        On a mesh across ranks each rank keeps its own blocks, runs K1 on
+        its feature blocks and gets the whole scores."""
         has_model = "model" in mesh.axis_names
         omega_l = self.omega.shape[1]
         spec_feat = sharding._div(omega_l, mesh, "model") \

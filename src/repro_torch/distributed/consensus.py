@@ -262,14 +262,12 @@ def _check_supported(ccfg: ConsensusConfig, participate, adjacency, alive,
 
 def _vmapped_opt_update(opt_cfg: OptConfig, grads, opt, params):
     """The optimizer per agent row. On a mesh (blocked leaves) the update
-    runs on the blocks as they are: without gradient clipping the SGD
-    update is elementwise, the same per row as under vmap."""
+    runs on the blocks as they are, its per-row values (the clip's global
+    norm, AdamW's step count) broadcast over each row, as under vmap; a
+    row's norm is the psum of its feature blocks' partial sums of
+    squares, in ascending block order."""
     if isinstance(tree_leaves(params)[0], Blocked):
-        if opt_cfg.grad_clip:
-            raise NotImplementedError(
-                "per-agent gradient clipping on a mesh (its global norm "
-                "per row would need a psum rule of its own)")
-        return opt_update(opt_cfg, grads, opt, params)
+        return opt_update(opt_cfg, grads, opt, params, rows=True)
     return torch.func.vmap(lambda g, s, p: opt_update(opt_cfg, g, s, p))(
         grads, opt, params)
 

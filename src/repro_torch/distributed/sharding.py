@@ -13,13 +13,18 @@ tuple of names; a one-name tuple is the name, as jax normalizes it).
 
 The layout. Under GSPMD the reference places an array and the compiler
 inserts the collectives. Here `shard` cuts a tensor into a `Blocked`:
-its blocks stacked in one contiguous tensor (B, M, *block) on the mesh's
-device, B the blocks of the dim cut over the batch axes and M those of
-the dim cut over "model" (1 for an axis the spec replicates, so a
-replicated axis costs nothing; a fully replicated value is a plain
-tensor). Every block data[b, m] is itself contiguous, so K1, K3 and K6
-take it as it is. The cells of a mesh lie on one device (on one card a
-mesh is a layout, not a saving); a layout across cards is not built.
+this process's blocks stacked in one contiguous tensor (B_loc, M_loc,
+*block) on its device, B the blocks of the dim cut over the batch axes
+and M those of the dim cut over "model" (1 for an axis the spec
+replicates, so a replicated axis costs nothing; a fully replicated value
+is a plain tensor). Every block data[b, m] is itself contiguous, so K1,
+K3 and K6 take it as it is. On a one-process mesh (no group, or W = 1)
+the process holds every block, B_loc = B and M_loc = M: on one card a
+mesh is a layout, not a saving. On a mesh across ranks
+(`launch.mesh.make_host_mesh(..., group=)`) each rank holds the blocks of
+its own rectangle of cells, from (b0, m0) = `mesh.local_range`; block
+indices (`Blocked.block`, `blockwise(index=True)`, `block_index`,
+`local_block`) are global. Every rank runs the same program (SPMD).
 
 Arithmetic is one torch call on the stacked data: `Blocked` answers
 torch's elementwise functions and operators itself (a plain operand that
@@ -38,6 +43,14 @@ meets), and the collectives GSPMD would insert are named functions:
                each row block of A; the gossip table's `neighbor_sum`
                gathers x so, then each row block takes its neighbours);
   unshard    — every block gathered into one plain tensor.
+
+Across ranks each of them first gathers the blocks of its axis from the
+ranks that hold them (`gather_ranks` over the mesh's sub-group along that
+axis, `torch.distributed.all_gather`) into global block order, then runs
+as on one process: the partials are folded over all M (or B) blocks in
+ascending order, never folded per rank and the per-rank sums added, so
+one summation order holds whatever the rank split, and comms and bits
+with it. Elementwise arithmetic and block-local work move nothing.
 
 Reductions (`torch.sum`, `mean`, `amax`, `max`, `linalg.norm`) and the
 two-operand `torch.einsum` contractions over the feature dim go through
@@ -447,21 +460,54 @@ def _spec_of(mesh, kinds) -> P:
 
 
 def mesh_device(mesh) -> torch.device:
-    """The one device every cell of `mesh` lies on: the layout stacks a
-    tensor's blocks in one tensor there."""
+    """This process's device: the one its own cells lie on, where the
+    layout stacks its blocks of a tensor."""
     devs = mesh.distinct_devices()
     if len(devs) != 1:
-        raise NotImplementedError(
-            f"a mesh over {len(devs)} devices: the blocked layout holds a "
-            "tensor's blocks on one device (a layout across cards is "
-            "ROADMAP.md Queue 1 item 14c)")
+        raise ValueError(
+            f"this process's cells lie on {len(devs)} devices: a mesh runs "
+            "one process per card (give each card its own rank: "
+            "make_host_mesh(..., group=))")
     return devs[0]
 
 
 def _lead(mesh, kinds, partial: bool = False) -> tuple[int, int]:
-    """(B, M): the batch blocks and the model blocks of a layout."""
-    return (_extent(mesh, "batch") if "batch" in kinds else 1,
-            _extent(mesh, "model") if ("model" in kinds or partial) else 1)
+    """(B_loc, M_loc): this process's batch blocks and model blocks of a
+    layout (1 along an axis the layout does not cut)."""
+    return (mesh.local_range("batch")[1] if "batch" in kinds else 1,
+            mesh.local_range("model")[1] if ("model" in kinds or partial)
+            else 1)
+
+
+# the bytes this process received through `gather_ranks`, and its calls
+# (phase 28 of chip_smoke.py reports them per rank)
+TRAFFIC = {"bytes": 0, "calls": 0}
+
+
+def gather_ranks(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:
+    """t from each of the `size` ranks of `group`, in group-rank order:
+    the one transport of the layout (`torch.distributed.all_gather`, which
+    gloo and NCCL both take, on the group given; the backend is the
+    caller's `init_process_group`). A tensor on the card goes to the
+    collective as it is."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    out = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(out, t, group=group)
+    TRAFFIC["bytes"] += t.nbytes * (size - 1)
+    TRAFFIC["calls"] += 1
+    return out
+
+
+def _gather_axis(mesh, t: torch.Tensor, kind: str) -> torch.Tensor:
+    """A stack (B_loc, M_loc, ...) with the lead axis of `kind` made whole:
+    this rank's blocks and its peers' along that axis, in global block
+    order (the peers hold the same blocks of the other axis)."""
+    group, size = mesh.axis_group(kind)
+    if group is None:
+        return t
+    return torch.cat(gather_ranks(t, group, size),
+                     dim=0 if kind == "batch" else 1)
 
 
 def _broadcast(shapes) -> torch.Size:
@@ -485,13 +531,14 @@ def _block_range(size: int, extent: int, idx: int) -> slice:
 class Blocked:
     """A tensor of `shape` cut into blocks by `spec` over `mesh`.
 
-    data    — every block stacked in one contiguous tensor (B, M, *block)
-              on the mesh's device: B the batch blocks (1 where no dim is
-              cut over the batch axes), M the model blocks (1 where none
-              is cut over "model" and the value is not partial). Block
-              (b, m) is data[b, m], itself contiguous: a kernel takes it
-              as it is, and elementwise arithmetic is one torch call on
-              data.
+    data    — this process's blocks stacked in one contiguous tensor
+              (B_loc, M_loc, *block) on its device: B_loc its batch
+              blocks (1 where no dim is cut over the batch axes), M_loc
+              its model blocks (1 where none is cut over "model" and the
+              value is not partial); all B x M blocks on a one-process
+              mesh. Global block (b, m) is data[b - b0, m - m0], itself
+              contiguous: a kernel takes it as it is, and elementwise
+              arithmetic is one torch call on data.
     partial — the blocks are per-model-block partials of one value of
               `shape` (a contraction over the cut feature dim), which
               `psum_model` sums; no arithmetic runs on them before that.
@@ -554,11 +601,20 @@ class Blocked:
 
     @property
     def blocks(self) -> dict:
-        """{(batch block, model block, device): block}, views of data."""
+        """{(batch block, model block, device): block}, views of this
+        process's data, by global block index."""
         B, M = self.data.shape[:2]
+        b0, m0 = self._origin()
         dev = self.data.device
-        return {(b, m, dev): self.data[b, m]
+        return {(b0 + b, m0 + m, dev): self.data[b, m]
                 for b in range(B) for m in range(M)}
+
+    def _origin(self) -> tuple[int, int]:
+        """(b0, m0): the global index of data[0, 0]."""
+        return (self.mesh.local_range("batch")[0] if "batch" in self.kinds
+                else 0,
+                self.mesh.local_range("model")[0]
+                if "model" in self.kinds or self.partial else 0)
 
     def __repr__(self) -> str:
         return (f"Blocked(shape={tuple(self.shape)}, spec={self.spec}, "
@@ -575,9 +631,16 @@ class Blocked:
         raise NotImplementedError("a blocked tensor has no truth value")
 
     def block(self, b: int = 0, m: int = 0) -> torch.Tensor:
-        """The block that cell (batch index b, model index m) holds."""
+        """The block that cell (global batch index b, model index m)
+        holds (the one block along an axis the layout does not cut); a
+        KeyError where this process does not hold it."""
+        b0, m0 = self._origin()
         B, M = self.data.shape[:2]
-        return self.data[b if B > 1 else 0, m if M > 1 else 0]
+        i = b - b0 if "batch" in self.kinds else 0
+        j = m - m0 if "model" in self.kinds or self.partial else 0
+        if not (0 <= i < B and 0 <= j < M):
+            raise KeyError((b, m))
+        return self.data[i, j]
 
     # ---- methods ---------------------------------------------------------
     def to(self, *args, **kwargs):
@@ -746,7 +809,8 @@ def _view(x, shape, kinds, mesh) -> torch.Tensor:
     (B or 1, M or 1, *block) view that broadcasts against the stacked
     data of the `kinds` layout of `shape`: each dim that the layout cuts
     and x holds whole is split into (blocks, block), its block axis moved
-    to the lead. Splitting and moving dims copies nothing."""
+    to the lead and narrowed to this process's blocks. Splitting, moving
+    and narrowing dims copies nothing."""
     if isinstance(x, Blocked):
         v, held = x.data, x.kinds
     else:
@@ -760,11 +824,15 @@ def _view(x, shape, kinds, mesh) -> torch.Tensor:
         if kind is None or held[k] is not None or n == 1:
             continue
         lead = 0 if kind == "batch" else 1
-        if v.shape[lead] != 1:
+        if kind in held:
             raise NotImplementedError("two dims cut over one mesh axis")
+        held = held[:k] + (kind,) + held[k + 1:]
         e = _extent(mesh, kind)
         v = v.unflatten(2 + k, (e, n // e)).movedim(2 + k, lead) \
             .squeeze(lead + 1)
+        start, count = mesh.local_range(kind)
+        if count != e:
+            v = v.narrow(lead, start, count)
     return v
 
 
@@ -862,16 +930,19 @@ def fold_add(t: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def psum_model(x):
-    """Sum the model-axis partials of `x` in ascending block order."""
+    """Sum the model-axis partials of `x` in ascending block order (across
+    ranks: gathered over the model axis first, then folded)."""
     if not isinstance(x, Blocked) or not x.partial:
         return x
-    return _wrap(x.mesh, x.kinds, x.shape, _fold(x.data, 1, torch.add))
+    return _wrap(x.mesh, x.kinds, x.shape, _fold(
+        _gather_axis(x.mesh, x.data, "model"), 1, torch.add))
 
 
 def _reduce(op: str, x, dim, keepdim: bool, dtype):
     """A reduction: within each block on the stacked data, then the
     blocks' results folded over the cut axes it spans, the model blocks
-    in ascending order, then the batch blocks."""
+    in ascending order, then the batch blocks (across ranks each axis
+    gathered whole before its fold)."""
     if not isinstance(x, Blocked):
         raise TypeError("not a blocked tensor")
     if x.partial:
@@ -890,9 +961,9 @@ def _reduce(op: str, x, dim, keepdim: bool, dtype):
                                dtype)
     fold = torch.add if red == "sum" else torch.maximum
     if "model" in over:
-        t = _fold(t, 1, fold)
+        t = _fold(_gather_axis(x.mesh, t, "model"), 1, fold)
     if "batch" in over:
-        t = _fold(t, 0, fold)
+        t = _fold(_gather_axis(x.mesh, t, "batch"), 0, fold)
     if op == "mean":
         count = math.prod(x.shape[d] for d in dims)
         t = t / torch.full((), count, dtype=t.dtype, device=t.device)
@@ -998,8 +1069,8 @@ def all_gather(x, axis: str = "batch"):
     d = x.kinds.index(axis)
     lead = 0 if axis == "batch" else 1
     # the block axis beside the dim, as its major part, then merged
-    data = x.data.movedim(lead, 1 + d).flatten(1 + d, 2 + d) \
-        .unsqueeze(lead)
+    data = _gather_axis(x.mesh, x.data, axis).movedim(lead, 1 + d) \
+        .flatten(1 + d, 2 + d).unsqueeze(lead)
     kinds = tuple(None if k == axis else k for k in x.kinds)
     return _wrap(x.mesh, kinds, x.shape, data)
 
@@ -1020,7 +1091,7 @@ def unshard_tree(tree):
 def roll_agents(x, shifts, dims=None):
     """torch.roll (which a Blocked routes here); over a batch-cut agent
     axis, the ring roll across batch blocks (the blocks' rows in agent
-    order, rolled, cut again)."""
+    order, gathered over the batch axis, rolled, cut again)."""
     if isinstance(dims, (tuple, list)):
         if len(dims) != 1:
             raise NotImplementedError("roll over several dims")
@@ -1039,10 +1110,14 @@ def roll_agents(x, shifts, dims=None):
                      torch.roll(x.data, shifts, 2 + d))
     if x.kinds[d] != "batch":
         raise NotImplementedError("rolling the cut feature dim")
-    B = x.data.shape[0]
-    rows = x.data.movedim(0, 1 + d).flatten(1 + d, 2 + d)
+    whole = _gather_axis(x.mesh, x.data, "batch")
+    B = whole.shape[0]
+    rows = whole.movedim(0, 1 + d).flatten(1 + d, 2 + d)
     back = torch.roll(rows, shifts, 1 + d).unflatten(1 + d, (B, -1)) \
         .movedim(1 + d, 0)
+    b0, nb = x.mesh.local_range("batch")
+    if nb != B:
+        back = back.narrow(0, b0, nb)
     return _wrap(x.mesh, x.kinds, x.shape, back)
 
 
@@ -1062,8 +1137,10 @@ def neighbor_sum(x, idx: torch.Tensor, weights: torch.Tensor):
     v = xg.data[0] if isinstance(xg, Blocked) else xg[None]   # (M, N, ...)
     N, K = idx.shape
     B = _extent(x.mesh, "batch") if x.kinds[0] == "batch" else 1
-    g = v[:, idx.reshape(B, N // B, K)].movedim(1, 0)   # (B, M, N/B, K, ...)
-    w = weights.reshape(B, 1, N // B, K)
+    b0, nb = x.mesh.local_range("batch") if B > 1 else (0, 1)
+    rows = idx.reshape(B, N // B, K)[b0:b0 + nb]
+    g = v[:, rows].movedim(1, 0)                     # (B_loc, M, N/B, K, ...)
+    w = weights.reshape(B, 1, N // B, K)[b0:b0 + nb]
     out = fold_add(w * g, -1) if x.ndim == 1 else fold_add(
         w[..., None] * g, -2)
     return _wrap(x.mesh, x.kinds, x.shape, out)
@@ -1102,7 +1179,8 @@ def _matmul(a, b):
 
 def _einsum(eq: str, *ops):
     """A two-operand contraction whose contracted letters may be cut over
-    "model": one einsum over the stacked blocks, then psum_model."""
+    "model": one batched product over this process's stacked blocks
+    (`_contract`), then psum_model."""
     if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
         ops = tuple(ops[0])
     ins, out = eq.replace(" ", "").split("->")
@@ -1139,10 +1217,46 @@ def _einsum(eq: str, *ops):
     lead = (max(v.shape[0] for v in views), max(v.shape[1] for v in views))
     views = [v.expand(*lead, *v.shape[2:]) for v in views]
     y, z = [c for c in "YZABCDEFGHIJKLMNOPQRSTUVWX" if c not in eq][:2]
-    res = torch.einsum(",".join(y + z + sub for sub in ins) + "->" + y + z
-                       + out, *views)
+    res = _contract([y + z + sub for sub in ins], y + z + out, views)
     return psum_model(_wrap(mesh, kinds, [sizes[ch] for ch in out], res,
                             partial))
+
+
+def _contract(subs: list[str], out: str, views) -> torch.Tensor:
+    """A two-operand einsum. Where every letter both operands hold has
+    size > 1, torch.einsum itself. Where one has size 1 (a rank holding
+    one batch block), the batched product torch.einsum makes when it has
+    not, over the flattened letters: (batch, left-only, summed) @ (batch,
+    summed, right-only). torch.einsum would treat the size-1 letter as
+    right-only, which changes the order its product sums in; so a rank
+    holding one block rounds as a process holding several."""
+    (sa, a), (sb, b) = zip(subs, views)
+    if all(a.shape[sa.index(c)] > 1 and b.shape[sb.index(c)] > 1
+           for c in sa if c in sb):
+        return torch.einsum(f"{sa},{sb}->{out}", a, b)
+    batch = [c for c in out if c in sa and c in sb]
+    lo = [c for c in out if c in sa and c not in sb]
+    ro = [c for c in out if c in sb and c not in sa]
+    summed = [c for c in sa if c in sb and c not in out]
+    for s, v in ((sa, a), (sb, b)):
+        extra = [c for c in s if c not in out and c not in summed]
+        if extra or len(set(s)) != len(s):
+            raise NotImplementedError(
+                f"einsum {','.join(subs)}->{out} on blocked tensors")
+    size: dict[str, int] = {}
+    for c, k in list(zip(sa, a.shape)) + list(zip(sb, b.shape)):
+        size[c] = max(size.get(c, 1), k)
+    # a letter of size 1 in one operand broadcasts, as in torch.einsum
+    a = a.expand(*(size[c] for c in sa))
+    b = b.expand(*(size[c] for c in sb))
+    n = [math.prod(size[c] for c in g) for g in (batch, lo, summed, ro)]
+    am = a.permute(*(sa.index(c) for c in batch + lo + summed)) \
+        .reshape(n[0], n[1], n[2])
+    bm = b.permute(*(sb.index(c) for c in batch + summed + ro)) \
+        .reshape(n[0], n[2], n[3])
+    res = torch.bmm(am, bm).reshape(*(size[c] for c in batch + lo + ro))
+    order = batch + lo + ro
+    return res.permute(*(order.index(c) for c in out))
 
 
 def _stack(tensors, dim=0):
@@ -1180,12 +1294,16 @@ def _cat(tensors, dim=0):
 # ---------------------------------------------------------------------------
 
 def shard(x: torch.Tensor, mesh, spec) -> Any:
-    """Cut `x` into the blocks of `spec` over `mesh`, stacked in one
-    contiguous tensor on the mesh's device (no copy where x already is
-    that stack, as a batch-only cut of a contiguous tensor is). A spec
-    that cuts nothing gives `x` itself on the device; a Blocked already in
-    this layout on this mesh is returned as it is (so a problem sharded
-    once can be passed to several `fit(mesh=)` calls)."""
+    """Cut `x` into the blocks of `spec` over `mesh`, this process's
+    blocks stacked in one contiguous tensor on its device (no copy where
+    x already is that stack, as a batch-only cut of a contiguous tensor
+    on a one-process mesh is). A spec that cuts nothing gives `x` itself
+    on the device; a Blocked already in this layout on this mesh is
+    returned as it is (so a problem sharded once can be passed to several
+    `fit(mesh=)` calls). Across ranks every rank is given the whole `x`
+    (built from the same seed, or gathered) and keeps a copy of its own
+    blocks only: the whole value lives on the rank only while it is
+    placed, and moves to the device only as those blocks."""
     kinds = tuple(_kind(mesh, e) for e in P(*spec))
     if isinstance(x, Blocked):
         if x.mesh is mesh and x.kinds == kinds and not x.partial:
@@ -1199,8 +1317,14 @@ def shard(x: torch.Tensor, mesh, spec) -> Any:
             raise ValueError(
                 f"dim {d} of size {x.shape[d]} does not divide over the "
                 f"{_extent(mesh, kind)} blocks of {kind!r}")
-    x = x.to(mesh_device(mesh))
-    return _wrap(mesh, kinds, x.shape, _view(x, x.shape, kinds, mesh))
+    dev = mesh_device(mesh)
+    if not mesh.ranked:
+        x = x.to(dev)
+        return _wrap(mesh, kinds, x.shape, _view(x, x.shape, kinds, mesh))
+    data = _view(x, x.shape, kinds, mesh).to(dev).contiguous()
+    if data.untyped_storage().nbytes() > data.nbytes:
+        data = data.clone()          # a view would keep the whole x alive
+    return _wrap(mesh, kinds, x.shape, data)
 
 
 def shard_features(tree, mesh, num_agents: int):
@@ -1241,9 +1365,10 @@ def shard_theta_stack(stack: torch.Tensor, mesh):
 def blockwise(fn: Callable, *xs, out, partial=False, mesh=None,
               index: bool = False):
     """fn over aligned blocks. For every (batch block, model block) of
-    the layout the operands and results cut together, fn gets each
-    Blocked operand's block for that cell and every other argument as it
-    is (with index=True, the cell's (b, m) first). `out` is the spec of
+    the layout the operands and results cut together that this process
+    holds, fn gets each Blocked operand's block for that cell and every
+    other argument as it is (with index=True, the cell's global (b, m)
+    first). `out` is the spec of
     the result (a tuple of specs when fn returns a tuple); `partial` (a
     bool, or one per output) marks results that are per-model-block
     partials, summed by `psum_model` into `out`. A result's full shape is
@@ -1261,9 +1386,11 @@ def blockwise(fn: Callable, *xs, out, partial=False, mesh=None,
     for spec in specs:
         union |= {_kind(mesh, e) for e in P(*spec)}
     B, M = _lead(mesh, union, any(partials) and "model" in union)
+    b0 = mesh.local_range("batch")[0] if "batch" in union else 0
+    m0 = mesh.local_range("model")[0] if "model" in union else 0
     results = []
-    for b in range(B):
-        for m in range(M):
+    for b in range(b0, b0 + B):
+        for m in range(m0, m0 + M):
             args = [x.block(b, m) if isinstance(x, Blocked) else x
                     for x in xs]
             results.append(fn((b, m), *args) if index else fn(*args))
@@ -1363,10 +1490,12 @@ def block_index(x: Blocked, dim: int, b: int, m: int) -> slice:
 
 
 def local_block(x, b: int = 0, m: int = 0):
-    """Block (b, m) of x, for tests and probes."""
+    """Block (b, m) of x, by global index, for tests and probes: a
+    KeyError where this process does not hold it."""
     if not isinstance(x, Blocked):
         return x
     B, M = x.data.shape[:2]
-    if b >= B or m >= M:
+    b0, m0 = x._origin()
+    if not (b0 <= b < b0 + B and m0 <= m < m0 + M):
         raise KeyError((b, m))
-    return x.data[b, m]
+    return x.data[b - b0, m - m0]

@@ -47,20 +47,40 @@ def init_opt_state(cfg: OptConfig, params) -> dict:
     return {"count": count}
 
 
-def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def _global_norm(tree, rows: bool = False) -> torch.Tensor:
+    """sqrt of the sum over the leaves, in leaf order, of each leaf's sum
+    of squares in fp32; with rows=True one norm per leading row (N,)."""
+    def sq(x):
+        x = torch.square(x.to(torch.float32))
+        return torch.sum(x, dim=tuple(range(1, x.ndim))) if rows \
+            else torch.sum(x)
+    return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
 
 
-def opt_update(cfg: OptConfig, grads, state, params):
+def _per_row(v, x):
+    """A per-row value (N,) (or a scalar) shaped to broadcast against the
+    row-stacked leaf x (N, ...)."""
+    if v.ndim == 0:
+        return v
+    return v[(slice(None),) + (None,) * (x.ndim - 1)]
+
+
+def opt_update(cfg: OptConfig, grads, state, params, rows: bool = False):
     """-> (updates to ADD to params, new_state). The clipped gradient is
     formed inside each leaf's expressions, as g * scale (the reference's
-    product), so no clipped copy of the whole tree is held."""
+    product), so no clipped copy of the whole tree is held.
+
+    rows=True: the trees are row-stacked (N, ...) and every row is its
+    own optimizer, what `torch.func.vmap` of this function computes: the
+    clip's global norm and the step count are per row. The consensus
+    runtime takes it on a mesh, whose blocked leaves vmap cannot see into
+    (each row's norm then sums its feature blocks' partials in ascending
+    block order, `distributed.sharding.psum_model`)."""
     _check_kind(cfg)
     if cfg.grad_clip:
-        gn = _global_norm(grads)
+        gn = _global_norm(grads, rows)
         scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
-        clip = lambda g: g * scale
+        clip = lambda g: g * _per_row(scale, g)
     else:
         clip = lambda g: g
     count = state["count"] + 1
@@ -80,8 +100,9 @@ def opt_update(cfg: OptConfig, grads, state, params):
         bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                          device=c.device), c)
         updates = tree_map(
-            lambda m_, v_, p: (-cfg.lr * ((m_ / bc1)
-                               / (torch.sqrt(v_ / bc2) + cfg.eps)
+            lambda m_, v_, p: (-cfg.lr * ((m_ / _per_row(bc1, m_))
+                               / (torch.sqrt(v_ / _per_row(bc2, v_))
+                                  + cfg.eps)
                                + cfg.weight_decay
                                * p.to(torch.float32))).to(p.dtype),
             m, v, params)

@@ -54,9 +54,15 @@ STACK_DTYPE = torch.float32
 
 
 def check_mesh(mesh, device: torch.device, what: str) -> None:
-    """Every cell of a serving mesh lies on the serving device."""
+    """Every cell of a serving mesh lies on the serving device; a mesh
+    across ranks is not served yet."""
     if mesh is None:
         return
+    if mesh.ranked:
+        raise NotImplementedError(
+            f"{what} on a mesh across {mesh.world} ranks: the collector "
+            "thread would drive every rank's collectives (ROADMAP.md Queue "
+            "1 item 14c(b))")
     for d in mesh.distinct_devices():
         if d.type != device.type or (device.index is not None
                                      and d.index != device.index):

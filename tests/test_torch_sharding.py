@@ -281,6 +281,56 @@ def test_k3_once_per_block_matches_the_unsharded_update(data, model):
     torch.testing.assert_close(_t(bxi), xi, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+@pytest.mark.parametrize("clip", [0.5, 1e3], ids=["binding", "loose"])
+def test_grad_clip_on_a_mesh_matches_the_unsharded_reference(kind, clip):
+    """Per-agent gradient clipping on a blocked tree (the reference vmaps
+    `opt_update`, which clips each agent row by its global norm): five
+    coke `consensus_update` rounds on a (2, 4) mesh against the
+    reference's unsharded calls, each row's norm the psum of its feature
+    blocks' partials. Comms and send fractions exact, params and duals
+    within "Sharded sums"' 1e-5."""
+    from repro.distributed import consensus as jax_cns
+    from repro.optim import optimizers as jax_opt
+
+    from repro_torch.distributed import consensus as port_cns
+    from repro_torch.optim import optimizers as port_opt
+    n, d = 4, 64
+    rng = np.random.default_rng(14)
+    kw = dict(strategy="coke", rho=0.05, censor_v=0.02, censor_mu=0.9)
+    jccfg, tccfg = (jax_cns.ConsensusConfig(**kw),
+                    port_cns.ConsensusConfig(**kw))
+    okw = dict(kind=kind, lr=0.05, grad_clip=clip)
+    jopt, topt = jax_opt.OptConfig(**okw), port_opt.OptConfig(**okw)
+    x0 = rng.normal(size=(n, d)).astype(np.float32)
+    mesh = make_host_mesh(2, 4, device=CPU)
+    jp = {"theta": jnp.asarray(x0)}
+    js = jax_cns.init_consensus_state(jccfg, jopt, jp)
+    tp = {"theta": torch.from_numpy(x0)}
+    ts = sharding.shard_features(
+        port_cns.init_consensus_state(tccfg, topt, tp), mesh, n)
+    tp = sharding.shard_features(tp, mesh, n)
+    assert isinstance(tp["theta"], sharding.Blocked)
+    sends = []
+    for _ in range(5):
+        g = (3.0 * rng.normal(size=(n, d))).astype(np.float32)
+        jp, js, jm = jax_cns.consensus_update(jccfg, jopt, jp,
+                                              {"theta": jnp.asarray(g)}, js)
+        tp, ts, tm = port_cns.consensus_update(
+            tccfg, topt, tp, sharding.shard_features(
+                {"theta": torch.from_numpy(g)}, mesh, n), ts)
+        assert float(tm["send_frac"]) == float(jm["send_frac"])
+        assert int(ts["comms"]) == int(js["comms"])
+        sends.append(float(tm["send_frac"]))
+        np.testing.assert_allclose(_np(tp["theta"]), np.asarray(jp["theta"]),
+                                   rtol=0, atol=TOL)
+        for k in ("theta_hat", "gamma"):
+            np.testing.assert_allclose(_np(ts[k]["theta"]),
+                                       np.asarray(js[k]["theta"]), rtol=0,
+                                       atol=TOL, err_msg=k)
+    assert 0 < sum(sends)
+
+
 # ---------------------------------------------------------------------------
 # fit(mesh=) against the reference's unsharded fit
 # ---------------------------------------------------------------------------
@@ -511,9 +561,15 @@ def test_fit_places_the_problem_once(shard_problem, monkeypatch, backend):
 
 
 def test_a_mesh_over_several_devices_is_not_laid_out():
+    """A process drives one card: a mesh whose own cells (every cell,
+    without a group) lie on two devices is refused where it is built, and
+    by the layout."""
+    with pytest.raises(ValueError, match="one process per card"):
+        tmesh.Mesh(np.array([[torch.device(CPU), torch.device("meta")]],
+                            dtype=object), ("data", "model"))
     mesh = tmesh.Mesh.__new__(tmesh.Mesh)
     mesh.distinct_devices = lambda: [CPU, torch.device("meta")]
-    with pytest.raises(NotImplementedError, match="item 14c"):
+    with pytest.raises(ValueError, match="one process per card"):
         sharding.mesh_device(mesh)
 
 
