@@ -415,6 +415,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      it holds. The gloo transfers sync the host: these loops run
      without set_sync_debug_mode("error"). The kernels line's
      K1, K3 and K5 entries add the ranks' launches.
+     Then, in the same spawns, serving across the ranks (`rank_serve`:
+     `ThetaStore` and `KernelServer` SPMD, rank 0's collector driving
+     every rank's collectives by broadcast commands): phase 19(c)'s
+     resident cell (65 536 ids, phase 18's clients at
+     RANK_SERVE_REQUESTS requests each) and a full 1024-row
+     bucket at W = 2 and 4, and at W = 4 phase 18's hot swap under fire
+     and its paged cell (1024 registry ids, written by the parent before
+     the spawn, through 256 slots): every answer bitwise the one-process
+     mesh's score_rows at its own row count, the request alone bitwise
+     itself inside the full bucket, every follower's store the front's,
+     K1 and K6 summed over the ranks 8 a bucket call, both held against
+     their plain versions on each rank's blocks; QPS, p50 / p99 beside
+     phases 18(a) and 19(c), broadcasts and gathers per bucket call,
+     per-rank wall, device time and peak memory. The kernels line's K6
+     entry adds these launches too.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
 generate of 22 and 23, each prefill of 24, each run of 25 and 27, each
@@ -448,6 +463,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import importlib
 import json
 import math
@@ -806,6 +822,18 @@ RANK_BIG_D_WORLD = 4
 # crosses the model cut in the big-D cell only
 RANK_CG_BACKENDS = {2: ("simulator", "spmd"), 4: ("spmd",)}
 RANK_TIMEOUT_S = 120         # every collective's limit: a lost rank fails
+# phase 28's serving cells in each spawn (after the fit cells): (a) phase
+# 19(c)'s resident cell and a full 1024-row bucket at every W, (c) phase
+# 18's hot swap under fire and (b) phase 18(b)'s paged cell at W = 4,
+# under phase 18's load
+RANK_SERVE_CELLS = {2: ("resident",), 4: ("resident", "swap", "paged")}
+# requests per client in those cells: cut from phase 18's 250 to keep the
+# whole script inside its limit on a slow host (1110.9 s at 250 on an
+# H100 80GB HBM3 host)
+RANK_SERVE_REQUESTS = 100
+# phases 18(a) and 19(c)'s QPS, p50 and p99 in this run, which phase 28
+# prints beside its ranks' serving
+SERVE_FIGURES: dict = {}
 # phase 20, training: the reference's launch/train.py defaults (B=8, S=64,
 # AdamW at lr 3e-3, grad_clip 1.0) at full width, 5 steps
 TRAIN_BATCH = 8
@@ -3688,6 +3716,14 @@ def drive(server, ids, *, clients, requests, batch, seed):
     return wall, latencies, answers
 
 
+def latency_figures(wall, lat):
+    """(QPS, p50 ms, p99 ms) of a closed-loop run's request latencies."""
+    lat = np.sort(np.asarray(lat))
+    n = len(lat)
+    return n / wall, float(lat[n // 2]), float(lat[min(n - 1,
+                                                       int(n * 0.99))])
+
+
 def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
     """Phase 18: many-model serving at full width. One featurizer (phase
     4's: d=5, D=4096) and its COKE fit's 20 per-agent models plus 1004
@@ -3777,16 +3813,17 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
                 f"busy {busy / window:.2%}, idle {1 - busy / window:.2%} "
                 f"({top})")
 
-    def report(label, server, wall, lat, before, store_before=None):
+    def report(label, key, server, wall, lat, before, store_before=None):
+        """Log a cell's run; its (QPS, p50, p99) go to SERVE_FIGURES[key]
+        for phase 28's lines."""
         calls, rows = bucket_calls(server, before)
-        lat = np.sort(np.asarray(lat))
         n = len(lat)
+        qps, p50, p99 = SERVE_FIGURES[key] = latency_figures(wall, lat)
         c = counts()
         msg = (f"[{card}] {label}: {n} requests of {SERVE_BATCH} rows from "
                f"{SERVE_CLIENTS} clients in {wall:.3f} s: "
-               f"{n / wall:.1f} QPS, {n * SERVE_BATCH / wall:.1f} rows/s, "
-               f"p50 {lat[n // 2]:.4f} ms, p99 "
-               f"{lat[min(n - 1, int(n * 0.99))]:.4f} ms; {calls} bucket "
+               f"{qps:.1f} QPS, {n * SERVE_BATCH / wall:.1f} rows/s, "
+               f"p50 {p50:.4f} ms, p99 {p99:.4f} ms; {calls} bucket "
                f"calls, {rows / calls:.2f} rows per call; launches {c}")
         if store_before is not None:
             s = server.stats()["store"]
@@ -3858,7 +3895,8 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
     reset_counts()
     wall, lat, answers = drive(server, res_ids, seed=0, **load)
     k6_launches = report(f"resident cell ({SERVE_RESIDENT} ids in one "
-                         "stack)", server, wall, lat, before)
+                         "stack)", "phase 18(a), unsharded", server, wall,
+                         lat, before)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(18, f"[{card}] resident cell: {flushes[1]} collector flushes, "
             f"{flushes[0] * 1e3 / flushes[1]:.4f} ms of host each (resolve, "
@@ -3987,8 +4025,9 @@ def serve_phase(dev, card, reset_counts, counts, *, built, coke, bw, fp32):
     reset_counts()
     wall, lat, answers = drive(paged, reg_ids, seed=100, **load)
     k6_launches += report(f"paged cell ({SERVE_REGISTRY} registry ids "
-                          f"through {SERVE_REGISTRY // 4} slots)", paged,
-                          wall, lat, before, store_before)
+                          f"through {SERVE_REGISTRY // 4} slots)",
+                          "phase 18(b), paged", paged, wall, lat, before,
+                          store_before)
     log(18, f"[{card}] paged cell: {flushes[1]} collector flushes, "
             f"{flushes[0] * 1e3 / flushes[1]:.4f} ms of host each, "
             f"{flushes[0] / wall:.1%} of the run's wall time; {faults[1]} "
@@ -4481,13 +4520,13 @@ def shard_phase(dev, card, reset_counts, counts, *, problem, cfg, built,
     calls = s["batches"] - before["batches"]
     only("the sharded resident cell", c,
          {"rff_cos_bias": cells * calls, "gather_rowdot": cells * calls})
-    lat = np.sort(np.asarray(lat))
-    n = len(lat)
+    qps, p50, p99 = SERVE_FIGURES["phase 19(c), one-process mesh"] = \
+        latency_figures(wall, lat)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(19, f"[{card}] sharded resident cell: {n} requests of "
+    log(19, f"[{card}] sharded resident cell: {len(lat)} requests of "
             f"{SERVE_BATCH} rows from {SERVE_CLIENTS} clients in "
-            f"{wall:.3f} s: {n / wall:.1f} QPS, p50 {lat[n // 2]:.4f} ms, "
-            f"p99 {lat[min(n - 1, int(n * 0.99))]:.4f} ms; {calls} bucket "
+            f"{wall:.3f} s: {qps:.1f} QPS, p50 {p50:.4f} ms, "
+            f"p99 {p99:.4f} ms; {calls} bucket "
             f"calls, K1 = K6 = {cells} x {calls} (one per (row, feature) "
             f"block); peak memory {peak:.3f} GB")
     worst = 0.0
@@ -5039,6 +5078,9 @@ def rank_cells(dev, mesh, reset_counts, counts, *, big_d,
                                     got.shape).cpu()}
     e1, t1, shape = k1_block_errors(mesh, flat, sm.omega, sm.bias, FEATURES)
     out["holds"]["rff_cos_bias"] = (e1, t1, shape)
+    # the serving cells' template and the per-agent thetas
+    out["template"] = (fused.to_model(built.rff_params,
+                                      include_per_agent=False), fused.theta)
     del model, sm, built, fused
 
     if big_d:
@@ -5068,12 +5110,246 @@ def rank_cells(dev, mesh, reset_counts, counts, *, big_d,
     return out
 
 
-def rank_main(rank, world, split, tmp, device="cuda:0"):
+def registry_ids(n_agents):
+    """Phase 28(b)'s registry ids: phase 18's per-agent models and
+    SERVE_REGISTRY - n_agents variants."""
+    return [f"agent-{i:02d}" for i in range(n_agents)] + [
+        f"v-{i:04d}" for i in range(SERVE_REGISTRY - n_agents)]
+
+
+def write_registry(root, template, agents):
+    """Phase 28(b)'s registry at `root`: the per-agent thetas and
+    variants of the template's theta (0.1 N(0, 1) from seed 42), each one
+    published model; returns {id: theta} on the template's device."""
+    from repro_torch.serve import ModelRegistry
+
+    n = agents.shape[0]
+    variants = (template.theta.cpu().numpy()[None, :]
+                + np.random.default_rng(42).normal(
+                    scale=0.1, size=(SERVE_REGISTRY - n,
+                                     template.num_features))
+                ).astype(np.float32)
+    thetas = torch.cat([agents, torch.from_numpy(variants).to(
+        agents.device)])
+    reg = ModelRegistry(str(root), device=agents.device)
+    ids = registry_ids(n)
+    for mid, th in zip(ids, thetas):
+        reg.publish(mid, template.replace(theta=th))
+    return dict(zip(ids, thetas))
+
+
+def resident_thetas(template, agents):
+    """Phase 28(a)'s SERVE_RESIDENT thetas on the card: the per-agent
+    thetas, then the template's theta plus 0.1 N(0, 1) from seed 28 (the
+    same bits in every process on the card)."""
+    gen = torch.Generator(device=agents.device).manual_seed(28)
+    n = SERVE_RESIDENT - agents.shape[0]
+    return torch.cat([agents, template.theta + 0.1 * torch.randn(
+        (n, template.num_features), generator=gen, device=agents.device)])
+
+
+def rank_serve(dev, mesh, cells, reg_root, template, agents, reset_counts,
+               counts):
+    """Phase 28's serving cells on a rank's share of the SHARD_MESH mesh,
+    SPMD: every rank builds the same stores and servers (the COKE model
+    of `rank_cells` as the template, whole), and rank 0, the front, alone
+    runs the clients; the other ranks follow its commands in `stop()`.
+    (a) 65 536 ids `put_many` into a store of 65 537 slots, phase 18's
+    load (SERVE_CLIENTS closed-loop clients x RANK_SERVE_REQUESTS
+    requests of 4 rows at uniform ids, max_delay_ms=1), then one request
+    alone and inside a full 1024-row bucket; with "swap" in `cells` (c)
+    phase 18's hot swap under fire on that store, and with "paged" (b)
+    the registry at `reg_root` through SERVE_REGISTRY // 4 slots. Per
+    cell and rank: the answers (front), the launch counts (every counter
+    set to 0 just before the first command, read after the stop), the
+    server's and the store's stats and resident ids, the broadcasts and
+    gathers and their bytes, wall seconds beside the device's ms between
+    events on either side, peak memory. Then K1 and K6 on this rank's
+    blocks of a bucket's row block against their plain versions (not
+    counted)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.rff import rff as k1
+    from repro_torch.kernels.rowdot import rowdot as k6
+    from repro_torch.kernels.rowdot.ref import gather_rowdot_ref
+    from repro_torch.launch.mesh import num_agents
+    from repro_torch.serve import (KernelServeConfig, KernelServer,
+                                   ModelRegistry, ThetaStore)
+
+    front = mesh.rank == 0
+    D = template.num_features
+    kw = dict(config=KernelServeConfig(backend="fused",
+                                       max_delay_ms=SERVE_DELAY_MS),
+              mesh=mesh, device=dev, autostart=False)
+    load = dict(clients=SERVE_CLIENTS, requests=RANK_SERVE_REQUESTS,
+                batch=SERVE_BATCH)
+    out = {"cells": {}, "holds": {},
+           "template": {k: v.cpu() for k, v in template._array_tree()
+                        .items()}, "agents": agents.cpu()}
+
+    def cell(name, server, store, fn):
+        """fn(server) on the front (which starts the server) between the
+        counters' reset and the server's stop on every rank."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        traffic = dict(sharding.TRAFFIC)
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = fn(server) if front else None      # fn starts the front
+        server.stop()
+        end.record()
+        end.synchronize()
+        s = server.stats()
+        out["cells"][name] = {
+            "got": got, "launches": counts(),
+            "wall": time.perf_counter() - t0,
+            "device_ms": start.elapsed_time(end),
+            "server": {k: s[k] for k in ("batches", "rows", "padded_rows")},
+            "store": store.stats(), "resident": hashlib.sha256(
+                "\n".join(store.resident()).encode()).hexdigest(),
+            "traffic": {k: sharding.TRAFFIC[k] - traffic[k]
+                        for k in traffic},
+            "peak": torch.cuda.max_memory_allocated()}
+
+    # ---- (a) the resident cell, then a full bucket ------------------------
+    res_ids = [f"r-{i:05d}" for i in range(SERVE_RESIDENT)]
+    thetas = resident_thetas(template, agents)
+    store = ThetaStore(SERVE_RESIDENT + 1, D, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.put_many(res_ids, thetas)
+    torch.cuda.synchronize()
+    out["put_many_ms"] = (time.perf_counter() - t0) * 1e3
+    out["stack_bytes"] = sum(t.nbytes for t in store.stack.blocks.values())
+    del thetas
+    x1 = np.random.default_rng(3).uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32)
+
+    def resident(server):
+        server.start()
+        server.predict(np.zeros((SERVE_BATCH, 5), np.float32), res_ids[0])
+        wall, lat, answers = drive(server, res_ids, seed=0, **load)
+        alone = server.predict(x1, res_ids[7])
+        return {"wall": wall, "lat": lat, "answers": answers,
+                "alone": alone}
+
+    cell("resident", KernelServer(template, store=store, **kw), store,
+         resident)
+
+    def full_bucket(server):
+        rng = np.random.default_rng(4)
+        fill = []
+        for _ in range(1024 // SERVE_BATCH - 1):
+            mid = res_ids[int(rng.integers(0, SERVE_RESIDENT))]
+            x = rng.uniform(size=(SERVE_BATCH, 5)).astype(np.float32)
+            fill.append((mid, x, server.submit(x, mid)))
+        probe = server.submit(x1, res_ids[7])
+        server.start()          # every request queued first: one bucket
+        return {"answers": [(m, x, f.result(timeout=120))
+                            for m, x, f in fill]
+                + [(res_ids[7], x1, probe.result(timeout=120))]}
+
+    cell("full bucket", KernelServer(template, store=store, **kw), store,
+         full_bucket)
+
+    # ---- (c) hot swap under fire ------------------------------------------
+    if "swap" in cells:
+        hot = res_ids[7]
+        versions = [agents[7] + 0.5 * (k + 1)
+                    for k in range(SERVE_SWAP_PUBLISHES)]
+
+        def swap(server):
+            import threading
+            server.start()
+            stop_fire = threading.Event()
+            fired, failures = [], []
+
+            def fire():
+                try:
+                    while not stop_fire.is_set():
+                        fired.append(server.submit(x1, hot).result(
+                            timeout=120))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    failures.append(e)
+
+            threads = [threading.Thread(target=fire)
+                       for _ in range(SERVE_SWAP_CLIENTS)]
+            for t in threads:
+                t.start()
+            for v in versions:
+                time.sleep(0.02)
+                server.publish(hot, v)
+            time.sleep(0.02)
+            stop_fire.set()
+            for t in threads:
+                t.join(timeout=120)
+            if failures or any(t.is_alive() for t in threads):
+                raise AssertionError(f"hot swap: a client failed "
+                                     f"{failures[:1]}")
+            return {"fired": fired, "last": server.predict(x1, hot)}
+
+        cell("hot swap", KernelServer(template, store=store, **kw), store,
+             swap)
+
+    # the kernels on this rank's blocks of a bucket's row block (1024 rows
+    # over the batch axes) against their plain versions, not counted
+    sm = template.shard(mesh)
+    gen = torch.Generator(device=dev).manual_seed(280)
+    xb = torch.rand((1024 // num_agents(mesh), 5), generator=gen,
+                    device=dev)
+    out["holds"]["rff_cos_bias"] = k1_block_errors(mesh, xb, sm.omega,
+                                                   sm.bias, D)
+    slots = np.random.default_rng(5).integers(
+        0, SERVE_RESIDENT, xb.shape[0]).astype(np.int32)
+    sl = torch.from_numpy(slots).to(dev)
+    worst = tol = 0.0
+    for m in sorted({m for _, m in mesh.local_cells()}):
+        pb = k1.rff_cos_bias(xb, sharding.local_block(sm.omega, 0, m),
+                             sharding.local_block(sm.bias, 0, m),
+                             num_features=D)
+        st = sharding.local_block(store.stack, 0, m)
+        got6 = k6.gather_rowdot(pb, st, slots)
+        want6 = gather_rowdot_ref(pb, st, sl)
+        scale = (pb * st[sl.long()]).abs().sum(-1)
+        if not bool(((got6 - want6).abs() <= ROWDOT_RTOL * scale).all()):
+            raise AssertionError(f"rank {mesh.rank}: K6 on block {m} "
+                                 "disagrees with its plain version")
+        worst = max(worst, float((got6 - want6).abs().max()))
+        tol = max(tol, ROWDOT_RTOL * float(scale.max()))
+    torch.cuda.synchronize()
+    out["holds"]["gather_rowdot"] = (worst, tol, tuple(st.shape))
+    del sm, store
+    torch.cuda.empty_cache()
+
+    # ---- (b) the paged cell -----------------------------------------------
+    if "paged" in cells:
+        reg_ids = registry_ids(agents.shape[0])
+        reg = ModelRegistry(str(reg_root), device=dev)
+        paged = KernelServer(template, registry=reg,
+                             store_capacity=SERVE_REGISTRY // 4, **kw)
+
+        def paged_run(server):
+            server.start()
+            server.predict(np.zeros((SERVE_BATCH, 5), np.float32),
+                           reg_ids[1])
+            wall, lat, answers = drive(server, reg_ids, seed=100, **load)
+            return {"wall": wall, "lat": lat, "answers": answers}
+
+        cell("paged", paged, paged.store, paged_run)
+        del paged
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(rank, world, split, tmp, device="cuda:0", registry=None):
     """A rank of phase 28 (started by `torch.multiprocessing` with the
     spawn method; the parent built the kernels, so this only loads them):
     join the gloo group of `world` ranks on the card over a FileStore in
-    `tmp` (RANK_TIMEOUT_S to every collective), run `rank_cells` on its
-    share of the SHARD_MESH mesh and save what it got there."""
+    `tmp` (RANK_TIMEOUT_S to every collective), run `rank_cells` and then
+    `rank_serve` on its share of the SHARD_MESH mesh (the paged cell's
+    registry at `registry`) and save what it got there."""
     import datetime
 
     import torch.distributed as dist
@@ -5099,9 +5375,148 @@ def rank_main(rank, world, split, tmp, device="cuda:0"):
                          cg_backends=RANK_CG_BACKENDS[world])
         res.update(cells_held=mesh.local_cells(), wall=time.perf_counter()
                    - t0, traffic=dict(sharding.TRAFFIC))
+        template, agents = res.pop("template")
+        res["serve"] = rank_serve(dev, mesh, RANK_SERVE_CELLS[world],
+                                  registry, template, agents, reset_counts,
+                                  counts)
         torch.save(res, Path(tmp) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def serve_ranks_check(card, dev, world, split, ranks, reg_thetas):
+    """Phase 28's serving cells of one spawn, held in the parent: every
+    answer bitwise the one-process SHARD_MESH mesh's `score_rows` at the
+    request's own row count (the template, thetas and registry rebuilt
+    from what rank 0 sent and from the seeds); the probe alone bitwise
+    itself inside the full 1024-row bucket; every follower's store (stats
+    and resident ids) and bucket calls the front's; K1 and K6 summed over
+    the ranks 8 a bucket call (each (row, feature) block once, as on one
+    process), no other kernel. Prints per cell QPS and p50 / p99 beside
+    phases 18(a) and 19(c) of this run, the broadcasts and gathers per
+    bucket call and their bytes, and per rank the wall and device time
+    and peak memory. Returns the launches over the ranks by kernel."""
+    from repro_torch.api.model import KernelModel
+    from repro_torch.core.rff import RFFParams
+    from repro_torch.launch.mesh import make_host_mesh
+
+    sv = [r["serve"] for r in ranks]
+    arr = sv[0]["template"]
+    template = KernelModel(RFFParams(omega=arr["omega"].to(dev),
+                                     bias=arr["bias"].to(dev),
+                                     mapping="cos_bias"),
+                           arr["theta"].to(dev))
+    agents = sv[0]["agents"].to(dev)
+    D = template.num_features
+    sm = template.shard(make_host_mesh(*SHARD_MESH, device=dev))
+    res_thetas = resident_thetas(template, agents)
+    hot = agents[7]
+    versions = [hot] + [hot + 0.5 * (k + 1)
+                        for k in range(SERVE_SWAP_PUBLISHES)]
+    x1 = np.random.default_rng(3).uniform(size=(SERVE_BATCH, 5)).astype(
+        np.float32)
+
+    def theta_of(mid):
+        if reg_thetas is not None and mid in reg_thetas:
+            return reg_thetas[mid]
+        return res_thetas[int(mid[2:])]
+
+    def own(x, theta):
+        xt = torch.from_numpy(x).to(dev)
+        return sm.score_rows(xt, theta.expand(x.shape[0], D),
+                             backend="fused").cpu().numpy()
+
+    seen = {k: 0 for k in LAUNCH_COUNTERS}
+    for name in sv[0]["cells"]:
+        cells = [s["cells"][name] for s in sv]
+        c0 = cells[0]
+        t_hold = time.perf_counter()
+        got = c0["got"]
+        answers = list(got.get("answers", []))
+        for mid, x, out in answers:
+            if not np.array_equal(out, own(x, theta_of(mid))):
+                raise AssertionError(f"W={world} {name}: the answer for "
+                                     f"{mid} is not bitwise the one-process "
+                                     "mesh's score_rows")
+        n_held = len(answers)
+        if name == "hot swap":
+            refs = [own(x1, v) for v in versions]
+            seen_v = [sum(np.array_equal(o, r) for r in refs)
+                      for o in got["fired"]]
+            if any(k != 1 for k in seen_v) or not np.array_equal(
+                    got["last"], refs[-1]):
+                raise AssertionError(f"W={world} hot swap: an answer "
+                                     "matched no version, or more than one")
+            n_held += len(got["fired"]) + 1
+        if name == "resident":
+            if not np.array_equal(got["alone"], own(x1, res_thetas[7])):
+                raise AssertionError(f"W={world}: the request alone is not "
+                                     "bitwise the one-process mesh's")
+            n_held += 1
+        if name == "full bucket":
+            probe = answers[-1][2]
+            if not np.array_equal(probe, sv[0]["cells"]["resident"]["got"]
+                                  ["alone"]):
+                raise AssertionError(f"W={world}: a request alone and "
+                                     "inside a full 1024-row bucket differ")
+            if any(tuple(c["server"].values()) != (1, 1024, 0)
+                   for c in cells):
+                raise AssertionError(f"W={world}: the full bucket ran as "
+                                     f"{[c['server'] for c in cells]}")
+        calls = c0["server"]["batches"]
+        for r, c in enumerate(cells[1:], 1):
+            if c["server"] != c0["server"] or c["store"] != c0["store"] \
+                    or c["resident"] != c0["resident"]:
+                raise AssertionError(
+                    f"W={world} {name}: rank {r} ended with store "
+                    f"{c['store']} and bucket calls {c['server']}, the "
+                    f"front {c0['store']} and {c0['server']}")
+        total = {k: sum(c["launches"][k] for c in cells)
+                 for k in LAUNCH_COUNTERS}
+        blocks = SHARD_MESH[0] * SHARD_MESH[1]
+        if total["rff_cos_bias"] != blocks * calls or \
+                total["gather_rowdot"] != blocks * calls or any(
+                    v for k, v in total.items()
+                    if k not in ("rff_cos_bias", "gather_rowdot")):
+            raise AssertionError(f"W={world} {name}: launches {total} over "
+                                 f"the ranks for {calls} bucket calls")
+        if name == "paged" and not (c0["store"]["faults"] > 0
+                                    and c0["store"]["evictions"] > 0):
+            raise AssertionError(f"W={world}: the paged cell did not page "
+                                 f"({c0['store']})")
+        for k, v in total.items():
+            seen[k] += v
+        tr = c0["traffic"]
+        line = (f"[{card}] W={world} {name}: {calls} bucket calls; every "
+                f"one of {n_held} answers bitwise the one-process mesh's "
+                f"score_rows at its own row count (held in "
+                f"{time.perf_counter() - t_hold:.1f} s); every follower's "
+                f"store and bucket calls the front's ({c0['store']}); K1 = "
+                f"K6 = {total['gather_rowdot']} over the ranks ({blocks} x "
+                f"{calls}); per bucket call {tr['broadcasts'] / calls:.2f} "
+                f"broadcasts ({tr['broadcast_bytes'] / calls / 1e3:.1f} kB) "
+                f"and {tr['calls'] / calls:.2f} gathers "
+                f"({tr['bytes'] / calls / 1e3:.2f} kB into the front)")
+        if "lat" in got:
+            qps, p50, p99 = latency_figures(got["wall"], got["lat"])
+            line += (f"; {len(got['lat'])} requests of {SERVE_BATCH} rows "
+                     f"from {SERVE_CLIENTS} clients: {qps:.1f} QPS, p50 "
+                     f"{p50:.4f} ms, p99 {p99:.4f} ms (")
+            line += "; ".join(
+                f"{k} {q:.1f} QPS, p50 {a:.4f} ms, p99 {b:.4f} ms"
+                for k, (q, a, b) in SERVE_FIGURES.items()) \
+                if SERVE_FIGURES else "phases 18 and 19 not run in this call"
+            line += ")"
+        log(28, line)
+        for r, c in enumerate(cells):
+            log(28, f"[{card}]   rank {r}: {c['wall'] * 1e3:.1f} ms wall, "
+                    f"{c['device_ms']:.1f} ms between the device's events; "
+                    f"{c['traffic']['broadcasts']} broadcasts, "
+                    f"{c['traffic']['calls']} gathers; peak "
+                    f"{c['peak'] / 1e9:.3f} GB (its stack blocks "
+                    f"{sv[r]['stack_bytes'] / 1e9:.3f} GB; put_many "
+                    f"{sv[r]['put_many_ms']:.1f} ms)")
+    return seen
 
 
 def ranks_phase(dev, card, reset_counts, counts):
@@ -5126,12 +5541,15 @@ def ranks_phase(dev, card, reset_counts, counts):
     share of Phi it holds.
     Returns the ranks' launch counts (summed over both splits) and the
     largest errors of the kernels against their plain versions."""
+    import threading
+
     import torch.multiprocessing as mp
     from repro_torch.launch.mesh import make_host_mesh
 
     t_phase = time.perf_counter()
     base = rank_cells(dev, make_host_mesh(*SHARD_MESH, device=dev),
                       reset_counts, counts, big_d=True)
+    template, agents = base.pop("template")
     for name, c in base["cells"].items():
         log(28, f"[{card}] one process, {name}: {c['wall']:.2f} s wall, "
                 f"comms {int(c['history']['comms'][-1])}, launches "
@@ -5143,12 +5561,35 @@ def ranks_phase(dev, card, reset_counts, counts):
     errs: dict[str, float] = {}
     blocks = SHARD_MESH[0] * SHARD_MESH[1]
     (ROOT / "build").mkdir(exist_ok=True)
+    # the paged cell's registry, written while the first spawn runs
+    reg_dir = tempfile.mkdtemp(prefix="phase28-registry-", dir=ROOT / "build")
+    written: dict = {}
+
+    def write():
+        t0 = time.perf_counter()
+        try:
+            written["thetas"] = write_registry(reg_dir, template, agents)
+        except Exception as e:  # noqa: BLE001 - raised before its spawn
+            written["error"] = e
+        written["s"] = time.perf_counter() - t0
+
+    writer = threading.Thread(target=write)
+    writer.start()
     for world, split in RANK_WORLDS:
         tmp = tempfile.mkdtemp(prefix="phase28-", dir=ROOT / "build")
         try:
+            reg_thetas = None
+            if "paged" in RANK_SERVE_CELLS[world]:
+                writer.join()
+                if "error" in written:
+                    raise written["error"]
+                reg_thetas = written["thetas"]
+                log(28, f"[{card}] wrote the paged cell's registry of "
+                        f"{len(reg_thetas)} models in {written['s']:.2f} s "
+                        f"(beside the spawns before W = {world})")
             t0 = time.perf_counter()
             mp.start_processes(rank_main, args=(world, split, tmp,
-                                                str(dev)),
+                                                str(dev), reg_dir),
                                nprocs=world, join=True,
                                start_method="spawn")
             spawn_s = time.perf_counter() - t0
@@ -5257,11 +5698,25 @@ def ranks_phase(dev, card, reset_counts, counts):
                     raise AssertionError(f"rank {r}: {kname} disagrees with "
                                          f"its plain version: {e} > {tol}")
                 errs[kname] = max(errs.get(kname, 0.0), e)
+        for k, v in serve_ranks_check(card, dev, world, split, ranks,
+                                      reg_thetas).items():
+            seen[k] += v
+        for res in ranks:
+            for kname, (e, tol, shape) in res["serve"]["holds"].items():
+                if not e <= tol:
+                    raise AssertionError(f"serving: {kname} disagrees with "
+                                         f"its plain version: {e} > {tol}")
+                errs[kname] = max(errs.get(kname, 0.0), e)
         log(28, f"[{card}] W={world}: K3 on each rank's carry blocks "
                 f"{ranks[0]['holds']['coke_fused_update'][2]}, K1 on its "
                 f"feature blocks {ranks[0]['holds']['rff_cos_bias'][2]} and "
                 "K5 at the draws' shapes held against their plain versions "
-                f"on every rank: max|err| {errs}")
+                f"on every rank, and K1 and K6 on each rank's blocks of a "
+                f"bucket's row block "
+                f"{ranks[0]['serve']['holds']['gather_rowdot'][2]}: "
+                f"max|err| {errs}")
+    writer.join()
+    shutil.rmtree(reg_dir, ignore_errors=True)
     log(28, f"[{card}] launches over phase 28's ranks: "
             f"{ {k: v for k, v in seen.items() if v} } (blocks {blocks}); "
             f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
@@ -8768,7 +9223,7 @@ def main() -> int:
 
     # ---- 28. phase 19's mesh across ranks of a gloo group -------------------
     rank_counts, rank_errs = ranks_phase(dev, card, reset_counts, counts)
-    for entry in kernels:       # K1, K3 and K5 add the ranks' launches
+    for entry in kernels:       # K1, K3, K5 and K6 add the ranks' launches
         n28 = rank_counts[entry["name"]]
         if n28:
             log(28, f"{entry['name']}: {n28} launches over the ranks and "
@@ -8777,7 +9232,8 @@ def main() -> int:
             entry["launches"] += n28
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        rank_errs[entry["name"]])
-    for name in ("rff_cos_bias", "coke_fused_update", "threefry"):
+    for name in ("rff_cos_bias", "coke_fused_update", "threefry",
+                 "gather_rowdot"):
         if not rank_counts[name]:
             raise AssertionError(f"phase 28's ranks never launched {name}")
     log(28, f"the whole script took {time.perf_counter() - t_script:.1f} s")

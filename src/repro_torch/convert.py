@@ -101,7 +101,8 @@ def theta_store_from_reference(store, *,
         port._slots.update(slots)
         port._free = free
         port._versions = versions
-        port._dirty = dirty
+        port._dirty_rows = {m: port._stack[dict(slots)[m]].to(
+            "cpu", copy=True) for m in dirty}
         port._pins = pins
         port._stats = stats
     return port

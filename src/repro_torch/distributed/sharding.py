@@ -51,6 +51,8 @@ as on one process: the partials are folded over all M (or B) blocks in
 ascending order, never folded per rank and the per-rank sums added, so
 one summation order holds whatever the rank split, and comms and bits
 with it. Elementwise arithmetic and block-local work move nothing.
+`broadcast_ranks` carries a picklable value from group rank 0 to every
+rank: the serving commands of `serve.KernelServer` on such a mesh.
 
 Reductions (`torch.sum`, `mean`, `amax`, `max`, `linalg.norm`) and the
 two-operand `torch.einsum` contractions over the feature dim go through
@@ -83,6 +85,7 @@ import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.launch.mesh import batch_axes
@@ -479,9 +482,57 @@ def _lead(mesh, kinds, partial: bool = False) -> tuple[int, int]:
             else 1)
 
 
-# the bytes this process received through `gather_ranks`, and its calls
-# (phase 28 of chip_smoke.py reports them per rank)
-TRAFFIC = {"bytes": 0, "calls": 0}
+# the bytes this process received through `gather_ranks`, and its calls;
+# the bytes and calls of `broadcast_ranks` (phase 28 of chip_smoke.py
+# reports them per rank)
+TRAFFIC = {"bytes": 0, "calls": 0, "broadcast_bytes": 0, "broadcasts": 0}
+
+# the first message of every `broadcast_ranks`: a value whose pickle fits
+# (a serving command of up to ~500 rows of d = 5 inputs does) is
+# one collective, a longer one two
+BROADCAST_BYTES = 1 << 14
+
+
+def broadcast_ranks(obj, group, device: torch.device):
+    """rank 0 of `group`'s `obj` on every rank of it: the serving
+    commands' transport. On group rank 0 obj is any picklable value (numpy
+    arrays travel as their bytes); the other ranks pass None and get rank
+    0's. One `torch.distributed.broadcast` of BROADCAST_BYTES on `device`
+    (the pickle's length, then its head), and a second of the rest where
+    it is longer: every rank knows both sizes from the first. The tensors
+    lie on the rank's device, as NCCL needs; the backend is the caller's
+    `init_process_group`."""
+    import pickle
+
+    import torch.distributed as dist
+    src = dist.get_global_rank(group, 0)
+    head = torch.zeros(BROADCAST_BYTES, dtype=torch.uint8)
+    rest = None
+    if dist.get_rank(group) == 0:
+        blob = np.frombuffer(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL),
+                             np.uint8)
+        k = min(blob.size, BROADCAST_BYTES - 8)
+        head[:8] = torch.tensor([blob.size]).view(torch.uint8)
+        head[8:8 + k] = torch.from_numpy(blob[:k].copy())
+        head = head.to(device)
+        if blob.size > k:
+            rest = torch.from_numpy(blob[k:].copy()).to(device)
+    else:
+        head = head.to(device)
+    dist.broadcast(head, src, group=group)
+    host = head.cpu()
+    n = int(host[:8].view(torch.int64))
+    k = min(n, BROADCAST_BYTES - 8)
+    if n > k:
+        if rest is None:
+            rest = torch.empty(n - k, dtype=torch.uint8, device=device)
+        dist.broadcast(rest, src, group=group)
+        blob = torch.cat([host[8:8 + k], rest.cpu()])
+    else:
+        blob = host[8:8 + k]
+    TRAFFIC["broadcast_bytes"] += BROADCAST_BYTES + (n - k)
+    TRAFFIC["broadcasts"] += 1 + (n > k)
+    return pickle.loads(blob.numpy().tobytes())
 
 
 def gather_ranks(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:

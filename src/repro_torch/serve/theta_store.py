@@ -36,6 +36,20 @@ contiguous (M, D/s) column blocks (`distributed.sharding.Blocked`), the
 blocks K6 reads. `put` / `put_many` copy on write block by block: every
 block is copied, written and the new blocks rebound together, so a
 snapshot's blocks never change either.
+
+On a mesh across ranks (`make_host_mesh(..., group=)`) the store is SPMD:
+every rank builds it with the same arguments and calls `put`, `put_many`,
+`evict`, `ensure` and `lookup_batch` with the same arguments in the same
+order, and each writes only the column blocks of its own cells, so every
+rank holds the same slots, LRU order, versions and counters.
+`KernelServer` on such a mesh keeps that order for its own calls. No
+store operation makes a collective: thetas come in whole (a blocked
+theta across ranks is refused), and a copy of a dirty row's whole theta
+is kept from its `put`, which is what a dirty eviction writes back
+(always the same bits as the row, which arrived whole; on one process
+too). The copy is made where the caller's theta lies, before the write
+and outside the lock: on the host across ranks, whose commands carry
+numpy, so no put waits for the card.
 """
 from __future__ import annotations
 
@@ -54,15 +68,10 @@ STACK_DTYPE = torch.float32
 
 
 def check_mesh(mesh, device: torch.device, what: str) -> None:
-    """Every cell of a serving mesh lies on the serving device; a mesh
-    across ranks is not served yet."""
+    """Every cell of a serving mesh that this process holds lies on the
+    serving device."""
     if mesh is None:
         return
-    if mesh.ranked:
-        raise NotImplementedError(
-            f"{what} on a mesh across {mesh.world} ranks: the collector "
-            "thread would drive every rank's collectives (ROADMAP.md Queue "
-            "1 item 14c(b))")
     for d in mesh.distinct_devices():
         if d.type != device.type or (device.index is not None
                                      and d.index != device.index):
@@ -116,12 +125,18 @@ class ThetaStore:
         self._slots: OrderedDict[str, int] = OrderedDict()  # LRU: old → new
         self._free = list(range(self.capacity - 1, -1, -1))
         self._pins: dict[str, int] = {}
-        self._dirty: set[str] = set()
+        # a copy of each dirty id's whole theta: what eviction writes back
+        self._dirty_rows: dict[str, torch.Tensor] = {}
         self._versions: dict[str, int | None] = {}
         self._stats = {"hits": 0, "faults": 0, "evictions": 0,
                        "writebacks": 0}
 
     # ---- introspection ---------------------------------------------------
+    @property
+    def _dirty(self) -> set[str]:
+        """Ids whose resident theta is newer than any published version."""
+        return set(self._dirty_rows)
+
     @property
     def stack(self) -> torch.Tensor:
         """The current (capacity, D) tensor (a Blocked of column blocks on
@@ -176,16 +191,26 @@ class ThetaStore:
                 self._pins[model_id] = count - 1
 
     # ---- allocation / paging --------------------------------------------
-    def _as_thetas(self, thetas, shape: tuple[int, ...]) -> torch.Tensor:
-        thetas = sharding.unshard(thetas)
+    def _as_thetas(self, thetas, shape: tuple[int, ...], keep: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(thetas on the store's device, with keep= a STACK_DTYPE copy of
+        them where the caller's lie, else None): a copy of a host array
+        waits for no kernel, a clone on the card is queued."""
+        if isinstance(thetas, sharding.Blocked):
+            if thetas.mesh.ranked:
+                raise ValueError(
+                    "a ThetaStore takes whole thetas: a theta in blocks "
+                    "across ranks would be gathered inside a store call; "
+                    "give every rank the whole theta")
+            thetas = sharding.unshard(thetas)
         if not isinstance(thetas, torch.Tensor):
             thetas = torch.tensor(np.asarray(thetas))
-        thetas = thetas.to(device=self.device, dtype=STACK_DTYPE)
         if tuple(thetas.shape) != shape:
             what = "theta" if len(shape) == 1 else "thetas"
             raise ValueError(f"{what} must be {shape}, got "
                              f"{tuple(thetas.shape)}")
-        return thetas
+        kept = thetas.to(dtype=STACK_DTYPE, copy=True) if keep else None
+        return thetas.to(device=self.device, dtype=STACK_DTYPE), kept
 
     def _allocate(self) -> int:
         """A free slot, evicting the LRU unpinned model if needed.
@@ -202,23 +227,29 @@ class ThetaStore:
             "number of distinct models in flight at once")
 
     def _evict_locked(self, model_id: str) -> None:
-        if model_id in self._dirty:
+        if model_id in self._dirty_rows:
             if self.writeback is None:
                 raise RuntimeError(
                     f"evicting dirty model {model_id!r} would lose its "
                     "only copy — attach a registry writeback or publish "
                     "it first")
-            # a copy of the row, not a view of the stack
-            row = sharding.unshard(
-                self._stack[self._slots[model_id]]).clone()
-            new_v = self.writeback(model_id, row, self._versions[model_id])
-            self._dirty.discard(model_id)
+            new_v = self.writeback(model_id, self._dirty_rows[model_id],
+                                   self._versions[model_id])
+            self._mark(model_id, None)
             self._versions[model_id] = new_v
             self._stats["writebacks"] += 1
         slot = self._slots.pop(model_id)
         self._versions.pop(model_id, None)
         self._free.append(slot)
         self._stats["evictions"] += 1
+
+    def _mark(self, model_id: str, row: torch.Tensor | None) -> None:
+        """Dirty with a copy of its whole theta `row`, or clean (None).
+        Caller holds the lock."""
+        if row is None:
+            self._dirty_rows.pop(model_id, None)
+        else:
+            self._dirty_rows[model_id] = row
 
     def evict(self, model_id: str) -> None:
         """Explicitly page one model out (writeback if dirty)."""
@@ -236,7 +267,7 @@ class ThetaStore:
         An existing resident id keeps its slot. The write goes into a copy
         of the stack, which then replaces it: snapshots taken before the
         put keep scoring the old theta (hot-swap atomicity)."""
-        theta = self._as_thetas(theta, (self.num_features,))
+        theta, row = self._as_thetas(theta, (self.num_features,), dirty)
         with self._lock:
             slot = self._slots.get(model_id)
             if slot is None:
@@ -245,10 +276,7 @@ class ThetaStore:
             self._slots.move_to_end(model_id)
             self._stack = write_rows(self._stack, [slot], theta[None])
             self._versions[model_id] = version
-            if dirty:
-                self._dirty.add(model_id)
-            else:
-                self._dirty.discard(model_id)
+            self._mark(model_id, row)
             return slot
 
     def put_many(self, ids: list[str], thetas, *,
@@ -257,20 +285,18 @@ class ThetaStore:
         Preloads default to CLEAN: the caller is assumed to hold them
         elsewhere, so eviction may simply drop them; pass dirty=True for
         thetas whose only copy is the store."""
-        thetas = self._as_thetas(thetas, (len(ids), self.num_features))
+        thetas, rows = self._as_thetas(thetas, (len(ids), self.num_features),
+                                       dirty)
         with self._lock:
             slots = []
-            for model_id in ids:
+            for i, model_id in enumerate(ids):
                 slot = self._slots.get(model_id)
                 if slot is None:
                     slot = self._allocate()
                     self._slots[model_id] = slot
                 self._slots.move_to_end(model_id)
                 self._versions[model_id] = None
-                if dirty:
-                    self._dirty.add(model_id)
-                else:
-                    self._dirty.discard(model_id)
+                self._mark(model_id, None if rows is None else rows[i])
                 slots.append(slot)
             self._stack = write_rows(self._stack, slots, thetas)
             return slots

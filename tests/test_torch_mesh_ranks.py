@@ -20,9 +20,9 @@ The cases: COKE on the simulator (Cholesky, CG), spmd (CG) and fused (K3's
 plain version, once per block a rank holds); a Chain([Censor, Quantize(8),
 Drop(0.05)]) fit; gossip at participation 0.5; a personalized fit; a fit
 whose problem every rank builds from the seed; `KernelModel.shard(mesh)
-.predict`; per-agent gradient clipping (item 14d) in `consensus_update`;
-and `ThetaStore` / `KernelServer` on such a mesh, which raise
-NotImplementedError naming ROADMAP item 14c(b). The runs are cut to 8
+.predict`; and per-agent gradient clipping (item 14d) in
+`consensus_update` (serving on such a mesh is
+tests/test_torch_serve_ranks.py). The runs are cut to 8
 iterations and 8 CG steps (the reference's runs too): every CG step psums
 four times, and a gloo gather between processes on one host costs about a
 millisecond.
@@ -45,7 +45,6 @@ from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import optimizers as port_opt
-from repro_torch.serve import KernelServer, ThetaStore
 
 CPU = "cpu"
 MESH = (2, 4)
@@ -199,17 +198,6 @@ def _rank_main(rank, world, store, split, npz, out):
                          "data": tuple(sp.feats.data.shape),
                          "ranks": mesh.ranks.tolist(),
                          "block": _block_lookups(sp.feats, mesh)}
-        raised = {}
-        for what, make in (
-                ("store", lambda: ThetaStore(8, 64, device=CPU, mesh=mesh)),
-                ("server", lambda: KernelServer(mesh=mesh, device=CPU,
-                                                autostart=False))):
-            try:
-                make()
-                raised[what] = None
-            except NotImplementedError as e:
-                raised[what] = str(e)
-        res["serve"] = raised
         res["traffic"] = dict(sharding.TRAFFIC)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
@@ -444,14 +432,6 @@ def test_collectives_move_bytes_only_across_a_cut_axis(ranked):
     traffic = [res["traffic"] for res in ranks]
     assert all(t["bytes"] > 0 and t["calls"] > 0 for t in traffic), name
     assert len({t["calls"] for t in traffic}) == 1, name
-
-
-def test_serving_across_ranks_is_not_implemented(ranked):
-    name, ranks = ranked
-    for res in ranks:
-        for what in ("store", "server"):
-            assert res["serve"][what] is not None and \
-                "item 14c(b)" in res["serve"][what], (name, what)
 
 
 def test_a_failing_rank_fails_the_spawn_not_a_hang(tmp_path):
