@@ -226,8 +226,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and host, K4 and K7 once per layer per step, their ms per step (the
      profiler over a sixth step), peak memory; (c) dkla, coke, coke_et
      (local_steps=2) and cta at full width with 2 agents and the depth cut
-     to 2 layers, 5 steps each: loss, comms, send_frac, ms per step, peak
-     memory; (d) the reduced model, 4 agents on a ring, tests/
+     to 2 layers, TRAIN_CONSENSUS_STEPS = 3 steps each (`consensus_runs`):
+     loss, comms, send_frac, ms per step, peak memory; coke's, cta's and
+     coke_et's metrics and final parameters kept for phase 29 (shared host
+     memory); (d) the reduced model, 4 agents on a ring, tests/
      test_system.py's coke run (20 steps, v=20, mu=0.5) on the card and on
      the CPU from the same weights, unfused and with K3 on the LM tree:
      comms and send_frac equal every step, losses within TRAIN_SMALL_RTOL;
@@ -430,11 +432,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      phases 18(a) and 19(c), broadcasts and gathers per bucket call,
      per-rank wall, device time and peak memory. The kernels line's K6
      entry adds these launches too.
+ 29. the deep-net trainer with its agents on their own ranks
+     (`train_ranks_phase`): allreduce at microbatches = 2 in this process
+     (phase 20(c)'s model and batches), then TRAIN_RANK_WORLD = 2 gloo
+     ranks of this card (`train.steps.make_train_step(..., mesh=)` on a
+     (2, 1) mesh of the group, one agent a rank; the large gathers by
+     CUDA IPC between the ranks, `sharding.gather_ranks(on_card=True)`):
+     (a) coke, cta and coke_et as phase 20(c) runs them, every rank's
+     metrics bitwise its peer's, comms and send_frac equal to 20(c)'s
+     every step, losses within TRAIN_RANK_RTOL relative, each rank's agent
+     within TRAIN_RANK_RTOL of each leaf's largest magnitude after the last
+     step, the gathers a step as the layer's rules count them, peak memory
+     per rank below 20(c)'s one process; layer 0's K4 (and its log-sum-
+     exp) and K7 on each rank's own agent against their plain versions;
+     (b) allreduce over the ranks, each 1/W of the batch, losses bitwise
+     the microbatched run's and every parameter leaf's `fingerprint` (its
+     words' exact integer sums) equal to it. Per rank: ms a step (wall
+     and device between events), gathers and bytes a step, peak memory,
+     K4 and K7 launches (N/W x layers x steps). The kernels line's K4 and
+     K7 entries add the ranks' launches and errors.
 Before each of phases 4-6, 10, each part of 12, each path of 13-17, each
 cell of 18, each part of 19, each run of 20, each cell of 21, each
 generate of 22 and 23, each prefill of 24, each run of 25 and 27, each
-counted prefill and generate of 26 and each cell of 28 (in every rank)
-every launch counter is set to 0, and read just after.
+counted prefill and generate of 26, each cell of 28 and each run of 29
+(in every rank) every launch counter is set to 0, and read just after.
 The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}. Without a card, or outside a
 checkout of the repo, it prints no result and exits 2.
@@ -449,6 +470,7 @@ checkout of the repo, it prints no result and exits 2.
     python3 chip_smoke.py --phase26   # build, phase 26
     python3 chip_smoke.py --phase27   # build, phase 27
     python3 chip_smoke.py --phase28   # build, phase 28
+    python3 chip_smoke.py --phase29   # build, phase 20(c)'s yardstick, 29
 
 runs phase 19 alone (after the fits it holds its sharded runs against)
 and prints its launch counts and errors, phase 20 alone and its K7
@@ -457,7 +479,9 @@ entry, phase 21 alone and its launch counts and errors, phase 22, 23 or
 K4's largest error against float64, phase 25 alone and K7's launches
 and largest error and K4's launches, or phase 27 alone and K7's and K4's
 launches and largest errors, or phase 28 alone and its launch counts and
-errors; none prints the result lines.
+errors, or phase 29 alone (after the runs of phase 20(c) it holds its
+ranks to) and its launch counts and errors; none prints the result
+lines.
 """
 from __future__ import annotations
 
@@ -846,6 +870,9 @@ TRAIN_LR = 3e-3
 TRAIN_AGENTS = 2
 TRAIN_CONSENSUS_LAYERS = 2
 TRAIN_STRATEGIES = ("dkla", "coke", "coke_et", "cta")
+# (c)'s steps, which phase 29 repeats across ranks: cut from 5 to 3 so
+# that phase 29 fits the script's time (PERF.md)
+TRAIN_CONSENSUS_STEPS = 3
 # K7's shapes: name -> (B, H, KV, S, D, window), all causal
 K7_SHAPES = {"training": (8, 16, 8, 64, 128, 0),
              "prefill": (2, 16, 8, 4096, 128, 0),
@@ -949,6 +976,25 @@ MM_TRAIN_ENC = (80, 48)
 # rows + 3840 tokens; 2048 frames + 2048 tokens), its global batch of 256
 # cut to 2 for one card, AdamW at phase 20's settings, 5 steps
 MM_TRAIN_BATCH = 2
+# phase 29, the trainer's agents on their own ranks: phase 20(c)'s runs of
+# these strategies (its full-width 2-layer model, seeds, batches and
+# ConsensusConfig, TRAIN_AGENTS agents) on TRAIN_RANK_WORLD gloo ranks of
+# this card, one agent a rank, held to 20(c)'s one-process runs
+# (TRAIN_YARDSTICK): comms and send_frac equal, losses within
+# TRAIN_RANK_RTOL relative, each parameter leaf's largest magnitude within
+# TRAIN_RANK_RTOL of 20(c)'s and every TRAIN_RANK_STRIDE-th element within
+# TRAIN_RANK_RTOL of it. 20(c) keeps that sample (1/61 of 2 x 2.89 GB a
+# strategy) in shared host memory: the whole parameters would take ~42 s
+# to copy there (~1.9 s a GB into shared memory, ~0.55 s a GB off the
+# card, on an H100 host: PERF.md). Then allreduce over the ranks,
+# bitwise a one-process run with microbatches = TRAIN_RANK_WORLD (every
+# parameter leaf's `fingerprint`: the card has no room beside the ranks for
+# that run's parameters)
+TRAIN_RANK_STRATEGIES = ("coke", "cta", "coke_et")
+TRAIN_RANK_WORLD = 2
+TRAIN_RANK_RTOL = 1e-5
+TRAIN_RANK_STRIDE = 61
+TRAIN_YARDSTICK: dict = {}
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "coke_megastep": ("src/repro_torch/csrc/coke_megastep.cu",
                       "src/repro/kernels/coke_update/coke_update.py:243"),
@@ -6030,6 +6076,96 @@ def timed_steps(tag, step_fns, state, batches, want, reset_counts, counts):
     return state, rows
 
 
+def fingerprint(x: torch.Tensor, chunk: int = 1 << 26) -> tuple[int, int]:
+    """x's 32-bit words summed as int64, plain and weighted by their
+    position mod 65521 plus one: integer sums, exact in any order (mod
+    2^64), so equal bits give equal pairs; chunked, so a leaf of the
+    embedding's size takes ~1.5 GB beside it."""
+    w = x.detach().reshape(-1).view(torch.int32)
+    plain = weighted = 0
+    for start in range(0, w.numel(), chunk):
+        c = w[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start, start + c.numel(), device=c.device) \
+            % 65521 + 1
+        plain += int(c.sum())
+        weighted += int((c * pos).sum())
+    return plain % 2**64, weighted % 2**64
+
+
+def train_stream(cfg):
+    """Phase 20's token stream (its batch and length) for `cfg`."""
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    return TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+
+
+def train_batch(stream, i, dev, agents=None):
+    from repro_torch.train.steps import agent_batch
+    toks, labels = stream.batch(i)
+    b = {"tokens": torch.as_tensor(toks, device=dev),
+         "labels": torch.as_tensor(labels, device=dev)}
+    return agent_batch(b, agents) if agents else b
+
+
+def consensus_runs(dev, card, reset_counts, counts, strategies):
+    """Phase 20(c): each of `strategies` at full width with the depth cut
+    to TRAIN_CONSENSUS_LAYERS, TRAIN_AGENTS agents in this process,
+    TRAIN_CONSENSUS_STEPS steps timed one by one (coke_et a local step,
+    then a consensus step); K4 and K7 N x layers a step. For
+    TRAIN_RANK_STRATEGIES it keeps phase 29's yardstick in TRAIN_YARDSTICK:
+    each step's metrics and times, the peak memory and the final
+    parameters in shared host memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(LM_ARCH).with_overrides(
+        num_layers=TRAIN_CONSENSUS_LAYERS)
+    opt_cfg = OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0)
+    stream = train_stream(cfg)
+    N, Lc, n = TRAIN_AGENTS, TRAIN_CONSENSUS_LAYERS, TRAIN_CONSENSUS_STEPS
+    for strategy in strategies:
+        local_steps = 2 if strategy == "coke_et" else 1
+        ccfg = ConsensusConfig(strategy=strategy, rho=1e-3, censor_v=1.0,
+                               censor_mu=0.99, local_steps=local_steps)
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, local_fn = make_train_step(cfg, opt_cfg, ccfg,
+                                                     num_agents=N)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        fns = [local_fn if (i + 1) % local_steps else step_fn
+               for i in range(n)]
+        state, rows = timed_steps(
+            strategy, fns, state,
+            [train_batch(stream, i, dev, N) for i in range(n)],
+            {"flash_attention": N * Lc * n,
+             "flash_attention_bwd": N * Lc * n}, reset_counts, counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if strategy in TRAIN_RANK_STRATEGIES:
+            flat = {k: x.reshape(N, -1) for k, x in state["params"].items()}
+            TRAIN_YARDSTICK[strategy] = {
+                "rows": rows, "peak": peak,
+                "bytes": sum(f[0].nbytes for f in flat.values()),
+                "max": {k: f.abs().amax(1).cpu() for k, f in flat.items()},
+                "sample": {k: f[:, ::TRAIN_RANK_STRIDE].cpu().share_memory_()
+                           for k, f in flat.items()}}
+            del flat
+        for i, (m, d_ms, h_ms) in enumerate(rows):
+            extra = "".join(f", {k} {m[k]:g}" for k in
+                            ("comms", "send_frac", "consensus_gap")
+                            if k in m)
+            log(20, f"[{card}] {strategy} step {i} "
+                    f"({'local' if fns[i] is local_fn else 'consensus'}): "
+                    f"loss {m['loss']:.6f}{extra}; device {d_ms:.2f} ms, "
+                    f"host {h_ms:.2f} ms")
+        log(20, f"[{card}] {strategy} at full width, {N} agents, {Lc} "
+                f"layers: K4 and K7 {N * Lc} launches each per step; peak "
+                f"memory {peak:.2f} GB")
+        del state
+        torch.cuda.empty_cache()
+
+
 def train_phase(dev, card, reset_counts, counts, *, peaks):
     """Phase 20: the port's training path (`train.steps`, the code of
     `launch/train.py`) through K4 and K7. (a) K7 alone against its plain
@@ -6133,36 +6269,7 @@ def train_phase(dev, card, reset_counts, counts, *, peaks):
     torch.cuda.empty_cache()
 
     # ---- (c) the consensus strategies at full width, depth cut ------------
-    ccfg_model = cfg.with_overrides(num_layers=TRAIN_CONSENSUS_LAYERS)
-    N, Lc = TRAIN_AGENTS, TRAIN_CONSENSUS_LAYERS
-    for strategy in TRAIN_STRATEGIES:
-        local_steps = 2 if strategy == "coke_et" else 1
-        ccfg = ConsensusConfig(strategy=strategy, rho=1e-3, censor_v=1.0,
-                               censor_mu=0.99, local_steps=local_steps)
-        torch.cuda.reset_peak_memory_stats()
-        init_fn, step_fn, local_fn = make_train_step(ccfg_model, opt_cfg,
-                                                     ccfg, num_agents=N)
-        state = init_fn(torch.Generator(device=dev).manual_seed(0))
-        fns = [local_fn if (i + 1) % local_steps else step_fn
-               for i in range(n)]
-        state, rows = run(strategy, fns, state,
-                          [upload(i, N) for i in range(n)],
-                          {"flash_attention": N * Lc * n,
-                           "flash_attention_bwd": N * Lc * n})
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        for i, (m, d_ms, h_ms) in enumerate(rows):
-            extra = "".join(f", {k} {m[k]:g}" for k in
-                            ("comms", "send_frac", "consensus_gap")
-                            if k in m)
-            log(20, f"[{card}] {strategy} step {i} "
-                    f"({'local' if fns[i] is local_fn else 'consensus'}): "
-                    f"loss {m['loss']:.6f}{extra}; device {d_ms:.2f} ms, "
-                    f"host {h_ms:.2f} ms")
-        log(20, f"[{card}] {strategy} at full width, {N} agents, {Lc} "
-                f"layers: K4 and K7 {N * Lc} launches each per step; peak "
-                f"memory {peak:.2f} GB")
-        del state
-        torch.cuda.empty_cache()
+    consensus_runs(dev, card, reset_counts, counts, TRAIN_STRATEGIES)
 
     # ---- (d) the reduced coke run, card against CPU -----------------------
     # K3 runs here at the reduced size: on the full-width LM tree its
@@ -7874,6 +7981,386 @@ def mm_train_phase(dev, card, reset_counts, counts, *, peaks):
     return k7_launches, k7_err, k4_launches, k4_err
 
 
+def own_attention_hold(dev, cfg, params, i, tokens):
+    """Layer 0's attention of agent i (its rows of a blocked parameter
+    tree, its (B/N, S) tokens): K4 with the log-sum-exp against its plain
+    versions (within K4_TOL), K7 on a seeded dO against its plain version
+    (within K7_RTOL of each gradient's max). Returns (K4's largest error,
+    K7's largest error, K7's largest relative error, the shape)."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import agent_row
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as k7
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         attention_ref)
+    from repro_torch.models.attention import _gqa_project_qkv
+    from repro_torch.models.common import rms_norm
+    row = lambda name: agent_row(params[name], i)
+    t = lambda x: x.transpose(1, 2)
+    with torch.no_grad():
+        h = rms_norm(torch.nn.functional.embedding(tokens, row("embed")),
+                     row("blocks.0.ln1"), cfg.norm_eps)
+        attn = SimpleNamespace(**{k: row(f"blocks.0.attn.{k}") for k in (
+            "wq", "wk", "wv", "q_norm", "k_norm")})
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=dev)
+        q, k, v = _gqa_project_qkv(attn, cfg, h, pos)
+        B, S, H = q.shape[:3]
+        lse = torch.empty((B, H, S), device=dev)
+        out = k4.launch(q, k, v, heads_dim=2, causal=True, window=0, lse=lse)
+        o_err = float((t(out) - attention_ref(t(q), t(k), t(v),
+                                              causal=True)).abs().max())
+        l_err = float((lse - attention_lse_ref(t(q), t(k), causal=True))
+                      .abs().max())
+        do = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(29))
+        got = k7.gqa_flash_bwd(q, k, v, out, do, lse, causal=True)
+        want = attention_bwd_ref(t(q), t(k), t(v), t(out), t(do),
+                                 causal=True)
+        errs = [float((g - t(w)).abs().max()) for g, w in zip(got, want)]
+        rel = max(e / float(w.abs().max()) for e, w in zip(errs, want))
+    return max(o_err, l_err), max(errs), rel, tuple(q.shape) + (
+        k.shape[2],)
+
+
+def train_rank_cells(dev, yard):
+    """What each rank of phase 29 runs, SPMD over the default group: (a)
+    each strategy of TRAIN_RANK_STRATEGIES on a (TRAIN_AGENTS, 1) mesh,
+    phase 20(c)'s steps timed one by one, K4 and K7 held to N/W x layers a
+    step, its own agents' final parameters held against 20(c)'s (`yard`),
+    the gathers and peak memory; layer 0's K4 and K7 on its own agent
+    against their plain versions; (b) allreduce on a (W, 1) mesh, its
+    final parameters' fingerprints. Returns what the parent holds."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import make_train_step
+
+    W, N, n = dist.get_world_size(), TRAIN_AGENTS, TRAIN_CONSENSUS_STEPS
+    cfg = get_config(LM_ARCH).with_overrides(
+        num_layers=TRAIN_CONSENSUS_LAYERS)
+    L = cfg.num_layers
+    opt_cfg = OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0)
+    stream = train_stream(cfg)
+    mesh = make_host_mesh(N, 1, device=dev, group=dist.group.WORLD)
+    own = list(sharding.agent_range(mesh, N))
+    out = {"own": own, "cells": {}}
+    want = {"flash_attention": len(own) * L * n,
+            "flash_attention_bwd": len(own) * L * n}
+    for strategy in TRAIN_RANK_STRATEGIES:
+        local_steps = 2 if strategy == "coke_et" else 1
+        ccfg = ConsensusConfig(strategy=strategy, rho=1e-3, censor_v=1.0,
+                               censor_mu=0.99, local_steps=local_steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, local_fn = make_train_step(
+            cfg, opt_cfg, ccfg, num_agents=N, mesh=mesh)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        fns = [local_fn if (i + 1) % local_steps else step_fn
+               for i in range(n)]
+        batches = [train_batch(stream, i, dev, N) for i in range(n)]
+        before = dict(sharding.TRAFFIC)
+        state, rows = timed_steps(f"rank {dist.get_rank()} {strategy}", fns,
+                                  state, batches, want, reset_counts, counts)
+        launches = counts()
+        traffic = {k: sharding.TRAFFIC[k] - before[k]
+                   for k in ("calls", "bytes")}
+        peak = torch.cuda.max_memory_allocated()
+        params = state.pop("params")
+        del state
+        worst = 0.0
+        for name, p in params.items():
+            for i in own:
+                row = sharding.agent_row(p, i).reshape(-1)
+                top = float(yard[strategy]["max"][name][i])
+                ref = yard[strategy]["sample"][name][i].to(dev)
+                e = max(float((row[::TRAIN_RANK_STRIDE] - ref).abs().max()),
+                        abs(float(row.abs().max()) - top))
+                worst = max(worst, e / max(top, 1e-30))
+                del ref
+        if strategy == TRAIN_RANK_STRATEGIES[0]:
+            out["holds"] = own_attention_hold(dev, cfg, params, own[0],
+                                              batches[0]["tokens"][own[0]])
+        del params, batches
+        torch.cuda.empty_cache()
+        out["cells"][strategy] = {
+            "rows": rows, "launches": launches, "traffic": traffic,
+            "peak": peak, "param_rel": worst,
+            "local": [f is local_fn for f in fns]}
+    # (b) allreduce over the W ranks, each 1/W of the batch
+    amesh = make_host_mesh(W, 1, device=dev, group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, _ = make_train_step(cfg, opt_cfg, mesh=amesh)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    before = dict(sharding.TRAFFIC)
+    state, rows = timed_steps(
+        f"rank {dist.get_rank()} allreduce", [step_fn] * n, state,
+        [train_batch(stream, i, dev) for i in range(n)],
+        {"flash_attention": L * n, "flash_attention_bwd": L * n},
+        reset_counts, counts)
+    launches = counts()
+    out["allreduce"] = {
+        "rows": rows, "launches": launches,
+        "fingerprints": {k: fingerprint(x)
+                         for k, x in state["params"].items()},
+        "peak": torch.cuda.max_memory_allocated(),
+        "traffic": {k: sharding.TRAFFIC[k] - before[k]
+                    for k in ("calls", "bytes")}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rank_main(rank, world, tmp, device, yard):
+    """A rank of phase 29 (spawned; the parent built the kernels): join
+    the gloo group of `world` ranks on the card over a FileStore in `tmp`
+    (RANK_TIMEOUT_S to every collective), run `train_rank_cells` and save
+    what it got there."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        res = train_rank_cells(dev, yard)
+        res["wall"] = time.perf_counter() - t0
+        torch.save(res, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def train_gathers(strategy, local, leaves, admm):
+    """The gathers a rank's steps make, by the layer's rules: a consensus
+    step fetches the ring once (one gather a leaf: `roll_agents_many`),
+    takes consensus_gap's mean over the agents (one a leaf) and max (one),
+    and the loss (one); an ADMM step also comms, send_frac and bits (one
+    each); a local step the loss only."""
+    per = 2 * leaves + 2 + (3 if admm else 0)
+    return sum(1 if lo else per for lo in local)
+
+
+def train_ranks_phase(dev, card, reset_counts, counts):
+    """Phase 29: the deep-net trainer with its agents on their own ranks
+    of a gloo group, every rank on this card. First, in this process,
+    allreduce with microbatches = TRAIN_RANK_WORLD at phase 20(c)'s model
+    and batches (its yardstick); then one spawn of TRAIN_RANK_WORLD ranks
+    of `train_rank_main`. Each rank: phase 20(c)'s TRAIN_RANK_STRATEGIES on
+    a (TRAIN_AGENTS, 1) mesh, one agent a rank, every step's metrics
+    bitwise its peers', comms and send_frac equal to 20(c)'s one-process
+    run every step, losses within TRAIN_RANK_RTOL relative, its agents'
+    parameters within TRAIN_RANK_RTOL of each leaf's largest magnitude
+    after the last step; K4 and K7 N/W x layers a step; the gathers a step
+    as `train_gathers` counts them; peak memory below 20(c)'s; layer 0's
+    K4 and K7 on its own agent against their plain versions; then
+    allreduce over the ranks, each 1/W of the batch, its losses bitwise
+    the microbatched run's and every parameter leaf's `fingerprint` equal
+    to it. Prints per rank and run ms
+    a step (wall and device between events), gathers and bytes a step and
+    peak memory. Returns the launches summed over the ranks and the
+    kernels' largest errors."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    W, N, n = TRAIN_RANK_WORLD, TRAIN_AGENTS, TRAIN_CONSENSUS_STEPS
+    missing = [s for s in TRAIN_RANK_STRATEGIES if s not in TRAIN_YARDSTICK]
+    if missing:
+        raise AssertionError(f"phase 20(c) kept no yardstick for {missing}")
+    cfg = get_config(LM_ARCH).with_overrides(
+        num_layers=TRAIN_CONSENSUS_LAYERS)
+    L = cfg.num_layers
+    leaves = len(TRAIN_YARDSTICK[TRAIN_RANK_STRATEGIES[0]]["max"])
+    tree_bytes = TRAIN_YARDSTICK[TRAIN_RANK_STRATEGIES[0]]["bytes"]
+    stream = train_stream(cfg)
+    # (b)'s yardstick: allreduce with microbatches = W, in this process
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, _ = make_train_step(
+        cfg, OptConfig(kind="adamw", lr=TRAIN_LR, grad_clip=1.0),
+        microbatches=W)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    state, ar_rows = timed_steps(
+        f"allreduce, microbatches = {W}", [step_fn] * n, state,
+        [train_batch(stream, i, dev) for i in range(n)],
+        {"flash_attention": W * L * n, "flash_attention_bwd": W * L * n},
+        reset_counts, counts)
+    ar_peak = torch.cuda.max_memory_allocated() / 1e9
+    ar_prints = {k: fingerprint(x) for k, x in state["params"].items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(29, f"[{card}] one process, allreduce at microbatches = {W} "
+            f"({LM_ARCH} at full width, {L} layers, B={TRAIN_BATCH}, "
+            f"S={TRAIN_SEQ}): losses {[r[0]['loss'] for r in ar_rows]}; "
+            f"device {statistics.median(r[1] for r in ar_rows[1:]):.2f} ms, "
+            f"host {statistics.median(r[2] for r in ar_rows[1:]):.2f} ms a "
+            f"step; peak {ar_peak:.2f} GB; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+            "allocated here before the spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase29-", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(train_rank_main, args=(
+            W, tmp, str(dev), TRAIN_YARDSTICK), nprocs=W, join=True,
+            start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(W)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(29, f"[{card}] W = {W} ranks on {dev} over gloo, one agent a rank "
+            f"(mesh ({N}, 1)): spawned, ran and joined in {spawn_s:.1f} s")
+    seen = {k: 0 for k in LAUNCH_COUNTERS}
+    metric = lambda rows: [r[0] for r in rows]
+    for strategy in TRAIN_RANK_STRATEGIES:
+        yard = TRAIN_YARDSTICK[strategy]
+        cells = [r["cells"][strategy] for r in ranks]
+        for r, c in enumerate(cells[1:], 1):
+            if metric(c["rows"]) != metric(cells[0]["rows"]):
+                raise AssertionError(f"{strategy}: rank {r}'s metrics are "
+                                     "not rank 0's")
+        got, ref = metric(cells[0]["rows"]), metric(yard["rows"])
+        same = all(g.get(k) == w.get(k) for g, w in zip(got, ref)
+                   for k in ("comms", "send_frac"))
+        bits = all(g == w for g, w in zip(got, ref))
+        rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                  for g, w in zip(got, ref))
+        gap = max((abs(g["consensus_gap"] - w["consensus_gap"])
+                   / abs(w["consensus_gap"]) for g, w in zip(got, ref)
+                   if "consensus_gap" in w), default=0.0)
+        worst = max(c["param_rel"] for c in cells)
+        gathers = train_gathers(strategy, cells[0]["local"], leaves,
+                                strategy != "cta")
+        log(29, f"[{card}] {strategy}: every rank's metrics bitwise its "
+                f"peer's; against phase 20(c)'s one process: comms and "
+                f"send_frac equal every step: {same}; every metric bitwise: "
+                f"{bits}; loss max relative difference {rel:.3e}, "
+                f"consensus_gap {gap:.3e}; each rank's agent: each leaf's "
+                f"largest magnitude and one element in {TRAIN_RANK_STRIDE} "
+                f"within {worst:.3e} of that magnitude (tol "
+                f"{TRAIN_RANK_RTOL:g}); losses {[g['loss'] for g in got]}, "
+                f"comms {[int(g['comms']) for g in got if 'comms' in g]}")
+        if not (same and rel <= TRAIN_RANK_RTOL
+                and worst <= TRAIN_RANK_RTOL):
+            raise AssertionError(f"{strategy} across ranks differs from "
+                                 "phase 20(c)'s one-process run")
+        d_one = statistics.median(r[1] for r in yard["rows"][1:])
+        h_one = statistics.median(r[2] for r in yard["rows"][1:])
+        for r, c in enumerate(cells):
+            tr = c["traffic"]
+            if tr["calls"] != gathers:
+                raise AssertionError(f"{strategy}: rank {r} made "
+                                     f"{tr['calls']} gathers, the layer's "
+                                     f"rules {gathers}")
+            if not c["peak"] / 1e9 < yard["peak"]:
+                raise AssertionError(f"{strategy}: rank {r}'s peak "
+                                     f"{c['peak'] / 1e9:.2f} GB is not below "
+                                     f"one process's {yard['peak']:.2f} GB")
+            for k, v in c["launches"].items():
+                seen[k] += v
+            log(29, f"[{card}]   rank {r} (agents {ranks[r]['own']}): "
+                    f"wall {statistics.median(x[2] for x in c['rows'][1:]):.2f}"
+                    f" ms, device {statistics.median(x[1] for x in c['rows'][1:]):.2f}"
+                    f" ms a step (steps 1-{n - 1}, median; one process "
+                    f"{h_one:.2f} / {d_one:.2f}); {tr['calls'] / n:.1f} "
+                    f"gathers a step ({gathers} over the run by the layer's "
+                    f"rules), {tr['bytes'] / n / 1e9:.3f} GB a step into the "
+                    f"rank (its agent's tree {tree_bytes / 1e9:.3f} GB); "
+                    f"K4 {c['launches']['flash_attention']}, K7 "
+                    f"{c['launches']['flash_attention_bwd']} ({len(ranks[r]['own'])}"
+                    f" x {L} x {n}); peak {c['peak'] / 1e9:.2f} GB (one "
+                    f"process {yard['peak']:.2f} GB)")
+    ar = [r["allreduce"] for r in ranks]
+    ar_losses = [r[0]["loss"] for r in ar_rows]
+    for r, a in enumerate(ar):
+        if [x[0] for x in a["rows"]] != [x[0] for x in ar_rows] \
+                or a["fingerprints"] != ar_prints:
+            raise AssertionError(f"allreduce: rank {r}'s losses or "
+                                 "parameters are not bitwise the one-process "
+                                 f"microbatches = {W} run's")
+        for k, v in a["launches"].items():
+            seen[k] += v
+        log(29, f"[{card}] allreduce rank {r}: losses and every parameter "
+                f"leaf's fingerprint equal to the one-process microbatches "
+                f"= {W} run's "
+                f"({ar_losses}); wall "
+                f"{statistics.median(x[2] for x in a['rows'][1:]):.2f} ms, "
+                f"device {statistics.median(x[1] for x in a['rows'][1:]):.2f}"
+                f" ms a step; {a['traffic']['calls'] / n:.1f} gathers, "
+                f"{a['traffic']['bytes'] / n / 1e9:.3f} GB a step; K4 "
+                f"{a['launches']['flash_attention']}, K7 "
+                f"{a['launches']['flash_attention_bwd']}; peak "
+                f"{a['peak'] / 1e9:.2f} GB (one process {ar_peak:.2f} GB)")
+    errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    for r, res in enumerate(ranks):
+        k4_err, k7_err, k7_rel, shape = res["holds"]
+        log(29, f"[{card}] rank {r}: layer 0's attention of agent "
+                f"{res['own'][0]} (q {shape[:4]}, KV {shape[4]}): K4 output "
+                f"and log-sum-exp max|err| {k4_err:.3e} (tol "
+                f"{K4_TOL[torch.float32]:g}), K7 max|err| {k7_err:.3e}, "
+                f"{k7_rel:.3e} of each gradient's max (tol {K7_RTOL:g}); "
+                f"wall {res['wall']:.1f} s")
+        if not (k4_err <= K4_TOL[torch.float32] and k7_rel <= K7_RTOL):
+            raise AssertionError(f"rank {r}: K4 or K7 disagrees with its "
+                                 "plain version on its own agent")
+        errs["flash_attention"] = max(errs["flash_attention"], k4_err)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                          k7_err)
+    got = {k: v for k, v in seen.items() if v}
+    want = {k: W * N // W * L * n * len(TRAIN_RANK_STRATEGIES) + W * L * n
+            for k in ("flash_attention", "flash_attention_bwd")}
+    if got != want:
+        raise AssertionError(f"phase 29's ranks launched {got}, expected "
+                             f"{want}")
+    log(29, f"[{card}] launches over phase 29's ranks: {got}; phase 29 "
+            f"took {time.perf_counter() - t_phase:.1f} s")
+    return seen, errs
+
+
+def phase29_alone() -> int:
+    """Phase 29 alone: build the kernels, run phase 20(c)'s yardstick
+    strategies (`train_phase`'s (c), TRAIN_RANK_STRATEGIES only), then
+    `train_ranks_phase`; prints its launch counts and errors."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(29, f"[{card}] built the kernels in {time.perf_counter() - t0:.1f} s")
+    consensus_runs(dev, card, reset_counts, counts, TRAIN_RANK_STRATEGIES)
+    seen, errs = train_ranks_phase(dev, card, reset_counts, counts)
+    print(card)
+    print(json.dumps({"launches": seen, "max_abs_err": errs}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -9236,7 +9723,26 @@ def main() -> int:
                  "gather_rowdot"):
         if not rank_counts[name]:
             raise AssertionError(f"phase 28's ranks never launched {name}")
-    log(28, f"the whole script took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- 29. the trainer's agents on their own ranks ----------------------
+    # its two ranks take ~30 GB of the card each: phase 21's problem goes
+    del problem
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(29, f"before phase 29: {torch.cuda.memory_allocated() / 2**30:.2f} "
+            "GiB allocated here")
+    train_counts, train_errs = train_ranks_phase(dev, card, reset_counts,
+                                                 counts)
+    for entry in kernels:       # K4 and K7 add the ranks' launches
+        n29 = train_counts[entry["name"]]
+        if n29:
+            log(29, f"{entry['name']}: {n29} launches over the ranks and "
+                    f"max|err| {train_errs[entry['name']]:.3e} on their own "
+                    "agents added")
+            entry["launches"] += n29
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       train_errs[entry["name"]])
+    log(29, f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -9555,6 +10061,7 @@ if __name__ == "__main__":
              "--phase21": phase21_alone, "--phase22": phase22_alone,
              "--phase23": phase23_alone, "--phase24": phase24_alone,
              "--phase25": phase25_alone, "--phase26": phase26_alone,
-             "--phase27": phase27_alone, "--phase28": phase28_alone}
+             "--phase27": phase27_alone, "--phase28": phase28_alone,
+             "--phase29": phase29_alone}
     sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone
              else main())

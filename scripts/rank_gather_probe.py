@@ -47,13 +47,13 @@ CG_ITERS = 3
 TIMEOUT = datetime.timedelta(seconds=120)
 
 
-def _staged(t, group, size):
+def _staged(t, group, size, dim, on_card=False):
     """gather_ranks with the copies to and from the host made here."""
     import torch.distributed as dist
     h = t.detach().cpu()
     out = [torch.empty_like(h) for _ in range(size)]
     dist.all_gather(out, h, group=group)
-    return [o.to(t.device) for o in out]
+    return torch.cat(out, dim=dim).to(t.device)
 
 
 def _per_gather(fn, x):
@@ -93,10 +93,10 @@ def _rank(rank, world, split, tmp, threads):
         h = torch.zeros(1, 2, 20)
         real = sharding.gather_ranks
         variants = {
-            "host": lambda: real(h, group, size),
+            "host": lambda: real(h, group, size, 0),
             "sync": torch.cuda.synchronize,
-            "card": lambda: real(x, group, size),
-            "staged": lambda: _staged(x, group, size)}
+            "card": lambda: real(x, group, size, 0),
+            "staged": lambda: _staged(x, group, size, 0)}
         res = {k: [] for k in variants}
         for name, fn in list(variants.items()) * 2:
             _per_gather(fn, x)                     # warm

@@ -76,7 +76,8 @@ import torch
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.step import true_div
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.distributed.sharding import Blocked
+from repro_torch.distributed.sharding import (Blocked, roll_agents_many,
+                                              rows_like)
 from repro_torch.kernels.coke_update.ops import coke_update_pytree
 from repro_torch.kernels.coke_update.ref import g_aug_ref
 from repro_torch.optim.optimizers import (OptConfig, apply_updates,
@@ -138,15 +139,23 @@ def init_consensus_state(ccfg: ConsensusConfig, opt_cfg: OptConfig,
     from ccfg. `step` is a host int: the censor threshold h(k) is formed
     on the host."""
     leaf = tree_leaves(params_stacked)[0]
+    blocked = isinstance(leaf, Blocked)
     state: dict[str, Any] = {
-        "opt": torch.func.vmap(lambda p: init_opt_state(opt_cfg, p))(
-            params_stacked),
+        # on a mesh (blocked leaves, which vmap cannot see into) the rows
+        # are each their own optimizer, as under vmap
+        "opt": init_opt_state(opt_cfg, params_stacked, rows=True)
+        if blocked else torch.func.vmap(
+            lambda p: init_opt_state(opt_cfg, p))(params_stacked),
         "step": 0,
         "comms": torch.zeros((), dtype=torch.int32, device=leaf.device),
     }
     if ccfg.is_admm:
         chain = ccfg.comm_chain() if comm is None else comm_mod.as_chain(comm)
-        state["comm"] = chain.init_state(leaf.shape[0], leaf.device)
+        comm_state = chain.init_state(leaf.shape[0], leaf.device)
+        if blocked:     # the per-agent bits cut as the agent rows are
+            comm_state = comm_state._replace(
+                bits=rows_like(comm_state.bits, leaf))
+        state["comm"] = comm_state
         theta_hat = tree_map(lambda p: p.to(torch.float32).clone(),
                              params_stacked)
         state["gamma"] = tree_map(torch.zeros_like, theta_hat)
@@ -165,11 +174,15 @@ def init_consensus_state(ccfg: ConsensusConfig, opt_cfg: OptConfig,
 
 def _ring_neighbors(tree, offsets: tuple = (1,)):
     """Circulant neighbour copies by roll on the agent axis, returned as
-    the (left, right) halves summed over the offsets."""
+    the (left, right) halves summed over the offsets. A leaf whose agent
+    axis is cut over ranks is gathered once for all its rolls
+    (`sharding.roll_agents_many`); off a mesh each roll is torch.roll."""
+    shifts = [s for o in offsets for s in (o, -o)]
+    rolls = tree_map(lambda x: roll_agents_many(x, shifts), tree)
     left = right = None
-    for o in offsets:
-        l_o = tree_map(lambda x: torch.roll(x, o, 0), tree)
-        r_o = tree_map(lambda x: torch.roll(x, -o, 0), tree)
+    for k in range(len(offsets)):
+        l_o = tree_map(lambda r: r[2 * k], rolls)
+        r_o = tree_map(lambda r: r[2 * k + 1], rolls)
         left = l_o if left is None else tree_map(torch.add, left, l_o)
         right = r_o if right is None else tree_map(torch.add, right, r_o)
     return left, right
@@ -213,11 +226,12 @@ def _mask_rows(m: torch.Tensor, new, old):
     return tree_map(sel, new, old)
 
 
-def _agent_norms(diff_tree) -> torch.Tensor:
-    """Per-agent l2 norm over all parameters: (N,)."""
+def _agent_norms(leaves) -> torch.Tensor:
+    """Per-agent l2 norm over all parameters: (N,), from an iterable of an
+    agent-stacked tree's leaves in tree order."""
     sq = sum(torch.sum(torch.square(x.to(torch.float32)),
                        dim=tuple(range(1, x.ndim)))
-             for x in tree_leaves(diff_tree))
+             for x in leaves)
     return torch.sqrt(sq)
 
 
@@ -578,8 +592,10 @@ def stream_update(ccfg: ConsensusConfig, params, state, feats, labels, *,
 
 def consensus_gap(params) -> torch.Tensor:
     """max_i ||theta_i - mean theta|| — the Fig.-1 functional-consensus
-    diagnostic, for agent-stacked params."""
-    diff = tree_map(lambda p: p.to(torch.float32)
-                    - torch.mean(p.to(torch.float32), 0, keepdim=True),
-                    params)
-    return torch.max(_agent_norms(diff))
+    diagnostic, for agent-stacked params. Each leaf's deviation from the
+    mean is formed and reduced in turn (`_agent_norms` over a generator),
+    so no copy of the whole tree is held."""
+    return torch.max(_agent_norms(
+        p.to(torch.float32) - torch.mean(p.to(torch.float32), 0,
+                                         keepdim=True)
+        for p in tree_leaves(params)))

@@ -50,9 +50,18 @@ axis, `torch.distributed.all_gather`) into global block order, then runs
 as on one process: the partials are folded over all M (or B) blocks in
 ascending order, never folded per rank and the per-rank sums added, so
 one summation order holds whatever the rank split, and comms and bits
-with it. Elementwise arithmetic and block-local work move nothing.
+with it. Where every rank drives one same card (`Mesh.card_shared`),
+large card tensors travel by CUDA IPC instead of the backend (the same
+bytes). Elementwise arithmetic and block-local work move nothing.
 `broadcast_ranks` carries a picklable value from group rank 0 to every
 rank: the serving commands of `serve.KernelServer` on such a mesh.
+
+An agent-stacked deep-net train state (`train.steps` on a mesh) is cut
+by `agent_stack_spec`, the reference's `_agent_stack_specs` at model
+extent 1: the agent axis over the batch axes. `from_rows` builds such a
+leaf from this rank's own agents (no rank makes the whole stack),
+`agent_range` names them and `agent_row` reads one by global index;
+`roll_agents_many` gives the ring's rolls of a leaf from one gather.
 
 Reductions (`torch.sum`, `mean`, `amax`, `max`, `linalg.norm`) and the
 two-operand `torch.einsum` contractions over the feature dim go through
@@ -535,19 +544,68 @@ def broadcast_ranks(obj, group, device: torch.device):
     return pickle.loads(blob.numpy().tobytes())
 
 
-def gather_ranks(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:
-    """t from each of the `size` ranks of `group`, in group-rank order:
-    the one transport of the layout (`torch.distributed.all_gather`, which
-    gloo and NCCL both take, on the group given; the backend is the
-    caller's `init_process_group`). A tensor on the card goes to the
-    collective as it is."""
+# a card tensor of at least this many bytes, between ranks that share the
+# card, travels by CUDA IPC (`gather_ranks(on_card=True)`); a smaller one
+# through the backend, whose one collective costs less than the IPC path's
+# handle exchange and barrier
+IPC_MIN_BYTES = 1 << 20
+
+
+def gather_ranks(t: torch.Tensor, group, size: int, dim: int, *,
+                 on_card: bool = False) -> torch.Tensor:
+    """t from each of the `size` ranks of `group`, concatenated along
+    `dim` in group-rank order: the one transport of the layout
+    (`torch.distributed.all_gather`, which gloo and NCCL both take, on the
+    group given; the backend is the caller's `init_process_group`). A
+    tensor on the card goes to the collective as it is.
+
+    on_card — every rank of `group` drives this same card
+    (`launch.mesh.Mesh.card_shared`): gloo stages a card tensor through
+    the host at ~0.5 GB/s, so one of at least IPC_MIN_BYTES travels by
+    CUDA IPC instead: each rank passes a handle to its tensor's memory
+    through the group (`all_gather_object`), copies its peers' tensors
+    into their places on the card, and a barrier on the group releases
+    the senders' memory. The copies are the same bytes either way."""
     import torch.distributed as dist
     t = t.contiguous()
-    out = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(out, t, group=group)
+    if on_card and t.is_cuda and t.nbytes >= IPC_MIN_BYTES:
+        out = _gather_on_card(t, group, size, dim)
+    else:
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=group)
+        out = torch.cat(parts, dim=dim)
     TRAFFIC["bytes"] += t.nbytes * (size - 1)
     TRAFFIC["calls"] += 1
     return out
+
+
+def _gather_on_card(t: torch.Tensor, group, size: int, dim: int):
+    """`gather_ranks` between ranks that share t's card, by CUDA IPC
+    handles (torch.multiprocessing's: the sender's event is waited on
+    before the copy, and its memory is counted as shared until the
+    receivers let go of it)."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    me = dist.get_rank(group)
+    handles = [None] * size
+    dist.all_gather_object(handles, reduce_tensor(t), group=group)
+    shape = list(t.shape)
+    shape[dim] *= size
+    whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+    places = whole.split(t.shape[dim], dim=dim)
+    peers = []
+    for r, (rebuild, args) in enumerate(handles):
+        if r == me:
+            places[r].copy_(t)
+            continue
+        peers.append(rebuild(*args))
+        places[r].copy_(peers[-1])
+    # the copies are done before the peers' memory is let go of (which
+    # closes its mapping here) and before the barrier lets them free it
+    torch.cuda.current_stream(t.device).synchronize()
+    del peers
+    dist.barrier(group=group)
+    return whole
 
 
 def _gather_axis(mesh, t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -557,8 +615,8 @@ def _gather_axis(mesh, t: torch.Tensor, kind: str) -> torch.Tensor:
     group, size = mesh.axis_group(kind)
     if group is None:
         return t
-    return torch.cat(gather_ranks(t, group, size),
-                     dim=0 if kind == "batch" else 1)
+    return gather_ranks(t, group, size, 0 if kind == "batch" else 1,
+                        on_card=mesh.card_shared)
 
 
 def _broadcast(shapes) -> torch.Size:
@@ -753,13 +811,21 @@ class Blocked:
         return _reduce("amax", self, None, False, None)
 
     def reshape(self, *shape):
-        """The identity, or a reshape of the uncut leading dims of a
-        tensor cut only on its last dim, which keeps its size."""
+        """The identity; a reshape of the uncut leading dims of a tensor
+        cut only on its last dim, which keeps its size; or one of the
+        uncut trailing dims of a tensor cut only on its leading (agent)
+        dim, which keeps that dim (an agent-stacked leaf flattened to
+        (N, -1) and back)."""
         shape = tuple(shape[0]) if len(shape) == 1 and isinstance(
             shape[0], (tuple, list, torch.Size)) else tuple(shape)
         full = torch.empty(self.shape, device="meta").reshape(shape).shape
         if full == self.shape:
             return self
+        if not self.partial and self.kinds[0] is not None \
+                and not any(self.kinds[1:]) and full[0] == self.shape[0]:
+            data = self.data.reshape(*self.data.shape[:3], *full[1:])
+            return _wrap(self.mesh, [self.kinds[0]] + [None] * (
+                len(full) - 1), full, data)
         if self.partial or any(self.kinds[:-1]) \
                 or full[-1] != self.shape[-1]:
             raise NotImplementedError(
@@ -1161,15 +1227,37 @@ def roll_agents(x, shifts, dims=None):
                      torch.roll(x.data, shifts, 2 + d))
     if x.kinds[d] != "batch":
         raise NotImplementedError("rolling the cut feature dim")
-    whole = _gather_axis(x.mesh, x.data, "batch")
+    return _rolls_of(x, _gather_axis(x.mesh, x.data, "batch"), d,
+                     (shifts,))[0]
+
+
+def _rolls_of(x, whole: torch.Tensor, d: int, shifts) -> list:
+    """x rolled by each shift along its batch-cut dim d, from `whole`,
+    x's data gathered over the batch axis: the rows of the blocks this
+    process holds, each copied from row (i - shift) mod N as torch.roll
+    would put it there (no rolled copy of the whole is made)."""
     B = whole.shape[0]
     rows = whole.movedim(0, 1 + d).flatten(1 + d, 2 + d)
-    back = torch.roll(rows, shifts, 1 + d).unflatten(1 + d, (B, -1)) \
-        .movedim(1 + d, 0)
+    N = rows.shape[1 + d]
     b0, nb = x.mesh.local_range("batch")
-    if nb != B:
-        back = back.narrow(0, b0, nb)
-    return _wrap(x.mesh, x.kinds, x.shape, back)
+    own = torch.arange(b0 * (N // B), (b0 + nb) * (N // B),
+                       device=rows.device)
+    return [_wrap(x.mesh, x.kinds, x.shape, rows.index_select(
+        1 + d, (own - s) % N).unflatten(1 + d, (nb, -1)).movedim(1 + d, 0))
+        for s in shifts]
+
+
+def roll_agents_many(x, shifts) -> list:
+    """[torch.roll(x, s, 0) for s in shifts]: the ring's neighbour rolls
+    of an agent-stacked leaf. A leaf whose agent dim is cut over the batch
+    axis is gathered once for all the shifts (one `gather_ranks` across
+    ranks), and each roll taken from that one copy: the rolled rows are
+    copies, so every roll has the bits of its own `roll_agents`."""
+    if not isinstance(x, Blocked) or x.kinds[0] != "batch":
+        return [torch.roll(x, s, 0) for s in shifts]
+    if x.partial:
+        raise NotImplementedError("rolling model partials")
+    return _rolls_of(x, _gather_axis(x.mesh, x.data, "batch"), 0, shifts)
 
 
 def neighbor_sum(x, idx: torch.Tensor, weights: torch.Tensor):
@@ -1550,3 +1638,80 @@ def local_block(x, b: int = 0, m: int = 0):
     if not (b0 <= b < b0 + B and m0 <= m < m0 + M):
         raise KeyError((b, m))
     return x.data[b - b0, m - m0]
+
+
+# ---------------------------------------------------------------------------
+# Agent-stacked deep-net trees (the trainer's agents on their own ranks)
+# ---------------------------------------------------------------------------
+
+def _check_agent_mesh(mesh, num_agents: int) -> int:
+    """The batch extent B of a mesh that cuts an N-agent stack over its
+    batch axes and nothing over "model": B divides N (N / B agents a
+    batch block). NotImplementedError where "model" has extent > 1."""
+    if _extent(mesh, "model") > 1:
+        raise NotImplementedError(
+            "an agent stack on a mesh whose 'model' extent is "
+            f"{_extent(mesh, 'model')}: an agent's layers cut over 'model' "
+            "(tensor parallelism) is ROADMAP.md Queue 1 item 14f")
+    B = _extent(mesh, "batch")
+    if num_agents % B:
+        raise ValueError(f"{num_agents} agents do not divide over the "
+                         f"{B} batch blocks of the mesh")
+    return B
+
+
+def agent_stack_spec(shape: tuple[int, ...], mesh, num_agents: int) -> P:
+    """The reference's `_agent_stack_specs` (`launch/dryrun.py:45-67`)
+    for one leaf of an agent-stacked train state on a mesh whose "model"
+    extent is 1: the leading agent dim over the batch axes where the leaf
+    has one (leading dim N), every other dim and every other leaf
+    replicated (the param rules' "model" entries cut nothing at extent 1,
+    and fsdp is off, as there)."""
+    _check_agent_mesh(mesh, num_agents)
+    ndim = len(shape)
+    if ndim and shape[0] == num_agents:
+        return P(_entry(mesh, "batch"), *([None] * (ndim - 1)))
+    return P(*([None] * ndim))
+
+
+def agent_range(mesh, num_agents: int) -> range:
+    """The global indices of the agents this process holds: the rows of
+    its batch blocks, in agent order."""
+    n = num_agents // _check_agent_mesh(mesh, num_agents)
+    b0, nb = mesh.local_range("batch")
+    return range(b0 * n, (b0 + nb) * n)
+
+
+def from_rows(rows: torch.Tensor, mesh, num_agents: int):
+    """An agent-stacked (N, ...) leaf cut by `agent_stack_spec`, built
+    from this process's rows only: `rows` (len(agent_range), ...) holds
+    its agents in agent order. No process makes the whole stack, where
+    `shard` cuts a whole tensor. On a mesh with one batch block the leaf
+    is the plain tensor itself."""
+    own = agent_range(mesh, num_agents)
+    if rows.shape[0] != len(own):
+        raise ValueError(f"{rows.shape[0]} rows for the {len(own)} agents "
+                         "this process holds")
+    shape = (num_agents, *rows.shape[1:])
+    kinds = tuple(_kind(mesh, e) for e in agent_stack_spec(
+        shape, mesh, num_agents))
+    if _extent(mesh, "batch") == 1:
+        kinds = (None,) * rows.ndim
+    nb = mesh.local_range("batch")[1] if kinds[0] else 1
+    data = rows.to(mesh_device(mesh)).reshape(
+        nb, 1, rows.shape[0] // nb, *rows.shape[1:])
+    return _wrap(mesh, kinds, shape, data)
+
+
+def agent_row(x, i: int) -> torch.Tensor:
+    """Row i (a global agent index) of an agent-stacked leaf, as a view:
+    of a plain tensor x[i]; of one cut over the batch axes the row in the
+    block that holds it, a KeyError where this process does not (indexing
+    a Blocked by [i] would gather it)."""
+    if not isinstance(x, Blocked):
+        return x[i]
+    if x.partial or x.kinds[0] != "batch" or any(x.kinds[1:]):
+        raise NotImplementedError(
+            "agent_row reads a leaf cut over the batch axes only")
+    n = x.shape[0] // _extent(x.mesh, "batch")
+    return x.block(i // n)[i % n]

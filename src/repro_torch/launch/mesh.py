@@ -19,7 +19,9 @@ here, with `dist.new_group`, in the same order on every rank: new_group
 is collective over the default group, so every process builds the mesh
 (SPMD). A process drives one card: its own cells lie on one device, where
 JAX drives several devices from one process. The backend is the caller's
-`init_process_group`; the layout calls only `all_gather` on these groups.
+`init_process_group`; the layout calls only `all_gather` on these groups
+(and, where every rank drives one same card, `card_shared`, passes CUDA
+IPC handles through them: `distributed.sharding.gather_ranks`).
 W = 1, or no group, is the one-process layout.
 
 The reference's `make_production_mesh` (256 or 512 TPU chips for its
@@ -134,6 +136,15 @@ class Mesh:
                 f"this process's cells lie on {len(own)} devices {own}: a "
                 "mesh runs one process per card (give each card its own "
                 "rank: make_host_mesh(..., group=))")
+        # whether every rank drives one same card: there the layout's
+        # large gathers go by CUDA IPC (`sharding.gather_ranks`)
+        self.card_shared = False
+        if group is not None and own[0].type == "cuda":
+            import torch.distributed as dist
+            ids = [None] * self.world
+            dist.all_gather_object(ids, str(torch.cuda.get_device_properties(
+                own[0]).uuid), group=group)
+            self.card_shared = len(set(ids)) == 1
 
     @property
     def size(self) -> int:

@@ -29,16 +29,29 @@ def _check_kind(cfg: OptConfig) -> None:
 
 
 def _zeros_f32(params):
+    """fp32 zeros of each leaf's shape, laid out as the leaf (a blocked
+    leaf of a mesh gives blocked zeros, never a whole tensor)."""
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+                                          device=p.device)
+                    if isinstance(p, torch.Tensor)
+                    else torch.zeros_like(p, dtype=torch.float32), params)
 
 
-def init_opt_state(cfg: OptConfig, params) -> dict:
+def init_opt_state(cfg: OptConfig, params, rows: bool = False) -> dict:
     """The optimizer slot for `params`; pass a stacked tree and
-    `num_agents` rows of slots come out of `torch.func.vmap`."""
+    `num_agents` rows of slots come out of `torch.func.vmap`.
+
+    rows=True: the tree is row-stacked (N, ...) and every row is its own
+    optimizer, with its own step count (N,), laid out as the leaves'
+    leading dim: what vmap of this function gives, for the blocked
+    leaves of a mesh, which vmap cannot see into."""
     _check_kind(cfg)
-    count = torch.zeros((), dtype=torch.int32,
-                        device=tree_leaves(params)[0].device)
+    lead = tree_leaves(params)[0]
+    if rows:
+        count = torch.zeros_like(lead[(slice(None),) + (0,) * (
+            lead.ndim - 1)], dtype=torch.int32)
+    else:
+        count = torch.zeros((), dtype=torch.int32, device=lead.device)
     if cfg.kind == "adamw":
         return {"m": _zeros_f32(params), "v": _zeros_f32(params),
                 "count": count}

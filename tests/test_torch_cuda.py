@@ -1430,6 +1430,87 @@ def test_training_through_k4_and_k7_matches_the_cpu(cuda):
             assert abs(lc - lg) <= 1e-4 * abs(lg)
 
 
+def _reduced_coke_run(dev, mesh=None, steps=6):
+    """The reduced qwen3 (grouped heads), 4 agents, coke (v=20, mu=0.5),
+    `steps` steps from the seeded weights, on `dev` (on `mesh`, SPMD):
+    per step (loss, comms, send_frac), and the K4 and K7 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.distributed.consensus import ConsensusConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.steps import agent_batch, make_train_step
+    cfg = get_config("qwen3-1.7b").reduced().with_overrides(num_kv_heads=2)
+    weights = M.param_dict(M.init_params(cfg, torch.Generator().manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=48, global_batch=8,
+                                           structure=0.9))
+    init_fn, step_fn, _ = make_train_step(
+        cfg, OptConfig(lr=3e-3), ConsensusConfig(
+            strategy="coke", rho=1e-3, censor_v=20.0, censor_mu=0.5),
+        num_agents=4, mesh=mesh)
+    state = init_fn({n: t.to(dev) for n, t in weights.items()})
+    before = (k4.LAUNCHES, k7.LAUNCHES)
+    rows = []
+    for i in range(steps):
+        toks, labels = stream.batch(i)
+        state, m = step_fn(state, agent_batch(
+            {"tokens": torch.as_tensor(toks, device=dev),
+             "labels": torch.as_tensor(labels, device=dev)}, 4))
+        rows.append((float(m["loss"]), int(m["comms"]),
+                     float(m["send_frac"])))
+    return rows, (k4.LAUNCHES - before[0], k7.LAUNCHES - before[1])
+
+
+def _card_train_rank(rank, world, store, out):
+    """A rank of the test below: the reduced coke run on a (4, 1) mesh of
+    `world` gloo ranks that share cuda:0."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh(4, 1, device="cuda:0", group=dist.group.WORLD)
+        rows, launches = _reduced_coke_run(torch.device("cuda:0"), mesh)
+        torch.save({"rows": rows, "launches": launches,
+                    "card_shared": mesh.card_shared},
+                   f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_training_with_agents_on_ranks_sharing_the_card_matches_the_cpu(
+        cuda, tmp_path):
+    """The reduced coke run of the test above with its 4 agents on W = 2
+    gloo ranks that share the card (two agents a rank; the large gathers
+    by CUDA IPC), against the same run on the CPU in one process: comms
+    and send_frac equal every step, losses within phase 20(d)'s 1e-4
+    relative; every rank's steps bitwise its peer's; K4 and K7 once per
+    layer per agent a rank holds per step."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    mp.start_processes(_card_train_rank, args=(2, str(tmp_path / "store"),
+                                               str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    cpu, launched = _reduced_coke_run(torch.device("cpu"))
+    assert launched == (0, 0)
+    layers = get_config("qwen3-1.7b").reduced().num_layers
+    for res in ranks:
+        assert res["card_shared"]
+        assert res["rows"] == ranks[0]["rows"]
+        assert res["launches"] == (6 * 2 * layers,) * 2
+    card = ranks[0]["rows"]
+    assert [r[1:] for r in card] == [r[1:] for r in cpu]
+    for (lc, _, _), (lg, _, _) in zip(card, cpu):
+        assert abs(lc - lg) <= 1e-4 * abs(lg)
+
+
 def test_hybrid_training_through_k7_at_head_dim_80_matches_the_cpu(cuda):
     """The reduced zamba2 with its shared block at Dh = Dv = 80 (K7's
     width-128 instances), 4 agents on a ring, coke (v=20, mu=0.5), 4 steps
